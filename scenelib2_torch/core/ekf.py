@@ -1,0 +1,133 @@
+"""Dense-covariance EKF on the packed (camera + feature-slot) state.
+
+Port of scenelib2_tpu/core/ekf.py. One P[D,D] with D = 13 + 6*MAX_F is the
+storage; each feature slot owns a fixed 6-wide stride.
+
+  predict   — kalman.cpp:50-69:   xv<-fv, Pxx<-F Pxx F'+Q, Pxy_i<-F Pxy_i
+  update    — kalman.cpp:72-119:  S = H P H' + R, Cholesky inverse,
+              W = P H' S^-1, x += W nu, P -= W S W'; failed measurement rows
+              are masked with H=0, nu=0, R=I
+  normalise — monoslam.cpp:616-637 via the quirk Jacobian (core.motion)
+  symmetrize— monoslam.cpp:145-150: P <- P/2 + P'/2
+
+The per-frame step runs these stages through the fused kernels in
+scenelib2_torch/kernels. Their plain twins take the 2x2 inverse and
+symmetrize from here; the matrix forms of predict, normalise and
+joint_update are the f64 reference the twins are tested against
+(tests/test_torch_core.py), since the kernels sum in their own order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from scenelib2_torch.core import motion
+
+CAM_DIM = 13
+
+
+def predict(x, P, u, delta_t: float, sd_a: float, sd_alpha: float):
+    """EKF predict on the packed state; feature rows/cols other than the
+    camera cross-terms are untouched."""
+    fv, F = motion.func_fv_and_dfv_by_dxv(x[:CAM_DIM], u, delta_t)
+    Q = motion.func_Q(x[:CAM_DIM], delta_t, sd_a, sd_alpha)
+    top = F @ P[:CAM_DIM, :]
+    pxx = top[:, :CAM_DIM] @ F.T + Q
+    P = P.clone()
+    P[:CAM_DIM, :] = top
+    P[:, :CAM_DIM] = top.T
+    P[:CAM_DIM, :CAM_DIM] = pxx
+    x = x.clone()
+    x[:CAM_DIM] = fv
+    return x, P
+
+
+def normalise(x, P):
+    """Quaternion-normalisation covariance transform; the state itself is
+    unchanged (reference quirk)."""
+    xv, J = motion.func_xvnorm_and_dxvnorm_by_dxv(x[:CAM_DIM])
+    top = J @ P[:CAM_DIM, :]
+    pxx = top[:, :CAM_DIM] @ J.T
+    P = P.clone()
+    P[:CAM_DIM, :] = top
+    P[:, :CAM_DIM] = top.T
+    P[:CAM_DIM, :CAM_DIM] = pxx
+    x = x.clone()
+    x[:CAM_DIM] = xv
+    return x, P
+
+
+def chol2x2_parts(s00, s10, s11):
+    """Lower Cholesky factor (l11, l21, l22) of a 2x2 SPD matrix from its
+    entries (Eigen LLT order); 0-dim or per-slot [MF] tensors."""
+    l11 = torch.sqrt(s00)
+    l21 = s10 / l11
+    l22 = torch.sqrt(s11 - l21 * l21)
+    return l11, l21, l22
+
+
+def chol2x2(S):
+    """Lower Cholesky factor of a 2x2 SPD matrix."""
+    l11, l21, l22 = chol2x2_parts(S[0, 0], S[1, 0], S[1, 1])
+    zero = torch.zeros_like(l11)
+    return torch.stack([torch.stack([l11, zero]), torch.stack([l21, l22])])
+
+
+def inv2x2_via_chol_parts(s00, s10, s11):
+    """Entries (a, b, c) of S^-1 = [[a, b], [b, c]] = L^-T L^-1 as the
+    reference computes it (monoslam.cpp:371-374)."""
+    l11, l21, l22 = chol2x2_parts(s00, s10, s11)
+    i11 = 1.0 / l11
+    i22 = 1.0 / l22
+    i21 = -l21 * i11 * i22
+    return i11 * i11 + i21 * i21, i21 * i22, i22 * i22
+
+
+def inv2x2_via_chol(S):
+    """S^-1 of a 2x2 SPD matrix through its Cholesky factor."""
+    a, b, c = inv2x2_via_chol_parts(S[0, 0], S[1, 0], S[1, 1])
+    return torch.stack([torch.stack([a, b]), torch.stack([b, c])])
+
+
+def chol_unrolled(S):
+    """Right-looking Cholesky in the reference's column order (Eigen LLT)."""
+    M = S.shape[0]
+    L = torch.zeros_like(S)
+    for j in range(M):
+        if j == 0:
+            d = torch.sqrt(S[0, 0])
+            L[:, 0] = S[:, 0] / d
+            L[0, 0] = d
+        else:
+            d = torch.sqrt(S[j, j] - L[j, :j] @ L[j, :j])
+            L[j + 1:, j] = (S[j + 1:, j] - L[j + 1:, :j] @ L[j, :j]) / d
+            L[j, j] = d
+    return L
+
+
+def tril_inv_unrolled(L):
+    """Forward substitution: X = L^-1 for lower-triangular L."""
+    M = L.shape[0]
+    X = torch.zeros_like(L)
+    eye = torch.eye(M, dtype=L.dtype, device=L.device)
+    for i in range(M):
+        if i == 0:
+            X[0, :] = eye[0] / L[0, 0]
+        else:
+            X[i, :] = (eye[i] - L[i, :i] @ X[:i, :]) / L[i, i]
+    return X
+
+
+def joint_update(x, P, H, nu, R):
+    """Joint EKF update (kalman.cpp:96-119) through L, L^-1 and
+    S^-1 = L^-T L^-1, as the reference does. Returns (x', P', S)."""
+    S = H @ P @ H.T + R
+    Linv = tril_inv_unrolled(chol_unrolled(S))
+    Sinv = Linv.T @ Linv
+    W = P @ H.T @ Sinv
+    return x + W @ nu, P - W @ S @ W.T, S
+
+
+def symmetrize(P):
+    """P <- 0.5*P + 0.5*P' (monoslam.cpp:145-150)."""
+    return P * 0.5 + P.T * 0.5

@@ -1,0 +1,232 @@
+"""K3: fused joint EKF update + quaternion-norm transform + feature bookkeeping.
+
+Replaces the TPU kernel scenelib2_tpu/kernels/pallas_ekf.py
+(``pallas_joint_update_norm_compact`` / ``_update_kernel_compact``, with
+``pallas_linalg.py::chol_linv_body`` inside). Stages 4-6 of the step
+(reference kalman.cpp:72-119, monoslam.cpp:616-637, :644-703, :145-150):
+
+  H, R, nu built from K1's selected columns: row 2k+i of H holds hx (state
+    dims 0..6) and hy (the slot's dims off_k..off_k+2), scaled by the match
+    flag; a failed match gives H = 0, nu = 0, R = 1;
+  S = H P H' + R; its Cholesky factor and L^-1 by the right-looking
+    recurrences of chol_linv_body; S^-1 = L^-T L^-1; W = P H' S^-1;
+    x' = x + W nu; P' = P - (W S) W';
+  the quaternion-'normalisation' transform of P' by the reference's qq=|q|^2
+    Jacobian (the state's quaternion is NOT renormalised, PARITY rows 3-4);
+  the any-success gate (no match: x and P pass through unchanged);
+  bookkeeping: attempt/success counters, the failure-ratio test, the
+    exterminate run-parity kill in label order (labels ranked as int32) with
+    the persistent scheduled flag;
+  zero the killed slots' rows/cols and entries, then P = P/2 + P'/2.
+
+Bound on an H100 at the std shapes (D=109, M=20): ~0.1 MB of P in and out
+and ~1 MFLOP, below a microsecond; the launch and the 2M dependent
+factorisation / substitution steps dominate. Design: one block of 256
+threads; H is never formed (10 non-zeros a row, read from the selected
+columns); the D x M and M x M intermediates live in shared memory, P' in the
+output buffer; each factorisation step is one block-wide pass.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from scenelib2_torch.core.ekf import symmetrize
+from scenelib2_torch.core.quaternion import dqnorm_by_dq, seqsum
+from scenelib2_torch.kernels import _build
+from scenelib2_torch.kernels.measure import NOUT, O_H, O_HX, O_HY, O_RD
+
+CAM_DIM = 13
+SLOT_DIM = 6
+NAME = "ekf_update"
+
+
+@dataclass(frozen=True)
+class UpdateConsts:
+    min_attempts: float       # min_attempted_measurements
+    success_fraction: float   # successful_match_fraction
+
+    @staticmethod
+    def from_params(p) -> "UpdateConsts":
+        return UpdateConsts(float(p.min_attempted_measurements), float(p.successful_match_fraction))
+
+
+def chol_linv(S):
+    """L^-1 of SPD S [M,M] by the recurrences of chol_linv_body
+    (pallas_linalg.py:29-64): right-looking factorisation with the factor
+    stored transposed (U = L'), then forward substitution L X = I with the
+    row sums taken in ascending order."""
+    M = S.shape[0]
+    A = S.clone()
+    U = torch.zeros_like(S)
+    for j in range(M):
+        d = A[j, j]
+        inv_sqrt = 1.0 / torch.sqrt(d)
+        U[j, j:] = A[j, j:] * inv_sqrt
+        A[j + 1:, j + 1:] = A[j + 1:, j + 1:] - A[j + 1:, j : j + 1] * (A[j : j + 1, j + 1:] / d)
+    X = torch.zeros_like(S)
+    eye = torch.eye(M, dtype=S.dtype, device=S.device)
+    for i in range(M):
+        if i == 0:
+            contrib = torch.zeros_like(eye[0])
+        else:
+            contrib = seqsum([U[r, i] * X[r, :] for r in range(i)])
+        X[i, :] = (eye[i] - contrib) / U[i, i]
+    return X
+
+
+def bookkeeping(attempts, successes, sched, active, label, sel_mask, succ, top_idx,
+                c: UpdateConsts):
+    """Counter updates, failure-ratio test and the exterminate iterator-skip
+    closed form (monoslam.cpp:644-703, docs/PARITY.md): in list order
+    (ascending label among active slots), within each maximal run of
+    consecutively scheduled positions only even run offsets die this frame.
+    Returns (attempts', successes', sched', kill)."""
+    MF = attempts.shape[0]
+    dev = attempts.device
+    idx = top_idx.long()
+    att = attempts.clone()
+    att[idx] = att[idx] + sel_mask.to(torch.int32)
+    suc = successes.clone()
+    suc[idx] = suc[idx] + succ.to(torch.int32)
+    f32 = torch.float32
+    ratio = torch.where(att > 0, suc.to(f32) / torch.clamp(att, min=1).to(f32),
+                        torch.ones((), dtype=f32, device=dev))
+    bad = active & (att.to(f32) >= c.min_attempts) & (ratio < c.success_fraction)
+    sched1 = (sched | bad) & active
+    key = torch.where(active, label, torch.full_like(label, 1 << 30))
+    lanes = torch.arange(MF, device=dev)
+    before = (key[None, :] < key[:, None]) | (
+        (key[None, :] == key[:, None]) & (lanes[None, :] < lanes[:, None]))
+    rank = before.sum(dim=1)                              # list position of slot i
+    order = torch.empty_like(rank)
+    order[rank] = lanes                                   # slot at list position p
+    s_sorted = sched1[order]
+    pos = lanes
+    run_start = torch.cummax(torch.where(s_sorted, torch.zeros_like(pos), pos + 1), dim=0).values
+    kill_pos = s_sorted & ((pos - run_start) % 2 == 0)
+    kill = kill_pos[rank]
+    return att, suc, sched1 & ~kill, kill
+
+
+def joint_update_plain(x, P, sel, z, succ, offs, attempts, successes, sched, active, label,
+                       sel_mask, top_idx, c: UpdateConsts):
+    """Plain PyTorch K3. sel [NOUT, NSEL] (K1's selected columns), z [NSEL,2]
+    matched pixels, succ [NSEL] bool, offs [NSEL] i32 slot offsets,
+    bookkeeping fields [MF], sel_mask [NSEL] bool, top_idx [NSEL] i32.
+    Returns (x' [D], P' [D,D], attempts', successes', sched', kill)."""
+    D = x.shape[0]
+    NSEL = sel.shape[1]
+    M = 2 * NSEL
+    dev, dt = x.device, x.dtype
+    sf = succ.to(dt)
+    hx = (sel[O_HX : O_HX + 14].T.reshape(NSEL, 2, 7) * sf[:, None, None]).reshape(M, 7)
+    hy = (sel[O_HY : O_HY + 6].T.reshape(NSEL, 2, 3) * sf[:, None, None]).reshape(M, 3)
+    nu = (sf[:, None] * (z - sel[O_H : O_H + 2].T)).reshape(M)
+    rd = torch.where(succ, sel[O_RD], torch.ones((), dtype=dt, device=dev))
+    rd = torch.repeat_interleave(rd, 2)
+    offm = torch.repeat_interleave(offs.long(), 2)        # [M] slot offset per row
+
+    # PHt[d, m] = sum of H's 10 non-zeros of row m, state dims ascending
+    PHt = seqsum([P[:, a : a + 1] * hx[None, :, a] for a in range(7)]
+                  + [P[:, offm + j] * hy[None, :, j] for j in range(3)])
+    S = seqsum([hx[:, a : a + 1] * PHt[a, None, :] for a in range(7)]
+                + [hy[:, j : j + 1] * PHt[offm + j, :] for j in range(3)])
+    S = S + torch.diag(rd)
+    Linv = chol_linv(S)
+    Sinv = seqsum([Linv[k, :, None] * Linv[k, None, :] for k in range(M)])
+    W = seqsum([PHt[:, m : m + 1] * Sinv[m, None, :] for m in range(M)])
+    x_upd = x + seqsum([nu[m] * W[:, m] for m in range(M)])
+    WS = seqsum([W[:, m : m + 1] * S[m, None, :] for m in range(M)])
+    P_upd = P - seqsum([WS[:, m : m + 1] * W[None, :, m] for m in range(M)])
+
+    # quaternion-norm Jacobian with the qq=|q|^2 quirk (pallas_ekf.py:246-268)
+    J = dqnorm_by_dq(x_upd[3:7])
+    cols = seqsum([P_upd[:, 3 + k : 4 + k] * J[None, :, k] for k in range(4)])   # [D,4]
+    PT = P_upd.clone()
+    PT[:, 3:7] = cols
+    P_norm = PT.clone()
+    P_norm[3:7, :] = seqsum([J[:, k : k + 1] * PT[3 + k, None, :] for k in range(4)])
+
+    any_succ = succ.any()
+    P_sel = torch.where(any_succ, P_norm, P)
+    x_sel = torch.where(any_succ, x_upd, x)
+
+    att, suc, sched_after, kill = bookkeeping(
+        attempts, successes, sched, active, label, sel_mask, succ, top_idx, c)
+    keep = torch.cat([torch.ones(CAM_DIM, dtype=dt, device=dev),
+                      torch.repeat_interleave((~kill).to(dt), SLOT_DIM)])
+    P_del = P_sel * (keep[:, None] * keep[None, :])
+    x_del = x_sel * keep
+    return x_del, symmetrize(P_del), att, suc, sched_after, kill
+
+
+class _K3Params(ctypes.Structure):
+    _fields_ = [("min_attempts", ctypes.c_float), ("success_fraction", ctypes.c_float)]
+
+
+# tensor pointers, ints, the params struct, the stream
+_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 3 + [ctypes.POINTER(_K3Params), ctypes.c_void_p]
+
+
+def joint_update(x, P, sel, z, succ, offs, attempts, successes, sched, active, label,
+                 sel_mask, top_idx, c: UpdateConsts):
+    """K3. A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (or raises). Same outputs as joint_update_plain."""
+    args = (x, P, sel, z, succ, offs, attempts, successes, sched, active, label, sel_mask, top_idx)
+    if x.device.type == "cpu":
+        return joint_update_plain(*args, c)
+    D = x.shape[0]
+    NSEL = sel.shape[1]
+    MF = attempts.shape[0]
+    if not (D == CAM_DIM + SLOT_DIM * MF and 2 * NSEL <= 64 and MF <= 256):
+        raise ValueError(f"K3: unsupported shapes D={D} NSEL={NSEL} MF={MF}")
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    for t, name, dty, shp in (
+        (x, "x", f32, (D,)), (P, "P", f32, (D, D)), (sel, "sel", f32, (NOUT, NSEL)),
+        (z, "z", f32, (NSEL, 2)), (succ, "succ", b, (NSEL,)), (offs, "offs", i32, (NSEL,)),
+        (attempts, "attempts", i32, (MF,)), (successes, "successes", i32, (MF,)),
+        (sched, "sched", b, (MF,)), (active, "active", b, (MF,)), (label, "label", i32, (MF,)),
+        (sel_mask, "sel_mask", b, (NSEL,)), (top_idx, "top_idx", i32, (NSEL,)),
+    ):
+        _build.check_tensor(t, name, dty, shp)
+    xo = torch.empty_like(x)
+    Po = torch.empty_like(P)
+    att = torch.empty_like(attempts)
+    suc = torch.empty_like(successes)
+    sch = torch.empty_like(sched)
+    kill = torch.empty_like(sched)
+    prm = _K3Params(min_attempts=c.min_attempts, success_fraction=c.success_fraction)
+    fn = _build.function(NAME, "k3_joint_update", _ARGTYPES)
+    err = fn(
+        *(t.data_ptr() for t in args), xo.data_ptr(), Po.data_ptr(), att.data_ptr(),
+        suc.data_ptr(), sch.data_ptr(), kill.data_ptr(), D, NSEL, MF, ctypes.byref(prm),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "K3 joint_update")
+    _build.launches[NAME] += 1
+    return xo, Po, att, suc, sch, kill
+
+
+def bytes_and_flops(D: int, NSEL: int, MF: int) -> tuple[int, int]:
+    """Least bytes (inputs read once, outputs written once) and float
+    operations of one K3 call with every measurement row live."""
+    M = 2 * NSEL
+    f = 4
+    nbytes = (2 * (D * f + D * D * f)                  # x, P in; x', P' out
+              + NOUT * NSEL * f + NSEL * (2 * f + 1 + f + 1 + f)  # sel, z, succ, offs, mask, idx
+              + MF * (4 * f + 3) + MF * (2 * f + 2))   # bookkeeping in / out
+    flops = (2 * 10 * D * M          # P H' (10 non-zeros a row of H)
+             + 2 * 10 * M * M        # S = H (P H') + R
+             + 2 * M ** 3 // 3       # Cholesky and L^-1
+             + 2 * M ** 3            # S^-1 = L^-T L^-1
+             + 2 * D * M * M         # W = P H' S^-1
+             + 2 * D * M             # x + W nu
+             + 2 * D * M * M         # W S
+             + 2 * D * D * M         # P - (W S) W'
+             + 2 * 2 * 4 * 4 * D     # quaternion-norm transform of 4 rows and columns
+             + 4 * D * D)            # keep mask and symmetrize
+    return nbytes, flops

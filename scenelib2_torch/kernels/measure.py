@@ -1,0 +1,214 @@
+"""Per-slot measurement-prediction chain, as plain tensor code.
+
+Port of scenelib2_tpu/kernels/pallas_measure.py: the row layout of the
+result (O_*, NOUT) and ``_measure_math`` (pallas_measure.py:85-227), which
+predicts, for every feature slot at once, the image measurement h, its
+Jacobians hx/hy, the measurement noise, the innovation covariance S_i, its
+Cholesky 2x2 inverse, the visibility bit-flags and the selection score
+(reference full_feature_model.cpp:67-195, feature_model.cpp:99-116,
+camera.cpp:90-300). Slots are the lanes of 1-D tensors.
+
+The K1 kernel (csrc/predict_measure.cu) evaluates the same chain with one
+thread per slot, expression for expression: every sum is taken left to
+right, every constant is rounded to f32 once, and divisions by a constant
+divide by a tensor (PyTorch turns division by a Python scalar into a
+multiplication by its reciprocal on CUDA, which rounds differently). With
+the kernel built without FMA contraction, the two agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from scenelib2_torch.core.ekf import inv2x2_via_chol_parts
+from scenelib2_torch.core.quaternion import (
+    dRq_times_a_by_dq_parts,
+    quat_inverse_parts,
+    quat_to_rotation_parts,
+    seqsum,
+)
+
+# output row layout ([NOUT, MF])
+O_H = 0              # hu, hv              rows 0..1
+O_HX = 2             # hx7[2,7] row-major  rows 2..15
+O_HY = 16            # hy[2,3] row-major   rows 16..21
+O_RD = 22            # measurement noise variance (R = var*I2)
+O_S = 23             # S00, S01, S11       rows 23..25
+O_SINV = 26          # Sinv a, b, c        rows 26..28
+O_VIS = 29           # visibility bit-flags (float)
+O_ZZ = 30            # zeroed z (camera-frame depth)
+O_SCORE = 31         # trace(S) where visible else -inf
+NOUT = 32
+
+
+@dataclass(frozen=True)
+class MeasureConsts:
+    """Static scalars of the chain, as Python floats (rounded to f32 where
+    they meet tensors, as the JAX kernel's weak-typed constants are)."""
+    fku: float
+    fkv: float
+    u0c: float
+    v0c: float
+    kd1: float
+    sd0: float
+    W: float
+    H: float
+    bnd: float
+    max_len_ratio: float
+    cos_max_angle: float
+
+    @staticmethod
+    def from_params(params) -> "MeasureConsts":
+        return MeasureConsts(
+            fku=params.cam_fku, fkv=params.cam_fkv, u0c=params.cam_u0,
+            v0c=params.cam_v0, kd1=params.cam_kd1, sd0=params.cam_sd,
+            W=float(params.cam_width), H=float(params.cam_height),
+            bnd=float(params.image_search_boundary),
+            max_len_ratio=float(params.max_length_ratio),
+            cos_max_angle=float(math.cos(params.max_angle_difference)),
+        )
+
+    # derived constants, each rounded once (JAX evaluates these Python-side)
+    @property
+    def two_kd1(self) -> float:
+        return 2.0 * self.kd1
+
+    @property
+    def neg_two_kd1(self) -> float:
+        return -2.0 * self.kd1
+
+    @property
+    def maxd(self) -> float:
+        return float((self.u0c * self.u0c + self.v0c * self.v0c) ** 0.5)
+
+    @property
+    def u_hi(self) -> float:
+        return self.W - 1 - self.bnd
+
+    @property
+    def v_hi(self) -> float:
+        return self.H - 1 - self.bnd
+
+    @property
+    def inv_len_ratio(self) -> float:
+        return 1.0 / self.max_len_ratio
+
+
+def measure_math(r, q4, pxx, y, xpo, pxy, pyy, act, c: MeasureConsts) -> torch.Tensor:
+    """The per-slot chain on lane tensors.
+
+    r (3), q4 (4) and pxx (7x7 nested) are 0-dim tensors; y (3), xpo (7),
+    pxy ([7][3]), pyy ([3][3]) are [MF] lane tensors; act is the [MF] bool
+    active-and-full mask. Returns the [NOUT, MF] result (O_* rows)."""
+    lane = y[0]
+
+    def k(v):  # a constant divided by (or dividing) a tensor
+        return torch.tensor(v, dtype=lane.dtype, device=lane.device)
+
+    # qRW = conj(q) / |q|^2 (Eigen inverse; q is near-unit, not unit)
+    qRW = quat_inverse_parts(q4)
+    RRW = quat_to_rotation_parts(qRW)
+    ymr = [y[j] - r[j] for j in range(3)]
+    zed = [seqsum([RRW[i][j] * ymr[j] for j in range(3)]) for i in range(3)]
+
+    # project (camera.cpp:90-114)
+    invz = 1.0 / zed[2]
+    ucx = -c.fku * zed[0] * invz
+    ucy = -c.fkv * zed[1] * invz
+    rad2 = ucx * ucx + ucy * ucy
+    dist = 1.0 + c.two_kd1 * rad2
+    d12 = torch.sqrt(dist)
+    hu = ucx / d12 + c.u0c
+    hv = ucy / d12 + c.v0c
+
+    # projection Jacobian (camera.cpp:183-215)
+    d32 = d12 * dist
+    cdi = k(c.neg_two_kd1) / d32
+    A00 = ucx * ucx * cdi + 1.0 / d12
+    A01 = ucx * ucy * cdi
+    A11 = ucy * ucy * cdi + 1.0 / d12
+    fkuz = c.fku * invz
+    fkvz = c.fkv * invz
+    du = [[-fkuz, 0.0, fkuz * zed[0] * invz], [0.0, -fkvz, fkvz * zed[1] * invz]]
+    dh = [
+        [A00 * du[0][kk] + A01 * du[1][kk] for kk in range(3)],
+        [A01 * du[0][kk] + A11 * du[1][kk] for kk in range(3)],
+    ]
+
+    # dzeroed/dxp: cols 0:3 = -RRW, cols 3:7 = dRq(qRW, ymr) @ diag(1,-1,-1,-1)
+    G = dRq_times_a_by_dq_parts(qRW, ymr)
+    hx = [[None] * 7 for _ in range(2)]
+    for i in range(2):
+        for a in range(3):
+            hx[i][a] = -seqsum([dh[i][kk] * RRW[kk][a] for kk in range(3)])
+        for cc in range(4):
+            s = seqsum([dh[i][kk] * G[kk][cc] for kk in range(3)])
+            hx[i][3 + cc] = s if cc == 0 else -s
+    hy = [[seqsum([dh[i][kk] * RRW[kk][j] for kk in range(3)]) for j in range(3)]
+          for i in range(2)]
+
+    # measurement noise (camera.cpp:282-300)
+    du_c = hu - c.u0c
+    dv_c = hv - c.v0c
+    dc = torch.sqrt(du_c * du_c + dv_c * dv_c)
+    sd = c.sd0 * (1.0 + dc / k(c.maxd))
+    Rd = sd * sd
+
+    # S_i = Hx Pxx Hx' + Hx Pxy Hy' + (.)' + Hy Pyy Hy' + R
+    S = [[None, None], [None, None]]
+    for b in range(2):
+        v_b = [seqsum([pxx[i][j] * hx[b][j] for j in range(7)]) for i in range(7)]
+        w_b = [seqsum([pxy[a][j] * hy[b][j] for j in range(3)]) for a in range(7)]
+        p_b = [seqsum([pyy[i][j] * hy[b][j] for j in range(3)]) for i in range(3)]
+        for a in range(b, 2):
+            Sab = seqsum([hx[a][i] * v_b[i] for i in range(7)])
+            Tab = seqsum([hx[a][i] * w_b[i] for i in range(7)])
+            Tba = seqsum([hy[a][j] * seqsum([pxy[i][j] * hx[b][i] for i in range(7)])
+                        for j in range(3)])
+            Pab = seqsum([hy[a][i] * p_b[i] for i in range(3)])
+            S[a][b] = Sab + Tab + Tba + Pab
+    S00 = S[0][0] + Rd
+    S01 = S[1][0]
+    S11 = S[1][1] + Rd
+
+    # 2x2 inverse via Cholesky (monoslam.cpp:371-374 order)
+    sinv_a, sinv_b, sinv_c = inv2x2_via_chol_parts(S00, S01, S11)
+
+    # visibility (full_feature_model.cpp:103-170)
+    fl_lr = (hu < c.bnd) | (hu > c.u_hi)
+    fl_ud = (hv < c.bnd) | (hv > c.v_hi)
+    fl_behind = zed[2] <= 0.0
+    RWR = quat_to_rotation_parts(q4)
+    hLW = [seqsum([RWR[i][kk] * zed[kk] for kk in range(3)]) for i in range(3)]
+    ro = xpo[0:3]
+    qo = xpo[3:7]
+    RRWo = quat_to_rotation_parts(quat_inverse_parts(qo))
+    ymro = [y[j] - ro[j] for j in range(3)]
+    zo = [seqsum([RRWo[i][j] * ymro[j] for j in range(3)]) for i in range(3)]
+    RWRo = quat_to_rotation_parts(qo)
+    hLWo = [seqsum([RWRo[i][kk] * zo[kk] for kk in range(3)]) for i in range(3)]
+    mod = torch.sqrt(seqsum([hLW[i] * hLW[i] for i in range(3)]))
+    modo = torch.sqrt(seqsum([hLWo[i] * hLWo[i] for i in range(3)]))
+    lr = mod / modo
+    fl_dist = (lr > c.max_len_ratio) | (lr < c.inv_len_ratio)
+    dotp = seqsum([hLW[i] * hLWo[i] for i in range(3)])
+    cosang = torch.clamp(dotp / (mod * modo), -1.0, 1.0)
+    # angle > max_angle  <=>  cos(angle) < cos(max_angle) on [0, pi]
+    fl_ang = cosang < c.cos_max_angle
+
+    def fsel(cond, v):
+        return cond.to(lane.dtype) * v
+
+    vis = seqsum([fsel(fl_lr, 1.0), fsel(fl_ud, 2.0), fsel(fl_dist, 4.0),
+                fsel(fl_ang, 8.0), fsel(fl_behind, 16.0)])
+    visible = act & (vis == 0.0)
+    score = torch.where(visible, S00 + S11, torch.full_like(S00, -math.inf))
+
+    rows = [hu, hv]
+    rows += [hx[i][a] for i in range(2) for a in range(7)]
+    rows += [hy[i][j] for i in range(2) for j in range(3)]
+    rows += [Rd, S00, S01, S11, sinv_a, sinv_b, sinv_c, vis, zed[2], score]
+    return torch.stack([t.expand_as(lane) for t in rows])

@@ -1,0 +1,171 @@
+"""MonoSLAM facade around the per-frame step.
+
+Port of scenelib2_tpu/runtime/slam.py for known-feature tracking (stages
+1-6). Mirrors the reference's public surface (monoslam.h:76-156): the
+constructor (config, camera, known features), GoOneStep, the trajectory
+record, plus run_sequence over a whole frame stack and loading a JAX
+checkpoint.
+
+Mapping (auto-initialisation and partial features) is not ported yet:
+``enable_mapping=True`` and a state holding a partial feature raise
+NotImplementedError instead of running without those stages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from scenelib2_torch.config import Params, SlamConfig, load_config
+from scenelib2_torch.convert import has_partial_features, state_from_jax
+from scenelib2_torch.device import resolve_device, resolve_dtype
+from scenelib2_torch.runtime import state as st
+from scenelib2_torch.runtime import step as step_mod
+from scenelib2_torch.runtime.state import SlamState
+
+_MAPPING_LATER = (
+    "mapping (auto-initialisation of new features and the partial-feature "
+    "particle stage) is not ported yet: it arrives with the auto-init and "
+    "particle slices of the port (ROADMAP Queue 1 item 5(b), 5(c)); run with "
+    "enable_mapping=False"
+)
+_PARTIAL_LATER = (
+    "the state holds a partially-initialised feature; the particle stage "
+    "that measures it arrives with the particle slice of the port (ROADMAP "
+    "Queue 1 item 5(c))"
+)
+
+
+def _refuse_mapping(enable_mapping: bool) -> None:
+    if enable_mapping:
+        raise NotImplementedError(_MAPPING_LATER)
+
+
+class MonoSLAM:
+    def __init__(self, config: str | SlamConfig, seed: int = 0, device=None,
+                 precision: str = "f32", **param_overrides):
+        if isinstance(config, str):
+            config = load_config(config, **param_overrides)
+        elif param_overrides:
+            config = dataclasses.replace(
+                config, params=dataclasses.replace(config.params, **param_overrides)
+            )
+        self.config = config
+        self.params: Params = config.params
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(precision)
+        self._step = step_mod.make_step(self.params, self.device, precision)
+        self.state: SlamState = st.init_from_config(
+            config, seed=seed, device=self.device, dtype=self.dtype)
+        self.trajectory_store: list[np.ndarray] = []
+        self.last_output: step_mod.StepOutputs | None = None
+
+    # ------------------------------------------------------------------ API
+
+    def go_one_step(self, frame, save_trajectory: bool = True,
+                    enable_mapping: bool = True) -> bool:
+        """One SLAM step (reference GoOneStep, monoslam.cpp:108-180).
+
+        enable_mapping keeps the JAX package's default, True, which this
+        slice refuses: pass enable_mapping=False until mapping is ported."""
+        _refuse_mapping(enable_mapping)
+        self.state, out = self._step(self.state, self._to_device(frame))
+        self.last_output = out
+        if save_trajectory:
+            self.trajectory_store.append(out.r.cpu().numpy())
+            if len(self.trajectory_store) > 1000:
+                self.trajectory_store.pop(0)
+        return True
+
+    GoOneStep = go_one_step
+
+    def reset(self, seed: int = 0) -> None:
+        """Reinitialise the filter from the config."""
+        self.state = st.init_from_config(self.config, seed=seed, device=self.device, dtype=self.dtype)
+        self.trajectory_store = []
+
+    def run_sequence(self, frames, enable_mapping: bool = True) -> step_mod.StepOutputs:
+        """Replay a [T,H,W] u8 frame stack. The frames go to the device once,
+        every step writes its packed outputs into one preallocated device
+        tensor, and the host waits once, at the end. Returns StepOutputs with
+        a leading time axis (CPU tensors). As in go_one_step, pass
+        enable_mapping=False: the default, True, is refused for now."""
+        _refuse_mapping(enable_mapping)
+        seq = self._to_device(frames)
+        p = self.params
+        nsel = p.n_features_to_select
+        maxp = max(1, p.max_features_to_init_at_once)
+        npart = p.n_particles
+        flat = torch.empty((seq.shape[0], step_mod.packed_size(nsel, maxp, npart)),
+                           dtype=self.dtype, device=self.device)
+        state = self.state
+        for t in range(seq.shape[0]):
+            state, out = self._step(state, seq[t])
+            flat[t] = step_mod.pack_outputs(out)
+        self.state = state
+        outs = step_mod.unpack_outputs(flat.cpu(), nsel, maxp, npart)
+        self.last_output = step_mod.StepOutputs(*(a[-1] for a in outs))
+        self.trajectory_store.extend(list(outs.r.numpy()))
+        self.trajectory_store = self.trajectory_store[-1000:]
+        return outs
+
+    def _to_device(self, frames) -> torch.Tensor:
+        """u8 frame(s) from numpy or a tensor, contiguous on this device."""
+        if isinstance(frames, torch.Tensor):
+            return frames.to(device=self.device, dtype=torch.uint8).contiguous()
+        return torch.as_tensor(np.ascontiguousarray(frames, np.uint8)).to(self.device)
+
+    # ------------------------------------------------------------- state I/O
+
+    def load_state(self, state: SlamState) -> None:
+        """Adopt a state (e.g. from convert.state_from_jax) after checking its
+        shapes against this configuration and that it holds no partial
+        feature."""
+        for name, want, got in zip(SlamState._fields, self.state, state):
+            if tuple(got.shape) != tuple(want.shape):
+                raise ValueError(
+                    f"state field '{name}' has shape {tuple(got.shape)} but this "
+                    f"configuration expects {tuple(want.shape)}"
+                )
+        state = SlamState(*(g.to(device=self.device, dtype=w.dtype) for w, g in zip(self.state, state)))
+        if has_partial_features(state):
+            raise NotImplementedError(_PARTIAL_LATER)
+        self.state = state
+
+    def load_jax_checkpoint(self, path: str) -> None:
+        """Load the npz that scenelib2_tpu's MonoSLAM.save_checkpoint writes."""
+        with np.load(path if path.endswith(".npz") else path + ".npz") as data:
+            arrays = {k: data[k] for k in data.files}
+        self.load_state(state_from_jax(arrays, self.device, self.dtype))
+
+    # ------------------------------------------------------- introspection
+
+    @property
+    def xv(self) -> np.ndarray:
+        return self.state.x[:13].cpu().numpy()
+
+    @property
+    def pxx(self) -> np.ndarray:
+        return self.state.P[:13, :13].cpu().numpy()
+
+    def feature_table(self) -> list[dict]:
+        active = self.state.active.cpu().numpy()
+        full = self.state.full.cpu().numpy()
+        label = self.state.label.cpu().numpy()
+        att = self.state.attempts.cpu().numpy()
+        suc = self.state.successes.cpu().numpy()
+        x = self.state.x.cpu().numpy()
+        out = []
+        for i in np.flatnonzero(active):
+            off = st.slot_offset(int(i))
+            out.append(dict(
+                slot=int(i), label=int(label[i]), fully_initialised=bool(full[i]),
+                y=x[off : off + (3 if full[i] else 6)].copy(),
+                attempts=int(att[i]), successes=int(suc[i]),
+            ))
+        return out
+
+    def trajectory(self) -> np.ndarray:
+        return np.asarray(self.trajectory_store)

@@ -1,0 +1,173 @@
+"""The port stands alone: no JAX, CUDA by default, plain path only for CPU.
+
+  - no module of scenelib2_torch/ and not chip_smoke.py imports jax or
+    scenelib2_tpu (an AST scan, and a subprocess whose import system refuses
+    those names imports the package and steps 3 frames);
+  - MonoSLAM(cfg) without a device raises where CUDA is absent;
+  - a kernel wrapper given CPU tensors runs the plain version and launches
+    nothing; given tensors on any other non-CUDA device it raises.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from scenelib2_torch import MonoSLAM
+from scenelib2_torch.config import Params
+from scenelib2_torch.kernels import _build
+from scenelib2_torch.kernels.ekf_update import UpdateConsts, joint_update, joint_update_plain
+from scenelib2_torch.kernels.measure import NOUT, MeasureConsts
+from scenelib2_torch.kernels.predict_measure import predict_measure, predict_measure_plain
+from scenelib2_torch.kernels.search import SearchConsts, search, search_plain, search_window_origin
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "scenelib2_tpu")
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain path is hundreds of tiny tensor ops per frame: intra-op
+    threads only contend with the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(os.path.join(REPO, "scenelib2_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(path, n) for n in names if n.split(".")[0] in FORBIDDEN]
+    assert len(_port_sources()) > 15
+    assert not bad, bad
+
+
+_GUARDED_RUN = r"""
+import importlib.abc, sys, tempfile
+FORBIDDEN = ("jax", "jaxlib", "scenelib2_tpu")
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FORBIDDEN:
+            raise ImportError("refused: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import chip_smoke  # noqa: F401
+from scenelib2_torch import MonoSLAM
+from scenelib2_torch.eval.synthetic import generate_dataset
+frames, _, _, cfg = generate_dataset(tempfile.mkdtemp(), n_frames=4)
+slam = MonoSLAM(cfg, device="cpu")
+for t in range(1, 4):
+    slam.go_one_step(frames[t], enable_mapping=False)
+assert not any(m.split(".")[0] in FORBIDDEN for m in sys.modules)
+print("OK", slam.trajectory().shape)
+"""
+
+
+def test_package_runs_with_jax_refused():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", _GUARDED_RUN], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=REPO)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "OK (3, 3)" in res.stdout
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch, data_dir):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MonoSLAM(os.path.join(data_dir, "SceneLib2.cfg"))
+
+
+def _k1_args(rng, dev):
+    MF, D = 16, 109
+    x = np.zeros(D, np.float32)
+    x[3], x[2] = 1.0, -0.8
+    x[13:] = rng.uniform(-0.2, 0.2, D - 13)
+    A = rng.normal(size=(D, D))
+    P = ((A @ A.T / (4 * D) + np.eye(D)) * 1e-4).astype(np.float32)
+    xpo = np.tile(x[:7], (MF, 1))
+    act = rng.uniform(size=MF) > 0.2
+    return tuple(torch.tensor(a, device=dev) for a in (x, P, xpo, act, ~act))
+
+
+def _k2_args(rng, dev):
+    p = Params()
+    img = torch.tensor(rng.integers(0, 256, (p.cam_height, p.cam_width), dtype=np.uint8), device=dev)
+    h = torch.tensor(rng.uniform(40, 200, (10, 2)), dtype=torch.float32, device=dev)
+    u0, v0, uc, vc = search_window_origin(h, p.search_win_radius, p.cam_width, p.cam_height,
+                                          p.boxsize)
+    rows = torch.zeros((10, 128), device=dev)
+    rows[:, :121] = torch.tensor(rng.integers(0, 256, (10, 121)), dtype=torch.float32)
+    rows[:, 121] = rows[:, :121].sum(1)
+    rows[:, 122] = (rows[:, :121] ** 2).sum(1)
+    abc = torch.tensor([[0.05, 0.01, 0.04]] * 10, device=dev)
+    return img, rows, u0, v0, uc, vc, abc, torch.ones(10, dtype=torch.bool, device=dev)
+
+
+def _k3_args(rng, dev):
+    MF, NSEL, D = 16, 10, 109
+    A = rng.normal(size=(D, D))
+    P = (A @ A.T / D * 1e-3 + np.eye(D) * 1e-4).astype(np.float32)
+    x = (rng.normal(size=D) * 0.1).astype(np.float32)
+    sel = rng.normal(size=(NOUT, NSEL)).astype(np.float32)
+    sel[22] = 1.5
+    top = rng.choice(MF, NSEL, replace=False).astype(np.int32)
+    i32 = np.int32
+    arrs = (x, P, sel, rng.normal(size=(NSEL, 2)).astype(np.float32), rng.uniform(size=NSEL) > 0.5,
+            (13 + 6 * top).astype(i32), np.zeros(MF, i32), np.zeros(MF, i32), np.zeros(MF, bool),
+            np.ones(MF, bool), np.arange(MF, dtype=i32), np.ones(NSEL, bool), top)
+    return tuple(torch.tensor(a, device=dev) for a in arrs)
+
+
+def _cases():
+    p = Params()
+    k1kw = dict(nsel=10, maxp=1, dt=p.delta_t, sd_a=p.sd_a, sd_alpha=p.sd_alpha,
+                consts=MeasureConsts.from_params(p))
+    return {
+        "K1": (lambda d, r: predict_measure(*_k1_args(r, d), **k1kw),
+               lambda d, r: predict_measure_plain(*_k1_args(r, d), **k1kw)),
+        "K2": (lambda d, r: search(*_k2_args(r, d), SearchConsts.from_params(p)),
+               lambda d, r: search_plain(*_k2_args(r, d), SearchConsts.from_params(p))),
+        "K3": (lambda d, r: joint_update(*_k3_args(r, d), UpdateConsts.from_params(p)),
+               lambda d, r: joint_update_plain(*_k3_args(r, d), UpdateConsts.from_params(p))),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_wrapper_takes_plain_path_only_for_cpu_tensors(kernel):
+    wrapper, plain = _cases()[kernel]
+    _build.reset_launches()
+    got = wrapper(torch.device("cpu"), np.random.default_rng(1))
+    want = plain(torch.device("cpu"), np.random.default_rng(1))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w) or (g.is_floating_point() and torch.equal(g.isnan(), w.isnan()))
+    assert all(v == 0 for v in _build.launches.values())
+    # a tensor on another device is neither run plain nor launched: it raises
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(torch.device("meta"), np.random.default_rng(1))
+    assert all(v == 0 for v in _build.launches.values())
