@@ -5,16 +5,27 @@
 Phases (any failure exits non-zero before the last line is printed):
 
  1. device and build: the card's name and power limit; every kernel of
-    scenelib2_torch/kernels/csrc built with nvcc (timed).
+    scenelib2_torch/kernels/csrc built with nvcc (one process per source,
+    all at once; timed).
  2. kernel vs plain: each kernel (K1 predict+measure+select, K2 search,
-    K3 update+bookkeeping) and its plain PyTorch version on the same CUDA
-    tensors, on seeded random scenes and on the inputs of a real frame of
-    the synthetic sequence: decisions exactly equal, floats within the
-    stated tolerances; then each kernel's and plain version's time.
- 3. main path: the 240-frame seed-7 synthetic sequence through
-    MonoSLAM(device="cuda").run_sequence with mapping off, reproducing the
-    committed decisions fingerprint, with every kernel launched once per
-    frame; the first frames agree with the CPU plain replay; ms/frame.
+    K3 update+bookkeeping, K4 particle search+Bayes, K5 init region
+    proposal, K6 Shi-Tomasi pick) and its plain PyTorch version on the same
+    CUDA tensors: on seeded random scenes and variations (no attempt, no
+    room, every try clashing, a flat region, built ties, making false, an
+    empty union box, overflowing particles, a sell-by kill) and on the
+    inputs of real frames of the synthetic sequence with mapping on (output
+    index 9: the first init; 20: the first conversion; 120): decisions and
+    integers exactly equal, floats within the stated tolerances; then each
+    kernel's and plain version's time.
+ 3. main paths: the 240-frame seed-7 synthetic sequence through
+    MonoSLAM(device="cuda").run_sequence, with mapping off and then on,
+    each reproducing its committed decisions fingerprint, with every kernel
+    of the path launched once per frame (K5 and K6 run only with mapping
+    on; the counts are zeroed just before each run and read just after
+    it); the first mapping-on frames agree with the CPU
+    plain replay; 30 steps run with PyTorch's sync debug mode raising on any
+    host synchronisation; ms/frame, device busy ms/frame and idle share of
+    each path.
  4. a `kernels` JSON line, then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -48,7 +59,10 @@ PEAK_F32 = 67e12
 K1_TOL = 1e-5     # |a - b| <= K1_TOL * (largest |entry| of that row / matrix)
 K2_BEST_ULP = 2   # NSSD best: within 2 ulp
 K3_TOL = 1e-5     # x', P': |a - b| <= K3_TOL * max |entry|
+K4_TOL = 1e-5     # K4 floats (prob, moments, prediction rows, best): within K4_TOL * max |entry|
+K6_TOL = 1e-6     # K6 eigenvalue: relative
 STEP_TOL = 1e-4   # CUDA vs CPU plain replay: r, xv
+N_REF = 30        # CPU plain replay frames (4 inits, 2 conversions)
 
 
 def log(*a):
@@ -316,10 +330,132 @@ def check_k3(args, c) -> float:
     return max(max_err(got[0], want[0]), max_err(got[1], want[1]))
 
 
+def same_floats(a, b) -> bool:
+    """Equal values, NaN where the other has NaN."""
+    return nonfinite_equal(a, b) and max_err(a, b) == 0.0
+
+
+def k5_variations(args, rng):
+    """(label, args) cases of K5 from a real frame's inputs."""
+    x, rng_l, occ, want, c = args
+    out = [("real", args), ("want_false", (x, rng_l, occ, torch.zeros_like(want), c))]
+    fall = x.clone()
+    fall[7:10] = torch.tensor([0.0, -20.0, 0.0], device=x.device)   # no room
+    out.append(("no_room", (fall, rng_l, occ, want, c)))
+    grid = x.clone()
+    MF = occ.shape[0]
+    pts = [(u, v) for u in np.linspace(-0.9, 0.9, 4) for v in np.linspace(-0.6, 0.6, 4)]
+    for k in range(MF):
+        u, v = pts[k % len(pts)]
+        grid[13 + 6 * k : 16 + 6 * k] = x[0:3] + torch.tensor(
+            [u, v, 2.0 + rng.uniform(-0.1, 0.1)], dtype=torch.float32, device=x.device)
+    out.append(("all_clash", (grid, rng_l, torch.ones_like(occ), want, c)))
+    for t in range(3):
+        y = x.clone()
+        y[7:13] += torch.tensor(rng.normal(0, 0.1, 6), dtype=torch.float32, device=x.device)
+        limbs = torch.tensor(rng.integers(0, 1 << 16, 3), dtype=torch.int32, device=x.device)
+        out.append((f"seeded{t}", (y, limbs, torch.rand(MF, device=x.device) > 0.3, want, c)))
+    return out
+
+
+def k6_variations(args, rng, H, W):
+    frame, ru, rv, ruf, rvf = args[:5]
+    kw = args[5]
+    dev = frame.device
+    out = [("real", args)]
+    out.append(("flat", (torch.full_like(frame, 117), ru, rv, ruf, rvf, kw)))
+    tile = rng.integers(0, 256, (7, 9), dtype=np.uint8)
+    tie = torch.tensor(np.tile(tile, (H // 7 + 1, W // 9 + 1))[:H, :W].copy(), device=dev)
+    out.append(("tie", (tie, ru, rv, ruf, rvf, kw)))
+    noise = torch.tensor(rng.integers(0, 256, (H, W), dtype=np.uint8), device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    for label, (u, v) in (("border", (250, 3)), ("random", (100, 90))):
+        out.append((label, (noise, torch.tensor(max(u, 6), **i32), torch.tensor(max(v, 6), **i32),
+                            torch.tensor(min(u + 80, W - 6), **i32),
+                            torch.tensor(min(v + 60, H - 6), **i32), kw)))
+    return out
+
+
+def k4_variations(args, rng, H, W, B, erase_after):
+    a = list(args)
+    dev = a[0].device
+    p = int(a[7][0])
+    out = [("real", tuple(a))]
+
+    def case(label, **repl):
+        b = list(a)
+        for i, v in repl.items():
+            b[int(i[1:])] = v
+        out.append((label, tuple(b)))
+
+    case("making_false", i4=torch.zeros_like(a[4]))
+    case("empty_union", i3=torch.zeros_like(a[3]))
+    wide = a[10].clone()
+    wide[48:] *= 400.0
+    case("overflow", i10=wide)
+    case("sell_by", i6=torch.full_like(a[6], erase_after + 1))
+    alive = a[3].clone()
+    alive[p] = torch.tensor(rng.uniform(size=a[3].shape[1]) > 0.3, device=dev)
+    prob = a[1].clone()
+    prob[p] = torch.tensor(rng.uniform(0.0, 0.02, a[1].shape[1]), dtype=torch.float32, device=dev)
+    case("random_alive", i1=prob, i3=alive)
+    tile = rng.integers(0, 256, (B, B), dtype=np.uint8)
+    row = a[8].clone()
+    row[: B * B] = torch.tensor(tile.reshape(-1), dtype=torch.float32, device=dev)
+    row[B * B] = row[: B * B].sum()
+    row[B * B + 1] = (row[: B * B] ** 2).sum()
+    frame = torch.tensor(np.tile(tile, (H // B + 1, W // B + 1))[:H, :W].copy(), device=dev)
+    case("tie", i0=frame, i8=row)
+    return out
+
+
+def check_k4(args) -> float:
+    from scenelib2_torch.kernels.search_bayes import search_bayes, search_bayes_plain
+
+    got = search_bayes(*args)
+    want = search_bayes_plain(*args)
+    torch.cuda.synchronize()
+    names = ("prob", "palive", "mean", "cov", "convert", "kill", "n_over", "found", "z", "best", "pred")
+    for name, a, b in zip(names, got, want):
+        if a.dtype == torch.bool or not a.is_floating_point() or name == "z":
+            if not same(a, b):
+                fail(f"K4 {name} differs: kernel {a.flatten()[:8].tolist()} plain {b.flatten()[:8].tolist()}")
+        elif not matrix_close(a, b, K4_TOL):
+            fail(f"K4 {name} outside tolerance (max abs err {max_err(a, b)})")
+    return max(max_err(a, b) for a, b in zip(got, want) if a.is_floating_point())
+
+
+def check_k5(args) -> float:
+    from scenelib2_torch.kernels.propose import propose, propose_plain
+
+    got = propose(*args)
+    want = propose_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("region_us", "region_vs", "any_ok", "rng_new"), got, want):
+        if not same(a, b):
+            fail(f"K5 {name} differs: kernel {a.tolist()} plain {b.tolist()}")
+    return 0.0
+
+
+def check_k6(args) -> float:
+    from scenelib2_torch.kernels.shi_tomasi import shi_tomasi, shi_tomasi_plain
+
+    got = shi_tomasi(*args[:5], **args[5])
+    want = shi_tomasi_plain(*args[:5], **args[5])
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ubest", "vbest"), got[:2], want[:2]):
+        if not same(a, b):
+            fail(f"K6 {name} differs: kernel {a.tolist()} plain {b.tolist()}")
+    if not (nonfinite_equal(got[2], want[2])
+            and max_err(got[2], want[2]) <= K6_TOL * max(abs(float(want[2])), 1.0)):
+        fail(f"K6 evbest outside tolerance: {got[2].tolist()} vs {want[2].tolist()}")
+    return max_err(got[2], want[2])
+
+
 # ------------------------------------------------------------ main
 
 
-def profile_main_path(slam, seq, n: int) -> dict:
+def profile_main_path(slam, seq, n: int, mapping: bool) -> dict:
     """torch.profiler over an n-frame replay: device time by kernel name,
     total device time, and wall time of the traced window."""
     from torch.profiler import ProfilerActivity, profile
@@ -328,7 +464,7 @@ def profile_main_path(slam, seq, n: int) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        slam.run_sequence(seq[:n], enable_mapping=False)
+        slam.run_sequence(seq[:n], enable_mapping=mapping)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = {}
@@ -342,13 +478,17 @@ def profile_main_path(slam, seq, n: int) -> dict:
     return dict(wall_ms=wall_ms, device_ms=sum(v[0] for v in by_name.values()), by_name=by_name)
 
 
+WRAPPERS = ("predict_measure", "search", "joint_update", "propose", "shi_tomasi", "search_bayes")
+
+
 @contextlib.contextmanager
 def observe_wrappers(on_call):
     """Within the block, the step calls on_call(name, args, kwargs) before
-    each kernel wrapper (K1 predict_measure, K2 search, K3 joint_update)."""
+    each kernel wrapper (K1 predict_measure, K2 search, K3 joint_update,
+    K5 propose, K6 shi_tomasi, K4 search_bayes)."""
     import scenelib2_torch.runtime.step as step_mod
 
-    names = ("predict_measure", "search", "joint_update")
+    names = WRAPPERS
     orig = {n: getattr(step_mod, n) for n in names}
 
     def wrap(n):
@@ -366,16 +506,33 @@ def observe_wrappers(on_call):
             setattr(step_mod, n, orig[n])
 
 
-def capture_inputs(slam, frames, at: int):
-    """Drive the step on the GPU through frame `at` and return the inputs
-    that each kernel wrapper was called with on that frame."""
-    seen = {}
-    with observe_wrappers(lambda n, a, k: seen.__setitem__(n, (a, k))):
+def capture_inputs(slam, frames, at: tuple) -> dict:
+    """Drive the step on the GPU with mapping on through output index
+    max(at) and return {index: {wrapper: (args, kwargs)}} for the indices in
+    `at`."""
+    seen, cur = {}, {}
+    with observe_wrappers(lambda n, a, k: cur.__setitem__(n, (a, k))):
         slam.reset()
-        for t in range(1, at + 1):
-            slam.go_one_step(frames[t], enable_mapping=False)
+        for t in range(max(at) + 1):
+            cur.clear()
+            slam.go_one_step(frames[t + 1])
+            if t in at:
+                seen[t] = dict(cur)
     torch.cuda.synchronize()
     return seen
+
+
+def run_main_path(slam, seq, mapping: bool, on_call=None):
+    """One replay with every launch count zeroed just before it; returns
+    (outputs, launches read just after it)."""
+    from scenelib2_torch.kernels import _build
+
+    slam.reset()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with observe_wrappers(on_call) if on_call else contextlib.nullcontext():
+        outs = slam.run_sequence(seq, enable_mapping=mapping)
+    return outs, dict(_build.launches)
 
 
 def main() -> int:
@@ -385,7 +542,9 @@ def main() -> int:
     from scenelib2_torch import MonoSLAM
     from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected
     from scenelib2_torch.eval.synthetic import generate_dataset
-    from scenelib2_torch.kernels import _build, ekf_update, predict_measure, search
+    from scenelib2_torch.kernels import (
+        _build, ekf_update, predict_measure, propose, search, search_bayes, shi_tomasi,
+    )
     from scenelib2_torch.kernels.measure import MeasureConsts
 
     t_start = time.time()
@@ -405,6 +564,7 @@ def main() -> int:
         frames, gt_r, _gt_q, cfg = generate_dataset(tmp, n_frames=240, seed=7)
         slam = MonoSLAM(cfg, max_features=16, device="cuda")
         p = slam.params
+        H, W, B = p.cam_height, p.cam_width, p.boxsize
         mc = MeasureConsts.from_params(p)
         sc = search.SearchConsts.from_params(p)
         uc = ekf_update.UpdateConsts.from_params(p)
@@ -413,44 +573,88 @@ def main() -> int:
 
         # ---- 2. kernel vs plain ------------------------------------------
         rng = np.random.default_rng(2026)
-        errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+        errs = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
         for trial in range(6):
             errs["K1"] = max(errs["K1"], check_k1(k1_random_scene(rng, p, dev, nan_lane=trial == 0), k1kw))
             errs["K2"] = max(errs["K2"], check_k2(k2_random_scene(rng, p, dev, tie=trial < 2), sc))
             mode = ("none", "run", "mixed")[trial % 3]
             errs["K3"] = max(errs["K3"], check_k3(k3_random_scene(rng, p, dev, mode), uc))
-        seen = capture_inputs(slam, frames, at=120)
-        a1, kw1 = seen["predict_measure"]
-        a2, _ = seen["search"]
-        a3, _ = seen["joint_update"]
+        seen = capture_inputs(slam, frames, at=(9, 20, 120))
+        a1, kw1 = seen[120]["predict_measure"]
+        a2, _ = seen[120]["search"]
+        a3, _ = seen[120]["joint_update"]
         errs["K1"] = max(errs["K1"], check_k1(a1, kw1))
         errs["K2"] = max(errs["K2"], check_k2(a2[:-1], sc))
         errs["K3"] = max(errs["K3"], check_k3(a3[:-1], uc))
-        log(f"[2] kernels equal their plain versions on 6 random scenes + frame 120 "
+        n_cases = {"K4": 0, "K5": 0, "K6": 0}
+        for at in (9, 20, 120):
+            a5, _ = seen[at]["propose"]
+            for _label, args in k5_variations(a5, rng):
+                errs["K5"] = max(errs["K5"], check_k5(args))
+                n_cases["K5"] += 1
+            a6, kw6 = seen[at]["shi_tomasi"]
+            for _label, args in k6_variations(tuple(a6) + (kw6,), rng, H, W):
+                errs["K6"] = max(errs["K6"], check_k6(args))
+                n_cases["K6"] += 1
+            a4, _ = seen[at]["search_bayes"]
+            for _label, args in k4_variations(a4, rng, H, W, B, p.erase_partial_after_attempts):
+                errs["K4"] = max(errs["K4"], check_k4(args))
+                n_cases["K4"] += 1
+        log(f"[2] kernels equal their plain versions: K1-K3 on 6 random scenes + frame 120, "
+            f"K4/K5/K6 on {n_cases} cases from frames 9, 20, 120 and their variations "
             f"(max abs err {json.dumps(errs)})")
 
+        a4, _ = seen[20]["search_bayes"]
+        a5, _ = seen[9]["propose"]
+        a6, kw6 = seen[9]["shi_tomasi"]
         timings = {}
-        for name, kern, plain, args in (
+        for name, kern, plain in (
             ("K1", lambda: predict_measure.predict_measure(*a1, **kw1),
-             lambda: predict_measure.predict_measure_plain(*a1, **kw1), a1),
-            ("K2", lambda: search.search(*a2), lambda: search.search_plain(*a2), a2),
-            ("K3", lambda: ekf_update.joint_update(*a3), lambda: ekf_update.joint_update_plain(*a3), a3),
+             lambda: predict_measure.predict_measure_plain(*a1, **kw1)),
+            ("K2", lambda: search.search(*a2), lambda: search.search_plain(*a2)),
+            ("K3", lambda: ekf_update.joint_update(*a3), lambda: ekf_update.joint_update_plain(*a3)),
+            ("K4", lambda: search_bayes.search_bayes(*a4), lambda: search_bayes.search_bayes_plain(*a4)),
+            ("K5", lambda: propose.propose(*a5), lambda: propose.propose_plain(*a5)),
+            ("K6", lambda: shi_tomasi.shi_tomasi(*a6, **kw6), lambda: shi_tomasi.shi_tomasi_plain(*a6, **kw6)),
         ):
             timings[name] = (time_ms(kern), time_ms(plain, n=10, batches=3))
         empty = _build.function("predict_measure", "k0_empty_launch", [ctypes.c_void_p])
         empty_ms = time_ms(lambda: empty(torch.cuda.current_stream().cuda_stream))
         for name, (k_ms, p_ms) in timings.items():
-            log(f"[2] {name}: kernel {k_ms:.4f} ms/launch, plain {p_ms:.4f} ms/call (frame-120 inputs)")
+            log(f"[2] {name}: kernel {k_ms:.4f} ms/launch, plain {p_ms:.4f} ms/call "
+                f"(frame-{dict(K4=20, K5=9, K6=9).get(name, 120)} inputs)")
         log(f"[2] empty kernel launch: {empty_ms:.4f} ms")
 
-        # ---- 3. main path --------------------------------------------------
+        # ---- 3. main paths ------------------------------------------------
         seq = torch.as_tensor(frames[1:]).to(dev)
+        n_run = seq.shape[0]
         slam.reset()
-        slam.run_sequence(seq[:8], enable_mapping=False)           # warm-up
+        slam.run_sequence(seq[:8], enable_mapping=True)           # warm-up
         torch.cuda.synchronize()
 
-        # cost model of each launch on the main path, from its own inputs
-        costs = {"K1": [], "K2": [], "K3": []}
+        def check_fingerprint(outs, name):
+            fp = decisions_fingerprint(outs, n_run)
+            want = load_expected(name)
+            log(f"[3] fingerprint ({name}): {json.dumps(fp)}")
+            for k in ("n_frames", "matched_sum", "inits", "convs", "active_end", "decisions_sha256"):
+                if fp[k] != want[k]:
+                    fail(f"{name} field {k}: got {fp[k]}, expected {want[k]}")
+
+        def check_launches(launches, what, stage7):
+            for n in _build.SOURCES:
+                want = 0 if n in ("propose", "shi_tomasi") and not stage7 else n_run
+                if launches.get(n, 0) != want:
+                    fail(f"kernel {n} launched {launches.get(n, 0)} times on the {what} path, "
+                         f"expected {want}")
+            log(f"[3] launches on the {what} path: {json.dumps(launches)}")
+
+        outs_nomap, launches_nomap = run_main_path(slam, seq, mapping=False)
+        check_fingerprint(outs_nomap, "expected_fingerprint_nomap")
+        check_launches(launches_nomap, "mapping-off", stage7=False)
+
+        # cost model of each launch on the mapping-on path, from its own inputs
+        costs = {k: [] for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+        k4_args = []
 
         def record_cost(n, a, k):
             if n == "predict_measure":
@@ -459,103 +663,127 @@ def main() -> int:
             elif n == "search":
                 admit = search.candidate_geometry(a[2], a[3], a[4], a[5], a[6], a[8])[0]
                 costs["K2"].append((admit, a[2].shape[0]))
-            else:
+            elif n == "joint_update":
                 costs["K3"].append(
                     ekf_update.bytes_and_flops(a[0].shape[0], a[2].shape[1], a[6].shape[0]))
+            elif n == "propose":
+                costs["K5"].append(propose.bytes_and_flops(a[2].shape[0], a[4].tries))
+            elif n == "shi_tomasi":
+                costs["K6"].append(shi_tomasi.bytes_and_flops(k["boxsize"], k["region_w"], k["region_h"]))
+            else:
+                k4_args.append(a)
 
-        slam.reset()
-        _build.reset_launches()
-        with observe_wrappers(record_cost):
-            outs = slam.run_sequence(seq, enable_mapping=False)
-        launches = dict(_build.launches)
-        n_run = seq.shape[0]
-        fp = decisions_fingerprint(outs, n_run)
-        want = load_expected()
-        log(f"[3] fingerprint: {json.dumps(fp)}")
-        for k in ("n_frames", "matched_sum", "inits", "convs", "active_end", "decisions_sha256"):
-            if fp[k] != want[k]:
-                fail(f"fingerprint field {k}: got {fp[k]}, expected {want[k]}")
-        for n, cnt in launches.items():
-            if cnt != n_run:
-                fail(f"kernel {n} launched {cnt} times on the main path, expected {n_run}")
-        log(f"[3] launches on the main path: {json.dumps(launches)}")
+        outs, launches = run_main_path(slam, seq, mapping=True, on_call=record_cost)
+        check_fingerprint(outs, "expected_fingerprint")
+        check_launches(launches, "mapping-on", stage7=True)
+        for a in k4_args:
+            MF, NP = a[1].shape
+            costs["K4"].append(search_bayes.bytes_and_flops(
+                MF, NP, H, W, B, *search_bayes.work_counts(*a)))
         r = outs.r.numpy()
         if r.shape != (n_run, 3) or not np.isfinite(r).all():
             fail(f"trajectory not finite/shaped: {r.shape}")
         rmse = float(np.sqrt(np.mean(np.sum((r - gt_r[1:]) ** 2, axis=1))))
 
         # reference on a small input: the CPU plain replay of the first frames
-        n_ref = 24
         cpu = MonoSLAM(cfg, max_features=16, device="cpu")
-        ref = cpu.run_sequence(frames[1 : n_ref + 1], enable_mapping=False)
-        for k in ("n_visible", "n_selected", "n_matched", "n_active", "sel_slot", "sel_matched"):
-            if not torch.equal(getattr(ref, k), getattr(outs, k)[:n_ref]):
-                fail(f"CUDA vs CPU plain replay: {k} differs in the first {n_ref} frames")
-        dr = float((ref.xv.double() - outs.xv[:n_ref].double()).abs().max())
+        ref = cpu.run_sequence(frames[1 : N_REF + 1], enable_mapping=True)
+        for k in ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init",
+                  "did_convert", "sel_slot", "sel_matched", "init_box", "par_alive"):
+            if not torch.equal(getattr(ref, k), getattr(outs, k)[:N_REF]):
+                fail(f"CUDA vs CPU plain replay: {k} differs in the first {N_REF} frames")
+        dr = float((ref.xv.double() - outs.xv[:N_REF].double()).abs().max())
         if dr > STEP_TOL:
             fail(f"CUDA vs CPU plain replay: xv differs by {dr}")
-        log(f"[3] CUDA run equals the CPU plain replay on frames 1..{n_ref} (max |dxv| {dr:.3g})")
+        log(f"[3] CUDA run equals the CPU plain replay on frames 1..{N_REF} with mapping on "
+            f"(inits at {torch.nonzero(ref.did_init).flatten().tolist()}, conversions at "
+            f"{torch.nonzero(ref.did_convert).flatten().tolist()}; max |dxv| {dr:.3g})")
 
-        # timed replays (state reset each time; the host waits once per run)
-        per_frame = []
-        for _ in range(3):
-            slam.reset()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            slam.run_sequence(seq, enable_mapping=False)
-            per_frame.append((time.perf_counter() - t) / n_run * 1e3)
-        ms_frame = statistics.median(per_frame)
+        # the step makes no host synchronisation: 30 mapping-on steps (four
+        # inits, two conversions) with PyTorch's sync debug mode raising on
+        # any synchronising call
+        slam.reset()
+        state = slam.state
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(N_REF):
+                state, _out = slam._step(state, seq[t], True)
+        except RuntimeError as e:
+            fail(f"the step synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log(f"[3] {N_REF} mapping-on steps ran with torch.cuda.set_sync_debug_mode('error'): "
+            f"no host synchronisation in the step")
 
-        # where the device time goes: a traced replay of the same frames
-        prof = profile_main_path(slam, seq, n_run)
-        device_per_frame = prof["device_ms"] / n_run
-        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])[:12]
+        # timed replays (state reset each time; the host waits once per run),
+        # then where the device time goes: a traced replay of the same frames
+        paths = {}
+        for label, mapping in (("mapping-off", False), ("mapping-on", True)):
+            per_frame = []
+            for _ in range(3):
+                slam.reset()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                slam.run_sequence(seq, enable_mapping=mapping)
+                per_frame.append((time.perf_counter() - t) / n_run * 1e3)
+            ms_frame = statistics.median(per_frame)
+            prof = profile_main_path(slam, seq, n_run, mapping)
+            busy = prof["device_ms"] / n_run
+            paths[label] = dict(ms_frame=ms_frame, runs=per_frame, prof=prof, busy=busy)
+            log(f"[3] {label}: {ms_frame:.4f} ms/frame (median of 3 runs of {n_run} frames: "
+                f"{', '.join(f'{v:.4f}' for v in per_frame)})")
+            if prof["device_ms"] > 0:
+                n_kern = sum(cnt for _ms, cnt in prof["by_name"].values()) / n_run
+                log(f"[3] {label} traced replay: device busy {busy:.4f} ms/frame of "
+                    f"{ms_frame:.4f} ms/frame untraced wall -> idle share {1.0 - busy / ms_frame:.4f}; "
+                    f"{n_kern:.2f} device kernels/frame; traced wall {prof['wall_ms'] / n_run:.4f} ms/frame")
+                top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])[:14]
+                for name, (ms, cnt) in top:
+                    log(f"[3]   {ms / n_run * 1e3:9.3f} us/frame  x{cnt / n_run:5.2f}/frame  {name[:90]}")
+            else:
+                log(f"[3] {label} traced replay: the profiler recorded no device time (not measured)")
         kernel_dev = {}
-        for short, sym in (("K1", "k1_kernel"), ("K2", "k2_kernel"), ("K3", "k3_kernel")):
-            hits = [v for k, v in prof["by_name"].items() if sym in k]
+        by_name = paths["mapping-on"]["prof"]["by_name"]
+        for short, sym in (("K1", "k1_kernel"), ("K2", "k2_kernel"), ("K3", "k3_kernel"),
+                           ("K4", "k4_kernel"), ("K5", "k5_kernel"), ("K6", "k6_kernel")):
+            hits = [v for k, v in by_name.items() if sym in k]
             kernel_dev[short] = (sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits))
                                  if hits else None)
-        if prof["device_ms"] > 0:
-            log(f"[3] traced replay: device busy {device_per_frame:.4f} ms/frame of "
-                f"{ms_frame:.4f} ms/frame untraced wall -> idle share "
-                f"{1.0 - device_per_frame / ms_frame:.4f}; "
-                f"traced wall {prof['wall_ms'] / n_run:.4f} ms/frame")
-            log(f"[3] device time per launch: " + ", ".join(
-                f"{k} {v:.5f} ms" if v is not None else f"{k} not measured" for k, v in kernel_dev.items()))
-            for name, (ms, cnt) in top:
-                log(f"[3]   {ms / n_run * 1e3:9.3f} us/frame  x{cnt / n_run:5.2f}/frame  {name[:90]}")
-        else:
-            log("[3] traced replay: the profiler recorded no device time (not measured)")
-        log(f"[3] main path: {ms_frame:.4f} ms/frame (median of 3 runs of {n_run} frames: "
-            f"{', '.join(f'{v:.4f}' for v in per_frame)}); last position {r[-1].tolist()}; "
-            f"RMSE vs ground truth {rmse:.6f} m")
+        log("[3] device time per launch (mapping on): " + ", ".join(
+            f"{k} {v:.5f} ms" if v is not None else f"{k} not measured" for k, v in kernel_dev.items()))
+        log(f"[3] mapping-on last position {r[-1].tolist()}; RMSE vs ground truth {rmse:.6f} m")
 
     # ---- 4. kernel records ------------------------------------------------
     def bound(costs_list):
         bms = [max(b / PEAK_BYTES, f / PEAK_F32) * 1e3 for b, f in costs_list]
-        return statistics.mean(bms), ("bytes" if costs_list[0][0] / PEAK_BYTES >= costs_list[0][1] / PEAK_F32
-                                      else "operations")
+        nb = sum(b for b, _ in costs_list) / PEAK_BYTES
+        nf = sum(f for _, f in costs_list) / PEAK_F32
+        return statistics.mean(bms), ("bytes" if nb >= nf else "operations")
 
-    k2_costs = [search.bytes_and_flops(K, sc, int(admit.sum())) for admit, K in costs["K2"]]
+    costs["K2"] = [search.bytes_and_flops(K, sc, int(admit.sum())) for admit, K in costs["K2"]]
     recs = []
-    for name, src, rep, key, cl in (
-        ("K1 predict_measure", "scenelib2_torch/kernels/csrc/predict_measure.cu",
-         "scenelib2_tpu/kernels/pallas_predict_measure.py:375", "predict_measure", costs["K1"]),
-        ("K2 search", "scenelib2_torch/kernels/csrc/search.cu",
-         "scenelib2_tpu/kernels/pallas_search.py:476", "search", k2_costs),
-        ("K3 ekf_update", "scenelib2_torch/kernels/csrc/ekf_update.cu",
-         "scenelib2_tpu/kernels/pallas_ekf.py:446", "ekf_update", costs["K3"]),
+    for short, name, src, rep, key in (
+        ("K1", "K1 predict_measure", "predict_measure.cu", "pallas_predict_measure.py:375", "predict_measure"),
+        ("K2", "K2 search", "search.cu", "pallas_search.py:476", "search"),
+        ("K3", "K3 ekf_update", "ekf_update.cu", "pallas_ekf.py:446", "ekf_update"),
+        ("K4", "K4 search_bayes", "search_bayes.cu", "pallas_search_bayes.py:638", "search_bayes"),
+        ("K5", "K5 propose", "propose.cu", "pallas_propose.py:306", "propose"),
+        ("K6", "K6 shi_tomasi", "shi_tomasi.cu", "pallas_shi_tomasi.py:211", "shi_tomasi"),
     ):
-        short = name.split()[0]
-        b_ms, b_by = bound(cl)
+        b_ms, b_by = bound(costs[short])
         recs.append(dict(
-            name=name, route="cuda", source=src, replaces=rep, launches=launches[key],
+            name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
+            replaces=f"scenelib2_tpu/kernels/{rep}", launches=launches[key],
             max_abs_err=errs[short], ms=timings[short][0], plain_ms=timings[short][1],
             bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=kernel_dev[short],
         ))
     log(f"[4] empty-launch floor {empty_ms:.4f} ms; total {time.time() - t_start:.1f} s")
     log(smi)
-    print(json.dumps({"ms_per_frame": ms_frame, "device_ms_per_frame": device_per_frame,
+    on, off = paths["mapping-on"], paths["mapping-off"]
+    print(json.dumps({"ms_per_frame": on["ms_frame"], "device_ms_per_frame": on["busy"],
+                      "ms_per_frame_nomap": off["ms_frame"], "device_ms_per_frame_nomap": off["busy"],
                       "empty_launch_ms": empty_ms, "card": smi}))
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

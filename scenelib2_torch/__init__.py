@@ -9,9 +9,11 @@ same function, which is what runs for CPU tensors.
 Entry points run on CUDA unless the caller passes device="cpu". The state
 is f32, the fast mode of the JAX package (SCENELIB2_X64=0).
 
-Ported so far: known-feature tracking, stages 1-6 of go_one_step (EKF
-predict, measurement prediction and selection, NSSD search, joint update,
-bookkeeping). Mapping raises NotImplementedError.
+Ported so far: the whole single-stream f32 step, stages 1-8 of go_one_step
+(EKF predict, measurement prediction and selection, NSSD search, joint
+update, bookkeeping, auto-initialisation, the partial-feature particle
+stage), with mapping on or off. Batch mode and the f64 parity mode are not
+ported yet.
 """
 
 import torch as _torch

@@ -77,8 +77,3 @@ def state_to_numpy(state: SlamState) -> dict[str, np.ndarray]:
             a = a.astype(np.uint32)
         out[name] = a
     return out
-
-
-def has_partial_features(state: SlamState) -> bool:
-    """Host check: does the state hold a partially-initialised feature?"""
-    return bool((state.active & ~state.full).any().item())

@@ -5,7 +5,10 @@ scenelib2/camera.cpp (these conventions are part of the parity surface):
 
   project   (camera.cpp:90-114):  u_c = (-fku*x/z, -fkv*y/z),
             h = u_c / sqrt(1 + 2*kd1*|u_c|^2) + centre
+  unproject (camera.cpp:133-154): u_c = (h-centre)/sqrt(1 - 2*kd1*|h-centre|^2),
+            y = (u_c.x/-fku, u_c.y/-fkv, 1)
   projection_jacobian   (camera.cpp:183-215)
+  unprojection_jacobian (camera.cpp:247-275)
   measurement_noise     (camera.cpp:282-300): sd*(1+d/dmax), R = var*I2
 """
 
@@ -16,6 +19,13 @@ from typing import NamedTuple
 import torch
 
 from scenelib2_torch.config import Params
+
+
+def _k(v, like: torch.Tensor) -> torch.Tensor:
+    """A constant as a 0-dim tensor on like's device, filled there (no host
+    copy, so no synchronisation): dividing by a Python scalar becomes a
+    multiply by its reciprocal on CUDA, which rounds differently."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 class CameraParams(NamedTuple):
@@ -35,7 +45,7 @@ class CameraParams(NamedTuple):
         )
 
     def centre(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.tensor([self.u0, self.v0], dtype=like.dtype, device=like.device)
+        return torch.stack([_k(self.u0, like), _k(self.v0, like)])
 
 
 def project(cam: CameraParams, y: torch.Tensor) -> torch.Tensor:
@@ -66,11 +76,42 @@ def project_jacobian(cam: CameraParams, y: torch.Tensor) -> torch.Tensor:
     return dh_by_du @ du_by_dy
 
 
+def unproject(cam: CameraParams, h: torch.Tensor) -> torch.Tensor:
+    """Image coords [2] -> camera-frame ray [3] with z = 1 (camera.cpp:133-154)."""
+    c0 = h[0] - cam.u0
+    c1 = h[1] - cam.v0
+    radius2 = c0 * c0 + c1 * c1
+    factor = torch.sqrt(1.0 - 2.0 * cam.kd1 * radius2)
+    return torch.stack([c0 / factor / _k(-cam.fku, h), c1 / factor / _k(-cam.fkv, h),
+                        torch.ones_like(c0)])
+
+
+def unproject_jacobian(cam: CameraParams, h: torch.Tensor) -> torch.Tensor:
+    """3x2 dy/dh at image point h (camera.cpp:247-275). Rows 0 and 1 scale
+    du/dh by -1/fku and -1/fkv; row 2 is zero (the zero terms of the
+    reference's dy_by_du @ du_by_dh product add exact zeros)."""
+    c0 = h[0] - cam.u0
+    c1 = h[1] - cam.v0
+    radius2 = c0 * c0 + c1 * c1
+    distor = 1.0 - 2.0 * cam.kd1 * radius2
+    distor1_2 = torch.sqrt(distor)
+    distor3_2 = distor1_2 * distor
+    g = _k(2.0 * cam.kd1, h) / distor3_2
+    inv = 1.0 / distor1_2
+    du = [[c0 * c0 * g + inv, c0 * c1 * g], [c1 * c0 * g, c1 * c1 * g + inv]]
+    a, b = _k(-1.0 / cam.fku, h), _k(-1.0 / cam.fkv, h)
+    zero = torch.zeros_like(c0)
+    return torch.stack([torch.stack([a * du[0][0], a * du[0][1]]),
+                        torch.stack([b * du[1][0], b * du[1][1]]),
+                        torch.stack([zero, zero])])
+
+
 def measurement_noise(cam: CameraParams, h: torch.Tensor) -> torch.Tensor:
     """2x2 diagonal R; sd grows radially to 2x at the corners (camera.cpp:282-300)."""
-    c = cam.centre(h)
-    distance = torch.linalg.vector_norm(h - c)
-    max_distance = torch.linalg.vector_norm(c)
-    ratio = distance / max_distance
-    sd = cam.sd * (1.0 + ratio)
+    c0 = h[0] - cam.u0
+    c1 = h[1] - cam.v0
+    distance = torch.sqrt(c0 * c0 + c1 * c1)
+    cen = cam.centre(h)
+    max_distance = torch.sqrt(cen[0] * cen[0] + cen[1] * cen[1])
+    sd = cam.sd * (1.0 + distance / max_distance)
     return torch.eye(2, dtype=h.dtype, device=h.device) * (sd * sd)

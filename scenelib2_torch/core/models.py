@@ -1,9 +1,17 @@
-"""Full 3D-point feature measurement model.
+"""Feature measurement models: full 3D point and partially-initialised ray.
 
-Port of the full-feature half of scenelib2_tpu/core/models.py (reference
-full_feature_model.cpp and feature_model.cpp). The partially-initialised ray
-model arrives with the particle stage. Visibility flag bits match
+Port of scenelib2_tpu/core/models.py (reference full_feature_model.cpp,
+feature_model.cpp, part_feature_model.cpp). Visibility flag bits match
 full_feature_model.h:74-78.
+
+Layouts:
+  xp     = [r(3), q(4 wxyz)]                    position state
+  y_full = [3] world point
+  y_part = [rWi(3), hhatWi(3)] semi-infinite ray + free depth lambda (scalar)
+
+The ray functions take their products with mm_seq (sums left to right), so
+the state surgery that uses them (runtime/state.py) rounds the same on the
+CPU and on the GPU.
 """
 
 from __future__ import annotations
@@ -17,8 +25,11 @@ from scenelib2_torch.core.camera import CameraParams
 from scenelib2_torch.core.quaternion import (
     dRq_times_a_by_dq,
     dqbar_by_dq,
+    dvnorm_by_dv,
+    mm_seq,
     quat_inverse,
     quat_to_rotation_matrix,
+    seqsum,
 )
 
 LEFT_RIGHT_FAIL = 1
@@ -94,3 +105,81 @@ def innovation_covariance(Pxx, Pxy, Pyy, dh_by_dxv, dh_by_dy, R) -> torch.Tensor
     (feature_model.cpp:99-116)."""
     t = dh_by_dxv @ Pxy @ dh_by_dy.T
     return dh_by_dxv @ Pxx @ dh_by_dxv.T + t + t.T + dh_by_dy @ Pyy @ dh_by_dy.T + R
+
+
+# ---------------------------------------------------------------------------
+# Partially-initialised (ray) feature model — part_feature_model.cpp
+# ---------------------------------------------------------------------------
+
+
+def _eye3(like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=like.dtype, device=like.device)
+
+
+def part_init_ray(cam: CameraParams, h: torch.Tensor, xp: torch.Tensor):
+    """Ray state from one measurement (part_feature_model.cpp:162-229).
+
+    Returns (ypi[6], dypi_by_dxp[6,7], dypi_by_dhi[6,2])."""
+    hLRi = cam_mod.unproject(cam, h)
+    norm = torch.sqrt(seqsum([hLRi[i] * hLRi[i] for i in range(3)]))
+    hLhatRi = hLRi / norm
+    q = xp[3:7]
+    RWR = quat_to_rotation_matrix(q)
+    hLhatWi = mm_seq(RWR, hLhatRi[:, None])[:, 0]
+    ypi = torch.cat([xp[0:3], hLhatWi])
+    dxp = torch.zeros((6, 7), dtype=xp.dtype, device=xp.device)
+    dxp[0:3, 0:3] = _eye3(xp)
+    dxp[3:6, 3:7] = dRq_times_a_by_dq(q, hLhatRi)
+    dhi = torch.zeros((6, 2), dtype=xp.dtype, device=xp.device)
+    dhi[3:6] = mm_seq(mm_seq(RWR, dvnorm_by_dv(hLRi)), cam_mod.unproject_jacobian(cam, h))
+    return ypi, dxp, dhi
+
+
+def part_zeroedyi(y: torch.Tensor, xp: torch.Tensor):
+    """Ray in the robot frame + Jacobians (part_feature_model.cpp:80-144).
+
+    Returns (zeroedyi[6], dzeroedyi_by_dxp[6,7], dzeroedyi_by_dyi[6,6])."""
+    r, q = xp[0:3], xp[3:7]
+    ri, hhat = y[0:3], y[3:6]
+    y_minus_r = ri - r
+    qRW = quat_inverse(q)
+    RRW = quat_to_rotation_matrix(qRW)
+    dqbar = dqbar_by_dq(y.dtype, y.device)
+    zeroedri = mm_seq(RRW, y_minus_r[:, None])[:, 0]
+    zeroedhhat = mm_seq(RRW, hhat[:, None])[:, 0]
+    dxp = torch.zeros((6, 7), dtype=y.dtype, device=y.device)
+    dxp[0:3, 0:3] = -RRW
+    dxp[0:3, 3:7] = mm_seq(dRq_times_a_by_dq(qRW, y_minus_r), dqbar)
+    dxp[3:6, 3:7] = mm_seq(dRq_times_a_by_dq(qRW, hhat), dqbar)
+    dyi = torch.zeros((6, 6), dtype=y.dtype, device=y.device)
+    dyi[0:3, 0:3] = RRW
+    dyi[3:6, 3:6] = RRW
+    return torch.cat([zeroedri, zeroedhhat]), dxp, dyi
+
+
+def part_predict_from_zeroed(cam: CameraParams, zeroed, dz_by_dxp, dz_by_dyi, lam):
+    """Per-particle tail of the ray measurement prediction: the image point
+    at depth lam and its Jacobians. Returns (hpi[2], dhpi_by_dxp[2,7],
+    dhpi_by_dyi[2,6])."""
+    hLR = zeroed[0:3] + lam * zeroed[3:6]
+    hpi = cam_mod.project(cam, hLR)
+    dh_by_dhLR = cam_mod.project_jacobian(cam, hLR)
+    dhLR_by_dz = torch.cat([_eye3(zeroed), lam * _eye3(zeroed)], dim=1)
+    J = mm_seq(dh_by_dhLR, dhLR_by_dz)
+    return hpi, mm_seq(J, dz_by_dxp), mm_seq(J, dz_by_dyi)
+
+
+def part_predict_measurement(cam: CameraParams, y, xp, lam):
+    """hpi and Jacobians for a ray at depth lam (part_feature_model.cpp:231-265)."""
+    zeroed, dz_by_dxp, dz_by_dyi = part_zeroedyi(y, xp)
+    return part_predict_from_zeroed(cam, zeroed, dz_by_dxp, dz_by_dyi, lam)
+
+
+def part_convert_to_full(y: torch.Tensor, lam: torch.Tensor):
+    """yfi = ri + lambda*hhat + Jacobians (part_feature_model.cpp:267-287).
+
+    Returns (yfi[3], dyfi_by_dypi[3,6], dyfi_by_dlambda[3,1])."""
+    ri, hhat = y[0:3], y[3:6]
+    yfi = ri + lam * hhat
+    T = torch.cat([_eye3(y), lam * _eye3(y)], dim=1)
+    return yfi, T, hhat.reshape(3, 1)

@@ -23,10 +23,7 @@ DECISION_FIELDS = (
     "did_init", "did_convert", "n_overflow",
 )
 
-EXPECTED_NOMAP_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "data", "expected_fingerprint_nomap.json",
-)
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
 
 def _np(a) -> np.ndarray:
@@ -66,6 +63,8 @@ def decisions_fingerprint(outs, n_frames: int) -> dict:
     )
 
 
-def load_expected(path: str = EXPECTED_NOMAP_PATH) -> dict:
-    with open(path) as f:
+def load_expected(name: str) -> dict:
+    """The committed fingerprint scenelib2_torch/data/<name>.json:
+    "expected_fingerprint" (mapping on) or "expected_fingerprint_nomap"."""
+    with open(os.path.join(DATA_DIR, f"{name}.json")) as f:
         return json.load(f)

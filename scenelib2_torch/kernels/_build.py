@@ -28,7 +28,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("predict_measure", "search", "ekf_update")
+SOURCES = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "search_bayes")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

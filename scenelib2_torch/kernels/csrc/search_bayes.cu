@@ -1,0 +1,311 @@
+// K4: particle predict, union-box score map, per-particle search and Bayes
+// update of one partial feature.
+//
+// Replaces scenelib2_tpu/kernels/pallas_search_bayes.py (pallas_search_bayes
+// / _kernel) in merged + frame + full-width mode. The plain PyTorch twin is
+// scenelib2_torch/kernels/search_bayes.py::search_bayes_plain; the particle
+// chain and the Bayes tail are particle_chain.cuh and bayes_tail.cuh. Every
+// float operation follows the twin's order (built with -fmad=false); the box
+// sums are integers, exact in any order; the searches are comparison-based.
+//
+// Bound on an H100: ~60 KB in and out and, in the worst case (a union box
+// over the whole frame), ~77 k scored cells x 3 x 121 multiply-adds:
+// ~3 us at the f32 rate; typically far less. Design: one block of 1024
+// threads, in phases separated by __syncthreads:
+//   1. thread 0: the slot geometry prologue; lanes 0..127: the particle
+//      chain and search geometry of one particle each (shared memory);
+//   2. thread 0: the union box and the scanned region (the union box's rows
+//      x the 128-column chunks that meet its columns, as the TPU kernel
+//      scans);
+//   3. all threads: the penalized NSSD of every scanned centre into the
+//      global workspace [H, W] (300 KB does not fit in shared memory);
+//   4. each warp: its particles, lanes striding over the particle's box,
+//      then a warp reduction (min score, then the largest u*H + v key);
+//   5. lanes 0..127: the Bayes tail; all threads: the full-width copy of
+//      prob / palive with the slot's row replaced.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "bayes_tail.cuh"
+#include "particle_chain.cuh"
+
+#define K4_THREADS 1024
+#define K4_LANES 128
+#define K4_MISS 1e6f
+#define K4_BIG 16777216.0f
+#define K4_CHUNK 128
+
+struct K4Params {
+  int H, W, B, MF, NP, win_radius;
+  float no_sigma, corr_thresh2, corr_sigma_thresh, low_sigma_penalty;
+  float fku, fkv, u0c, v0c, two_kd1, neg_two_kd1, sd0, maxdist;
+  float prune_prob_thresh, sd_depth_ratio, min_particles, erase_partial_after_attempts;
+};
+
+// NaN-propagating max/min (torch.maximum / jnp.maximum semantics)
+__device__ __forceinline__ float jmax(float a, float b) { return (a != a || b != b) ? a + b : fmaxf(a, b); }
+__device__ __forceinline__ float jmin(float a, float b) { return (a != a || b != b) ? a + b : fminf(a, b); }
+
+// an integer-valued float bound as an int clamped to [lo, hi]; NaN gives
+// `nan_to` (an empty range at the caller)
+__device__ __forceinline__ int ibound(float v, int lo, int hi, int nan_to) {
+  if (v != v) return nan_to;
+  return (int)fminf(fmaxf(v, (float)lo), (float)hi);
+}
+
+// penalized NSSD at centre (v, u): nssd_corr_f32 of kernels/search.py on
+// exact integer box sums, + the low-sigma penalty; K4_MISS at an invalid
+// centre
+__device__ float penalized_score(const uint8_t* __restrict__ frame, const float* patch, int v, int u,
+                                 const K4Params& p) {
+  const int B = p.B, half = (B - 1) / 2;
+  if (u < half || u > p.W - 1 - half || v < half || v > p.H - 1 - half) return K4_MISS;
+  float sg1 = 0.0f, sg1sq = 0.0f, cross = 0.0f;
+  for (int dy = 0; dy < B; ++dy) {
+    const uint8_t* row = frame + (v - half + dy) * p.W + (u - half);
+    const float* prow = patch + dy * B;
+    for (int dx = 0; dx < B; ++dx) {
+      const float w = (float)row[dx];
+      sg1 = sg1 + w;
+      sg1sq = sg1sq + w * w;
+      cross = cross + prow[dx] * w;
+    }
+  }
+  const float n = (float)(B * B);
+  const float sg0 = patch[B * B], sg0sq = patch[B * B + 1];
+  const float g0bar = sg0 / n;
+  const float g1bar = sg1 / n;
+  const float varg0 = sg0sq / n - g0bar * g0bar;
+  const float varg1 = sg1sq / n - g1bar * g1bar;
+  const float sd0 = sqrtf(varg0);
+  const float sd1 = sqrtf(varg1);
+  const float v1s = varg1 == 0.0f ? 1.0f : varg1;
+  const float s1 = sqrtf(v1s);
+  const float v0s = varg0 == 0.0f ? 1.0f : varg0;
+  const float s0 = sqrtf(v0s);
+  const float kk = g0bar / s0 - g1bar / s1;
+  float corr = (sg0sq / v0s + sg1sq / v1s + n * (kk * kk) - cross * 2.0f / (s0 * s1)
+                - sg0 * 2.0f * kk / s0 + sg1 * 2.0f * kk / s1) / n;
+  const bool both_zero = sd0 == 0.0f && sd1 == 0.0f;
+  corr = (sd0 != 0.0f && sd1 != 0.0f) ? corr : (both_zero ? 0.0f : 1.0f);
+  return sd1 < p.corr_sigma_thresh ? corr + p.low_sigma_penalty : corr;
+}
+
+// (value, key) order of the search: the smaller value, then the larger key
+__device__ __forceinline__ bool beats(float v, float k, float bv, float bk) {
+  return v < bv || (v == bv && k > bk);
+}
+
+__global__ void __launch_bounds__(K4_THREADS)
+k4_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ prob,
+          const float* __restrict__ lam, const uint8_t* __restrict__ palive,
+          const uint8_t* __restrict__ making_p, const uint8_t* __restrict__ pmask_p,
+          const int* __restrict__ ma_p, const int* __restrict__ pidx_p,
+          const float* __restrict__ patch_row, const float* __restrict__ shared_row,
+          const float* __restrict__ slot_row, float* __restrict__ prob_o,
+          uint8_t* __restrict__ palive_o, float* __restrict__ mean_o, float* __restrict__ cov_o,
+          uint8_t* __restrict__ convert_o, uint8_t* __restrict__ kill_o, int* __restrict__ nover_o,
+          uint8_t* __restrict__ found_o, float* __restrict__ z_o, float* __restrict__ best_o,
+          float* __restrict__ pred_o, float* __restrict__ ws, K4Params p) {
+  __shared__ float geom[GEOM_N];
+  __shared__ float patch[128];
+  __shared__ float pred[NROWS][K4_LANES];
+  // per-particle search parameters
+  __shared__ float s_uc[K4_LANES], s_vc[K4_LANES], s_ulo[K4_LANES], s_uhi[K4_LANES];
+  __shared__ float s_vlo[K4_LANES], s_vhi[K4_LANES];
+  __shared__ uint8_t s_nonempty[K4_LANES];
+  __shared__ float s_best[K4_LANES], s_kbest[K4_LANES], s_probf[K4_LANES];
+  __shared__ uint8_t s_alivef[K4_LANES];
+  __shared__ float buf[BT_LANES];
+  __shared__ int scan[4];  // v_lo, v_hi, u_lo, u_hi of the scanned region
+  const int t = threadIdx.x;
+  const int NP = p.NP, H = p.H, W = p.W;
+  const int pidx = pidx_p[0];
+  const bool making = making_p[0] != 0;
+  const bool pmask = pmask_p[0] != 0;
+  const float ma = (float)ma_p[0];
+  const float R = (float)p.win_radius;
+  const float side_u = (float)min(2 * p.win_radius + 1, W);
+  const float side_v = (float)min(2 * p.win_radius + 1, H);
+
+  // ---- 1. prologue, particle chain, search geometry ----------------------
+  if (t == 0) geometry_prologue(shared_row, slot_row, geom);
+  if (t < 128) patch[t] = patch_row[t];
+  __syncthreads();
+  const bool lane = t < K4_LANES;
+  const bool valid = t < NP;
+  float prob_in = 0.0f, lam_in = 0.0f, pr[NROWS];
+  bool alive = false, searchable = false, over = false;
+  if (lane) {
+    if (valid) {
+      prob_in = prob[pidx * NP + t];
+      lam_in = lam[pidx * NP + t];
+      alive = palive[pidx * NP + t] != 0;
+    }
+    const ParticleConsts pc = {p.fku, p.fkv, p.u0c, p.v0c, p.two_kd1, p.neg_two_kd1, p.sd0, p.maxdist,
+                               p.no_sigma};
+    particle_tail(valid ? lam_in : 1.0f, geom, pc, pr);
+    for (int r = 0; r < NROWS; ++r) {
+      pred[r][t] = pr[r];
+      if (valid) pred_o[r * NP + t] = pr[r];
+    }
+    searchable = alive && making;
+    const float uc = truncf(pr[ROW_HU]), vc = truncf(pr[ROW_HV]);
+    const float hw = pr[ROW_HW], hh = pr[ROW_HH];
+    const float u0 = jmin(jmax(uc - R, 0.0f), (float)W - side_u);
+    const float v0 = jmin(jmax(vc - R, 0.0f), (float)H - side_v);
+    over = hw > R || hh > R;
+    s_uc[t] = uc;
+    s_vc[t] = vc;
+    s_vlo[t] = jmax(v0, vc - hh);
+    s_vhi[t] = jmin(v0 + side_v, vc + hh + 1.0f);
+    s_ulo[t] = jmax(u0, uc - hw);
+    s_uhi[t] = jmin(u0 + side_u, uc + hw + 1.0f);
+    s_nonempty[t] = searchable && s_vlo[t] < s_vhi[t] && s_ulo[t] < s_uhi[t];
+  }
+  __syncthreads();
+
+  // ---- 2. union box and scanned region ------------------------------------
+  if (t == 0) {
+    float v_lo_s = K4_BIG, v_hi_s = -K4_BIG, u_lo_s = K4_BIG, u_hi_s = -K4_BIG;
+    for (int i = 0; i < K4_LANES; ++i) {
+      if (!s_nonempty[i]) continue;
+      v_lo_s = fminf(v_lo_s, s_vlo[i]);
+      v_hi_s = fmaxf(v_hi_s, s_vhi[i]);
+      u_lo_s = fminf(u_lo_s, s_ulo[i]);
+      u_hi_s = fmaxf(u_hi_s, s_uhi[i]);
+    }
+    const float Hf = (float)H;
+    const int n_rows = (int)fmaxf(fminf(fmaxf(v_hi_s, 0.0f), Hf) - fminf(fmaxf(v_lo_s, 0.0f), Hf), 0.0f);
+    const int v_lo = (int)fminf(fmaxf(v_lo_s, 0.0f), Hf);
+    int k_first = -1, k_last = -1;
+    for (int k = 0; k * K4_CHUNK < W; ++k) {
+      const bool need = (float)(K4_CHUNK * k) <= u_hi_s - 1.0f &&
+                        (float)(K4_CHUNK * k + K4_CHUNK - 1) >= u_lo_s;
+      if (need) {
+        if (k_first < 0) k_first = k;
+        k_last = k;
+      }
+    }
+    if (n_rows > 0 && k_first >= 0) {
+      scan[0] = v_lo;
+      scan[1] = v_lo + n_rows;
+      scan[2] = K4_CHUNK * k_first;
+      scan[3] = min(W, K4_CHUNK * (k_last + 1));
+    } else {
+      scan[0] = scan[1] = scan[2] = scan[3] = 0;
+    }
+  }
+  __syncthreads();
+  const int v_lo = scan[0], v_hi = scan[1], u_lo = scan[2], u_hi = scan[3];
+
+  // ---- 3. scores of the scanned centres ------------------------------------
+  const int nc = u_hi - u_lo;
+  for (int e = t; e < (v_hi - v_lo) * nc; e += blockDim.x) {
+    const int v = v_lo + e / nc, u = u_lo + e % nc;
+    ws[v * W + u] = penalized_score(frame, patch, v, u, p);
+  }
+  __syncthreads();
+
+  // ---- 4. per-particle search, one warp per particle -----------------------
+  const int warp = t >> 5, wl = t & 31;
+  const float no_sigma2 = p.no_sigma * p.no_sigma;
+  for (int q = warp; q < NP; q += K4_THREADS / 32) {
+    const float uc = s_uc[q], vc = s_vc[q];
+    const float ulo = s_ulo[q], uhi = s_uhi[q], vlo = s_vlo[q], vhi = s_vhi[q];
+    const float a = pred[ROW_S00][q], b2 = 2.0f * pred[ROW_S01][q], c = pred[ROW_S11][q];
+    // cells the exact mask below can admit: the box, within the scanned region
+    const int r0 = max(v_lo, ibound(floorf(vlo), v_lo, v_hi, v_hi));
+    const int r1 = min(v_hi, ibound(ceilf(vhi), v_lo, v_hi, v_lo));
+    const int c0 = max(u_lo, ibound(floorf(ulo), u_lo, u_hi, u_hi));
+    const int c1 = min(u_hi, ibound(ceilf(uhi), u_lo, u_hi, u_lo));
+    const int ncol = max(c1 - c0, 0);
+    const int ncell = max(r1 - r0, 0) * ncol;
+    float best = K4_MISS, bkey = -1.0f;
+    for (int e = wl; e < ncell; e += 32) {
+      const int v = r0 + e / ncol, u = c0 + e % ncol;
+      const float vf = (float)v, uf = (float)u;
+      const float urel = uf - uc, vrel = vf - vc;
+      const float t1 = (a * urel) * urel;
+      const float t2 = (b2 * urel) * vrel;
+      const float vterm = (c * vrel) * vrel;
+      const bool mask = vf >= vlo && vf < vhi && uf >= ulo && uf < uhi && ((t1 + t2) + vterm) < no_sigma2;
+      if (!mask) continue;
+      const float val = ws[v * W + u];
+      const float key = uf * (float)H + vf;
+      if (val < K4_MISS && beats(val, key, best, bkey)) {
+        best = val;
+        bkey = key;
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+      const float ok = __shfl_xor_sync(0xffffffffu, bkey, o);
+      if (beats(ov, ok, best, bkey)) {
+        best = ov;
+        bkey = ok;
+      }
+    }
+    if (wl == 0) {
+      s_best[q] = best;
+      s_kbest[q] = bkey;
+    }
+  }
+  __syncthreads();
+
+  // ---- 5. Bayes tail and outputs --------------------------------------------
+  bool found = false, p_over = false;
+  float zu = 0.0f, zv = 0.0f;
+  if (valid) {
+    const float best = s_best[t], kb = s_kbest[t];
+    found = searchable && best <= p.corr_thresh2;
+    p_over = over && searchable;
+    zu = truncf((kb + 0.5f) / (float)H);
+    zv = kb - (float)H * zu;
+    found_o[t] = found;
+    z_o[2 * t] = zu;
+    z_o[2 * t + 1] = zv;
+    best_o[t] = best;
+  }
+  const BayesConsts bc = {p.prune_prob_thresh, p.sd_depth_ratio, p.min_particles,
+                          p.erase_partial_after_attempts};
+  float prob_f;
+  bool alive_f;
+  const BayesResult res = bayes_tail(
+      prob_in, lam_in, alive, found, p_over, zu, zv, lane ? pred[ROW_HU][t] : 0.0f,
+      lane ? pred[ROW_HV][t] : 0.0f, lane ? pred[ROW_S00][t] : 0.0f, lane ? pred[ROW_S01][t] : 0.0f,
+      lane ? pred[ROW_S11][t] : 0.0f, lane ? pred[ROW_DET][t] : 0.0f, making, pmask, ma, bc, buf,
+      &prob_f, &alive_f);
+  if (lane) {
+    s_probf[t] = prob_f;
+    s_alivef[t] = alive_f;
+  }
+  __syncthreads();
+  for (int e = t; e < p.MF * NP; e += blockDim.x) {
+    const int row = e / NP, col = e - row * NP;
+    prob_o[e] = row == pidx ? s_probf[col] : prob[e];
+    palive_o[e] = row == pidx ? s_alivef[col] : palive[e];
+  }
+  if (t == 0) {
+    mean_o[0] = res.mean;
+    cov_o[0] = res.cov;
+    convert_o[0] = res.convert;
+    kill_o[0] = res.kill;
+    nover_o[0] = res.n_over;
+  }
+}
+
+extern "C" int k4_search_bayes(const uint8_t* frame, const float* prob, const float* lam,
+                               const uint8_t* palive, const uint8_t* making, const uint8_t* pmask,
+                               const int* match_attempts, const int* pidx, const float* patch_row,
+                               const float* shared_row, const float* slot_row, float* prob_o,
+                               uint8_t* palive_o, float* mean, float* cov, uint8_t* convert,
+                               uint8_t* kill, int* n_over, uint8_t* found, float* z, float* best,
+                               float* pred, float* workspace, const K4Params* p, void* stream) {
+  if (p->NP > K4_LANES || p->B * p->B + 2 > 128) return (int)cudaErrorInvalidValue;
+  k4_kernel<<<1, K4_THREADS, 0, (cudaStream_t)stream>>>(
+      frame, prob, lam, palive, making, pmask, match_attempts, pidx, patch_row, shared_row, slot_row,
+      prob_o, palive_o, mean, cov, convert, kill, n_over, found, z, best, pred, workspace, *p);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,196 @@
+"""Per-particle measurement prediction of a partial (ray) feature, as plain
+tensor code; its CUDA form is csrc/particle_chain.cuh, which K4
+(csrc/search_bayes.cu) runs in its prologue.
+
+Port of scenelib2_tpu/kernels/pallas_particle.py: the row layout of the
+result (ROW_*), the packed operand rows (the shared camera row and the slot
+row), ``_geometry_prologue`` (pallas_particle.py:293-357, with ``_dot_row``,
+``_mat_mul_t`` and ``_drq_dqbar``) and ``_particle_tail`` (:42-124). For every
+depth hypothesis lambda of a ray it predicts the image point
+hpi = project(zeroedri + lambda zeroedhhat), the innovation covariance in
+the factored K-form S = A (K0 + lambda Ksym + lambda^2 K2) A' + R, its
+Cholesky inverse and determinant, and the 3-sigma search half-extents
+(reference part_feature_model.cpp:231-265, feature_init_info.cpp:57-65).
+
+Every sum runs in the TPU kernel's order: the prologue's dot rows skip the
+literal zeros of N1/N2 and sum the other terms left to right; constant
+divisors are 0-dim tensors (a division by a Python scalar becomes a
+multiply by its reciprocal on CUDA). The standalone TPU kernels of this
+chain (pallas_particle.py:197 and :434) belong to batch mode and are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from scenelib2_torch.core.quaternion import seqsum
+
+ROW_HU, ROW_HV, ROW_S00, ROW_S01, ROW_S11, ROW_DET, ROW_HW, ROW_HH = range(8)
+
+# shared row: xp[7] + Pxx7 row-major [49]; slot row: y6[6] + pxy7 row-major
+# [7][6] (pxy7[i][j] = P[slot dim j, camera dim i]) + pyy row-major [36]
+SH_XP, SH_PXX, NSHARED = 0, 7, 56
+SL_Y, SL_PXY, SL_PYY, NSLOT = 0, 6, 48, 84
+
+# the non-literal-zero columns of N1 = [-R | B1 | R | 0] and N2 = [0 | B2 | 0 | R]
+NZ1 = tuple(range(10))
+NZ2 = (3, 4, 5, 6, 10, 11, 12)
+
+
+@dataclass(frozen=True)
+class ParticleConsts:
+    fku: float
+    fkv: float
+    u0c: float
+    v0c: float
+    kd1: float
+    sd0: float
+    maxdist: float   # |centre| in f32, as the TPU wrapper computes it
+    no_sigma: float
+
+    @staticmethod
+    def from_params(p) -> "ParticleConsts":
+        u0, v0 = np.float32(p.cam_u0), np.float32(p.cam_v0)
+        return ParticleConsts(
+            fku=p.cam_fku, fkv=p.cam_fkv, u0c=p.cam_u0, v0c=p.cam_v0, kd1=p.cam_kd1,
+            sd0=p.cam_sd, maxdist=float(np.sqrt(u0 * u0 + v0 * v0)), no_sigma=p.no_sigma,
+        )
+
+
+def pack_rows(x: torch.Tensor, P: torch.Tensor, slot: torch.Tensor):
+    """The shared camera row [56] and the slot row [84] of one partial slot
+    (runtime/step.py:986-996 of the JAX package): the slot's blocks are read
+    from its ROWS of P. slot is a [] integer tensor (no host read)."""
+    idx6 = 13 + 6 * slot.to(torch.int64) + torch.arange(6, device=x.device)
+    rows6 = P[idx6]                                                    # [6, D]
+    shared = torch.cat([x[:7], P[:7, :7].reshape(49)])
+    slot_row = torch.cat([x[idx6], rows6[:, :7].T.reshape(42), rows6[:, idx6].reshape(36)])
+    return shared, slot_row
+
+
+def _drq_dqbar(qw, qx, qy, qz, a):
+    """dRq_times_a_by_dq(q, a) @ dqbar_by_dq as [3][4] parts."""
+    a0, a1, a2 = a
+    col0 = [2.0 * (qw * a0 - qz * a1 + qy * a2), 2.0 * (qz * a0 + qw * a1 - qx * a2),
+            2.0 * (-qy * a0 + qx * a1 + qw * a2)]
+    col1 = [2.0 * (qx * a0 + qy * a1 + qz * a2), 2.0 * (qy * a0 - qx * a1 - qw * a2),
+            2.0 * (qz * a0 + qw * a1 - qx * a2)]
+    col2 = [2.0 * (-qy * a0 + qx * a1 + qw * a2), 2.0 * (qx * a0 + qy * a1 + qz * a2),
+            2.0 * (-qw * a0 + qz * a1 - qy * a2)]
+    col3 = [2.0 * (-qz * a0 - qw * a1 + qx * a2), 2.0 * (qw * a0 - qz * a1 + qy * a2),
+            2.0 * (qx * a0 + qy * a1 + qz * a2)]
+    return [[col0[i], -col1[i], -col2[i], -col3[i]] for i in range(3)]
+
+
+def geometry_prologue(shared: torch.Tensor, slot_row: torch.Tensor):
+    """The lambda-independent slot geometry: (zr [3], zh [3], K0 [3,3],
+    Ksym [3,3], K2 [3,3]) tensors (runtime/step.py slot_geom +
+    core/models.part_zeroedyi of the JAX package)."""
+    r = [shared[SH_XP + i] for i in range(3)]
+    w, x, y, z = (shared[SH_XP + 3 + i] for i in range(4))
+    Pxx7 = shared[SH_PXX : SH_PXX + 49].reshape(7, 7)
+    ri = [slot_row[SL_Y + i] for i in range(3)]
+    hh = [slot_row[SL_Y + 3 + i] for i in range(3)]
+    P12 = slot_row[SL_PXY : SL_PXY + 42].reshape(7, 6)
+    P22 = slot_row[SL_PYY : SL_PYY + 36].reshape(6, 6)
+
+    # qRW = conj(q) * (1 / |q|^2), then Eigen's unit-quaternion rotation
+    inv_n2 = 1.0 / (w * w + x * x + y * y + z * z)
+    qw, qx, qy, qz = w * inv_n2, -x * inv_n2, -y * inv_n2, -z * inv_n2
+    wx, wy, wz = 2.0 * qw * qx, 2.0 * qw * qy, 2.0 * qw * qz
+    xx, xy, xz = 2.0 * qx * qx, 2.0 * qx * qy, 2.0 * qx * qz
+    yy, yz, zz = 2.0 * qy * qy, 2.0 * qy * qz, 2.0 * qz * qz
+    R = [[1.0 - (yy + zz), xy - wz, xz + wy],
+         [xy + wz, 1.0 - (xx + zz), yz - wx],
+         [xz - wy, yz + wx, 1.0 - (xx + yy)]]
+    ym = [ri[i] - r[i] for i in range(3)]
+    zr = torch.stack([seqsum([R[i][k] * ym[k] for k in range(3)]) for i in range(3)])
+    zh = torch.stack([seqsum([R[i][k] * hh[k] for k in range(3)]) for i in range(3)])
+    B1 = _drq_dqbar(qw, qx, qy, qz, ym)
+    B2 = _drq_dqbar(qw, qx, qy, qz, hh)
+    zero = torch.zeros_like(w)
+    N1 = [[-R[i][0], -R[i][1], -R[i][2]] + B1[i] + R[i] + [zero] * 3 for i in range(3)]
+    N2 = [[zero] * 3 + B2[i] + [zero] * 3 + R[i] for i in range(3)]
+    C = torch.cat([torch.cat([Pxx7, P12], 1), torch.cat([P12.T, P22], 1)], 0)   # [13, 13]
+    CN1 = torch.stack([seqsum([C[:, k] * N1[i][k] for k in NZ1]) for i in range(3)], 1)
+    CN2 = torch.stack([seqsum([C[:, k] * N2[i][k] for k in NZ2]) for i in range(3)], 1)
+    K0 = torch.stack([seqsum([N1[i][k] * CN1[k] for k in NZ1]) for i in range(3)])
+    K12 = torch.stack([seqsum([N1[i][k] * CN2[k] for k in NZ1]) for i in range(3)])
+    K2 = torch.stack([seqsum([N2[i][k] * CN2[k] for k in NZ2]) for i in range(3)])
+    return zr, zh, K0, K12 + K12.T, K2
+
+
+def particle_tail(lam: torch.Tensor, zr, zh, K0, Ks, K2, c: ParticleConsts) -> torch.Tensor:
+    """[8, NP] prediction rows (ROW_*) for the depths lam [NP]."""
+    def k(v):
+        return torch.full((), v, dtype=lam.dtype, device=lam.device)
+
+    x = zr[0] + lam * zh[0]
+    y = zr[1] + lam * zh[1]
+    z = zr[2] + lam * zh[2]
+    invz = 1.0 / z
+    ucx = -c.fku * x * invz
+    ucy = -c.fkv * y * invz
+    r2 = ucx * ucx + ucy * ucy
+    d = 1.0 + 2.0 * c.kd1 * r2
+    d12 = torch.sqrt(d)
+    hu = ucx / d12 + c.u0c
+    hv = ucy / d12 + c.v0c
+
+    # A = dh_by_duc @ duc_by_dy (camera.cpp:183-215)
+    c1 = 1.0 / d12
+    c3 = k(-2.0 * c.kd1) / (d12 * d)
+    m00 = ucx * ucx * c3 + c1
+    m01 = ucx * ucy * c3
+    m11 = ucy * ucy * c3 + c1
+    j00 = -c.fku * invz
+    j11 = -c.fkv * invz
+    j02 = c.fku * x * invz * invz
+    j12 = c.fkv * y * invz * invz
+    a00, a01, a02 = m00 * j00, m01 * j11, m00 * j02 + m01 * j12
+    a10, a11, a12 = m01 * j00, m11 * j11, m01 * j02 + m11 * j12
+
+    lam2 = lam * lam
+
+    def kl(i, j):
+        return K0[i, j] + lam * Ks[i, j] + lam2 * K2[i, j]
+
+    k00, k01, k02 = kl(0, 0), kl(0, 1), kl(0, 2)
+    k11, k12, k22 = kl(1, 1), kl(1, 2), kl(2, 2)
+    t00 = a00 * k00 + a01 * k01 + a02 * k02
+    t01 = a00 * k01 + a01 * k11 + a02 * k12
+    t02 = a00 * k02 + a01 * k12 + a02 * k22
+    t10 = a10 * k00 + a11 * k01 + a12 * k02
+    t11 = a10 * k01 + a11 * k11 + a12 * k12
+    t12 = a10 * k02 + a11 * k12 + a12 * k22
+    s00 = t00 * a00 + t01 * a01 + t02 * a02
+    s01 = t00 * a10 + t01 * a11 + t02 * a12
+    s11 = t10 * a10 + t11 * a11 + t12 * a12
+
+    du = hu - c.u0c
+    dv = hv - c.v0c
+    dist = torch.sqrt(du * du + dv * dv)
+    sd = c.sd0 * (1.0 + dist / k(c.maxdist))
+    rr = sd * sd
+    s00 = s00 + rr
+    s11 = s11 + rr
+    det = s00 * s11 - s01 * s01
+
+    # S^-1 via the 2x2 LLT (monoslam.cpp:371-374, feature_init_info.cpp:57-65)
+    l11 = torch.sqrt(s00)
+    l21 = s01 / l11
+    l22 = torch.sqrt(s11 - l21 * l21)
+    i11 = 1.0 / l11
+    i22 = 1.0 / l22
+    i21 = -l21 * i11 * i22
+    q00 = i11 * i11 + i21 * i21
+    q01 = i21 * i22
+    q11 = i22 * i22
+    ns = k(c.no_sigma)
+    hw = torch.floor(ns / torch.sqrt(q00 - q01 * q01 / q11))
+    hh = torch.floor(ns / torch.sqrt(q11 - q01 * q01 / q00))
+    return torch.stack([hu, hv, q00, q01, q11, det, hw, hh])

@@ -239,13 +239,19 @@ def search(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts)
     return found, u, v, best, over
 
 
+def nssd_cell_ops(B: int) -> int:
+    """Least operations of one scored cell: the cross sum with the patch
+    (B*B multiply-adds), the window's sum and sum of squares as box sums
+    taken separably (2(B-1) adds each), the pixel's square, and ~30
+    operations of the NSSD."""
+    return 2 * B * B + 2 * 2 * (B - 1) + 1 + 30
+
+
 def bytes_and_flops(K: int, c: SearchConsts, n_scored: int) -> tuple[int, int]:
     """Least bytes (the K windows read once, patch rows and per-feature
     inputs, results written) and the operations that the n_scored candidates
-    admitted by this call's geometry (candidate_geometry) need: three sums
-    of B*B terms and ~30 operations of the NSSD each."""
+    admitted by this call's geometry (candidate_geometry) need."""
     B = c.boxsize
     wv, wu = c.side_v + B - 1, c.side_u + B - 1
     nbytes = K * (wv * wu + 128 * 4 + 4 * 4 + 3 * 4 + 1) + K * (1 + 4 + 4 + 4 + 1)
-    flops = n_scored * (3 * 2 * B * B + 30)
-    return nbytes, flops
+    return nbytes, n_scored * nssd_cell_ops(B)

@@ -1,0 +1,354 @@
+"""K4: partial-feature particle predict, union-box score map, per-particle
+search and Bayes update, in one kernel.
+
+Replaces the TPU kernel scenelib2_tpu/kernels/pallas_search_bayes.py
+(``pallas_search_bayes`` / ``_kernel``) in the one mode the single-stream
+step uses: merged predict (the particle chain runs in the kernel from the
+packed camera and slot rows), frame mode (the penalized NSSD score map is
+built in the kernel, only where it is read), full width (the whole [MF, NP]
+prob / palive arrays in and out, the slot's row picked by pidx and every
+other row passed through bit for bit). Stage 8 of the step (reference
+SearchMultipleOverlappingEllipses, search_multiple_overlapping_ellipses.cpp:
+106-196, and monoslam.cpp:1299-1517):
+
+  1. predict (kernels/particle.py): for each particle, hpi, S^-1, det and
+     the 3-sigma half extents;
+  2. search geometry (correlate.multi_ellipse_search_unionbox of the JAX
+     package, in integer-valued f32): the window of side 2R+1 around
+     trunc(hpi), each searchable particle's box in it, and the union box of
+     the non-empty boxes; the scanned cells are the union box's rows times
+     the 128-column chunks that meet its columns (the TPU kernel's scan);
+  3. the penalized score of every scanned centre: the NSSD of
+     kernels/search.py::nssd_corr_f32 on exact integer box sums, +5 where
+     the image deviation is below the threshold, 1e6 at an invalid centre;
+  4. per particle: the minimum over the scanned cells inside its box and
+     ellipse ((a urel) urel + ((2b) urel) vrel + (c vrel) vrel < 9, the TPU
+     kernel's operation order) with a score below 1e6, and among its ties
+     the LARGEST key u*H + v; found = searchable & best <= corr_thresh2;
+     z = (trunc((k + 0.5) / H), k - H zu);
+  5. the Bayes tail (kernels/bayes.py).
+
+Bound on an H100: ~60 KB of frame and state in and out, and the score
+work of the scanned cells (3 x 121 multiply-adds each, up to ~77 k cells):
+under ~3 us at the f32 rate in the worst case. Design (csrc/search_bayes.cu):
+one block of 1024 threads; the prologue on thread 0 and the particle chain
+on 128 lanes into shared memory; the union box by one thread; the scores of
+the scanned cells into a global workspace [H, W] that the wrapper allocates
+(300 KB does not fit in shared memory); each warp then searches particles
+(its lanes stride over the particle's box, one comparison-based warp
+reduction); the Bayes sums as fixed 128-lane trees in shared memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from scenelib2_torch.kernels import _build
+from scenelib2_torch.kernels.bayes import BayesConsts, bayes_tail
+from scenelib2_torch.kernels.particle import (
+    NSHARED,
+    NSLOT,
+    ROW_DET,
+    ROW_HH,
+    ROW_HU,
+    ROW_HV,
+    ROW_HW,
+    ROW_S00,
+    ROW_S01,
+    ROW_S11,
+    ParticleConsts,
+    geometry_prologue,
+    particle_tail,
+)
+from scenelib2_torch.kernels.search import nssd_cell_ops, nssd_corr_f32
+
+NAME = "search_bayes"
+MISS = 1e6                 # score of a masked or invalid cell
+BIG = float(1 << 24)       # empty union-box sentinel
+CHUNK = 128                # column chunk of the TPU kernel's scan
+
+
+@dataclass(frozen=True)
+class SearchBayesConsts:
+    H: int
+    W: int
+    boxsize: int
+    win_radius: int
+    no_sigma: float
+    corr_thresh2: float
+    corr_sigma_thresh: float
+    low_sigma_penalty: float
+    particle: ParticleConsts
+    bayes: BayesConsts
+
+    @staticmethod
+    def from_params(p) -> "SearchBayesConsts":
+        return SearchBayesConsts(
+            H=p.cam_height, W=p.cam_width, boxsize=p.boxsize, win_radius=p.particle_win_radius,
+            no_sigma=p.no_sigma, corr_thresh2=p.corr_thresh2,
+            corr_sigma_thresh=p.corr_sigma_thresh, low_sigma_penalty=p.low_sigma_penalty,
+            particle=ParticleConsts.from_params(p), bayes=BayesConsts.from_params(p),
+        )
+
+    @property
+    def side_u(self) -> int:
+        return min(2 * self.win_radius + 1, self.W)
+
+    @property
+    def side_v(self) -> int:
+        return min(2 * self.win_radius + 1, self.H)
+
+
+def search_geometry(pred: torch.Tensor, searchable: torch.Tensor, c: SearchBayesConsts):
+    """Per-particle window and box bounds and the scanned region, from the
+    prediction rows [8, NP]. Returns (geom dict of [NP] f32 rows, over_l,
+    v_lo_i [] i32, n_rows [] i32, need [n_chunks] bool)."""
+    dev = pred.device
+
+    def k(v):
+        return torch.full((), v, dtype=torch.float32, device=dev)
+
+    R = float(c.win_radius)
+    hw, hh = pred[ROW_HW], pred[ROW_HH]
+    uc = torch.trunc(pred[ROW_HU])
+    vc = torch.trunc(pred[ROW_HV])
+    u0 = torch.minimum(torch.maximum(uc - R, k(0.0)), k(float(c.W - c.side_u)))
+    v0 = torch.minimum(torch.maximum(vc - R, k(0.0)), k(float(c.H - c.side_v)))
+    over_l = (hw > R) | (hh > R)
+    g = dict(
+        uc=uc, vc=vc,
+        vlo=torch.maximum(v0, vc - hh), vhi=torch.minimum(v0 + float(c.side_v), vc + hh + 1.0),
+        ulo=torch.maximum(u0, uc - hw), uhi=torch.minimum(u0 + float(c.side_u), uc + hw + 1.0),
+        u0=u0, v0=v0,
+    )
+    nonempty = searchable & (g["vlo"] < g["vhi"]) & (g["ulo"] < g["uhi"])
+    v_lo_s = torch.where(nonempty, g["vlo"], k(BIG)).min()
+    v_hi_s = torch.where(nonempty, g["vhi"], k(-BIG)).max()
+    u_lo_s = torch.where(nonempty, g["ulo"], k(BIG)).min()
+    u_hi_s = torch.where(nonempty, g["uhi"], k(-BIG)).max()
+    n_rows = torch.clamp(torch.clamp(v_hi_s, 0.0, float(c.H)) - torch.clamp(v_lo_s, 0.0, float(c.H)),
+                         min=0.0).to(torch.int32)
+    v_lo_i = torch.clamp(v_lo_s, 0.0, float(c.H)).to(torch.int32)
+    n_chunks = -(-c.W // CHUNK)
+    kk = torch.arange(n_chunks, device=dev, dtype=torch.float32) * CHUNK
+    need = (kk <= u_hi_s - 1.0) & (kk + float(CHUNK - 1) >= u_lo_s)
+    return g, over_l, v_lo_i, n_rows, need
+
+
+def score_block(frame, patch_row, v_lo: int, v_hi: int, u_lo: int, u_hi: int, c: SearchBayesConsts):
+    """Penalized NSSD scores [v_hi - v_lo, u_hi - u_lo] at the centres of
+    rows [v_lo, v_hi) x columns [u_lo, u_hi); MISS at an invalid centre.
+    The integer box sums come from float64 convolutions (exact)."""
+    B = c.boxsize
+    half = (B - 1) // 2
+    dev = frame.device
+    img = F.pad(frame.to(torch.float64), (half, half, half, half))
+    crop = img[v_lo : v_hi + 2 * half, u_lo : u_hi + 2 * half][None, None]
+    ones = torch.ones((1, 1, B, B), dtype=torch.float64, device=dev)
+    patch = patch_row[: B * B].to(torch.float64).reshape(1, 1, B, B)
+    sg1 = F.conv2d(crop, ones)[0, 0].to(torch.float32)
+    sg1sq = F.conv2d(crop * crop, ones)[0, 0].to(torch.float32)
+    cross = F.conv2d(crop, patch)[0, 0].to(torch.float32)
+    n = torch.full((), float(B * B), dtype=torch.float32, device=dev)
+    corr, _sd0, sd1 = nssd_corr_f32(patch_row[B * B], patch_row[B * B + 1], sg1, sg1sq, cross, n)
+    corr = torch.where(sd1 < c.corr_sigma_thresh, corr + c.low_sigma_penalty, corr)
+    vv = torch.arange(v_lo, v_hi, device=dev)[:, None]
+    uu = torch.arange(u_lo, u_hi, device=dev)[None, :]
+    valid = (uu >= half) & (uu <= c.W - 1 - half) & (vv >= half) & (vv <= c.H - 1 - half)
+    return torch.where(valid, corr, torch.full_like(corr, MISS))
+
+
+def particle_search(g: dict, v_lo: int, v_hi: int, u_lo: int, u_hi: int, scores, c: SearchBayesConsts):
+    """Per particle: (best [NP] f32, kbest [NP] f32) over the scanned cells
+    [v_lo, v_hi) x [u_lo, u_hi) (scores holds their values) inside its box
+    and ellipse; best = MISS and kbest = -1 where there is none."""
+    dev = g["uc"].device
+    NP = g["uc"].shape[0]
+    sv, su = c.side_v, c.side_u
+    # every cell a particle's box admits lies in its window [u0, u0 + su) x [v0, v0 + sv)
+    u0 = torch.nan_to_num(g["u0"], nan=0.0).to(torch.int64)
+    v0 = torch.nan_to_num(g["v0"], nan=0.0).to(torch.int64)
+    uu = u0[:, None, None] + torch.arange(su, device=dev)[None, None, :]        # [NP, 1, su]
+    vv = v0[:, None, None] + torch.arange(sv, device=dev)[None, :, None]        # [NP, sv, 1]
+    uf, vf = uu.to(torch.float32), vv.to(torch.float32)
+
+    def col(name):
+        return g[name][:, None, None]
+
+    urel = uf - col("uc")
+    vrel = vf - col("vc")
+    t1 = (col("a") * urel) * urel
+    t2 = (col("b2") * urel) * vrel
+    vterm = (col("c") * vrel) * vrel
+    ell = ((t1 + t2) + vterm) < c.no_sigma * c.no_sigma
+    mask = ((vf >= col("vlo")) & (vf < col("vhi")) & (uf >= col("ulo")) & (uf < col("uhi")) & ell
+            & (vv >= v_lo) & (vv < v_hi) & (uu >= u_lo) & (uu < u_hi))
+    if v_hi > v_lo and u_hi > u_lo:
+        ri = torch.clamp(vv - v_lo, 0, v_hi - v_lo - 1)
+        ci = torch.clamp(uu - u_lo, 0, u_hi - u_lo - 1)
+        vals = scores[ri, ci]
+    else:
+        vals = torch.full((NP, sv, su), MISS, dtype=torch.float32, device=dev)
+    mask = mask & (vals < MISS)
+    cand = torch.where(mask, vals, torch.full_like(vals, MISS)).reshape(NP, -1)
+    best = cand.min(dim=1).values
+    key = (uf * float(c.H) + vf).expand(NP, sv, su).reshape(NP, -1)
+    tie = mask.reshape(NP, -1) & (cand == best[:, None])
+    kbest = torch.where(tie, key, torch.full_like(key, -1.0)).max(dim=1).values
+    return best, kbest
+
+
+def _predict_and_scan(frame, prob, lam, palive, making, pidx, shared, slot_row, c):
+    """Steps 1-2 for the slot's row: (rows of the slot (prob, lam, alive),
+    pred [8, NP], searchable, geometry, over_l, the scanned region
+    (v_lo, v_hi, u_lo, u_hi) as host ints, all 0 when it is empty)."""
+    p_ = pidx.to(torch.int64).reshape(1)
+    rows = [t.index_select(0, p_)[0] for t in (prob, lam, palive)]
+    pred = particle_tail(rows[1], *geometry_prologue(shared, slot_row), c.particle)
+    searchable = rows[2] & making[0]
+    g, over_l, v_lo_i, n_rows, need = search_geometry(pred, searchable, c)
+    g.update(a=pred[ROW_S00], b2=2.0 * pred[ROW_S01], c=pred[ROW_S11])
+    v_lo = int(v_lo_i)
+    v_hi = v_lo + int(n_rows)
+    ks = torch.nonzero(need).flatten().tolist()
+    if v_hi > v_lo and ks:
+        region = (v_lo, v_hi, CHUNK * ks[0], min(c.W, CHUNK * (ks[-1] + 1)))
+    else:
+        region = (0, 0, 0, 0)
+    return rows, pred, searchable, g, over_l, region
+
+
+def search_bayes_plain(frame, prob, lam, palive, making, pmask, match_attempts, pidx,
+                       patch_row, shared, slot_row, c: SearchBayesConsts):
+    """Plain PyTorch K4 (one partial slot). frame [H, W] u8; prob, lam [MF,
+    NP] f32 and palive [MF, NP] bool (whole state arrays); making, pmask
+    [1] bool; match_attempts [1] i32 (the slot's, incremented this frame);
+    pidx [1] i32; patch_row [128] f32; shared [56], slot_row [84] f32.
+
+    Returns (prob [MF, NP], palive [MF, NP] bool, mean [1], cov [1],
+    convert [1] bool, kill [1] bool, n_over [1] i32, found [1, NP] bool,
+    z [1, NP, 2], best [1, NP], pred [1, 8, NP]).
+
+    The scanned region's bounds are read on the host here (this version
+    runs for CPU tensors, and as the kernel's reference on the card)."""
+    MF, _NP = prob.shape
+    dev = frame.device
+    (prob_in, lam_in, alive_in), pred, searchable, g, over_l, region = _predict_and_scan(
+        frame, prob, lam, palive, making, pidx, shared, slot_row, c)
+    v_lo, v_hi, u_lo, u_hi = region
+    scores = score_block(frame, patch_row, *region, c) if v_hi > v_lo else None
+    best, kbest = particle_search(g, v_lo, v_hi, u_lo, u_hi, scores, c)
+
+    found = searchable & (best <= c.corr_thresh2)
+    p_over = over_l & searchable
+    Hf = torch.full((), float(c.H), dtype=torch.float32, device=dev)
+    zu = torch.trunc((kbest + 0.5) / Hf)
+    zv = kbest - float(c.H) * zu
+    prob_f, palive_f, mean, cov, convert, kill, n_over = bayes_tail(
+        prob_in, lam_in, alive_in, found, p_over, zu, zv, pred[ROW_HU], pred[ROW_HV],
+        pred[ROW_S00], pred[ROW_S01], pred[ROW_S11], pred[ROW_DET], making[0], pmask[0],
+        match_attempts[0], c.bayes,
+    )
+    row = (torch.arange(MF, device=dev) == pidx.to(torch.int64))[:, None]
+    return (torch.where(row, prob_f[None, :], prob), torch.where(row, palive_f[None, :], palive),
+            mean[None], cov[None], convert[None], kill[None], n_over[None], found[None],
+            torch.stack([zu, zv], dim=-1)[None], best[None], pred[None])
+
+
+def work_counts(frame, prob, lam, palive, making, pmask, match_attempts, pidx, patch_row,
+                shared, slot_row, c: SearchBayesConsts) -> tuple[int, int, int]:
+    """The data-dependent work of one K4 call on these inputs: (rows and
+    columns of the scanned region, cells visited by the per-particle
+    searches: each particle's box within the scanned region)."""
+    _rows, _pred, _s, g, _o, (v_lo, v_hi, u_lo, u_hi) = _predict_and_scan(
+        frame, prob, lam, palive, making, pidx, shared, slot_row, c)
+
+    def span(lo, hi, a, b):
+        lo = torch.nan_to_num(torch.floor(lo), nan=float(b)).clamp(a, b)
+        hi = torch.nan_to_num(torch.ceil(hi), nan=float(a)).clamp(a, b)
+        return (hi - lo).clamp(min=0)
+
+    visited = span(g["vlo"], g["vhi"], v_lo, v_hi) * span(g["ulo"], g["uhi"], u_lo, u_hi)
+    return v_hi - v_lo, u_hi - u_lo, int(visited.sum())
+
+
+class _K4Params(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_int) for n in ("H", "W", "B", "MF", "NP", "win_radius")]
+                + [(n, ctypes.c_float) for n in (
+                    "no_sigma", "corr_thresh2", "corr_sigma_thresh", "low_sigma_penalty",
+                    "fku", "fkv", "u0c", "v0c", "two_kd1", "neg_two_kd1", "sd0", "maxdist",
+                    "prune_prob_thresh", "sd_depth_ratio", "min_particles",
+                    "erase_partial_after_attempts")])
+
+
+# tensor pointers (11 inputs, 11 outputs, the workspace), the params struct, the stream
+_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.POINTER(_K4Params), ctypes.c_void_p]
+
+
+def search_bayes(frame, prob, lam, palive, making, pmask, match_attempts, pidx, patch_row,
+                 shared, slot_row, c: SearchBayesConsts):
+    """K4. A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (or raises). Same outputs as search_bayes_plain."""
+    args = (frame, prob, lam, palive, making, pmask, match_attempts, pidx, patch_row, shared,
+            slot_row)
+    if frame.device.type == "cpu":
+        return search_bayes_plain(*args, c)
+    MF, NP = prob.shape
+    H, W = c.H, c.W
+    if not (NP <= 128 and c.boxsize * c.boxsize + 2 <= 128):
+        raise ValueError(f"K4: unsupported shapes NP={NP} boxsize={c.boxsize}")
+    f32, b, i32 = torch.float32, torch.bool, torch.int32
+    for t, name, dty, shp in (
+        (frame, "frame", torch.uint8, (H, W)), (prob, "prob", f32, (MF, NP)),
+        (lam, "lam", f32, (MF, NP)), (palive, "palive", b, (MF, NP)), (making, "making", b, (1,)),
+        (pmask, "pmask", b, (1,)), (match_attempts, "match_attempts", i32, (1,)),
+        (pidx, "pidx", i32, (1,)), (patch_row, "patch_row", f32, (128,)),
+        (shared, "shared", f32, (NSHARED,)), (slot_row, "slot_row", f32, (NSLOT,)),
+    ):
+        _build.check_tensor(t, name, dty, shp)
+    dev = frame.device
+    outs = (
+        torch.empty_like(prob), torch.empty_like(palive),
+        torch.empty(1, dtype=f32, device=dev), torch.empty(1, dtype=f32, device=dev),
+        torch.empty(1, dtype=b, device=dev), torch.empty(1, dtype=b, device=dev),
+        torch.empty(1, dtype=i32, device=dev), torch.empty((1, NP), dtype=b, device=dev),
+        torch.empty((1, NP, 2), dtype=f32, device=dev), torch.empty((1, NP), dtype=f32, device=dev),
+        torch.empty((1, 8, NP), dtype=f32, device=dev),
+    )
+    workspace = torch.empty((H, W), dtype=f32, device=dev)
+    pc, bc = c.particle, c.bayes
+    prm = _K4Params(
+        H=H, W=W, B=c.boxsize, MF=MF, NP=NP, win_radius=c.win_radius, no_sigma=c.no_sigma,
+        corr_thresh2=c.corr_thresh2, corr_sigma_thresh=c.corr_sigma_thresh,
+        low_sigma_penalty=c.low_sigma_penalty, fku=pc.fku, fkv=pc.fkv, u0c=pc.u0c, v0c=pc.v0c,
+        two_kd1=2.0 * pc.kd1, neg_two_kd1=-2.0 * pc.kd1, sd0=pc.sd0, maxdist=pc.maxdist,
+        prune_prob_thresh=bc.prune_prob_thresh, sd_depth_ratio=bc.sd_depth_ratio,
+        min_particles=bc.min_particles, erase_partial_after_attempts=bc.erase_partial_after_attempts,
+    )
+    fn = _build.function(NAME, "k4_search_bayes", _ARGTYPES)
+    err = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs), workspace.data_ptr(),
+             ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "K4 search_bayes")
+    _build.launches[NAME] += 1
+    return outs
+
+
+def bytes_and_flops(MF: int, NP: int, H: int, W: int, boxsize: int, n_rows: int, n_cols: int,
+                    n_searched: int) -> tuple[int, int]:
+    """Least bytes and operations of one K4 call with this run's data
+    (work_counts): the frame pixels under the scanned n_rows x n_cols
+    centres and their halo, each read once, and the state rows in; prob /
+    palive and the small outputs out. ~1.5 k operations of the prologue,
+    ~90 per particle of the chain and ~40 of the Bayes tail,
+    search.nssd_cell_ops per scored cell and ~12 per cell that a particle's
+    search visits."""
+    n_scored = n_rows * n_cols
+    pixels = min(H * W, (n_rows + boxsize - 1) * (n_cols + boxsize - 1)) if n_scored else 0
+    nbytes = (pixels + 2 * MF * NP * 4 + MF * NP + 128 * 4 + (56 + 84) * 4 + 3 * 4
+              + MF * NP * 4 + MF * NP + 4 * 4 + NP * (1 + 8 + 4) + 8 * NP * 4)
+    flops = 1500 + NP * (90 + 40) + n_scored * nssd_cell_ops(boxsize) + 12 * n_searched
+    return nbytes, flops

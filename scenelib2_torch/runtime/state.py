@@ -8,8 +8,12 @@ dense joint covariance over fixed feature slots:
 Each feature slot owns a fixed 6-wide stride (rays need 6 dims; 3D points
 use the first 3 and keep exact zeros in the rest). Insertion order is
 tracked by monotone labels. The field layout is the JAX package's, so a
-state converts both ways (scenelib2_torch/convert.py); the particle fields
-are carried, zero-filled, until the particle stage is ported.
+state converts both ways (scenelib2_torch/convert.py).
+
+The in-step surgery (add_partial_feature with mapping on, convert_feature)
+runs every frame with its gate as data: a disabled call writes back what it read, so it is
+an exact no-op, and the step needs no host synchronisation to skip it. Slot
+indices stay tensors (index_put and one-hot selects, never .item()).
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ import numpy as np
 import torch
 
 from scenelib2_torch.config import Params, SlamConfig
+from scenelib2_torch.core import models
+from scenelib2_torch.core.camera import CameraParams, measurement_noise
+from scenelib2_torch.core.quaternion import mm_seq
 from scenelib2_torch.io.pgm import read_pgm
 from scenelib2_torch.rng import pack_state, srand48
 
@@ -137,6 +144,124 @@ def init_from_config(cfg: SlamConfig, seed: int = 0, *, device, dtype) -> SlamSt
     for kf in cfg.known_features:
         state = add_known_feature(state, kf.y, kf.xp_org, read_pgm(kf.patch_path))
     return state
+
+
+def lambda_grid(params: Params) -> np.ndarray:
+    """Initial particle depth grid, with the reference's repeated addition
+    (monoslam.cpp:1223-1234: lambda += step in a loop, NOT min + i*step;
+    the accumulated rounding is part of the parity surface)."""
+    step = (1.0 / float(params.n_particles)) * (params.max_lambda - params.min_lambda)
+    vals = np.empty(params.n_particles, np.float64)
+    lam = params.min_lambda
+    for i in range(params.n_particles):
+        vals[i] = lam
+        lam += step
+    return vals
+
+
+def free_slot(state: SlamState):
+    """Index of the first free slot ([] int64) and whether one exists."""
+    any_free = ~torch.all(state.active)
+    slot = torch.argmin(state.active.to(torch.int32))
+    return slot, any_free
+
+
+def _slot_dims(slot: torch.Tensor) -> torch.Tensor:
+    return CAM_DIM + SLOT_DIM * slot + torch.arange(SLOT_DIM, device=slot.device)
+
+
+def _write_slot_block(P, idx6, rows, pyy):
+    """P with rows [6, D] written at the slot's rows, their transpose at its
+    columns, then pyy [6, 6] at its diagonal block (the JAX package's
+    dynamic_update_slice order)."""
+    P = P.clone()
+    P[idx6] = rows
+    P[:, idx6] = rows.T
+    P[idx6[:, None], idx6[None, :]] = pyy
+    return P
+
+
+def add_partial_feature(state: SlamState, cam: CameraParams, h: torch.Tensor,
+                        patch_u8: torch.Tensor, lam0: torch.Tensor,
+                        enable: torch.Tensor) -> SlamState:
+    """Partial (ray) feature insertion into the first free slot
+    (feature.cpp:45-104): the slot's rows of P become J_x P[cam, :] with
+    J_x = dypi_by_dxp (the 7 position-state columns), and its diagonal
+    block J_x Pxx J_x' + dypi_by_dhi R dypi_by_dhi'.
+
+    A masked no-op when enable is false or no slot is free: every write
+    carries the new content or the slot's current content."""
+    slot, any_free = free_slot(state)
+    doit = enable & any_free
+    idx6 = _slot_dims(slot)
+    xp = state.x[:7]
+    ypi, dxp, dhi = models.part_init_ray(cam, h, xp)
+    new_rows = mm_seq(dxp, state.P[:7, :])                              # [6, D]
+    pyy = (mm_seq(new_rows[:, :7], dxp.T)
+           + mm_seq(mm_seq(dhi, measurement_noise(cam, h)), dhi.T))
+    rows = torch.where(doit, new_rows, state.P[idx6])
+    pyy_w = torch.where(doit, pyy, state.P[idx6[:, None], idx6[None, :]])
+    P = _write_slot_block(state.P, idx6, rows, pyy_w)
+    x = state.x.clone()
+    x[idx6] = torch.where(doit, ypi, state.x[idx6])
+
+    NP = state.lam.shape[1]
+    put = (torch.arange(state.active.shape[0], device=slot.device) == slot) & doit
+
+    def sel(arr, new):
+        shape = (-1,) + (1,) * (arr.dim() - 1)
+        return torch.where(put.view(shape), new, arr)
+
+    zi = torch.zeros((), dtype=torch.int32, device=slot.device)
+    return state._replace(
+        x=x,
+        P=P,
+        active=state.active | put,
+        full=state.full & ~put,
+        label=sel(state.label, state.next_label),
+        patches=sel(state.patches, patch_u8.to(torch.uint8)),
+        patch_rows=sel(state.patch_rows, patch_row(patch_u8.to(torch.uint8))),
+        xp_org=sel(state.xp_org, xp),
+        attempts=sel(state.attempts, zi),
+        successes=sel(state.successes, zi),
+        lam=sel(state.lam, lam0.to(state.lam.dtype)),
+        prob=sel(state.prob, torch.full((NP,), 1.0 / NP, dtype=state.prob.dtype, device=slot.device)),
+        palive=state.palive | put[:, None],
+        match_attempts=sel(state.match_attempts, zi),
+        sched=state.sched & ~put,
+        next_label=state.next_label + doit.to(state.next_label.dtype),
+    )
+
+
+def convert_feature(state: SlamState, slot: torch.Tensor, lam_mean: torch.Tensor,
+                    lam_cov: torch.Tensor, enable: torch.Tensor) -> SlamState:
+    """Ray -> 3D point conversion (feature.cpp:204-269) on the dense P: the
+    slot's rows become T P[slot6, :] with T = dyfi_by_dypi, its diagonal
+    block T Pyy T' + b Plambda b', and its last 3 dims are zeroed. A masked
+    no-op when enable is false (value-selected writes)."""
+    idx6 = _slot_dims(slot.to(torch.int64))
+    y6 = state.x[idx6]
+    yfi, T, b = models.part_convert_to_full(y6, lam_mean)
+    old_rows = state.P[idx6]                                           # [6, D]
+    old_pyy = state.P[idx6[:, None], idx6[None, :]]
+    D = state.P.shape[0]
+    rows6 = torch.zeros((SLOT_DIM, D), dtype=state.P.dtype, device=idx6.device)
+    rows6[:3] = mm_seq(T, old_rows)
+    pyy6 = torch.zeros((SLOT_DIM, SLOT_DIM), dtype=state.P.dtype, device=idx6.device)
+    pyy6[:3, :3] = (mm_seq(mm_seq(T, old_pyy), T.T)
+                    + mm_seq(mm_seq(b, lam_cov.reshape(1, 1)), b.T))
+    P = _write_slot_block(state.P, idx6, torch.where(enable, rows6, old_rows),
+                          torch.where(enable, pyy6, old_pyy))
+    x6 = torch.cat([yfi, torch.zeros(3, dtype=state.x.dtype, device=idx6.device)])
+    x = state.x.clone()
+    x[idx6] = torch.where(enable, x6, y6)
+    hot = (torch.arange(state.full.shape[0], device=idx6.device) == slot) & enable
+    return state._replace(
+        x=x,
+        P=P,
+        full=state.full | hot,
+        palive=state.palive & ~hot[:, None],
+    )
 
 
 def delete_mask(state: SlamState, kill: torch.Tensor, zero_xp: bool = True) -> SlamState:

@@ -4,8 +4,10 @@
     scenelib2_tpu (an AST scan, and a subprocess whose import system refuses
     those names imports the package and steps 3 frames);
   - MonoSLAM(cfg) without a device raises where CUDA is absent;
-  - a kernel wrapper given CPU tensors runs the plain version and launches
-    nothing; given tensors on any other non-CUDA device it raises.
+  - a kernel wrapper (K1-K6) given CPU tensors runs the plain version and
+    launches nothing; given tensors on any other non-CUDA device it raises;
+    when its kernel cannot be built it raises, never falling back to the
+    plain version.
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ from scenelib2_torch.kernels import _build
 from scenelib2_torch.kernels.ekf_update import UpdateConsts, joint_update, joint_update_plain
 from scenelib2_torch.kernels.measure import NOUT, MeasureConsts
 from scenelib2_torch.kernels.predict_measure import predict_measure, predict_measure_plain
+from scenelib2_torch.kernels.propose import ProposeConsts, propose, propose_plain
 from scenelib2_torch.kernels.search import SearchConsts, search, search_plain, search_window_origin
+from scenelib2_torch.kernels.search_bayes import SearchBayesConsts, search_bayes, search_bayes_plain
+from scenelib2_torch.kernels.shi_tomasi import shi_tomasi, shi_tomasi_plain
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "scenelib2_tpu")
@@ -83,7 +88,7 @@ from scenelib2_torch.eval.synthetic import generate_dataset
 frames, _, _, cfg = generate_dataset(tempfile.mkdtemp(), n_frames=4)
 slam = MonoSLAM(cfg, device="cpu")
 for t in range(1, 4):
-    slam.go_one_step(frames[t], enable_mapping=False)
+    slam.go_one_step(frames[t])                 # mapping on: stages 1-8
 assert not any(m.split(".")[0] in FORBIDDEN for m in sys.modules)
 print("OK", slam.trajectory().shape)
 """
@@ -144,10 +149,51 @@ def _k3_args(rng, dev):
     return tuple(torch.tensor(a, device=dev) for a in arrs)
 
 
+def _k5_args(rng, dev):
+    MF, D = 16, 109
+    x = np.zeros(D, np.float32)
+    x[3], x[2] = 1.0, -0.8
+    x[7:13] = rng.normal(0, 0.3, 6)
+    x[13:] = rng.uniform(-0.2, 0.2, D - 13)
+    act = rng.uniform(size=MF) > 0.3
+    return (torch.tensor(x, device=dev), torch.tensor([0x330E, 0, 0], dtype=torch.int32, device=dev),
+            torch.tensor(act, device=dev), torch.tensor(True, device=dev))
+
+
+def _k6_args(rng, dev):
+    p = Params()
+    img = torch.tensor(rng.integers(0, 256, (p.cam_height, p.cam_width), dtype=np.uint8), device=dev)
+    b = [torch.tensor(v, dtype=torch.int32, device=dev) for v in (100, 80, 180, 140)]
+    return (img, *b)
+
+
+def _k4_args(rng, dev):
+    p = Params()
+    MF, NP = 16, p.n_particles
+    img = torch.tensor(rng.integers(0, 256, (p.cam_height, p.cam_width), dtype=np.uint8), device=dev)
+    shared = np.zeros(56, np.float32)
+    shared[3] = 1.0
+    shared[7:] = (np.eye(7) * 1e-4).reshape(-1)
+    slot = np.zeros(84, np.float32)
+    slot[5] = 1.0
+    slot[48:] = (np.eye(6) * 1e-4).reshape(-1)
+    row = np.zeros(128, np.float32)
+    row[:121] = rng.integers(0, 256, 121)
+    row[121], row[122] = row[:121].sum(), (row[:121] ** 2).sum()
+    f = dict(dtype=torch.float32, device=dev)
+    return (img, torch.full((MF, NP), 0.01, **f),
+            torch.tensor(np.tile(np.linspace(0.5, 5.0, NP), (MF, 1)), **f),
+            torch.ones((MF, NP), dtype=torch.bool, device=dev),
+            torch.tensor([True], device=dev), torch.tensor([True], device=dev),
+            torch.tensor([2], dtype=torch.int32, device=dev), torch.tensor([3], dtype=torch.int32, device=dev),
+            torch.tensor(row, **f), torch.tensor(shared, **f), torch.tensor(slot, **f))
+
+
 def _cases():
     p = Params()
     k1kw = dict(nsel=10, maxp=1, dt=p.delta_t, sd_a=p.sd_a, sd_alpha=p.sd_alpha,
                 consts=MeasureConsts.from_params(p))
+    st_kw = dict(boxsize=p.boxsize, region_w=p.init_search_width, region_h=p.init_search_height)
     return {
         "K1": (lambda d, r: predict_measure(*_k1_args(r, d), **k1kw),
                lambda d, r: predict_measure_plain(*_k1_args(r, d), **k1kw)),
@@ -155,10 +201,19 @@ def _cases():
                lambda d, r: search_plain(*_k2_args(r, d), SearchConsts.from_params(p))),
         "K3": (lambda d, r: joint_update(*_k3_args(r, d), UpdateConsts.from_params(p)),
                lambda d, r: joint_update_plain(*_k3_args(r, d), UpdateConsts.from_params(p))),
+        "K4": (lambda d, r: search_bayes(*_k4_args(r, d), SearchBayesConsts.from_params(p)),
+               lambda d, r: search_bayes_plain(*_k4_args(r, d), SearchBayesConsts.from_params(p))),
+        "K5": (lambda d, r: propose(*_k5_args(r, d), ProposeConsts.from_params(p)),
+               lambda d, r: propose_plain(*_k5_args(r, d), ProposeConsts.from_params(p))),
+        "K6": (lambda d, r: shi_tomasi(*_k6_args(r, d), **st_kw),
+               lambda d, r: shi_tomasi_plain(*_k6_args(r, d), **st_kw)),
     }
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+KERNELS = ["K1", "K2", "K3", "K4", "K5", "K6"]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_wrapper_takes_plain_path_only_for_cpu_tensors(kernel):
     wrapper, plain = _cases()[kernel]
     _build.reset_launches()
@@ -169,5 +224,23 @@ def test_wrapper_takes_plain_path_only_for_cpu_tensors(kernel):
     assert all(v == 0 for v in _build.launches.values())
     # a tensor on another device is neither run plain nor launched: it raises
     with pytest.raises(ValueError, match="CUDA"):
+        wrapper(torch.device("meta"), np.random.default_rng(1))
+    assert all(v == 0 for v in _build.launches.values())
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K6"])
+def test_wrapper_raises_when_its_kernel_cannot_be_built(kernel, monkeypatch, tmp_path):
+    """A non-CPU request whose kernel cannot be built (no CUDA toolkit)
+    raises; the wrapper never answers with its plain version instead."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "check_tensor", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "_libs", {})
+    wrapper, _plain = _cases()[kernel]
+    _build.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc"):
         wrapper(torch.device("meta"), np.random.default_rng(1))
     assert all(v == 0 for v in _build.launches.values())

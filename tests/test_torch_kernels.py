@@ -402,4 +402,5 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors():
     predict_measure(torch.tensor(x), torch.tensor(P), torch.tensor(xpo), torch.tensor(af),
                     torch.tensor(ap), nsel=NSEL, maxp=1, dt=p.delta_t, sd_a=p.sd_a,
                     sd_alpha=p.sd_alpha, consts=MeasureConsts.from_params(p))
-    assert _build.launches == {"predict_measure": 0, "search": 0, "ekf_update": 0}
+    assert set(_build.launches) >= {"predict_measure", "search", "ekf_update"}
+    assert all(v == 0 for v in _build.launches.values())

@@ -146,7 +146,10 @@ def test_state_round_trip_through_jax_checkpoint(rng, data_dir, tmp_path):
         conv["patch_rows"], np.stack([np.asarray(jst.patch_row(jnp.asarray(p))) for p in want["patches"]]))
 
 
-def test_load_jax_checkpoint_refuses_partial_features(rng, data_dir, tmp_path):
+def test_load_jax_checkpoint_with_partial_features(rng, data_dir, tmp_path):
+    """A JAX checkpoint loads into the port exactly, with or without a
+    partially initialised feature: the particle stage is ported, so a state
+    holding one is no longer refused."""
     cfg = os.path.join(data_dir, "SceneLib2.cfg")
     jslam = JMonoSLAM(cfg)
     tslam = MonoSLAM(cfg, device="cpu")
@@ -158,10 +161,14 @@ def test_load_jax_checkpoint_refuses_partial_features(rng, data_dir, tmp_path):
     got = state_to_numpy(tslam.state)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k].astype(got[k].dtype), err_msg=k)
-    # a state with a partially initialised feature needs the particle stage
+    # a state with a partially initialised feature loads as well
     s = _random_jax_state(rng, cfg)
     jslam.state = s._replace(active=s.active.at[0].set(True), full=s.full.at[0].set(False))
     path2 = str(tmp_path / "partial.npz")
     jslam.save_checkpoint(path2)
-    with pytest.raises(NotImplementedError, match="particle"):
-        tslam.load_jax_checkpoint(path2)
+    tslam.load_jax_checkpoint(path2)
+    want = _jax_numpy(jslam.state)
+    got = state_to_numpy(tslam.state)
+    assert got["active"][0] and not got["full"][0]
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k].astype(got[k].dtype), err_msg=k)

@@ -1,12 +1,16 @@
-"""The port's step (stages 1-6, mapping off) against the JAX package.
+"""The port's step (stages 1-8) against the JAX package.
 
   (a) frame by frame against the JAX f32 step: tests/test_torch_step_jax.py
-      (a file of its own, since compiling the JAX step takes half a minute);
-  (b) the port's CPU replay of the 239-frame std sequence reproduces
-      scenelib2_torch/data/expected_fingerprint_nomap.json (generated from
-      the JAX package);
+      (mapping off) and tests/test_torch_mapping_step_jax.py (mapping on,
+      and a JAX checkpoint holding a partial feature), files of their own
+      since compiling the JAX step takes half a minute;
+  (b) the port's CPU replays of the 239-frame std sequence reproduce the
+      committed fingerprints (copies of the JAX package's):
+      scenelib2_torch/data/expected_fingerprint_nomap.json with mapping off
+      and scenelib2_torch/data/expected_fingerprint.json with mapping on;
   (c) the port's synthetic generator renders the same bytes as the JAX one;
-  (d) mapping is refused until its slices are ported.
+  (d) what is not ported yet (the f64 parity step, batch-mode partial
+      capacity) is refused.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from scenelib2_torch import MonoSLAM
 from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected
 from scenelib2_torch.eval.synthetic import DATASET_VERSION, generate_dataset
+from scenelib2_torch.runtime import step as step_mod
 from scenelib2_torch.runtime.step import make_step, pack_outputs, packed_size, unpack_outputs
 
 
@@ -45,7 +50,7 @@ def test_cpu_replay_reproduces_expected_fingerprint(std_sequence):
     frames, cfg = std_sequence
     slam = MonoSLAM(cfg, max_features=16, device="cpu")
     outs = slam.run_sequence(frames[1:], enable_mapping=False)
-    want = load_expected()
+    want = load_expected("expected_fingerprint_nomap")
     assert want["dataset_version"] == DATASET_VERSION
     got = decisions_fingerprint(outs, len(frames) - 1)
     assert {k: want[k] for k in got} == got
@@ -74,15 +79,49 @@ def test_synthetic_frames_byte_equal_to_jax(std_sequence, tmp_path):
             assert a.read() == b.read()
 
 
-def test_mapping_is_refused(std_sequence):
+def test_cpu_replay_with_mapping_reproduces_expected_fingerprint(std_sequence):
     frames, cfg = std_sequence
-    slam = MonoSLAM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        slam.go_one_step(frames[1], enable_mapping=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        slam.run_sequence(frames[1:3], enable_mapping=True)
+    slam = MonoSLAM(cfg, max_features=16, device="cpu")
+    outs = slam.run_sequence(frames[1:], enable_mapping=True)
+    want = load_expected("expected_fingerprint")
+    assert want["dataset_version"] == DATASET_VERSION
+    got = decisions_fingerprint(outs, len(frames) - 1)
+    assert {k: want[k] for k in got} == got
+    assert np.isfinite(outs.r.numpy()).all()
+    # the per-step facade (the JAX package's default, mapping on) agrees
+    # with the replay through the first conversion (index 20) and the
+    # third init (index 22)
+    slam.reset()
+    for t in range(1, 24):
+        slam.go_one_step(frames[t])
+    np.testing.assert_array_equal(slam.trajectory()[-1], outs.r[22].numpy())
+    assert bool(slam.last_output.did_init) and bool(outs.did_init[22])
+    table = slam.feature_table()
+    assert any(not f["fully_initialised"] and f["y"].shape == (6,) for f in table)
+    assert sum(f["fully_initialised"] for f in table) > 4
+
+
+def test_unported_modes_are_refused_and_nomap_never_inits(std_sequence, monkeypatch):
+    """Mapping runs now; what is still refused is the f64 parity step and a
+    partial-feature capacity above one (the batch-mode particle kernels).
+    Mapping off never initialises and never runs stage 7 (K5, K6); its
+    whole replay is held to the nomap fingerprint by
+    test_cpu_replay_reproduces_expected_fingerprint."""
+    frames, cfg = std_sequence
     with pytest.raises(NotImplementedError):
-        make_step(slam.params, device="cpu", precision="f64")
+        make_step(MonoSLAM(cfg, device="cpu").params, device="cpu", precision="f64")
+    with pytest.raises(NotImplementedError, match="batch"):
+        MonoSLAM(cfg, device="cpu", max_features_to_init_at_once=2)
+
+    def stage7(*a, **k):
+        raise AssertionError("stage 7 ran with mapping off")
+
+    monkeypatch.setattr(step_mod, "propose", stage7)
+    monkeypatch.setattr(step_mod, "shi_tomasi", stage7)
+    slam = MonoSLAM(cfg, max_features=16, device="cpu")
+    outs = slam.run_sequence(frames[1:31], enable_mapping=False)     # mapping on inits at 9
+    assert not outs.did_init.any() and not outs.n_partial.any()
+    assert (outs.n_active == 4).all() and (outs.init_box == 0).all()
 
 
 def test_pack_unpack_round_trip(std_sequence):
@@ -90,7 +129,7 @@ def test_pack_unpack_round_trip(std_sequence):
     slam = MonoSLAM(cfg, device="cpu")
     p = slam.params
     step = make_step(p, device="cpu")
-    state, out = step(slam.state, torch.as_tensor(frames[1]))
+    state, out = step(slam.state, torch.as_tensor(frames[1]), True)
     flat = pack_outputs(out)
     assert flat.shape == (packed_size(p.n_features_to_select, 1, p.n_particles),)
     back = unpack_outputs(flat, p.n_features_to_select, 1, p.n_particles)
