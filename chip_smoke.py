@@ -26,6 +26,17 @@ Phases (any failure exits non-zero before the last line is printed):
     plain replay; 30 steps run with PyTorch's sync debug mode raising on any
     host synchronisation; ms/frame, device busy ms/frame and idle share of
     each path.
+ 3b. batch mode: 64 independent lanes (32 scene textures x 2 phase offsets)
+    x 63 frames through parallel.mesh.make_batched_step / run_batch. Phase 2
+    of the batch kernels runs here, on inputs captured from this replay (K7
+    measurement rows, K9 score maps, K10 particle rows, K11 search + Bayes on
+    the maps, and K2 / K6 launched over lanes, each against its plain
+    version; K10 and K11 also against K4 on the same slot), after seeded
+    scenes. Then the replay itself: all 64 per-lane fingerprints equal the
+    committed file, each batch kernel launched once a frame for all lanes,
+    four lanes agree with their CPU plain replay, 30 batch steps without a
+    host synchronisation, aggregate frames/s, device busy and idle share,
+    peak device memory.
  4. a `kernels` JSON line, then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -61,6 +72,10 @@ K2_BEST_ULP = 2   # NSSD best: within 2 ulp
 K3_TOL = 1e-5     # x', P': |a - b| <= K3_TOL * max |entry|
 K4_TOL = 1e-5     # K4 floats (prob, moments, prediction rows, best): within K4_TOL * max |entry|
 K6_TOL = 1e-6     # K6 eigenvalue: relative
+K9_TOL = 2e-5     # K9 score map: absolute, on cells that are neither 1e6 on both
+N_LANES, N_TEXTURES, N_BATCH_FRAMES = 64, 32, 64    # the batch replay: 63 frames a lane
+BATCH_AT = (9, 20, 40)     # output indices whose kernel inputs are captured
+N_REF_BATCH, REF_LANES = 20, (0, 1, 32, 33)
 STEP_TOL = 1e-4   # CUDA vs CPU plain replay: r, xv
 N_REF = 30        # CPU plain replay frames (4 inits, 2 conversions)
 
@@ -452,6 +467,213 @@ def check_k6(args) -> float:
     return max_err(got[2], want[2])
 
 
+# ------------------------------------------------------------ batch kernels
+
+
+def lanes_of(fn, n):
+    """fn(lane) for each of n lanes, results stacked field by field."""
+    return tuple(torch.stack(o) for o in zip(*(fn(b) for b in range(n))))
+
+
+def k7_random_scene(rng, params, dev, n_lanes=6):
+    """K7 inputs of n_lanes seeded lanes: lane 0 holds a NaN score, lane 1
+    has no visible feature (nothing active), lane 2 equal scores (every slot
+    the same point and covariance)."""
+    from scenelib2_torch.runtime import state as st
+
+    MF = params.max_features
+    xs, Ps, xpos, acts = [], [], [], []
+    for b in range(n_lanes):
+        x, P, xpo, act_full, _part = k1_random_scene(rng, params, dev, nan_lane=b == 0)
+        if b == 1:
+            act_full = torch.zeros_like(act_full)
+        if b == 2:
+            x = x.clone()
+            P = torch.eye(x.shape[0], device=dev) * 1e-4
+            for k in range(1, MF):
+                x[13 + 6 * k : 19 + 6 * k] = x[13:19]
+            xpo = xpo[:1].expand(MF, 7).contiguous()
+            act_full = torch.ones_like(act_full)
+        xs.append(x); Ps.append(P); xpos.append(xpo); acts.append(act_full)
+    x, P = torch.stack(xs), torch.stack(Ps)
+    return (x[:, :7].contiguous(), P[:, :7, :7].contiguous(), st.slot_states(x, MF)[..., :3].contiguous(),
+            torch.stack(xpos), st.slot_pxy(P, MF)[..., :7, :3].contiguous(),
+            st.slot_pyy(P, MF)[..., :3, :3].contiguous(), torch.stack(acts))
+
+
+def check_k7(args, c, nsel) -> float:
+    from scenelib2_torch.kernels.measure import (
+        O_SCORE, O_VIS, measure_predict, measure_predict_plain, stable_top_k)
+
+    got = measure_predict(*args, c)
+    want = measure_predict_plain(*args, c)
+    torch.cuda.synchronize()
+    if not same(got[:, O_VIS], want[:, O_VIS]):
+        fail("K7 visibility flags differ")
+    (gs, gi), (ws, wi) = stable_top_k(got[:, O_SCORE], nsel), stable_top_k(want[:, O_SCORE], nsel)
+    if not (same(gi, wi) and same(gs > -torch.inf, ws > -torch.inf)):
+        fail(f"K7 selection differs: kernel {gi.tolist()} plain {wi.tolist()}")
+    for b in range(got.shape[0]):
+        if not rowwise_close(got[b], want[b], K1_TOL):
+            fail(f"K7 rows outside tolerance in lane {b}")
+    return max_err(got, want)
+
+
+def k9_random_scene(rng, params, dev):
+    """Four lanes: noise, a flat image, a periodic image (tied scores), noise
+    with a flat patch."""
+    from scenelib2_torch.runtime.state import patch_row
+
+    H, W, B = params.cam_height, params.cam_width, params.boxsize
+    noise = rng.integers(0, 256, (H, W), dtype=np.uint8)
+    tile = rng.integers(0, 256, (B, B), dtype=np.uint8)
+    periodic = np.tile(tile, (H // B + 1, W // B + 1))[:H, :W]
+    imgs = [noise, np.full((H, W), 117, np.uint8), periodic, rng.integers(100, 104, (H, W), dtype=np.uint8)]
+    patches = [noise[50:50 + B, 60:60 + B], noise[80:80 + B, 90:90 + B], tile, np.full((B, B), 90, np.uint8)]
+    frames = torch.tensor(np.stack(imgs), device=dev)
+    rows = torch.stack([patch_row(torch.tensor(np.ascontiguousarray(q), device=dev)) for q in patches])[:, None]
+    return frames, rows
+
+
+def check_k9(frames, rows, c) -> float:
+    from scenelib2_torch.kernels.score_map import MISS, score_map, score_map_plain
+
+    got = score_map(frames, rows, c)
+    want = score_map_plain(frames, rows, c)
+    torch.cuda.synchronize()
+    if not same(got == MISS, want == MISS):
+        fail("K9 invalid-centre cells differ")
+    if not (nonfinite_equal(got, want) and max_err(got, want) <= K9_TOL):
+        fail(f"K9 scores outside tolerance: max abs err {max_err(got, want)}")
+    return max_err(got, want)
+
+
+def check_k10(shared, slot_rows, lam, c) -> float:
+    from scenelib2_torch.kernels.particle import particle_predict, particle_predict_plain
+
+    got = particle_predict(shared, slot_rows, lam, c)
+    want = particle_predict_plain(shared, slot_rows, lam, c)
+    torch.cuda.synchronize()
+    for b in range(got.shape[0]):
+        for f in range(got.shape[1]):
+            if not rowwise_close(got[b, f], want[b, f], K4_TOL):
+                fail(f"K10 rows outside tolerance in lane {b} slot {f} "
+                     f"(max abs err {max_err(got[b, f], want[b, f])})")
+    return max_err(got, want)
+
+
+K11_NAMES = ("prob", "palive", "mean", "cov", "convert", "kill", "n_over", "found", "z", "best")
+
+
+def compare_sb(got, want, what) -> float:
+    """The outputs of K11 (or K4) against a reference: booleans, integers and
+    z exactly, floats within K4_TOL of the largest entry."""
+    for name, a, b in zip(K11_NAMES, got, want):
+        if a.dtype == torch.bool or not a.is_floating_point() or name == "z":
+            if not same(a, b):
+                bad = torch.nonzero((a != b).reshape(a.shape[0], -1).any(-1)).flatten().tolist()
+                fail(f"{what} {name} differs in lanes {bad[:8]}")
+        elif not matrix_close(a, b, K4_TOL):
+            fail(f"{what} {name} outside tolerance (max abs err {max_err(a, b)})")
+    return max(max_err(a, b) for a, b in zip(got, want) if a.is_floating_point())
+
+
+def check_k11(args) -> float:
+    from scenelib2_torch.kernels.search_bayes import search_bayes_maps, search_bayes_maps_plain
+
+    got = search_bayes_maps(*args)
+    want = search_bayes_maps_plain(*args)
+    torch.cuda.synchronize()
+    return compare_sb(got, want, "K11")
+
+
+def k11_variations(args, rng, erase_after):
+    """(label, args) cases of K11 from a captured call (all lanes at once)."""
+    a = list(args)
+    dev = a[0].device
+    out = [("real", tuple(a))]
+
+    def case(label, **repl):
+        b = list(a)
+        for i, v in repl.items():
+            b[int(i[1:])] = v
+        out.append((label, tuple(b)))
+
+    case("making_false", i5=torch.zeros_like(a[5]))
+    case("empty_union", i4=torch.zeros_like(a[4]))
+    wide = a[1].clone()
+    wide[:, :, 6:8] *= 40.0          # ROW_HW, ROW_HH: boxes beyond the window
+    case("overflow", i1=wide)
+    case("sell_by", i7=torch.full_like(a[7], erase_after + 1))
+    alive = torch.tensor(rng.uniform(size=tuple(a[4].shape)) > 0.3, device=dev)
+    prob = torch.tensor(rng.uniform(0.0, 0.02, tuple(a[2].shape)), dtype=torch.float32, device=dev)
+    case("random_alive", i2=prob, i4=alive, i5=torch.ones_like(a[5]))
+    return out
+
+
+def check_k2_lanes(args, c) -> float:
+    """K2 launched once over all lanes against its plain version lane by lane."""
+    from scenelib2_torch.kernels.search import search, search_plain
+
+    frames, rest = args[0], args[1:8]
+    got = search(frames, *rest, c)
+    want = lanes_of(lambda b: search_plain(frames[b], *(t[b] for t in rest), c), frames.shape[0])
+    torch.cuda.synchronize()
+    for name, a, b in zip(("found", "u", "v"), got[:3], want[:3]):
+        if not same(a, b):
+            fail(f"K2 over lanes: {name} differs")
+    if not same(got[4], want[4]):
+        fail("K2 over lanes: overflow differs")
+    if not ulp_close(got[3], want[3], K2_BEST_ULP):
+        fail(f"K2 over lanes: best beyond {K2_BEST_ULP} ulp")
+    return max_err(got[3], want[3])
+
+
+def check_k6_lanes(args, kw) -> float:
+    """K6 launched once over all lanes against its plain version lane by lane."""
+    from scenelib2_torch.kernels.shi_tomasi import shi_tomasi, shi_tomasi_plain
+
+    frames = args[0]
+    got = shi_tomasi(*args, **kw)
+    want = lanes_of(lambda b: shi_tomasi_plain(frames[b], *(t[b] for t in args[1:]), **kw),
+                    frames.shape[0])
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ubest", "vbest"), got[:2], want[:2]):
+        if not same(a, b):
+            fail(f"K6 over lanes: {name} differs")
+    err = max_err(got[2], want[2])
+    if not (nonfinite_equal(got[2], want[2]) and err <= K6_TOL * max(float(want[2].abs().max()), 1.0)):
+        fail(f"K6 over lanes: evbest outside tolerance ({err})")
+    return err
+
+
+def check_k10_k11_against_k4(a4, smc, sbc) -> float:
+    """On one single-stream K4 call: K10 writes exactly K4's prediction rows,
+    and K11 given K9's map of the same frame and patch returns exactly K4's
+    results for the slot."""
+    from scenelib2_torch.kernels.particle import particle_predict
+    from scenelib2_torch.kernels.score_map import score_map
+    from scenelib2_torch.kernels.search_bayes import search_bayes, search_bayes_maps
+
+    frame, prob, lam, palive, making, pmask, ma, pidx, patch_row, shared, slot_row, _c = a4
+    k4 = search_bayes(*a4)
+    NP = prob.shape[1]
+    row = pidx.long()
+    pred = particle_predict(shared[None], slot_row[None, None], lam[row][None], sbc.particle)
+    if not same_floats(pred[0, :, :, :NP], k4[10]):
+        fail("K10 rows differ from the rows K4 computes for the same slot")
+    maps = score_map(frame[None], patch_row[None, None], smc)
+    k11 = search_bayes_maps(maps, pred, prob[row][None], lam[row][None], palive[row][None],
+                            making[None], pmask[None], ma[None], sbc)
+    torch.cuda.synchronize()
+    want = (k4[0][row][None], k4[1][row][None]) + tuple(t[None] for t in k4[2:10])
+    for name, a, b in zip(K11_NAMES, k11, want):
+        ok = same_floats(a, b) if a.is_floating_point() else same(a, b)
+        if not ok:
+            fail(f"K11 given K9's map differs from K4 on the same slot: {name}")
+    return 0.0
+
+
 # ------------------------------------------------------------ main
 
 
@@ -478,14 +700,20 @@ def profile_main_path(slam, seq, n: int, mapping: bool) -> dict:
     return dict(wall_ms=wall_ms, device_ms=sum(v[0] for v in by_name.values()), by_name=by_name)
 
 
-WRAPPERS = ("predict_measure", "search", "joint_update", "propose", "shi_tomasi", "search_bayes")
+SINGLE_WRAPPERS = ("predict_measure", "search", "joint_update", "propose", "shi_tomasi", "search_bayes")
+WRAPPERS = ("predict_measure", "search", "joint_update", "propose", "shi_tomasi", "search_bayes",
+            "measure_predict", "score_map", "particle_predict", "search_bayes_maps")
+# the kernels of each main path (launch-count names of kernels/_build.py)
+SINGLE_PATH = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "search_bayes")
+BATCH_PATH = ("measure", "search", "shi_tomasi", "score_map", "particle_predict", "search_bayes_maps")
 
 
 @contextlib.contextmanager
 def observe_wrappers(on_call):
-    """Within the block, the step calls on_call(name, args, kwargs) before
+    """Within the block, the steps call on_call(name, args, kwargs) before
     each kernel wrapper (K1 predict_measure, K2 search, K3 joint_update,
-    K5 propose, K6 shi_tomasi, K4 search_bayes)."""
+    K5 propose, K6 shi_tomasi, K4 search_bayes; K7 measure_predict, K9
+    score_map, K10 particle_predict, K11 search_bayes_maps)."""
     import scenelib2_torch.runtime.step as step_mod
 
     names = WRAPPERS
@@ -543,7 +771,8 @@ def main() -> int:
     from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected
     from scenelib2_torch.eval.synthetic import generate_dataset
     from scenelib2_torch.kernels import (
-        _build, ekf_update, predict_measure, propose, search, search_bayes, shi_tomasi,
+        _build, ekf_update, measure, particle, predict_measure, propose, score_map, search,
+        search_bayes, shi_tomasi,
     )
     from scenelib2_torch.kernels.measure import MeasureConsts
 
@@ -641,8 +870,10 @@ def main() -> int:
                     fail(f"{name} field {k}: got {fp[k]}, expected {want[k]}")
 
         def check_launches(launches, what, stage7):
-            for n in _build.SOURCES:
-                want = 0 if n in ("propose", "shi_tomasi") and not stage7 else n_run
+            for n in _build.KERNELS:
+                want = n_run if n in SINGLE_PATH else 0
+                if n in ("propose", "shi_tomasi") and not stage7:
+                    want = 0
                 if launches.get(n, 0) != want:
                     fail(f"kernel {n} launched {launches.get(n, 0)} times on the {what} path, "
                          f"expected {want}")
@@ -657,6 +888,8 @@ def main() -> int:
         k4_args = []
 
         def record_cost(n, a, k):
+            if n not in SINGLE_WRAPPERS:
+                raise AssertionError(f"the single-stream step called the batch wrapper {n}")
             if n == "predict_measure":
                 costs["K1"].append(
                     predict_measure.bytes_and_flops(a[0].shape[0], a[2].shape[0], k["nsel"]))
@@ -755,6 +988,257 @@ def main() -> int:
             f"{k} {v:.5f} ms" if v is not None else f"{k} not measured" for k, v in kernel_dev.items()))
         log(f"[3] mapping-on last position {r[-1].tolist()}; RMSE vs ground truth {rmse:.6f} m")
 
+
+        # ---- 3b. batch mode: 64 lanes in one step -------------------------
+        from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints, make_lanes
+        from scenelib2_torch.parallel.mesh import make_batched_step, run_batch
+        from scenelib2_torch.runtime.state import SlamState
+
+        smc = score_map.ScoreMapConsts.from_params(p)
+        sbc = search_bayes.SearchBayesConsts.from_params(p)
+        nsel = p.n_features_to_select
+        berrs = {k: 0.0 for k in ("K7", "K9", "K10", "K11", "K2 lanes", "K6 lanes")}
+
+        def worse(k, v):
+            berrs[k] = max(berrs[k], v)
+
+        for _trial in range(3):
+            worse("K7", check_k7(k7_random_scene(rng, p, dev), mc, nsel))
+            worse("K9", check_k9(*k9_random_scene(rng, p, dev), smc))
+        for at in (9, 20, 120):
+            check_k10_k11_against_k4(seen[at]["search_bayes"][0], smc, sbc)
+        log("[3b] K7 and K9 equal their plain versions on 3 seeded scenes each (a NaN score, an "
+            "all-invisible lane, equal scores; a flat image, a flat patch, tied scores); K10's rows "
+            "and K11's results given K9's map equal K4's exactly on the single-stream frames 9, 20, 120")
+
+        t0 = time.time()
+        bparams, states0, bframes = make_lanes(
+            tmp, N_LANES, N_TEXTURES, N_BATCH_FRAMES, max_features=16, device=dev, dtype=torch.float32)
+        bseq = torch.as_tensor(bframes).to(dev)
+        T = bseq.shape[0]
+        log(f"[3b] {N_LANES} lanes ({N_TEXTURES} textures x {N_LANES // N_TEXTURES} offsets) x {T} "
+            f"frames rendered in {time.time() - t0:.1f} s")
+        bstep = make_batched_step(bparams, device="cuda")
+
+        # kernel inputs of whole batch steps (all lanes at once)
+        bseen, cur = {}, {}
+
+        def keep(n, a, k):
+            if n == "search_bayes_maps":       # the maps live in the step's workspace
+                a = (a[0].clone(),) + tuple(a[1:])
+            cur[n] = (a, k)
+
+        with observe_wrappers(keep):
+            st_b = states0
+            for t in range(max(BATCH_AT) + 1):
+                cur.clear()
+                st_b, _o = bstep(st_b, bseq[t], True)
+                if t in BATCH_AT:
+                    bseen[t] = dict(cur)
+        torch.cuda.synchronize()
+        cover = dict(making=0, converting=0, no_partial=0, fresh_ray=0)
+        n_k11 = 0
+        for at in BATCH_AT:
+            c = bseen[at]
+            worse("K7", check_k7(c["measure_predict"][0][:7], mc, nsel))
+            worse("K9", check_k9(c["score_map"][0][0], c["score_map"][0][1], smc))
+            worse("K10", check_k10(*c["particle_predict"][0]))
+            a11 = c["search_bayes_maps"][0]
+            for _label, args in k11_variations(a11, rng, p.erase_partial_after_attempts):
+                worse("K11", check_k11(args))
+                n_k11 += 1
+            worse("K2 lanes", check_k2_lanes(c["search"][0], sc))
+            worse("K6 lanes", check_k6_lanes(*c["shi_tomasi"]))
+            res = search_bayes.search_bayes_maps(*a11)
+            cover["making"] += int(a11[5].sum())
+            cover["converting"] += int(res[4].sum())
+            cover["no_partial"] += int((~a11[6]).sum())
+            cover["fresh_ray"] += int((a11[5][:, 0] & (a11[7][:, 0] == 2)).sum())
+        if min(cover.values()) == 0:
+            fail(f"the captured batch frames do not cover every case: {cover}")
+        log(f"[3b] batch kernels equal their plain versions on whole {N_LANES}-lane steps at output "
+            f"indices {BATCH_AT} (lane-frames: {json.dumps(cover)}; {n_k11} K11 cases with variations; "
+            f"K2 and K6 over lanes against their plain versions lane by lane) "
+            f"(max abs err {json.dumps(berrs)})")
+
+        c20 = bseen[20]
+        a7, a9, a10 = c20["measure_predict"][0], c20["score_map"][0], c20["particle_predict"][0]
+        a11, a2b = c20["search_bayes_maps"][0], c20["search"][0]
+        a6b, kw6b = c20["shi_tomasi"]
+        ws9 = torch.empty((N_LANES, 1, H, W), dtype=torch.float32, device=dev)
+
+        btimings = {}
+        for name, kern, plain in (
+            ("K7", lambda: measure.measure_predict(*a7), lambda: measure.measure_predict_plain(*a7)),
+            ("K9", lambda: score_map.score_map(a9[0], a9[1], smc, out=ws9),
+             lambda: score_map.score_map_plain(a9[0], a9[1], smc)),
+            ("K10", lambda: particle.particle_predict(*a10), lambda: particle.particle_predict_plain(*a10)),
+            ("K11", lambda: search_bayes.search_bayes_maps(*a11),
+             lambda: search_bayes.search_bayes_maps_plain(*a11)),
+            ("K2 lanes", lambda: search.search(*a2b),
+             lambda: lanes_of(lambda b: search.search_plain(a2b[0][b], *(t[b] for t in a2b[1:8]), sc),
+                              N_LANES)),
+            ("K6 lanes", lambda: shi_tomasi.shi_tomasi(*a6b, **kw6b),
+             lambda: lanes_of(lambda b: shi_tomasi.shi_tomasi_plain(*(t[b] for t in a6b), **kw6b),
+                              N_LANES)),
+        ):
+            btimings[name] = (time_ms(kern, n=50, batches=3), time_ms(plain, n=2, batches=3))
+            log(f"[3b] {name}: kernel {btimings[name][0]:.4f} ms/launch for {N_LANES} lanes, plain "
+                f"{btimings[name][1]:.4f} ms/call (output-index-20 inputs)")
+        # the nearest library form of K9: several calls, and without the score formula
+        import torch.nn.functional as F
+        img9 = F.pad(a9[0].float(), (5, 5, 5, 5))
+        w9 = a9[1][:, 0, : B * B].reshape(N_LANES, 1, B, B).contiguous()
+
+        def k9_library_composition():
+            cross = F.conv2d(img9[None], w9, groups=N_LANES)
+            s1 = F.avg_pool2d(img9[:, None], B, stride=1)
+            s2 = F.avg_pool2d((img9 * img9)[:, None], B, stride=1)
+            return cross, s1, s2
+
+        k9_comp_ms = time_ms(k9_library_composition, n=20, batches=3)
+        log(f"[3b] K9's nearest library form (conv2d for the cross sum + 2 avg_pool2d box sums: "
+            f"three calls, the score formula not included): {k9_comp_ms:.4f} ms")
+
+        bcosts = {k: [] for k in ("K7", "K9", "K10", "K11", "K2", "K6")}
+        k11_args, k2_args = [], []
+
+        def record_batch_cost(n, a, k):
+            if n in SINGLE_WRAPPERS and n not in ("search", "shi_tomasi"):
+                raise AssertionError(f"the batch step called the single-stream wrapper {n}")
+            if n == "measure_predict":
+                bcosts["K7"].append(measure.bytes_and_flops(*a[6].shape))
+            elif n == "score_map":
+                bcosts["K9"].append(score_map.bytes_and_flops(a[1].shape[0], a[1].shape[1], a[2]))
+            elif n == "particle_predict":
+                bcosts["K10"].append(particle.bytes_and_flops(*a[2].shape))
+            elif n == "search_bayes_maps":
+                k11_args.append((a[1], a[4], a[5]))
+            elif n == "search":
+                k2_args.append(a[2:7])
+            elif n == "shi_tomasi":
+                b_, f_ = shi_tomasi.bytes_and_flops(k["boxsize"], k["region_w"], k["region_h"])
+                bcosts["K6"].append((b_ * N_LANES, f_ * N_LANES))
+
+        def run_batch_path(on_call=None):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            with observe_wrappers(on_call) if on_call else contextlib.nullcontext():
+                _st, o = run_batch(bstep, states0, bseq, True, bparams)
+            return o, dict(_build.launches)
+
+        bouts, blaunches = run_batch_path(record_batch_cost)
+        fps = lane_fingerprints(bouts)
+        bad = check_lanes(fps)
+        if bad:
+            fail(f"{len(bad)} of {N_LANES} lane fingerprints differ from the committed file:\n"
+                 + "\n".join(bad[:6]))
+        distinct = len({f_["decisions_sha256"] for f_ in fps})
+        ends = sorted({f_["active_end"] for f_ in fps})
+        log(f"[3b] all {N_LANES} per-lane fingerprints equal expected_fingerprint_batch64.json "
+            f"({distinct} distinct decision histories, active_end in {ends}, "
+            f"{sum(f_['inits'] for f_ in fps)} inits, {sum(f_['convs'] for f_ in fps)} conversions, "
+            f"{sum(f_['matched_sum'] for f_ in fps)} matches)")
+        for n in _build.KERNELS:
+            want = T if n in BATCH_PATH else 0
+            if blaunches.get(n, 0) != want:
+                fail(f"kernel {n} launched {blaunches.get(n, 0)} times on the batch path, expected {want}")
+        log(f"[3b] launches on the batch path ({T} steps of {N_LANES} lanes): {json.dumps(blaunches)}")
+        rb = bouts.r.numpy()
+        if rb.shape != (T, N_LANES, 3) or not np.isfinite(rb).all():
+            fail(f"batch trajectories not finite/shaped: {rb.shape}")
+        for pr_, al_, mk_ in k11_args:
+            bcosts["K11"].append(search_bayes.bytes_and_flops_maps(
+                N_LANES, 1, p.n_particles, *search_bayes.work_counts_maps(pr_, al_, mk_, sbc)))
+        for u0_, v0_, uc_, vc_, sinv_ in k2_args:
+            admit = search.candidate_geometry(u0_.reshape(-1), v0_.reshape(-1), uc_.reshape(-1),
+                                              vc_.reshape(-1), sinv_.reshape(-1, 3), sc)[0]
+            bcosts["K2"].append(search.bytes_and_flops(N_LANES * nsel, sc, int(admit.sum())))
+
+        # reference on a small input: four lanes replayed by the CPU plain versions
+        idx = list(REF_LANES)
+        cpu_states = SlamState(*(t[idx].cpu() for t in states0))
+        cpu_step = make_batched_step(bparams, device="cpu")
+        _s, bref = run_batch(cpu_step, cpu_states, bframes[:N_REF_BATCH, idx], True, bparams)
+        for k in ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init",
+                  "did_convert", "n_overflow", "sel_matched", "init_box", "par_alive"):
+            if not torch.equal(getattr(bref, k), getattr(bouts, k)[:N_REF_BATCH, idx]):
+                fail(f"batch CUDA vs CPU plain replay: {k} differs in lanes {idx}")
+        dxb = float((bref.xv.double() - bouts.xv[:N_REF_BATCH, idx].double()).abs().max())
+        if dxb > STEP_TOL:
+            fail(f"batch CUDA vs CPU plain replay: xv differs by {dxb}")
+        log(f"[3b] lanes {idx} of the CUDA batch run equal their CPU plain replay on frames "
+            f"1..{N_REF_BATCH} (max |dxv| {dxb:.3g})")
+
+        st_b = states0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(N_REF):
+                st_b, _o = bstep(st_b, bseq[t], True)
+        except RuntimeError as e:
+            fail(f"the batch step synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log(f"[3b] {N_REF} batch steps ran with torch.cuda.set_sync_debug_mode('error'): "
+            f"no host synchronisation in the batch step")
+
+        walls = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run_batch(bstep, states0, bseq, True, bparams)
+            walls.append(time.perf_counter() - t)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        wall = statistics.median(walls)
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run_batch(bstep, states0, bseq, True, bparams)
+            torch.cuda.synchronize()
+        bby = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            bby[e.key] = (us / 1e3, e.count)
+        bbusy = sum(v[0] for v in bby.values()) / T
+        bn_kern = sum(v[1] for v in bby.values()) / T
+        batch = dict(
+            lanes=N_LANES, frames_per_lane=T, wall_s=wall, runs_s=walls,
+            frames_per_s=N_LANES * T / wall, ms_per_step=wall / T * 1e3,
+            device_ms_per_step=bbusy if bbusy > 0 else None,
+            idle_share=(1.0 - bbusy / (wall / T * 1e3)) if bbusy > 0 else None,
+            device_kernels_per_step=bn_kern, peak_device_mb=peak_mb,
+            single_stream_frames_per_s=1e3 / paths["mapping-on"]["ms_frame"],
+        )
+        batch["vs_64x_single_stream"] = batch["frames_per_s"] / (N_LANES * batch["single_stream_frames_per_s"])
+        log(f"[3b] batch replay: {batch['frames_per_s']:.1f} aggregate frames/s "
+            f"({N_LANES} lanes x {T} frames in {wall:.4f} s, median of 3 runs: "
+            f"{', '.join(f'{v:.4f}' for v in walls)}); {batch['ms_per_step']:.4f} ms a batch step; "
+            f"single stream with mapping on {batch['single_stream_frames_per_s']:.1f} frames/s, so the "
+            f"batch runs at {batch['vs_64x_single_stream']:.4f} of {N_LANES} x that; "
+            f"peak device memory {peak_mb:.1f} MiB")
+        if bbusy > 0:
+            log(f"[3b] batch traced replay: device busy {bbusy:.4f} ms a step -> idle share "
+                f"{batch['idle_share']:.4f}; {bn_kern:.2f} device kernels a step")
+            for name, (ms, cnt) in sorted(bby.items(), key=lambda kv: -kv[1][0])[:16]:
+                log(f"[3b]   {ms / T * 1e3:9.3f} us/step  x{cnt / T:6.2f}/step  {name[:90]}")
+        else:
+            log("[3b] batch traced replay: the profiler recorded no device time (not measured)")
+        bkernel_dev = {}
+        for short, sym in (("K7", "k7_kernel"), ("K9", "k9_kernel"), ("K10", "k10_kernel"),
+                           ("K11", "k11_kernel"), ("K2", "k2_kernel"), ("K6", "k6_kernel")):
+            hits = [v for k, v in bby.items() if sym in k]
+            bkernel_dev[short] = (sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits))
+                                  if hits else None)
+        log("[3b] device time per launch (batch): " + ", ".join(
+            f"{k} {v:.5f} ms" if v is not None else f"{k} not measured" for k, v in bkernel_dev.items()))
+
     # ---- 4. kernel records ------------------------------------------------
     def bound(costs_list):
         bms = [max(b / PEAK_BYTES, f / PEAK_F32) * 1e3 for b, f in costs_list]
@@ -779,12 +1263,34 @@ def main() -> int:
             max_abs_err=errs[short], ms=timings[short][0], plain_ms=timings[short][1],
             bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=kernel_dev[short],
         ))
+    # K2 and K6 also run on the batch path, one launch for all lanes
+    for rec, short in ((recs[1], "K2"), (recs[5], "K6")):
+        b_ms, b_by = bound(bcosts[short])
+        rec.update(launches_batch=blaunches[rec["source"].rsplit("/", 1)[1][:-3]],
+                   ms_batch=btimings[f"{short} lanes"][0], plain_ms_batch=btimings[f"{short} lanes"][1],
+                   bound_ms_batch=b_ms, bound_by_batch=b_by, device_ms_batch=bkernel_dev[short],
+                   max_abs_err_batch=berrs[f"{short} lanes"])
+    for short, name, src, rep_, key in (
+        ("K7", "K7 measure", "measure.cu", "pallas_measure.py:310", "measure"),
+        ("K9", "K9 score_map", "score_map.cu", "pallas_score_map.py:258 and :300", "score_map"),
+        ("K10", "K10 particle_predict", "particle_predict.cu", "pallas_particle.py:434", "particle_predict"),
+        ("K11", "K11 search_bayes_maps", "search_bayes.cu", "pallas_search_bayes.py:638", "search_bayes_maps"),
+    ):
+        b_ms, b_by = bound(bcosts[short])
+        recs.append(dict(
+            name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
+            replaces=f"scenelib2_tpu/kernels/{rep_}", launches=blaunches[key],
+            max_abs_err=berrs[short], ms=btimings[short][0], plain_ms=btimings[short][1],
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=bkernel_dev[short],
+        ))
+    recs[-3]["library_composition_ms"] = k9_comp_ms
     log(f"[4] empty-launch floor {empty_ms:.4f} ms; total {time.time() - t_start:.1f} s")
     log(smi)
     on, off = paths["mapping-on"], paths["mapping-off"]
     print(json.dumps({"ms_per_frame": on["ms_frame"], "device_ms_per_frame": on["busy"],
                       "ms_per_frame_nomap": off["ms_frame"], "device_ms_per_frame_nomap": off["busy"],
                       "empty_launch_ms": empty_ms, "card": smi}))
+    print(json.dumps({"batch64": batch, "card": smi}))
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

@@ -27,7 +27,9 @@ def state_from_jax(arrays: Mapping[str, np.ndarray], device, dtype=torch.float32
     ``state_<field>`` checkpoint key) -> the port's SlamState on `device`,
     its filter floats in `dtype`. A checkpoint without ``sched`` or
     ``patch_rows`` (older writers) gets them as the JAX loader does: all
-    False, and derived from the patches."""
+    False, and derived from the patches. Stacked JAX states (a leading lane
+    dimension on every array, as jax.vmap carries them) convert the same
+    way into a state with lanes."""
     def get(name):
         if name in arrays:
             return np.asarray(arrays[name])
@@ -61,7 +63,7 @@ def state_from_jax(arrays: Mapping[str, np.ndarray], device, dtype=torch.float32
             raise KeyError(name)
         out[name] = t.to(device)
     if fields["patch_rows"] is None:
-        out["patch_rows"] = torch.stack([patch_row(p) for p in out["patches"]])
+        out["patch_rows"] = patch_row(out["patches"])
     else:
         out["patch_rows"] = torch.as_tensor(fields["patch_rows"].astype(np.float32)).to(device)
     return SlamState(**out)

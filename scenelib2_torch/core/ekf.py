@@ -15,6 +15,14 @@ scenelib2_torch/kernels. Their plain twins take the 2x2 inverse and
 symmetrize from here; the matrix forms of predict, normalise and
 joint_update are the f64 reference the twins are tested against
 (tests/test_torch_core.py), since the kernels sum in their own order.
+
+The batch step (runtime/step.py::make_batch_step) calls predict,
+joint_update, normalise and symmetrize directly, as the JAX batch step
+does outside any kernel: every function here takes leading (lane)
+dimensions, x [..., D] and P [..., D, D]. Every product is taken with
+mm_seq (each entry summed left to right in separately rounded operations),
+so the batch step rounds the same on the CPU and on the GPU; a BLAS product
+would round differently on each.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from scenelib2_torch.core import motion
+from scenelib2_torch.core.quaternion import mm_seq
 
 CAM_DIM = 13
 
@@ -29,32 +38,33 @@ CAM_DIM = 13
 def predict(x, P, u, delta_t: float, sd_a: float, sd_alpha: float):
     """EKF predict on the packed state; feature rows/cols other than the
     camera cross-terms are untouched."""
-    fv, F = motion.func_fv_and_dfv_by_dxv(x[:CAM_DIM], u, delta_t)
-    Q = motion.func_Q(x[:CAM_DIM], delta_t, sd_a, sd_alpha)
-    top = F @ P[:CAM_DIM, :]
-    pxx = top[:, :CAM_DIM] @ F.T + Q
+    fv, F = motion.func_fv_and_dfv_by_dxv(x[..., :CAM_DIM], u, delta_t)
+    Q = motion.func_Q(x[..., :CAM_DIM], delta_t, sd_a, sd_alpha)
+    return _camera_transform(x, P, fv, F, Q)
+
+
+def _camera_transform(x, P, xv, F, Q=None):
+    """x with its camera part replaced by xv, and P with its camera rows
+    F P[cam, :], their transpose as its camera columns and the camera block
+    F Pxx F' (+ Q)."""
+    top = mm_seq(F, P[..., :CAM_DIM, :])
+    pxx = mm_seq(top[..., :, :CAM_DIM], F.mT)
+    if Q is not None:
+        pxx = pxx + Q
     P = P.clone()
-    P[:CAM_DIM, :] = top
-    P[:, :CAM_DIM] = top.T
-    P[:CAM_DIM, :CAM_DIM] = pxx
+    P[..., :CAM_DIM, :] = top
+    P[..., :, :CAM_DIM] = top.mT
+    P[..., :CAM_DIM, :CAM_DIM] = pxx
     x = x.clone()
-    x[:CAM_DIM] = fv
+    x[..., :CAM_DIM] = xv
     return x, P
 
 
 def normalise(x, P):
     """Quaternion-normalisation covariance transform; the state itself is
     unchanged (reference quirk)."""
-    xv, J = motion.func_xvnorm_and_dxvnorm_by_dxv(x[:CAM_DIM])
-    top = J @ P[:CAM_DIM, :]
-    pxx = top[:, :CAM_DIM] @ J.T
-    P = P.clone()
-    P[:CAM_DIM, :] = top
-    P[:, :CAM_DIM] = top.T
-    P[:CAM_DIM, :CAM_DIM] = pxx
-    x = x.clone()
-    x[:CAM_DIM] = xv
-    return x, P
+    xv, J = motion.func_xvnorm_and_dxvnorm_by_dxv(x[..., :CAM_DIM])
+    return _camera_transform(x, P, xv, J)
 
 
 def chol2x2_parts(s00, s10, s11):
@@ -90,44 +100,48 @@ def inv2x2_via_chol(S):
 
 
 def chol_unrolled(S):
-    """Right-looking Cholesky in the reference's column order (Eigen LLT)."""
-    M = S.shape[0]
+    """Right-looking Cholesky in the reference's column order (Eigen LLT),
+    S [..., M, M]."""
+    M = S.shape[-1]
     L = torch.zeros_like(S)
     for j in range(M):
         if j == 0:
-            d = torch.sqrt(S[0, 0])
-            L[:, 0] = S[:, 0] / d
-            L[0, 0] = d
+            d = torch.sqrt(S[..., 0, 0])
+            L[..., :, 0] = S[..., :, 0] / d[..., None]
+            L[..., 0, 0] = d
         else:
-            d = torch.sqrt(S[j, j] - L[j, :j] @ L[j, :j])
-            L[j + 1:, j] = (S[j + 1:, j] - L[j + 1:, :j] @ L[j, :j]) / d
-            L[j, j] = d
+            lj = L[..., j, :j, None]
+            d = torch.sqrt(S[..., j, j] - mm_seq(lj.mT, lj)[..., 0, 0])
+            L[..., j + 1:, j] = ((S[..., j + 1:, j] - mm_seq(L[..., j + 1:, :j], lj)[..., 0])
+                                 / d[..., None])
+            L[..., j, j] = d
     return L
 
 
 def tril_inv_unrolled(L):
-    """Forward substitution: X = L^-1 for lower-triangular L."""
-    M = L.shape[0]
+    """Forward substitution: X = L^-1 for lower-triangular L [..., M, M]."""
+    M = L.shape[-1]
     X = torch.zeros_like(L)
     eye = torch.eye(M, dtype=L.dtype, device=L.device)
     for i in range(M):
         if i == 0:
-            X[0, :] = eye[0] / L[0, 0]
+            X[..., 0, :] = eye[0] / L[..., 0, 0, None]
         else:
-            X[i, :] = (eye[i] - L[i, :i] @ X[:i, :]) / L[i, i]
+            X[..., i, :] = ((eye[i] - mm_seq(L[..., i, None, :i], X[..., :i, :])[..., 0, :])
+                            / L[..., i, i, None])
     return X
 
 
 def joint_update(x, P, H, nu, R):
     """Joint EKF update (kalman.cpp:96-119) through L, L^-1 and
     S^-1 = L^-T L^-1, as the reference does. Returns (x', P', S)."""
-    S = H @ P @ H.T + R
+    S = mm_seq(mm_seq(H, P), H.mT) + R
     Linv = tril_inv_unrolled(chol_unrolled(S))
-    Sinv = Linv.T @ Linv
-    W = P @ H.T @ Sinv
-    return x + W @ nu, P - W @ S @ W.T, S
+    Sinv = mm_seq(Linv.mT, Linv)
+    W = mm_seq(mm_seq(P, H.mT), Sinv)
+    return x + mm_seq(W, nu[..., None])[..., 0], P - mm_seq(mm_seq(W, S), W.mT), S
 
 
 def symmetrize(P):
     """P <- 0.5*P + 0.5*P' (monoslam.cpp:145-150)."""
-    return P * 0.5 + P.T * 0.5
+    return P * 0.5 + P.mT * 0.5

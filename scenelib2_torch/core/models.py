@@ -12,6 +12,10 @@ Layouts:
 The ray functions take their products with mm_seq (sums left to right), so
 the state surgery that uses them (runtime/state.py) rounds the same on the
 CPU and on the GPU.
+
+full_zeroedyi, full_predict_measurement, part_init_ray and
+part_convert_to_full take leading (lane) dimensions: the point, pose or ray
+lies in the LAST dimension and Jacobians in the last two.
 """
 
 from __future__ import annotations
@@ -44,13 +48,23 @@ def full_zeroedyi(y: torch.Tensor, xp: torch.Tensor):
     (full_feature_model.cpp:67-101).
 
     Returns (zeroedyi[3], dzeroedyi_by_dxp[3,7], dzeroedyi_by_dyi[3,3])."""
-    r, q = xp[0:3], xp[3:7]
+    r, q = xp[..., 0:3], xp[..., 3:7]
     y_minus_r = y - r
     qRW = quat_inverse(q)
     RRW = quat_to_rotation_matrix(qRW)
-    zeroed = RRW @ y_minus_r
-    d_by_dq = dRq_times_a_by_dq(qRW, y_minus_r) @ dqbar_by_dq(y.dtype, y.device)
-    return zeroed, torch.cat([-RRW, d_by_dq], dim=1), RRW
+    zeroed = mm_seq(RRW, y_minus_r[..., None])[..., 0]
+    d_by_dq = mm_seq(dRq_times_a_by_dq(qRW, y_minus_r), dqbar_by_dq(y.dtype, y.device))
+    RRW = RRW.expand(*d_by_dq.shape[:-2], 3, 3)
+    return zeroed, torch.cat([-RRW, d_by_dq], dim=-1), RRW
+
+
+def full_project(cam: CameraParams, y: torch.Tensor, xp: torch.Tensor):
+    """(hi[2], zeroedyi[3]) of full_predict_measurement without the
+    Jacobians, in the same arithmetic."""
+    y_minus_r = y - xp[..., 0:3]
+    RRW = quat_to_rotation_matrix(quat_inverse(xp[..., 3:7]))
+    zeroed = mm_seq(RRW, y_minus_r[..., None])[..., 0]
+    return cam_mod.project(cam, zeroed), zeroed
 
 
 def full_predict_measurement(cam: CameraParams, y: torch.Tensor, xp: torch.Tensor):
@@ -60,7 +74,7 @@ def full_predict_measurement(cam: CameraParams, y: torch.Tensor, xp: torch.Tenso
     zeroed, dz_by_dxp, dz_by_dyi = full_zeroedyi(y, xp)
     hi = cam_mod.project(cam, zeroed)
     dh_by_dz = cam_mod.project_jacobian(cam, zeroed)
-    return hi, dh_by_dz @ dz_by_dxp, dh_by_dz @ dz_by_dyi, zeroed
+    return hi, mm_seq(dh_by_dz, dz_by_dxp), mm_seq(dh_by_dz, dz_by_dyi), zeroed
 
 
 def full_visibility_test(
@@ -121,17 +135,18 @@ def part_init_ray(cam: CameraParams, h: torch.Tensor, xp: torch.Tensor):
 
     Returns (ypi[6], dypi_by_dxp[6,7], dypi_by_dhi[6,2])."""
     hLRi = cam_mod.unproject(cam, h)
-    norm = torch.sqrt(seqsum([hLRi[i] * hLRi[i] for i in range(3)]))
-    hLhatRi = hLRi / norm
-    q = xp[3:7]
+    norm = torch.sqrt(seqsum([hLRi[..., i] * hLRi[..., i] for i in range(3)]))
+    hLhatRi = hLRi / norm[..., None]
+    q = xp[..., 3:7]
     RWR = quat_to_rotation_matrix(q)
-    hLhatWi = mm_seq(RWR, hLhatRi[:, None])[:, 0]
-    ypi = torch.cat([xp[0:3], hLhatWi])
-    dxp = torch.zeros((6, 7), dtype=xp.dtype, device=xp.device)
-    dxp[0:3, 0:3] = _eye3(xp)
-    dxp[3:6, 3:7] = dRq_times_a_by_dq(q, hLhatRi)
-    dhi = torch.zeros((6, 2), dtype=xp.dtype, device=xp.device)
-    dhi[3:6] = mm_seq(mm_seq(RWR, dvnorm_by_dv(hLRi)), cam_mod.unproject_jacobian(cam, h))
+    hLhatWi = mm_seq(RWR, hLhatRi[..., :, None])[..., 0]
+    ypi = torch.cat([xp[..., 0:3], hLhatWi], dim=-1)
+    lead = xp.shape[:-1]
+    dxp = torch.zeros((*lead, 6, 7), dtype=xp.dtype, device=xp.device)
+    dxp[..., 0:3, 0:3] = _eye3(xp)
+    dxp[..., 3:6, 3:7] = dRq_times_a_by_dq(q, hLhatRi)
+    dhi = torch.zeros((*lead, 6, 2), dtype=xp.dtype, device=xp.device)
+    dhi[..., 3:6, :] = mm_seq(mm_seq(RWR, dvnorm_by_dv(hLRi)), cam_mod.unproject_jacobian(cam, h))
     return ypi, dxp, dhi
 
 
@@ -178,8 +193,10 @@ def part_predict_measurement(cam: CameraParams, y, xp, lam):
 def part_convert_to_full(y: torch.Tensor, lam: torch.Tensor):
     """yfi = ri + lambda*hhat + Jacobians (part_feature_model.cpp:267-287).
 
-    Returns (yfi[3], dyfi_by_dypi[3,6], dyfi_by_dlambda[3,1])."""
-    ri, hhat = y[0:3], y[3:6]
-    yfi = ri + lam * hhat
-    T = torch.cat([_eye3(y), lam * _eye3(y)], dim=1)
-    return yfi, T, hhat.reshape(3, 1)
+    Returns (yfi[3], dyfi_by_dypi[3,6], dyfi_by_dlambda[3,1]); y [..., 6]
+    and lam [...] may carry leading dimensions."""
+    ri, hhat = y[..., 0:3], y[..., 3:6]
+    yfi = ri + lam[..., None] * hhat
+    eye = _eye3(y).expand(*y.shape[:-1], 3, 3)
+    T = torch.cat([eye, lam[..., None, None] * eye], dim=-1)
+    return yfi, T, hhat[..., :, None]

@@ -8,6 +8,8 @@ State layout xv = [r(3), q(4, wxyz), v(3), omega(3)]:
                                sd_alpha^2 dt^2 (x3))
   xvnorm / dxvnorm_by_dxv (:237-263): the reference never normalises the
     quaternion itself; only the covariance is transformed by dqnorm_by_dq.
+
+xv may carry leading (lane) dimensions: [..., 13] gives [..., 13, 13].
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from scenelib2_torch.core.quaternion import (
     dq3_by_dq2,
     dqnorm_by_dq,
     dqomegadt_by_domega,
+    mm_seq,
     quat_from_angular_velocity,
     quat_mul,
 )
@@ -26,17 +29,17 @@ from scenelib2_torch.core.quaternion import (
 
 def func_fv_and_dfv_by_dxv(xv: torch.Tensor, u: torch.Tensor, delta_t: float):
     """Returns (fv[13], dfv_by_dxv[13,13])."""
-    r, q, v, omega = xv[0:3], xv[3:7], xv[7:10], xv[10:13]
+    r, q, v, omega = xv[..., 0:3], xv[..., 3:7], xv[..., 7:10], xv[..., 10:13]
     rnew = r + v * delta_t
     qwt = quat_from_angular_velocity(omega * delta_t)
     qnew = quat_mul(q, qwt)
     vnew = v + u * delta_t
-    fv = torch.cat([rnew, qnew, vnew, omega])
+    fv = torch.cat([rnew, qnew, vnew, omega], dim=-1)
 
-    F = torch.eye(13, dtype=xv.dtype, device=xv.device)
-    F[0:3, 7:10] = torch.eye(3, dtype=xv.dtype, device=xv.device) * delta_t
-    F[3:7, 3:7] = dq3_by_dq2(qwt)
-    F[3:7, 10:13] = dq3_by_dq1(q) @ dqomegadt_by_domega(omega, delta_t)
+    F = torch.eye(13, dtype=xv.dtype, device=xv.device).expand(*xv.shape[:-1], 13, 13).clone()
+    F[..., 0:3, 7:10] = torch.eye(3, dtype=xv.dtype, device=xv.device) * delta_t
+    F[..., 3:7, 3:7] = dq3_by_dq2(qwt)
+    F[..., 3:7, 10:13] = mm_seq(dq3_by_dq1(q), dqomegadt_by_domega(omega, delta_t))
     return fv, F
 
 
@@ -44,20 +47,21 @@ def func_Q(xv: torch.Tensor, delta_t: float, sd_a: float, sd_alpha: float) -> to
     """Process noise Q[13,13] (motion_model.cpp:148-217)."""
     lin_var = sd_a * sd_a * delta_t * delta_t
     ang_var = sd_alpha * sd_alpha * delta_t * delta_t
-    q, omega = xv[3:7], xv[10:13]
+    q, omega = xv[..., 3:7], xv[..., 10:13]
     kw = dict(dtype=xv.dtype, device=xv.device)
-    G = torch.zeros((13, 6), **kw)
-    G[0:3, 0:3] = torch.eye(3, **kw) * delta_t
-    G[3:7, 3:6] = dq3_by_dq1(q) @ dqomegadt_by_domega(omega, delta_t)
-    G[7:10, 0:3] = torch.eye(3, **kw)
-    G[10:13, 3:6] = torch.eye(3, **kw)
-    pnn = torch.diag(torch.tensor([lin_var] * 3 + [ang_var] * 3, **kw))
-    return G @ pnn @ G.T
+    G = torch.zeros((*xv.shape[:-1], 13, 6), **kw)
+    G[..., 0:3, 0:3] = torch.eye(3, **kw) * delta_t
+    G[..., 3:7, 3:6] = mm_seq(dq3_by_dq1(q), dqomegadt_by_domega(omega, delta_t))
+    G[..., 7:10, 0:3] = torch.eye(3, **kw)
+    G[..., 10:13, 3:6] = torch.eye(3, **kw)
+    # the noise variances, filled on the device (no host copy)
+    pnn = torch.diag(torch.cat([torch.full((3,), lin_var, **kw), torch.full((3,), ang_var, **kw)]))
+    return mm_seq(mm_seq(G, pnn), G.mT)
 
 
 def func_xvnorm_and_dxvnorm_by_dxv(xv: torch.Tensor):
     """Returns (xvnorm, J) with xvnorm == xv (the reference copies the
     quaternion without normalising it) and J the qq=|q|^2 quirk Jacobian."""
-    J = torch.eye(13, dtype=xv.dtype, device=xv.device)
-    J[3:7, 3:7] = dqnorm_by_dq(xv[3:7])
+    J = torch.eye(13, dtype=xv.dtype, device=xv.device).expand(*xv.shape[:-1], 13, 13).clone()
+    J[..., 3:7, 3:7] = dqnorm_by_dq(xv[..., 3:7])
     return xv, J

@@ -13,8 +13,11 @@ vectors as sequences of components (0-dim tensors, or [MF] tensors with one
 value per feature slot) and returns the result's components as nested lists,
 with every sum taken left to right: the plain twins of the kernels
 (scenelib2_torch/kernels) evaluate it on slot lanes, and the CUDA kernels
-perform the same operations in the same order. The tensor form takes 1-D
-tensors and stacks the parts.
+perform the same operations in the same order. The tensor form takes
+tensors whose LAST dimension holds the components and stacks the parts into
+trailing dimensions, so any leading (lane) dimensions pass through: a
+[B, 4] batch of quaternions gives [B, 3, 3] rotations with the arithmetic of
+the unbatched call, element for element.
 """
 
 from __future__ import annotations
@@ -31,21 +34,30 @@ def seqsum(terms):
 
 
 def mm_seq(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """A [m, K] @ B [K, n] with each entry summed over k left to right: the
-    same rounding on every device (a BLAS product is free to reorder and to
-    fuse multiply-adds). The products are taken in one elementwise op, each
-    rounded once as in a product-then-add, then added in K - 1 ops."""
-    prods = A[:, :, None] * B[None, :, :]
-    acc = prods[:, 0]
-    for k in range(1, A.shape[1]):
-        acc = acc + prods[:, k]
+    """A [..., m, K] @ B [..., K, n] with each entry summed over k left to
+    right: the same rounding on every device (a BLAS product is free to
+    reorder and to fuse multiply-adds). The products are taken in one
+    elementwise op, each rounded once as in a product-then-add, then added
+    in K - 1 ops."""
+    prods = A[..., :, :, None] * B[..., None, :, :]
+    acc = prods[..., 0, :]
+    for k in range(1, A.shape[-1]):
+        acc = acc + prods[..., k, :]
     return acc
 
 
+def _depth(parts) -> int:
+    return 1 + _depth(parts[0]) if isinstance(parts, (list, tuple)) else 0
+
+
 def _stack(parts) -> torch.Tensor:
-    if isinstance(parts[0], list):
-        return torch.stack([_stack(p) for p in parts])
-    return torch.stack(parts)
+    """Nested lists of equally-shaped component tensors -> one tensor with
+    the list levels as TRAILING dimensions (components [B] in a 3x4 nest give
+    [B, 3, 4]; 0-dim components give [3, 4])."""
+    d = _depth(parts)
+    if d > 1:
+        return torch.stack([_stack(p) for p in parts], dim=-d)
+    return torch.stack(list(parts), dim=-1)
 
 
 def quat_mul_parts(q1, q2) -> list:
@@ -61,11 +73,12 @@ def quat_mul_parts(q1, q2) -> list:
 
 def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product q1 * q2, wxyz layout."""
-    return _stack(quat_mul_parts(q1, q2))
+    return _stack(quat_mul_parts(q1.unbind(-1), q2.unbind(-1)))
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return torch.stack([q[0], -q[1], -q[2], -q[3]])
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([w, -x, -y, -z], dim=-1)
 
 
 def quat_inverse_parts(q) -> list:
@@ -78,7 +91,7 @@ def quat_inverse(q: torch.Tensor) -> torch.Tensor:
     """Eigen Quaternion::inverse(): conjugate / squaredNorm (the 1/|q|^2
     factor is part of the parity surface: the reference inverts near-unit
     quaternions with it, full_feature_model.cpp:76)."""
-    return _stack(quat_inverse_parts(q))
+    return _stack(quat_inverse_parts(q.unbind(-1)))
 
 
 def quat_to_rotation_parts(q) -> list:
@@ -97,7 +110,7 @@ def quat_to_rotation_parts(q) -> list:
 def quat_to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
     """Eigen toRotationMatrix() with the unit-quaternion assumption (factor 2,
     no renormalisation)."""
-    return _stack(quat_to_rotation_parts(q))
+    return _stack(quat_to_rotation_parts(q.unbind(-1)))
 
 
 def quat_from_angular_velocity_parts(av) -> list:
@@ -112,7 +125,7 @@ def quat_from_angular_velocity_parts(av) -> list:
 
 def quat_from_angular_velocity(av: torch.Tensor) -> torch.Tensor:
     """q(omega) = [cos(|av|/2), sin(|av|/2)/|av| * av]; identity at av=0."""
-    return _stack(quat_from_angular_velocity_parts(av))
+    return _stack(quat_from_angular_velocity_parts(av.unbind(-1)))
 
 
 def dq3_by_dq1_parts(q1) -> list:
@@ -122,7 +135,7 @@ def dq3_by_dq1_parts(q1) -> list:
 
 def dq3_by_dq1(q1: torch.Tensor) -> torch.Tensor:
     """d(q1*q2)/dq2 expressed via q1 (math_util.cpp:82-97)."""
-    return _stack(dq3_by_dq1_parts(q1))
+    return _stack(dq3_by_dq1_parts(q1.unbind(-1)))
 
 
 def dq3_by_dq2_parts(q2) -> list:
@@ -132,7 +145,7 @@ def dq3_by_dq2_parts(q2) -> list:
 
 def dq3_by_dq2(q2: torch.Tensor) -> torch.Tensor:
     """d(q1*q2)/dq1 expressed via q2 (math_util.cpp:99-114)."""
-    return _stack(dq3_by_dq2_parts(q2))
+    return _stack(dq3_by_dq2_parts(q2.unbind(-1)))
 
 
 def dqomegadt_by_domega_parts(omega, delta_t: float) -> list:
@@ -167,7 +180,7 @@ def dqomegadt_by_domega_parts(omega, delta_t: float) -> list:
 def dqomegadt_by_domega(omega: torch.Tensor, delta_t: float) -> torch.Tensor:
     """4x3 Jacobian of q(omega*dt) wrt omega (motion_model.cpp:290-349); the
     omega->0 singularity returns the analytic limits."""
-    return _stack(dqomegadt_by_domega_parts(omega, delta_t))
+    return _stack(dqomegadt_by_domega_parts(omega.unbind(-1), delta_t))
 
 
 def norm_jac_parts(v) -> list:
@@ -183,12 +196,12 @@ def norm_jac_parts(v) -> list:
 
 def dqnorm_by_dq(q: torch.Tensor) -> torch.Tensor:
     """4x4 quaternion-normalisation Jacobian (motion_model.cpp:351-367)."""
-    return _stack(norm_jac_parts(q))
+    return _stack(norm_jac_parts(q.unbind(-1)))
 
 
 def dvnorm_by_dv(v: torch.Tensor) -> torch.Tensor:
     """3x3 vector-normalisation Jacobian (part_feature_model.cpp:300-320)."""
-    return _stack(norm_jac_parts(v))
+    return _stack(norm_jac_parts(v.unbind(-1)))
 
 
 def dqbar_by_dq(dtype=torch.float64, device=None) -> torch.Tensor:
@@ -222,4 +235,4 @@ def dRq_times_a_by_dq_parts(q, a) -> list:
 def dRq_times_a_by_dq(q: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """3x4 Jacobian of R(q) @ a wrt q, from the unnormalised-R derivative
     blocks dR_by_dq{0,x,y,z} (feature_model.cpp:167-237)."""
-    return _stack(dRq_times_a_by_dq_parts(q, a))
+    return _stack(dRq_times_a_by_dq_parts(q.unbind(-1), a.unbind(-1)))

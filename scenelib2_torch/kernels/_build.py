@@ -28,7 +28,11 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "search_bayes")
+SOURCES = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "search_bayes",
+           "measure", "score_map", "particle_predict")
+# the kernels that count launches: one per library, and K11, the second entry
+# point of search_bayes.cu
+KERNELS = SOURCES + ("search_bayes_maps",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -36,7 +40,7 @@ NVCC_FLAGS = (
 
 # launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else
-launches: dict[str, int] = {n: 0 for n in SOURCES}
+launches: dict[str, int] = {n: 0 for n in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

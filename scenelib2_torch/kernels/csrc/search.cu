@@ -9,7 +9,9 @@
 //
 // Bound on an H100: ~60 KB of windows and ~10 MFLOP for 10 features, far
 // below a microsecond; the launch dominates. Design: one block per selected
-// feature. The block stages its (side + B - 1)^2 window of the u8 frame and
+// feature; in the batch step the features of all lanes are one grid
+// (feature k searches frame k / per_lane), so one launch serves every lane.
+// The block stages its (side + B - 1)^2 window of the u8 frame and
 // its patch in shared memory; threads stride over the candidate centres,
 // score only those inside the ellipse's 3-sigma box (every other candidate
 // is masked out anyway), then reduce the minimum and, among the cells at the
@@ -23,7 +25,7 @@
 #define MAX_WIN 96  // window side (side + B - 1) held in shared memory
 
 struct K2Params {
-  int H, W, B, side_v, side_u;
+  int H, W, B, side_v, side_u, per_lane;
   float no_sigma, no_sigma2, corr_thresh2, corr_sigma_thresh;
 };
 
@@ -122,9 +124,10 @@ k2_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ patch_row
   const int u0 = u0s[k], v0 = v0s[k], uc = ucs[k], vc = vcs[k];
   const float a = sinv_abc[3 * k], b = sinv_abc[3 * k + 1], c = sinv_abc[3 * k + 2];
 
+  const uint8_t* __restrict__ fr = frame + (size_t)(k / p.per_lane) * p.H * p.W;
   for (int e = threadIdx.x; e < wv * wu; e += blockDim.x) {
     const int r = e / wu, cc = e - r * wu;
-    win[e] = (float)frame[(v0 - half + r) * p.W + (u0 - half + cc)];
+    win[e] = (float)fr[(v0 - half + r) * p.W + (u0 - half + cc)];
   }
   for (int e = threadIdx.x; e < 128; e += blockDim.x) patch[e] = patch_rows[128 * k + e];
   __syncthreads();
@@ -171,7 +174,8 @@ extern "C" int k2_search(const uint8_t* frame, const float* patch_rows, const in
                          const int* v0, const int* uc, const int* vc, const float* sinv_abc,
                          const uint8_t* active, uint8_t* found, int* u, int* v, float* best,
                          uint8_t* over, int K, const K2Params* p, void* stream) {
-  if (p->side_v + p->B - 1 > MAX_WIN || p->side_u + p->B - 1 > MAX_WIN) return (int)cudaErrorInvalidValue;
+  if (p->side_v + p->B - 1 > MAX_WIN || p->side_u + p->B - 1 > MAX_WIN || p->per_lane < 1)
+    return (int)cudaErrorInvalidValue;
   if (K == 0) return 0;
   k2_kernel<<<K, K2_THREADS, 0, (cudaStream_t)stream>>>(frame, patch_rows, u0, v0, uc, vc, sinv_abc,
                                                         active, found, u, v, best, over, *p);

@@ -1,12 +1,21 @@
-// K4: particle predict, union-box score map, per-particle search and Bayes
-// update of one partial feature.
+// K4 and K11: particle search and Bayes update of partial features.
 //
-// Replaces scenelib2_tpu/kernels/pallas_search_bayes.py (pallas_search_bayes
-// / _kernel) in merged + frame + full-width mode. The plain PyTorch twin is
-// scenelib2_torch/kernels/search_bayes.py::search_bayes_plain; the particle
-// chain and the Bayes tail are particle_chain.cuh and bayes_tail.cuh. Every
-// float operation follows the twin's order (built with -fmad=false); the box
-// sums are integers, exact in any order; the searches are comparison-based.
+// Both replace scenelib2_tpu/kernels/pallas_search_bayes.py
+// (pallas_search_bayes / _kernel), in its two modes, with one kernel body
+// (sb_body) and a template parameter, wrapped as the kernels k4_kernel and
+// k11_kernel:
+//   K4  (PRE = false): merged + frame + full-width mode, one partial slot of
+//       the single-stream step: particle predict, union-box score map built
+//       from the frame, per-particle search, Bayes update. Twin:
+//       scenelib2_torch/kernels/search_bayes.py::search_bayes_plain.
+//   K11 (PRE = true): pred_rows + precomputed score map + compact rows, one
+//       block per (lane, slot) of the batch step: the prediction rows come
+//       from K10, the scores are read from K9's map (no workspace), prob /
+//       lam / palive are the slots' [NP] rows. Twin: search_bayes_maps_plain.
+// The particle chain, the Bayes tail and the score are particle_chain.cuh,
+// bayes_tail.cuh and nssd.cuh. Every float operation follows the twins'
+// order (built with -fmad=false); the box sums are integers, exact in any
+// order; the searches are comparison-based.
 //
 // Bound on an H100: ~60 KB in and out and, in the worst case (a union box
 // over the whole frame), ~77 k scored cells x 3 x 121 multiply-adds:
@@ -28,6 +37,7 @@
 #include <stdint.h>
 
 #include "bayes_tail.cuh"
+#include "nssd.cuh"
 #include "particle_chain.cuh"
 
 #define K4_THREADS 1024
@@ -72,24 +82,8 @@ __device__ float penalized_score(const uint8_t* __restrict__ frame, const float*
       cross = cross + prow[dx] * w;
     }
   }
-  const float n = (float)(B * B);
-  const float sg0 = patch[B * B], sg0sq = patch[B * B + 1];
-  const float g0bar = sg0 / n;
-  const float g1bar = sg1 / n;
-  const float varg0 = sg0sq / n - g0bar * g0bar;
-  const float varg1 = sg1sq / n - g1bar * g1bar;
-  const float sd0 = sqrtf(varg0);
-  const float sd1 = sqrtf(varg1);
-  const float v1s = varg1 == 0.0f ? 1.0f : varg1;
-  const float s1 = sqrtf(v1s);
-  const float v0s = varg0 == 0.0f ? 1.0f : varg0;
-  const float s0 = sqrtf(v0s);
-  const float kk = g0bar / s0 - g1bar / s1;
-  float corr = (sg0sq / v0s + sg1sq / v1s + n * (kk * kk) - cross * 2.0f / (s0 * s1)
-                - sg0 * 2.0f * kk / s0 + sg1 * 2.0f * kk / s1) / n;
-  const bool both_zero = sd0 == 0.0f && sd1 == 0.0f;
-  corr = (sd0 != 0.0f && sd1 != 0.0f) ? corr : (both_zero ? 0.0f : 1.0f);
-  return sd1 < p.corr_sigma_thresh ? corr + p.low_sigma_penalty : corr;
+  return nssd_penalized(patch[B * B], patch[B * B + 1], sg1, sg1sq, cross, (float)(B * B),
+                        p.corr_sigma_thresh, p.low_sigma_penalty);
 }
 
 // (value, key) order of the search: the smaller value, then the larger key
@@ -97,8 +91,16 @@ __device__ __forceinline__ bool beats(float v, float k, float bv, float bk) {
   return v < bv || (v == bv && k > bk);
 }
 
-__global__ void __launch_bounds__(K4_THREADS)
-k4_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ prob,
+// PRE = false (K4): frame is the u8 frame, corr_maps and pred_in are unused,
+// prob / lam / palive are the whole [MF, NP] arrays and pidx_p picks the row.
+// PRE = true (K11): block blk serves (lane, slot) blk; corr_maps [blk][H][W]
+// and pred_in [blk][8][128] are read, prob / lam / palive / outputs are
+// [blk][NP] rows, making / pmask / ma and the scalars are [blk]; frame,
+// pidx_p, patch_row, shared_row, slot_row, pred_o and ws are unused.
+template <bool PRE>
+__device__ __forceinline__ void
+sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
+          const float* __restrict__ pred_in, const float* __restrict__ prob,
           const float* __restrict__ lam, const uint8_t* __restrict__ palive,
           const uint8_t* __restrict__ making_p, const uint8_t* __restrict__ pmask_p,
           const int* __restrict__ ma_p, const int* __restrict__ pidx_p,
@@ -121,18 +123,23 @@ k4_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ prob,
   __shared__ int scan[4];  // v_lo, v_hi, u_lo, u_hi of the scanned region
   const int t = threadIdx.x;
   const int NP = p.NP, H = p.H, W = p.W;
-  const int pidx = pidx_p[0];
-  const bool making = making_p[0] != 0;
-  const bool pmask = pmask_p[0] != 0;
-  const float ma = (float)ma_p[0];
+  const int blk = PRE ? blockIdx.x : 0;
+  const int pidx = PRE ? blk : pidx_p[0];  // the row of prob / lam / palive
+  const bool making = making_p[blk] != 0;
+  const bool pmask = pmask_p[blk] != 0;
+  const float ma = (float)ma_p[blk];
+  // the scores the searches read: K9's map of this (lane, slot), or the workspace
+  const float* __restrict__ scores = PRE ? corr_maps + (size_t)blk * H * W : ws;
   const float R = (float)p.win_radius;
   const float side_u = (float)min(2 * p.win_radius + 1, W);
   const float side_v = (float)min(2 * p.win_radius + 1, H);
 
   // ---- 1. prologue, particle chain, search geometry ----------------------
-  if (t == 0) geometry_prologue(shared_row, slot_row, geom);
-  if (t < 128) patch[t] = patch_row[t];
-  __syncthreads();
+  if (!PRE) {
+    if (t == 0) geometry_prologue(shared_row, slot_row, geom);
+    if (t < 128) patch[t] = patch_row[t];
+    __syncthreads();
+  }
   const bool lane = t < K4_LANES;
   const bool valid = t < NP;
   float prob_in = 0.0f, lam_in = 0.0f, pr[NROWS];
@@ -143,12 +150,16 @@ k4_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ prob,
       lam_in = lam[pidx * NP + t];
       alive = palive[pidx * NP + t] != 0;
     }
-    const ParticleConsts pc = {p.fku, p.fkv, p.u0c, p.v0c, p.two_kd1, p.neg_two_kd1, p.sd0, p.maxdist,
-                               p.no_sigma};
-    particle_tail(valid ? lam_in : 1.0f, geom, pc, pr);
+    if (PRE) {
+      for (int r = 0; r < NROWS; ++r) pr[r] = pred_in[((size_t)blk * NROWS + r) * K4_LANES + t];
+    } else {
+      const ParticleConsts pc = {p.fku, p.fkv, p.u0c, p.v0c, p.two_kd1, p.neg_two_kd1, p.sd0,
+                                 p.maxdist, p.no_sigma};
+      particle_tail(valid ? lam_in : 1.0f, geom, pc, pr);
+    }
     for (int r = 0; r < NROWS; ++r) {
       pred[r][t] = pr[r];
-      if (valid) pred_o[r * NP + t] = pr[r];
+      if (!PRE && valid) pred_o[r * NP + t] = pr[r];
     }
     searchable = alive && making;
     const float uc = truncf(pr[ROW_HU]), vc = truncf(pr[ROW_HV]);
@@ -201,12 +212,14 @@ k4_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ prob,
   const int v_lo = scan[0], v_hi = scan[1], u_lo = scan[2], u_hi = scan[3];
 
   // ---- 3. scores of the scanned centres ------------------------------------
-  const int nc = u_hi - u_lo;
-  for (int e = t; e < (v_hi - v_lo) * nc; e += blockDim.x) {
-    const int v = v_lo + e / nc, u = u_lo + e % nc;
-    ws[v * W + u] = penalized_score(frame, patch, v, u, p);
+  if (!PRE) {
+    const int nc = u_hi - u_lo;
+    for (int e = t; e < (v_hi - v_lo) * nc; e += blockDim.x) {
+      const int v = v_lo + e / nc, u = u_lo + e % nc;
+      ws[v * W + u] = penalized_score(frame, patch, v, u, p);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // ---- 4. per-particle search, one warp per particle -----------------------
   const int warp = t >> 5, wl = t & 31;
@@ -232,7 +245,7 @@ k4_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ prob,
       const float vterm = (c * vrel) * vrel;
       const bool mask = vf >= vlo && vf < vhi && uf >= ulo && uf < uhi && ((t1 + t2) + vterm) < no_sigma2;
       if (!mask) continue;
-      const float val = ws[v * W + u];
+      const float val = scores[v * W + u];
       const float key = uf * (float)H + vf;
       if (val < K4_MISS && beats(val, key, best, bkey)) {
         best = val;
@@ -263,10 +276,10 @@ k4_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ prob,
     p_over = over && searchable;
     zu = truncf((kb + 0.5f) / (float)H);
     zv = kb - (float)H * zu;
-    found_o[t] = found;
-    z_o[2 * t] = zu;
-    z_o[2 * t + 1] = zv;
-    best_o[t] = best;
+    found_o[blk * NP + t] = found;
+    z_o[2 * (blk * NP + t)] = zu;
+    z_o[2 * (blk * NP + t) + 1] = zv;
+    best_o[blk * NP + t] = best;
   }
   const BayesConsts bc = {p.prune_prob_thresh, p.sd_depth_ratio, p.min_particles,
                           p.erase_partial_after_attempts};
@@ -277,23 +290,52 @@ k4_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ prob,
       lane ? pred[ROW_HV][t] : 0.0f, lane ? pred[ROW_S00][t] : 0.0f, lane ? pred[ROW_S01][t] : 0.0f,
       lane ? pred[ROW_S11][t] : 0.0f, lane ? pred[ROW_DET][t] : 0.0f, making, pmask, ma, bc, buf,
       &prob_f, &alive_f);
-  if (lane) {
-    s_probf[t] = prob_f;
-    s_alivef[t] = alive_f;
-  }
-  __syncthreads();
-  for (int e = t; e < p.MF * NP; e += blockDim.x) {
-    const int row = e / NP, col = e - row * NP;
-    prob_o[e] = row == pidx ? s_probf[col] : prob[e];
-    palive_o[e] = row == pidx ? s_alivef[col] : palive[e];
+  if (PRE) {
+    if (valid) {
+      prob_o[blk * NP + t] = prob_f;
+      palive_o[blk * NP + t] = alive_f;
+    }
+  } else {
+    if (lane) {
+      s_probf[t] = prob_f;
+      s_alivef[t] = alive_f;
+    }
+    __syncthreads();
+    for (int e = t; e < p.MF * NP; e += blockDim.x) {
+      const int row = e / NP, col = e - row * NP;
+      prob_o[e] = row == pidx ? s_probf[col] : prob[e];
+      palive_o[e] = row == pidx ? s_alivef[col] : palive[e];
+    }
   }
   if (t == 0) {
-    mean_o[0] = res.mean;
-    cov_o[0] = res.cov;
-    convert_o[0] = res.convert;
-    kill_o[0] = res.kill;
-    nover_o[0] = res.n_over;
+    mean_o[blk] = res.mean;
+    cov_o[blk] = res.cov;
+    convert_o[blk] = res.convert;
+    kill_o[blk] = res.kill;
+    nover_o[blk] = res.n_over;
   }
+}
+
+__global__ void __launch_bounds__(K4_THREADS)
+k4_kernel(const uint8_t* frame, const float* prob, const float* lam, const uint8_t* palive,
+          const uint8_t* making, const uint8_t* pmask, const int* ma, const int* pidx,
+          const float* patch_row, const float* shared_row, const float* slot_row, float* prob_o,
+          uint8_t* palive_o, float* mean_o, float* cov_o, uint8_t* convert_o, uint8_t* kill_o,
+          int* nover_o, uint8_t* found_o, float* z_o, float* best_o, float* pred_o, float* ws,
+          K4Params p) {
+  sb_body<false>(frame, nullptr, nullptr, prob, lam, palive, making, pmask, ma, pidx, patch_row,
+                 shared_row, slot_row, prob_o, palive_o, mean_o, cov_o, convert_o, kill_o, nover_o,
+                 found_o, z_o, best_o, pred_o, ws, p);
+}
+
+__global__ void __launch_bounds__(K4_THREADS)
+k11_kernel(const float* corr_maps, const float* pred_rows, const float* prob, const float* lam,
+           const uint8_t* palive, const uint8_t* making, const uint8_t* pmask, const int* ma,
+           float* prob_o, uint8_t* palive_o, float* mean_o, float* cov_o, uint8_t* convert_o,
+           uint8_t* kill_o, int* nover_o, uint8_t* found_o, float* z_o, float* best_o, K4Params p) {
+  sb_body<true>(nullptr, corr_maps, pred_rows, prob, lam, palive, making, pmask, ma, nullptr, nullptr,
+                nullptr, nullptr, prob_o, palive_o, mean_o, cov_o, convert_o, kill_o, nover_o, found_o,
+                z_o, best_o, nullptr, nullptr, p);
 }
 
 extern "C" int k4_search_bayes(const uint8_t* frame, const float* prob, const float* lam,
@@ -307,5 +349,20 @@ extern "C" int k4_search_bayes(const uint8_t* frame, const float* prob, const fl
   k4_kernel<<<1, K4_THREADS, 0, (cudaStream_t)stream>>>(
       frame, prob, lam, palive, making, pmask, match_attempts, pidx, patch_row, shared_row, slot_row,
       prob_o, palive_o, mean, cov, convert, kill, n_over, found, z, best, pred, workspace, *p);
+  return (int)cudaGetLastError();
+}
+
+// K11: n_blocks = lanes x slots; every array's leading dimension is the block.
+extern "C" int k11_search_bayes_maps(const float* corr_maps, const float* pred_rows, const float* prob,
+                                     const float* lam, const uint8_t* palive, const uint8_t* making,
+                                     const uint8_t* pmask, const int* match_attempts, float* prob_o,
+                                     uint8_t* palive_o, float* mean, float* cov, uint8_t* convert,
+                                     uint8_t* kill, int* n_over, uint8_t* found, float* z, float* best,
+                                     int n_blocks, const K4Params* p, void* stream) {
+  if (p->NP > K4_LANES) return (int)cudaErrorInvalidValue;
+  if (n_blocks == 0) return 0;
+  k11_kernel<<<n_blocks, K4_THREADS, 0, (cudaStream_t)stream>>>(
+      corr_maps, pred_rows, prob, lam, palive, making, pmask, match_attempts, prob_o, palive_o, mean,
+      cov, convert, kill, n_over, found, z, best, *p);
   return (int)cudaGetLastError();
 }

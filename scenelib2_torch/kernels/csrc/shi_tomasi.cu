@@ -7,7 +7,8 @@
 // the twin's f32 operations in its order (built with -fmad=false).
 //
 // Bound on an H100: a 72 x 92 u8 window and ~2 MOP: far below a
-// microsecond; the launch dominates. Design: one block of 512 threads; the
+// microsecond; the launch dominates. Design: one block of 512 threads per
+// lane (the batch step's lanes are the grid: one launch for all); the
 // window (u8) and the doubled gradients (int16) in shared memory; a thread
 // per output cell sums its 121 gradient products in int32 and takes the
 // eigenvalue; block reductions give the maximum (NaN if any masked value is
@@ -95,8 +96,10 @@ k6_kernel(const uint8_t* __restrict__ frame, const int* __restrict__ us_p, const
   const int off = 1 + (p.B - 1) / 2;
   const int rw = p.region_w, rh = p.region_h;
   const int wv = rh + 2 * off, wu = rw + 2 * off, gu = wu - 2;
-  const int ustart = us_p[0], vstart = vs_p[0];
-  const float fus = (float)ustart, fvs = (float)vstart, fuf = (float)uf_p[0], fvf = (float)vf_p[0];
+  const int ln = blockIdx.x;
+  frame += (size_t)ln * p.H * p.W;
+  const int ustart = us_p[ln], vstart = vs_p[ln];
+  const float fus = (float)ustart, fvs = (float)vstart, fuf = (float)uf_p[ln], fvf = (float)vf_p[ln];
   const int u0 = min(max(ustart, off), p.W - rw - off);
   const int v0 = min(max(vstart, off), p.H - rh - off);
 
@@ -139,17 +142,18 @@ k6_kernel(const uint8_t* __restrict__ frame, const int* __restrict__ us_p, const
 
   if (threadIdx.x == 0) {
     const bool found = best > 0.0f;
-    ubest_o[0] = found ? kmin % p.W : ustart;
-    vbest_o[0] = found ? kmin / p.W : vstart;
-    ev_o[0] = found ? best : 0.0f;
+    ubest_o[ln] = found ? kmin % p.W : ustart;
+    vbest_o[ln] = found ? kmin / p.W : vstart;
+    ev_o[ln] = found ? best : 0.0f;
   }
 }
 
 extern "C" int k6_shi_tomasi(const uint8_t* frame, const int* us, const int* vs, const int* uf,
-                             const int* vf, int* ubest, int* vbest, float* evbest,
+                             const int* vf, int* ubest, int* vbest, float* evbest, int n_lanes,
                              const K6Params* p, void* stream) {
   const int off = 1 + (p->B - 1) / 2;
   if (p->region_h + 2 * off > K6_MAX_WV || p->region_w + 2 * off > K6_MAX_WU) return (int)cudaErrorInvalidValue;
-  k6_kernel<<<1, K6_THREADS, 0, (cudaStream_t)stream>>>(frame, us, vs, uf, vf, ubest, vbest, evbest, *p);
+  if (n_lanes == 0) return 0;
+  k6_kernel<<<n_lanes, K6_THREADS, 0, (cudaStream_t)stream>>>(frame, us, vs, uf, vf, ubest, vbest, evbest, *p);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,20 @@
-"""Per-particle measurement prediction of a partial (ray) feature, as plain
-tensor code; its CUDA form is csrc/particle_chain.cuh, which K4
-(csrc/search_bayes.cu) runs in its prologue.
+"""K10 and the per-particle measurement prediction of a partial (ray)
+feature that it shares with K4.
+
+K10 replaces the TPU kernel scenelib2_tpu/kernels/pallas_particle.py
+(``pallas_particle_predict_fused`` / ``_predict_geom_kernel``): stage 8 of
+the batch step, the chain below for every (lane, partial slot) from the
+slot's blocks of the state. It writes the [8, 128] prediction rows (ROW_*)
+that K11 reads, the lanes beyond NP computed at lambda = 1 as the TPU
+wrapper pads them. The CUDA kernel is csrc/particle_predict.cu: one block
+per (lane, slot), one thread per particle, over csrc/particle_chain.cuh,
+the same device code that K4 (csrc/search_bayes.cu) runs in its prologue,
+so K10's rows equal the rows K4 produces for the same slot.
+
+Bound on an H100 at 64 lanes x 1 slot x 100 particles: ~0.3 MB in and out
+and ~0.7 MFLOP, well under a microsecond; the launch dominates.
+
+The chain as plain tensor code:
 
 Port of scenelib2_tpu/kernels/pallas_particle.py: the row layout of the
 result (ROW_*), the packed operand rows (the shared camera row and the slot
@@ -15,19 +29,25 @@ Cholesky inverse and determinant, and the 3-sigma search half-extents
 Every sum runs in the TPU kernel's order: the prologue's dot rows skip the
 literal zeros of N1/N2 and sum the other terms left to right; constant
 divisors are 0-dim tensors (a division by a Python scalar becomes a
-multiply by its reciprocal on CUDA). The standalone TPU kernels of this
-chain (pallas_particle.py:197 and :434) belong to batch mode and are not
-ported yet.
+multiply by its reciprocal on CUDA). Every function takes leading (lane,
+slot) dimensions: the rows lie in the LAST dimension. The K-form-input TPU
+kernel of this chain (pallas_particle.py:197) runs only in the JAX
+package's tests and is not ported yet.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from scenelib2_torch.core.quaternion import seqsum
+from scenelib2_torch.kernels import _build
+
+NAME = "particle_predict"
+NP_PAD = 128
 
 ROW_HU, ROW_HV, ROW_S00, ROW_S01, ROW_S11, ROW_DET, ROW_HW, ROW_HH = range(8)
 
@@ -87,16 +107,20 @@ def _drq_dqbar(qw, qx, qy, qz, a):
 
 
 def geometry_prologue(shared: torch.Tensor, slot_row: torch.Tensor):
-    """The lambda-independent slot geometry: (zr [3], zh [3], K0 [3,3],
-    Ksym [3,3], K2 [3,3]) tensors (runtime/step.py slot_geom +
-    core/models.part_zeroedyi of the JAX package)."""
-    r = [shared[SH_XP + i] for i in range(3)]
-    w, x, y, z = (shared[SH_XP + 3 + i] for i in range(4))
-    Pxx7 = shared[SH_PXX : SH_PXX + 49].reshape(7, 7)
-    ri = [slot_row[SL_Y + i] for i in range(3)]
-    hh = [slot_row[SL_Y + 3 + i] for i in range(3)]
-    P12 = slot_row[SL_PXY : SL_PXY + 42].reshape(7, 6)
-    P22 = slot_row[SL_PYY : SL_PYY + 36].reshape(6, 6)
+    """The lambda-independent slot geometry: (zr [..., 3], zh [..., 3],
+    K0 [..., 3, 3], Ksym [..., 3, 3], K2 [..., 3, 3]) tensors
+    (runtime/step.py slot_geom + core/models.part_zeroedyi of the JAX
+    package). shared [..., 56] and slot_row [..., 84] carry the same leading
+    dimensions (shared is expanded to slot_row's)."""
+    lead = slot_row.shape[:-1]
+    shared = shared.expand(*lead, NSHARED)
+    r = [shared[..., SH_XP + i] for i in range(3)]
+    w, x, y, z = (shared[..., SH_XP + 3 + i] for i in range(4))
+    Pxx7 = shared[..., SH_PXX : SH_PXX + 49].reshape(*lead, 7, 7)
+    ri = [slot_row[..., SL_Y + i] for i in range(3)]
+    hh = [slot_row[..., SL_Y + 3 + i] for i in range(3)]
+    P12 = slot_row[..., SL_PXY : SL_PXY + 42].reshape(*lead, 7, 6)
+    P22 = slot_row[..., SL_PYY : SL_PYY + 36].reshape(*lead, 6, 6)
 
     # qRW = conj(q) * (1 / |q|^2), then Eigen's unit-quaternion rotation
     inv_n2 = 1.0 / (w * w + x * x + y * y + z * z)
@@ -108,30 +132,34 @@ def geometry_prologue(shared: torch.Tensor, slot_row: torch.Tensor):
          [xy + wz, 1.0 - (xx + zz), yz - wx],
          [xz - wy, yz + wx, 1.0 - (xx + yy)]]
     ym = [ri[i] - r[i] for i in range(3)]
-    zr = torch.stack([seqsum([R[i][k] * ym[k] for k in range(3)]) for i in range(3)])
-    zh = torch.stack([seqsum([R[i][k] * hh[k] for k in range(3)]) for i in range(3)])
+    zr = torch.stack([seqsum([R[i][k] * ym[k] for k in range(3)]) for i in range(3)], dim=-1)
+    zh = torch.stack([seqsum([R[i][k] * hh[k] for k in range(3)]) for i in range(3)], dim=-1)
     B1 = _drq_dqbar(qw, qx, qy, qz, ym)
     B2 = _drq_dqbar(qw, qx, qy, qz, hh)
     zero = torch.zeros_like(w)
     N1 = [[-R[i][0], -R[i][1], -R[i][2]] + B1[i] + R[i] + [zero] * 3 for i in range(3)]
     N2 = [[zero] * 3 + B2[i] + [zero] * 3 + R[i] for i in range(3)]
-    C = torch.cat([torch.cat([Pxx7, P12], 1), torch.cat([P12.T, P22], 1)], 0)   # [13, 13]
-    CN1 = torch.stack([seqsum([C[:, k] * N1[i][k] for k in NZ1]) for i in range(3)], 1)
-    CN2 = torch.stack([seqsum([C[:, k] * N2[i][k] for k in NZ2]) for i in range(3)], 1)
-    K0 = torch.stack([seqsum([N1[i][k] * CN1[k] for k in NZ1]) for i in range(3)])
-    K12 = torch.stack([seqsum([N1[i][k] * CN2[k] for k in NZ1]) for i in range(3)])
-    K2 = torch.stack([seqsum([N2[i][k] * CN2[k] for k in NZ2]) for i in range(3)])
-    return zr, zh, K0, K12 + K12.T, K2
+    C = torch.cat([torch.cat([Pxx7, P12], -1), torch.cat([P12.mT, P22], -1)], -2)   # [.., 13, 13]
+
+    def s(t):  # a [...] scalar against the [..., n] rows of C or CN
+        return t[..., None]
+
+    CN1 = torch.stack([seqsum([C[..., :, k] * s(N1[i][k]) for k in NZ1]) for i in range(3)], -1)
+    CN2 = torch.stack([seqsum([C[..., :, k] * s(N2[i][k]) for k in NZ2]) for i in range(3)], -1)
+    K0 = torch.stack([seqsum([s(N1[i][k]) * CN1[..., k, :] for k in NZ1]) for i in range(3)], -2)
+    K12 = torch.stack([seqsum([s(N1[i][k]) * CN2[..., k, :] for k in NZ1]) for i in range(3)], -2)
+    K2 = torch.stack([seqsum([s(N2[i][k]) * CN2[..., k, :] for k in NZ2]) for i in range(3)], -2)
+    return zr, zh, K0, K12 + K12.mT, K2
 
 
 def particle_tail(lam: torch.Tensor, zr, zh, K0, Ks, K2, c: ParticleConsts) -> torch.Tensor:
-    """[8, NP] prediction rows (ROW_*) for the depths lam [NP]."""
+    """[..., 8, NP] prediction rows (ROW_*) for the depths lam [..., NP]."""
     def k(v):
         return torch.full((), v, dtype=lam.dtype, device=lam.device)
 
-    x = zr[0] + lam * zh[0]
-    y = zr[1] + lam * zh[1]
-    z = zr[2] + lam * zh[2]
+    x = zr[..., 0, None] + lam * zh[..., 0, None]
+    y = zr[..., 1, None] + lam * zh[..., 1, None]
+    z = zr[..., 2, None] + lam * zh[..., 2, None]
     invz = 1.0 / z
     ucx = -c.fku * x * invz
     ucy = -c.fkv * y * invz
@@ -157,7 +185,7 @@ def particle_tail(lam: torch.Tensor, zr, zh, K0, Ks, K2, c: ParticleConsts) -> t
     lam2 = lam * lam
 
     def kl(i, j):
-        return K0[i, j] + lam * Ks[i, j] + lam2 * K2[i, j]
+        return K0[..., i, j, None] + lam * Ks[..., i, j, None] + lam2 * K2[..., i, j, None]
 
     k00, k01, k02 = kl(0, 0), kl(0, 1), kl(0, 2)
     k11, k12, k22 = kl(1, 1), kl(1, 2), kl(2, 2)
@@ -193,4 +221,69 @@ def particle_tail(lam: torch.Tensor, zr, zh, K0, Ks, K2, c: ParticleConsts) -> t
     ns = k(c.no_sigma)
     hw = torch.floor(ns / torch.sqrt(q00 - q01 * q01 / q11))
     hh = torch.floor(ns / torch.sqrt(q11 - q01 * q01 / q00))
-    return torch.stack([hu, hv, q00, q01, q11, det, hw, hh])
+    return torch.stack([hu, hv, q00, q01, q11, det, hw, hh], dim=-2)
+
+
+def pack_rows_batch(xp, pxx7, ys6, pxy, pyy):
+    """The shared rows [B, 56] and slot rows [B, F, 84] from the TPU
+    wrapper's operands (pallas_particle.py:413-423): xp [B, 7], pxx7
+    [B, 7, 7], ys6 [B, F, 6], pxy [B, F, 13, 6] (the camera-slot cross
+    blocks; the first 7 camera rows are used), pyy [B, F, 6, 6]."""
+    Bn, Fn = ys6.shape[:2]
+    shared = torch.cat([xp, pxx7.reshape(Bn, 49)], dim=-1)
+    slot = torch.cat([ys6, pxy[:, :, :7, :].reshape(Bn, Fn, 42), pyy.reshape(Bn, Fn, 36)], dim=-1)
+    return shared, slot
+
+
+def particle_predict_plain(shared, slot_rows, lam, c: ParticleConsts):
+    """Plain PyTorch K10. shared [B, 56], slot_rows [B, F, 84], lam
+    [B, F, NP] f32. Returns the [B, F, 8, 128] prediction rows; lanes NP..127
+    are computed at lambda = 1."""
+    Bn, Fn, NP = lam.shape
+    lam_p = torch.ones((Bn, Fn, NP_PAD), dtype=lam.dtype, device=lam.device)
+    lam_p[..., :NP] = lam
+    return particle_tail(lam_p, *geometry_prologue(shared[:, None, :], slot_rows), c)
+
+
+class _K10Params(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_int) for n in ("n_lanes", "F", "NP")]
+                + [(n, ctypes.c_float) for n in (
+                    "fku", "fkv", "u0c", "v0c", "two_kd1", "neg_two_kd1", "sd0", "maxdist",
+                    "no_sigma")])
+
+
+# tensor pointers (shared, slot rows, lam, the output), the params struct, the stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.POINTER(_K10Params), ctypes.c_void_p]
+
+
+def particle_predict(shared, slot_rows, lam, c: ParticleConsts):
+    """K10. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (or raise). Same output as particle_predict_plain."""
+    if lam.device.type == "cpu":
+        return particle_predict_plain(shared, slot_rows, lam, c)
+    Bn, Fn, NP = lam.shape
+    if NP > NP_PAD:
+        raise ValueError(f"K10: at most {NP_PAD} particles, got {NP}")
+    f32 = torch.float32
+    shared, slot_rows, lam = shared.contiguous(), slot_rows.contiguous(), lam.contiguous()
+    _build.check_tensor(shared, "shared", f32, (Bn, NSHARED))
+    _build.check_tensor(slot_rows, "slot_rows", f32, (Bn, Fn, NSLOT))
+    _build.check_tensor(lam, "lam", f32, (Bn, Fn, NP))
+    out = torch.empty((Bn, Fn, 8, NP_PAD), dtype=f32, device=lam.device)
+    prm = _K10Params(n_lanes=Bn, F=Fn, NP=NP, fku=c.fku, fkv=c.fkv, u0c=c.u0c, v0c=c.v0c,
+                     two_kd1=2.0 * c.kd1, neg_two_kd1=-2.0 * c.kd1, sd0=c.sd0,
+                     maxdist=c.maxdist, no_sigma=c.no_sigma)
+    fn = _build.function(NAME, "k10_particle_predict", _ARGTYPES)
+    err = fn(shared.data_ptr(), slot_rows.data_ptr(), lam.data_ptr(), out.data_ptr(),
+             ctypes.byref(prm), torch.cuda.current_stream(lam.device).cuda_stream)
+    _build.check(err, "K10 particle_predict")
+    _build.launches[NAME] += 1
+    return out
+
+
+def bytes_and_flops(Bn: int, Fn: int, NP: int) -> tuple[int, int]:
+    """Least bytes (rows in, the padded prediction rows out) and operations
+    (~1.5 k of the prologue per slot, ~90 per padded particle lane) of one
+    K10 call."""
+    nbytes = Bn * NSHARED * 4 + Bn * Fn * (NSLOT + NP) * 4 + Bn * Fn * 8 * NP_PAD * 4
+    return nbytes, Bn * Fn * (1500 + 90 * NP_PAD)

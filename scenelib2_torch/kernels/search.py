@@ -26,7 +26,9 @@ frame): ~60 KB in and ~10 MFLOP of box sums and correlation, well under a
 microsecond; the launch dominates. Design: one block per selected feature;
 its window and patch in shared memory; threads stride over the candidates,
 score only those inside the ellipse's box, and reduce the minimum and then
-the tie key across the block.
+the tie key across the block. In the batch step every argument carries a
+leading lane dimension (frame [B, H, W], the rest [B, K, ...]) and the
+B x K features are one grid: one launch for all lanes.
 """
 
 from __future__ import annotations
@@ -192,7 +194,7 @@ def search_plain(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchC
 class _K2Params(ctypes.Structure):
     _fields_ = [
         ("H", ctypes.c_int), ("W", ctypes.c_int), ("B", ctypes.c_int),
-        ("side_v", ctypes.c_int), ("side_u", ctypes.c_int),
+        ("side_v", ctypes.c_int), ("side_u", ctypes.c_int), ("per_lane", ctypes.c_int),
         ("no_sigma", ctypes.c_float), ("no_sigma2", ctypes.c_float),
         ("corr_thresh2", ctypes.c_float), ("corr_sigma_thresh", ctypes.c_float),
     ]
@@ -204,13 +206,33 @@ _ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.POINTER(_K2Params), c
 
 def search(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts):
     """K2. A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises). Same outputs as search_plain."""
+    kernel (or raises). Same outputs as search_plain. With a lane dimension
+    (frame [B, H, W], every other argument [B, K, ...]) the outputs are
+    [B, K] and the kernel is launched once for all lanes."""
+    if frame.dim() == 3:
+        return _search_lanes(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c)
     if frame.device.type == "cpu":
         return search_plain(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c)
+    return _launch(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c, 1)
+
+
+def _search_lanes(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts):
+    Bn, K = u0.shape
+    rest = (patch_rows, u0, v0, uc, vc, sinv_abc, active)
+    if frame.device.type == "cpu":
+        per_lane = [search_plain(frame[b], *(t[b] for t in rest), c) for b in range(Bn)]
+        return tuple(torch.stack(o) for o in zip(*per_lane))
+    flat = (t.reshape(Bn * K, *t.shape[2:]).contiguous() for t in rest)
+    return tuple(o.reshape(Bn, K) for o in _launch(frame, *flat, c, Bn))
+
+
+def _launch(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts, n_lanes: int):
+    """Launch K2 over K features, K / n_lanes consecutive ones per frame of
+    frame [n_lanes, H, W] (or [H, W] for one lane)."""
     K = u0.shape[0]
     if c.boxsize * c.boxsize + 2 > 128:
         raise ValueError("K2: the patch row holds at most 126 pixels")
-    _build.check_tensor(frame, "frame", torch.uint8, (c.H, c.W))
+    _build.check_tensor(frame, "frame", torch.uint8, (c.H, c.W) if frame.dim() == 2 else (n_lanes, c.H, c.W))
     _build.check_tensor(patch_rows, "patch_rows", torch.float32, (K, 128))
     for name, t in (("u0", u0), ("v0", v0), ("uc", uc), ("vc", vc)):
         _build.check_tensor(t, name, torch.int32, (K,))
@@ -223,7 +245,7 @@ def search(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts)
     best = torch.empty(K, dtype=torch.float32, device=dev)
     over = torch.empty(K, dtype=torch.bool, device=dev)
     prm = _K2Params(
-        H=c.H, W=c.W, B=c.boxsize, side_v=c.side_v, side_u=c.side_u,
+        H=c.H, W=c.W, B=c.boxsize, side_v=c.side_v, side_u=c.side_u, per_lane=max(K // n_lanes, 1),
         no_sigma=c.no_sigma, no_sigma2=c.no_sigma * c.no_sigma,
         corr_thresh2=c.corr_thresh2, corr_sigma_thresh=c.corr_sigma_thresh,
     )

@@ -1,5 +1,7 @@
-"""K4: partial-feature particle predict, union-box score map, per-particle
-search and Bayes update, in one kernel.
+"""K4 and K11: partial-feature particle search and Bayes update.
+
+K4 (single stream): particle predict, union-box score map, per-particle
+search and Bayes update of one partial slot, in one kernel.
 
 Replaces the TPU kernel scenelib2_tpu/kernels/pallas_search_bayes.py
 (``pallas_search_bayes`` / ``_kernel``) in the one mode the single-stream
@@ -37,6 +39,21 @@ the scanned cells into a global workspace [H, W] that the wrapper allocates
 (300 KB does not fit in shared memory); each warp then searches particles
 (its lanes stride over the particle's box, one comparison-based warp
 reduction); the Bayes sums as fixed 128-lane trees in shared memory.
+
+K11 (batch step, and any step with more than one partial slot) is the same
+TPU kernel in its other mode: the prediction rows come in from K10
+(``pred_rows``), the scores are read from K9's precomputed map [F, H, W]
+instead of being built from the frame, prob / lam / palive are the compact
+[F, NP] rows of the partial slots, and the grid has one block per (lane,
+slot). Steps 2, 4 and 5 are K4's, in the same device code (a template
+parameter of the one kernel body selects the mode), so on the same slot
+K11 given K9's map returns K4's found, z, best and overflow. Cells outside
+[0, H) x [0, W) are never read. Bound on an H100 at 64 lanes x 1 slot: the
+scanned cells of each lane's map read once (at most 64 x 307 KB = 19.7 MB,
+~6 us at the memory rate; typically a small part of it) against ~12
+operations per cell that a particle's search visits; every particle visits
+its own box of the shared region, so on the replay's data the operations
+bound it (under half a microsecond either way).
 """
 
 from __future__ import annotations
@@ -66,7 +83,8 @@ from scenelib2_torch.kernels.particle import (
 )
 from scenelib2_torch.kernels.search import nssd_cell_ops, nssd_corr_f32
 
-NAME = "search_bayes"
+NAME = "search_bayes"            # the library (csrc/search_bayes.cu) and K4's launch count
+NAME_K11 = "search_bayes_maps"   # K11's launch count (the library's second entry point)
 MISS = 1e6                 # score of a masked or invalid cell
 BIG = float(1 << 24)       # empty union-box sentinel
 CHUNK = 128                # column chunk of the TPU kernel's scan
@@ -202,14 +220,10 @@ def particle_search(g: dict, v_lo: int, v_hi: int, u_lo: int, u_hi: int, scores,
     return best, kbest
 
 
-def _predict_and_scan(frame, prob, lam, palive, making, pidx, shared, slot_row, c):
-    """Steps 1-2 for the slot's row: (rows of the slot (prob, lam, alive),
-    pred [8, NP], searchable, geometry, over_l, the scanned region
-    (v_lo, v_hi, u_lo, u_hi) as host ints, all 0 when it is empty)."""
-    p_ = pidx.to(torch.int64).reshape(1)
-    rows = [t.index_select(0, p_)[0] for t in (prob, lam, palive)]
-    pred = particle_tail(rows[1], *geometry_prologue(shared, slot_row), c.particle)
-    searchable = rows[2] & making[0]
+def _scan_region(pred, searchable, c):
+    """Step 2 from the prediction rows [8, NP]: (geometry, over_l, the
+    scanned region (v_lo, v_hi, u_lo, u_hi) as host ints, all 0 when it is
+    empty)."""
     g, over_l, v_lo_i, n_rows, need = search_geometry(pred, searchable, c)
     g.update(a=pred[ROW_S00], b2=2.0 * pred[ROW_S01], c=pred[ROW_S11])
     v_lo = int(v_lo_i)
@@ -219,7 +233,39 @@ def _predict_and_scan(frame, prob, lam, palive, making, pidx, shared, slot_row, 
         region = (v_lo, v_hi, CHUNK * ks[0], min(c.W, CHUNK * (ks[-1] + 1)))
     else:
         region = (0, 0, 0, 0)
+    return g, over_l, region
+
+
+def _predict_and_scan(frame, prob, lam, palive, making, pidx, shared, slot_row, c):
+    """Steps 1-2 for the slot's row: (rows of the slot (prob, lam, alive),
+    pred [8, NP], searchable, geometry, over_l, the scanned region)."""
+    p_ = pidx.to(torch.int64).reshape(1)
+    rows = [t.index_select(0, p_)[0] for t in (prob, lam, palive)]
+    pred = particle_tail(rows[1], *geometry_prologue(shared, slot_row), c.particle)
+    searchable = rows[2] & making[0]
+    g, over_l, region = _scan_region(pred, searchable, c)
     return rows, pred, searchable, g, over_l, region
+
+
+def _search_and_bayes(pred, rows, searchable, g, over_l, region, scores, making, pmask,
+                      match_attempts, c):
+    """Steps 4-5 on one slot: the per-particle search over `scores` (the
+    scanned region's values) and the Bayes tail. making, pmask,
+    match_attempts are [] tensors. Returns (prob_f [NP], palive_f [NP],
+    mean, cov, convert, kill, n_over [], found [NP], z [NP, 2], best [NP])."""
+    prob_in, lam_in, alive_in = rows
+    best, kbest = particle_search(g, *region, scores, c)
+    found = searchable & (best <= c.corr_thresh2)
+    p_over = over_l & searchable
+    Hf = torch.full((), float(c.H), dtype=torch.float32, device=pred.device)
+    zu = torch.trunc((kbest + 0.5) / Hf)
+    zv = kbest - float(c.H) * zu
+    tail = bayes_tail(
+        prob_in, lam_in, alive_in, found, p_over, zu, zv, pred[ROW_HU], pred[ROW_HV],
+        pred[ROW_S00], pred[ROW_S01], pred[ROW_S11], pred[ROW_DET], making, pmask,
+        match_attempts, c.bayes,
+    )
+    return (*tail, found, torch.stack([zu, zv], dim=-1), best)
 
 
 def search_bayes_plain(frame, prob, lam, palive, making, pmask, match_attempts, pidx,
@@ -237,26 +283,42 @@ def search_bayes_plain(frame, prob, lam, palive, making, pmask, match_attempts, 
     runs for CPU tensors, and as the kernel's reference on the card)."""
     MF, _NP = prob.shape
     dev = frame.device
-    (prob_in, lam_in, alive_in), pred, searchable, g, over_l, region = _predict_and_scan(
+    rows, pred, searchable, g, over_l, region = _predict_and_scan(
         frame, prob, lam, palive, making, pidx, shared, slot_row, c)
-    v_lo, v_hi, u_lo, u_hi = region
-    scores = score_block(frame, patch_row, *region, c) if v_hi > v_lo else None
-    best, kbest = particle_search(g, v_lo, v_hi, u_lo, u_hi, scores, c)
-
-    found = searchable & (best <= c.corr_thresh2)
-    p_over = over_l & searchable
-    Hf = torch.full((), float(c.H), dtype=torch.float32, device=dev)
-    zu = torch.trunc((kbest + 0.5) / Hf)
-    zv = kbest - float(c.H) * zu
-    prob_f, palive_f, mean, cov, convert, kill, n_over = bayes_tail(
-        prob_in, lam_in, alive_in, found, p_over, zu, zv, pred[ROW_HU], pred[ROW_HV],
-        pred[ROW_S00], pred[ROW_S01], pred[ROW_S11], pred[ROW_DET], making[0], pmask[0],
-        match_attempts[0], c.bayes,
-    )
+    scores = score_block(frame, patch_row, *region, c) if region[1] > region[0] else None
+    prob_f, palive_f, mean, cov, convert, kill, n_over, found, z, best = _search_and_bayes(
+        pred, rows, searchable, g, over_l, region, scores, making[0], pmask[0], match_attempts[0], c)
     row = (torch.arange(MF, device=dev) == pidx.to(torch.int64))[:, None]
     return (torch.where(row, prob_f[None, :], prob), torch.where(row, palive_f[None, :], palive),
             mean[None], cov[None], convert[None], kill[None], n_over[None], found[None],
-            torch.stack([zu, zv], dim=-1)[None], best[None], pred[None])
+            z[None], best[None], pred[None])
+
+
+def search_bayes_maps_plain(corr_maps, pred_rows, prob, lam, palive, making, pmask,
+                            match_attempts, c: SearchBayesConsts):
+    """Plain PyTorch K11. corr_maps [B, F, H, W] f32 (K9's maps); pred_rows
+    [B, F, 8, 128] f32 (K10's rows); prob, lam [B, F, NP] f32 and palive
+    [B, F, NP] bool (the partial slots' rows); making, pmask [B, F] bool;
+    match_attempts [B, F] i32 (incremented this frame).
+
+    Returns (prob_f [B, F, NP], palive_f [B, F, NP] bool, mean, cov [B, F],
+    convert, kill [B, F] bool, n_over [B, F] i32, found [B, F, NP] bool,
+    z [B, F, NP, 2], best [B, F, NP]). Loops over lanes and slots; each
+    slot's scanned region is read on the host."""
+    Bn, Fn, NP = prob.shape
+    outs = []
+    for b in range(Bn):
+        for f in range(Fn):
+            pred = pred_rows[b, f, :, :NP]
+            rows = (prob[b, f], lam[b, f], palive[b, f])
+            searchable = rows[2] & making[b, f]
+            g, over_l, region = _scan_region(pred, searchable, c)
+            v_lo, v_hi, u_lo, u_hi = region
+            scores = corr_maps[b, f, v_lo:v_hi, u_lo:u_hi] if v_hi > v_lo else None
+            outs.append(_search_and_bayes(pred, rows, searchable, g, over_l, region, scores,
+                                          making[b, f], pmask[b, f], match_attempts[b, f], c))
+    return tuple(torch.stack([o[i] for o in outs]).reshape(Bn, Fn, *outs[0][i].shape)
+                 for i in range(len(outs[0])))
 
 
 def work_counts(frame, prob, lam, palive, making, pmask, match_attempts, pidx, patch_row,
@@ -267,13 +329,17 @@ def work_counts(frame, prob, lam, palive, making, pmask, match_attempts, pidx, p
     _rows, _pred, _s, g, _o, (v_lo, v_hi, u_lo, u_hi) = _predict_and_scan(
         frame, prob, lam, palive, making, pidx, shared, slot_row, c)
 
+    return v_hi - v_lo, u_hi - u_lo, int(_visited(g, v_lo, v_hi, u_lo, u_hi).sum())
+
+
+def _visited(g: dict, v_lo: int, v_hi: int, u_lo: int, u_hi: int) -> torch.Tensor:
+    """[NP] cells of each particle's box within the scanned region."""
     def span(lo, hi, a, b):
         lo = torch.nan_to_num(torch.floor(lo), nan=float(b)).clamp(a, b)
         hi = torch.nan_to_num(torch.ceil(hi), nan=float(a)).clamp(a, b)
         return (hi - lo).clamp(min=0)
 
-    visited = span(g["vlo"], g["vhi"], v_lo, v_hi) * span(g["ulo"], g["uhi"], u_lo, u_hi)
-    return v_hi - v_lo, u_hi - u_lo, int(visited.sum())
+    return span(g["vlo"], g["vhi"], v_lo, v_hi) * span(g["ulo"], g["uhi"], u_lo, u_hi)
 
 
 class _K4Params(ctypes.Structure):
@@ -283,6 +349,18 @@ class _K4Params(ctypes.Structure):
                     "fku", "fkv", "u0c", "v0c", "two_kd1", "neg_two_kd1", "sd0", "maxdist",
                     "prune_prob_thresh", "sd_depth_ratio", "min_particles",
                     "erase_partial_after_attempts")])
+
+
+def _k4_params(c: SearchBayesConsts, MF: int, NP: int) -> _K4Params:
+    pc, bc = c.particle, c.bayes
+    return _K4Params(
+        H=c.H, W=c.W, B=c.boxsize, MF=MF, NP=NP, win_radius=c.win_radius, no_sigma=c.no_sigma,
+        corr_thresh2=c.corr_thresh2, corr_sigma_thresh=c.corr_sigma_thresh,
+        low_sigma_penalty=c.low_sigma_penalty, fku=pc.fku, fkv=pc.fkv, u0c=pc.u0c, v0c=pc.v0c,
+        two_kd1=2.0 * pc.kd1, neg_two_kd1=-2.0 * pc.kd1, sd0=pc.sd0, maxdist=pc.maxdist,
+        prune_prob_thresh=bc.prune_prob_thresh, sd_depth_ratio=bc.sd_depth_ratio,
+        min_particles=bc.min_particles, erase_partial_after_attempts=bc.erase_partial_after_attempts,
+    )
 
 
 # tensor pointers (11 inputs, 11 outputs, the workspace), the params struct, the stream
@@ -320,21 +398,80 @@ def search_bayes(frame, prob, lam, palive, making, pmask, match_attempts, pidx, 
         torch.empty((1, 8, NP), dtype=f32, device=dev),
     )
     workspace = torch.empty((H, W), dtype=f32, device=dev)
-    pc, bc = c.particle, c.bayes
-    prm = _K4Params(
-        H=H, W=W, B=c.boxsize, MF=MF, NP=NP, win_radius=c.win_radius, no_sigma=c.no_sigma,
-        corr_thresh2=c.corr_thresh2, corr_sigma_thresh=c.corr_sigma_thresh,
-        low_sigma_penalty=c.low_sigma_penalty, fku=pc.fku, fkv=pc.fkv, u0c=pc.u0c, v0c=pc.v0c,
-        two_kd1=2.0 * pc.kd1, neg_two_kd1=-2.0 * pc.kd1, sd0=pc.sd0, maxdist=pc.maxdist,
-        prune_prob_thresh=bc.prune_prob_thresh, sd_depth_ratio=bc.sd_depth_ratio,
-        min_particles=bc.min_particles, erase_partial_after_attempts=bc.erase_partial_after_attempts,
-    )
+    prm = _k4_params(c, MF=MF, NP=NP)
     fn = _build.function(NAME, "k4_search_bayes", _ARGTYPES)
     err = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs), workspace.data_ptr(),
              ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K4 search_bayes")
     _build.launches[NAME] += 1
     return outs
+
+
+# tensor pointers (8 inputs, 10 outputs), the number of (lane, slot) blocks, the params
+# struct, the stream
+_ARGTYPES_K11 = [ctypes.c_void_p] * 18 + [ctypes.c_int, ctypes.POINTER(_K4Params), ctypes.c_void_p]
+
+
+def search_bayes_maps(corr_maps, pred_rows, prob, lam, palive, making, pmask, match_attempts,
+                      c: SearchBayesConsts):
+    """K11. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (or raise). Same outputs as search_bayes_maps_plain."""
+    args = (corr_maps, pred_rows, prob, lam, palive, making, pmask, match_attempts)
+    if corr_maps.device.type == "cpu":
+        return search_bayes_maps_plain(*args, c)
+    Bn, Fn, NP = prob.shape
+    H, W = c.H, c.W
+    if NP > 128:
+        raise ValueError(f"K11: at most 128 particles, got {NP}")
+    f32, b, i32 = torch.float32, torch.bool, torch.int32
+    args = tuple(t.contiguous() for t in args)
+    for t, name, dty, shp in zip(
+        args, ("corr_maps", "pred_rows", "prob", "lam", "palive", "making", "pmask", "match_attempts"),
+        (f32, f32, f32, f32, b, b, b, i32),
+        ((Bn, Fn, H, W), (Bn, Fn, 8, 128), (Bn, Fn, NP), (Bn, Fn, NP), (Bn, Fn, NP), (Bn, Fn),
+         (Bn, Fn), (Bn, Fn)),
+    ):
+        _build.check_tensor(t, name, dty, shp)
+    dev = corr_maps.device
+    outs = (
+        torch.empty((Bn, Fn, NP), dtype=f32, device=dev), torch.empty((Bn, Fn, NP), dtype=b, device=dev),
+        torch.empty((Bn, Fn), dtype=f32, device=dev), torch.empty((Bn, Fn), dtype=f32, device=dev),
+        torch.empty((Bn, Fn), dtype=b, device=dev), torch.empty((Bn, Fn), dtype=b, device=dev),
+        torch.empty((Bn, Fn), dtype=i32, device=dev), torch.empty((Bn, Fn, NP), dtype=b, device=dev),
+        torch.empty((Bn, Fn, NP, 2), dtype=f32, device=dev), torch.empty((Bn, Fn, NP), dtype=f32, device=dev),
+    )
+    fn = _build.function(NAME, "k11_search_bayes_maps", _ARGTYPES_K11)
+    prm = _k4_params(c, MF=Fn, NP=NP)
+    err = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs), Bn * Fn,
+             ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "K11 search_bayes_maps")
+    _build.launches[NAME_K11] += 1
+    return outs
+
+
+def bytes_and_flops_maps(Bn: int, Fn: int, NP: int, n_scanned: int, n_searched: int) -> tuple[int, int]:
+    """Least bytes and operations of one K11 call with this run's data: the
+    n_scanned map cells of the scanned regions read once, the prediction
+    and particle rows in, the results out; ~40 operations per particle of
+    the geometry and the Bayes tail and ~12 per cell that a particle's
+    search visits (n_searched, summed over lanes and slots)."""
+    per_slot = 8 * 128 * 4 + NP * (4 + 4 + 1) + 6 + NP * (4 + 1) + 4 * 4 + NP * (1 + 8 + 4)
+    return 4 * n_scanned + Bn * Fn * per_slot, Bn * Fn * NP * 40 + 12 * n_searched
+
+
+def work_counts_maps(pred_rows, palive, making, c: SearchBayesConsts) -> tuple[int, int]:
+    """The data-dependent work of one K11 call: (cells of the scanned
+    regions, cells visited by the per-particle searches), summed over lanes
+    and slots."""
+    Bn, Fn, NP = palive.shape
+    n_scanned = n_searched = 0
+    for bi in range(Bn):
+        for f in range(Fn):
+            g, _o, (v_lo, v_hi, u_lo, u_hi) = _scan_region(
+                pred_rows[bi, f, :, :NP], palive[bi, f] & making[bi, f], c)
+            n_scanned += (v_hi - v_lo) * (u_hi - u_lo)
+            n_searched += int(_visited(g, v_lo, v_hi, u_lo, u_hi).sum())
+    return n_scanned, n_searched
 
 
 def bytes_and_flops(MF: int, NP: int, H: int, W: int, boxsize: int, n_rows: int, n_cols: int,

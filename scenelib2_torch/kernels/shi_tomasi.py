@@ -22,6 +22,8 @@ a microsecond; the launch dominates. Design: one block; the window as u8
 and the two gradient planes as int16 in shared memory; one thread per
 output cell sums its 121 gradient products in int32 (exact), evaluates the
 eigenvalue, and two block reductions give the maximum and the tie key.
+In the batch step the frame is [B, H, W] and the bounds [B]: one block per
+lane, one launch for all lanes.
 """
 
 from __future__ import annotations
@@ -110,34 +112,43 @@ class _K6Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in ("H", "W", "B", "region_w", "region_h")]
 
 
-# tensor pointers (frame, 4 bounds, 3 outputs), the params struct, the stream
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.POINTER(_K6Params), ctypes.c_void_p]
+# tensor pointers (frame, 4 bounds, 3 outputs), the lanes, the params struct, the stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.POINTER(_K6Params), ctypes.c_void_p]
 
 
 def shi_tomasi(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int, region_w: int,
                region_h: int):
     """K6. A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises). Same outputs as shi_tomasi_plain."""
+    kernel (or raises). Same outputs as shi_tomasi_plain. With a lane
+    dimension (frame [B, H, W], bounds [B]) the outputs are [B] and the
+    kernel is launched once for all lanes."""
     kw = dict(boxsize=boxsize, region_w=region_w, region_h=region_h)
+    lanes = frame.dim() == 3
     if frame.device.type == "cpu":
+        if lanes:
+            per_lane = [shi_tomasi_plain(frame[b], ustart[b], vstart[b], ufinish[b], vfinish[b], **kw)
+                        for b in range(frame.shape[0])]
+            return tuple(torch.stack(o) for o in zip(*per_lane))
         return shi_tomasi_plain(frame, ustart, vstart, ufinish, vfinish, **kw)
-    H, W = frame.shape
+    H, W = frame.shape[-2:]
+    shp = (frame.shape[0],) if lanes else ()
     off, rw, rh = region_geometry(H, W, boxsize, region_w, region_h)
     if not (0 < rw and 0 < rh and rw + 2 * off <= 100 and rh + 2 * off <= 80):
         raise ValueError(f"K6: unsupported region {rw}x{rh} (+{2 * off})")
-    _build.check_tensor(frame, "frame", torch.uint8, (H, W))
+    _build.check_tensor(frame, "frame", torch.uint8, (*shp, H, W))
     for name, t in (("ustart", ustart), ("vstart", vstart), ("ufinish", ufinish),
                     ("vfinish", vfinish)):
-        _build.check_tensor(t, name, torch.int32, ())
+        _build.check_tensor(t, name, torch.int32, shp)
     dev = frame.device
-    ubest = torch.empty((), dtype=torch.int32, device=dev)
-    vbest = torch.empty((), dtype=torch.int32, device=dev)
-    evbest = torch.empty((), dtype=torch.float32, device=dev)
+    ubest = torch.empty(shp, dtype=torch.int32, device=dev)
+    vbest = torch.empty(shp, dtype=torch.int32, device=dev)
+    evbest = torch.empty(shp, dtype=torch.float32, device=dev)
     prm = _K6Params(H=H, W=W, B=boxsize, region_w=rw, region_h=rh)
     fn = _build.function(NAME, "k6_shi_tomasi", _ARGTYPES)
     err = fn(frame.data_ptr(), ustart.data_ptr(), vstart.data_ptr(), ufinish.data_ptr(),
              vfinish.data_ptr(), ubest.data_ptr(), vbest.data_ptr(), evbest.data_ptr(),
-             ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
+             frame.shape[0] if lanes else 1, ctypes.byref(prm),
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K6 shi_tomasi")
     _build.launches[NAME] += 1
     return ubest, vbest, evbest

@@ -16,11 +16,13 @@ the plain reference of the draws inside the K5 kernel
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 __all__ = ["srand48", "Drand48", "pack_state", "unpack_state", "drand48_step",
-           "drand48_many", "host_drand48_sequence"]
+           "drand48_many", "jump_limbs", "host_drand48_sequence"]
 
 _A = 0x5DEECE66D
 _C = 0xB
@@ -110,20 +112,30 @@ def _jump_constants(n: int):
     return ai, ci
 
 
+@functools.lru_cache(maxsize=None)
+def jump_limbs(n: int, device: str):
+    """The limbs of the n jump constants as int64 [n] tensors on `device`,
+    (a0, a1, a2), (c0, c1, c2). Cached: the host-to-device copy happens once
+    per (n, device), so a step that calls drand48_many every frame makes no
+    host synchronisation after its first frame."""
+    ai, ci = _jump_constants(n)
+
+    def limbs(xs, sh):
+        return torch.tensor([(x >> sh) & _M16 for x in xs], dtype=torch.int64, device=device)
+
+    return (tuple(limbs(ai, sh) for sh in (0, 16, 32)),
+            tuple(limbs(ci, sh) for sh in (0, 16, 32)))
+
+
 def drand48_many(state: torch.Tensor, n: int, dtype=torch.float64):
-    """n draws from the [3] limb state; returns (states [n, 3], values [n]).
+    """n draws from the [..., 3] limb state; returns (states [..., n, 3],
+    values [..., n]); leading (lane) dimensions hold independent streams.
 
     states[i] is the state after i + 1 draws, so a caller that consumes a
     data-dependent number k of draws selects states[k - 1] (or keeps the
     state for k = 0) and stays in lockstep with the reference. All n states
     come from the closed form x_i = A^{i+1} x_0 + C_i mod 2^48 at once."""
-    ai, ci = _jump_constants(n)
-    dev = state.device
-
-    def limbs(xs, sh):
-        return torch.tensor([(x >> sh) & _M16 for x in xs], dtype=torch.int64, device=dev)
-
+    a, c = jump_limbs(n, str(state.device))
     s = state.to(torch.int64)
-    r0, r1, r2 = _affine([limbs(ai, sh) for sh in (0, 16, 32)],
-                         [limbs(ci, sh) for sh in (0, 16, 32)], s[0], s[1], s[2])
-    return torch.stack([r0, r1, r2], dim=1).to(state.dtype), _limbs_value(r0, r1, r2, dtype)
+    r0, r1, r2 = _affine(a, c, s[..., 0:1], s[..., 1:2], s[..., 2:3])
+    return torch.stack([r0, r1, r2], dim=-1).to(state.dtype), _limbs_value(r0, r1, r2, dtype)

@@ -14,6 +14,12 @@ The in-step surgery (add_partial_feature with mapping on, convert_feature)
 runs every frame with its gate as data: a disabled call writes back what it read, so it is
 an exact no-op, and the step needs no host synchronisation to skip it. Slot
 indices stay tensors (index_put and one-hot selects, never .item()).
+
+Batch mode stacks B independent states: every field gains a leading lane
+dimension (x [B, D], P [B, D, D], active [B, MF], ...). The surgery, the
+deletion and the block accessors take either form; the surgery is written
+once, over lanes, and a state without lanes runs through it as one lane
+(the same element-wise arithmetic, so the single stream is unchanged).
 """
 
 from __future__ import annotations
@@ -64,14 +70,15 @@ class SlamState(NamedTuple):
 
 
 def patch_row(patch_u8: torch.Tensor) -> torch.Tensor:
-    """[128] f32 row for one patch: pixels | sum | sum of squares (integer
-    sums are exact in f32 for 11x11 u8 patches)."""
+    """[..., 128] f32 row for each [..., B, B] patch: pixels | sum | sum of
+    squares (integer sums are exact in f32 for 11x11 u8 patches)."""
     B = patch_u8.shape[-1]
+    lead = patch_u8.shape[:-2]
     p32 = patch_u8.to(torch.int32)
-    row = torch.zeros(128, dtype=torch.float32, device=patch_u8.device)
-    row[: B * B] = patch_u8.reshape(-1).to(torch.float32)
-    row[B * B] = p32.sum().to(torch.float32)
-    row[B * B + 1] = (p32 * p32).sum().to(torch.float32)
+    row = torch.zeros((*lead, 128), dtype=torch.float32, device=patch_u8.device)
+    row[..., : B * B] = patch_u8.reshape(*lead, -1).to(torch.float32)
+    row[..., B * B] = p32.sum(dim=(-2, -1)).to(torch.float32)
+    row[..., B * B + 1] = (p32 * p32).sum(dim=(-2, -1)).to(torch.float32)
     return row
 
 
@@ -160,25 +167,49 @@ def lambda_grid(params: Params) -> np.ndarray:
 
 
 def free_slot(state: SlamState):
-    """Index of the first free slot ([] int64) and whether one exists."""
-    any_free = ~torch.all(state.active)
-    slot = torch.argmin(state.active.to(torch.int32))
+    """Index of the first free slot ([...] int64) and whether one exists."""
+    any_free = ~torch.all(state.active, dim=-1)
+    slot = torch.argmin(state.active.to(torch.int32), dim=-1)
     return slot, any_free
 
 
+def has_lanes(state: SlamState) -> bool:
+    """Whether every field carries a leading lane dimension."""
+    return state.x.dim() == 2
+
+
+def _as_lane(t: torch.Tensor) -> torch.Tensor:
+    return t.unsqueeze(0)
+
+
 def _slot_dims(slot: torch.Tensor) -> torch.Tensor:
-    return CAM_DIM + SLOT_DIM * slot + torch.arange(SLOT_DIM, device=slot.device)
+    """[B, 6] state dimensions of slot [B]."""
+    return CAM_DIM + SLOT_DIM * slot[:, None] + torch.arange(SLOT_DIM, device=slot.device)
+
+
+def _read_slot_block(P, idx6):
+    """(rows [B, 6, D], pyy [B, 6, 6]) of each lane's slot."""
+    bi = torch.arange(P.shape[0], device=P.device)[:, None]
+    return P[bi, idx6], P[bi[:, :, None], idx6[:, :, None], idx6[:, None, :]]
 
 
 def _write_slot_block(P, idx6, rows, pyy):
-    """P with rows [6, D] written at the slot's rows, their transpose at its
-    columns, then pyy [6, 6] at its diagonal block (the JAX package's
-    dynamic_update_slice order)."""
+    """P [B, D, D] with rows [B, 6, D] written at each lane's slot rows,
+    their transpose at its columns, then pyy [B, 6, 6] at its diagonal block
+    (the JAX package's dynamic_update_slice order)."""
+    bi = torch.arange(P.shape[0], device=P.device)[:, None]
     P = P.clone()
-    P[idx6] = rows
-    P[:, idx6] = rows.T
-    P[idx6[:, None], idx6[None, :]] = pyy
+    P[bi, idx6] = rows
+    P[bi, :, idx6] = rows
+    P[bi[:, :, None], idx6[:, :, None], idx6[:, None, :]] = pyy
     return P
+
+
+def _write_slot_state(x, idx6, vals):
+    bi = torch.arange(x.shape[0], device=x.device)[:, None]
+    x = x.clone()
+    x[bi, idx6] = vals
+    return x
 
 
 def add_partial_feature(state: SlamState, cam: CameraParams, h: torch.Tensor,
@@ -190,28 +221,44 @@ def add_partial_feature(state: SlamState, cam: CameraParams, h: torch.Tensor,
     block J_x Pxx J_x' + dypi_by_dhi R dypi_by_dhi'.
 
     A masked no-op when enable is false or no slot is free: every write
-    carries the new content or the slot's current content."""
+    carries the new content or the slot's current content.
+
+    One form serves the single stream and the lane batch: with a lane
+    dimension on every field of the state, h is [B, 2], patch_u8 [B, b, b]
+    and enable [B], and each lane inserts into its own first free slot (the
+    result of the JAX package's onehot=True form under vmap). A state
+    without lanes runs as one lane."""
+    if not has_lanes(state):
+        out = add_partial_feature(SlamState(*map(_as_lane, state)), cam, h[None], patch_u8[None],
+                                  lam0, enable[None])
+        return SlamState(*(t[0] for t in out))
     slot, any_free = free_slot(state)
     doit = enable & any_free
     idx6 = _slot_dims(slot)
-    xp = state.x[:7]
+    xp = state.x[:, :7]
     ypi, dxp, dhi = models.part_init_ray(cam, h, xp)
-    new_rows = mm_seq(dxp, state.P[:7, :])                              # [6, D]
-    pyy = (mm_seq(new_rows[:, :7], dxp.T)
-           + mm_seq(mm_seq(dhi, measurement_noise(cam, h)), dhi.T))
-    rows = torch.where(doit, new_rows, state.P[idx6])
-    pyy_w = torch.where(doit, pyy, state.P[idx6[:, None], idx6[None, :]])
-    P = _write_slot_block(state.P, idx6, rows, pyy_w)
-    x = state.x.clone()
-    x[idx6] = torch.where(doit, ypi, state.x[idx6])
+    new_rows = mm_seq(dxp, state.P[:, :7, :])                           # [B, 6, D]
+    pyy = (mm_seq(new_rows[..., :7], dxp.mT)
+           + mm_seq(mm_seq(dhi, measurement_noise(cam, h)), dhi.mT))
+    old_rows, old_pyy = _read_slot_block(state.P, idx6)
+    d3 = doit[:, None, None]
+    P = _write_slot_block(state.P, idx6, torch.where(d3, new_rows, old_rows),
+                          torch.where(d3, pyy, old_pyy))
+    bi = torch.arange(state.x.shape[0], device=slot.device)[:, None]
+    x = _write_slot_state(state.x, idx6, torch.where(doit[:, None], ypi, state.x[bi, idx6]))
 
-    NP = state.lam.shape[1]
-    put = (torch.arange(state.active.shape[0], device=slot.device) == slot) & doit
+    NP = state.lam.shape[-1]
+    MF = state.active.shape[-1]
+    put = (torch.arange(MF, device=slot.device) == slot[:, None]) & doit[:, None]   # [B, MF]
 
     def sel(arr, new):
-        shape = (-1,) + (1,) * (arr.dim() - 1)
-        return torch.where(put.view(shape), new, arr)
+        """arr [B, MF, ...] with `new` at each lane's slot: a value per lane
+        [B, ...] or one shared by all lanes [...]."""
+        if new.dim() == arr.dim() - 1:
+            new = new.unsqueeze(1)
+        return torch.where(put.view(*put.shape, *(1,) * (arr.dim() - 2)), new, arr)
 
+    patch = patch_u8.to(torch.uint8)
     zi = torch.zeros((), dtype=torch.int32, device=slot.device)
     return state._replace(
         x=x,
@@ -219,14 +266,14 @@ def add_partial_feature(state: SlamState, cam: CameraParams, h: torch.Tensor,
         active=state.active | put,
         full=state.full & ~put,
         label=sel(state.label, state.next_label),
-        patches=sel(state.patches, patch_u8.to(torch.uint8)),
-        patch_rows=sel(state.patch_rows, patch_row(patch_u8.to(torch.uint8))),
+        patches=sel(state.patches, patch),
+        patch_rows=sel(state.patch_rows, patch_row(patch)),
         xp_org=sel(state.xp_org, xp),
         attempts=sel(state.attempts, zi),
         successes=sel(state.successes, zi),
         lam=sel(state.lam, lam0.to(state.lam.dtype)),
         prob=sel(state.prob, torch.full((NP,), 1.0 / NP, dtype=state.prob.dtype, device=slot.device)),
-        palive=state.palive | put[:, None],
+        palive=state.palive | put[:, :, None],
         match_attempts=sel(state.match_attempts, zi),
         sched=state.sched & ~put,
         next_label=state.next_label + doit.to(state.next_label.dtype),
@@ -238,29 +285,36 @@ def convert_feature(state: SlamState, slot: torch.Tensor, lam_mean: torch.Tensor
     """Ray -> 3D point conversion (feature.cpp:204-269) on the dense P: the
     slot's rows become T P[slot6, :] with T = dyfi_by_dypi, its diagonal
     block T Pyy T' + b Plambda b', and its last 3 dims are zeroed. A masked
-    no-op when enable is false (value-selected writes)."""
+    no-op when enable is false (value-selected writes). With a lane
+    dimension on the state, slot, lam_mean, lam_cov and enable are [B] (the
+    JAX package's onehot=True form under vmap)."""
+    if not has_lanes(state):
+        out = convert_feature(SlamState(*map(_as_lane, state)), slot[None], lam_mean[None],
+                              lam_cov[None], enable[None])
+        return SlamState(*(t[0] for t in out))
+    B, D = state.x.shape
+    dev = state.x.device
     idx6 = _slot_dims(slot.to(torch.int64))
-    y6 = state.x[idx6]
+    bi = torch.arange(B, device=dev)[:, None]
+    y6 = state.x[bi, idx6]
     yfi, T, b = models.part_convert_to_full(y6, lam_mean)
-    old_rows = state.P[idx6]                                           # [6, D]
-    old_pyy = state.P[idx6[:, None], idx6[None, :]]
-    D = state.P.shape[0]
-    rows6 = torch.zeros((SLOT_DIM, D), dtype=state.P.dtype, device=idx6.device)
-    rows6[:3] = mm_seq(T, old_rows)
-    pyy6 = torch.zeros((SLOT_DIM, SLOT_DIM), dtype=state.P.dtype, device=idx6.device)
-    pyy6[:3, :3] = (mm_seq(mm_seq(T, old_pyy), T.T)
-                    + mm_seq(mm_seq(b, lam_cov.reshape(1, 1)), b.T))
-    P = _write_slot_block(state.P, idx6, torch.where(enable, rows6, old_rows),
-                          torch.where(enable, pyy6, old_pyy))
-    x6 = torch.cat([yfi, torch.zeros(3, dtype=state.x.dtype, device=idx6.device)])
-    x = state.x.clone()
-    x[idx6] = torch.where(enable, x6, y6)
-    hot = (torch.arange(state.full.shape[0], device=idx6.device) == slot) & enable
+    old_rows, old_pyy = _read_slot_block(state.P, idx6)
+    rows6 = torch.zeros((B, SLOT_DIM, D), dtype=state.P.dtype, device=dev)
+    rows6[:, :3] = mm_seq(T, old_rows)
+    pyy6 = torch.zeros((B, SLOT_DIM, SLOT_DIM), dtype=state.P.dtype, device=dev)
+    pyy6[:, :3, :3] = (mm_seq(mm_seq(T, old_pyy), T.mT)
+                       + mm_seq(mm_seq(b, lam_cov.reshape(B, 1, 1)), b.mT))
+    e3 = enable[:, None, None]
+    P = _write_slot_block(state.P, idx6, torch.where(e3, rows6, old_rows),
+                          torch.where(e3, pyy6, old_pyy))
+    x6 = torch.cat([yfi, torch.zeros((B, 3), dtype=state.x.dtype, device=dev)], dim=-1)
+    x = _write_slot_state(state.x, idx6, torch.where(enable[:, None], x6, y6))
+    hot = (torch.arange(state.full.shape[-1], device=dev) == slot[:, None]) & enable[:, None]
     return state._replace(
         x=x,
         P=P,
         full=state.full | hot,
-        palive=state.palive & ~hot[:, None],
+        palive=state.palive & ~hot[:, :, None],
     )
 
 
@@ -268,14 +322,15 @@ def delete_mask(state: SlamState, kill: torch.Tensor, zero_xp: bool = True) -> S
     """Delete all slots where kill[i] (monoslam.cpp:770-812 semantics: the
     feature's covariance rows/cols are zeroed and the slot freed).
     zero_xp=False skips the x/P zeroing when the caller already zeroed them
-    (the fused update kernel does)."""
+    (the fused update kernel does). kill is [MF], or [B, MF] on a state with
+    lanes."""
     if zero_xp:
         keep_dims = torch.cat([
-            torch.ones(CAM_DIM, dtype=torch.bool, device=kill.device),
-            torch.repeat_interleave(~kill, SLOT_DIM),
-        ])
+            torch.ones((*kill.shape[:-1], CAM_DIM), dtype=torch.bool, device=kill.device),
+            torch.repeat_interleave(~kill, SLOT_DIM, dim=-1),
+        ], dim=-1)
         zero = torch.zeros((), dtype=state.P.dtype, device=kill.device)
-        P = torch.where(keep_dims[:, None] & keep_dims[None, :], state.P, zero)
+        P = torch.where(keep_dims[..., :, None] & keep_dims[..., None, :], state.P, zero)
         x = torch.where(keep_dims, state.x, zero)
     else:
         P = state.P
@@ -289,7 +344,7 @@ def delete_mask(state: SlamState, kill: torch.Tensor, zero_xp: bool = True) -> S
         label=torch.where(kill, torch.full_like(state.label, -1), state.label),
         attempts=torch.where(kill, zi, state.attempts),
         successes=torch.where(kill, zi, state.successes),
-        palive=state.palive & ~kill[:, None],
+        palive=state.palive & ~kill[..., None],
         match_attempts=torch.where(kill, zi, state.match_attempts),
         sched=state.sched & ~kill,
     )
@@ -299,17 +354,17 @@ def delete_mask(state: SlamState, kill: torch.Tensor, zero_xp: bool = True) -> S
 
 
 def slot_pxy(P: torch.Tensor, MF: int) -> torch.Tensor:
-    """All camera-feature cross blocks: [MF, 13, 6]."""
-    return P[:CAM_DIM, CAM_DIM:].reshape(CAM_DIM, MF, SLOT_DIM).permute(1, 0, 2)
+    """All camera-feature cross blocks: [..., MF, 13, 6]."""
+    return (P[..., :CAM_DIM, CAM_DIM:].reshape(*P.shape[:-2], CAM_DIM, MF, SLOT_DIM)
+            .transpose(-3, -2))
 
 
 def slot_pyy(P: torch.Tensor, MF: int) -> torch.Tensor:
-    """All feature diagonal blocks: [MF, 6, 6]."""
-    feat = P[CAM_DIM:, CAM_DIM:].reshape(MF, SLOT_DIM, MF, SLOT_DIM)
-    idx = torch.arange(MF, device=P.device)
-    return feat[idx, :, idx, :]
+    """All feature diagonal blocks: [..., MF, 6, 6]."""
+    feat = P[..., CAM_DIM:, CAM_DIM:].reshape(*P.shape[:-2], MF, SLOT_DIM, MF, SLOT_DIM)
+    return torch.diagonal(feat, dim1=-4, dim2=-2).movedim(-1, -3)
 
 
 def slot_states(x: torch.Tensor, MF: int) -> torch.Tensor:
-    """All slot state vectors: [MF, 6]."""
-    return x[CAM_DIM:].reshape(MF, SLOT_DIM)
+    """All slot state vectors: [..., MF, 6]."""
+    return x[..., CAM_DIM:].reshape(*x.shape[:-1], MF, SLOT_DIM)

@@ -1,4 +1,5 @@
-"""The per-frame MonoSLAM step, stages 1-8.
+"""The per-frame MonoSLAM step, stages 1-8: the single stream (make_step)
+and the lane batch (make_batch_step, at the end of this file).
 
 Port of scenelib2_tpu/runtime/step.py on its f32 single-stream fast path
 (the ``fused_pm``, ``fused_update and fast_kpath``, fast auto-init and
@@ -33,16 +34,46 @@ from typing import NamedTuple
 import torch
 
 from scenelib2_torch.config import Params
+from scenelib2_torch.core import ekf, models
 from scenelib2_torch.core.camera import CameraParams
+from scenelib2_torch.core.quaternion import (
+    quat_from_angular_velocity,
+    quat_mul,
+    quat_to_rotation_matrix,
+)
 from scenelib2_torch.device import resolve_device, resolve_dtype
 from scenelib2_torch.kernels.ekf_update import UpdateConsts, joint_update
-from scenelib2_torch.kernels.measure import O_H, O_S, O_SINV, MeasureConsts
-from scenelib2_torch.kernels.particle import ROW_HU, ROW_HV, ROW_S00, ROW_S01, ROW_S11, pack_rows
+from scenelib2_torch.kernels.measure import (
+    O_H,
+    O_HX,
+    O_HY,
+    O_RD,
+    O_S,
+    O_SCORE,
+    O_SINV,
+    O_VIS,
+    MeasureConsts,
+    measure_predict,
+    stable_top_k,
+)
+from scenelib2_torch.kernels.particle import (
+    NP_PAD,
+    ROW_HU,
+    ROW_HV,
+    ROW_S00,
+    ROW_S01,
+    ROW_S11,
+    pack_rows,
+    pack_rows_batch,
+    particle_predict,
+)
 from scenelib2_torch.kernels.predict_measure import NEG_SENTINEL, predict_measure
-from scenelib2_torch.kernels.propose import ProposeConsts, propose
+from scenelib2_torch.kernels.propose import REGION_LIM, ProposeConsts, propose
+from scenelib2_torch.kernels.score_map import ScoreMapConsts, score_map
 from scenelib2_torch.kernels.search import SearchConsts, search, search_window_origin
-from scenelib2_torch.kernels.search_bayes import SearchBayesConsts, search_bayes
+from scenelib2_torch.kernels.search_bayes import SearchBayesConsts, search_bayes, search_bayes_maps
 from scenelib2_torch.kernels.shi_tomasi import clamp_region, shi_tomasi
+from scenelib2_torch.rng import drand48_many
 from scenelib2_torch.runtime import state as st
 from scenelib2_torch.runtime.state import CAM_DIM, SLOT_DIM, SlamState
 
@@ -75,26 +106,30 @@ class StepOutputs(NamedTuple):
 
 
 def pack_outputs(out: StepOutputs) -> torch.Tensor:
-    """Flatten StepOutputs into one 1-D float vector (the layout of
-    scenelib2_tpu/runtime/step.py::pack_outputs). Lossless: every integer
-    field is far below the float mantissa."""
+    """Flatten StepOutputs into one float vector per step (the layout of
+    scenelib2_tpu/runtime/step.py::pack_outputs): [K], or [B, K] when the
+    fields carry a lane dimension. Lossless: every integer field is far
+    below the float mantissa."""
     dt = out.r.dtype
+    lead = out.speed.shape
     scal = torch.stack([
         out.speed.to(dt), out.n_visible.to(dt), out.n_selected.to(dt),
         out.n_matched.to(dt), out.n_active.to(dt), out.n_partial.to(dt),
         out.did_init.to(dt), out.did_convert.to(dt), out.n_overflow.to(dt),
-    ])
+    ], dim=-1)
+
+    def flat(t):
+        return t.reshape(*lead, -1).to(dt)
+
     parts = [
         out.r, out.q, out.xv, scal,
         out.sel_slot.to(dt), out.sel_mask.to(dt),
-        out.sel_h.reshape(-1).to(dt), out.sel_S.reshape(-1).to(dt),
-        out.sel_z.reshape(-1).to(dt), out.sel_matched.to(dt),
+        flat(out.sel_h), flat(out.sel_S), flat(out.sel_z), out.sel_matched.to(dt),
         out.init_box.to(dt),
         out.par_slot.to(dt), out.par_mask.to(dt),
-        out.par_h.reshape(-1).to(dt), out.par_sinv.reshape(-1).to(dt),
-        out.par_alive.reshape(-1).to(dt),
+        flat(out.par_h), flat(out.par_sinv), flat(out.par_alive),
     ]
-    return torch.cat(parts)
+    return torch.cat(parts, dim=-1)
 
 
 def packed_size(nsel: int, maxp: int, npart: int) -> int:
@@ -102,7 +137,8 @@ def packed_size(nsel: int, maxp: int, npart: int) -> int:
 
 
 def unpack_outputs(flat: torch.Tensor, nsel: int, maxp: int = 1, npart: int = 0) -> StepOutputs:
-    """Inverse of pack_outputs; works on [K] or stacked [T, K] tensors."""
+    """Inverse of pack_outputs; works on [K] or stacked [T, K] or
+    [T, B, K] tensors."""
     lead = flat.shape[:-1]
     o = 0
 
@@ -170,10 +206,16 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     MF = params.max_features
     NSEL = params.n_features_to_select
     MAXP = max(1, params.max_features_to_init_at_once)
+    if params.batch_mode:
+        raise NotImplementedError(
+            "batch_mode=True takes the batch route on states with a lane dimension: "
+            "build the step with scenelib2_torch.parallel.mesh.make_batched_step"
+        )
     if MAXP != 1:
         raise NotImplementedError(
-            "max_features_to_init_at_once > 1 runs the batch-mode particle kernels, "
-            "which are not ported yet (ROADMAP Queue 2)"
+            "max_features_to_init_at_once > 1 runs the batch-route particle kernels "
+            "(K9, K10, K11), which are ported; the single-stream step glue around them "
+            "is not written yet (ROADMAP Queue 1 item 7)"
         )
     B = params.boxsize
     half = (B - 1) // 2
@@ -307,6 +349,326 @@ def make_step(params: Params, device=None, precision: str = "f32"):
             init_box=init_box,
             par_slot=pidx,
             par_mask=searchable.any(dim=1),
+            par_h=par_h,
+            par_sinv=par_sinv,
+            par_alive=searchable,
+        )
+        return mid._replace(frame_no=mid.frame_no + 1), out
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Batch mode: B independent lanes in one step
+# ---------------------------------------------------------------------------
+
+
+def _lane_gather(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t [B, MF, ...] at idx [B, K] (int64) along the slot dimension -> [B, K, ...]."""
+    bi = torch.arange(t.shape[0], device=t.device)[:, None]
+    return t[bi, idx]
+
+
+def _trunc_i32(v: torch.Tensor) -> torch.Tensor:
+    """trunc to int32; a non-finite value converts as 0 and the range is
+    clamped first, so the conversion is the same on every device."""
+    return torch.nan_to_num(torch.trunc(v), nan=0.0).clamp(-REGION_LIM, REGION_LIM).to(torch.int32)
+
+
+def make_batch_step(params: Params, device=None, precision: str = "f32"):
+    """Build step(states_b, frames_b, enable_mapping) -> (states_b', StepOutputs)
+    for B independent lanes: every field of states_b and of the outputs
+    carries a leading lane dimension and frames_b is [B, H, W] u8.
+
+    Port of the JAX step under jax.vmap with batch_mode=True, batch_pallas=True
+    and use_pallas=True in f32 (scenelib2_tpu/runtime/step.py: the
+    ``fast_kpath and batch_mode`` branches), reached through
+    scenelib2_torch.parallel.mesh.make_batched_step. Stage by stage:
+
+      1.   core.ekf.predict as batched tensor ops
+      2.   per-slot measurement prediction for all lanes           K7
+           stable top-NSEL selection (measure.stable_top_k)
+      3.   NSSD search, B x NSEL programs                          K2
+      4-6. bookkeeping closed form, dense H / R assembly,
+           core.ekf.joint_update + normalise, delete_mask, symmetrize
+      7.   the proposal chain as batched tensor ops (the XLA form, not K5),
+           Shi-Tomasi pick, B regions                              K6
+           runtime.state.add_partial_feature over lanes
+      8.   whole-frame score maps                                  K9
+           particle prediction rows                                K10
+           search + Bayes on the maps, compact rows                K11
+           convert_feature + delete_mask over lanes
+
+    Every kernel is launched once a frame for all lanes, nothing loops over
+    lanes on the host, and the step makes no host synchronisation. Both
+    lax.cond gates of the JAX step are selects under vmap; here each gated
+    stage runs with its gate as data. enable_mapping is a host bool shared by
+    all lanes."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(precision)
+    if dtype != torch.float32:
+        raise NotImplementedError("the batch step is ported in f32 (the fast mode) only")
+    if not params.batch_pallas:
+        raise NotImplementedError(
+            "batch_pallas=False takes the batch routes whose kernels (K8, K12, K13) are "
+            "not ported yet (ROADMAP Queue 2)"
+        )
+    MF = params.max_features
+    NSEL = params.n_features_to_select
+    NP = params.n_particles
+    MAXP = max(1, params.max_features_to_init_at_once)
+    if MAXP != 1:
+        raise NotImplementedError(
+            "the batch step is ported for max_features_to_init_at_once = 1 "
+            "(ROADMAP Queue 1 item 7)"
+        )
+    if MF > 128 or NP > NP_PAD:
+        raise NotImplementedError(f"the batch kernels hold MF <= 128 and NP <= {NP_PAD}")
+    Bx = params.boxsize
+    half = (Bx - 1) // 2
+    W, H = params.cam_width, params.cam_height
+    RW, RH = params.init_search_width, params.init_search_height
+    D = params.state_dim
+    tries = params.init_region_tries
+    sep = params.feature_separation_min
+    dtN = params.init_steps_to_predict * params.delta_t
+    cam = CameraParams.from_params(params)
+    mc = MeasureConsts.from_params(params)
+    sc = SearchConsts.from_params(params)
+    smc = ScoreMapConsts.from_params(params)
+    sbc = SearchBayesConsts.from_params(params)
+    kw = dict(device=device)
+    pos_mf = torch.arange(MF, dtype=torch.int32, **kw)
+    lane_try = torch.arange(tries, **kw)
+    patch_offs = torch.arange(Bx, **kw)
+    neg_inf = torch.tensor(float("-inf"), dtype=dtype, **kw)
+    dt_t = torch.tensor(params.delta_t, dtype=dtype, **kw)
+    u_zero = torch.zeros(3, dtype=dtype, **kw)
+    lam0 = torch.as_tensor(st.lambda_grid(params), dtype=dtype, device=device)
+    inactive_label = torch.tensor(1 << 30, dtype=torch.int32, **kw)
+    zero = torch.zeros((), dtype=dtype, **kw)
+    one = torch.ones((), dtype=dtype, **kw)
+    workspace: dict[int, torch.Tensor] = {}     # lanes -> the [B, MAXP, H, W] score maps
+
+    def bookkeeping(state: SlamState, top64, sel_mask, succ):
+        """Stages 5/6 decisions: the counters, the failure-ratio test and the
+        closed form of the reference's exterminate loop with its iterator
+        skip (in list order, within each run of consecutively scheduled
+        positions only the even offsets die this frame)."""
+        attempts = state.attempts.scatter_add(1, top64, sel_mask.to(torch.int32))
+        successes = state.successes.scatter_add(1, top64, succ.to(torch.int32))
+        ratio = torch.where(attempts > 0, successes.to(dtype) / attempts.to(dtype), one)
+        bad = (state.active & (attempts >= params.min_attempted_measurements)
+               & (ratio < params.successful_match_fraction))
+        sched1 = (state.sched | bad) & state.active
+        order = torch.argsort(torch.where(state.active, state.label, inactive_label),
+                              dim=-1, stable=True)
+        S = torch.gather(sched1, 1, order)
+        run_start = torch.cummax(torch.where(S, torch.zeros_like(pos_mf), pos_mf + 1), dim=-1).values
+        kill_pos = S & ((pos_mf - run_start) % 2 == 0)
+        kill = torch.zeros_like(S).scatter(1, order, kill_pos)
+        return attempts, successes, kill, sched1 & ~kill
+
+    def auto_init(mid: SlamState, frames, speed, n_visible):
+        """Stage 7 over lanes: the region proposal chain, K6's pick, the ray
+        insertion; each an exact no-op in a lane whose gate is false."""
+        Bn = mid.x.shape[0]
+        bi = torch.arange(Bn, **kw)
+        x = mid.x
+        xp = x[:, :7]
+        n_partial = (mid.active & ~mid.full).sum(-1).to(torch.int32)
+        want_init = ((speed > params.min_speed_for_init)
+                     & (n_visible < params.n_features_to_keep_visible)
+                     & (n_partial < params.max_features_to_init_at_once))
+        # the constant-velocity rollforward collapsed to one step of N dt
+        qf = quat_mul(x[:, 3:7], quat_from_angular_velocity(x[:, 10:13] * dtN))
+        yW = (x[:, 0:3] + x[:, 7:10] * dtN
+              + quat_to_rotation_matrix(qf)[:, :, 2] * params.init_depth_hypothesis)
+        hi_fut, _ = models.full_project(cam, yW, xp)
+        pm_u = W / 2.0 - hi_fut[:, 0]
+        pm_v = H / 2.0 - hi_fut[:, 1]
+        lo = half + 1
+        safe_us = torch.clamp(_trunc_i32(-pm_u), min=lo)
+        safe_uf = torch.clamp(_trunc_i32(W - pm_u), max=W - half - 1)
+        safe_vs = torch.clamp(_trunc_i32(-pm_v), min=lo)
+        safe_vf = torch.clamp(_trunc_i32(H - pm_v), max=H - half - 1)
+        room = (safe_uf - safe_us > RW) & (safe_vf - safe_vs > RH)
+        # current projections of the fully initialised features
+        h_now, zeroed = models.full_project(cam, st.slot_states(x, MF)[..., :3], xp[:, None, :])
+        occupied = mid.active & mid.full & (zeroed[..., 2] > 0)
+        # up to `tries` random regions, two drand48 draws each
+        states_r, vals_r = drand48_many(mid.rng, 2 * tries, dtype=dtype)
+        u_off = _trunc_i32((safe_uf - safe_us - RW).to(dtype)[:, None] * vals_r[:, 0::2])
+        v_off = _trunc_i32((safe_vf - safe_vs - RH).to(dtype)[:, None] * vals_r[:, 1::2])
+        us_all = safe_us[:, None] + u_off                              # [B, tries]
+        vs_all = safe_vs[:, None] + v_off
+        hu, hv = h_now[:, None, :, 0], h_now[:, None, :, 1]           # [B, 1, MF]
+        clash = (occupied[:, None, :]
+                 & (hu >= (us_all - sep).to(dtype)[:, :, None])
+                 & (hu < (us_all + RW + sep).to(dtype)[:, :, None])
+                 & (hv >= (vs_all - sep).to(dtype)[:, :, None])
+                 & (hv < (vs_all + RH + sep).to(dtype)[:, :, None])).any(-1)
+        ok_all = ~clash
+        some_ok = ok_all.any(-1)
+        attempt = want_init & room
+        any_ok = some_ok & attempt
+        first_ok = torch.where(ok_all, lane_try, tries).min(-1).values % tries   # 0 when none
+        consumed = torch.where(attempt, torch.where(some_ok, 2 * (first_ok + 1), 2 * tries), 0)
+        picked = states_r[bi, torch.clamp(consumed - 1, min=0)]
+        rng_new = torch.where((consumed == 0)[:, None], mid.rng, picked)
+        region_us = us_all[bi, first_ok]
+        region_vs = vs_all[bi, first_ok]
+
+        ru, rv, ruf, rvf = clamp_region(region_us, region_vs, region_us + RW, region_vs + RH, W, H, Bx)
+        ubest, vbest, evbest = shi_tomasi(frames, ru, rv, ruf, rvf, boxsize=Bx,
+                                          region_w=RW, region_h=RH)
+        did_init = any_ok & (evbest > params.init_patch_score_thresh)
+        # the patch around the pick (a clamped window, as lax.dynamic_slice)
+        pr = torch.clamp(vbest.long() - half, 0, H - Bx)[:, None] + patch_offs
+        pcol = torch.clamp(ubest.long() - half, 0, W - Bx)[:, None] + patch_offs
+        patch = frames[bi[:, None, None], pr[:, :, None], pcol[:, None, :]]
+        mid = st.add_partial_feature(
+            mid._replace(rng=rng_new), cam, torch.stack([ubest, vbest], dim=-1).to(dtype), patch,
+            lam0, did_init)
+        init_box = torch.where(want_init[:, None], torch.stack([region_us, region_vs], dim=-1),
+                               torch.zeros_like(region_us)[:, None])
+        return mid, did_init, init_box
+
+    def step(state: SlamState, frames: torch.Tensor,
+             enable_mapping: bool) -> tuple[SlamState, StepOutputs]:
+        if not st.has_lanes(state) or frames.dim() != 3 or frames.shape[0] != state.x.shape[0]:
+            raise ValueError("the batch step takes states with a lane dimension and frames [B, H, W]")
+        Bn = state.x.shape[0]
+        prev_r = state.x[:, 0:3]
+        act_full = state.active & state.full
+
+        # ---- 1. EKF predict ------------------------------------------------
+        x, P = ekf.predict(state.x, state.P, u_zero, params.delta_t, params.sd_a, params.sd_alpha)
+
+        # ---- 2. predict measurements (K7) + select --------------------------
+        meas = measure_predict(
+            x[:, :7], P[:, :7, :7], st.slot_states(x, MF)[..., :3], state.xp_org,
+            st.slot_pxy(P, MF)[..., :7, :3], st.slot_pyy(P, MF)[..., :3, :3], act_full, mc)
+        n_visible = (act_full & (meas[:, O_VIS] == 0.0)).sum(-1).to(torch.int32)
+        top_score, top_idx = stable_top_k(meas[:, O_SCORE], NSEL)
+        top64 = top_idx.long()
+        sel_mask = top_score > neg_inf
+        n_selected = sel_mask.sum(-1).to(torch.int32)
+        sel = torch.gather(meas, 2, top64[:, None, :].expand(Bn, meas.shape[1], NSEL))   # [B, NOUT, NSEL]
+        h_sel = sel[:, O_H : O_H + 2].mT
+        hx_sel = sel[:, O_HX : O_HX + 14].mT.reshape(Bn, NSEL, 2, 7)
+        hy_sel = sel[:, O_HY : O_HY + 6].mT.reshape(Bn, NSEL, 2, 3)
+        Rd_sel = sel[:, O_RD]
+        S_sel = torch.stack(
+            [sel[:, O_S], sel[:, O_S + 1], sel[:, O_S + 1], sel[:, O_S + 2]], dim=-1
+        ).reshape(Bn, NSEL, 2, 2)
+        sinv_abc = sel[:, O_SINV : O_SINV + 3].mT.contiguous()
+        # the partial slots as of the start of the frame, lowest slot first
+        pvals, pidx = stable_top_k((state.active & ~state.full).to(dtype), MAXP)
+        pmask = pvals > 0
+        p64 = pidx.long()
+
+        # ---- 3. windowed NSSD search (K2, B x NSEL programs) -----------------
+        u0, v0, ucen, vcen = search_window_origin(h_sel, params.search_win_radius, W, H, Bx)
+        found, u, v, _best, over = search(
+            frames, _lane_gather(state.patch_rows, top64), u0, v0, ucen, vcen, sinv_abc,
+            sel_mask, sc)
+        z_sel = torch.stack([u, v], dim=-1).to(dtype)
+        nu_sel = torch.where(found[..., None], z_sel - h_sel, zero)
+        n_matched = found.sum(-1).to(torch.int32)
+
+        # ---- 4-6. joint update + normalise + bookkeeping + delete -----------
+        attempts, successes, kill, sched_after = bookkeeping(state, top64, sel_mask, found)
+        offs = CAM_DIM + SLOT_DIM * top64
+        f4 = found[:, :, None, None]
+        H_rows = torch.zeros((Bn, NSEL, 2, D), dtype=dtype, **kw)
+        cols = (offs[:, :, None] + torch.arange(3, **kw))[:, :, None, :].expand(Bn, NSEL, 2, 3)
+        H_rows.scatter_(3, cols, torch.where(f4, hy_sel, zero))
+        H_rows[..., :7] = torch.where(f4, hx_sel, zero)
+        R_tot = torch.diag_embed(torch.where(found, Rd_sel, one).repeat_interleave(2, dim=-1))
+        x_upd, P_upd, _S = ekf.joint_update(x, P, H_rows.reshape(Bn, 2 * NSEL, D),
+                                            nu_sel.reshape(Bn, 2 * NSEL), R_tot)
+        x_upd, P_upd = ekf.normalise(x_upd, P_upd)
+        any_succ = n_matched > 0
+        x = torch.where(any_succ[:, None], x_upd, x)
+        P = torch.where(any_succ[:, None, None], P_upd, P)
+        mid = state._replace(x=x, P=P, attempts=attempts, successes=successes, sched=sched_after)
+        mid = st.delete_mask(mid, kill)
+        mid = mid._replace(P=ekf.symmetrize(mid.P))
+
+        # ---- 7. speed gate + auto-initialisation (K6) ------------------------
+        vel = (mid.x[:, 0:3] - prev_r) / dt_t
+        speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
+        if enable_mapping:
+            mid, did_init, init_box = auto_init(mid, frames, speed, n_visible)
+        else:
+            did_init = torch.zeros(Bn, dtype=torch.bool, **kw)
+            init_box = torch.zeros((Bn, 2), dtype=torch.int32, **kw)
+
+        # ---- 8. partial-feature particles (K9, K10, K11) + surgery ----------
+        is_partial = mid.active & ~mid.full
+        making_all = is_partial & (mid.match_attempts != 0)
+        # the JAX step's cond(making_any, heavy, light) is a select per lane
+        making_any = making_all.any(-1)
+        match_attempts = torch.where(is_partial, mid.match_attempts + 1, mid.match_attempts)
+        making = pmask & torch.gather(making_all, 1, p64)
+        lam_c = _lane_gather(mid.lam, p64)
+        prob_c = _lane_gather(mid.prob, p64)
+        palive_c = _lane_gather(mid.palive, p64)
+        if Bn not in workspace:
+            workspace[Bn] = torch.empty((Bn, MAXP, H, W), dtype=torch.float32, **kw)
+        corr_maps = score_map(frames, _lane_gather(mid.patch_rows, p64), smc, out=workspace[Bn])
+        shared, slot_rows = pack_rows_batch(
+            mid.x[:, :7], mid.P[:, :7, :7], _lane_gather(st.slot_states(mid.x, MF), p64),
+            _lane_gather(st.slot_pxy(mid.P, MF), p64), _lane_gather(st.slot_pyy(mid.P, MF), p64))
+        pred = particle_predict(shared, slot_rows, lam_c, sbc.particle)
+        (prob_f, palive_f, mean, cov, convert, kill_c, n_over_p, _found, _z, _b) = search_bayes_maps(
+            corr_maps, pred, prob_c, lam_c, palive_c, making, pmask,
+            torch.gather(match_attempts, 1, p64), sbc)
+        heavy = making_any[:, None]
+        convert = convert & heavy
+        kill_c = kill_c & pmask & heavy
+        h3 = heavy[:, :, None]
+        i3 = p64[:, :, None].expand(Bn, MAXP, NP)
+        mid = mid._replace(
+            prob=mid.prob.scatter(1, i3, torch.where(h3, prob_f, prob_c)),
+            palive=mid.palive.scatter(1, i3, torch.where(h3, palive_f, palive_c)),
+            match_attempts=match_attempts)
+        for j in range(MAXP):
+            mid = st.convert_feature(mid, pidx[:, j], mean[:, j], cov[:, j], convert[:, j])
+        kill_p = torch.zeros_like(mid.active).scatter(1, p64, kill_c) & mid.active & ~mid.full
+        mid = st.delete_mask(mid, kill_p)
+        searchable = palive_c & making[:, :, None] & h3
+        pr = pred[..., :NP]
+        par_h = torch.where(h3[..., None], torch.stack([pr[:, :, ROW_HU], pr[:, :, ROW_HV]], dim=-1), zero)
+        par_sinv = torch.where(
+            h3[..., None],
+            torch.stack([pr[:, :, ROW_S00], pr[:, :, ROW_S01], pr[:, :, ROW_S01], pr[:, :, ROW_S11]], dim=-1),
+            zero).reshape(Bn, MAXP, NP, 2, 2)
+
+        out = StepOutputs(
+            r=mid.x[:, 0:3],
+            q=mid.x[:, 3:7],
+            xv=mid.x[:, :CAM_DIM],
+            speed=speed,
+            n_visible=n_visible,
+            n_selected=n_selected,
+            n_matched=n_matched,
+            n_active=mid.active.sum(-1).to(torch.int32),
+            n_partial=(mid.active & ~mid.full).sum(-1).to(torch.int32),
+            did_init=did_init,
+            did_convert=convert.any(-1),
+            n_overflow=(over.sum(-1).to(torch.int32)
+                        + torch.where(heavy, n_over_p, torch.zeros_like(n_over_p)).sum(-1).to(torch.int32)),
+            sel_slot=top_idx,
+            sel_mask=sel_mask,
+            sel_h=h_sel,
+            sel_S=S_sel,
+            sel_z=z_sel,
+            sel_matched=found,
+            init_box=init_box,
+            par_slot=pidx,
+            par_mask=searchable.any(dim=-1),
             par_h=par_h,
             par_sinv=par_sinv,
             par_alive=searchable,

@@ -3,11 +3,13 @@
   - no module of scenelib2_torch/ and not chip_smoke.py imports jax or
     scenelib2_tpu (an AST scan, and a subprocess whose import system refuses
     those names imports the package and steps 3 frames);
-  - MonoSLAM(cfg) without a device raises where CUDA is absent;
-  - a kernel wrapper (K1-K6) given CPU tensors runs the plain version and
-    launches nothing; given tensors on any other non-CUDA device it raises;
-    when its kernel cannot be built it raises, never falling back to the
-    plain version.
+  - MonoSLAM(cfg) and make_batched_step(params) without a device raise
+    where CUDA is absent;
+  - a kernel wrapper (K1-K7, K9-K11, and K2 / K6 over lanes) given CPU
+    tensors runs the plain version and launches nothing; given tensors on
+    any other non-CUDA device it raises; when its kernel cannot be built it
+    raises, never falling back to the plain version;
+  - the batch routes whose kernels are not ported are refused.
 """
 
 from __future__ import annotations
@@ -25,12 +27,31 @@ from scenelib2_torch import MonoSLAM
 from scenelib2_torch.config import Params
 from scenelib2_torch.kernels import _build
 from scenelib2_torch.kernels.ekf_update import UpdateConsts, joint_update, joint_update_plain
-from scenelib2_torch.kernels.measure import NOUT, MeasureConsts
+from scenelib2_torch.kernels.measure import (
+    NOUT,
+    MeasureConsts,
+    measure_predict,
+    measure_predict_plain,
+)
+from scenelib2_torch.kernels.particle import (
+    ParticleConsts,
+    particle_predict,
+    particle_predict_plain,
+)
 from scenelib2_torch.kernels.predict_measure import predict_measure, predict_measure_plain
 from scenelib2_torch.kernels.propose import ProposeConsts, propose, propose_plain
+from scenelib2_torch.kernels.score_map import ScoreMapConsts, score_map, score_map_plain
 from scenelib2_torch.kernels.search import SearchConsts, search, search_plain, search_window_origin
-from scenelib2_torch.kernels.search_bayes import SearchBayesConsts, search_bayes, search_bayes_plain
+from scenelib2_torch.kernels.search_bayes import (
+    SearchBayesConsts,
+    search_bayes,
+    search_bayes_maps,
+    search_bayes_maps_plain,
+    search_bayes_plain,
+)
 from scenelib2_torch.kernels.shi_tomasi import shi_tomasi, shi_tomasi_plain
+from scenelib2_torch.parallel.mesh import make_batched_step
+from scenelib2_torch.runtime.step import make_batch_step, make_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "scenelib2_tpu")
@@ -89,8 +110,18 @@ frames, _, _, cfg = generate_dataset(tempfile.mkdtemp(), n_frames=4)
 slam = MonoSLAM(cfg, device="cpu")
 for t in range(1, 4):
     slam.go_one_step(frames[t])                 # mapping on: stages 1-8
+# the batch step: two lanes of the same scene with their own random streams
+import torch
+from scenelib2_torch.eval import batch as _batch  # noqa: F401
+from scenelib2_torch.parallel.mesh import make_batched_step, replicate_states, run_batch
+traj_shape = slam.trajectory().shape
+slam.reset()
+step = make_batched_step(slam.params, device="cpu")
+_states, outs = run_batch(step, replicate_states(slam.state, 2), frames[1:4, None].repeat(2, axis=1),
+                          True, slam.params)
+assert outs.r.shape == (3, 2, 3) and bool(torch.isfinite(outs.r).all())
 assert not any(m.split(".")[0] in FORBIDDEN for m in sys.modules)
-print("OK", slam.trajectory().shape)
+print("OK", traj_shape)
 """
 
 
@@ -106,6 +137,29 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, data_dir):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MonoSLAM(os.path.join(data_dir, "SceneLib2.cfg"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_batched_step(Params())
+
+
+def test_unported_batch_routes_are_refused():
+    """batch_mode belongs to the batch step (reached through parallel.mesh);
+    the routes whose kernels (K8, K12, K13) are not ported and a partial
+    capacity above one are refused, not run some other way."""
+    import dataclasses
+
+    p = Params()
+    with pytest.raises(NotImplementedError, match="make_batched_step"):
+        make_step(dataclasses.replace(p, batch_mode=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="K8, K12, K13"):
+        make_batched_step(dataclasses.replace(p, batch_pallas=False), device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_batch_step(dataclasses.replace(p, max_features_to_init_at_once=2), device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_batch_step(p, device="cpu", precision="f64")
+    step = make_batched_step(p, device="cpu")
+    with pytest.raises(ValueError, match="lane"):
+        step(MonoSLAM(os.path.join(REPO, "data", "SceneLib2.cfg"), device="cpu").state,
+             torch.zeros((p.cam_height, p.cam_width), dtype=torch.uint8), True)
 
 
 def _k1_args(rng, dev):
@@ -189,6 +243,51 @@ def _k4_args(rng, dev):
             torch.tensor(row, **f), torch.tensor(shared, **f), torch.tensor(slot, **f))
 
 
+N_L = 3     # lanes of the batch-wrapper cases
+
+
+def _lanes(fn, rng, dev):
+    """fn's single-lane arguments for N_L lanes, stacked."""
+    return tuple(torch.stack(ts) for ts in zip(*(fn(rng, dev) for _ in range(N_L))))
+
+
+def _k7_args(rng, dev):
+    from scenelib2_torch.runtime import state as st
+
+    x, P, xpo, act, _ = _lanes(_k1_args, rng, dev)
+    return (x[:, :7], P[:, :7, :7], st.slot_states(x, 16)[..., :3], xpo,
+            st.slot_pxy(P, 16)[..., :7, :3], st.slot_pyy(P, 16)[..., :3, :3], act)
+
+
+def _k9_args(rng, dev):
+    p = Params()
+    imgs = torch.tensor(rng.integers(0, 256, (N_L, p.cam_height, p.cam_width), dtype=np.uint8), device=dev)
+    return imgs, torch.stack([_k4_args(rng, dev)[8] for _ in range(N_L)])[:, None]
+
+
+def _k10_args(rng, dev):
+    a = [_k4_args(rng, dev) for _ in range(N_L)]
+    return (torch.stack([t[9] for t in a]), torch.stack([t[10] for t in a])[:, None],
+            torch.stack([t[2][3] for t in a])[:, None])
+
+
+def _k11_args(rng, dev):
+    p = Params()
+    NP = p.n_particles
+    f = dict(dtype=torch.float32, device=dev)
+    maps = torch.tensor(rng.uniform(0.0, 2.0, (N_L, 1, p.cam_height, p.cam_width)), **f)
+    if dev.type == "cpu":
+        pred = particle_predict_plain(*_k10_args(rng, dev), ParticleConsts.from_params(p))
+    else:
+        pred = torch.zeros((N_L, 1, 8, 128), **f)
+    return (maps, pred, torch.full((N_L, 1, NP), 0.01, **f),
+            torch.tensor(np.tile(np.linspace(0.5, 5.0, NP), (N_L, 1, 1)), **f),
+            torch.ones((N_L, 1, NP), dtype=torch.bool, device=dev),
+            torch.ones((N_L, 1), dtype=torch.bool, device=dev),
+            torch.ones((N_L, 1), dtype=torch.bool, device=dev),
+            torch.full((N_L, 1), 2, dtype=torch.int32, device=dev))
+
+
 def _cases():
     p = Params()
     k1kw = dict(nsel=10, maxp=1, dt=p.delta_t, sd_a=p.sd_a, sd_alpha=p.sd_alpha,
@@ -207,10 +306,29 @@ def _cases():
                lambda d, r: propose_plain(*_k5_args(r, d), ProposeConsts.from_params(p))),
         "K6": (lambda d, r: shi_tomasi(*_k6_args(r, d), **st_kw),
                lambda d, r: shi_tomasi_plain(*_k6_args(r, d), **st_kw)),
+        "K7": (lambda d, r: (measure_predict(*_k7_args(r, d), MeasureConsts.from_params(p)),),
+               lambda d, r: (measure_predict_plain(*_k7_args(r, d), MeasureConsts.from_params(p)),)),
+        "K9": (lambda d, r: (score_map(*_k9_args(r, d), ScoreMapConsts.from_params(p)),),
+               lambda d, r: (score_map_plain(*_k9_args(r, d), ScoreMapConsts.from_params(p)),)),
+        "K10": (lambda d, r: (particle_predict(*_k10_args(r, d), ParticleConsts.from_params(p)),),
+                lambda d, r: (particle_predict_plain(*_k10_args(r, d), ParticleConsts.from_params(p)),)),
+        "K11": (lambda d, r: search_bayes_maps(*_k11_args(r, d), SearchBayesConsts.from_params(p)),
+                lambda d, r: search_bayes_maps_plain(*_k11_args(r, d), SearchBayesConsts.from_params(p))),
+        # K2 and K6 over lanes: one launch for all lanes, the plain version lane by lane
+        "K2 lanes": (lambda d, r: search(*_lanes(_k2_args, r, d), SearchConsts.from_params(p)),
+                     lambda d, r: _per_lane(
+                         lambda *a: search_plain(*a, SearchConsts.from_params(p)), _lanes(_k2_args, r, d))),
+        "K6 lanes": (lambda d, r: shi_tomasi(*_lanes(_k6_args, r, d), **st_kw),
+                     lambda d, r: _per_lane(
+                         lambda *a: shi_tomasi_plain(*a, **st_kw), _lanes(_k6_args, r, d))),
     }
 
 
-KERNELS = ["K1", "K2", "K3", "K4", "K5", "K6"]
+def _per_lane(fn, args):
+    return tuple(torch.stack(o) for o in zip(*(fn(*(t[b] for t in args)) for b in range(N_L))))
+
+
+KERNELS = ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9", "K10", "K11", "K2 lanes", "K6 lanes"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -228,7 +346,7 @@ def test_wrapper_takes_plain_path_only_for_cpu_tensors(kernel):
     assert all(v == 0 for v in _build.launches.values())
 
 
-@pytest.mark.parametrize("kernel", ["K4", "K5", "K6"])
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K6", "K7", "K9", "K10", "K11", "K2 lanes", "K6 lanes"])
 def test_wrapper_raises_when_its_kernel_cannot_be_built(kernel, monkeypatch, tmp_path):
     """A non-CPU request whose kernel cannot be built (no CUDA toolkit)
     raises; the wrapper never answers with its plain version instead."""

@@ -9,8 +9,15 @@
       scenelib2_torch/data/expected_fingerprint_nomap.json with mapping off
       and scenelib2_torch/data/expected_fingerprint.json with mapping on;
   (c) the port's synthetic generator renders the same bytes as the JAX one;
-  (d) what is not ported yet (the f64 parity step, batch-mode partial
-      capacity) is refused.
+  (d) what is not ported yet (the f64 parity step, a partial capacity
+      above one) is refused;
+  (e) the port's batch step on the CPU reproduces the committed per-lane
+      fingerprints scenelib2_torch/data/expected_fingerprint_batch64.json
+      (made by the JAX batch step, scripts/gen_batch64_fingerprint.py) for
+      its first 8 lanes, and a lane of a batch run equals the same lane
+      stepped alone, bit for bit: lanes do not leak into each other; lane 0
+      (the std sequence) decides as the single-stream step does, with
+      mapping on and off, though the two take different kernels.
 """
 
 from __future__ import annotations
@@ -22,7 +29,9 @@ import pytest
 import torch
 
 from scenelib2_torch import MonoSLAM
-from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected
+from scenelib2_torch.eval.batch import EXPECTED, check_lanes, lane_fingerprints, make_lanes
+from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected, selection_set
+from scenelib2_torch.parallel.mesh import lane_state, make_batched_step, run_batch, stack_states
 from scenelib2_torch.eval.synthetic import DATASET_VERSION, generate_dataset
 from scenelib2_torch.runtime import step as step_mod
 from scenelib2_torch.runtime.step import make_step, pack_outputs, packed_size, unpack_outputs
@@ -103,7 +112,8 @@ def test_cpu_replay_with_mapping_reproduces_expected_fingerprint(std_sequence):
 
 def test_unported_modes_are_refused_and_nomap_never_inits(std_sequence, monkeypatch):
     """Mapping runs now; what is still refused is the f64 parity step and a
-    partial-feature capacity above one (the batch-mode particle kernels).
+    partial-feature capacity above one (its kernels K9-K11 are ported with
+    the batch step; the single-stream glue around them is not written).
     Mapping off never initialises and never runs stage 7 (K5, K6); its
     whole replay is held to the nomap fingerprint by
     test_cpu_replay_reproduces_expected_fingerprint."""
@@ -136,3 +146,75 @@ def test_pack_unpack_round_trip(std_sequence):
     for name, a, b in zip(out._fields, out, back):
         np.testing.assert_array_equal(a.numpy(), b.numpy().astype(a.numpy().dtype), err_msg=name)
     assert int(state.frame_no) == 1
+
+
+N_BATCH_LANES = 8
+
+
+@pytest.fixture(scope="module")
+def batch_run(tmp_path_factory):
+    """The first 8 of the 64 batch lanes (textures 0..7, offset 0), replayed
+    over all 63 frames by the port's batch step on the CPU."""
+    params, states, frames = make_lanes(str(tmp_path_factory.mktemp("b64")), device="cpu",
+                                        dtype=torch.float32, lanes=range(N_BATCH_LANES))
+    step = make_batched_step(params, device="cpu")
+    final, outs = run_batch(step, states, frames, True, params)
+    return params, states, frames, step, final, outs
+
+
+def test_cpu_batch_replay_reproduces_expected_per_lane_fingerprints(batch_run):
+    params, _states, frames, _step, final, outs = batch_run
+    want = load_expected(EXPECTED)
+    assert want["dataset_version"] == DATASET_VERSION
+    assert (want["batch"], want["n_textures"], want["n_frames"]) == (64, 32, frames.shape[0])
+    assert want["max_features"] == params.max_features == 16 and len(want["lanes"]) == 64
+    got = lane_fingerprints(outs)
+    assert check_lanes(got, range(N_BATCH_LANES)) == []
+    assert np.isfinite(outs.r.numpy()).all() and outs.r.shape == (63, N_BATCH_LANES, 3)
+    assert (final.frame_no == 63).all()
+    # the committed lanes are not in lockstep
+    assert len({fp["decisions_sha256"] for fp in want["lanes"]}) >= 16
+    assert len({fp["active_end"] for fp in want["lanes"]}) > 1
+    assert len({fp["decisions_sha256"] for fp in got}) == N_BATCH_LANES
+
+
+def test_a_lane_of_a_batch_run_equals_the_same_lane_stepped_alone(batch_run):
+    params, states, frames, step, _final, outs = batch_run
+    n = 30                                # past the first inits and conversions
+    assert outs.did_init[:n, 3].any() and outs.did_convert[:n, 3].any()
+    alone, outs1 = run_batch(step, stack_states([lane_state(states, 3)]), frames[:n, 3:4], True, params)
+    for name, a, b in zip(outs._fields, outs, outs1):
+        assert torch.equal(a[:n, 3], b[:, 0]), name
+    # and in another order beside other lanes
+    mixed, outs2 = run_batch(step, stack_states([lane_state(states, b) for b in (5, 3)]),
+                             frames[:n][:, [5, 3]], True, params)
+    for name, a, b in zip(outs._fields, outs, outs2):
+        assert torch.equal(a[:n, 3], b[:, 1]) and torch.equal(a[:n, 5], b[:, 0]), name
+    for a, b in zip(lane_state(mixed, 1), lane_state(alone, 0)):
+        assert torch.equal(a, b)
+
+
+def test_batch_lane_0_decides_as_the_single_stream_step(batch_run, std_sequence):
+    """Lane 0 of the batch lanes replays the std sequence (texture seed 7, no
+    phase offset) from the std start state. The batch step (K7, K9-K11, the
+    tensor-op update and proposal chain) and the single-stream step (K1, K3,
+    K4, K5) round differently, but every decision over the 63 frames is the
+    same, with mapping on and with mapping off (where the batch step, too,
+    skips stage 7 and never initialises)."""
+    params, states, frames, step, _final, outs = batch_run
+    std_frames, cfg = std_sequence
+    T = frames.shape[0]
+    assert std_frames[1 : T + 1].tobytes() == frames[:, 0].tobytes()
+    two = stack_states([lane_state(states, 0), lane_state(states, 1)])
+    _s, outs_off = run_batch(step, two, frames[:, :2], False, params)
+    assert not outs_off.did_init.any() and (outs_off.n_active == 4).all()
+    assert (outs_off.init_box == 0).all() and (outs_off.n_partial == 0).all()
+    for mapping, batch_outs in ((True, outs), (False, outs_off)):
+        single = MonoSLAM(cfg, max_features=16, device="cpu").run_sequence(
+            std_frames[1 : T + 1], enable_mapping=mapping)
+        lane0 = step_mod.StepOutputs(*(a[:, 0] for a in batch_outs))
+        for name in ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init",
+                     "did_convert", "n_overflow"):
+            assert torch.equal(getattr(lane0, name), getattr(single, name)), (mapping, name)
+        np.testing.assert_array_equal(selection_set(lane0), selection_set(single))
+        np.testing.assert_allclose(lane0.r.numpy(), single.r.numpy(), rtol=0, atol=1e-4)
