@@ -9,7 +9,8 @@ Phases (any failure exits non-zero before the last line is printed):
     all at once; timed).
  2. kernel vs plain: each kernel (K1 predict+measure+select, K2 search,
     K3 update+bookkeeping, K4 particle search+Bayes, K5 init region
-    proposal, K6 Shi-Tomasi pick) and its plain PyTorch version on the same
+    proposal, K6 Shi-Tomasi pick; K14 L^-1 on seeded SPD matrices) and its
+    plain PyTorch version on the same
     CUDA tensors: on seeded random scenes and variations (no attempt, no
     room, every try clashing, a flat region, built ties, making false, an
     empty union box, overflowing particles, a sell-by kill) and on the
@@ -37,6 +38,17 @@ Phases (any failure exits non-zero before the last line is printed):
     four lanes agree with their CPU plain replay, 30 batch steps without a
     host synchronisation, aggregate frames/s, device busy and idle share,
     peak device memory.
+ 3c. hires (BASELINE config 3): the 640x480 seed-7 sequence of 120 frames,
+    max_features 60 (D = 373, the fused route), search radius 48, particle
+    radius 52, 200 particles; 3d. mf100: the std sequence with
+    max_features 100 (D = 613, the split route: K7, K2, K14 and the dense
+    update). Each: its committed fingerprint with every kernel of its path
+    launched once a frame and none other, the path's kernels against their
+    plain versions on inputs captured at a few frames of that replay (K14
+    also on seeded SPD matrices in phase 2; K2 with 107 x 107 windows and
+    K4 with 200 particles at hires), the CPU plain replay of its first 20
+    frames, 30 steps under sync debug mode "error", ms/frame, a traced
+    window's device busy and idle share, peak device memory.
  4. a `kernels` JSON line, then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -73,6 +85,7 @@ K3_TOL = 1e-5     # x', P': |a - b| <= K3_TOL * max |entry|
 K4_TOL = 1e-5     # K4 floats (prob, moments, prediction rows, best): within K4_TOL * max |entry|
 K6_TOL = 1e-6     # K6 eigenvalue: relative
 K9_TOL = 2e-5     # K9 score map: absolute, on cells that are neither 1e6 on both
+K14_TOL = 1e-5    # K14 L^-1: within K14_TOL * max |entry| (the recurrence is K3's, bit-exact by design)
 N_LANES, N_TEXTURES, N_BATCH_FRAMES = 64, 32, 64    # the batch replay: 63 frames a lane
 BATCH_AT = (9, 20, 40)     # output indices whose kernel inputs are captured
 N_REF_BATCH, REF_LANES = 20, (0, 1, 32, 33)
@@ -80,8 +93,12 @@ STEP_TOL = 1e-4   # CUDA vs CPU plain replay: r, xv
 N_REF = 30        # CPU plain replay frames (4 inits, 2 conversions)
 
 
+T_START = time.time()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A progress line, stamped with the seconds since the script started."""
+    print(f"[{time.time() - T_START:7.1f} s]", *a, flush=True)
 
 
 def fail(msg: str):
@@ -611,13 +628,20 @@ def k11_variations(args, rng, erase_after):
     return out
 
 
-def check_k2_lanes(args, c) -> float:
-    """K2 launched once over all lanes against its plain version lane by lane."""
-    from scenelib2_torch.kernels.search import search, search_plain
+def search_lanes_plain(args, c):
+    """K2's plain version lane by lane on K2-over-lanes arguments."""
+    from scenelib2_torch.kernels.search import search_plain
 
     frames, rest = args[0], args[1:8]
-    got = search(frames, *rest, c)
-    want = lanes_of(lambda b: search_plain(frames[b], *(t[b] for t in rest), c), frames.shape[0])
+    return lanes_of(lambda b: search_plain(frames[b], *(t[b] for t in rest), c), frames.shape[0])
+
+
+def check_k2_lanes(args, c) -> float:
+    """K2 launched once over all lanes against its plain version lane by lane."""
+    from scenelib2_torch.kernels.search import search
+
+    got = search(*args[:8], c)
+    want = search_lanes_plain(args, c)
     torch.cuda.synchronize()
     for name, a, b in zip(("found", "u", "v"), got[:3], want[:3]):
         if not same(a, b):
@@ -674,6 +698,287 @@ def check_k10_k11_against_k4(a4, smc, sbc) -> float:
     return 0.0
 
 
+# ------------------------------------------------------------ large maps: K14
+
+
+def k14_random_cases(rng, dev):
+    """(label, S) SPD cases for K14: seeded matrices of every size class the
+    kernel takes, a stack of three, and an EKF-shaped S = H P H' + R at
+    M = 20 whose missed rows are identity blocks (H = 0, R = 1)."""
+    f = dict(dtype=torch.float32, device=dev)
+    out = []
+    for M in (1, 2, 7, 20, 64, 128):
+        A = rng.normal(size=(M, M))
+        out.append((f"spd{M}", torch.tensor(A @ A.T / M + np.eye(M) * 0.5, **f)))
+    A = rng.normal(size=(3, 20, 20))
+    out.append(("stack3x20", torch.tensor(A @ A.transpose(0, 2, 1) / 20 + np.eye(20), **f)))
+    D = 109
+    B = rng.normal(size=(D, D))
+    P = B @ B.T / D * 1e-3 + np.eye(D) * 1e-4
+    H = rng.normal(size=(20, D)) * 30.0
+    miss = rng.uniform(size=10) < 0.4
+    H[np.repeat(miss, 2)] = 0.0
+    R = np.diag(np.where(np.repeat(miss, 2), 1.0, rng.uniform(1.0, 2.0, 20)))
+    out.append(("ekf", torch.tensor(H @ P @ H.T + R, **f)))
+    return out
+
+
+def check_k14(S) -> float:
+    from scenelib2_torch.kernels.chol_inv import chol_inv, chol_linv
+
+    got = chol_inv(S)
+    want = chol_linv(S)
+    torch.cuda.synchronize()
+    if not matrix_close(got, want, K14_TOL):
+        fail(f"K14 L^-1 outside tolerance at M={S.shape[-1]} (max abs err {max_err(got, want)})")
+    return max_err(got, want)
+
+
+# ------------------------------------------------------------ large maps: the replays
+
+# hires: BASELINE config 3 (eval/synthetic.py HIRES_PARAMS, HIRES_OVERRIDES);
+# mf100: the std sequence at max_features 100. "at": the output indices whose
+# kernel inputs are checked
+LARGE_MAPS = {
+    "hires": dict(n_frames=120, at=(9, 10, 37, 60)),   # making, a conversion, a light frame, later
+    "mf100": dict(n_frames=240, at=(9, 20, 120)),      # the first init, the first conversion, later
+}
+N_REF_LARGE = 20   # CPU plain replay frames of each large-map path
+N_TIMED_LARGE = 2  # timed replays of each large-map path
+N_TRACE_LARGE = 40  # frames of the traced window (the profiler's own bookkeeping grows with events)
+
+
+def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
+    """Phases 3c (hires) and 3d (mf100): the replay through
+    MonoSLAM(device="cuda").run_sequence against its committed fingerprint
+    with its launch counts, the kernels of its path against their plain
+    versions on inputs captured from that replay, the CPU plain replay of
+    its first frames, steps under sync debug mode "error", and its times."""
+    from scenelib2_torch import MonoSLAM
+    from scenelib2_torch.config import Params
+    from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected
+    from scenelib2_torch.eval.synthetic import HIRES_OVERRIDES, HIRES_PARAMS, generate_dataset
+    from scenelib2_torch.kernels import (
+        _build, chol_inv, ekf_update, predict_measure, search, search_bayes)
+
+    spec = LARGE_MAPS[name]
+    if name == "hires":
+        dataset, overrides = Params(**HIRES_PARAMS), HIRES_OVERRIDES
+    else:
+        dataset, overrides = None, dict(max_features=100)
+    t0 = time.time()
+    frames, _gt_r, _gt_q, cfg = generate_dataset(
+        os.path.join(tmp, name), n_frames=spec["n_frames"], seed=7, params=dataset)
+    slam = MonoSLAM(cfg, device="cuda", **overrides)
+    p = slam.params
+    D = 13 + 6 * p.max_features
+    path = SINGLE_PATH if D <= 384 else SPLIT_PATH
+    H, W, B = p.cam_height, p.cam_width, p.boxsize
+    seq = torch.as_tensor(frames[1:]).to(dev)
+    n_run = seq.shape[0]
+    log(f"[{tag}] {name}: {W}x{H}, max_features {p.max_features} (D = {D}), {p.n_particles} particles, "
+        f"search radius {p.search_win_radius}, particle radius {p.particle_win_radius}; {n_run} frames "
+        f"rendered in {time.time() - t0:.1f} s; route {'fused' if D <= 384 else 'split'}")
+    slam.run_sequence(seq[:8], enable_mapping=True)          # warm-up
+    torch.cuda.synchronize()
+
+    # the main path: counts zeroed just before, read just after; the kernel
+    # inputs of the frames in spec["at"] kept, and every launch's inputs for
+    # its cost (the first wrapper of a frame is K1 on the fused route, K7 on
+    # the split one)
+    first = "predict_measure" if D <= 384 else "measure_predict"
+    seen, calls, frame = {}, {}, [-1]
+
+    def keep(n, a, k):
+        if n == first:
+            frame[0] += 1
+        if frame[0] in spec["at"]:
+            seen.setdefault(frame[0], {})[n] = (a, k)
+        calls.setdefault(n, []).append((a, k))
+
+    outs, launches = run_main_path(slam, seq, mapping=True, on_call=keep)
+    fp = decisions_fingerprint(outs, n_run)
+    want = load_expected(f"expected_fingerprint_{name}")
+    log(f"[{tag}] fingerprint ({name}): {json.dumps(fp)}")
+    for k in ("n_frames", "matched_sum", "inits", "convs", "active_end", "decisions_sha256"):
+        if fp[k] != want[k]:
+            fail(f"{name} field {k}: got {fp[k]}, expected {want[k]}")
+    for n in _build.KERNELS:
+        if launches.get(n, 0) != (n_run if n in path else 0):
+            fail(f"kernel {n} launched {launches.get(n, 0)} times on the {name} path, expected "
+                 f"{n_run if n in path else 0}")
+    log(f"[{tag}] launches on the {name} path: {json.dumps(launches)}")
+    r = outs.r.numpy()
+    if r.shape != (n_run, 3) or not np.isfinite(r).all():
+        fail(f"{name} trajectory not finite/shaped: {r.shape}")
+
+    # the path's kernels against their plain versions on the captured inputs
+    errs, n_cases = {}, {}
+
+    def worse(k, v):
+        errs[k] = max(errs.get(k, 0.0), v)
+        n_cases[k] = n_cases.get(k, 0) + 1
+
+    sc = search.SearchConsts.from_params(p)
+    uc = ekf_update.UpdateConsts.from_params(p)
+    for at in spec["at"]:
+        c = seen[at]
+        a2, _ = c["search"]
+        if D <= 384:
+            worse("K1", check_k1(*c["predict_measure"]))
+            worse("K2", check_k2(a2[:-1], sc))
+            worse("K3", check_k3(c["joint_update"][0][:-1], uc))
+        else:
+            worse("K7", check_k7(c["measure_predict"][0][:7], c["measure_predict"][0][7],
+                                 p.n_features_to_select))
+            worse("K2", check_k2_lanes(a2, sc))
+            worse("K14", check_k14(c["chol_inv"][0][0]))
+        for _label, args in k4_variations(c["search_bayes"][0], rng, H, W, B,
+                                          p.erase_partial_after_attempts):
+            worse("K4", check_k4(args))
+    log(f"[{tag}] the {name} kernels equal their plain versions on the inputs of output indices "
+        f"{spec['at']} (cases {json.dumps(n_cases)}; max abs err {json.dumps(errs)})")
+
+    # reference on a small input: the CPU plain replay of the first frames
+    cpu = MonoSLAM(cfg, device="cpu", **overrides)
+    ref = cpu.run_sequence(frames[1 : N_REF_LARGE + 1], enable_mapping=True)
+    for k in ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init",
+              "did_convert", "n_overflow", "sel_slot", "sel_matched", "init_box", "par_alive"):
+        if not torch.equal(getattr(ref, k), getattr(outs, k)[:N_REF_LARGE]):
+            fail(f"{name}: CUDA vs CPU plain replay: {k} differs in the first {N_REF_LARGE} frames")
+    dxv = float((ref.xv.double() - outs.xv[:N_REF_LARGE].double()).abs().max())
+    if dxv > STEP_TOL:
+        fail(f"{name}: CUDA vs CPU plain replay: xv differs by {dxv}")
+    log(f"[{tag}] {name}: the CUDA run equals the CPU plain replay on frames 1..{N_REF_LARGE} "
+        f"(inits at {torch.nonzero(ref.did_init).flatten().tolist()}, conversions at "
+        f"{torch.nonzero(ref.did_convert).flatten().tolist()}; max |dxv| {dxv:.3g})")
+
+    # no host synchronisation in the step
+    slam.reset()
+    state = slam.state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(N_REF):
+            state, _out = slam._step(state, seq[t], True)
+    except RuntimeError as e:
+        fail(f"the {name} step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[{tag}] {N_REF} {name} steps ran with torch.cuda.set_sync_debug_mode('error'): "
+        f"no host synchronisation in the step")
+
+    # times: untimed replays for ms/frame and peak memory, one traced replay.
+    # The path's peak memory: its frames and state, plus the most the
+    # replays allocated above what was allocated before them (the process
+    # still holds the earlier phases' tensors)
+    per_frame = []
+    slam.reset()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(N_TIMED_LARGE):
+        slam.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        slam.run_sequence(seq, enable_mapping=True)
+        per_frame.append((time.perf_counter() - t) / n_run * 1e3)
+    held = seq.numel() + sum(t_.numel() * t_.element_size() for t_ in slam.state)
+    peak_mb = (torch.cuda.max_memory_allocated() - base + held) / 2**20
+    ms_frame = statistics.median(per_frame)
+    # the traced window: its first N_TRACE_LARGE frames, beside an untraced
+    # replay of the same frames
+    nt = min(N_TRACE_LARGE, n_run)
+    slam.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    slam.run_sequence(seq[:nt], enable_mapping=True)
+    ms_window = (time.perf_counter() - t) / nt * 1e3
+    prof = profile_main_path(slam, seq, nt, True)
+    busy = prof["device_ms"] / nt
+    res = dict(ms_frame=ms_frame, runs=per_frame, ms_frame_window=ms_window, traced_frames=nt,
+               busy=busy if busy > 0 else None,
+               idle_share=(1.0 - busy / ms_window) if busy > 0 else None, peak_mb=peak_mb,
+               kernels_per_frame=sum(c_ for _m, c_ in prof["by_name"].values()) / nt)
+    log(f"[{tag}] {name}: {ms_frame:.4f} ms/frame (median of {N_TIMED_LARGE} runs of {n_run} frames: "
+        f"{', '.join(f'{v:.4f}' for v in per_frame)}); peak device memory of the replay {peak_mb:.1f} MiB "
+        f"(frames and state included)")
+    if busy > 0:
+        log(f"[{tag}] {name} traced replay of frames 1..{nt}: device busy {busy:.4f} ms/frame of "
+            f"{ms_window:.4f} ms/frame untraced over the same frames -> idle share "
+            f"{res['idle_share']:.4f}; {res['kernels_per_frame']:.2f} device kernels/frame; traced "
+            f"wall {prof['wall_ms'] / nt:.4f} ms/frame")
+        for kname, (ms, cnt) in sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])[:12]:
+            log(f"[{tag}]   {ms / nt * 1e3:9.3f} us/frame  x{cnt / nt:6.2f}/frame  {kname[:90]}")
+    else:
+        log(f"[{tag}] {name} traced replay: the profiler recorded no device time (not measured)")
+
+    def dev_ms(sym):
+        hits = [v for k, v in prof["by_name"].items() if sym in k]
+        return sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits)) if hits else None
+
+    # each kernel of the path that this slice added or widened: its time, its
+    # plain version's, its bound from each launch's own inputs
+    c = seen[spec["at"][1]]
+    a2, _ = c["search"]
+    a4, _ = c["search_bayes"]
+    kern = {
+        # the split route launches K2 over its one lane
+        "K2": (lambda: search.search(*a2),
+               (lambda: search.search_plain(*a2)) if D <= 384 else (lambda: search_lanes_plain(a2, sc)),
+               "k2_kernel"),
+        "K4": (lambda: search_bayes.search_bayes(*a4), lambda: search_bayes.search_bayes_plain(*a4),
+               "k4_kernel"),
+    }
+    costs = {"K2": [], "K4": []}
+    for a, _k in calls["search"]:
+        admit = search.candidate_geometry(*(t.reshape(-1) for t in a[2:6]), a[6].reshape(-1, 3), sc)[0]
+        costs["K2"].append(search.bytes_and_flops(a[2].numel(), sc, int(admit.sum())))
+    for a, _k in calls["search_bayes"]:
+        MF, NP = a[1].shape
+        costs["K4"].append(search_bayes.bytes_and_flops(MF, NP, H, W, B, *search_bayes.work_counts(*a)))
+    library = {}
+    if D <= 384:
+        a1, kw1 = c["predict_measure"]
+        a3, _ = c["joint_update"]
+        kern["K1"] = (lambda: predict_measure.predict_measure(*a1, **kw1),
+                      lambda: predict_measure.predict_measure_plain(*a1, **kw1), "k1_kernel")
+        kern["K3"] = (lambda: ekf_update.joint_update(*a3), lambda: ekf_update.joint_update_plain(*a3),
+                      "k3_kernel")
+        costs["K1"] = [predict_measure.bytes_and_flops(a[0].shape[0], a[2].shape[0], k["nsel"])
+                       for a, k in calls["predict_measure"]]
+        costs["K3"] = [ekf_update.bytes_and_flops(a[0].shape[0], a[2].shape[1], a[6].shape[0])
+                       for a, _k in calls["joint_update"]]
+    else:
+        S = c["chol_inv"][0][0]
+        eye = torch.eye(S.shape[-1], device=dev)
+        kern["K14"] = (lambda: chol_inv.chol_inv(S), lambda: chol_inv.chol_linv(S), "k14_kernel")
+        costs["K14"] = [chol_inv.bytes_and_flops(a[0][..., 0, 0].numel(), a[0].shape[-1])
+                        for a, _k in calls["chol_inv"]]
+        # the nearest library form: two calls (factor, then a triangular solve)
+        library["K14"] = time_ms(lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky_ex(S)[0], eye, upper=False))
+    timings = {}
+    for short, (fk, fp_, sym) in kern.items():
+        b_ms, b_by = bound(costs[short])
+        timings[short] = dict(ms=time_ms(fk), plain_ms=time_ms(fp_, n=5, batches=3), device_ms=dev_ms(sym),
+                              bound_ms=b_ms, bound_by=b_by, library_ms=library.get(short),
+                              max_abs_err=errs[short], launches=launches[KERNEL_OF[short]])
+        log(f"[{tag}] {short} at the {name} shapes: {json.dumps(timings[short])}")
+    res.update(timings=timings, fingerprint=fp, launches=launches, errs=errs)
+    return res
+
+
+def bound(costs_list):
+    """(mean over launches of max(bytes / peak rate, operations / peak rate)
+    in ms, which of the two bounds the sum)."""
+    bms = [max(b / PEAK_BYTES, f / PEAK_F32) * 1e3 for b, f in costs_list]
+    nb = sum(b for b, _ in costs_list) / PEAK_BYTES
+    nf = sum(f for _, f in costs_list) / PEAK_F32
+    return statistics.mean(bms), ("bytes" if nb >= nf else "operations")
+
+
 # ------------------------------------------------------------ main
 
 
@@ -702,10 +1007,13 @@ def profile_main_path(slam, seq, n: int, mapping: bool) -> dict:
 
 SINGLE_WRAPPERS = ("predict_measure", "search", "joint_update", "propose", "shi_tomasi", "search_bayes")
 WRAPPERS = ("predict_measure", "search", "joint_update", "propose", "shi_tomasi", "search_bayes",
-            "measure_predict", "score_map", "particle_predict", "search_bayes_maps")
+            "measure_predict", "score_map", "particle_predict", "search_bayes_maps", "chol_inv")
 # the kernels of each main path (launch-count names of kernels/_build.py)
 SINGLE_PATH = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "search_bayes")
+SPLIT_PATH = ("measure", "search", "chol_inv", "propose", "shi_tomasi", "search_bayes")
 BATCH_PATH = ("measure", "search", "shi_tomasi", "score_map", "particle_predict", "search_bayes_maps")
+KERNEL_OF = {"K1": "predict_measure", "K2": "search", "K3": "ekf_update", "K4": "search_bayes",
+             "K7": "measure", "K14": "chol_inv"}
 
 
 @contextlib.contextmanager
@@ -713,11 +1021,14 @@ def observe_wrappers(on_call):
     """Within the block, the steps call on_call(name, args, kwargs) before
     each kernel wrapper (K1 predict_measure, K2 search, K3 joint_update,
     K5 propose, K6 shi_tomasi, K4 search_bayes; K7 measure_predict, K9
-    score_map, K10 particle_predict, K11 search_bayes_maps)."""
+    score_map, K10 particle_predict, K11 search_bayes_maps; K14 chol_inv,
+    which core/ekf.py calls)."""
+    import scenelib2_torch.core.ekf as ekf_mod
     import scenelib2_torch.runtime.step as step_mod
 
     names = WRAPPERS
-    orig = {n: getattr(step_mod, n) for n in names}
+    mod = {n: ekf_mod if n == "chol_inv" else step_mod for n in names}
+    orig = {n: getattr(mod[n], n) for n in names}
 
     def wrap(n):
         def call(*a, **k):
@@ -726,12 +1037,12 @@ def observe_wrappers(on_call):
         return call
 
     for n in names:
-        setattr(step_mod, n, wrap(n))
+        setattr(mod[n], n, wrap(n))
     try:
         yield
     finally:
         for n in names:
-            setattr(step_mod, n, orig[n])
+            setattr(mod[n], n, orig[n])
 
 
 def capture_inputs(slam, frames, at: tuple) -> dict:
@@ -780,7 +1091,7 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(smi)
+    print(smi, flush=True)
     log(f"[1] device: {kind} (count {torch.cuda.device_count()}), torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     t0 = time.time()
@@ -832,6 +1143,11 @@ def main() -> int:
         log(f"[2] kernels equal their plain versions: K1-K3 on 6 random scenes + frame 120, "
             f"K4/K5/K6 on {n_cases} cases from frames 9, 20, 120 and their variations "
             f"(max abs err {json.dumps(errs)})")
+        k14_err = 0.0
+        for label, S in k14_random_cases(rng, dev):
+            k14_err = max(k14_err, check_k14(S))
+        log(f"[2] K14 equals its plain version on seeded SPD matrices (M = 1, 2, 7, 20, 64, 128, a "
+            f"stack of three 20 x 20, an EKF-shaped S with missed rows) (max abs err {k14_err})")
 
         a4, _ = seen[20]["search_bayes"]
         a5, _ = seen[9]["propose"]
@@ -1075,9 +1391,7 @@ def main() -> int:
             ("K10", lambda: particle.particle_predict(*a10), lambda: particle.particle_predict_plain(*a10)),
             ("K11", lambda: search_bayes.search_bayes_maps(*a11),
              lambda: search_bayes.search_bayes_maps_plain(*a11)),
-            ("K2 lanes", lambda: search.search(*a2b),
-             lambda: lanes_of(lambda b: search.search_plain(a2b[0][b], *(t[b] for t in a2b[1:8]), sc),
-                              N_LANES)),
+            ("K2 lanes", lambda: search.search(*a2b), lambda: search_lanes_plain(a2b, sc)),
             ("K6 lanes", lambda: shi_tomasi.shi_tomasi(*a6b, **kw6b),
              lambda: lanes_of(lambda b: shi_tomasi.shi_tomasi_plain(*(t[b] for t in a6b), **kw6b),
                               N_LANES)),
@@ -1239,13 +1553,12 @@ def main() -> int:
         log("[3b] device time per launch (batch): " + ", ".join(
             f"{k} {v:.5f} ms" if v is not None else f"{k} not measured" for k, v in bkernel_dev.items()))
 
-    # ---- 4. kernel records ------------------------------------------------
-    def bound(costs_list):
-        bms = [max(b / PEAK_BYTES, f / PEAK_F32) * 1e3 for b, f in costs_list]
-        nb = sum(b for b, _ in costs_list) / PEAK_BYTES
-        nf = sum(f for _, f in costs_list) / PEAK_F32
-        return statistics.mean(bms), ("bytes" if nb >= nf else "operations")
+        # ---- 3c / 3d. large maps: hires (fused, D = 373), mf100 (split, D = 613)
+        large = {name: large_map_phase(tag, name, tmp, dev, rng)
+                 for tag, name in (("3c", "hires"), ("3d", "mf100"))}
+        large["mf100"]["errs"]["K14"] = max(large["mf100"]["errs"]["K14"], k14_err)
 
+    # ---- 4. kernel records ------------------------------------------------
     costs["K2"] = [search.bytes_and_flops(K, sc, int(admit.sum())) for admit, K in costs["K2"]]
     recs = []
     for short, name, src, rep, key in (
@@ -1284,13 +1597,36 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=bkernel_dev[short],
         ))
     recs[-3]["library_composition_ms"] = k9_comp_ms
+    # the large-map paths: K14 (split route) and the kernels at the hires shapes
+    for short, name, label, src, rep_ in (
+        ("K14", "mf100", "K14 chol_inv", "chol_inv.cu (+ chol_linv.cuh)", "pallas_linalg.py:83"),
+        ("K1", "hires", "K1 predict_measure (hires, D=373)", "predict_measure.cu",
+         "pallas_predict_measure.py:375"),
+        ("K2", "hires", "K2 search (hires, 107 x 107 windows)", "search.cu", "pallas_search.py:476"),
+        ("K3", "hires", "K3 ekf_update (hires, D=373)", "ekf_update.cu", "pallas_ekf.py:446"),
+        ("K4", "hires", "K4 search_bayes (hires, 200 particles)", "search_bayes.cu",
+         "pallas_search_bayes.py:638"),
+    ):
+        t_ = large[name]["timings"][short]
+        recs.append(dict(
+            name=label, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
+            replaces=f"scenelib2_tpu/kernels/{rep_}", launches=t_["launches"],
+            max_abs_err=t_["max_abs_err"], ms=t_["ms"], plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"],
+            bound_by=t_["bound_by"], library_ms=t_["library_ms"], device_ms=t_["device_ms"], path=name,
+        ))
+    recs[6]["launches_mf100"] = large["mf100"]["launches"]["measure"]
     log(f"[4] empty-launch floor {empty_ms:.4f} ms; total {time.time() - t_start:.1f} s")
-    log(smi)
+    print(smi, flush=True)
     on, off = paths["mapping-on"], paths["mapping-off"]
     print(json.dumps({"ms_per_frame": on["ms_frame"], "device_ms_per_frame": on["busy"],
                       "ms_per_frame_nomap": off["ms_frame"], "device_ms_per_frame_nomap": off["busy"],
                       "empty_launch_ms": empty_ms, "card": smi}))
     print(json.dumps({"batch64": batch, "card": smi}))
+    print(json.dumps({"large_maps": {
+        name: {k: v for k, v in r_.items() if k in ("ms_frame", "runs", "ms_frame_window", "traced_frames",
+                                                   "busy", "idle_share", "peak_mb", "kernels_per_frame",
+                                                   "fingerprint", "launches")}
+        for name, r_ in large.items()}, "card": smi}))
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

@@ -12,8 +12,9 @@ is f32, the fast mode of the JAX package (SCENELIB2_X64=0).
 Ported so far: the whole single-stream f32 step, stages 1-8 of go_one_step
 (EKF predict, measurement prediction and selection, NSSD search, joint
 update, bookkeeping, auto-initialisation, the partial-feature particle
-stage), with mapping on or off. Batch mode and the f64 parity mode are not
-ported yet.
+stage), with mapping on or off, at every map size the JAX fast step runs
+(max_features up to 128, routed by state size as JAX routes it); and batch
+mode (parallel.mesh). The f64 parity mode is not ported yet.
 """
 
 import torch as _torch

@@ -16,10 +16,11 @@ symmetrize from here; the matrix forms of predict, normalise and
 joint_update are the f64 reference the twins are tested against
 (tests/test_torch_core.py), since the kernels sum in their own order.
 
-The batch step (runtime/step.py::make_batch_step) calls predict,
-joint_update, normalise and symmetrize directly, as the JAX batch step
-does outside any kernel: every function here takes leading (lane)
-dimensions, x [..., D] and P [..., D, D]. Every product is taken with
+The batch step (runtime/step.py::make_batch_step), and the single-stream
+step's split route above D = 384 through the same lane-form code, call
+predict, joint_update, normalise and symmetrize directly, as the JAX step
+does outside any kernel (the split route inverts S with K14): every
+function here takes leading (lane) dimensions, x [..., D] and P [..., D, D]. Every product is taken with
 mm_seq (each entry summed left to right in separately rounded operations),
 so the batch step rounds the same on the CPU and on the GPU; a BLAS product
 would round differently on each.
@@ -31,6 +32,7 @@ import torch
 
 from scenelib2_torch.core import motion
 from scenelib2_torch.core.quaternion import mm_seq
+from scenelib2_torch.kernels.chol_inv import chol_inv
 
 CAM_DIM = 13
 
@@ -132,11 +134,19 @@ def tril_inv_unrolled(L):
     return X
 
 
-def joint_update(x, P, H, nu, R):
+def joint_update(x, P, H, nu, R, pallas_chol: bool = False):
     """Joint EKF update (kalman.cpp:96-119) through L, L^-1 and
-    S^-1 = L^-T L^-1, as the reference does. Returns (x', P', S)."""
+    S^-1 = L^-T L^-1, as the reference does. Returns (x', P', S).
+
+    pallas_chol=True takes L^-1 from K14 (kernels/chol_inv.py), as the JAX
+    package's joint_update(pallas_chol=True) does on the single-stream
+    split route; False factors with chol_unrolled / tril_inv_unrolled (the
+    batch step, as JAX's pallas_chol=not batch_mode)."""
     S = mm_seq(mm_seq(H, P), H.mT) + R
-    Linv = tril_inv_unrolled(chol_unrolled(S))
+    if pallas_chol:
+        Linv = chol_inv(S)
+    else:
+        Linv = tril_inv_unrolled(chol_unrolled(S))
     Sinv = mm_seq(Linv.mT, Linv)
     W = mm_seq(mm_seq(P, H.mT), Sinv)
     return x + mm_seq(W, nu[..., None])[..., 0], P - mm_seq(mm_seq(W, S), W.mT), S

@@ -18,7 +18,8 @@ the generated ground-truth trajectory is exact and RMSE targets are
 meaningful.
 
 A copy of scenelib2_tpu/eval/synthetic.py (numpy only): for a given seed it
-renders byte-identical frames.
+renders byte-identical frames. HIRES_PARAMS / HIRES_OVERRIDES copy the
+640x480 configuration of scenelib2_tpu/eval/benchmark.py::bench_hires.
 """
 
 from __future__ import annotations
@@ -29,6 +30,15 @@ import numpy as np
 
 from scenelib2_torch.config import Params, load_config
 from scenelib2_torch.io.pgm import write_pgm
+
+# BASELINE config 3 (scenelib2_tpu/eval/benchmark.py:153-157): the Params of
+# the 640x480 dataset (window caps scale with resolution), and the MonoSLAM
+# overrides of its parity run (tests/test_fast_parity.py:199-200; the cfg
+# file carries neither window radius)
+HIRES_PARAMS = dict(cam_width=640, cam_height=480, cam_fku=390.0, cam_fkv=390.0, cam_u0=324.0,
+                    cam_v0=250.0, max_features=60, search_win_radius=48, particle_win_radius=52,
+                    n_particles=200)
+HIRES_OVERRIDES = dict(max_features=60, search_win_radius=48, particle_win_radius=52)
 
 
 def make_texture(rng: np.random.Generator, size: int = 2048, smooth: int = 2) -> np.ndarray:

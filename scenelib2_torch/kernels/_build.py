@@ -29,7 +29,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "search_bayes",
-           "measure", "score_map", "particle_predict")
+           "measure", "score_map", "particle_predict", "chol_inv")
 # the kernels that count launches: one per library, and K11, the second entry
 # point of search_bayes.cu
 KERNELS = SOURCES + ("search_bayes_maps",)

@@ -8,11 +8,12 @@ particle's match (an overflowed particle with no match keeps its prior),
 Bayes, renormalisation, the prune below thresh / N, renormalisation again,
 the weighted moments of lambda, and the convert / kill decisions.
 
-Every sum over particles is a pairwise tree over the 128-lane padded row
-(halves added lane by lane: 64, 32, ..., 1), the order of the CUDA block
-reduction; padding lanes hold exact zeros. The TPU kernel sums its
-128-lane row in the order its compiler picks, so sums agree with it to
-rounding, and decisions exactly. The standalone TPU kernel of this tail
+Every sum over particles is a pairwise tree over the padded row of
+max(128, NP rounded up to 128) lanes, the TPU kernel's row width (halves
+added lane by lane: 64, 32, ..., 1 for 128 lanes), the order of the CUDA
+block reduction; padding lanes hold exact zeros. The TPU kernel sums its
+row in the order its compiler picks, so sums agree with it to rounding,
+and decisions exactly. The standalone TPU kernel of this tail
 (pallas_bayes.py:246) belongs to batch mode and is not ported yet.
 """
 
@@ -23,7 +24,12 @@ from dataclasses import dataclass
 
 import torch
 
-NP_PAD = 128
+LANE_BLOCK = 128
+
+
+def padded_lanes(n: int) -> int:
+    """Lanes of the padded particle row: max(128, n rounded up to 128)."""
+    return max(LANE_BLOCK, -(-n // LANE_BLOCK) * LANE_BLOCK)
 
 
 @dataclass(frozen=True)
@@ -43,11 +49,11 @@ class BayesConsts:
 
 
 def tree_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum of v [NP] (NP <= 128) as the pairwise tree over 128 zero-padded
-    lanes."""
-    t = torch.zeros(NP_PAD, dtype=v.dtype, device=v.device)
+    """Sum of v [NP] as the pairwise tree over padded_lanes(NP)
+    zero-padded lanes."""
+    n = padded_lanes(v.shape[0])
+    t = torch.zeros(n, dtype=v.dtype, device=v.device)
     t[: v.shape[0]] = v
-    n = NP_PAD
     while n > 1:
         n //= 2
         t = t[:n] + t[n : 2 * n]

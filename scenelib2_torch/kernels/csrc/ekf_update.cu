@@ -18,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chol_linv.cuh"
+
 #define CAM_DIM 13
 #define SLOT_DIM 6
 #define MAX_M 64
@@ -104,30 +106,8 @@ k3_kernel(const float* __restrict__ x, const float* __restrict__ P, const float*
       U[e] = 0.0f;
     }
     __syncthreads();
-    // ---- Cholesky, right-looking, factor stored transposed (chol_linv_body)
-    for (int j = 0; j < M; ++j) {
-      const float d = A[j * M + j];
-      const float inv_sqrt = 1.0f / sqrtf(d);
-      for (int l = j + tid; l < M; l += nt) U[j * M + l] = A[j * M + l] * inv_sqrt;
-      const int nb = M - 1 - j;
-      for (int e = tid; e < nb * nb; e += nt) {
-        const int r = j + 1 + e / nb, l = j + 1 + e % nb;
-        A[r * M + l] = A[r * M + l] - A[r * M + j] * (A[j * M + l] / d);
-      }
-      __syncthreads();
-    }
-    // ---- X = L^-1 by forward substitution, row sums ascending
-    for (int i = 0; i < M; ++i) {
-      for (int l = tid; l < M; l += nt) {
-        float contrib = 0.0f;
-        if (i > 0) {
-          contrib = U[i] * X[l];  // U[0][i] * X[0][l]
-          for (int r = 1; r < i; ++r) contrib = contrib + U[r * M + i] * X[r * M + l];
-        }
-        X[i * M + l] = ((i == l ? 1.0f : 0.0f) - contrib) / U[i * M + i];
-      }
-      __syncthreads();
-    }
+    // ---- X = L^-1 (chol_linv_body, chol_linv.cuh)
+    chol_linv_block(A, U, X, M);
     // ---- S^-1 = L^-T L^-1
     for (int e = tid; e < M * M; e += nt) {
       const int i = e / M, j = e - i * M;

@@ -11,8 +11,9 @@
 // below a microsecond; the launch dominates. Design: one block per selected
 // feature; in the batch step the features of all lanes are one grid
 // (feature k searches frame k / per_lane), so one launch serves every lane.
-// The block stages its (side + B - 1)^2 window of the u8 frame and
-// its patch in shared memory; threads stride over the candidate centres,
+// The block stages its (side + B - 1)^2 window of the u8 frame (as dynamic
+// shared memory: 75^2 floats at 320x240, 107^2 at the 640x480 radius 48)
+// and its patch in shared memory; threads stride over the candidate centres,
 // score only those inside the ellipse's 3-sigma box (every other candidate
 // is masked out anyway), then reduce the minimum and, among the cells at the
 // minimum, the largest u*H + v key (the reference keeps the LAST tie in
@@ -22,7 +23,9 @@
 #include <stdint.h>
 
 #define K2_THREADS 256
-#define MAX_WIN 96  // window side (side + B - 1) held in shared memory
+// the (side + B - 1)^2 window is dynamic shared memory: 107^2 floats
+// (45.8 KB) at the hires radius 48, up to 200 KB on request
+#define K2_MAX_WIN_BYTES (200 * 1024)
 
 struct K2Params {
   int H, W, B, side_v, side_u, per_lane;
@@ -113,7 +116,7 @@ k2_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ patch_row
           const uint8_t* __restrict__ active, uint8_t* __restrict__ found, int* __restrict__ uo,
           int* __restrict__ vo, float* __restrict__ best_o, uint8_t* __restrict__ over_o,
           K2Params p) {
-  __shared__ float win[MAX_WIN * MAX_WIN];
+  extern __shared__ float win[];  // [wv][wu]
   __shared__ float patch[128];
   __shared__ float redf[32];
   __shared__ int redi[32];
@@ -174,10 +177,14 @@ extern "C" int k2_search(const uint8_t* frame, const float* patch_rows, const in
                          const int* v0, const int* uc, const int* vc, const float* sinv_abc,
                          const uint8_t* active, uint8_t* found, int* u, int* v, float* best,
                          uint8_t* over, int K, const K2Params* p, void* stream) {
-  if (p->side_v + p->B - 1 > MAX_WIN || p->side_u + p->B - 1 > MAX_WIN || p->per_lane < 1)
-    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)(p->side_v + p->B - 1) * (p->side_u + p->B - 1);
+  if (smem > K2_MAX_WIN_BYTES || p->per_lane < 1) return (int)cudaErrorInvalidValue;
   if (K == 0) return 0;
-  k2_kernel<<<K, K2_THREADS, 0, (cudaStream_t)stream>>>(frame, patch_rows, u0, v0, uc, vc, sinv_abc,
-                                                        active, found, u, v, best, over, *p);
+  // above 48 KB of static + dynamic shared memory the kernel must opt in;
+  // the attribute belongs to the current device, so it is set on every launch
+  cudaError_t e = cudaFuncSetAttribute(k2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  k2_kernel<<<K, K2_THREADS, smem, (cudaStream_t)stream>>>(frame, patch_rows, u0, v0, uc, vc, sinv_abc,
+                                                           active, found, u, v, best, over, *p);
   return (int)cudaGetLastError();
 }

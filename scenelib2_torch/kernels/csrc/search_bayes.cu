@@ -21,8 +21,9 @@
 // over the whole frame), ~77 k scored cells x 3 x 121 multiply-adds:
 // ~3 us at the f32 rate; typically far less. Design: one block of 1024
 // threads, in phases separated by __syncthreads:
-//   1. thread 0: the slot geometry prologue; lanes 0..127: the particle
-//      chain and search geometry of one particle each (shared memory);
+//   1. thread 0: the slot geometry prologue; lanes 0..lanes-1 (128, or 256
+//      above 128 particles: the TPU kernel's padded row): the particle chain
+//      and search geometry of one particle each (shared memory);
 //   2. thread 0: the union box and the scanned region (the union box's rows
 //      x the 128-column chunks that meet its columns, as the TPU kernel
 //      scans);
@@ -30,7 +31,7 @@
 //      global workspace [H, W] (300 KB does not fit in shared memory);
 //   4. each warp: its particles, lanes striding over the particle's box,
 //      then a warp reduction (min score, then the largest u*H + v key);
-//   5. lanes 0..127: the Bayes tail; all threads: the full-width copy of
+//   5. the lanes: the Bayes tail; all threads: the full-width copy of
 //      prob / palive with the slot's row replaced.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,7 +42,8 @@
 #include "particle_chain.cuh"
 
 #define K4_THREADS 1024
-#define K4_LANES 128
+#define K4_MAX_LANES 256  // particle lanes: max(128, NP rounded up to 128)
+#define K11_PRED_W 128    // row width of K10's prediction rows
 #define K4_MISS 1e6f
 #define K4_BIG 16777216.0f
 #define K4_CHUNK 128
@@ -112,17 +114,18 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
           float* __restrict__ pred_o, float* __restrict__ ws, K4Params p) {
   __shared__ float geom[GEOM_N];
   __shared__ float patch[128];
-  __shared__ float pred[NROWS][K4_LANES];
+  __shared__ float pred[NROWS][K4_MAX_LANES];
   // per-particle search parameters
-  __shared__ float s_uc[K4_LANES], s_vc[K4_LANES], s_ulo[K4_LANES], s_uhi[K4_LANES];
-  __shared__ float s_vlo[K4_LANES], s_vhi[K4_LANES];
-  __shared__ uint8_t s_nonempty[K4_LANES];
-  __shared__ float s_best[K4_LANES], s_kbest[K4_LANES], s_probf[K4_LANES];
-  __shared__ uint8_t s_alivef[K4_LANES];
-  __shared__ float buf[BT_LANES];
+  __shared__ float s_uc[K4_MAX_LANES], s_vc[K4_MAX_LANES], s_ulo[K4_MAX_LANES], s_uhi[K4_MAX_LANES];
+  __shared__ float s_vlo[K4_MAX_LANES], s_vhi[K4_MAX_LANES];
+  __shared__ uint8_t s_nonempty[K4_MAX_LANES];
+  __shared__ float s_best[K4_MAX_LANES], s_kbest[K4_MAX_LANES], s_probf[K4_MAX_LANES];
+  __shared__ uint8_t s_alivef[K4_MAX_LANES];
+  __shared__ float buf[BT_MAX_LANES];
   __shared__ int scan[4];  // v_lo, v_hi, u_lo, u_hi of the scanned region
   const int t = threadIdx.x;
   const int NP = p.NP, H = p.H, W = p.W;
+  const int lanes = NP <= 128 ? 128 : (NP + 127) / 128 * 128;
   const int blk = PRE ? blockIdx.x : 0;
   const int pidx = PRE ? blk : pidx_p[0];  // the row of prob / lam / palive
   const bool making = making_p[blk] != 0;
@@ -140,7 +143,7 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
     if (t < 128) patch[t] = patch_row[t];
     __syncthreads();
   }
-  const bool lane = t < K4_LANES;
+  const bool lane = t < lanes;
   const bool valid = t < NP;
   float prob_in = 0.0f, lam_in = 0.0f, pr[NROWS];
   bool alive = false, searchable = false, over = false;
@@ -151,7 +154,7 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
       alive = palive[pidx * NP + t] != 0;
     }
     if (PRE) {
-      for (int r = 0; r < NROWS; ++r) pr[r] = pred_in[((size_t)blk * NROWS + r) * K4_LANES + t];
+      for (int r = 0; r < NROWS; ++r) pr[r] = pred_in[((size_t)blk * NROWS + r) * K11_PRED_W + t];
     } else {
       const ParticleConsts pc = {p.fku, p.fkv, p.u0c, p.v0c, p.two_kd1, p.neg_two_kd1, p.sd0,
                                  p.maxdist, p.no_sigma};
@@ -180,7 +183,7 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
   // ---- 2. union box and scanned region ------------------------------------
   if (t == 0) {
     float v_lo_s = K4_BIG, v_hi_s = -K4_BIG, u_lo_s = K4_BIG, u_hi_s = -K4_BIG;
-    for (int i = 0; i < K4_LANES; ++i) {
+    for (int i = 0; i < lanes; ++i) {
       if (!s_nonempty[i]) continue;
       v_lo_s = fminf(v_lo_s, s_vlo[i]);
       v_hi_s = fmaxf(v_hi_s, s_vhi[i]);
@@ -289,7 +292,7 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
       prob_in, lam_in, alive, found, p_over, zu, zv, lane ? pred[ROW_HU][t] : 0.0f,
       lane ? pred[ROW_HV][t] : 0.0f, lane ? pred[ROW_S00][t] : 0.0f, lane ? pred[ROW_S01][t] : 0.0f,
       lane ? pred[ROW_S11][t] : 0.0f, lane ? pred[ROW_DET][t] : 0.0f, making, pmask, ma, bc, buf,
-      &prob_f, &alive_f);
+      lanes, &prob_f, &alive_f);
   if (PRE) {
     if (valid) {
       prob_o[blk * NP + t] = prob_f;
@@ -345,7 +348,7 @@ extern "C" int k4_search_bayes(const uint8_t* frame, const float* prob, const fl
                                uint8_t* palive_o, float* mean, float* cov, uint8_t* convert,
                                uint8_t* kill, int* n_over, uint8_t* found, float* z, float* best,
                                float* pred, float* workspace, const K4Params* p, void* stream) {
-  if (p->NP > K4_LANES || p->B * p->B + 2 > 128) return (int)cudaErrorInvalidValue;
+  if (p->NP > K4_MAX_LANES || p->B * p->B + 2 > 128) return (int)cudaErrorInvalidValue;
   k4_kernel<<<1, K4_THREADS, 0, (cudaStream_t)stream>>>(
       frame, prob, lam, palive, making, pmask, match_attempts, pidx, patch_row, shared_row, slot_row,
       prob_o, palive_o, mean, cov, convert, kill, n_over, found, z, best, pred, workspace, *p);
@@ -359,7 +362,7 @@ extern "C" int k11_search_bayes_maps(const float* corr_maps, const float* pred_r
                                      uint8_t* palive_o, float* mean, float* cov, uint8_t* convert,
                                      uint8_t* kill, int* n_over, uint8_t* found, float* z, float* best,
                                      int n_blocks, const K4Params* p, void* stream) {
-  if (p->NP > K4_LANES) return (int)cudaErrorInvalidValue;
+  if (p->NP > K11_PRED_W) return (int)cudaErrorInvalidValue;
   if (n_blocks == 0) return 0;
   k11_kernel<<<n_blocks, K4_THREADS, 0, (cudaStream_t)stream>>>(
       corr_maps, pred_rows, prob, lam, palive, making, pmask, match_attempts, prob_o, palive_o, mean,

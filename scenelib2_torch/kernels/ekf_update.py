@@ -37,6 +37,7 @@ import torch
 from scenelib2_torch.core.ekf import symmetrize
 from scenelib2_torch.core.quaternion import dqnorm_by_dq, seqsum
 from scenelib2_torch.kernels import _build
+from scenelib2_torch.kernels.chol_inv import chol_linv
 from scenelib2_torch.kernels.measure import NOUT, O_H, O_HX, O_HY, O_RD
 
 CAM_DIM = 13
@@ -52,30 +53,6 @@ class UpdateConsts:
     @staticmethod
     def from_params(p) -> "UpdateConsts":
         return UpdateConsts(float(p.min_attempted_measurements), float(p.successful_match_fraction))
-
-
-def chol_linv(S):
-    """L^-1 of SPD S [M,M] by the recurrences of chol_linv_body
-    (pallas_linalg.py:29-64): right-looking factorisation with the factor
-    stored transposed (U = L'), then forward substitution L X = I with the
-    row sums taken in ascending order."""
-    M = S.shape[0]
-    A = S.clone()
-    U = torch.zeros_like(S)
-    for j in range(M):
-        d = A[j, j]
-        inv_sqrt = 1.0 / torch.sqrt(d)
-        U[j, j:] = A[j, j:] * inv_sqrt
-        A[j + 1:, j + 1:] = A[j + 1:, j + 1:] - A[j + 1:, j : j + 1] * (A[j : j + 1, j + 1:] / d)
-    X = torch.zeros_like(S)
-    eye = torch.eye(M, dtype=S.dtype, device=S.device)
-    for i in range(M):
-        if i == 0:
-            contrib = torch.zeros_like(eye[0])
-        else:
-            contrib = seqsum([U[r, i] * X[r, :] for r in range(i)])
-        X[i, :] = (eye[i] - contrib) / U[i, i]
-    return X
 
 
 def bookkeeping(attempts, successes, sched, active, label, sel_mask, succ, top_idx,

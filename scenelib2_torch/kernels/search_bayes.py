@@ -34,11 +34,13 @@ Bound on an H100: ~60 KB of frame and state in and out, and the score
 work of the scanned cells (3 x 121 multiply-adds each, up to ~77 k cells):
 under ~3 us at the f32 rate in the worst case. Design (csrc/search_bayes.cu):
 one block of 1024 threads; the prologue on thread 0 and the particle chain
-on 128 lanes into shared memory; the union box by one thread; the scores of
-the scanned cells into a global workspace [H, W] that the wrapper allocates
-(300 KB does not fit in shared memory); each warp then searches particles
-(its lanes stride over the particle's box, one comparison-based warp
-reduction); the Bayes sums as fixed 128-lane trees in shared memory.
+on the padded particle row (128 lanes, or 256 above 128 particles, as the
+TPU kernel pads NP: 200 at hires) into shared memory; the union box by one
+thread; the scores of the scanned cells into a global workspace [H, W] that
+the wrapper allocates (300 KB at 320x240 and 1.2 MB at 640x480 do not fit
+in shared memory); each warp then searches particles (its lanes stride over
+the particle's box, one comparison-based warp reduction); the Bayes sums as
+fixed trees over the padded row in shared memory.
 
 K11 (batch step, and any step with more than one partial slot) is the same
 TPU kernel in its other mode: the prediction rows come in from K10
@@ -88,6 +90,7 @@ NAME_K11 = "search_bayes_maps"   # K11's launch count (the library's second entr
 MISS = 1e6                 # score of a masked or invalid cell
 BIG = float(1 << 24)       # empty union-box sentinel
 CHUNK = 128                # column chunk of the TPU kernel's scan
+MAX_NP = 256               # K4's particle lanes (K11 takes K10's 128-wide rows)
 
 
 @dataclass(frozen=True)
@@ -377,7 +380,7 @@ def search_bayes(frame, prob, lam, palive, making, pmask, match_attempts, pidx, 
         return search_bayes_plain(*args, c)
     MF, NP = prob.shape
     H, W = c.H, c.W
-    if not (NP <= 128 and c.boxsize * c.boxsize + 2 <= 128):
+    if not (NP <= MAX_NP and c.boxsize * c.boxsize + 2 <= 128):
         raise ValueError(f"K4: unsupported shapes NP={NP} boxsize={c.boxsize}")
     f32, b, i32 = torch.float32, torch.bool, torch.int32
     for t, name, dty, shp in (

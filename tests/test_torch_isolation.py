@@ -2,10 +2,11 @@
 
   - no module of scenelib2_torch/ and not chip_smoke.py imports jax or
     scenelib2_tpu (an AST scan, and a subprocess whose import system refuses
-    those names imports the package and steps 3 frames);
+    those names imports the package and steps 3 frames, the batch step and
+    2 frames of the split route);
   - MonoSLAM(cfg) and make_batched_step(params) without a device raise
     where CUDA is absent;
-  - a kernel wrapper (K1-K7, K9-K11, and K2 / K6 over lanes) given CPU
+  - a kernel wrapper (K1-K7, K9-K11, K14, and K2 / K6 over lanes) given CPU
     tensors runs the plain version and launches nothing; given tensors on
     any other non-CUDA device it raises; when its kernel cannot be built it
     raises, never falling back to the plain version;
@@ -26,6 +27,7 @@ import torch
 from scenelib2_torch import MonoSLAM
 from scenelib2_torch.config import Params
 from scenelib2_torch.kernels import _build
+from scenelib2_torch.kernels.chol_inv import chol_inv, chol_linv
 from scenelib2_torch.kernels.ekf_update import UpdateConsts, joint_update, joint_update_plain
 from scenelib2_torch.kernels.measure import (
     NOUT,
@@ -120,6 +122,11 @@ step = make_batched_step(slam.params, device="cpu")
 _states, outs = run_batch(step, replicate_states(slam.state, 2), frames[1:4, None].repeat(2, axis=1),
                           True, slam.params)
 assert outs.r.shape == (3, 2, 3) and bool(torch.isfinite(outs.r).all())
+# the split route (D > 384: K7, K2, K14 in kernels/chol_inv.py)
+big = MonoSLAM(cfg, max_features=64, device="cpu")
+for t in range(1, 3):
+    big.go_one_step(frames[t])
+assert "scenelib2_torch.kernels.chol_inv" in sys.modules
 assert not any(m.split(".")[0] in FORBIDDEN for m in sys.modules)
 print("OK", traj_shape)
 """
@@ -243,6 +250,11 @@ def _k4_args(rng, dev):
             torch.tensor(row, **f), torch.tensor(shared, **f), torch.tensor(slot, **f))
 
 
+def _k14_args(rng, dev):
+    A = rng.normal(size=(2, 20, 20))
+    return torch.tensor(A @ A.transpose(0, 2, 1) / 20 + np.eye(20), dtype=torch.float32, device=dev)
+
+
 N_L = 3     # lanes of the batch-wrapper cases
 
 
@@ -314,6 +326,7 @@ def _cases():
                 lambda d, r: (particle_predict_plain(*_k10_args(r, d), ParticleConsts.from_params(p)),)),
         "K11": (lambda d, r: search_bayes_maps(*_k11_args(r, d), SearchBayesConsts.from_params(p)),
                 lambda d, r: search_bayes_maps_plain(*_k11_args(r, d), SearchBayesConsts.from_params(p))),
+        "K14": (lambda d, r: (chol_inv(_k14_args(r, d)),), lambda d, r: (chol_linv(_k14_args(r, d)),)),
         # K2 and K6 over lanes: one launch for all lanes, the plain version lane by lane
         "K2 lanes": (lambda d, r: search(*_lanes(_k2_args, r, d), SearchConsts.from_params(p)),
                      lambda d, r: _per_lane(
@@ -328,7 +341,7 @@ def _per_lane(fn, args):
     return tuple(torch.stack(o) for o in zip(*(fn(*(t[b] for t in args)) for b in range(N_L))))
 
 
-KERNELS = ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9", "K10", "K11", "K2 lanes", "K6 lanes"]
+KERNELS = ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9", "K10", "K11", "K14", "K2 lanes", "K6 lanes"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -346,7 +359,8 @@ def test_wrapper_takes_plain_path_only_for_cpu_tensors(kernel):
     assert all(v == 0 for v in _build.launches.values())
 
 
-@pytest.mark.parametrize("kernel", ["K4", "K5", "K6", "K7", "K9", "K10", "K11", "K2 lanes", "K6 lanes"])
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K6", "K7", "K9", "K10", "K11", "K14", "K2 lanes",
+                                    "K6 lanes"])
 def test_wrapper_raises_when_its_kernel_cannot_be_built(kernel, monkeypatch, tmp_path):
     """A non-CPU request whose kernel cannot be built (no CUDA toolkit)
     raises; the wrapper never answers with its plain version instead."""
