@@ -49,6 +49,17 @@ Phases (any failure exits non-zero before the last line is printed):
     K4 with 200 particles at hires), the CPU plain replay of its first 20
     frames, 30 steps under sync debug mode "error", ms/frame, a traced
     window's device busy and idle share, peak device memory.
+ 3e. the two alternative batch routes of the JAX step, on the 64 lanes of
+    3b: batch_pallas=False (K8 on gathered windows and K12 on 13 rows, the
+    rest as tensor ops) and SCENELIB2_BATCH_SB=0 (K7, K2, K6, K9, K10, then
+    K13 and K12 on K10's rows in place of K11). K8, K12 in both forms and
+    K13 against their plain versions on seeded cases (ties, an overflowing
+    ellipse, an all-zero likelihood, a sell-by, degenerate S, empty regions)
+    and on captured steps; each route's replay reproduces all 64 per-lane
+    fingerprints of its committed file with its kernels launched once a
+    step and no other; two lanes agree with their CPU plain replay; 30
+    steps without a host synchronisation; aggregate frames/s, an 8-step
+    traced window, the replay's peak device memory, each kernel's times.
  4. a `kernels` JSON line, then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -698,6 +709,367 @@ def check_k10_k11_against_k4(a4, smc, sbc) -> float:
     return 0.0
 
 
+# ------------------------------------------------------------ 3e: the alternative batch routes
+
+# route -> (label, the kernels each step launches once for all lanes); the
+# JAX batch routes batch_pallas=False ("bp0") and SCENELIB2_BATCH_SB=0 ("sb0")
+ROUTE_PATH = {
+    "bp0": ("batch_pallas=False", ("search_windows", "bayes")),
+    "sb0": ("SCENELIB2_BATCH_SB=0", ("measure", "search", "shi_tomasi", "score_map", "particle_predict",
+                                     "particle_search", "bayes")),
+}
+ROUTE_TRACED_STEPS = 8       # the profiler costs ~0.7 ms per traced device kernel
+ROUTE_REF_LANES, N_ROUTE_REF = (0, 32), 10
+K12_NAMES = ("prob", "palive", "mean", "cov", "convert", "kill", "n_over")
+
+
+def compare_exact(got, want, names, what) -> float:
+    """Every output equal (floats bit for bit, NaN where the other has NaN);
+    returns the largest float difference (0)."""
+    for name, a, b in zip(names, got, want):
+        ok = same_floats(a, b) if a.is_floating_point() else same(a, b)
+        if not ok:
+            fail(f"{what}: {name} differs from the plain version (max abs err {max_err(a.float(), b.float())})")
+    return max((max_err(a, b) for a, b in zip(got, want) if a.is_floating_point()), default=0.0)
+
+
+def check_k8(args, sc) -> float:
+    from scenelib2_torch.kernels.search import search_windows, search_windows_plain
+
+    got = search_windows(*args, sc)
+    flat = [t.reshape(-1, *t.shape[2:]) for t in args]
+    want = tuple(o.reshape(got[0].shape) for o in search_windows_plain(*flat, sc))
+    torch.cuda.synchronize()
+    return compare_exact(got, want, ("found", "u", "v", "best", "over"), "K8")
+
+
+def check_k12(args, kw) -> float:
+    from scenelib2_torch.kernels.bayes import bayes_update, bayes_update_plain
+
+    got = bayes_update(*args, **kw)
+    lead = args[0].shape[:-1]
+
+    def rows(t):
+        return None if t is None else t.reshape(-1, *t.shape[len(lead):])
+
+    want = bayes_update_plain(*(rows(t) for t in args[:12]), args[12],
+                              pred_rows=rows(kw.get("pred_rows")))
+    want = tuple(w.reshape(g.shape) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    return compare_exact(got, want, K12_NAMES, "K12 (pred rows)" if kw.get("pred_rows") is not None else "K12")
+
+
+def check_k13(args) -> float:
+    from scenelib2_torch.kernels.particle_search import particle_search, particle_search_plain
+
+    got = particle_search(*args)
+    want = particle_search_plain(*args)
+    torch.cuda.synchronize()
+    return compare_exact(got, want, ("found", "u", "v", "over"), "K13")
+
+
+def k8_seeded(rng, p, dev, n_lanes=4):
+    """K8 arguments over lanes of random frames: lane 0's first feature with
+    its patch planted at two centres of its window (a tie of perfect
+    matches), lane 1's first feature with a near-singular S^-1 (an ellipse
+    beyond the window), a NaN centre in lane 2 (an unselected slot)."""
+    from scenelib2_torch.kernels.correlate import gather_windows_u8
+    from scenelib2_torch.kernels.search import search_window_origin
+
+    H, W, B, K = p.cam_height, p.cam_width, p.boxsize, p.n_features_to_select
+    frames = torch.tensor(rng.integers(0, 256, (n_lanes, H, W), dtype=np.uint8), device=dev)
+    patches = torch.tensor(rng.integers(0, 256, (n_lanes, K, B, B), dtype=np.uint8), device=dev)
+    h = torch.tensor(rng.uniform(40, 200, (n_lanes, K, 2)), dtype=torch.float32, device=dev)
+    h[0, 0] = torch.tensor([100.0, 90.0])
+    for uu, vv in ((92, 80), (110, 98)):
+        frames[0, vv - 5 : vv + 6, uu - 5 : uu + 6] = patches[0, 0]
+    h[2, 3] = float("nan")
+    abc = torch.tensor(np.tile([0.02, 0.002, 0.03], (n_lanes, K, 1)), dtype=torch.float32, device=dev)
+    abc[1, 0] = torch.tensor([1e-4, 0.0, 1e-4])
+    active = torch.ones((n_lanes, K), dtype=torch.bool, device=dev)
+    active[2, 3] = False
+    u0, v0, _, _ = search_window_origin(h, p.search_win_radius, W, H, B)
+    wins = gather_windows_u8(frames, u0, v0, p.search_win_radius, B)
+    return wins, patches, u0, v0, h, abc, active
+
+
+def k12_seeded(rng, p, dev, pred_form: bool, n_rows=6):
+    """K12 arguments [n_rows, 1, ...]: random rows, row 1 with nothing found
+    or overflowed (an all-zero likelihood: killed), row 2 past its sell-by,
+    row 3 not making."""
+    from scenelib2_torch.kernels.bayes import BayesConsts
+
+    NP = p.n_particles
+    f = dict(dtype=torch.float32, device=dev)
+
+    def t(a, **k):
+        return torch.tensor(a, **(k or f))
+
+    prob = t(rng.uniform(0.005, 0.02, (n_rows, 1, NP)))
+    lam = t(np.tile(np.linspace(0.5, 5.0, NP), (n_rows, 1, 1)))
+    palive = t(rng.uniform(size=(n_rows, 1, NP)) > 0.1, device=dev)
+    found = t(rng.uniform(size=(n_rows, 1, NP)) > 0.6, device=dev)
+    over = t(rng.uniform(size=(n_rows, 1, NP)) > 0.95, device=dev)
+    found[1], over[1] = False, False
+    z = t(rng.uniform(100, 115, (n_rows, 1, NP, 2)))
+    making = torch.ones((n_rows, 1), dtype=torch.bool, device=dev)
+    making[3] = False
+    pmask = torch.ones((n_rows, 1), dtype=torch.bool, device=dev)
+    ma = torch.full((n_rows, 1), 3, dtype=torch.int32, device=dev)
+    ma[2] = p.erase_partial_after_attempts + 1
+    geo = [t(rng.uniform(100, 115, (n_rows, 1, NP, 2))),
+           t(np.tile([[0.05, 0.01], [0.01, 0.04]], (n_rows, 1, NP, 1, 1))), t(rng.uniform(300, 600, (n_rows, 1, NP)))]
+    kw = {}
+    if pred_form:
+        pred = t(rng.uniform(0.01, 0.06, (n_rows, 1, 8, 128)))
+        pred[:, :, 0:2] = t(rng.uniform(100, 115, (n_rows, 1, 2, 128)))
+        pred[:, :, 5] = t(rng.uniform(300, 600, (n_rows, 1, 128)))
+        geo, kw = [None, None, None], dict(pred_rows=pred)
+    return (prob, lam, palive, found, over, z, *geo, making, pmask, ma, BayesConsts.from_params(p)), kw
+
+
+def k13_seeded(rng, p, dev, n_lanes=4):
+    """K13 arguments: random maps and particle clouds along rays; lane 0 with
+    degenerate particles (NaN, huge and indefinite S^-1, an overflowing
+    ellipse, centres far off the frame), lane 1 with empty regions and dead
+    particles, lane 2 with a planted three-way tie."""
+    from scenelib2_torch.kernels.particle_search import ParticleSearchConsts
+
+    H, W, NP = p.cam_height, p.cam_width, p.n_particles
+    f = dict(dtype=torch.float32, device=dev)
+    maps = torch.tensor(rng.uniform(0.3, 2.0, (n_lanes, 1, H, W)), **f)
+    u = np.linspace(80, 160, NP)
+    h = torch.tensor(np.tile(np.stack([u, 100 + 0.3 * (u - 80)], -1), (n_lanes, 1, 1, 1)), **f)
+    sinv = torch.tensor(np.tile([[0.05, 0.01], [0.01, 0.04]], (n_lanes, 1, NP, 1, 1)), **f)
+    alive = torch.ones((n_lanes, 1, NP), dtype=torch.bool, device=dev)
+    sinv[0, 0, 0] = float("nan")
+    sinv[0, 0, 1] = torch.tensor([[1e-30, 0.0], [0.0, 1e-30]])
+    sinv[0, 0, 2] = torch.tensor([[1.0, 2.0], [2.0, 1.0]])
+    sinv[0, 0, 3] = torch.tensor([[1e-6, 0.0], [0.0, 1e-6]])
+    h[0, 0, 4] = torch.tensor([-1e12, 5.0])
+    h[0, 0, 5] = torch.tensor([float("nan"), 50.0])
+    h[0, 0, 6] = torch.tensor([3e9, 3e9])
+    maps[0, 0, 95:105, 95:105] = 0.1
+    sinv[1, 0, :] = torch.tensor([[4.0, 0.0], [0.0, 4.0]])
+    h[1, 0, :10, 0] = -40.0
+    alive[1, 0, 10:20] = False
+    maps[2, 0, 102, 104] = maps[2, 0, 100, 104] = maps[2, 0, 101, 103] = 0.05
+    h[2, 0, :] = torch.tensor([104.3, 101.2])
+    return maps, h, sinv, alive, ParticleSearchConsts.from_params(p)
+
+
+def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_frame) -> dict:
+    """Phase 3e: K8, K12 (both forms) and K13 against their plain versions on
+    seeded cases and on inputs captured from each route's replay; each
+    route's 64-lane replay against its committed fingerprints with its
+    launch counts; a CPU plain replay of two lanes; 30 steps under sync
+    debug mode "error"; timings, a traced window and peak device memory."""
+    import dataclasses
+    import traceback
+
+    from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints
+    from scenelib2_torch.kernels import _build, bayes, particle_search, search
+    from scenelib2_torch.parallel.mesh import make_batched_step, run_batch
+    from scenelib2_torch.runtime.state import SlamState
+
+    sc = search.SearchConsts.from_params(p)
+    T = bseq.shape[0]
+    errs = {"K8": 0.0, "K12": 0.0, "K12 pred rows": 0.0, "K13": 0.0}
+    for _trial in range(2):
+        errs["K8"] = max(errs["K8"], check_k8(k8_seeded(rng, p, dev), sc))
+        for form, key in ((False, "K12"), (True, "K12 pred rows")):
+            a, kw = k12_seeded(rng, p, dev, form)
+            errs[key] = max(errs[key], check_k12(a, kw))
+        errs["K13"] = max(errs["K13"], check_k13(k13_seeded(rng, p, dev)))
+    log("[3e] K8 (a tie, an overflowing ellipse, a NaN centre), K12 in both forms (an all-zero "
+        "likelihood, a sell-by, a row not making) and K13 (degenerate S^-1, far centres, empty "
+        "regions, dead particles, a tie) equal their plain versions on seeded cases")
+
+    res = {}
+    for route, (label, path) in ROUTE_PATH.items():
+        rparams = dataclasses.replace(bparams, batch_pallas=route != "bp0")
+        sb = False if route == "sb0" else None
+        step = make_batched_step(rparams, device="cuda", batch_sb=sb)
+        # kernel inputs of whole batch steps (all lanes at once)
+        seen, cur = {}, {}
+
+        def keep(n, a, k):
+            cur[n] = (tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in a), dict(k))
+
+        with observe_wrappers(keep):
+            st_b = states0
+            for t in range(max(BATCH_AT) + 1):
+                cur.clear()
+                st_b, _o = step(st_b, bseq[t], True)
+                if t in BATCH_AT:
+                    seen[t] = dict(cur)
+        torch.cuda.synchronize()
+        k12_key = "K12" if route == "bp0" else "K12 pred rows"
+        for at in BATCH_AT:
+            c = seen[at]
+            a12, kw12 = c["bayes_update"]
+            errs[k12_key] = max(errs[k12_key], check_k12(a12, kw12))
+            if route == "bp0":
+                errs["K8"] = max(errs["K8"], check_k8(c["search_windows"][0][:7], sc))
+            else:
+                errs["K13"] = max(errs["K13"], check_k13(c["particle_search"][0]))
+        log(f"[3e] {label}: the route's kernels equal their plain versions on whole {N_LANES}-lane "
+            f"steps at output indices {BATCH_AT} (max abs err {json.dumps(errs)})")
+
+        costs = []
+
+        def record(n, a, k):
+            if n == "search_windows":
+                from scenelib2_torch.kernels.search import candidate_geometry, window_centre
+
+                uc, vc = window_centre(a[4])
+                admit = candidate_geometry(a[2].reshape(-1), a[3].reshape(-1), uc.reshape(-1),
+                                           vc.reshape(-1), a[5].reshape(-1, 3), sc)[0]
+                costs.append(("K8", search.bytes_and_flops_windows(a[2].numel(), sc, int(admit.sum()))))
+            elif n == "bayes_update":
+                costs.append((k12_key, bayes.bytes_and_flops(a[0][..., 0].numel(), a[0].shape[-1])))
+            elif n == "particle_search":
+                Bn, Fn, P = a[3].shape
+                costs.append(("K13", particle_search.bytes_and_flops(
+                    Bn, Fn, P, *particle_search.region_cells(a[1], a[2], a[3], a[4]))))
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with observe_wrappers(record):
+            _st, outs = run_batch(step, states0, bseq, True, rparams)
+        launches = dict(_build.launches)
+        bad = check_lanes(lane_fingerprints(outs), route=route)
+        if bad:
+            fail(f"{label}: {len(bad)} of {N_LANES} lane fingerprints differ from the committed file:\n"
+                 + "\n".join(bad[:6]))
+        for n in _build.KERNELS:
+            want = T if n in path else 0
+            if launches.get(n, 0) != want:
+                fail(f"kernel {n} launched {launches.get(n, 0)} times on the {label} route, expected {want}")
+        log(f"[3e] {label}: all {N_LANES} per-lane fingerprints equal the committed file; launches "
+            f"({T} steps of {N_LANES} lanes): {json.dumps(launches)}")
+        rb = outs.r.numpy()
+        if rb.shape != (T, N_LANES, 3) or not np.isfinite(rb).all():
+            fail(f"{label}: trajectories not finite/shaped: {rb.shape}")
+
+        # reference on a small input: two lanes replayed by the CPU plain versions
+        idx = list(ROUTE_REF_LANES)
+        cpu_states = SlamState(*(t[idx].cpu() for t in states0))
+        cpu_step = make_batched_step(rparams, device="cpu", batch_sb=sb)
+        _s, ref = run_batch(cpu_step, cpu_states, bframes[:N_ROUTE_REF, idx], True, rparams)
+        for k in ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init",
+                  "did_convert", "n_overflow", "sel_matched", "init_box", "par_alive"):
+            if not torch.equal(getattr(ref, k), getattr(outs, k)[:N_ROUTE_REF, idx]):
+                fail(f"{label}: CUDA vs CPU plain replay: {k} differs in lanes {idx}")
+        dx = float((ref.xv.double() - outs.xv[:N_ROUTE_REF, idx].double()).abs().max())
+        if dx > STEP_TOL:
+            fail(f"{label}: CUDA vs CPU plain replay: xv differs by {dx}")
+        log(f"[3e] {label}: lanes {idx} equal their CPU plain replay on frames 1..{N_ROUTE_REF} "
+            f"(max |dxv| {dx:.3g})")
+
+        st_b = states0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(N_REF):
+                st_b, _o = step(st_b, bseq[t], True)
+        except RuntimeError:
+            fail(f"the {label} batch step synchronised with the host:\n{traceback.format_exc()}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log(f"[3e] {label}: {N_REF} batch steps ran with torch.cuda.set_sync_debug_mode('error'): "
+            "no host synchronisation")
+
+        walls = []
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run_batch(step, states0, bseq, True, rparams)
+            walls.append(time.perf_counter() - t)
+        peak_mb = (torch.cuda.max_memory_allocated() - before) / 2**20
+        wall = statistics.median(walls)
+        from torch.profiler import ProfilerActivity, profile
+
+        n_tr = ROUTE_TRACED_STEPS
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run_batch(step, states0, bseq[:n_tr], True, rparams)
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t
+        by = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            by[e.key] = (us / 1e3, e.count)
+        busy = sum(v[0] for v in by.values()) / n_tr
+        n_kern = sum(v[1] for v in by.values()) / n_tr
+        ms_step = wall / T * 1e3
+        r_ = dict(
+            route=label, lanes=N_LANES, frames_per_lane=T, wall_s=wall, runs_s=walls,
+            frames_per_s=N_LANES * T / wall, ms_per_step=ms_step,
+            device_ms_per_step=busy if busy > 0 else None,
+            idle_share=(1.0 - busy / ms_step) if busy > 0 else None, traced_steps=n_tr,
+            traced_ms_per_step=traced_wall / n_tr * 1e3, device_kernels_per_step=n_kern,
+            peak_device_mb_replay=peak_mb, single_stream_frames_per_s=1e3 / single_ms_frame,
+            launches=launches,
+        )
+        r_["vs_64x_single_stream"] = r_["frames_per_s"] / (N_LANES * r_["single_stream_frames_per_s"])
+        log(f"[3e] {label}: {r_['frames_per_s']:.1f} aggregate frames/s ({N_LANES} lanes x {T} frames in "
+            f"{wall:.4f} s, median of 3 runs: {', '.join(f'{v:.4f}' for v in walls)}); {ms_step:.4f} ms a "
+            f"batch step; {r_['vs_64x_single_stream']:.4f} of {N_LANES} x the single stream "
+            f"({r_['single_stream_frames_per_s']:.1f} frames/s); peak device memory of the replay "
+            f"{peak_mb:.1f} MiB above the {before / 2**20:.1f} MiB held before it")
+        if busy > 0:
+            log(f"[3e] {label} traced window ({n_tr} steps): device busy {busy:.4f} ms a step -> idle share "
+                f"{r_['idle_share']:.4f}; {n_kern:.2f} device kernels a step")
+            for name, (ms, cnt) in sorted(by.items(), key=lambda kv: -kv[1][0])[:12]:
+                log(f"[3e]   {ms / n_tr * 1e3:9.3f} us/step  x{cnt / n_tr:6.2f}/step  {name[:90]}")
+        else:
+            log(f"[3e] {label} traced window: the profiler recorded no device time (not measured)")
+        dev_ms = {}
+        for short, sym in (("K8", "k8_kernel"), ("K12", "k12_kernel"), ("K13", "k13_kernel")):
+            hits = [v for k, v in by.items() if sym in k]
+            dev_ms[short] = (sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits))) if hits else None
+
+        # each kernel's and its plain version's time on the output-index-20 inputs
+        c20 = seen[20]
+        a12, kw12 = c20["bayes_update"]
+        kern = {k12_key: (lambda: bayes.bayes_update(*a12, **kw12),
+                          lambda: bayes.bayes_update_plain(
+                              *(None if t is None else t.reshape(-1, *t.shape[2:]) for t in a12[:12]),
+                              a12[12], pred_rows=(None if "pred_rows" not in kw12
+                                                  else kw12["pred_rows"].reshape(-1, 8, 128))),
+                          "K12")}
+        if route == "bp0":
+            a8 = c20["search_windows"][0][:7]
+            flat8 = [t.reshape(-1, *t.shape[2:]) for t in a8]
+            kern["K8"] = (lambda: search.search_windows(*a8, sc), lambda: search.search_windows_plain(*flat8, sc),
+                          "K8")
+        else:
+            a13 = c20["particle_search"][0]
+            kern["K13"] = (lambda: particle_search.particle_search(*a13),
+                           lambda: particle_search.particle_search_plain(*a13), "K13")
+        timings = {}
+        for short, (fk, fp_, sym) in kern.items():
+            b_ms, b_by = bound([c for k_, c in costs if k_ == short])
+            timings[short] = dict(ms=time_ms(fk, n=50, batches=3), plain_ms=time_ms(fp_, n=2, batches=3),
+                                  device_ms=dev_ms[sym], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                                  launches=launches["search_windows" if short == "K8" else
+                                                    "bayes" if short.startswith("K12") else "particle_search"])
+            log(f"[3e] {short} on the {label} route: {json.dumps(timings[short])}")
+        r_["timings"] = timings
+        res[route] = r_
+    res["errs"] = errs
+    return res
+
+
 # ------------------------------------------------------------ large maps: K14
 
 
@@ -1007,7 +1379,8 @@ def profile_main_path(slam, seq, n: int, mapping: bool) -> dict:
 
 SINGLE_WRAPPERS = ("predict_measure", "search", "joint_update", "propose", "shi_tomasi", "search_bayes")
 WRAPPERS = ("predict_measure", "search", "joint_update", "propose", "shi_tomasi", "search_bayes",
-            "measure_predict", "score_map", "particle_predict", "search_bayes_maps", "chol_inv")
+            "measure_predict", "score_map", "particle_predict", "search_bayes_maps", "chol_inv",
+            "search_windows", "bayes_update", "particle_search")
 # the kernels of each main path (launch-count names of kernels/_build.py)
 SINGLE_PATH = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "search_bayes")
 SPLIT_PATH = ("measure", "search", "chol_inv", "propose", "shi_tomasi", "search_bayes")
@@ -1022,7 +1395,8 @@ def observe_wrappers(on_call):
     each kernel wrapper (K1 predict_measure, K2 search, K3 joint_update,
     K5 propose, K6 shi_tomasi, K4 search_bayes; K7 measure_predict, K9
     score_map, K10 particle_predict, K11 search_bayes_maps; K14 chol_inv,
-    which core/ekf.py calls)."""
+    which core/ekf.py calls; K8 search_windows, K12 bayes_update, K13
+    particle_search)."""
     import scenelib2_torch.core.ekf as ekf_mod
     import scenelib2_torch.runtime.step as step_mod
 
@@ -1553,6 +1927,10 @@ def main() -> int:
         log("[3b] device time per launch (batch): " + ", ".join(
             f"{k} {v:.5f} ms" if v is not None else f"{k} not measured" for k, v in bkernel_dev.items()))
 
+        # ---- 3e. the alternative batch routes (batch_pallas=False; SCENELIB2_BATCH_SB=0)
+        routes = batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes,
+                                    paths["mapping-on"]["ms_frame"])
+
         # ---- 3c / 3d. large maps: hires (fused, D = 373), mf100 (split, D = 613)
         large = {name: large_map_phase(tag, name, tmp, dev, rng)
                  for tag, name in (("3c", "hires"), ("3d", "mf100"))}
@@ -1615,6 +1993,21 @@ def main() -> int:
             bound_by=t_["bound_by"], library_ms=t_["library_ms"], device_ms=t_["device_ms"], path=name,
         ))
     recs[6]["launches_mf100"] = large["mf100"]["launches"]["measure"]
+    # the alternative batch routes: K8 (bp0), K12 on 13 rows (bp0) and on K10's rows (sb0), K13 (sb0)
+    for short, route, name, src, rep_ in (
+        ("K8", "bp0", "K8 search_windows", "search.cu", "pallas_search.py:312"),
+        ("K12", "bp0", "K12 bayes (13 rows)", "bayes.cu", "pallas_bayes.py:246"),
+        ("K12 pred rows", "sb0", "K12 bayes (7 + 8 rows)", "bayes.cu", "pallas_bayes.py:246"),
+        ("K13", "sb0", "K13 particle_search", "particle_search.cu", "pallas_particle_search.py:206"),
+    ):
+        t_ = routes[route]["timings"][short]
+        recs.append(dict(
+            name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
+            replaces=f"scenelib2_tpu/kernels/{rep_}", launches=t_["launches"],
+            max_abs_err=routes["errs"][short], ms=t_["ms"], plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"],
+            bound_by=t_["bound_by"], library_ms=t_["library_ms"], device_ms=t_["device_ms"],
+            path=ROUTE_PATH[route][0],
+        ))
     log(f"[4] empty-launch floor {empty_ms:.4f} ms; total {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     on, off = paths["mapping-on"], paths["mapping-off"]
@@ -1622,6 +2015,8 @@ def main() -> int:
                       "ms_per_frame_nomap": off["ms_frame"], "device_ms_per_frame_nomap": off["busy"],
                       "empty_launch_ms": empty_ms, "card": smi}))
     print(json.dumps({"batch64": batch, "card": smi}))
+    print(json.dumps({"batch_routes": {ROUTE_PATH[r][0]: {k: v for k, v in routes[r].items() if k != "timings"}
+                                       for r in ROUTE_PATH}, "card": smi}))
     print(json.dumps({"large_maps": {
         name: {k: v for k, v in r_.items() if k in ("ms_frame", "runs", "ms_frame_window", "traced_frames",
                                                    "busy", "idle_share", "peak_mb", "kernels_per_frame",

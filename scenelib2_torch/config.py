@@ -127,10 +127,12 @@ class Params:
     # window-gather strategy: dynamic_slice loops win single-stream on TPU;
     # index-grid gathers win under an outer vmap (batch datagen configs)
     index_gather: bool = False
-    # fused Pallas search kernel for the selected-feature stage (f32 scores;
-    # 2x the XLA path on TPU and absorbs the sums prep). Keep False for the
-    # f64 bit-parity mode; the fast-mode benches enable it.
-    use_pallas: bool = False
+    # the kernel route (the JAX package's use_pallas=True): the port runs the
+    # JAX step's kernel route, which JAX's own benches select with
+    # use_pallas=_fast_mode() (scenelib2_tpu/eval/benchmark.py:112-197), so
+    # it is the default here; the JAX default False selects the pure-XLA
+    # route, which the port's step builders refuse (not ported)
+    use_pallas: bool = True
     # batch_mode: pick vmap-friendly implementations (dense particle search,
     # unrolled Cholesky, vmapped particle predict) — single-invocation Pallas
     # kernels serialize across a vmapped batch axis (one grid step per lane)

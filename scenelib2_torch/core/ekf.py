@@ -96,9 +96,9 @@ def inv2x2_via_chol_parts(s00, s10, s11):
 
 
 def inv2x2_via_chol(S):
-    """S^-1 of a 2x2 SPD matrix through its Cholesky factor."""
-    a, b, c = inv2x2_via_chol_parts(S[0, 0], S[1, 0], S[1, 1])
-    return torch.stack([torch.stack([a, b]), torch.stack([b, c])])
+    """S^-1 of 2x2 SPD matrices S [..., 2, 2] through their Cholesky factors."""
+    a, b, c = inv2x2_via_chol_parts(S[..., 0, 0], S[..., 1, 0], S[..., 1, 1])
+    return torch.stack([torch.stack([a, b], dim=-1), torch.stack([b, c], dim=-1)], dim=-2)
 
 
 def chol_unrolled(S):

@@ -13,9 +13,9 @@ The ray functions take their products with mm_seq (sums left to right), so
 the state surgery that uses them (runtime/state.py) rounds the same on the
 CPU and on the GPU.
 
-full_zeroedyi, full_predict_measurement, part_init_ray and
-part_convert_to_full take leading (lane) dimensions: the point, pose or ray
-lies in the LAST dimension and Jacobians in the last two.
+Every function except part_predict_from_zeroed takes leading (lane, slot)
+dimensions: the point, pose or ray lies in the LAST dimension and Jacobians
+in the last two.
 """
 
 from __future__ import annotations
@@ -88,20 +88,27 @@ def full_visibility_test(
     max_angle_difference: float = math.pi / 4,
 ) -> torch.Tensor:
     """Bit-flag visibility test (full_feature_model.cpp:103-170); 0 == visible.
-    Returns a 0-dim int32 tensor."""
+    Returns an int32 tensor of the leading (lane, slot) dimensions (0-dim
+    for one feature). Norms and dot products are left-to-right sums."""
     def bit(cond, v):
         return torch.where(cond, v, 0).to(torch.int32)
 
+    def rot(q, v):
+        return mm_seq(quat_to_rotation_matrix(q), v[..., None])[..., 0]
+
+    def norm(v):
+        return torch.sqrt(seqsum([v[..., i] * v[..., i] for i in range(3)]))
+
     b = image_search_boundary
-    flag = bit((hi[0] < b) | (hi[0] > cam.width - 1 - b), LEFT_RIGHT_FAIL)
-    flag = flag | bit((hi[1] < b) | (hi[1] > cam.height - 1 - b), UP_DOWN_FAIL)
+    flag = bit((hi[..., 0] < b) | (hi[..., 0] > cam.width - 1 - b), LEFT_RIGHT_FAIL)
+    flag = flag | bit((hi[..., 1] < b) | (hi[..., 1] > cam.height - 1 - b), UP_DOWN_FAIL)
     zeroed, _, _ = full_zeroedyi(y, xp)
-    flag = flag | bit(zeroed[2] <= 0, BEHIND_CAMERA_FAIL)
-    hLWi = quat_to_rotation_matrix(xp[3:7]) @ zeroed
+    flag = flag | bit(zeroed[..., 2] <= 0, BEHIND_CAMERA_FAIL)
+    hLWi = rot(xp[..., 3:7], zeroed)
     zeroed_orig, _, _ = full_zeroedyi(y, xp_orig)
-    hLWi_orig = quat_to_rotation_matrix(xp_orig[3:7]) @ zeroed_orig
-    mod = torch.linalg.vector_norm(hLWi)
-    mod_orig = torch.linalg.vector_norm(hLWi_orig)
+    hLWi_orig = rot(xp_orig[..., 3:7], zeroed_orig)
+    mod = norm(hLWi)
+    mod_orig = norm(hLWi_orig)
     length_ratio = mod / mod_orig
     flag = flag | bit(
         (length_ratio > max_length_ratio) | (length_ratio < 1.0 / max_length_ratio),
@@ -109,16 +116,19 @@ def full_visibility_test(
     )
     # clipped acos argument: the same comparison outcome as the reference's
     # NaN beyond +-1, without NaN propagation
-    cosang = torch.clamp(torch.dot(hLWi, hLWi_orig) / (mod * mod_orig), -1.0, 1.0)
+    dot = seqsum([hLWi[..., i] * hLWi_orig[..., i] for i in range(3)])
+    cosang = torch.clamp(dot / (mod * mod_orig), -1.0, 1.0)
     angle = torch.abs(torch.arccos(cosang))
     return flag | bit(angle > max_angle_difference, ANGLE_FAIL)
 
 
 def innovation_covariance(Pxx, Pxy, Pyy, dh_by_dxv, dh_by_dy, R) -> torch.Tensor:
     """S_i = Hx Pxx Hx' + Hx Pxy Hy' + (Hx Pxy Hy')' + Hy Pyy Hy' + R
-    (feature_model.cpp:99-116)."""
-    t = dh_by_dxv @ Pxy @ dh_by_dy.T
-    return dh_by_dxv @ Pxx @ dh_by_dxv.T + t + t.T + dh_by_dy @ Pyy @ dh_by_dy.T + R
+    (feature_model.cpp:99-116), products left to right (mm_seq); leading
+    (lane, slot) dimensions broadcast."""
+    t = mm_seq(mm_seq(dh_by_dxv, Pxy), dh_by_dy.mT)
+    return (mm_seq(mm_seq(dh_by_dxv, Pxx), dh_by_dxv.mT) + t + t.mT
+            + mm_seq(mm_seq(dh_by_dy, Pyy), dh_by_dy.mT) + R)
 
 
 # ---------------------------------------------------------------------------
@@ -153,23 +163,27 @@ def part_init_ray(cam: CameraParams, h: torch.Tensor, xp: torch.Tensor):
 def part_zeroedyi(y: torch.Tensor, xp: torch.Tensor):
     """Ray in the robot frame + Jacobians (part_feature_model.cpp:80-144).
 
-    Returns (zeroedyi[6], dzeroedyi_by_dxp[6,7], dzeroedyi_by_dyi[6,6])."""
-    r, q = xp[0:3], xp[3:7]
-    ri, hhat = y[0:3], y[3:6]
+    Returns (zeroedyi[..., 6], dzeroedyi_by_dxp[..., 6, 7],
+    dzeroedyi_by_dyi[..., 6, 6]); y [..., 6] and xp [..., 7] broadcast over
+    leading (lane, slot) dimensions."""
+    r, q = xp[..., 0:3], xp[..., 3:7]
+    ri, hhat = y[..., 0:3], y[..., 3:6]
     y_minus_r = ri - r
     qRW = quat_inverse(q)
     RRW = quat_to_rotation_matrix(qRW)
     dqbar = dqbar_by_dq(y.dtype, y.device)
-    zeroedri = mm_seq(RRW, y_minus_r[:, None])[:, 0]
-    zeroedhhat = mm_seq(RRW, hhat[:, None])[:, 0]
-    dxp = torch.zeros((6, 7), dtype=y.dtype, device=y.device)
-    dxp[0:3, 0:3] = -RRW
-    dxp[0:3, 3:7] = mm_seq(dRq_times_a_by_dq(qRW, y_minus_r), dqbar)
-    dxp[3:6, 3:7] = mm_seq(dRq_times_a_by_dq(qRW, hhat), dqbar)
-    dyi = torch.zeros((6, 6), dtype=y.dtype, device=y.device)
-    dyi[0:3, 0:3] = RRW
-    dyi[3:6, 3:6] = RRW
-    return torch.cat([zeroedri, zeroedhhat]), dxp, dyi
+    zeroedri = mm_seq(RRW, y_minus_r[..., None])[..., 0]
+    zeroedhhat = mm_seq(RRW, hhat[..., None])[..., 0]
+    lead = zeroedri.shape[:-1]
+    RRW = RRW.expand(*lead, 3, 3)
+    dxp = torch.zeros((*lead, 6, 7), dtype=y.dtype, device=y.device)
+    dxp[..., 0:3, 0:3] = -RRW
+    dxp[..., 0:3, 3:7] = mm_seq(dRq_times_a_by_dq(qRW, y_minus_r), dqbar)
+    dxp[..., 3:6, 3:7] = mm_seq(dRq_times_a_by_dq(qRW, hhat), dqbar)
+    dyi = torch.zeros((*lead, 6, 6), dtype=y.dtype, device=y.device)
+    dyi[..., 0:3, 0:3] = RRW
+    dyi[..., 3:6, 3:6] = RRW
+    return torch.cat([zeroedri, zeroedhhat], dim=-1), dxp, dyi
 
 
 def part_predict_from_zeroed(cam: CameraParams, zeroed, dz_by_dxp, dz_by_dyi, lam):

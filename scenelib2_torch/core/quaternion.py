@@ -205,9 +205,9 @@ def dvnorm_by_dv(v: torch.Tensor) -> torch.Tensor:
 
 
 def dqbar_by_dq(dtype=torch.float64, device=None) -> torch.Tensor:
-    """Jacobian of conjugation (feature_model.cpp:155-165)."""
-    d = -torch.ones(4, dtype=dtype, device=device)
-    d[0] = 1.0
+    """Jacobian of conjugation (feature_model.cpp:155-165). Built on the
+    device (writing a Python number into a CUDA tensor is a blocking copy)."""
+    d = torch.where(torch.arange(4, device=device) == 0, 1.0, -1.0).to(dtype)
     return torch.diag(d)
 
 

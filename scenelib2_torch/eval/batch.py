@@ -9,7 +9,10 @@ its own random stream srand48(i). So the lanes diverge in matches, in the
 timing of their initialisations and in their maps.
 
 scenelib2_torch/data/expected_fingerprint_batch64.json holds one decisions
-fingerprint per lane (eval/fingerprint.py), made by the JAX batch step.
+fingerprint per lane (eval/fingerprint.py), made by the JAX batch step on its
+default route. The two other routes (runtime.step.batch_route:
+batch_pallas=False, and SCENELIB2_BATCH_SB=0) decide as the default route
+(their JAX runs gave the default route's file again), so they read that file.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from scenelib2_torch.runtime import state as st
 from scenelib2_torch.runtime.step import StepOutputs
 
 EXPECTED = "expected_fingerprint_batch64"
+EXPECTED_OF_ROUTE = {"default": EXPECTED, "sb0": EXPECTED, "bp0": EXPECTED}
 
 
 def make_lanes(out_dir: str, batch: int = 64, n_textures: int = 32, n_frames: int = 64,
@@ -63,10 +67,11 @@ def lane_fingerprints(outs: StepOutputs) -> list[dict]:
     return [decisions_fingerprint(StepOutputs(*(a[:, b] for a in outs)), T) for b in range(Bn)]
 
 
-def check_lanes(got: list[dict], lanes=None) -> list[str]:
-    """Compare per-lane fingerprints with the committed ones; returns one
-    line per differing lane (empty when all agree)."""
-    want = load_expected(EXPECTED)["lanes"]
+def check_lanes(got: list[dict], lanes=None, route: str = "default") -> list[str]:
+    """Compare per-lane fingerprints with the committed ones of the JAX
+    batch route `route`; returns one line per differing lane (empty when all
+    agree)."""
+    want = load_expected(EXPECTED_OF_ROUTE[route])["lanes"]
     lanes = list(range(len(got))) if lanes is None else list(lanes)
     bad = []
     for fp, lane in zip(got, lanes):

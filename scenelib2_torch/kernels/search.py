@@ -1,4 +1,4 @@
-"""K2: NSSD elliptical search of the selected features.
+"""K2 and K8: NSSD elliptical search of the selected features.
 
 Replaces the TPU kernel scenelib2_tpu/kernels/pallas_search.py
 (``pallas_elliptical_search_fused`` / ``_search_kernel_fused`` ->
@@ -29,6 +29,19 @@ score only those inside the ellipse's box, and reduce the minimum and then
 the tie key across the block. In the batch step every argument carries a
 leading lane dimension (frame [B, H, W], the rest [B, K, ...]) and the
 B x K features are one grid: one launch for all lanes.
+
+K8 (search_windows) replaces the same file's other kernel,
+``pallas_elliptical_search`` (pallas_search.py:253-329, pallas_call at
+:312), which the batch step runs with batch_pallas=False: the caller
+gathers each selected feature's u8 window first
+(correlate.gather_windows_u8) and hands in the stored u8 patches; the
+wrapper takes the patch sums as integer sums (pallas_search.py:287-289) and
+the centre as floor(h + 0.5) converted as XLA converts (NaN -> 0,
+saturating). Its scoring and selection are K2's (csrc/search_cell.cuh, and
+_select_plain here), on the given window instead of one read from the frame.
+Bound on an H100 at 64 lanes x 10 features: 3.6 MB of u8 windows in (~1 us
+at the memory rate) against the scored cells' operations; the launch
+dominates.
 """
 
 from __future__ import annotations
@@ -40,7 +53,8 @@ import torch
 
 from scenelib2_torch.kernels import _build
 
-NAME = "search"
+NAME = "search"              # the library (csrc/search.cu) and K2's launch count
+NAME_K8 = "search_windows"   # K8's launch count (the library's second entry point)
 NO_MATCH = 1e6
 
 
@@ -151,16 +165,27 @@ def search_plain(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchC
     (S^-1 entries a, b, c); active [K] bool.
     Returns (found [K] bool, u [K] i32, v [K] i32, best [K] f32, over [K] bool)."""
     dev = frame.device
-    f32 = torch.float32
     B = c.boxsize
     half = (B - 1) // 2
-    K = u0.shape[0]
-    sv, su = c.side_v, c.side_u
-    wv, wu = sv + B - 1, su + B - 1
+    wv, wu = c.side_v + B - 1, c.side_u + B - 1
     rows = (v0 - half).long()[:, None] + torch.arange(wv, device=dev)[None, :]
     cols = (u0 - half).long()[:, None] + torch.arange(wu, device=dev)[None, :]
-    win = frame[rows[:, :, None], cols[:, None, :]].to(f32)          # [K, wv, wu]
+    win = frame[rows[:, :, None], cols[:, None, :]]                     # [K, wv, wu]
+    return _select_plain(win, patch_rows[:, : B * B], patch_rows[:, B * B], patch_rows[:, B * B + 1],
+                         u0, v0, uc, vc, sinv_abc, active, c)
+
+
+def _select_plain(win, patch_pix, sg0, sg0sq, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts):
+    """The scoring and selection of K2 and K8 on the gathered u8 windows
+    win [K, wv, wu], patch pixels [K, B*B] and the patch sums sg0, sg0sq [K]."""
+    dev = win.device
+    f32 = torch.float32
+    B = c.boxsize
+    K = u0.shape[0]
+    sv, su = c.side_v, c.side_u
+    win = win.to(f32)
     win2 = win * win
+    patch_pix = patch_pix.to(f32)
     sg1 = torch.zeros((K, sv, su), dtype=f32, device=dev)
     sg1sq = torch.zeros_like(sg1)
     cross = torch.zeros_like(sg1)
@@ -169,11 +194,9 @@ def search_plain(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchC
             w = win[:, dy : dy + sv, dx : dx + su]
             sg1 = sg1 + w
             sg1sq = sg1sq + win2[:, dy : dy + sv, dx : dx + su]
-            cross = cross + patch_rows[:, dy * B + dx, None, None] * w
-    sg0 = patch_rows[:, B * B, None, None]
-    sg0sq = patch_rows[:, B * B + 1, None, None]
+            cross = cross + patch_pix[:, dy * B + dx, None, None] * w
     n = torch.tensor(float(B * B), dtype=f32, device=dev)
-    corr, sd0, sd1 = nssd_corr_f32(sg0, sg0sq, sg1, sg1sq, cross, n)
+    corr, sd0, sd1 = nssd_corr_f32(sg0[:, None, None], sg0sq[:, None, None], sg1, sg1sq, cross, n)
 
     admit, uu, vv, halfwidth, halfheight = candidate_geometry(u0, v0, uc, vc, sinv_abc, c)
     mask = admit & (sd1 >= c.corr_sigma_thresh) & (sd0 >= c.corr_sigma_thresh)
@@ -261,6 +284,83 @@ def _launch(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts
     return found, u, v, best, over
 
 
+def window_centre(h_centre):
+    """(uc, vc) int32 of K8: floor(h + 0.5) converted to int32 as XLA
+    converts (pallas_search.py:290-291 and the kernel's astype)."""
+    from scenelib2_torch.kernels.correlate import xla_i32
+
+    c = xla_i32(torch.floor(h_centre + 0.5)).to(torch.int32)
+    return c[..., 0], c[..., 1]
+
+
+def patch_sums(patches):
+    """(sg0, sg0sq) [K] f32 of u8 patches [K, B, B]: integer sums, exact
+    (pallas_search.py:287-289)."""
+    p32 = patches.to(torch.int32)
+    return p32.sum(dim=(1, 2)).to(torch.float32), (p32 * p32).sum(dim=(1, 2)).to(torch.float32)
+
+
+def search_windows_plain(windows, patches, u0, v0, h_centre, sinv_abc, active, c: SearchConsts):
+    """Plain PyTorch K8. windows [K, wv, wu] u8 (gathered at
+    (u0 - half, v0 - half)); patches [K, B, B] u8; u0, v0 [K] i32; h_centre
+    [K, 2] f32 (the predicted positions); sinv_abc [K, 3] f32; active [K]
+    bool. Returns (found [K] bool, u [K] i32, v [K] i32, best [K] f32,
+    over [K] bool), as search_plain."""
+    K = u0.shape[0]
+    sg0, sg0sq = patch_sums(patches)
+    uc, vc = window_centre(h_centre)
+    return _select_plain(windows, patches.reshape(K, -1), sg0, sg0sq, u0, v0, uc, vc, sinv_abc,
+                         active, c)
+
+
+# tensor pointers (10 inputs, 5 outputs), K, the params struct, the stream
+_ARGTYPES_K8 = [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.POINTER(_K2Params), ctypes.c_void_p]
+
+
+def search_windows(windows, patches, u0, v0, h_centre, sinv_abc, active, c: SearchConsts):
+    """K8. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (or raise). Same outputs as search_windows_plain. With a lane
+    dimension (windows [B, K, wv, wu], every other argument [B, K, ...]) the
+    outputs are [B, K] and the kernel is launched once for all lanes."""
+    lead = u0.shape
+    args = (windows, patches, u0, v0, h_centre, sinv_abc, active)
+    flat = [t.reshape(-1, *t.shape[len(lead):]) for t in args]
+    if windows.device.type == "cpu":
+        return tuple(o.reshape(lead) for o in search_windows_plain(*flat, c))
+    return tuple(o.reshape(lead) for o in _launch_k8(*flat, c))
+
+
+def _launch_k8(windows, patches, u0, v0, h_centre, sinv_abc, active, c: SearchConsts):
+    K = u0.shape[0]
+    B = c.boxsize
+    if B * B > 128:
+        raise ValueError("K8: the patch holds at most 128 pixels")
+    sg0, sg0sq = patch_sums(patches)
+    uc, vc = window_centre(h_centre)
+    ins = [t.contiguous() for t in (windows, patches, sg0, sg0sq, u0, v0, uc, vc, sinv_abc, active)]
+    for t, name, dty, shp in zip(
+        ins, ("windows", "patches", "sg0", "sg0sq", "u0", "v0", "uc", "vc", "sinv_abc", "active"),
+        (torch.uint8, torch.uint8) + (torch.float32,) * 2 + (torch.int32,) * 4 + (torch.float32, torch.bool),
+        ((K, c.side_v + B - 1, c.side_u + B - 1), (K, B, B)) + ((K,),) * 6 + ((K, 3), (K,)),
+    ):
+        _build.check_tensor(t, name, dty, shp)
+    dev = windows.device
+    outs = (torch.empty(K, dtype=torch.bool, device=dev), torch.empty(K, dtype=torch.int32, device=dev),
+            torch.empty(K, dtype=torch.int32, device=dev), torch.empty(K, dtype=torch.float32, device=dev),
+            torch.empty(K, dtype=torch.bool, device=dev))
+    prm = _K2Params(
+        H=c.H, W=c.W, B=B, side_v=c.side_v, side_u=c.side_u, per_lane=1,
+        no_sigma=c.no_sigma, no_sigma2=c.no_sigma * c.no_sigma,
+        corr_thresh2=c.corr_thresh2, corr_sigma_thresh=c.corr_sigma_thresh,
+    )
+    fn = _build.function(NAME, "k8_search_windows", _ARGTYPES_K8)
+    err = fn(*(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs), K, ctypes.byref(prm),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "K8 search_windows")
+    _build.launches[NAME_K8] += 1
+    return outs
+
+
 def nssd_cell_ops(B: int) -> int:
     """Least operations of one scored cell: the cross sum with the patch
     (B*B multiply-adds), the window's sum and sum of squares as box sums
@@ -276,4 +376,14 @@ def bytes_and_flops(K: int, c: SearchConsts, n_scored: int) -> tuple[int, int]:
     B = c.boxsize
     wv, wu = c.side_v + B - 1, c.side_u + B - 1
     nbytes = K * (wv * wu + 128 * 4 + 4 * 4 + 3 * 4 + 1) + K * (1 + 4 + 4 + 4 + 1)
+    return nbytes, n_scored * nssd_cell_ops(B)
+
+
+def bytes_and_flops_windows(K: int, c: SearchConsts, n_scored: int) -> tuple[int, int]:
+    """Least bytes and operations of one K8 call: the K u8 windows, u8
+    patches and per-feature inputs read once, the results written, and the
+    n_scored admitted candidates' operations."""
+    B = c.boxsize
+    wv, wu = c.side_v + B - 1, c.side_u + B - 1
+    nbytes = K * (wv * wu + B * B + 2 * 4 + 4 * 4 + 2 * 4 + 3 * 4 + 1) + K * (1 + 4 + 4 + 4 + 1)
     return nbytes, n_scored * nssd_cell_ops(B)

@@ -24,6 +24,14 @@ output cell sums its 121 gradient products in int32 (exact), evaluates the
 eigenvalue, and two block reductions give the maximum and the tie key.
 In the batch step the frame is [B, H, W] and the bounds [B]: one block per
 lane, one launch for all lanes.
+
+The JAX package's XLA form of the same pick,
+find_best_patch_in_image_window (scenelib2_tpu/kernels/shi_tomasi.py:85-146),
+which the batch step runs in place of the kernel when batch_pallas is False,
+has the plain version's f32 operation order (integer gradients and box sums,
+exact; A, C, B = the sums * 0.25; the eigenvalue as above), so that route
+calls shi_tomasi_plain over its lanes (the CPU tests hold the two to the JAX
+form on real frames).
 """
 
 from __future__ import annotations
@@ -60,28 +68,32 @@ def window_origin(ustart, vstart, H: int, W: int, B: int, region_w: int, region_
 
 def shi_tomasi_plain(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int,
                      region_w: int, region_h: int):
-    """Plain PyTorch K6. frame [H, W] u8; the region bounds are [] int32
-    tensors (already clamp_region'ed). Returns (ubest [] i32, vbest [] i32,
-    evbest [] f32)."""
-    H, W = frame.shape
+    """Plain PyTorch K6. frame [..., H, W] u8; the region bounds are [...]
+    int32 tensors (already clamp_region'ed), with any leading (lane)
+    dimensions. Returns (ubest, vbest [...] i32, evbest [...] f32)."""
+    lead = frame.shape[:-2]
+    H, W = frame.shape[-2:]
+    frame = frame.reshape(-1, H, W)
+    ustart, vstart, ufinish, vfinish = (t.reshape(-1) for t in (ustart, vstart, ufinish, vfinish))
+    N = frame.shape[0]
     B = boxsize
     off, rw, rh = region_geometry(H, W, B, region_w, region_h)
     dev = frame.device
     u0, v0 = window_origin(ustart, vstart, H, W, B, region_w, region_h)
-    rows = (v0 - off).long() + torch.arange(rh + 2 * off, device=dev)
-    cols = (u0 - off).long() + torch.arange(rw + 2 * off, device=dev)
-    w = frame[rows[:, None], cols[None, :]].to(torch.int32)           # [rh+2off, rw+2off]
+    rows = (v0.long() - off)[:, None, None] + torch.arange(rh + 2 * off, device=dev)[:, None]
+    cols = (u0.long() - off)[:, None, None] + torch.arange(rw + 2 * off, device=dev)
+    w = frame[torch.arange(N, device=dev)[:, None, None], rows, cols].to(torch.int32)  # [N, rh+2off, rw+2off]
     # gradients at interior point (i+1, j+1) of the window
-    gx2 = w[1:-1, 2:] - w[1:-1, :-2]
-    gy2 = w[2:, 1:-1] - w[:-2, 1:-1]
+    gx2 = w[:, 1:-1, 2:] - w[:, 1:-1, :-2]
+    gy2 = w[:, 2:, 1:-1] - w[:, :-2, 1:-1]
 
-    def box(g):  # [rh+B-1, rw+B-1] -> [rh, rw] 11x11 sums, exact in int32
-        acc = g[0:rh]
+    def box(g):  # [N, rh+B-1, rw+B-1] -> [N, rh, rw] 11x11 sums, exact in int32
+        acc = g[:, 0:rh]
         for dy in range(1, B):
-            acc = acc + g[dy : dy + rh]
-        out = acc[:, 0:rw]
+            acc = acc + g[:, dy : dy + rh]
+        out = acc[:, :, 0:rw]
         for dx in range(1, B):
-            out = out + acc[:, dx : dx + rw]
+            out = out + acc[:, :, dx : dx + rw]
         return out.to(torch.float32)
 
     A = box(gx2 * gx2) * 0.25
@@ -90,22 +102,25 @@ def shi_tomasi_plain(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int,
     BB = torch.sqrt((A + C) * (A + C) - 4.0 * (A * C - Bq * Bq))
     ev = (A + C - BB) / torch.full((), 2.0, device=dev)
 
-    uu = u0 + torch.arange(rw, device=dev, dtype=torch.int32)[None, :]
-    vv = v0 + torch.arange(rh, device=dev, dtype=torch.int32)[:, None]
+    def e(t):
+        return t[:, None, None]
+
+    uu = e(u0) + torch.arange(rw, device=dev, dtype=torch.int32)
+    vv = e(v0) + torch.arange(rh, device=dev, dtype=torch.int32)[:, None]
     uuf, vvf = uu.to(torch.float32), vv.to(torch.float32)
-    mask = ((uuf >= ustart.to(torch.float32)) & (uuf < ufinish.to(torch.float32))
-            & (vvf >= vstart.to(torch.float32)) & (vvf < vfinish.to(torch.float32))
-            & (uu >= off) & (uu <= W - 1 - off) & (vv >= off) & (vv <= H - 1 - off))
-    vals = torch.where(mask, ev, torch.full_like(ev, -torch.inf))
-    best = vals.max()                                    # NaN if any masked ev is NaN
-    key = vv * W + uu
-    tie = (vals == best) & mask
-    kbest = torch.where(tie, key, torch.full_like(key, INT_MAX)).min()
+    mask = ((uuf >= e(ustart).to(torch.float32)) & (uuf < e(ufinish).to(torch.float32))
+            & (vvf >= e(vstart).to(torch.float32)) & (vvf < e(vfinish).to(torch.float32))
+            & (uu >= off) & (uu <= W - 1 - off) & (vv >= off) & (vv <= H - 1 - off)).flatten(1)
+    vals = torch.where(mask, ev.flatten(1), torch.full_like(ev.flatten(1), -torch.inf))
+    best = vals.amax(dim=1)                              # NaN if any masked ev is NaN
+    key = (vv * W + uu).flatten(1)
+    tie = (vals == best[:, None]) & mask
+    kbest = torch.where(tie, key, torch.full_like(key, INT_MAX)).amin(dim=1)
     found = best > 0.0
     ubest = torch.where(found, kbest % W, ustart).to(torch.int32)
     vbest = torch.where(found, kbest // W, vstart).to(torch.int32)
     evbest = torch.where(found, best, torch.zeros_like(best))
-    return ubest, vbest, evbest
+    return ubest.reshape(lead), vbest.reshape(lead), evbest.reshape(lead)
 
 
 class _K6Params(ctypes.Structure):
@@ -125,10 +140,6 @@ def shi_tomasi(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int, region_
     kw = dict(boxsize=boxsize, region_w=region_w, region_h=region_h)
     lanes = frame.dim() == 3
     if frame.device.type == "cpu":
-        if lanes:
-            per_lane = [shi_tomasi_plain(frame[b], ustart[b], vstart[b], ufinish[b], vfinish[b], **kw)
-                        for b in range(frame.shape[0])]
-            return tuple(torch.stack(o) for o in zip(*per_lane))
         return shi_tomasi_plain(frame, ustart, vstart, ufinish, vfinish, **kw)
     H, W = frame.shape[-2:]
     shp = (frame.shape[0],) if lanes else ()

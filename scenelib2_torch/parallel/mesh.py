@@ -23,13 +23,16 @@ from scenelib2_torch.runtime import step as step_mod
 from scenelib2_torch.runtime.state import SlamState
 
 
-def make_batched_step(params: Params, device=None):
+def make_batched_step(params: Params, device=None, batch_sb: bool | None = None):
     """step(states_b, frames_b, enable_mapping) -> (states_b', outs_b): the
     whole per-frame step for all lanes at once. Every field of states_b has
     a leading lane dimension, frames_b is [B, H, W] u8, and every field of
     outs_b (StepOutputs) has the lane dimension too. device None means CUDA
-    (raises without a GPU)."""
-    return step_mod.make_batch_step(dataclasses.replace(params, batch_mode=True), device)
+    (raises without a GPU). The JAX batch route follows params.batch_pallas
+    and, with batch_pallas=True, batch_sb (None: the environment variable
+    SCENELIB2_BATCH_SB, read now): runtime.step.batch_route."""
+    return step_mod.make_batch_step(dataclasses.replace(params, batch_mode=True), device,
+                                    batch_sb=batch_sb)
 
 
 def stack_states(states) -> SlamState:

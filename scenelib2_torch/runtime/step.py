@@ -39,19 +39,24 @@ features.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
 
 from scenelib2_torch.config import Params
+from scenelib2_torch.core import camera as cam_mod
 from scenelib2_torch.core import ekf, models
 from scenelib2_torch.core.camera import CameraParams
 from scenelib2_torch.core.quaternion import (
+    mm_seq,
     quat_from_angular_velocity,
     quat_mul,
     quat_to_rotation_matrix,
 )
 from scenelib2_torch.device import resolve_device, resolve_dtype
+from scenelib2_torch.kernels import correlate
+from scenelib2_torch.kernels.bayes import bayes_update
 from scenelib2_torch.kernels.ekf_update import UpdateConsts, joint_update
 from scenelib2_torch.kernels.measure import (
     O_H,
@@ -77,12 +82,22 @@ from scenelib2_torch.kernels.particle import (
     pack_rows_batch,
     particle_predict,
 )
+from scenelib2_torch.kernels.particle_search import ParticleSearchConsts, particle_search
 from scenelib2_torch.kernels.predict_measure import NEG_SENTINEL, predict_measure
 from scenelib2_torch.kernels.propose import REGION_LIM, ProposeConsts, propose
 from scenelib2_torch.kernels.score_map import ScoreMapConsts, score_map
-from scenelib2_torch.kernels.search import SearchConsts, search, search_window_origin
+from scenelib2_torch.kernels.search import (
+    SearchConsts,
+    search,
+    search_window_origin,
+    search_windows,
+)
 from scenelib2_torch.kernels.search_bayes import SearchBayesConsts, search_bayes, search_bayes_maps
-from scenelib2_torch.kernels.shi_tomasi import clamp_region, shi_tomasi
+from scenelib2_torch.kernels.shi_tomasi import (
+    clamp_region,
+    shi_tomasi,
+    shi_tomasi_plain,
+)
 from scenelib2_torch.rng import drand48_many
 from scenelib2_torch.runtime import state as st
 from scenelib2_torch.runtime.state import CAM_DIM, SLOT_DIM, SlamState
@@ -201,6 +216,14 @@ def unpack_outputs(flat: torch.Tensor, nsel: int, maxp: int = 1, npart: int = 0)
     )
 
 
+XLA_ROUTE_REFUSED = (
+    "use_pallas=False selects the JAX step's pure-XLA route, which launches no kernel "
+    "(scenelib2_tpu/runtime/step.py: the branches where use_pallas is false); that route is "
+    "not ported (ROADMAP Queue 1). The port runs the JAX kernel route, use_pallas=True, the "
+    "default of scenelib2_torch.config.Params"
+)
+
+
 # the JAX step's routes by state dimension D = 13 + 6 MF
 # (scenelib2_tpu/runtime/step.py:207-211, 430-432, 649-652)
 FUSED_MAX_D = 384      # K1 and K3 hold P as one zero-padded block of 384 x 384 at most
@@ -227,6 +250,8 @@ def make_step(params: Params, device=None, precision: str = "f32"):
         raise NotImplementedError(
             "the f64 parity mode of the step is not ported yet (ROADMAP Queue 1 item 7)"
         )
+    if not params.use_pallas:
+        raise NotImplementedError(XLA_ROUTE_REFUSED)
     MF = params.max_features
     NSEL = params.n_features_to_select
     MAXP = max(1, params.max_features_to_init_at_once)
@@ -453,10 +478,18 @@ class Selection(NamedTuple):
     pmask: torch.Tensor        # [B, MAXP] bool
 
 
-def make_split_stages(params: Params, device, dtype, pallas_chol: bool):
+def make_split_stages(params: Params, device, dtype, pallas_chol: bool,
+                      measure_kernel: bool = True, window_search: bool = False):
     """Stages 1-6 of the split route on states with a lane dimension:
     stages(state_b, frames_b [B, H, W]) -> (state_b after stage 6,
     Selection).
+
+    Two static choices follow the JAX step's batch routes: measure_kernel
+    (stage 2 by K7; False: the XLA per-slot chain of core.models,
+    core.camera.measurement_noise and core.ekf.inv2x2_via_chol, JAX
+    step.py:305-342, the route with batch_pallas=False) and window_search
+    (stage 3 by K8 on windows gathered by correlate.gather_windows_u8 and
+    the stored u8 patches, JAX step.py:385-403; False: K2 on the frame).
 
     The JAX step's route where neither fused kernel applies
     (scenelib2_tpu/runtime/step.py:261-304, 351-384, 434-465, 492-540):
@@ -477,6 +510,7 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool):
     D = params.state_dim
     mc = MeasureConsts.from_params(params)
     sc = SearchConsts.from_params(params)
+    cam = CameraParams.from_params(params)
     kw = dict(device=device)
     pos_mf = torch.arange(MF, dtype=torch.int32, **kw)
     neg_inf = torch.tensor(float("-inf"), dtype=dtype, **kw)
@@ -511,31 +545,60 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool):
         # ---- 1. EKF predict ------------------------------------------------
         x, P = ekf.predict(state.x, state.P, u_zero, params.delta_t, params.sd_a, params.sd_alpha)
 
-        # ---- 2. predict measurements (K7) + select --------------------------
-        meas = measure_predict(
-            x[:, :7], P[:, :7, :7], st.slot_states(x, MF)[..., :3], state.xp_org,
-            st.slot_pxy(P, MF)[..., :7, :3], st.slot_pyy(P, MF)[..., :3, :3], act_full, mc)
-        n_visible = (act_full & (meas[:, O_VIS] == 0.0)).sum(-1).to(torch.int32)
-        top_score, top_idx = stable_top_k(meas[:, O_SCORE], NSEL)
-        top64 = top_idx.long()
+        # ---- 2. predict measurements (K7, or the XLA chain) + select --------
+        if measure_kernel:
+            meas = measure_predict(
+                x[:, :7], P[:, :7, :7], st.slot_states(x, MF)[..., :3], state.xp_org,
+                st.slot_pxy(P, MF)[..., :7, :3], st.slot_pyy(P, MF)[..., :3, :3], act_full, mc)
+            n_visible = (act_full & (meas[:, O_VIS] == 0.0)).sum(-1).to(torch.int32)
+            top_score, top_idx = stable_top_k(meas[:, O_SCORE], NSEL)
+            top64 = top_idx.long()
+            sel = torch.gather(meas, 2, top64[:, None, :].expand(Bn, meas.shape[1], NSEL))   # [B, NOUT, NSEL]
+            h_sel = sel[:, O_H : O_H + 2].mT
+            hx_sel = sel[:, O_HX : O_HX + 14].mT.reshape(Bn, NSEL, 2, 7)
+            hy_sel = sel[:, O_HY : O_HY + 6].mT.reshape(Bn, NSEL, 2, 3)
+            Rd_sel = sel[:, O_RD]
+            S_sel = torch.stack(
+                [sel[:, O_S], sel[:, O_S + 1], sel[:, O_S + 1], sel[:, O_S + 2]], dim=-1
+            ).reshape(Bn, NSEL, 2, 2)
+            sinv_abc = sel[:, O_SINV : O_SINV + 3].mT.contiguous()
+        else:
+            xp = x[:, None, :7]
+            ys3 = st.slot_states(x, MF)[..., :3]
+            h_all, hx_all, hy_all, _zeroed = models.full_predict_measurement(cam, ys3, xp)
+            R_all = cam_mod.measurement_noise(cam, h_all)
+            S_all = models.innovation_covariance(
+                P[:, None, :7, :7], st.slot_pxy(P, MF)[..., :7, :3], st.slot_pyy(P, MF)[..., :3, :3],
+                hx_all, hy_all, R_all)
+            vis = models.full_visibility_test(
+                cam, xp, ys3, state.xp_org, h_all, params.image_search_boundary,
+                params.max_length_ratio, params.max_angle_difference)
+            visible = act_full & (vis == 0)
+            n_visible = visible.sum(-1).to(torch.int32)
+            top_score, top_idx = stable_top_k(
+                torch.where(visible, S_all[..., 0, 0] + S_all[..., 1, 1], neg_inf), NSEL)
+            top64 = top_idx.long()
+            h_sel = _lane_gather(h_all, top64)
+            hx_sel = _lane_gather(hx_all, top64)
+            hy_sel = _lane_gather(hy_all, top64)
+            Rd_sel = _lane_gather(R_all[..., 0, 0], top64)
+            S_sel = _lane_gather(S_all, top64)
+            sinv_abc = torch.stack(ekf.inv2x2_via_chol_parts(
+                S_sel[..., 0, 0], S_sel[..., 1, 0], S_sel[..., 1, 1]), dim=-1)
         sel_mask = top_score > neg_inf
-        sel = torch.gather(meas, 2, top64[:, None, :].expand(Bn, meas.shape[1], NSEL))   # [B, NOUT, NSEL]
-        h_sel = sel[:, O_H : O_H + 2].mT
-        hx_sel = sel[:, O_HX : O_HX + 14].mT.reshape(Bn, NSEL, 2, 7)
-        hy_sel = sel[:, O_HY : O_HY + 6].mT.reshape(Bn, NSEL, 2, 3)
-        Rd_sel = sel[:, O_RD]
-        S_sel = torch.stack(
-            [sel[:, O_S], sel[:, O_S + 1], sel[:, O_S + 1], sel[:, O_S + 2]], dim=-1
-        ).reshape(Bn, NSEL, 2, 2)
-        sinv_abc = sel[:, O_SINV : O_SINV + 3].mT.contiguous()
         # the partial slots as of the start of the frame, lowest slot first
         pvals, pidx = stable_top_k((state.active & ~state.full).to(dtype), MAXP)
 
-        # ---- 3. windowed NSSD search (K2, B x NSEL programs) -----------------
+        # ---- 3. windowed NSSD search (K2, or K8 on gathered windows) ---------
         u0, v0, ucen, vcen = search_window_origin(h_sel, params.search_win_radius, W, H, Bx)
-        found, u, v, _best, over = search(
-            frames, _lane_gather(state.patch_rows, top64), u0, v0, ucen, vcen, sinv_abc,
-            sel_mask, sc)
+        if window_search:
+            windows = correlate.gather_windows_u8(frames, u0, v0, params.search_win_radius, Bx)
+            found, u, v, _best, over = search_windows(
+                windows, _lane_gather(state.patches, top64), u0, v0, h_sel, sinv_abc, sel_mask, sc)
+        else:
+            found, u, v, _best, over = search(
+                frames, _lane_gather(state.patch_rows, top64), u0, v0, ucen, vcen, sinv_abc,
+                sel_mask, sc)
         z_sel = torch.stack([u, v], dim=-1).to(dtype)
         nu_sel = torch.where(found[..., None], z_sel - h_sel, zero)
         n_matched = found.sum(-1).to(torch.int32)
@@ -567,28 +630,83 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool):
     return stages
 
 
-def make_batch_step(params: Params, device=None, precision: str = "f32"):
+def batch_route(params: Params, batch_sb: bool | None = None) -> str:
+    """The JAX batch route that these flags select: "bp0" for
+    batch_pallas=False; with batch_pallas=True, "sb0" where the search + Bayes
+    pair replaces the fused kernel (batch_sb False, or batch_sb None and the
+    environment variable SCENELIB2_BATCH_SB set to "0", which the JAX step
+    reads when it is traced, step.py:1061-1062), else "default"."""
+    if not params.batch_pallas:
+        return "bp0"
+    if batch_sb is None:
+        batch_sb = os.environ.get("SCENELIB2_BATCH_SB", "1") != "0"
+    return "default" if batch_sb else "sb0"
+
+
+def kform_predict(cam: CameraParams, xp, Pxx7, ys6, pxy6, pyy6, lam):
+    """The per-particle measurement prediction of the JAX batch step's XLA
+    K-form chain (scenelib2_tpu/runtime/step.py:964-1015): for every
+    partial slot the lambda-independent geometry (part_zeroedyi; C N1', the
+    blocks K0, Ksym, K2), then for every depth lam the image point, the
+    innovation covariance S = A (K0 + lam Ksym + lam^2 K2) A' + R, its
+    Cholesky inverse and determinant.
+
+    xp [B, 1, 7], Pxx7 [B, 1, 7, 7], ys6 [B, F, 6], pxy6 [B, F, 13, 6],
+    pyy6 [B, F, 6, 6], lam [B, F, NP]. Returns (hpi [B, F, NP, 2], sinv
+    [B, F, NP, 2, 2], dets [B, F, NP]); products are left-to-right sums."""
+    zeroed, dz_by_dxp, dz_by_dyi = models.part_zeroedyi(ys6, xp)
+    pxy7 = pxy6[..., :7, :]
+    C = torch.cat([torch.cat([Pxx7.expand(*pxy7.shape[:-2], 7, 7), pxy7], -1),
+                   torch.cat([pxy7.mT, pyy6], -1)], -2)                          # [B, F, 13, 13]
+    N1 = torch.cat([dz_by_dxp[..., 0:3, :], dz_by_dyi[..., 0:3, :]], -1)         # [B, F, 3, 13]
+    N2 = torch.cat([dz_by_dxp[..., 3:6, :], dz_by_dyi[..., 3:6, :]], -1)
+    CN1 = mm_seq(C, N1.mT)
+    CN2 = mm_seq(C, N2.mT)
+    K0 = mm_seq(N1, CN1)
+    K12 = mm_seq(N1, CN2)
+    K2 = mm_seq(N2, CN2)
+    Ksym = K12 + K12.mT
+
+    lam4 = lam[..., None, None]
+    hLR = zeroed[..., None, 0:3] + lam[..., None] * zeroed[..., None, 3:6]        # [B, F, NP, 3]
+    hpi = cam_mod.project(cam, hLR)
+    A = cam_mod.project_jacobian(cam, hLR)
+    Kl = K0[..., None, :, :] + lam4 * Ksym[..., None, :, :] + (lam4 * lam4) * K2[..., None, :, :]
+    S = mm_seq(mm_seq(A, Kl), A.mT) + cam_mod.measurement_noise(cam, hpi)
+    sinv = ekf.inv2x2_via_chol(S)
+    dets = S[..., 0, 0] * S[..., 1, 1] - S[..., 1, 0] * S[..., 0, 1]
+    return hpi, sinv, dets
+
+
+def make_batch_step(params: Params, device=None, precision: str = "f32",
+                    batch_sb: bool | None = None):
     """Build step(states_b, frames_b, enable_mapping) -> (states_b', StepOutputs)
     for B independent lanes: every field of states_b and of the outputs
     carries a leading lane dimension and frames_b is [B, H, W] u8.
 
-    Port of the JAX step under jax.vmap with batch_mode=True, batch_pallas=True
-    and use_pallas=True in f32 (scenelib2_tpu/runtime/step.py: the
-    ``fast_kpath and batch_mode`` branches), reached through
-    scenelib2_torch.parallel.mesh.make_batched_step. Stage by stage:
+    Port of the JAX step under jax.vmap with batch_mode=True and
+    use_pallas=True in f32, reached through
+    scenelib2_torch.parallel.mesh.make_batched_step, on the route that the
+    flags select as in JAX (batch_route): "default" (batch_pallas=True),
+    "sb0" (batch_pallas=True with the search + Bayes pair: batch_sb=False,
+    or batch_sb=None and SCENELIB2_BATCH_SB=0 when the step is built) or
+    "bp0" (batch_pallas=False). Stage by stage:
 
-      1.   core.ekf.predict as batched tensor ops
-      2.   per-slot measurement prediction for all lanes           K7
+                                               default  sb0      bp0
+      1.   core.ekf.predict as tensor ops      .        .        .
+      2.   per-slot measurement prediction     K7       K7       XLA chain
            stable top-NSEL selection (measure.stable_top_k)
-      3.   NSSD search, B x NSEL programs                          K2
+      3.   NSSD search, B x NSEL programs      K2       K2       K8 on
+                                                                 gathered windows
       4-6. bookkeeping closed form, dense H / R assembly,
            core.ekf.joint_update + normalise, delete_mask, symmetrize
-      7.   the proposal chain as batched tensor ops (the XLA form, not K5),
-           Shi-Tomasi pick, B regions                              K6
+      7.   the proposal chain as tensor ops (the XLA form, not K5),
+           Shi-Tomasi pick, B regions         K6       K6       XLA form
            runtime.state.add_partial_feature over lanes
-      8.   whole-frame score maps                                  K9
-           particle prediction rows                                K10
-           search + Bayes on the maps, compact rows                K11
+      8.   whole-frame score maps             K9       K9       correlate.score_maps
+           particle prediction                 K10      K10      kform_predict
+           particle search                     K11      K13      correlate dense
+           Bayes update                        (K11)    K12      K12 (13 rows)
            convert_feature + delete_mask over lanes
 
     Every kernel is launched once a frame for all lanes, nothing loops over
@@ -600,11 +718,9 @@ def make_batch_step(params: Params, device=None, precision: str = "f32"):
     dtype = resolve_dtype(precision)
     if dtype != torch.float32:
         raise NotImplementedError("the batch step is ported in f32 (the fast mode) only")
-    if not params.batch_pallas:
-        raise NotImplementedError(
-            "batch_pallas=False takes the batch routes whose kernels (K8, K12, K13) are "
-            "not ported yet (ROADMAP Queue 2)"
-        )
+    if not params.use_pallas:
+        raise NotImplementedError(XLA_ROUTE_REFUSED)
+    route = batch_route(params, batch_sb)
     MF = params.max_features
     NP = params.n_particles
     MAXP = max(1, params.max_features_to_init_at_once)
@@ -615,6 +731,7 @@ def make_batch_step(params: Params, device=None, precision: str = "f32"):
         )
     if MF > MAX_FEATURES or NP > NP_PAD:
         raise NotImplementedError(f"the batch kernels hold MF <= {MAX_FEATURES} and NP <= {NP_PAD}")
+    xla = route == "bp0"
     Bx = params.boxsize
     half = (Bx - 1) // 2
     W, H = params.cam_width, params.cam_height
@@ -625,18 +742,21 @@ def make_batch_step(params: Params, device=None, precision: str = "f32"):
     cam = CameraParams.from_params(params)
     smc = ScoreMapConsts.from_params(params)
     sbc = SearchBayesConsts.from_params(params)
+    psc = ParticleSearchConsts.from_params(params)
     kw = dict(device=device)
     lane_try = torch.arange(tries, **kw)
     patch_offs = torch.arange(Bx, **kw)
     dt_t = torch.tensor(params.delta_t, dtype=dtype, **kw)
     lam0 = torch.as_tensor(st.lambda_grid(params), dtype=dtype, device=device)
     zero = torch.zeros((), dtype=dtype, **kw)
-    stages_1_to_6 = make_split_stages(params, device, dtype, pallas_chol=False)
+    stages_1_to_6 = make_split_stages(params, device, dtype, pallas_chol=False,
+                                      measure_kernel=not xla, window_search=xla)
     workspace: dict[int, torch.Tensor] = {}     # lanes -> the [B, MAXP, H, W] score maps
 
     def auto_init(mid: SlamState, frames, speed, n_visible):
-        """Stage 7 over lanes: the region proposal chain, K6's pick, the ray
-        insertion; each an exact no-op in a lane whose gate is false."""
+        """Stage 7 over lanes: the region proposal chain, the Shi-Tomasi pick
+        (K6, or its XLA form on route bp0), the ray insertion; each an exact
+        no-op in a lane whose gate is false."""
         Bn = mid.x.shape[0]
         bi = torch.arange(Bn, **kw)
         x = mid.x
@@ -685,7 +805,10 @@ def make_batch_step(params: Params, device=None, precision: str = "f32"):
         region_vs = vs_all[bi, first_ok]
 
         ru, rv, ruf, rvf = clamp_region(region_us, region_vs, region_us + RW, region_vs + RH, W, H, Bx)
-        ubest, vbest, evbest = shi_tomasi(frames, ru, rv, ruf, rvf, boxsize=Bx,
+        # the XLA route's Shi-Tomasi (JAX find_best_patch_in_image_window)
+        # has K6's plain operation order, so it is shi_tomasi_plain over lanes
+        pick_patch = shi_tomasi_plain if xla else shi_tomasi
+        ubest, vbest, evbest = pick_patch(frames, ru, rv, ruf, rvf, boxsize=Bx,
                                           region_w=RW, region_h=RH)
         did_init = any_ok & (evbest > params.init_patch_score_thresh)
         # the patch around the pick (a clamped window, as lax.dynamic_slice)
@@ -699,6 +822,42 @@ def make_batch_step(params: Params, device=None, precision: str = "f32"):
                                torch.zeros_like(region_us)[:, None])
         return mid, did_init, init_box
 
+    def particles(mid: SlamState, frames, p64, making, pmask, searchable, lam_c, prob_c, palive_c, ma_c):
+        """Stage 8's kernels on the partial slots' rows: (prob_f, palive_f,
+        mean, cov, convert, kill, n_over, hpi [B, F, NP, 2], sinv
+        [B, F, NP, 2, 2]) of the route."""
+        Bn = mid.x.shape[0]
+        ys6 = _lane_gather(st.slot_states(mid.x, MF), p64)
+        pxy6 = _lane_gather(st.slot_pxy(mid.P, MF), p64)
+        pyy6 = _lane_gather(st.slot_pyy(mid.P, MF), p64)
+        if xla:
+            corr_maps = correlate.score_maps(frames, _lane_gather(mid.patches, p64), Bx,
+                                             params.corr_sigma_thresh, params.low_sigma_penalty)
+            hpi, sinv, dets = kform_predict(cam, mid.x[:, None, :7], mid.P[:, None, :7, :7], ys6, pxy6,
+                                            pyy6, lam_c)
+            found, zu, zv, p_over = correlate.multi_ellipse_search_dense(
+                corr_maps, hpi, sinv, searchable, win_radius=params.particle_win_radius,
+                no_sigma=params.no_sigma, corr_thresh2=params.corr_thresh2)
+            z = torch.stack([zu, zv], dim=-1).to(dtype)
+            return (*bayes_update(prob_c, lam_c, palive_c, found, p_over, z, hpi, sinv, dets, making,
+                                  pmask, ma_c, sbc.bayes), hpi, sinv)
+        if Bn not in workspace:
+            workspace[Bn] = torch.empty((Bn, MAXP, H, W), dtype=torch.float32, **kw)
+        corr_maps = score_map(frames, _lane_gather(mid.patch_rows, p64), smc, out=workspace[Bn])
+        shared, slot_rows = pack_rows_batch(mid.x[:, :7], mid.P[:, :7, :7], ys6, pxy6, pyy6)
+        pred = particle_predict(shared, slot_rows, lam_c, sbc.particle)
+        pr = pred[..., :NP]
+        hpi = torch.stack([pr[:, :, ROW_HU], pr[:, :, ROW_HV]], dim=-1)
+        sinv = torch.stack([pr[:, :, ROW_S00], pr[:, :, ROW_S01], pr[:, :, ROW_S01], pr[:, :, ROW_S11]],
+                           dim=-1).reshape(Bn, MAXP, NP, 2, 2)
+        if route == "sb0":
+            found, zu, zv, p_over = particle_search(corr_maps, hpi, sinv, searchable, psc)
+            z = torch.stack([zu, zv], dim=-1).to(dtype)
+            return (*bayes_update(prob_c, lam_c, palive_c, found, p_over, z, None, None, None, making,
+                                  pmask, ma_c, sbc.bayes, pred_rows=pred), hpi, sinv)
+        res = search_bayes_maps(corr_maps, pred, prob_c, lam_c, palive_c, making, pmask, ma_c, sbc)
+        return (*res[:7], hpi, sinv)
+
     def step(state: SlamState, frames: torch.Tensor,
              enable_mapping: bool) -> tuple[SlamState, StepOutputs]:
         if not st.has_lanes(state) or frames.dim() != 3 or frames.shape[0] != state.x.shape[0]:
@@ -706,12 +865,12 @@ def make_batch_step(params: Params, device=None, precision: str = "f32"):
         Bn = state.x.shape[0]
         prev_r = state.x[:, 0:3]
 
-        # ---- 1-6. predict, K7 + select, K2, update + bookkeeping + delete ----
+        # ---- 1-6. predict, measure + select, search, update + bookkeeping ---
         mid, sl = stages_1_to_6(state, frames)
         n_visible, pidx, pmask = sl.n_visible, sl.pidx, sl.pmask
         p64 = pidx.long()
 
-        # ---- 7. speed gate + auto-initialisation (K6) ------------------------
+        # ---- 7. speed gate + auto-initialisation ----------------------------
         vel = (mid.x[:, 0:3] - prev_r) / dt_t
         speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
         if enable_mapping:
@@ -720,7 +879,7 @@ def make_batch_step(params: Params, device=None, precision: str = "f32"):
             did_init = torch.zeros(Bn, dtype=torch.bool, **kw)
             init_box = torch.zeros((Bn, 2), dtype=torch.int32, **kw)
 
-        # ---- 8. partial-feature particles (K9, K10, K11) + surgery ----------
+        # ---- 8. partial-feature particles (route's kernels) + surgery ---------
         is_partial = mid.active & ~mid.full
         making_all = is_partial & (mid.match_attempts != 0)
         # the JAX step's cond(making_any, heavy, light) is a select per lane
@@ -730,16 +889,10 @@ def make_batch_step(params: Params, device=None, precision: str = "f32"):
         lam_c = _lane_gather(mid.lam, p64)
         prob_c = _lane_gather(mid.prob, p64)
         palive_c = _lane_gather(mid.palive, p64)
-        if Bn not in workspace:
-            workspace[Bn] = torch.empty((Bn, MAXP, H, W), dtype=torch.float32, **kw)
-        corr_maps = score_map(frames, _lane_gather(mid.patch_rows, p64), smc, out=workspace[Bn])
-        shared, slot_rows = pack_rows_batch(
-            mid.x[:, :7], mid.P[:, :7, :7], _lane_gather(st.slot_states(mid.x, MF), p64),
-            _lane_gather(st.slot_pxy(mid.P, MF), p64), _lane_gather(st.slot_pyy(mid.P, MF), p64))
-        pred = particle_predict(shared, slot_rows, lam_c, sbc.particle)
-        (prob_f, palive_f, mean, cov, convert, kill_c, n_over_p, _found, _z, _b) = search_bayes_maps(
-            corr_maps, pred, prob_c, lam_c, palive_c, making, pmask,
-            torch.gather(match_attempts, 1, p64), sbc)
+        searchable = palive_c & making[:, :, None]
+        (prob_f, palive_f, mean, cov, convert, kill_c, n_over_p, hpi, sinv) = particles(
+            mid, frames, p64, making, pmask, searchable, lam_c, prob_c, palive_c,
+            torch.gather(match_attempts, 1, p64))
         heavy = making_any[:, None]
         convert = convert & heavy
         kill_c = kill_c & pmask & heavy
@@ -753,13 +906,9 @@ def make_batch_step(params: Params, device=None, precision: str = "f32"):
             mid = st.convert_feature(mid, pidx[:, j], mean[:, j], cov[:, j], convert[:, j])
         kill_p = torch.zeros_like(mid.active).scatter(1, p64, kill_c) & mid.active & ~mid.full
         mid = st.delete_mask(mid, kill_p)
-        searchable = palive_c & making[:, :, None] & h3
-        pr = pred[..., :NP]
-        par_h = torch.where(h3[..., None], torch.stack([pr[:, :, ROW_HU], pr[:, :, ROW_HV]], dim=-1), zero)
-        par_sinv = torch.where(
-            h3[..., None],
-            torch.stack([pr[:, :, ROW_S00], pr[:, :, ROW_S01], pr[:, :, ROW_S01], pr[:, :, ROW_S11]], dim=-1),
-            zero).reshape(Bn, MAXP, NP, 2, 2)
+        searchable = searchable & h3
+        par_h = torch.where(h3[..., None], hpi, zero)
+        par_sinv = torch.where(h3[..., None, None], sinv, zero)
 
         out = StepOutputs(
             r=mid.x[:, 0:3],

@@ -9,8 +9,16 @@ Run on the CPU in fast (f32) mode; the Pallas kernels run in interpret mode:
     SCENELIB2_X64=0 JAX_PLATFORMS=cpu python scripts/gen_batch64_fingerprint.py \
         --out scenelib2_torch/data/expected_fingerprint_batch64.json
 
---dump FILE.npz also saves every lane's per-frame decision fields, for
-comparing a port frame by frame.
+--route picks the JAX batch route: "default" (batch_pallas=True, the fused
+search + Bayes kernel), "bp0" (batch_pallas=False: the XLA measurement chain,
+the gathered-window search kernel, the XLA Shi-Tomasi, XLA score maps, the
+dense particle search and the Bayes kernel) or "sb0" (batch_pallas=True with
+SCENELIB2_BATCH_SB=0 set before the step is traced: the multi-ellipse search
+kernel and the Bayes kernel in place of the fused one). --lanes-per-run N
+steps the lanes N at a time (each lane is independent under the vmap) to
+bound the memory of bp0's dense particle search ([N, 100, 240, 320] f32
+temporaries). --dump FILE.npz also saves every lane's per-frame decision
+fields, for comparing a port frame by frame.
 
 XLA's CPU compiler contracts a*b + c into a fused multiply-add where the
 instruction set has one; the TPU's vector unit and the port's kernels do
@@ -44,8 +52,17 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def lanes(batch: int, n_textures: int, n_frames: int):
-    """(params, stacked JAX states, frames [T, B, H, W] u8) of bench_batch64."""
+ROUTES = ("default", "bp0", "sb0")
+
+
+def lanes(batch: int, n_textures: int, n_frames: int, route: str = "default"):
+    """(params, stacked JAX states, frames [T, B, H, W] u8) of bench_batch64
+    on the JAX batch route `route` (ROUTES). "sb0" sets SCENELIB2_BATCH_SB=0
+    in this process; the JAX step reads it when it is traced."""
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {ROUTES}")
+    if route == "sb0":
+        os.environ["SCENELIB2_BATCH_SB"] = "0"
     import jax
     import jax.numpy as jnp
 
@@ -62,7 +79,8 @@ def lanes(batch: int, n_textures: int, n_frames: int):
         lane_cfgs.append(load_config(cfg_path))
         lane_frames.append(fr)
     params = dataclasses.replace(
-        lane_cfgs[0].params, max_features=16, use_pallas=True, batch_mode=True
+        lane_cfgs[0].params, max_features=16, use_pallas=True, batch_mode=True,
+        batch_pallas=route != "bp0",
     )
     states = []
     fb = np.empty((batch, n_frames - 1) + lane_frames[0].shape[1:], np.uint8)
@@ -87,8 +105,8 @@ def merge(base_path: str, other_path: str, take: list[int], out: str) -> None:
         doc = json.load(f)
     with open(other_path) as f:
         other = json.load(f)
-    for k in ("dataset_version", "batch", "n_textures", "n_frames", "max_features"):
-        if doc[k] != other[k]:
+    for k in ("dataset_version", "batch", "n_textures", "n_frames", "max_features", "route"):
+        if doc.get(k, "default") != other.get(k, "default"):
             raise SystemExit(f"the two files differ in {k}")
     differing = [i for i, (a, b) in enumerate(zip(doc["lanes"], other["lanes"])) if a != b]
     for lane in take:
@@ -109,6 +127,9 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--textures", type=int, default=32)
     ap.add_argument("--frames", type=int, default=64, help="frames rendered; one less is replayed")
+    ap.add_argument("--route", choices=ROUTES, default="default")
+    ap.add_argument("--lanes-per-run", type=int, default=0,
+                    help="step the lanes this many at a time (0: all at once)")
     ap.add_argument("--dump", default=None)
     a = ap.parse_args()
     if a.merge:
@@ -124,13 +145,18 @@ def main() -> None:
 
     if jnp.zeros(()).dtype != jnp.float32:
         raise SystemExit("needs fast (f32) mode: run with SCENELIB2_X64=0")
-    params, states, fb = lanes(a.batch, a.textures, a.frames)
+    params, states, fb = lanes(a.batch, a.textures, a.frames, a.route)
     vstep = jax.jit(jax.vmap(step_mod.make_step(params), in_axes=(0, 0, None)))
-    per_frame = []
-    for t in range(fb.shape[0]):
-        states, o = vstep(states, fb[t], True)
-        per_frame.append(jax.tree_util.tree_map(np.asarray, o))
-    outs = jax.tree_util.tree_map(lambda *xs: np.stack(xs), *per_frame)    # [T, B, ...]
+    n = a.lanes_per_run or a.batch
+    chunks = []
+    for lo in range(0, a.batch, n):
+        st_c = jax.tree_util.tree_map(lambda x: x[lo : lo + n], states)
+        per_frame = []
+        for t in range(fb.shape[0]):
+            st_c, o = vstep(st_c, fb[t, lo : lo + n], True)
+            per_frame.append(jax.tree_util.tree_map(np.asarray, o))
+        chunks.append(jax.tree_util.tree_map(lambda *xs: np.stack(xs), *per_frame))
+    outs = jax.tree_util.tree_map(lambda *xs: np.concatenate(xs, axis=1), *chunks)   # [T, B, ...]
     T = fb.shape[0]
     fps = []
     for lane in range(a.batch):
@@ -140,6 +166,8 @@ def main() -> None:
         dataset_version=DATASET_VERSION, batch=a.batch, n_textures=a.textures,
         n_frames=T, max_features=params.max_features, lanes=fps,
     )
+    if a.route != "default":
+        doc["route"] = a.route
     with open(a.out, "w") as f:
         json.dump(doc, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -2,15 +2,16 @@
 
   - no module of scenelib2_torch/ and not chip_smoke.py imports jax or
     scenelib2_tpu (an AST scan, and a subprocess whose import system refuses
-    those names imports the package and steps 3 frames, the batch step and
-    2 frames of the split route);
+    those names imports the package and steps 3 frames, the batch step on
+    each of its three routes and 2 frames of the split route);
   - MonoSLAM(cfg) and make_batched_step(params) without a device raise
-    where CUDA is absent;
-  - a kernel wrapper (K1-K7, K9-K11, K14, and K2 / K6 over lanes) given CPU
-    tensors runs the plain version and launches nothing; given tensors on
-    any other non-CUDA device it raises; when its kernel cannot be built it
-    raises, never falling back to the plain version;
-  - the batch routes whose kernels are not ported are refused.
+    where CUDA is absent, on every batch route;
+  - a kernel wrapper (K1-K14, K12 in both row forms, and K2 / K6 over
+    lanes) given CPU tensors runs the plain version and launches nothing;
+    given tensors on any other non-CUDA device it raises; when its kernel
+    cannot be built it raises, never falling back to the plain version;
+  - what is not ported is refused: the pure-XLA route (use_pallas=False),
+    more than one partial slot, f64, a batch state without lanes.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from scenelib2_torch import MonoSLAM
 from scenelib2_torch.config import Params
 from scenelib2_torch.kernels import _build
+from scenelib2_torch.kernels.bayes import BayesConsts, bayes_update, bayes_update_plain
 from scenelib2_torch.kernels.chol_inv import chol_inv, chol_linv
 from scenelib2_torch.kernels.ekf_update import UpdateConsts, joint_update, joint_update_plain
 from scenelib2_torch.kernels.measure import (
@@ -35,15 +37,28 @@ from scenelib2_torch.kernels.measure import (
     measure_predict,
     measure_predict_plain,
 )
+from scenelib2_torch.kernels.correlate import gather_windows_u8
 from scenelib2_torch.kernels.particle import (
     ParticleConsts,
     particle_predict,
     particle_predict_plain,
 )
+from scenelib2_torch.kernels.particle_search import (
+    ParticleSearchConsts,
+    particle_search,
+    particle_search_plain,
+)
 from scenelib2_torch.kernels.predict_measure import predict_measure, predict_measure_plain
 from scenelib2_torch.kernels.propose import ProposeConsts, propose, propose_plain
 from scenelib2_torch.kernels.score_map import ScoreMapConsts, score_map, score_map_plain
-from scenelib2_torch.kernels.search import SearchConsts, search, search_plain, search_window_origin
+from scenelib2_torch.kernels.search import (
+    SearchConsts,
+    search,
+    search_plain,
+    search_window_origin,
+    search_windows,
+    search_windows_plain,
+)
 from scenelib2_torch.kernels.search_bayes import (
     SearchBayesConsts,
     search_bayes,
@@ -118,10 +133,14 @@ from scenelib2_torch.eval import batch as _batch  # noqa: F401
 from scenelib2_torch.parallel.mesh import make_batched_step, replicate_states, run_batch
 traj_shape = slam.trajectory().shape
 slam.reset()
-step = make_batched_step(slam.params, device="cpu")
-_states, outs = run_batch(step, replicate_states(slam.state, 2), frames[1:4, None].repeat(2, axis=1),
-                          True, slam.params)
-assert outs.r.shape == (3, 2, 3) and bool(torch.isfinite(outs.r).all())
+import dataclasses
+for p_, sb in ((slam.params, None), (slam.params, False), (dataclasses.replace(slam.params, batch_pallas=False), None)):
+    step = make_batched_step(p_, device="cpu", batch_sb=sb)
+    _states, outs = run_batch(step, replicate_states(slam.state, 2), frames[1:4, None].repeat(2, axis=1),
+                              True, p_)
+    assert outs.r.shape == (3, 2, 3) and bool(torch.isfinite(outs.r).all())
+for m in ("correlate", "bayes", "particle_search", "search"):
+    assert "scenelib2_torch.kernels." + m in sys.modules
 # the split route (D > 384: K7, K2, K14 in kernels/chol_inv.py)
 big = MonoSLAM(cfg, max_features=64, device="cpu")
 for t in range(1, 3):
@@ -146,27 +165,38 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, data_dir):
         MonoSLAM(os.path.join(data_dir, "SceneLib2.cfg"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_batched_step(Params())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_batched_step(Params(batch_pallas=False))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_batched_step(Params(), batch_sb=False)
 
 
 def test_unported_batch_routes_are_refused():
     """batch_mode belongs to the batch step (reached through parallel.mesh);
-    the routes whose kernels (K8, K12, K13) are not ported and a partial
-    capacity above one are refused, not run some other way."""
+    what is not ported is refused, not run some other way: the JAX step's
+    pure-XLA route (use_pallas=False) by both step builders, a partial
+    capacity above one, f64, and a single-stream state given to the batch
+    step. Every batch route itself builds."""
     import dataclasses
 
     p = Params()
     with pytest.raises(NotImplementedError, match="make_batched_step"):
         make_step(dataclasses.replace(p, batch_mode=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="K8, K12, K13"):
-        make_batched_step(dataclasses.replace(p, batch_pallas=False), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_batch_step(dataclasses.replace(p, max_features_to_init_at_once=2), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_batch_step(p, device="cpu", precision="f64")
-    step = make_batched_step(p, device="cpu")
-    with pytest.raises(ValueError, match="lane"):
-        step(MonoSLAM(os.path.join(REPO, "data", "SceneLib2.cfg"), device="cpu").state,
-             torch.zeros((p.cam_height, p.cam_width), dtype=torch.uint8), True)
+    for builder in (make_step, make_batch_step, make_batched_step):
+        with pytest.raises(NotImplementedError, match="use_pallas=False"):
+            builder(dataclasses.replace(p, use_pallas=False), device="cpu")
+    with pytest.raises(NotImplementedError, match="use_pallas=False"):
+        make_batched_step(dataclasses.replace(p, use_pallas=False, batch_pallas=False), device="cpu")
+    for kw in (dict(), dict(batch_pallas=False)):
+        with pytest.raises(NotImplementedError):
+            make_batch_step(dataclasses.replace(p, max_features_to_init_at_once=2, **kw), device="cpu")
+        with pytest.raises(NotImplementedError):
+            make_batch_step(dataclasses.replace(p, **kw), device="cpu", precision="f64")
+    for kw, sb in ((dict(), None), (dict(), False), (dict(batch_pallas=False), None)):
+        step = make_batched_step(dataclasses.replace(p, **kw), device="cpu", batch_sb=sb)
+        with pytest.raises(ValueError, match="lane"):
+            step(MonoSLAM(os.path.join(REPO, "data", "SceneLib2.cfg"), device="cpu").state,
+                 torch.zeros((p.cam_height, p.cam_width), dtype=torch.uint8), True)
 
 
 def _k1_args(rng, dev):
@@ -300,6 +330,46 @@ def _k11_args(rng, dev):
             torch.full((N_L, 1), 2, dtype=torch.int32, device=dev))
 
 
+def _k8_args(rng, dev):
+    img, rows, u0, v0, _uc, _vc, abc, act = _k2_args(rng, dev)
+    h = torch.stack([u0, v0], -1).to(torch.float32) + 32.3
+    patches = rows[:, :121].reshape(10, 11, 11).to(torch.uint8)
+    wins = gather_windows_u8(img[None], u0[None], v0[None], Params().search_win_radius, 11)[0]
+    return wins, patches, u0, v0, h, abc, act
+
+
+def _k12_args(rng, dev, pred_form: bool):
+    p = Params()
+    NP = p.n_particles
+    f = dict(dtype=torch.float32, device=dev)
+    base = [torch.full((N_L, NP), 0.01, **f),
+            torch.tensor(np.tile(np.linspace(0.5, 5.0, NP), (N_L, 1)), **f),
+            torch.ones((N_L, NP), dtype=torch.bool, device=dev),
+            torch.tensor(rng.uniform(size=(N_L, NP)) > 0.5, device=dev),
+            torch.zeros((N_L, NP), dtype=torch.bool, device=dev),
+            torch.tensor(rng.uniform(100, 110, (N_L, NP, 2)), **f)]
+    if pred_form:
+        geo = [None, None, None]
+    else:
+        geo = [torch.tensor(rng.uniform(100, 110, (N_L, NP, 2)), **f),
+               torch.tensor(np.tile([[0.05, 0.01], [0.01, 0.04]], (N_L, NP, 1, 1)), **f),
+               torch.full((N_L, NP), 500.0, **f)]
+    flags = [torch.ones(N_L, dtype=torch.bool, device=dev), torch.ones(N_L, dtype=torch.bool, device=dev),
+             torch.full((N_L,), 2, dtype=torch.int32, device=dev)]
+    pred = dict(pred_rows=torch.tensor(rng.uniform(0.01, 1.0, (N_L, 8, 128)), **f)) if pred_form else {}
+    return (*base, *geo, *flags, BayesConsts.from_params(p)), pred
+
+
+def _k13_args(rng, dev):
+    p = Params()
+    NP = p.n_particles
+    f = dict(dtype=torch.float32, device=dev)
+    return (torch.tensor(rng.uniform(0.0, 2.0, (N_L, 1, p.cam_height, p.cam_width)), **f),
+            torch.tensor(rng.uniform(90, 130, (N_L, 1, NP, 2)), **f),
+            torch.tensor(np.tile([[0.05, 0.01], [0.01, 0.04]], (N_L, 1, NP, 1, 1)), **f),
+            torch.ones((N_L, 1, NP), dtype=torch.bool, device=dev))
+
+
 def _cases():
     p = Params()
     k1kw = dict(nsel=10, maxp=1, dt=p.delta_t, sd_a=p.sd_a, sd_alpha=p.sd_alpha,
@@ -327,6 +397,14 @@ def _cases():
         "K11": (lambda d, r: search_bayes_maps(*_k11_args(r, d), SearchBayesConsts.from_params(p)),
                 lambda d, r: search_bayes_maps_plain(*_k11_args(r, d), SearchBayesConsts.from_params(p))),
         "K14": (lambda d, r: (chol_inv(_k14_args(r, d)),), lambda d, r: (chol_linv(_k14_args(r, d)),)),
+        "K8": (lambda d, r: search_windows(*_k8_args(r, d), SearchConsts.from_params(p)),
+               lambda d, r: search_windows_plain(*_k8_args(r, d), SearchConsts.from_params(p))),
+        "K12": (lambda d, r: bayes_update(*_k12_args(r, d, False)[0]),
+                lambda d, r: bayes_update_plain(*_k12_args(r, d, False)[0])),
+        "K12 pred rows": (lambda d, r: bayes_update(*_k12_args(r, d, True)[0], **_k12_args(r, d, True)[1]),
+                          lambda d, r: bayes_update_plain(*_k12_args(r, d, True)[0], **_k12_args(r, d, True)[1])),
+        "K13": (lambda d, r: particle_search(*_k13_args(r, d), ParticleSearchConsts.from_params(p)),
+                lambda d, r: particle_search_plain(*_k13_args(r, d), ParticleSearchConsts.from_params(p))),
         # K2 and K6 over lanes: one launch for all lanes, the plain version lane by lane
         "K2 lanes": (lambda d, r: search(*_lanes(_k2_args, r, d), SearchConsts.from_params(p)),
                      lambda d, r: _per_lane(
@@ -341,7 +419,8 @@ def _per_lane(fn, args):
     return tuple(torch.stack(o) for o in zip(*(fn(*(t[b] for t in args)) for b in range(N_L))))
 
 
-KERNELS = ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9", "K10", "K11", "K14", "K2 lanes", "K6 lanes"]
+KERNELS = ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12", "K12 pred rows",
+           "K13", "K14", "K2 lanes", "K6 lanes"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -359,8 +438,8 @@ def test_wrapper_takes_plain_path_only_for_cpu_tensors(kernel):
     assert all(v == 0 for v in _build.launches.values())
 
 
-@pytest.mark.parametrize("kernel", ["K4", "K5", "K6", "K7", "K9", "K10", "K11", "K14", "K2 lanes",
-                                    "K6 lanes"])
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12",
+                                    "K12 pred rows", "K13", "K14", "K2 lanes", "K6 lanes"])
 def test_wrapper_raises_when_its_kernel_cannot_be_built(kernel, monkeypatch, tmp_path):
     """A non-CPU request whose kernel cannot be built (no CUDA toolkit)
     raises; the wrapper never answers with its plain version instead."""
