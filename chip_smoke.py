@@ -18,6 +18,18 @@ Phases (any failure exits non-zero before the last line is printed):
     index 9: the first init; 20: the first conversion; 120): decisions and
     integers exactly equal, floats within the stated tolerances; then each
     kernel's and plain version's time.
+ 2b. the particle kernels past 128 particles and the three kernels that no
+    route runs: K10, K11 (making and not), K12 in both row forms and K4 with
+    its variations at NP = 200, 300 and 1,100 (rows of 256, 512 and 1,152
+    lanes) on seeded slots; K10b (NP 100, 200, degenerate depths), K15
+    (D = 109 and 128, M up to 128, any_succ false, a NaN in a deleted slot,
+    and frame 120's inputs) and K16 (degenerate particles, dead ones, a tie,
+    a NaN score) on seeded cases: each at max abs error 0 against its plain
+    version; K15 on the JAX XLA branch's H, nu, R of frame 120 against K3
+    (K3_TOL); K10b in 3b on K10's prologue geometry of captured batch steps
+    (K10's rows bit for bit), K16 in 3e on the maps and clouds of K13's
+    captured calls (K13's decisions for every live particle); each one's
+    kernel, device and plain times; K12 re-timed at 200 particles.
  3. main paths: the 240-frame seed-7 synthetic sequence through
     MonoSLAM(device="cuda").run_sequence, with mapping off and then on,
     each reproducing its committed decisions fingerprint, with every kernel
@@ -60,6 +72,16 @@ Phases (any failure exits non-zero before the last line is printed):
     step and no other; two lanes agree with their CPU plain replay; 30
     steps without a host synchronisation; aggregate frames/s, an 8-step
     traced window, the replay's peak device memory, each kernel's times.
+ 3f. batch-hires: the default batch route at BASELINE config 3 (640x480,
+    max_features 60, 200 particles: K10's and K11's rows 256 lanes wide),
+    16 lanes (8 hires textures x 2 offsets) x 39 frames: the route's kernels
+    against their plain versions on two captured steps, all 16 per-lane
+    fingerprints of expected_fingerprint_batch_hires.json with each kernel
+    of the route launched once a step and no other, two lanes against
+    their CPU plain replay, 30 steps under sync debug mode "error", ms a
+    step, aggregate frames/s, an 8-step traced window, peak device memory,
+    K10's and K11's times at 200 particles. Every replay phase (3, 3b-3f)
+    requires zero launches of K10b, K15 and K16: no route reaches them.
  4. a `kernels` JSON line, then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -793,13 +815,14 @@ def k8_seeded(rng, p, dev, n_lanes=4):
     return wins, patches, u0, v0, h, abc, active
 
 
-def k12_seeded(rng, p, dev, pred_form: bool, n_rows=6):
-    """K12 arguments [n_rows, 1, ...]: random rows, row 1 with nothing found
-    or overflowed (an all-zero likelihood: killed), row 2 past its sell-by,
-    row 3 not making."""
-    from scenelib2_torch.kernels.bayes import BayesConsts
+def k12_seeded(rng, p, dev, pred_form: bool, n_rows=6, NP=None):
+    """K12 arguments [n_rows, 1, ...] at NP particles (the configuration's by
+    default): random rows, row 1 with nothing found or overflowed (an
+    all-zero likelihood: killed), row 2 past its sell-by, row 3 not making."""
+    from scenelib2_torch.kernels.bayes import BayesConsts, padded_lanes
 
-    NP = p.n_particles
+    NP = NP or p.n_particles
+    lanes = padded_lanes(NP)
     f = dict(dtype=torch.float32, device=dev)
 
     def t(a, **k):
@@ -821,9 +844,9 @@ def k12_seeded(rng, p, dev, pred_form: bool, n_rows=6):
            t(np.tile([[0.05, 0.01], [0.01, 0.04]], (n_rows, 1, NP, 1, 1))), t(rng.uniform(300, 600, (n_rows, 1, NP)))]
     kw = {}
     if pred_form:
-        pred = t(rng.uniform(0.01, 0.06, (n_rows, 1, 8, 128)))
-        pred[:, :, 0:2] = t(rng.uniform(100, 115, (n_rows, 1, 2, 128)))
-        pred[:, :, 5] = t(rng.uniform(300, 600, (n_rows, 1, 128)))
+        pred = t(rng.uniform(0.01, 0.06, (n_rows, 1, 8, lanes)))
+        pred[:, :, 0:2] = t(rng.uniform(100, 115, (n_rows, 1, 2, lanes)))
+        pred[:, :, 5] = t(rng.uniform(300, 600, (n_rows, 1, lanes)))
         geo, kw = [None, None, None], dict(pred_rows=pred)
     return (prob, lam, palive, found, over, z, *geo, making, pmask, ma, BayesConsts.from_params(p)), kw
 
@@ -868,13 +891,14 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
     import traceback
 
     from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints
-    from scenelib2_torch.kernels import _build, bayes, particle_search, search
+    from scenelib2_torch.kernels import _build, bayes, multi_ellipse, particle_search, search
     from scenelib2_torch.parallel.mesh import make_batched_step, run_batch
     from scenelib2_torch.runtime.state import SlamState
 
     sc = search.SearchConsts.from_params(p)
     T = bseq.shape[0]
     errs = {"K8": 0.0, "K12": 0.0, "K12 pred rows": 0.0, "K13": 0.0}
+    k16_dead = {}
     for _trial in range(2):
         errs["K8"] = max(errs["K8"], check_k8(k8_seeded(rng, p, dev), sc))
         for form, key in ((False, "K12"), (True, "K12 pred rows")):
@@ -913,8 +937,15 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
                 errs["K8"] = max(errs["K8"], check_k8(c["search_windows"][0][:7], sc))
             else:
                 errs["K13"] = max(errs["K13"], check_k13(c["particle_search"][0]))
+                # K16 (no route runs it) on the same maps and clouds, and against K13
+                errs["K16"] = max(errs.get("K16", 0.0), check_k16(*k16_of_k13(c["particle_search"][0])))
+                k16_dead[at] = k16_against_k13(c["particle_search"][0])
         log(f"[3e] {label}: the route's kernels equal their plain versions on whole {N_LANES}-lane "
             f"steps at output indices {BATCH_AT} (max abs err {json.dumps(errs)})")
+        if route == "sb0":
+            log(f"[3e] K16 on the maps and clouds of K13's calls at {BATCH_AT}: found and overflow equal K13's "
+                f"everywhere, (u, v) for every live particle; dead particles whose (u, v) differ (K13 gives a "
+                f"dead particle no key by design, K16 searches it): {json.dumps(k16_dead)}")
 
         costs = []
 
@@ -995,7 +1026,7 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
 
         n_tr = ROUTE_TRACED_STEPS
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             run_batch(step, states0, bseq[:n_tr], True, rparams)
             torch.cuda.synchronize()
@@ -1045,7 +1076,7 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
                           lambda: bayes.bayes_update_plain(
                               *(None if t is None else t.reshape(-1, *t.shape[2:]) for t in a12[:12]),
                               a12[12], pred_rows=(None if "pred_rows" not in kw12
-                                                  else kw12["pred_rows"].reshape(-1, 8, 128))),
+                                                  else kw12["pred_rows"].flatten(0, 1))),
                           "K12")}
         if route == "bp0":
             a8 = c20["search_windows"][0][:7]
@@ -1056,6 +1087,16 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
             a13 = c20["particle_search"][0]
             kern["K13"] = (lambda: particle_search.particle_search(*a13),
                            lambda: particle_search.particle_search_plain(*a13), "K13")
+            a16, kw16 = k16_of_k13(a13)
+            res["K16"] = dict(
+                ms=time_ms(lambda: multi_ellipse.multi_ellipse_search(*a16, **kw16), n=50, batches=3),
+                plain_ms=time_ms(lambda: multi_ellipse.multi_ellipse_search_plain(*a16, **kw16), n=2, batches=3),
+                device_ms=kernel_device_ms(lambda: multi_ellipse.multi_ellipse_search(*a16, **kw16), "k16_kernel"),
+                costs=[multi_ellipse.bytes_and_flops(*a16[3].shape, *multi_ellipse.work_counts(*a16, **{
+                    k_: kw16[k_] for k_ in ("win_radius", "no_sigma")}))],
+                inputs=f"the SCENELIB2_BATCH_SB=0 route's output index 20, {a16[3].shape[0]} slots")
+            log(f"[3e] K16: kernel {res['K16']['ms']:.4f} ms/launch (device {res['K16']['device_ms']}), plain "
+                f"{res['K16']['plain_ms']:.4f} ms ({res['K16']['inputs']})")
         timings = {}
         for short, (fk, fp_, sym) in kern.items():
             b_ms, b_by = bound([c for k_, c in costs if k_ == short])
@@ -1104,6 +1145,292 @@ def check_k14(S) -> float:
     if not matrix_close(got, want, K14_TOL):
         fail(f"K14 L^-1 outside tolerance at M={S.shape[-1]} (max abs err {max_err(got, want)})")
     return max_err(got, want)
+
+
+# ------------------------------------------------------------ 2b: K10b, K15, K16; the widened particle kernels
+
+WIDE_NP = (200, 300, 1100)   # the widened particle kernels' seeded NP: hires', 3 lane chunks, above 1,024 threads
+
+
+def wide_slot(rng, dev, n_slots: int):
+    """Seeded partial slots: (shared [56], slot rows [n_slots, 84]) of a
+    camera near the origin and rays close to the optical axis (lambda in
+    [0.5, 5] projects inside a 320x240 frame), with one joint SPD
+    covariance over the camera's first 7 dimensions and the slots."""
+    q = np.array([1.0, *rng.normal(0, 0.02, 3)])
+    d = 7 + 6 * n_slots
+    M = rng.normal(size=(d, d))
+    s = np.sqrt(np.r_[np.full(7, 1e-5), np.full(6 * n_slots, 1e-4)])
+    C = s[:, None] * (np.eye(d) + 0.5 * M @ M.T / d) * s[None, :]
+    shared = np.concatenate([rng.normal(0, 0.01, 3), q / np.linalg.norm(q), C[:7, :7].ravel()])
+    slots = []
+    for k in range(n_slots):
+        h = np.array([*rng.normal(0, 0.06, 2), 1.0])
+        o = 7 + 6 * k
+        slots.append(np.concatenate([rng.normal(0, 0.1, 3), h / np.linalg.norm(h), C[:7, o : o + 6].ravel(),
+                                     C[o : o + 6, o : o + 6].ravel()]))
+    f = dict(dtype=torch.float32, device=dev)
+    return torch.tensor(shared, **f), torch.tensor(np.stack(slots), **f)
+
+
+def wide_lam(NP: int, n: int, dev):
+    return torch.tensor(np.tile(np.linspace(0.5, 5.0, NP), (n, 1)), dtype=torch.float32, device=dev)
+
+
+def check_wide(rng, p, dev) -> dict:
+    """K10, K11, K12 (both forms) and K4 at WIDE_NP particles on seeded
+    slots, each against its plain version at error 0."""
+    from scenelib2_torch.kernels import bayes, particle, search_bayes
+    from scenelib2_torch.kernels.particle import ParticleConsts, particle_predict, particle_predict_plain
+    from scenelib2_torch.runtime.state import patch_row
+
+    pc = ParticleConsts.from_params(p)
+    sbc = search_bayes.SearchBayesConsts.from_params(p)
+    H, W, B = p.cam_height, p.cam_width, p.boxsize
+    errs = {"K10": 0.0, "K11": 0.0, "K12": 0.0, "K12 pred rows": 0.0, "K4": 0.0}
+    f = dict(dtype=torch.float32, device=dev)
+    for NP in WIDE_NP:
+        n = 3
+        shared, slots = wide_slot(rng, dev, n)
+        lam = wide_lam(NP, n, dev)
+        sh = shared[None].expand(n, 56).contiguous()
+        args10 = (sh, slots[:, None], lam[:, None], pc)
+        got = particle_predict(*args10)
+        want = particle_predict_plain(*args10)
+        torch.cuda.synchronize()
+        if got.shape[-1] != bayes.padded_lanes(NP) or not same_floats(got, want):
+            fail(f"K10 at NP={NP} differs from its plain version (max abs err {max_err(got, want)})")
+        errs["K10"] = max(errs["K10"], max_err(got, want))
+        # K11 on random maps with a planted minimum under each ray
+        maps = torch.tensor(rng.uniform(0.3, 2.0, (n, 1, H, W)), **f)
+        hu = want[:, 0, 0, NP // 2].nan_to_num(0.0).long().tolist()
+        hv = want[:, 0, 1, NP // 2].nan_to_num(0.0).long().tolist()
+        for b in range(n):
+            u, v = min(max(hu[b], 3), W - 4), min(max(hv[b], 3), H - 4)
+            maps[b, 0, v - 2 : v + 2, u - 2 : u + 2] = 0.1
+        alive = torch.tensor(rng.uniform(size=(n, 1, NP)) > 0.1, device=dev)
+        prob = torch.tensor(rng.uniform(0.5, 1.5, (n, 1, NP)) / NP, **f)
+        ones = torch.ones((n, 1), dtype=torch.bool, device=dev)
+        ma = torch.full((n, 1), 3, dtype=torch.int32, device=dev)
+        for label, mk in (("making", ones), ("not making", torch.zeros_like(ones))):
+            errs["K11"] = max(errs["K11"], compare_exact(
+                search_bayes.search_bayes_maps(maps, want, prob, lam[:, None], alive, mk, ones, ma, sbc),
+                search_bayes.search_bayes_maps_plain(maps, want, prob, lam[:, None], alive, mk, ones, ma, sbc),
+                K11_NAMES, f"K11 at NP={NP} ({label})"))
+        for form, key in ((False, "K12"), (True, "K12 pred rows")):
+            a, kw = k12_seeded(rng, p, dev, form, NP=NP)
+            errs[key] = max(errs[key], check_k12(a, kw))
+        # K4 on a random frame whose patch is planted along the ray
+        frame = torch.tensor(rng.integers(0, 256, (H, W), dtype=np.uint8), device=dev)
+        u, v = min(max(hu[0], 20), W - 21), min(max(hv[0], 20), H - 21)
+        patch = frame[v - B // 2 : v + B // 2 + 1, u - B // 2 : u + B // 2 + 1]
+        MF = 4
+        a4 = (frame, torch.full((MF, NP), 1.0 / NP, **f), wide_lam(NP, MF, dev),
+              torch.tensor(rng.uniform(size=(MF, NP)) > 0.1, device=dev),
+              torch.tensor([True], device=dev), torch.tensor([True], device=dev),
+              torch.tensor([3], dtype=torch.int32, device=dev), torch.tensor([1], dtype=torch.int32, device=dev),
+              patch_row(patch), shared, slots[0], sbc)
+        for _label, args in k4_variations(a4, rng, H, W, B, p.erase_partial_after_attempts):
+            got4 = search_bayes.search_bayes(*args)
+            want4 = search_bayes.search_bayes_plain(*args)
+            torch.cuda.synchronize()
+            errs["K4"] = max(errs["K4"], compare_exact(got4, want4, K11_NAMES + ("pred",), f"K4 at NP={NP}"))
+    return errs
+
+
+def kform_inputs(shared, slot_rows):
+    """K10b's inputs (zeroed [F, 6], K0, Ksym, K2 [F, 3, 3]) of slots: the
+    geometry K10's prologue computes (particle.geometry_prologue), shared
+    [B, 56], slot_rows [B, F, 84] flattened to B x F slots."""
+    from scenelib2_torch.kernels.particle import geometry_prologue
+
+    zr, zh, K0, Ks, K2 = geometry_prologue(shared[:, None, :], slot_rows)
+    n = slot_rows.shape[0] * slot_rows.shape[1]
+    return torch.cat([zr, zh], -1).reshape(n, 6), K0.reshape(n, 3, 3), Ks.reshape(n, 3, 3), K2.reshape(n, 3, 3)
+
+
+def check_k10b(zeroed, K0, Ks, K2, lam, c) -> float:
+    from scenelib2_torch.kernels.particle import (
+        kform_outputs, kform_rows, kform_rows_plain, particle_predict_kform, particle_predict_kform_plain)
+
+    got = kform_rows(zeroed, K0, Ks, K2, lam, c)
+    want = kform_rows_plain(zeroed, K0, Ks, K2, lam, c)
+    torch.cuda.synchronize()
+    if not same_floats(got, want):
+        fail(f"K10b rows differ from the plain version (max abs err {max_err(got, want)})")
+    kw = dict(fku=c.fku, fkv=c.fkv, u0c=c.u0c, v0c=c.v0c, kd1=c.kd1, sd0=c.sd0, no_sigma=c.no_sigma)
+    outs = particle_predict_kform(zeroed, K0, Ks, K2, lam, **kw)
+    for name, a, b in zip(("hpi", "sinv", "dets", "hw", "hh"), outs,
+                          particle_predict_kform_plain(zeroed, K0, Ks, K2, lam, **kw)):
+        if not same_floats(a, b):
+            fail(f"K10b {name} differs from the plain version")
+    for a, b in zip(outs, kform_outputs(want, lam.shape[-1])):
+        if not same_floats(a, b):
+            fail("K10b's entry point does not unpack its rows as the TPU wrapper does")
+    return max_err(got, want)
+
+
+def k10b_seeded(rng, p, dev):
+    """(label, args) K10b cases: seeded slots at NP = 100 and 200, and
+    degenerate depths (a ray through the camera centre, lambda 0 and
+    negative: z <= 0)."""
+    from scenelib2_torch.kernels.particle import ParticleConsts
+
+    c = ParticleConsts.from_params(p)
+    out = []
+    for NP in (100, 200):
+        shared, slots = wide_slot(rng, dev, 4)
+        out.append((f"NP{NP}", (*kform_inputs(shared[None], slots[None]), wide_lam(NP, 4, dev), c)))
+    shared, slots = wide_slot(rng, dev, 2)
+    lam = torch.tensor([[-1.0, 0.0, 1e-30, 0.5, 1e30] + [1.0] * 95] * 2, dtype=torch.float32, device=dev)
+    out.append(("degenerate", (*kform_inputs(shared[None], slots[None]), lam, c)))
+    return out
+
+
+def k15_seeded(rng, dev, D=109, M=20, n_bad=2, any_succ=True, nan_deleted=False):
+    """K15 arguments of pallas_ekf's test problem (tests/test_pallas_ekf.py:
+    an SPD P, H with each row pair on the camera and one slot, R = I, the
+    last n_bad slots deleted), optionally with a NaN in a deleted slot."""
+    MF = (D - 13) // 6
+    A = rng.normal(size=(D, D))
+    P = A @ A.T / D * 1e-3 + np.eye(D) * 1e-4
+    x = rng.normal(size=D) * 0.1
+    x[3:7] = rng.normal(size=4)
+    x[3:7] /= np.linalg.norm(x[3:7]) * (1.0 + 1e-3)
+    H = np.zeros((M, D))
+    for k in range(M // 2):
+        off = 13 + 6 * (k % MF)
+        H[2 * k : 2 * k + 2, :7] = rng.normal(size=(2, 7))
+        H[2 * k : 2 * k + 2, off : off + 3] = rng.normal(size=(2, 3))
+    nu = rng.normal(size=M) * 0.5
+    keep = np.ones(D, bool)
+    for k in range(n_bad):
+        off = 13 + 6 * (MF - 1 - k)
+        keep[off : off + 6] = False
+    if nan_deleted:
+        off = 13 + 6 * (MF - 1)
+        P[off, off + 1] = P[off + 1, off] = np.nan
+        x[off] = np.nan
+    f = dict(dtype=torch.float32, device=dev)
+    return (torch.tensor(x, **f), torch.tensor(P, **f), torch.tensor(H, **f), torch.tensor(nu, **f),
+            torch.tensor(np.eye(M), **f), torch.tensor(any_succ, device=dev), torch.tensor(keep, device=dev))
+
+
+def check_k15(args) -> float:
+    from scenelib2_torch.kernels.ekf_update import joint_update_dense, joint_update_dense_plain
+
+    got = joint_update_dense(*args)
+    want = joint_update_dense_plain(*args)
+    torch.cuda.synchronize()
+    return compare_exact(got, want, ("x'", "P'"), f"K15 at D={args[0].shape[0]} M={args[3].shape[0]}")
+
+
+def k15_from_k3(a3, c):
+    """K15's arguments on K3's inputs of a real frame: H, nu, R assembled as
+    the JAX step's XLA branch does and keep from K3's own kill; and K3's
+    results on the same frame."""
+    from scenelib2_torch.kernels.ekf_update import dense_inputs, joint_update, keep_of_kill
+
+    x, P, sel, z, succ, offs = a3[:6]
+    k3 = joint_update(*a3[:13], c)
+    Hd, nu, R = dense_inputs(x.shape[0], sel, z, succ, offs)
+    return (x, P, Hd, nu, R, succ.any(), keep_of_kill(k3[5])), k3
+
+
+def k16_seeded(rng, p, dev, F=3, P=64):
+    """K16 arguments on random maps with planted minima and particle clouds,
+    and the degenerate particles: centres outside the image and far off it,
+    a NaN centre, a NaN S^-1, an S^-1 with a - b^2 / c < 0, a particle with
+    no admitted cell (a tiny ellipse between cells), dead particles, a
+    planted three-way tie."""
+    H, W = p.cam_height, p.cam_width
+    f = dict(dtype=torch.float32, device=dev)
+    maps = torch.tensor(rng.uniform(0.0, 2.0, (F, H, W)), **f)
+    for fi in range(F):
+        for _ in range(60):
+            maps[fi, rng.integers(0, H), rng.integers(0, W)] = float(rng.uniform(0, 0.3))
+    h = torch.tensor(np.stack([rng.uniform(-5, W + 5, (F, P)), rng.uniform(-5, H + 5, (F, P))], -1), **f)
+    a = rng.uniform(0.02, 0.4, (F, P))
+    cc = rng.uniform(0.02, 0.4, (F, P))
+    b = rng.uniform(-0.5, 0.5, (F, P)) * np.sqrt(a * cc)
+    sinv = torch.tensor(np.stack([np.stack([a, b], -1), np.stack([b, cc], -1)], -2), **f)
+    alive = torch.tensor(rng.uniform(size=(F, P)) > 0.2, device=dev)
+    h[0, 0] = torch.tensor([-1e12, 5.0])
+    h[0, 1] = torch.tensor([float("nan"), 50.0])
+    h[0, 2] = torch.tensor([3e9, 3e9])
+    h[0, 3] = torch.tensor([W + 40.0, -30.0])
+    sinv[0, 4] = float("nan")
+    sinv[0, 5] = torch.tensor([[1.0, 2.0], [2.0, 1.0]])
+    sinv[0, 6] = torch.tensor([[400.0, 0.0], [0.0, 400.0]])
+    h[0, 6] = torch.tensor([100.5, 100.5])
+    alive[0, 7:10] = False
+    sinv[1, :] = torch.tensor([[0.05, 0.0], [0.0, 0.05]])
+    h[1, :] = torch.tensor([150.2, 120.7])
+    maps[1, 118, 151] = maps[1, 121, 149] = maps[1, 120, 152] = -0.5
+    maps[2, 60, 60] = float("nan")
+    h[2, 0] = torch.tensor([60.0, 61.0])
+    return maps, h, sinv, alive
+
+
+def check_k16(args, kw) -> float:
+    from scenelib2_torch.kernels.multi_ellipse import multi_ellipse_search, multi_ellipse_search_plain
+
+    got = multi_ellipse_search(*args, **kw)
+    want = multi_ellipse_search_plain(*args, **kw)
+    torch.cuda.synchronize()
+    return compare_exact(got, want, ("found", "u", "v", "over"), "K16")
+
+
+def k16_of_k13(a13):
+    """K16's arguments (args, kwargs) on the maps and clouds of a K13 call,
+    its lanes and slots flattened to slots."""
+    maps, h, sinv, alive, c = a13
+    Bn, Fn, H, W = maps.shape
+    n = Bn * Fn
+    return ((maps.reshape(n, H, W), h.reshape(n, -1, 2), sinv.reshape(n, -1, 2, 2), alive.reshape(n, -1)),
+            dict(win_radius=c.win_radius, no_sigma=c.no_sigma, corr_thresh2=c.corr_thresh2))
+
+
+def k16_against_k13(a13):
+    """K16 on the maps and clouds of a K13 call (a captured step of the
+    SCENELIB2_BATCH_SB=0 route): found and overflow equal everywhere, (u, v)
+    equal for every live particle. Returns the dead particles whose (u, v)
+    differ: K13 gives a dead particle no key by design, K16 searches it."""
+    from scenelib2_torch.kernels.multi_ellipse import multi_ellipse_search
+    from scenelib2_torch.kernels.particle_search import particle_search
+
+    alive = a13[3]
+    k13 = particle_search(*a13)
+    a16, kw16 = k16_of_k13(a13)
+    k16 = multi_ellipse_search(*a16, **kw16)
+    torch.cuda.synchronize()
+    k16 = [t.reshape(alive.shape) for t in k16]
+    for name, i in (("found", 0), ("overflow", 3)):
+        if not same(k16[i], k13[i]):
+            fail(f"K16 and K13 decide {name} differently on a captured step")
+    for name, i in (("u", 1), ("v", 2)):
+        if not same(k16[i][alive], k13[i][alive]):
+            fail(f"K16 and K13 give live particles a different {name} on a captured step")
+    return int(((k16[1] != k13[1]) | (k16[2] != k13[2]))[~alive].sum())
+
+
+def kernel_device_ms(fn, sym: str, n: int = 20):
+    """Device time of one launch of the kernel named sym, from a traced loop
+    of n calls of fn (torch.profiler); None if the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and sym in e.key:
+            us = getattr(e, "self_device_time_total", None)
+            hits.append(((us if us is not None else e.self_cuda_time_total) / 1e3, e.count))
+    return sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits)) if hits else None
 
 
 # ------------------------------------------------------------ large maps: the replays
@@ -1351,17 +1678,222 @@ def bound(costs_list):
     return statistics.mean(bms), ("bytes" if nb >= nf else "operations")
 
 
+# ------------------------------------------------------------ 3f: batch lanes at the hires configuration
+
+# the committed batch-hires replay (scenelib2_torch/data/expected_fingerprint_batch_hires.json):
+# 16 lanes = 8 hires textures x 2 phase offsets, 39 frames a lane
+N_HIRES_LANES, N_HIRES_TEXTURES, N_HIRES_FRAMES = 16, 8, 40
+HIRES_AT = (9, 20)                     # output indices whose kernel inputs are checked and timed
+HIRES_REF_LANES, N_HIRES_REF = (0, 4), 10
+HIRES_TRACED_STEPS = 8
+
+
+def batch_hires_phase(tmp: str, dev, rng) -> dict:
+    """Phase 3f: the default batch route at BASELINE config 3 (200
+    particles: K10's rows and K11's rows 256 lanes wide): the route's kernels
+    against their plain versions on captured steps, the replay against the
+    committed per-lane fingerprints with its launch counts, a CPU plain
+    replay of two lanes, 30 steps under sync debug mode "error", ms a step,
+    aggregate frames/s, a traced window and peak device memory."""
+    import traceback
+
+    from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints, make_lanes
+    from scenelib2_torch.kernels import _build, particle, score_map, search, search_bayes
+    from scenelib2_torch.kernels.measure import MeasureConsts
+    from scenelib2_torch.parallel.mesh import make_batched_step, run_batch
+    from scenelib2_torch.runtime.state import SlamState
+
+    t0 = time.time()
+    params, states0, frames = make_lanes(tmp, N_HIRES_LANES, N_HIRES_TEXTURES, N_HIRES_FRAMES, device=dev,
+                                         dtype=torch.float32, config="hires")
+    seq = torch.as_tensor(frames).to(dev)
+    T, Bn = seq.shape[:2]
+    p = params
+    log(f"[3f] batch-hires: {Bn} lanes ({N_HIRES_TEXTURES} hires textures x {Bn // N_HIRES_TEXTURES} offsets) x "
+        f"{T} frames at {p.cam_width}x{p.cam_height}, max_features {p.max_features}, {p.n_particles} particles, "
+        f"particle radius {p.particle_win_radius}; rendered in {time.time() - t0:.1f} s")
+    step = make_batched_step(params, device="cuda")
+    mc, sc = MeasureConsts.from_params(p), search.SearchConsts.from_params(p)
+    smc, sbc = score_map.ScoreMapConsts.from_params(p), search_bayes.SearchBayesConsts.from_params(p)
+
+    seen, cur = {}, {}
+
+    def keep(n, a, k):
+        if n == "search_bayes_maps":       # the maps live in the step's workspace
+            a = (a[0].clone(),) + tuple(a[1:])
+        cur[n] = (a, k)
+
+    with observe_wrappers(keep):
+        st_b = states0
+        for t in range(max(HIRES_AT) + 1):
+            cur.clear()
+            st_b, _o = step(st_b, seq[t], True)
+            if t in HIRES_AT:
+                seen[t] = dict(cur)
+    torch.cuda.synchronize()
+    errs = {k: 0.0 for k in ("K7", "K9", "K10", "K11", "K2 lanes", "K6 lanes")}
+    making = 0
+    for at in HIRES_AT:
+        c = seen[at]
+        errs["K7"] = max(errs["K7"], check_k7(c["measure_predict"][0][:7], mc, p.n_features_to_select))
+        errs["K9"] = max(errs["K9"], check_k9(c["score_map"][0][0], c["score_map"][0][1], smc))
+        a10 = c["particle_predict"][0]
+        got10, want10 = particle.particle_predict(*a10), particle.particle_predict_plain(*a10)
+        torch.cuda.synchronize()
+        if got10.shape[-1] != 256 or not same_floats(got10, want10):
+            fail(f"[3f] K10's 256-lane rows differ from the plain version (max abs err {max_err(got10, want10)})")
+        a11 = c["search_bayes_maps"][0]
+        errs["K11"] = max(errs["K11"], compare_exact(search_bayes.search_bayes_maps(*a11),
+                                                     search_bayes.search_bayes_maps_plain(*a11), K11_NAMES,
+                                                     "K11 at 200 particles"))
+        errs["K2 lanes"] = max(errs["K2 lanes"], check_k2_lanes(c["search"][0], sc))
+        errs["K6 lanes"] = max(errs["K6 lanes"], check_k6_lanes(*c["shi_tomasi"]))
+        making += int(a11[5].sum())
+    if making == 0:
+        fail("[3f] no lane searches a partial feature at the captured steps")
+    log(f"[3f] the route's kernels equal their plain versions on whole {Bn}-lane steps at output indices "
+        f"{HIRES_AT} ({making} lane-slots making; K10's rows 256 lanes wide) (max abs err {json.dumps(errs)})")
+
+    costs = {k: [] for k in ("K10", "K11")}
+    k11_args = []
+
+    def record(n, a, k):
+        if n == "particle_predict":
+            costs["K10"].append(particle.bytes_and_flops(*a[2].shape))
+        elif n == "search_bayes_maps":
+            k11_args.append((a[1], a[4], a[5]))
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with observe_wrappers(record):
+        _st, outs = run_batch(step, states0, seq, True, params)
+    launches = dict(_build.launches)
+    fps = lane_fingerprints(outs)
+    bad = check_lanes(fps, config="hires")
+    if bad:
+        fail(f"[3f] {len(bad)} of {Bn} lane fingerprints differ from the committed file:\n" + "\n".join(bad[:6]))
+    for n in _build.KERNELS:
+        want = T if n in BATCH_PATH else 0
+        if launches.get(n, 0) != want:
+            fail(f"kernel {n} launched {launches.get(n, 0)} times on the batch-hires path, expected {want}")
+    log(f"[3f] all {Bn} per-lane fingerprints equal expected_fingerprint_batch_hires.json "
+        f"({sum(f_['inits'] for f_ in fps)} inits, {sum(f_['convs'] for f_ in fps)} conversions, "
+        f"{sum(f_['matched_sum'] for f_ in fps)} matches); launches ({T} steps of {Bn} lanes): {json.dumps(launches)}")
+    rb = outs.r.numpy()
+    if rb.shape != (T, Bn, 3) or not np.isfinite(rb).all():
+        fail(f"[3f] trajectories not finite/shaped: {rb.shape}")
+    for pr_, al_, mk_ in k11_args:
+        costs["K11"].append(search_bayes.bytes_and_flops_maps(
+            Bn, 1, p.n_particles, *search_bayes.work_counts_maps(pr_, al_, mk_, sbc)))
+
+    # reference on a small input: two lanes replayed by the CPU plain versions
+    idx = list(HIRES_REF_LANES)
+    cpu_states = SlamState(*(t[idx].cpu() for t in states0))
+    _s, ref = run_batch(make_batched_step(params, device="cpu"), cpu_states, frames[:N_HIRES_REF, idx], True,
+                        params)
+    for k in ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init", "did_convert",
+              "n_overflow", "sel_matched", "init_box", "par_alive"):
+        if not torch.equal(getattr(ref, k), getattr(outs, k)[:N_HIRES_REF, idx]):
+            fail(f"[3f] CUDA vs CPU plain replay: {k} differs in lanes {idx}")
+    dx = float((ref.xv.double() - outs.xv[:N_HIRES_REF, idx].double()).abs().max())
+    if dx > STEP_TOL:
+        fail(f"[3f] CUDA vs CPU plain replay: xv differs by {dx}")
+    log(f"[3f] lanes {idx} equal their CPU plain replay on frames 1..{N_HIRES_REF} (max |dxv| {dx:.3g})")
+
+    st_b = states0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(N_REF):
+            st_b, _o = step(st_b, seq[t], True)
+    except RuntimeError:
+        fail(f"the batch-hires step synchronised with the host:\n{traceback.format_exc()}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[3f] {N_REF} batch-hires steps ran with torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
+
+    walls = []
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_batch(step, states0, seq, True, params)
+        walls.append(time.perf_counter() - t)
+    peak_mb = (torch.cuda.max_memory_allocated() - before) / 2**20
+    wall = statistics.median(walls)
+    from torch.profiler import ProfilerActivity, profile
+
+    n_tr = HIRES_TRACED_STEPS
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run_batch(step, states0, seq[:n_tr], True, params)
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t) / n_tr * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_batch(step, states0, seq[:n_tr], True, params)
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        by[e.key] = ((us if us is not None else e.self_cuda_time_total) / 1e3, e.count)
+    busy = sum(v[0] for v in by.values()) / n_tr
+    n_kern = sum(v[1] for v in by.values()) / n_tr
+    ms_step = wall / T * 1e3
+    res = dict(lanes=Bn, frames_per_lane=T, wall_s=wall, runs_s=walls, frames_per_s=Bn * T / wall,
+               ms_per_step=ms_step, traced_steps=n_tr, ms_per_step_window=window_ms,
+               device_ms_per_step=busy if busy > 0 else None,
+               idle_share=(1.0 - busy / window_ms) if busy > 0 else None, device_kernels_per_step=n_kern,
+               peak_device_mb_replay=peak_mb, launches=launches, errs=errs)
+    log(f"[3f] batch-hires: {res['frames_per_s']:.1f} aggregate frames/s ({Bn} lanes x {T} frames in {wall:.4f} s, "
+        f"median of 3 runs: {', '.join(f'{v:.4f}' for v in walls)}); {ms_step:.4f} ms a batch step; peak device "
+        f"memory of the replay {peak_mb:.1f} MiB above the {before / 2**20:.1f} MiB held before it")
+    if busy > 0:
+        log(f"[3f] traced window ({n_tr} steps): device busy {busy:.4f} ms a step of {window_ms:.4f} ms a step "
+            f"untraced over the same steps -> idle share {res['idle_share']:.4f}; {n_kern:.2f} device kernels a step")
+        for name, (ms, cnt) in sorted(by.items(), key=lambda kv: -kv[1][0])[:12]:
+            log(f"[3f]   {ms / n_tr * 1e3:9.3f} us/step  x{cnt / n_tr:6.2f}/step  {name[:90]}")
+    else:
+        log("[3f] traced window: the profiler recorded no device time (not measured)")
+
+    def dev_ms(sym):
+        hits = [v for k, v in by.items() if sym in k]
+        return sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits)) if hits else None
+
+    # K10's and K11's times at 200 particles, on the output-index-20 inputs
+    a10, a11 = seen[20]["particle_predict"][0], seen[20]["search_bayes_maps"][0]
+    timings = {}
+    for short, fk, fp_, sym in (
+        ("K10", lambda: particle.particle_predict(*a10), lambda: particle.particle_predict_plain(*a10), "k10_kernel"),
+        ("K11", lambda: search_bayes.search_bayes_maps(*a11), lambda: search_bayes.search_bayes_maps_plain(*a11),
+         "k11_kernel"),
+    ):
+        b_ms, b_by = bound(costs[short])
+        timings[short] = dict(ms=time_ms(fk, n=50, batches=3), plain_ms=time_ms(fp_, n=2, batches=3),
+                              device_ms=dev_ms(sym), bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                              launches=launches["particle_predict" if short == "K10" else "search_bayes_maps"],
+                              max_abs_err=errs[short])
+        log(f"[3f] {short} at 200 particles: {json.dumps(timings[short])}")
+    res["timings"] = timings
+    return res
+
+
 # ------------------------------------------------------------ main
 
 
 def profile_main_path(slam, seq, n: int, mapping: bool) -> dict:
     """torch.profiler over an n-frame replay: device time by kernel name,
-    total device time, and wall time of the traced window."""
+    total device time, and wall time of the traced window. Every trace of
+    this script records the device's activity only: the host's operator
+    events would add most of the profiler's post-processing time."""
     from torch.profiler import ProfilerActivity, profile
 
     slam.reset()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         slam.run_sequence(seq[:n], enable_mapping=mapping)
         torch.cuda.synchronize()
@@ -1456,7 +1988,7 @@ def main() -> int:
     from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected
     from scenelib2_torch.eval.synthetic import generate_dataset
     from scenelib2_torch.kernels import (
-        _build, ekf_update, measure, particle, predict_measure, propose, score_map, search,
+        _build, bayes, ekf_update, measure, particle, predict_measure, propose, score_map, search,
         search_bayes, shi_tomasi,
     )
     from scenelib2_torch.kernels.measure import MeasureConsts
@@ -1522,6 +2054,50 @@ def main() -> int:
             k14_err = max(k14_err, check_k14(S))
         log(f"[2] K14 equals its plain version on seeded SPD matrices (M = 1, 2, 7, 20, 64, 128, a "
             f"stack of three 20 x 20, an EKF-shaped S with missed rows) (max abs err {k14_err})")
+
+        # ---- 2b. the widened particle kernels; K10b, K15, K16 (entry points of their own)
+        werrs = check_wide(rng, p, dev)
+        log(f"[2b] K10, K11 (making and not), K12 (both forms) and K4 (with its variations) equal their "
+            f"plain versions at NP = {WIDE_NP} on seeded slots (rows of 256, 512 and 1,152 lanes) "
+            f"(max abs err {json.dumps(werrs)})")
+        lerrs = {"K10b": 0.0, "K15": 0.0, "K16": 0.0}
+        for _label, args in k10b_seeded(rng, p, dev):
+            lerrs["K10b"] = max(lerrs["K10b"], check_k10b(*args))
+        for kw in (dict(), dict(any_succ=False), dict(nan_deleted=True), dict(nan_deleted=True, any_succ=False),
+                   dict(D=128, M=128, n_bad=3), dict(D=19, M=2, n_bad=0)):
+            lerrs["K15"] = max(lerrs["K15"], check_k15(k15_seeded(rng, dev, **kw)))
+        a15, k3_res = k15_from_k3(a3[:-1], uc)
+        lerrs["K15"] = max(lerrs["K15"], check_k15(a15))
+        k15_res = ekf_update.joint_update_dense(*a15)
+        torch.cuda.synchronize()
+        if not (matrix_close(k15_res[0], k3_res[0], K3_TOL) and matrix_close(k15_res[1], k3_res[1], K3_TOL)):
+            fail("K15 on the JAX XLA branch's H, nu, R differs from K3 on frame 120 beyond K3_TOL")
+        k15_vs_k3 = max(max_err(k15_res[0], k3_res[0]), max_err(k15_res[1], k3_res[1]))
+        for wr in (16, p.particle_win_radius):
+            lerrs["K16"] = max(lerrs["K16"], check_k16(k16_seeded(rng, p, dev), dict(
+                win_radius=wr, no_sigma=p.no_sigma, corr_thresh2=p.corr_thresh2)))
+        log(f"[2b] K10b (NP 100, 200, degenerate depths), K15 (D = 109 and 128 x M = 128, any_succ false, "
+            f"a NaN in a deleted slot) and K16 (centres off the frame, NaN centre and S^-1, an indefinite "
+            f"S^-1, dead particles, a tie, a NaN score) equal their plain versions on seeded cases, K15 also "
+            f"on frame 120 (max abs err {json.dumps(lerrs)}); K15 on the XLA branch's H, nu, R of frame 120 "
+            f"equals K3 within K3_TOL (max abs err {k15_vs_k3})")
+        last = {"K15": dict(
+            ms=time_ms(lambda: ekf_update.joint_update_dense(*a15)),
+            plain_ms=time_ms(lambda: ekf_update.joint_update_dense_plain(*a15), n=5, batches=3),
+            device_ms=kernel_device_ms(lambda: ekf_update.joint_update_dense(*a15), "k15_kernel"),
+            costs=[ekf_update.bytes_and_flops_dense(a15[0].shape[0], a15[3].shape[0])], inputs="frame 120")}
+        for form, key in ((False, "K12"), (True, "K12 pred rows")):
+            a12w, kw12w = k12_seeded(rng, p, dev, form, n_rows=16, NP=200)
+            last[f"{key} NP200"] = dict(
+                ms=time_ms(lambda: bayes.bayes_update(*a12w, **kw12w)),
+                plain_ms=time_ms(lambda: bayes.bayes_update_plain(
+                    *(None if t is None else t.reshape(-1, *t.shape[2:]) for t in a12w[:12]), a12w[12],
+                    pred_rows=(None if not form else kw12w["pred_rows"].reshape(16, 8, -1))), n=5, batches=3),
+                device_ms=kernel_device_ms(lambda: bayes.bayes_update(*a12w, **kw12w), "k12_kernel"),
+                costs=[bayes.bytes_and_flops(16, 200)], inputs="16 seeded rows x 200 particles")
+        for k, v in last.items():
+            log(f"[2b] {k}: kernel {v['ms']:.4f} ms/launch (device {v['device_ms']}), plain {v['plain_ms']:.4f} ms "
+                f"({v['inputs']})")
 
         a4, _ = seen[20]["search_bayes"]
         a5, _ = seen[9]["propose"]
@@ -1703,7 +2279,7 @@ def main() -> int:
 
         t0 = time.time()
         bparams, states0, bframes = make_lanes(
-            tmp, N_LANES, N_TEXTURES, N_BATCH_FRAMES, max_features=16, device=dev, dtype=torch.float32)
+            tmp, N_LANES, N_TEXTURES, N_BATCH_FRAMES, device=dev, dtype=torch.float32)
         bseq = torch.as_tensor(bframes).to(dev)
         T = bseq.shape[0]
         log(f"[3b] {N_LANES} lanes ({N_TEXTURES} textures x {N_LANES // N_TEXTURES} offsets) x {T} "
@@ -1750,6 +2326,29 @@ def main() -> int:
             f"indices {BATCH_AT} (lane-frames: {json.dumps(cover)}; {n_k11} K11 cases with variations; "
             f"K2 and K6 over lanes against their plain versions lane by lane) "
             f"(max abs err {json.dumps(berrs)})")
+
+        # K10b on the geometry K10's prologue computes for each captured step's slots: K10's rows
+        for at in BATCH_AT:
+            sh_, sl_, lam_, pc_ = bseen[at]["particle_predict"][0]
+            kin = (*kform_inputs(sh_, sl_), lam_.reshape(-1, lam_.shape[-1]), pc_)
+            lerrs["K10b"] = max(lerrs["K10b"], check_k10b(*kin))
+            k10_rows = particle.particle_predict(sh_, sl_, lam_, pc_)
+            k10b_rows = particle.kform_rows(*kin)
+            torch.cuda.synchronize()
+            if not same_floats(k10b_rows, k10_rows.reshape(k10b_rows.shape)):
+                fail(f"K10b on K10's prologue geometry differs from K10's rows at output index {at}")
+        log(f"[3b] K10b equals its plain version on the slots of the captured steps {BATCH_AT}, and on the "
+            f"geometry of K10's prologue writes K10's rows bit for bit")
+        sh20, sl20, lam20, pc20 = bseen[20]["particle_predict"][0]
+        kin20 = (*kform_inputs(sh20, sl20), lam20.reshape(-1, lam20.shape[-1]), pc20)
+        last["K10b"] = dict(
+            ms=time_ms(lambda: particle.kform_rows(*kin20), n=50, batches=3),
+            plain_ms=time_ms(lambda: particle.kform_rows_plain(*kin20), n=10, batches=3),
+            device_ms=kernel_device_ms(lambda: particle.kform_rows(*kin20), "k10b_kernel"),
+            costs=[particle.bytes_and_flops_kform(*kin20[4].shape)],
+            inputs=f"the batch replay's output index 20, {kin20[4].shape[0]} slots")
+        log(f"[3b] K10b: kernel {last['K10b']['ms']:.4f} ms/launch (device {last['K10b']['device_ms']}), plain "
+            f"{last['K10b']['plain_ms']:.4f} ms ({last['K10b']['inputs']})")
 
         c20 = bseen[20]
         a7, a9, a10 = c20["measure_predict"][0], c20["score_map"][0], c20["particle_predict"][0]
@@ -1883,7 +2482,7 @@ def main() -> int:
         wall = statistics.median(walls)
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run_batch(bstep, states0, bseq, True, bparams)
             torch.cuda.synchronize()
         bby = {}
@@ -1935,6 +2534,9 @@ def main() -> int:
         large = {name: large_map_phase(tag, name, tmp, dev, rng)
                  for tag, name in (("3c", "hires"), ("3d", "mf100"))}
         large["mf100"]["errs"]["K14"] = max(large["mf100"]["errs"]["K14"], k14_err)
+
+        # ---- 3f. batch lanes at the hires configuration (200 particles)
+        hires_b = batch_hires_phase(os.path.join(tmp, "bhires"), dev, rng)
 
     # ---- 4. kernel records ------------------------------------------------
     costs["K2"] = [search.bytes_and_flops(K, sc, int(admit.sum())) for admit, K in costs["K2"]]
@@ -2008,6 +2610,50 @@ def main() -> int:
             bound_by=t_["bound_by"], library_ms=t_["library_ms"], device_ms=t_["device_ms"],
             path=ROUTE_PATH[route][0],
         ))
+    # the kernels that no route runs (their own entry points; 0 launches on every main path), and the
+    # widened particle kernels at 200 particles
+    lerrs["K16"] = max(lerrs["K16"], routes["errs"]["K16"])
+    last["K16"] = routes["K16"]
+    for short, name, src, rep_, key in (
+        ("K10b", "K10b particle_kform", "particle_kform.cu (+ particle_chain.cuh)", "pallas_particle.py:197",
+         "particle_kform"),
+        ("K15", "K15 ekf_update_dense", "ekf_update_dense.cu (+ update_tail.cuh)", "pallas_ekf.py:150",
+         "ekf_update_dense"),
+        ("K16", "K16 multi_ellipse", "multi_ellipse.cu", "pallas_search.py:618", "multi_ellipse"),
+    ):
+        t_ = last[short]
+        b_ms, b_by = bound(t_["costs"])
+        recs.append(dict(
+            name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
+            replaces=f"scenelib2_tpu/kernels/{rep_}", launches=launches[key], max_abs_err=lerrs[short],
+            ms=t_["ms"], plain_ms=t_["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            device_ms=t_["device_ms"], path="entry point only (no route runs it)", timed_on=t_["inputs"],
+        ))
+    for short, name, src, rep_, t_, err in (
+        ("K10", "K10 particle_predict (200 particles, batch-hires)", "particle_predict.cu",
+         "pallas_particle.py:434", hires_b["timings"]["K10"], max(werrs["K10"], hires_b["errs"]["K10"])),
+        ("K11", "K11 search_bayes_maps (200 particles, batch-hires)", "search_bayes.cu",
+         "pallas_search_bayes.py:638", hires_b["timings"]["K11"], max(werrs["K11"], hires_b["errs"]["K11"])),
+    ):
+        recs.append(dict(
+            name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
+            replaces=f"scenelib2_tpu/kernels/{rep_}", launches=t_["launches"], max_abs_err=err, ms=t_["ms"],
+            plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"], bound_by=t_["bound_by"], library_ms=None,
+            device_ms=t_["device_ms"], path="batch-hires",
+        ))
+    for key, name in (("K12 NP200", "K12 bayes (13 rows, 200 particles)"),
+                      ("K12 pred rows NP200", "K12 bayes (7 + 8 rows, 200 particles)")):
+        t_ = last[key]
+        b_ms, b_by = bound(t_["costs"])
+        recs.append(dict(
+            name=name, route="cuda", source="scenelib2_torch/kernels/csrc/bayes.cu",
+            replaces="scenelib2_tpu/kernels/pallas_bayes.py:246", launches=0,
+            max_abs_err=werrs["K12" if key == "K12 NP200" else "K12 pred rows"], ms=t_["ms"],
+            plain_ms=t_["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=t_["device_ms"],
+            path="seeded rows (bp0 and sb0 at 200 particles run it; no replay here drives them)",
+            timed_on=t_["inputs"],
+        ))
+    recs[3]["max_abs_err_wide"] = werrs["K4"]
     log(f"[4] empty-launch floor {empty_ms:.4f} ms; total {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     on, off = paths["mapping-on"], paths["mapping-off"]
@@ -2017,6 +2663,7 @@ def main() -> int:
     print(json.dumps({"batch64": batch, "card": smi}))
     print(json.dumps({"batch_routes": {ROUTE_PATH[r][0]: {k: v for k, v in routes[r].items() if k != "timings"}
                                        for r in ROUTE_PATH}, "card": smi}))
+    print(json.dumps({"batch_hires": {k: v for k, v in hires_b.items() if k != "timings"}, "card": smi}))
     print(json.dumps({"large_maps": {
         name: {k: v for k, v in r_.items() if k in ("ms_frame", "runs", "ms_frame_window", "traced_frames",
                                                    "busy", "idle_share", "peak_mb", "kernels_per_frame",

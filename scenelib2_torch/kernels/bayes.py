@@ -9,12 +9,13 @@ particle's match (an overflowed particle with no match keeps its prior),
 Bayes, renormalisation, the prune below thresh / N, renormalisation again,
 the weighted moments of lambda, and the convert / kill decisions.
 
-Every sum over particles is a pairwise tree over the padded row of
-max(128, NP rounded up to 128) lanes, the TPU kernel's row width (halves
-added lane by lane: 64, 32, ..., 1 for 128 lanes), the order of the CUDA
-block reduction; padding lanes hold exact zeros. The TPU kernel sums its
-row in the order its compiler picks, so sums agree with it to rounding,
-and decisions exactly.
+Every sum over particles is a pairwise tree over tree_width(NP) lanes: the
+TPU kernel's padded row of max(128, NP rounded up to 128) lanes, zero-padded
+on to the next power of two (halves added lane by lane: 64, 32, ..., 1 for
+128 lanes; a 384-lane row is summed as 512 lanes, 256, ..., 1), the order of
+the CUDA block reduction; padding lanes hold exact zeros. The TPU kernel
+sums its row in the order its compiler picks, so sums agree with it to
+rounding, and decisions exactly.
 
 K12 (bayes_update) replaces that standalone TPU kernel,
 scenelib2_tpu/kernels/pallas_bayes.py::pallas_bayes_update (pallas_call at
@@ -24,8 +25,12 @@ the geometry either as separate hpi / sinv / dets arrays (13 rows, the
 route with batch_pallas=False) or as K10's prediction rows (7 + 8 rows, the
 route with SCENELIB2_BATCH_SB=0). Bound on an H100 at 64 rows x 100
 particles: ~0.2 MB in and out, ~10 k operations a row; the launch dominates.
-Design (csrc/bayes.cu): one block of padded_lanes(NP) threads per row, one
-particle a thread, calling bayes_tail.cuh exactly as K11 does.
+Design (csrc/bayes.cu): one block per row, one particle a thread up to
+1,024 particles (a thread per lane of the sums' tree); above it a thread
+holds up to bayes_tail.cuh's BT_MAX_CHUNKS particles, strided by the
+block's 1,024 threads (the kernel is built for both and picks one at
+launch), calling bayes_tail.cuh exactly as K11 does. The kernels take at most MAX_NP particles: the tree's
+buffer and K4's and K11's per-particle rows live in shared memory.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 from scenelib2_torch.kernels import _build
 
 LANE_BLOCK = 128
+MAX_NP = 4096      # particles of K4, K11 and K12 (bayes_tail.cuh: BT_MAX_CHUNKS x 1,024 threads)
 NAME = "bayes"
 # K10's prediction rows: HU, HV, S00, S01, S11, DET first (kernels/particle.py ROW_*)
 PRED_HU, PRED_HV, PRED_S00, PRED_S01, PRED_S11, PRED_DET = range(6)
@@ -47,6 +53,12 @@ PRED_HU, PRED_HV, PRED_S00, PRED_S01, PRED_S11, PRED_DET = range(6)
 def padded_lanes(n: int) -> int:
     """Lanes of the padded particle row: max(128, n rounded up to 128)."""
     return max(LANE_BLOCK, -(-n // LANE_BLOCK) * LANE_BLOCK)
+
+
+def tree_width(n: int) -> int:
+    """Lanes of the sums' pairwise tree: padded_lanes(n) rounded up to a
+    power of two (128 and 256 stay, 384 becomes 512)."""
+    return 1 << (padded_lanes(n) - 1).bit_length()
 
 
 @dataclass(frozen=True)
@@ -66,9 +78,9 @@ class BayesConsts:
 
 
 def tree_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum of v [NP] as the pairwise tree over padded_lanes(NP)
-    zero-padded lanes."""
-    n = padded_lanes(v.shape[0])
+    """Sum of v [NP] as the pairwise tree over tree_width(NP) zero-padded
+    lanes."""
+    n = tree_width(v.shape[0])
     t = torch.zeros(n, dtype=v.dtype, device=v.device)
     t[: v.shape[0]] = v
     while n > 1:
@@ -151,7 +163,7 @@ def bayes_update_plain(prob, lam, palive, found, p_over, z, hpi, sinv, dets, mak
 
 
 class _K12Params(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_int) for n in ("NP", "lanes", "pred_w")]
+    _fields_ = ([(n, ctypes.c_int) for n in ("NP", "width", "pred_w")]
                 + [(n, ctypes.c_float) for n in ("prune_prob_thresh", "sd_depth_ratio", "min_particles",
                                                  "erase_partial_after_attempts")])
 
@@ -186,9 +198,8 @@ def bayes_update(prob, lam, palive, found, p_over, z, hpi, sinv, dets, making, p
 def _launch(prob, lam, palive, found, p_over, z, hpi, sinv, dets, making, pmask, match_attempts,
             bc: BayesConsts, pred):
     Fn, NP = prob.shape
-    lanes = padded_lanes(NP)
-    if lanes > 2 * LANE_BLOCK:
-        raise ValueError(f"K12: at most {2 * LANE_BLOCK} particles, got {NP}")
+    if NP > MAX_NP:
+        raise ValueError(f"K12: at most {MAX_NP} particles, got {NP}")
     f32, b, i32 = torch.float32, torch.bool, torch.int32
     ins = [t.contiguous() for t in (prob, lam, palive, found, p_over, z)]
     checks = list(zip(ins, ("prob", "lam", "palive", "found", "p_over", "z"), (f32, f32, b, b, b, f32),
@@ -212,7 +223,7 @@ def _launch(prob, lam, palive, found, p_over, z, hpi, sinv, dets, making, pmask,
             torch.empty(Fn, dtype=f32, device=dev), torch.empty(Fn, dtype=f32, device=dev),
             torch.empty(Fn, dtype=b, device=dev), torch.empty(Fn, dtype=b, device=dev),
             torch.empty(Fn, dtype=i32, device=dev))
-    prm = _K12Params(NP=NP, lanes=lanes, pred_w=pred_w, prune_prob_thresh=bc.prune_prob_thresh,
+    prm = _K12Params(NP=NP, width=tree_width(NP), pred_w=pred_w, prune_prob_thresh=bc.prune_prob_thresh,
                      sd_depth_ratio=bc.sd_depth_ratio, min_particles=bc.min_particles,
                      erase_partial_after_attempts=bc.erase_partial_after_attempts)
     fn = _build.function(NAME, "k12_bayes", _ARGTYPES)

@@ -14,26 +14,31 @@
 // sinv [F, NP, 2, 2], dets [F, NP] (13 rows: the batch route with
 // batch_pallas=False), or K10's prediction rows [F, 8, pred_w] whose first six
 // rows are HU, HV, S00, S01, S11, DET (7 + 8 rows: the route with
-// SCENELIB2_BATCH_SB=0). Lanes at or beyond NP hold zeros and false (and, in
-// the prediction-row form, K10's padding lanes, which no sum reads).
+// SCENELIB2_BATCH_SB=0). Particles at or beyond NP hold zeros and false
+// (K10's padding lanes are not read).
 //
 // Bound on an H100 at 64 rows x 100 particles: ~0.2 MB in and out and ~10 k
 // operations a row: well under a microsecond; the launch dominates. Design:
-// one block of `lanes` threads (128, or 256 above 128 particles) per row, one
-// particle a thread; the sums are bayes_tail.cuh's fixed pairwise trees over
-// the padded row in shared memory.
+// one block per row; up to 1,024 particles, `width` threads (the tree's
+// lanes) of one particle each (NC = 1), above it 1,024 threads striding over
+// the particles, up to bayes_tail.cuh's BT_MAX_CHUNKS each (NC = 4); the
+// sums are bayes_tail.cuh's fixed pairwise trees over `width` lanes in
+// dynamic shared memory.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "bayes_tail.cuh"
 
+#define K12_MAX_THREADS 1024
+
 struct K12Params {
-  int NP, lanes, pred_w;
+  int NP, width, pred_w;
   float prune_prob_thresh, sd_depth_ratio, min_particles, erase_partial_after_attempts;
 };
 
-__global__ void __launch_bounds__(BT_MAX_LANES)
+template <int NC>
+__global__ void __launch_bounds__(K12_MAX_THREADS)
 k12_kernel(const float* __restrict__ prob, const float* __restrict__ lam,
            const uint8_t* __restrict__ palive, const uint8_t* __restrict__ found_in,
            const uint8_t* __restrict__ p_over_in, const float* __restrict__ z,
@@ -43,43 +48,55 @@ k12_kernel(const float* __restrict__ prob, const float* __restrict__ lam,
            const int* __restrict__ ma_p, float* __restrict__ prob_o, uint8_t* __restrict__ palive_o,
            float* __restrict__ mean_o, float* __restrict__ cov_o, uint8_t* __restrict__ convert_o,
            uint8_t* __restrict__ kill_o, int* __restrict__ nover_o, K12Params p) {
-  __shared__ float buf[BT_MAX_LANES];
+  extern __shared__ float buf[];  // [width]
   const int f = blockIdx.x, t = threadIdx.x, NP = p.NP;
-  const bool valid = t < NP;
-  const size_t i = (size_t)f * NP + t;
-  float prob_in = 0.0f, lam_in = 0.0f, zu = 0.0f, zv = 0.0f;
-  bool alive = false, found = false, over = false;
-  float g[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // hu, hv, a, b, c, det
-  if (valid) {
-    prob_in = prob[i];
-    lam_in = lam[i];
-    alive = palive[i] != 0;
-    found = found_in[i] != 0;
-    over = p_over_in[i] != 0;
-    zu = z[2 * i];
-    zv = z[2 * i + 1];
-  }
-  if (pred != nullptr) {
-    if (t < p.pred_w)
-      for (int r = 0; r < 6; ++r) g[r] = pred[((size_t)f * 8 + r) * p.pred_w + t];
-  } else if (valid) {
-    g[0] = hpi[2 * i];
-    g[1] = hpi[2 * i + 1];
-    g[2] = sinv[4 * i];
-    g[3] = sinv[4 * i + 1];
-    g[4] = sinv[4 * i + 3];
-    g[5] = dets[i];
+  const int nc = bt_nc<NC>(NP);
+  BayesLane in[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int l = t + c * blockDim.x;
+    BayesLane q = {0.0f, 0.0f, false, false, false, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (c < nc && l < NP) {
+      const size_t i = (size_t)f * NP + l;
+      q.prob = prob[i];
+      q.lam = lam[i];
+      q.palive = palive[i] != 0;
+      q.found = found_in[i] != 0;
+      q.p_over = p_over_in[i] != 0;
+      q.zu = z[2 * i];
+      q.zv = z[2 * i + 1];
+      if (pred != nullptr) {
+        const float* g = pred + (size_t)f * 8 * p.pred_w + l;
+        q.hu = g[0];
+        q.hv = g[p.pred_w];
+        q.a = g[2 * p.pred_w];
+        q.b = g[3 * p.pred_w];
+        q.c = g[4 * p.pred_w];
+        q.det = g[5 * p.pred_w];
+      } else {
+        q.hu = hpi[2 * i];
+        q.hv = hpi[2 * i + 1];
+        q.a = sinv[4 * i];
+        q.b = sinv[4 * i + 1];
+        q.c = sinv[4 * i + 3];
+        q.det = dets[i];
+      }
+    }
+    in[c] = q;
   }
   const BayesConsts bc = {p.prune_prob_thresh, p.sd_depth_ratio, p.min_particles,
                           p.erase_partial_after_attempts};
-  float prob_f;
-  bool alive_f;
-  const BayesResult res = bayes_tail(prob_in, lam_in, alive, found, over, zu, zv, g[0], g[1], g[2], g[3],
-                                     g[4], g[5], making_p[f] != 0, pmask_p[f] != 0, (float)ma_p[f], bc,
-                                     buf, p.lanes, &prob_f, &alive_f);
-  if (valid) {
-    prob_o[i] = prob_f;
-    palive_o[i] = alive_f;
+  float prob_f[NC];
+  bool alive_f[NC];
+  const BayesResult res = bayes_tail<NC>(in, nc, making_p[f] != 0, pmask_p[f] != 0, (float)ma_p[f], bc, buf,
+                                     p.width, prob_f, alive_f);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int l = t + c * blockDim.x;
+    if (c < nc && l < NP) {
+      prob_o[(size_t)f * NP + l] = prob_f[c];
+      palive_o[(size_t)f * NP + l] = alive_f[c];
+    }
   }
   if (t == 0) {
     mean_o[f] = res.mean;
@@ -98,11 +115,17 @@ extern "C" int k12_bayes(const float* prob, const float* lam, const uint8_t* pal
                          const int* match_attempts, float* prob_o, uint8_t* palive_o, float* mean,
                          float* cov, uint8_t* convert, uint8_t* kill, int* n_over, int F,
                          const K12Params* p, void* stream) {
-  if (p->NP > p->lanes || p->lanes > BT_MAX_LANES || p->lanes % 32 != 0) return (int)cudaErrorInvalidValue;
+  const bool one = p->width <= K12_MAX_THREADS;  // NC = 1: a thread per lane of the tree
+  const int threads = one ? p->width : K12_MAX_THREADS;
+  if (p->NP < 1 || p->NP > BT_MAX_CHUNKS * threads || p->width < p->NP || p->width < 32 ||
+      (p->width & (p->width - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
   if (pred != nullptr && p->pred_w < p->NP) return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
-  k12_kernel<<<F, p->lanes, 0, (cudaStream_t)stream>>>(prob, lam, palive, found, p_over, z, hpi, sinv, dets,
-                                                       pred, making, pmask, match_attempts, prob_o, palive_o,
-                                                       mean, cov, convert, kill, n_over, *p);
+  const size_t smem = sizeof(float) * (size_t)p->width;
+  auto kernel = one ? k12_kernel<1> : k12_kernel<BT_MAX_CHUNKS>;
+  kernel<<<F, threads, smem, (cudaStream_t)stream>>>(prob, lam, palive, found, p_over, z, hpi, sinv, dets, pred,
+                                                     making, pmask, match_attempts, prob_o, palive_o, mean, cov,
+                                                     convert, kill, n_over, *p);
   return (int)cudaGetLastError();
 }

@@ -20,19 +20,24 @@
 // Bound on an H100: ~60 KB in and out and, in the worst case (a union box
 // over the whole frame), ~77 k scored cells x 3 x 121 multiply-adds:
 // ~3 us at the f32 rate; typically far less. Design: one block of 1024
-// threads, in phases separated by __syncthreads:
-//   1. thread 0: the slot geometry prologue; lanes 0..lanes-1 (128, or 256
-//      above 128 particles: the TPU kernel's padded row): the particle chain
-//      and search geometry of one particle each (shared memory);
-//   2. thread 0: the union box and the scanned region (the union box's rows
-//      x the 128-column chunks that meet its columns, as the TPU kernel
-//      scans);
+// threads, in phases separated by __syncthreads; thread t holds the
+// particles t, t + 1024, ... (bayes_tail.cuh's chunks: NP <= 4,096; each
+// kernel is built for NC = 1 and NC = 4 chunks a thread and picks one at
+// launch, so that up to 1,024 particles it keeps no per-thread arrays):
+//   1. thread 0: the slot geometry prologue; each thread: the particle chain
+//      of its particles into the prediction rows (dynamic shared memory,
+//      [8][NP]);
+//   2. the union box (each thread over its particles, then a warp and a
+//      block reduction) and, on thread 0, the scanned region (the union
+//      box's rows x the 128-column chunks that meet its columns, as the TPU
+//      kernel scans); each particle's search geometry comes from its
+//      prediction row (search_geom), wherever it is needed;
 //   3. all threads: the penalized NSSD of every scanned centre into the
 //      global workspace [H, W] (300 KB does not fit in shared memory);
 //   4. each warp: its particles, lanes striding over the particle's box,
 //      then a warp reduction (min score, then the largest u*H + v key);
-//   5. the lanes: the Bayes tail; all threads: the full-width copy of
-//      prob / palive with the slot's row replaced.
+//   5. each thread: the Bayes tail of its particles; all threads: the
+//      full-width copy of prob / palive, the slot's row from the tail.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -42,14 +47,14 @@
 #include "particle_chain.cuh"
 
 #define K4_THREADS 1024
-#define K4_MAX_LANES 256  // particle lanes: max(128, NP rounded up to 128)
-#define K11_PRED_W 128    // row width of K10's prediction rows
 #define K4_MISS 1e6f
 #define K4_BIG 16777216.0f
 #define K4_CHUNK 128
 
 struct K4Params {
   int H, W, B, MF, NP, win_radius;
+  int pred_w;  // K11: the row width of K10's prediction rows (bayes.py::padded_lanes(NP))
+  int width;   // the sums' tree width (bayes.py::tree_width(NP))
   float no_sigma, corr_thresh2, corr_sigma_thresh, low_sigma_penalty;
   float fku, fkv, u0c, v0c, two_kd1, neg_two_kd1, sd0, maxdist;
   float prune_prob_thresh, sd_depth_ratio, min_particles, erase_partial_after_attempts;
@@ -93,13 +98,43 @@ __device__ __forceinline__ bool beats(float v, float k, float bv, float bk) {
   return v < bv || (v == bv && k > bk);
 }
 
+// one particle's search geometry from its prediction row (search_bayes.py::
+// search_geometry): the window of side_u x side_v around trunc(hpi) clamped
+// to the frame, cut to the 3-sigma box [vlo, vhi) x [ulo, uhi); over = a
+// half-extent beyond the radius
+struct SearchGeom {
+  float uc, vc, vlo, vhi, ulo, uhi;
+  bool over;
+};
+
+__device__ __forceinline__ SearchGeom search_geom(float hu, float hv, float hw, float hh, const K4Params& p) {
+  const float R = (float)p.win_radius;
+  const float side_u = (float)min(2 * p.win_radius + 1, p.W);
+  const float side_v = (float)min(2 * p.win_radius + 1, p.H);
+  SearchGeom g;
+  g.uc = truncf(hu);
+  g.vc = truncf(hv);
+  const float u0 = jmin(jmax(g.uc - R, 0.0f), (float)p.W - side_u);
+  const float v0 = jmin(jmax(g.vc - R, 0.0f), (float)p.H - side_v);
+  g.over = hw > R || hh > R;
+  g.vlo = jmax(v0, g.vc - hh);
+  g.vhi = jmin(v0 + side_v, g.vc + hh + 1.0f);
+  g.ulo = jmax(u0, g.uc - hw);
+  g.uhi = jmin(u0 + side_u, g.uc + hw + 1.0f);
+  return g;
+}
+
+// dynamic shared memory of sb_body for NP particles: the prediction rows
+// [8][NP], best [NP], key [NP], the tree buffer [width]
+static size_t sb_smem(int NP, int width) { return sizeof(float) * ((size_t)10 * NP + width); }
+
 // PRE = false (K4): frame is the u8 frame, corr_maps and pred_in are unused,
 // prob / lam / palive are the whole [MF, NP] arrays and pidx_p picks the row.
 // PRE = true (K11): block blk serves (lane, slot) blk; corr_maps [blk][H][W]
-// and pred_in [blk][8][128] are read, prob / lam / palive / outputs are
+// and pred_in [blk][8][pred_w] are read, prob / lam / palive / outputs are
 // [blk][NP] rows, making / pmask / ma and the scalars are [blk]; frame,
 // pidx_p, patch_row, shared_row, slot_row, pred_o and ws are unused.
-template <bool PRE>
+template <bool PRE, int NC>
 __device__ __forceinline__ void
 sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
           const float* __restrict__ pred_in, const float* __restrict__ prob,
@@ -114,18 +149,16 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
           float* __restrict__ pred_o, float* __restrict__ ws, K4Params p) {
   __shared__ float geom[GEOM_N];
   __shared__ float patch[128];
-  __shared__ float pred[NROWS][K4_MAX_LANES];
-  // per-particle search parameters
-  __shared__ float s_uc[K4_MAX_LANES], s_vc[K4_MAX_LANES], s_ulo[K4_MAX_LANES], s_uhi[K4_MAX_LANES];
-  __shared__ float s_vlo[K4_MAX_LANES], s_vhi[K4_MAX_LANES];
-  __shared__ uint8_t s_nonempty[K4_MAX_LANES];
-  __shared__ float s_best[K4_MAX_LANES], s_kbest[K4_MAX_LANES], s_probf[K4_MAX_LANES];
-  __shared__ uint8_t s_alivef[K4_MAX_LANES];
-  __shared__ float buf[BT_MAX_LANES];
   __shared__ int scan[4];  // v_lo, v_hi, u_lo, u_hi of the scanned region
-  const int t = threadIdx.x;
+  __shared__ float red[K4_THREADS / 32][4];  // the warps' union boxes
+  extern __shared__ float dyn[];
+  const int t = threadIdx.x, nt = blockDim.x;
   const int NP = p.NP, H = p.H, W = p.W;
-  const int lanes = NP <= 128 ? 128 : (NP + 127) / 128 * 128;
+  float* pred = dyn;                   // [NROWS][NP]
+  float* s_best = pred + NROWS * NP;   // [NP]
+  float* s_kbest = s_best + NP;        // [NP]
+  float* buf = s_kbest + NP;           // [width]
+  const int nc = bt_nc<NC>(NP);
   const int blk = PRE ? blockIdx.x : 0;
   const int pidx = PRE ? blk : pidx_p[0];  // the row of prob / lam / palive
   const bool making = making_p[blk] != 0;
@@ -133,62 +166,74 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
   const float ma = (float)ma_p[blk];
   // the scores the searches read: K9's map of this (lane, slot), or the workspace
   const float* __restrict__ scores = PRE ? corr_maps + (size_t)blk * H * W : ws;
-  const float R = (float)p.win_radius;
-  const float side_u = (float)min(2 * p.win_radius + 1, W);
-  const float side_v = (float)min(2 * p.win_radius + 1, H);
 
-  // ---- 1. prologue, particle chain, search geometry ----------------------
+  // ---- 1. prologue, particle chain ------------------------------------------
   if (!PRE) {
     if (t == 0) geometry_prologue(shared_row, slot_row, geom);
     if (t < 128) patch[t] = patch_row[t];
     __syncthreads();
   }
-  const bool lane = t < lanes;
-  const bool valid = t < NP;
-  float prob_in = 0.0f, lam_in = 0.0f, pr[NROWS];
-  bool alive = false, searchable = false, over = false;
-  if (lane) {
-    if (valid) {
-      prob_in = prob[pidx * NP + t];
-      lam_in = lam[pidx * NP + t];
-      alive = palive[pidx * NP + t] != 0;
+  BayesLane in[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int l = t + c * nt;
+    BayesLane q = {0.0f, 0.0f, false, false, false, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (c < nc && l < NP) {
+      q.prob = prob[pidx * NP + l];
+      q.lam = lam[pidx * NP + l];
+      q.palive = palive[pidx * NP + l] != 0;
+      float pr[NROWS];
+      if (PRE) {
+        for (int r = 0; r < NROWS; ++r) pr[r] = pred_in[((size_t)blk * NROWS + r) * p.pred_w + l];
+      } else {
+        const ParticleConsts pc = {p.fku, p.fkv, p.u0c, p.v0c, p.two_kd1, p.neg_two_kd1, p.sd0,
+                                   p.maxdist, p.no_sigma};
+        particle_tail(q.lam, geom, pc, pr);
+      }
+      for (int r = 0; r < NROWS; ++r) {
+        pred[r * NP + l] = pr[r];
+        if (!PRE) pred_o[r * NP + l] = pr[r];
+      }
     }
-    if (PRE) {
-      for (int r = 0; r < NROWS; ++r) pr[r] = pred_in[((size_t)blk * NROWS + r) * K11_PRED_W + t];
-    } else {
-      const ParticleConsts pc = {p.fku, p.fkv, p.u0c, p.v0c, p.two_kd1, p.neg_two_kd1, p.sd0,
-                                 p.maxdist, p.no_sigma};
-      particle_tail(valid ? lam_in : 1.0f, geom, pc, pr);
-    }
-    for (int r = 0; r < NROWS; ++r) {
-      pred[r][t] = pr[r];
-      if (!PRE && valid) pred_o[r * NP + t] = pr[r];
-    }
-    searchable = alive && making;
-    const float uc = truncf(pr[ROW_HU]), vc = truncf(pr[ROW_HV]);
-    const float hw = pr[ROW_HW], hh = pr[ROW_HH];
-    const float u0 = jmin(jmax(uc - R, 0.0f), (float)W - side_u);
-    const float v0 = jmin(jmax(vc - R, 0.0f), (float)H - side_v);
-    over = hw > R || hh > R;
-    s_uc[t] = uc;
-    s_vc[t] = vc;
-    s_vlo[t] = jmax(v0, vc - hh);
-    s_vhi[t] = jmin(v0 + side_v, vc + hh + 1.0f);
-    s_ulo[t] = jmax(u0, uc - hw);
-    s_uhi[t] = jmin(u0 + side_u, uc + hw + 1.0f);
-    s_nonempty[t] = searchable && s_vlo[t] < s_vhi[t] && s_ulo[t] < s_uhi[t];
+    in[c] = q;
   }
   __syncthreads();
 
   // ---- 2. union box and scanned region ------------------------------------
+  // each thread its own particles, then the warps, then thread 0 (min / max
+  // of values that are never NaN: the order does not matter)
+  const int warp = t >> 5, wl = t & 31;
+  {
+    float box[4] = {K4_BIG, -K4_BIG, K4_BIG, -K4_BIG};  // v_lo, v_hi, u_lo, u_hi
+#pragma unroll
+    for (int c = 0; c < NC && c < nc; ++c) {
+      const int l = t + c * nt;
+      if (l >= NP || !(in[c].palive && making)) continue;
+      const SearchGeom g = search_geom(pred[ROW_HU * NP + l], pred[ROW_HV * NP + l], pred[ROW_HW * NP + l],
+                                       pred[ROW_HH * NP + l], p);
+      if (!(g.vlo < g.vhi && g.ulo < g.uhi)) continue;
+      box[0] = fminf(box[0], g.vlo);
+      box[1] = fmaxf(box[1], g.vhi);
+      box[2] = fminf(box[2], g.ulo);
+      box[3] = fmaxf(box[3], g.uhi);
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      box[0] = fminf(box[0], __shfl_xor_sync(0xffffffffu, box[0], o));
+      box[1] = fmaxf(box[1], __shfl_xor_sync(0xffffffffu, box[1], o));
+      box[2] = fminf(box[2], __shfl_xor_sync(0xffffffffu, box[2], o));
+      box[3] = fmaxf(box[3], __shfl_xor_sync(0xffffffffu, box[3], o));
+    }
+    if (wl == 0)
+      for (int k = 0; k < 4; ++k) red[warp][k] = box[k];
+  }
+  __syncthreads();
   if (t == 0) {
     float v_lo_s = K4_BIG, v_hi_s = -K4_BIG, u_lo_s = K4_BIG, u_hi_s = -K4_BIG;
-    for (int i = 0; i < lanes; ++i) {
-      if (!s_nonempty[i]) continue;
-      v_lo_s = fminf(v_lo_s, s_vlo[i]);
-      v_hi_s = fmaxf(v_hi_s, s_vhi[i]);
-      u_lo_s = fminf(u_lo_s, s_ulo[i]);
-      u_hi_s = fmaxf(u_hi_s, s_uhi[i]);
+    for (int w = 0; w < nt / 32; ++w) {
+      v_lo_s = fminf(v_lo_s, red[w][0]);
+      v_hi_s = fmaxf(v_hi_s, red[w][1]);
+      u_lo_s = fminf(u_lo_s, red[w][2]);
+      u_hi_s = fmaxf(u_hi_s, red[w][3]);
     }
     const float Hf = (float)H;
     const int n_rows = (int)fmaxf(fminf(fmaxf(v_hi_s, 0.0f), Hf) - fminf(fmaxf(v_lo_s, 0.0f), Hf), 0.0f);
@@ -216,21 +261,21 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
 
   // ---- 3. scores of the scanned centres ------------------------------------
   if (!PRE) {
-    const int nc = u_hi - u_lo;
-    for (int e = t; e < (v_hi - v_lo) * nc; e += blockDim.x) {
-      const int v = v_lo + e / nc, u = u_lo + e % nc;
+    const int ncols = u_hi - u_lo;
+    for (int e = t; e < (v_hi - v_lo) * ncols; e += nt) {
+      const int v = v_lo + e / ncols, u = u_lo + e % ncols;
       ws[v * W + u] = penalized_score(frame, patch, v, u, p);
     }
     __syncthreads();
   }
 
   // ---- 4. per-particle search, one warp per particle -----------------------
-  const int warp = t >> 5, wl = t & 31;
   const float no_sigma2 = p.no_sigma * p.no_sigma;
-  for (int q = warp; q < NP; q += K4_THREADS / 32) {
-    const float uc = s_uc[q], vc = s_vc[q];
-    const float ulo = s_ulo[q], uhi = s_uhi[q], vlo = s_vlo[q], vhi = s_vhi[q];
-    const float a = pred[ROW_S00][q], b2 = 2.0f * pred[ROW_S01][q], c = pred[ROW_S11][q];
+  for (int q = warp; q < NP; q += nt / 32) {
+    const SearchGeom g = search_geom(pred[ROW_HU * NP + q], pred[ROW_HV * NP + q], pred[ROW_HW * NP + q],
+                                     pred[ROW_HH * NP + q], p);
+    const float uc = g.uc, vc = g.vc, ulo = g.ulo, uhi = g.uhi, vlo = g.vlo, vhi = g.vhi;
+    const float a = pred[ROW_S00 * NP + q], b2 = 2.0f * pred[ROW_S01 * NP + q], c = pred[ROW_S11 * NP + q];
     // cells the exact mask below can admit: the box, within the scanned region
     const int r0 = max(v_lo, ibound(floorf(vlo), v_lo, v_hi, v_hi));
     const int r1 = min(v_hi, ibound(ceilf(vhi), v_lo, v_hi, v_lo));
@@ -271,43 +316,49 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
   __syncthreads();
 
   // ---- 5. Bayes tail and outputs --------------------------------------------
-  bool found = false, p_over = false;
-  float zu = 0.0f, zv = 0.0f;
-  if (valid) {
-    const float best = s_best[t], kb = s_kbest[t];
-    found = searchable && best <= p.corr_thresh2;
-    p_over = over && searchable;
-    zu = truncf((kb + 0.5f) / (float)H);
-    zv = kb - (float)H * zu;
-    found_o[blk * NP + t] = found;
-    z_o[2 * (blk * NP + t)] = zu;
-    z_o[2 * (blk * NP + t) + 1] = zv;
-    best_o[blk * NP + t] = best;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int l = t + c * nt;
+    if (!(c < nc && l < NP)) continue;
+    BayesLane& q = in[c];
+    const bool searchable = q.palive && making;
+    const float best = s_best[l], kb = s_kbest[l];
+    q.found = searchable && best <= p.corr_thresh2;
+    q.p_over = searchable && (pred[ROW_HW * NP + l] > (float)p.win_radius ||
+                              pred[ROW_HH * NP + l] > (float)p.win_radius);
+    q.zu = truncf((kb + 0.5f) / (float)H);
+    q.zv = kb - (float)H * q.zu;
+    q.hu = pred[ROW_HU * NP + l];
+    q.hv = pred[ROW_HV * NP + l];
+    q.a = pred[ROW_S00 * NP + l];
+    q.b = pred[ROW_S01 * NP + l];
+    q.c = pred[ROW_S11 * NP + l];
+    q.det = pred[ROW_DET * NP + l];
+    found_o[blk * NP + l] = q.found;
+    z_o[2 * (blk * NP + l)] = q.zu;
+    z_o[2 * (blk * NP + l) + 1] = q.zv;
+    best_o[blk * NP + l] = best;
   }
   const BayesConsts bc = {p.prune_prob_thresh, p.sd_depth_ratio, p.min_particles,
                           p.erase_partial_after_attempts};
-  float prob_f;
-  bool alive_f;
-  const BayesResult res = bayes_tail(
-      prob_in, lam_in, alive, found, p_over, zu, zv, lane ? pred[ROW_HU][t] : 0.0f,
-      lane ? pred[ROW_HV][t] : 0.0f, lane ? pred[ROW_S00][t] : 0.0f, lane ? pred[ROW_S01][t] : 0.0f,
-      lane ? pred[ROW_S11][t] : 0.0f, lane ? pred[ROW_DET][t] : 0.0f, making, pmask, ma, bc, buf,
-      lanes, &prob_f, &alive_f);
-  if (PRE) {
-    if (valid) {
-      prob_o[blk * NP + t] = prob_f;
-      palive_o[blk * NP + t] = alive_f;
+  float prob_f[NC];
+  bool alive_f[NC];
+  const BayesResult res = bayes_tail<NC>(in, nc, making, pmask, ma, bc, buf, p.width, prob_f, alive_f);
+  // the slot's row (K4: row pidx of the full-width arrays; K11: the block's row)
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int l = t + c * nt;
+    if (c < nc && l < NP) {
+      prob_o[pidx * NP + l] = prob_f[c];
+      palive_o[pidx * NP + l] = alive_f[c];
     }
-  } else {
-    if (lane) {
-      s_probf[t] = prob_f;
-      s_alivef[t] = alive_f;
-    }
-    __syncthreads();
-    for (int e = t; e < p.MF * NP; e += blockDim.x) {
-      const int row = e / NP, col = e - row * NP;
-      prob_o[e] = row == pidx ? s_probf[col] : prob[e];
-      palive_o[e] = row == pidx ? s_alivef[col] : palive[e];
+  }
+  if (!PRE) {
+    // every other row passes through
+    for (int e = t; e < p.MF * NP; e += nt) {
+      if (e / NP == pidx) continue;
+      prob_o[e] = prob[e];
+      palive_o[e] = palive[e];
     }
   }
   if (t == 0) {
@@ -319,6 +370,7 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
   }
 }
 
+template <int NC>
 __global__ void __launch_bounds__(K4_THREADS)
 k4_kernel(const uint8_t* frame, const float* prob, const float* lam, const uint8_t* palive,
           const uint8_t* making, const uint8_t* pmask, const int* ma, const int* pidx,
@@ -326,19 +378,44 @@ k4_kernel(const uint8_t* frame, const float* prob, const float* lam, const uint8
           uint8_t* palive_o, float* mean_o, float* cov_o, uint8_t* convert_o, uint8_t* kill_o,
           int* nover_o, uint8_t* found_o, float* z_o, float* best_o, float* pred_o, float* ws,
           K4Params p) {
-  sb_body<false>(frame, nullptr, nullptr, prob, lam, palive, making, pmask, ma, pidx, patch_row,
+  sb_body<false, NC>(frame, nullptr, nullptr, prob, lam, palive, making, pmask, ma, pidx, patch_row,
                  shared_row, slot_row, prob_o, palive_o, mean_o, cov_o, convert_o, kill_o, nover_o,
                  found_o, z_o, best_o, pred_o, ws, p);
 }
 
+template <int NC>
 __global__ void __launch_bounds__(K4_THREADS)
 k11_kernel(const float* corr_maps, const float* pred_rows, const float* prob, const float* lam,
            const uint8_t* palive, const uint8_t* making, const uint8_t* pmask, const int* ma,
            float* prob_o, uint8_t* palive_o, float* mean_o, float* cov_o, uint8_t* convert_o,
            uint8_t* kill_o, int* nover_o, uint8_t* found_o, float* z_o, float* best_o, K4Params p) {
-  sb_body<true>(nullptr, corr_maps, pred_rows, prob, lam, palive, making, pmask, ma, nullptr, nullptr,
+  sb_body<true, NC>(nullptr, corr_maps, pred_rows, prob, lam, palive, making, pmask, ma, nullptr, nullptr,
                 nullptr, nullptr, prob_o, palive_o, mean_o, cov_o, convert_o, kill_o, nover_o, found_o,
                 z_o, best_o, nullptr, nullptr, p);
+}
+
+// the dynamic shared memory of either kernel (out: smem) and its chunks a
+// thread (out: one, NC = 1 up to K4_THREADS particles); invalid if NP or
+// width is out of range. NC = 1 needs at most 45 KB; the NC = 4 kernels opt
+// in to the size of BT_MAX_CHUNKS x K4_THREADS particles once per device
+// (`opted`: a bit per device) on their first launch there.
+template <typename K>
+static cudaError_t sb_prepare(K kernel4, unsigned long long* opted, const K4Params* p, size_t* smem, bool* one) {
+  const int max_np = BT_MAX_CHUNKS * K4_THREADS;
+  if (p->NP < 1 || p->NP > max_np || p->width < p->NP || (p->width & (p->width - 1)) != 0 ||
+      p->B * p->B + 2 > 128)
+    return cudaErrorInvalidValue;
+  *smem = sb_smem(p->NP, p->width);
+  *one = p->NP <= K4_THREADS;
+  if (*one) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (*opted & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel4, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sb_smem(max_np, max_np));
+  if (e == cudaSuccess) *opted |= bit;
+  return e;
 }
 
 extern "C" int k4_search_bayes(const uint8_t* frame, const float* prob, const float* lam,
@@ -348,8 +425,13 @@ extern "C" int k4_search_bayes(const uint8_t* frame, const float* prob, const fl
                                uint8_t* palive_o, float* mean, float* cov, uint8_t* convert,
                                uint8_t* kill, int* n_over, uint8_t* found, float* z, float* best,
                                float* pred, float* workspace, const K4Params* p, void* stream) {
-  if (p->NP > K4_MAX_LANES || p->B * p->B + 2 > 128) return (int)cudaErrorInvalidValue;
-  k4_kernel<<<1, K4_THREADS, 0, (cudaStream_t)stream>>>(
+  static unsigned long long opted = 0;
+  size_t smem = 0;
+  bool one = true;
+  const cudaError_t e = sb_prepare(k4_kernel<BT_MAX_CHUNKS>, &opted, p, &smem, &one);
+  if (e != cudaSuccess) return (int)e;
+  auto kernel = one ? k4_kernel<1> : k4_kernel<BT_MAX_CHUNKS>;
+  kernel<<<1, K4_THREADS, smem, (cudaStream_t)stream>>>(
       frame, prob, lam, palive, making, pmask, match_attempts, pidx, patch_row, shared_row, slot_row,
       prob_o, palive_o, mean, cov, convert, kill, n_over, found, z, best, pred, workspace, *p);
   return (int)cudaGetLastError();
@@ -362,9 +444,15 @@ extern "C" int k11_search_bayes_maps(const float* corr_maps, const float* pred_r
                                      uint8_t* palive_o, float* mean, float* cov, uint8_t* convert,
                                      uint8_t* kill, int* n_over, uint8_t* found, float* z, float* best,
                                      int n_blocks, const K4Params* p, void* stream) {
-  if (p->NP > K11_PRED_W) return (int)cudaErrorInvalidValue;
+  if (p->pred_w < p->NP) return (int)cudaErrorInvalidValue;
+  static unsigned long long opted = 0;
+  size_t smem = 0;
+  bool one = true;
+  const cudaError_t e = sb_prepare(k11_kernel<BT_MAX_CHUNKS>, &opted, p, &smem, &one);
+  if (e != cudaSuccess) return (int)e;
   if (n_blocks == 0) return 0;
-  k11_kernel<<<n_blocks, K4_THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = one ? k11_kernel<1> : k11_kernel<BT_MAX_CHUNKS>;
+  kernel<<<n_blocks, K4_THREADS, smem, (cudaStream_t)stream>>>(
       corr_maps, pred_rows, prob, lam, palive, making, pmask, match_attempts, prob_o, palive_o, mean,
       cov, convert, kill, n_over, found, z, best, *p);
   return (int)cudaGetLastError();

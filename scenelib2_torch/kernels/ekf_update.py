@@ -25,6 +25,22 @@ factorisation / substitution steps dominate. Design: one block of 256
 threads; H is never formed (10 non-zeros a row, read from the selected
 columns); the D x M and M x M intermediates live in shared memory, P' in the
 output buffer; each factorisation step is one block-wide pass.
+
+K15 (joint_update_dense) replaces the TPU kernel's non-compact sibling,
+pallas_ekf.py::pallas_joint_update_norm (pallas_call at pallas_ekf.py:150,
+kernel :39-114), which no step route reaches (the JAX step calls it only
+when fused_update holds without fast_kpath, and fused_update implies
+fast_kpath): H [M, D], nu [M] and R [M, M] come in dense, S = H P H' + R
+sums over every state dimension, the update from S on is K3's
+(update_tail, csrc/update_tail.cuh), then the any-success select, the keep
+mask as a multiply (a NaN in a deleted row stays NaN) and P/2 + P'/2, with
+P' formed as the TPU kernel forms it, a product by the identity (a
+non-finite entry spreads NaN along its row of P'). Bound
+on an H100 at D = 109, M = 20: ~0.1 MB in and out and ~2 MFLOP, a
+microsecond at most. Design (csrc/ekf_update_dense.cu): one block of 512
+threads; the D x M and M x M intermediates in a global workspace that the
+wrapper allocates (at D = M = 128 they would need 512 KB), each step one
+block-wide pass.
 """
 
 from __future__ import annotations
@@ -43,6 +59,8 @@ from scenelib2_torch.kernels.measure import NOUT, O_H, O_HX, O_HY, O_RD
 CAM_DIM = 13
 SLOT_DIM = 6
 NAME = "ekf_update"
+NAME_DENSE = "ekf_update_dense"   # K15: its own library (csrc/ekf_update_dense.cu) and launch count
+DENSE_MAX = 128                   # K15's D and M (pallas_ekf.py:136, one 128-lane row)
 
 
 @dataclass(frozen=True)
@@ -89,6 +107,30 @@ def bookkeeping(attempts, successes, sched, active, label, sel_mask, succ, top_i
     return att, suc, sched1 & ~kill, kill
 
 
+def update_tail(x, P, PHt, S, nu):
+    """The update from S on, shared by K3 and K15 (csrc/update_tail.cuh):
+    L^-1 of S (chol_linv), S^-1 = L^-T L^-1, W = P H' S^-1, x' = x + W nu,
+    P' = P - (W S) W', then P' transformed by the quaternion-norm Jacobian
+    with the qq=|q|^2 quirk (pallas_ekf.py:68-90). PHt [D, M] = P H', S
+    [M, M] = H P H' + R, nu [M]. Returns (x' [D], the transformed P' [D, D])."""
+    M = S.shape[0]
+    Linv = chol_linv(S)
+    Sinv = seqsum([Linv[k, :, None] * Linv[k, None, :] for k in range(M)])
+    W = seqsum([PHt[:, m : m + 1] * Sinv[m, None, :] for m in range(M)])
+    x_upd = x + seqsum([nu[m] * W[:, m] for m in range(M)])
+    WS = seqsum([W[:, m : m + 1] * S[m, None, :] for m in range(M)])
+    P_upd = P - seqsum([WS[:, m : m + 1] * W[None, :, m] for m in range(M)])
+
+    # quaternion-norm Jacobian with the qq=|q|^2 quirk (pallas_ekf.py:246-268)
+    J = dqnorm_by_dq(x_upd[3:7])
+    cols = seqsum([P_upd[:, 3 + k : 4 + k] * J[None, :, k] for k in range(4)])   # [D,4]
+    PT = P_upd.clone()
+    PT[:, 3:7] = cols
+    P_norm = PT.clone()
+    P_norm[3:7, :] = seqsum([J[:, k : k + 1] * PT[3 + k, None, :] for k in range(4)])
+    return x_upd, P_norm
+
+
 def joint_update_plain(x, P, sel, z, succ, offs, attempts, successes, sched, active, label,
                        sel_mask, top_idx, c: UpdateConsts):
     """Plain PyTorch K3. sel [NOUT, NSEL] (K1's selected columns), z [NSEL,2]
@@ -113,20 +155,7 @@ def joint_update_plain(x, P, sel, z, succ, offs, attempts, successes, sched, act
     S = seqsum([hx[:, a : a + 1] * PHt[a, None, :] for a in range(7)]
                 + [hy[:, j : j + 1] * PHt[offm + j, :] for j in range(3)])
     S = S + torch.diag(rd)
-    Linv = chol_linv(S)
-    Sinv = seqsum([Linv[k, :, None] * Linv[k, None, :] for k in range(M)])
-    W = seqsum([PHt[:, m : m + 1] * Sinv[m, None, :] for m in range(M)])
-    x_upd = x + seqsum([nu[m] * W[:, m] for m in range(M)])
-    WS = seqsum([W[:, m : m + 1] * S[m, None, :] for m in range(M)])
-    P_upd = P - seqsum([WS[:, m : m + 1] * W[None, :, m] for m in range(M)])
-
-    # quaternion-norm Jacobian with the qq=|q|^2 quirk (pallas_ekf.py:246-268)
-    J = dqnorm_by_dq(x_upd[3:7])
-    cols = seqsum([P_upd[:, 3 + k : 4 + k] * J[None, :, k] for k in range(4)])   # [D,4]
-    PT = P_upd.clone()
-    PT[:, 3:7] = cols
-    P_norm = PT.clone()
-    P_norm[3:7, :] = seqsum([J[:, k : k + 1] * PT[3 + k, None, :] for k in range(4)])
+    x_upd, P_norm = update_tail(x, P, PHt, S, nu)
 
     any_succ = succ.any()
     P_sel = torch.where(any_succ, P_norm, P)
@@ -186,6 +215,115 @@ def joint_update(x, P, sel, z, succ, offs, attempts, successes, sched, active, l
     _build.check(err, "K3 joint_update")
     _build.launches[NAME] += 1
     return xo, Po, att, suc, sch, kill
+
+
+def joint_update_dense_plain(x, P, H, nu, R, any_succ, keep_dims):
+    """Plain PyTorch K15. x [D], P [D, D], H [M, D], nu [M], R [M, M] f32;
+    any_succ [] bool; keep_dims [D] bool. Returns (x' [D], P' [D, D]): the
+    update from S = H P H' + R (sums over the state dimensions in ascending
+    order), the quaternion-norm transform, the prior where any_succ is
+    false, the deleted dimensions zeroed by a multiply (a NaN there stays
+    NaN), and P/2 + P'/2 with P' the TPU kernel's product by the identity
+    (transpose_by_identity: on a finite P, P' exactly)."""
+    f32 = torch.float32
+    x, P, H, nu, R = (t.to(f32) for t in (x, P, H, nu, R))
+    D = x.shape[0]
+    PHt = seqsum([P[:, k : k + 1] * H[None, :, k] for k in range(D)])        # [D, M]
+    S = seqsum([H[:, k : k + 1] * PHt[k, None, :] for k in range(D)]) + R
+    x_upd, P_norm = update_tail(x, P, PHt, S, nu)
+    P_sel = torch.where(any_succ, P_norm, P)
+    x_sel = torch.where(any_succ, x_upd, x)
+    keep = keep_dims.to(f32)
+    P_del = P_sel * (keep[:, None] * keep[None, :])
+    return x_sel * keep, P_del * 0.5 + transpose_by_identity(P_del) * 0.5
+
+
+def transpose_by_identity(A: torch.Tensor) -> torch.Tensor:
+    """A' as the TPU kernel forms it, the product A' I (pallas_ekf.py:104-
+    107): exact where A is finite, but a non-finite entry of column k of A
+    (times a 0 of I) makes row k of the result NaN, except where it meets
+    the 1 of I itself: [k, j] is NaN if A[i, k] is NaN or infinite for some
+    i != j, else A[j, k]."""
+    bad = (~torch.isfinite(A)).to(torch.int64)
+    spread = (bad.sum(0)[:, None] - bad.mT) > 0
+    return torch.where(spread, torch.full((), float("nan"), dtype=A.dtype, device=A.device), A.mT)
+
+
+# tensor pointers (7 inputs, 2 outputs, the workspace), D, M, the stream
+_ARGTYPES_DENSE = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def dense_workspace_floats(D: int, M: int) -> int:
+    """Floats of K15's workspace: P H', W, W S [D, M]; the transform's
+    columns and rows [D, 4], [4, D]; x' [D]; S, A, U, L^-1, S^-1 [M, M]."""
+    return 3 * D * M + 8 * D + D + 5 * M * M
+
+
+def joint_update_dense(x, P, H, nu, R, any_succ, keep_dims):
+    """K15, with pallas_joint_update_norm's arguments in its order. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (or
+    raises). Same outputs as joint_update_dense_plain."""
+    if x.device.type == "cpu":
+        return joint_update_dense_plain(x, P, H, nu, R, any_succ, keep_dims)
+    D, M = x.shape[0], nu.shape[0]
+    if not (7 <= D <= DENSE_MAX and 1 <= M <= DENSE_MAX):
+        raise ValueError(f"K15: D and M must lie in [7, {DENSE_MAX}] and [1, {DENSE_MAX}], got D={D} M={M}")
+    f32, b = torch.float32, torch.bool
+    ins = [t.to(f32).contiguous() for t in (x, P, H, nu, R)] + [
+        any_succ.reshape(1).contiguous(), keep_dims.contiguous()]
+    for t, name, dty, shp in zip(ins, ("x", "P", "H", "nu", "R", "any_succ", "keep_dims"),
+                                 (f32,) * 5 + (b, b), ((D,), (D, D), (M, D), (M,), (M, M), (1,), (D,))):
+        _build.check_tensor(t, name, dty, shp)
+    xo = torch.empty_like(ins[0])
+    Po = torch.empty_like(ins[1])
+    ws = torch.empty(dense_workspace_floats(D, M), dtype=f32, device=x.device)
+    fn = _build.function(NAME_DENSE, "k15_joint_update_dense", _ARGTYPES_DENSE)
+    err = fn(*(t.data_ptr() for t in ins), xo.data_ptr(), Po.data_ptr(), ws.data_ptr(), D, M,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "K15 joint_update_dense")
+    _build.launches[NAME_DENSE] += 1
+    return xo, Po
+
+
+def dense_inputs(D: int, sel, z, succ, offs):
+    """(H [M, D], nu [M], R [M, M]) of K3's selected columns, assembled as
+    the JAX step's XLA branch assembles them for K15 (scenelib2_tpu/runtime/
+    step.py:493-515): rows 2k, 2k+1 hold the slot's hx (dims 0..6) and hy
+    (dims offs_k..offs_k+2) where the match succeeded and zeros elsewhere;
+    R is block-diagonal with the noise variance (1 on a missed row); nu =
+    z - h on a match, 0 elsewhere."""
+    NSEL = sel.shape[1]
+    M = 2 * NSEL
+    dev, dt = sel.device, sel.dtype
+    zero = torch.zeros((), dtype=dt, device=dev)
+    s3 = succ[:, None, None]
+    hx = torch.where(s3, sel[O_HX : O_HX + 14].T.reshape(NSEL, 2, 7), zero)
+    hy = torch.where(s3, sel[O_HY : O_HY + 6].T.reshape(NSEL, 2, 3), zero)
+    onehot = (offs.long()[:, None, None] + torch.arange(3, device=dev)[None, :, None]
+              == torch.arange(D, device=dev)).to(dt)                            # [NSEL, 3, D]
+    H = (hy[:, :, :, None] * onehot[:, None, :, :]).sum(2)                       # [NSEL, 2, D]
+    H[:, :, :7] = hx
+    rd = torch.where(succ, sel[O_RD], torch.ones((), dtype=dt, device=dev))
+    R = torch.diag(torch.repeat_interleave(rd, 2))
+    nu = torch.where(succ[:, None], z - sel[O_H : O_H + 2].T, zero).reshape(M)
+    return H.reshape(M, D), nu, R
+
+
+def keep_of_kill(kill) -> torch.Tensor:
+    """keep_dims [D] of a kill mask [MF] (the JAX step's, step.py:507-509)."""
+    return torch.cat([torch.ones(CAM_DIM, dtype=torch.bool, device=kill.device),
+                      torch.repeat_interleave(~kill, SLOT_DIM)])
+
+
+def bytes_and_flops_dense(D: int, M: int) -> tuple[int, int]:
+    """Least bytes (x, P, H, nu, R, the flags in; x', P' out) and float
+    operations of one K15 call: the dense P H' and H (P H') over every state
+    dimension, then K3's update from S on."""
+    f = 4
+    nbytes = 2 * (D * f + D * D * f) + M * D * f + M * f + M * M * f + 1 + D
+    flops = (2 * D * D * M + 2 * D * M * M + 2 * M ** 3 // 3 + 2 * M ** 3 + 2 * D * M * M + 2 * D * M
+             + 2 * D * M * M + 2 * D * D * M + 2 * 2 * 4 * 4 * D + 4 * D * D)
+    return nbytes, flops
 
 
 def bytes_and_flops(D: int, NSEL: int, MF: int) -> tuple[int, int]:

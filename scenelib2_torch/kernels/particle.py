@@ -4,15 +4,25 @@ feature that it shares with K4.
 K10 replaces the TPU kernel scenelib2_tpu/kernels/pallas_particle.py
 (``pallas_particle_predict_fused`` / ``_predict_geom_kernel``): stage 8 of
 the batch step, the chain below for every (lane, partial slot) from the
-slot's blocks of the state. It writes the [8, 128] prediction rows (ROW_*)
-that K11 reads, the lanes beyond NP computed at lambda = 1 as the TPU
-wrapper pads them. The CUDA kernel is csrc/particle_predict.cu: one block
-per (lane, slot), one thread per particle, over csrc/particle_chain.cuh,
-the same device code that K4 (csrc/search_bayes.cu) runs in its prologue,
-so K10's rows equal the rows K4 produces for the same slot.
+slot's blocks of the state. It writes the [8, lanes] prediction rows
+(ROW_*) that K11 reads, lanes = max(128, NP rounded up to 128) as the TPU
+wrapper pads them (bayes.padded_lanes; 256 at hires' 200 particles), the
+lanes beyond NP computed at lambda = 1. The CUDA kernel is
+csrc/particle_predict.cu: one block per (lane, slot), its threads striding
+over the particle lanes, over csrc/particle_chain.cuh, the same device code
+that K4 (csrc/search_bayes.cu) runs in its prologue, so K10's rows equal the
+rows K4 produces for the same slot.
+
+K10b (particle_predict_kform) replaces the TPU kernel's K-form-input
+sibling, pallas_particle.py::pallas_particle_predict (pallas_call at
+pallas_particle.py:197), which only the JAX package's tests call: the same
+tail from the ray geometry and K0 / Ksym / K2 given as inputs. Its CUDA
+kernel (csrc/particle_kform.cu) runs particle_chain.cuh's tail only, so on
+the geometry that K10's prologue computes it writes K10's rows.
 
 Bound on an H100 at 64 lanes x 1 slot x 100 particles: ~0.3 MB in and out
-and ~0.7 MFLOP, well under a microsecond; the launch dominates.
+and ~0.7 MFLOP, well under a microsecond; the launch dominates (K10b: a
+slot's 33 geometry values in, five rows of NP out, ~90 operations a lane).
 
 The chain as plain tensor code:
 
@@ -30,9 +40,7 @@ Every sum runs in the TPU kernel's order: the prologue's dot rows skip the
 literal zeros of N1/N2 and sum the other terms left to right; constant
 divisors are 0-dim tensors (a division by a Python scalar becomes a
 multiply by its reciprocal on CUDA). Every function takes leading (lane,
-slot) dimensions: the rows lie in the LAST dimension. The K-form-input TPU
-kernel of this chain (pallas_particle.py:197) runs only in the JAX
-package's tests and is not ported yet.
+slot) dimensions: the rows lie in the LAST dimension.
 """
 
 from __future__ import annotations
@@ -45,9 +53,10 @@ import torch
 
 from scenelib2_torch.core.quaternion import seqsum
 from scenelib2_torch.kernels import _build
+from scenelib2_torch.kernels.bayes import padded_lanes
 
 NAME = "particle_predict"
-NP_PAD = 128
+NAME_KFORM = "particle_kform"   # K10b: its own library (csrc/particle_kform.cu) and launch count
 
 ROW_HU, ROW_HV, ROW_S00, ROW_S01, ROW_S11, ROW_DET, ROW_HW, ROW_HH = range(8)
 
@@ -74,10 +83,15 @@ class ParticleConsts:
 
     @staticmethod
     def from_params(p) -> "ParticleConsts":
-        u0, v0 = np.float32(p.cam_u0), np.float32(p.cam_v0)
+        return ParticleConsts.of(p.cam_fku, p.cam_fkv, p.cam_u0, p.cam_v0, p.cam_kd1, p.cam_sd,
+                                 p.no_sigma)
+
+    @staticmethod
+    def of(fku, fkv, u0c, v0c, kd1, sd0, no_sigma) -> "ParticleConsts":
+        u0, v0 = np.float32(u0c), np.float32(v0c)
         return ParticleConsts(
-            fku=p.cam_fku, fkv=p.cam_fkv, u0c=p.cam_u0, v0c=p.cam_v0, kd1=p.cam_kd1,
-            sd0=p.cam_sd, maxdist=float(np.sqrt(u0 * u0 + v0 * v0)), no_sigma=p.no_sigma,
+            fku=float(fku), fkv=float(fkv), u0c=float(u0c), v0c=float(v0c), kd1=float(kd1),
+            sd0=float(sd0), maxdist=float(np.sqrt(u0 * u0 + v0 * v0)), no_sigma=float(no_sigma),
         )
 
 
@@ -224,6 +238,69 @@ def particle_tail(lam: torch.Tensor, zr, zh, K0, Ks, K2, c: ParticleConsts) -> t
     return torch.stack([hu, hv, q00, q01, q11, det, hw, hh], dim=-2)
 
 
+def kform_rows_plain(zeroed, K0, Ksym, K2, lam, c: ParticleConsts) -> torch.Tensor:
+    """Plain PyTorch K10b's rows: zeroed [F, 6] (zr, zh), K0 / Ksym / K2
+    [F, 3, 3], lam [F, NP] f32 -> [F, 8, padded_lanes(NP)], the lanes beyond
+    NP at lambda = 1."""
+    return particle_tail(pad_lambda(lam), zeroed[:, :3], zeroed[:, 3:], K0, Ksym, K2, c)
+
+
+def kform_outputs(rows: torch.Tensor, NP: int):
+    """(hpi [F, NP, 2], sinv [F, NP, 2, 2], dets, hw, hh [F, NP]) of K10b's
+    rows, as the TPU wrapper unpacks them (pallas_particle.py:207-214): S^-1
+    assembled symmetric from its S01 row."""
+    r = rows[:, :, :NP]
+    hpi = torch.stack([r[:, ROW_HU], r[:, ROW_HV]], dim=-1)
+    sinv = torch.stack([r[:, ROW_S00], r[:, ROW_S01], r[:, ROW_S01], r[:, ROW_S11]], dim=-1)
+    return hpi, sinv.reshape(r.shape[0], NP, 2, 2), r[:, ROW_DET], r[:, ROW_HW], r[:, ROW_HH]
+
+
+def particle_predict_kform_plain(zeroed, K0, Ksym, K2, lam, fku=195.0, fkv=195.0, u0c=162.0,
+                                 v0c=125.0, kd1=9e-6, sd0=1.0, no_sigma=3.0):
+    """Plain PyTorch K10b, with pallas_particle_predict's arguments and
+    defaults. Returns (hpi [F, NP, 2], sinv [F, NP, 2, 2], dets [F, NP],
+    hw [F, NP], hh [F, NP])."""
+    c = ParticleConsts.of(fku, fkv, u0c, v0c, kd1, sd0, no_sigma)
+    rows = kform_rows_plain(*(t.to(torch.float32) for t in (zeroed, K0, Ksym, K2, lam)), c)
+    return kform_outputs(rows, lam.shape[-1])
+
+
+def kform_rows(zeroed, K0, Ksym, K2, lam, c: ParticleConsts) -> torch.Tensor:
+    """K10b's rows [F, 8, padded_lanes(NP)]. CPU tensors take the plain
+    version (kform_rows_plain); CUDA tensors launch the kernel (or raise)."""
+    if lam.device.type == "cpu":
+        return kform_rows_plain(zeroed, K0, Ksym, K2, lam, c)
+    Fn, NP = lam.shape
+    lanes = padded_lanes(NP)
+    f32 = torch.float32
+    par = torch.cat([zeroed.reshape(Fn, 6), K0.reshape(Fn, 9), Ksym.reshape(Fn, 9), K2.reshape(Fn, 9)],
+                    dim=-1).to(f32).contiguous()
+    lam = lam.to(f32).contiguous()
+    _build.check_tensor(par, "zeroed / K0 / Ksym / K2", f32, (Fn, 33))
+    _build.check_tensor(lam, "lam", f32, (Fn, NP))
+    out = torch.empty((Fn, 8, lanes), dtype=f32, device=lam.device)
+    prm = _K10bParams(F=Fn, NP=NP, lanes=lanes, fku=c.fku, fkv=c.fkv, u0c=c.u0c, v0c=c.v0c,
+                      two_kd1=2.0 * c.kd1, neg_two_kd1=-2.0 * c.kd1, sd0=c.sd0, maxdist=c.maxdist,
+                      no_sigma=c.no_sigma)
+    fn = _build.function(NAME_KFORM, "k10b_particle_kform", _ARGTYPES_KFORM)
+    err = fn(par.data_ptr(), lam.data_ptr(), out.data_ptr(), ctypes.byref(prm),
+             torch.cuda.current_stream(lam.device).cuda_stream)
+    _build.check(err, "K10b particle_kform")
+    _build.launches[NAME_KFORM] += 1
+    return out
+
+
+def particle_predict_kform(zeroed, K0, Ksym, K2, lam, fku=195.0, fkv=195.0, u0c=162.0, v0c=125.0,
+                           kd1=9e-6, sd0=1.0, no_sigma=3.0):
+    """K10b, with pallas_particle_predict's arguments in its order and its
+    defaults: zeroed [F, 6], K0 / Ksym / K2 [F, 3, 3], lam [F, NP]. Returns
+    (hpi [F, NP, 2], sinv [F, NP, 2, 2], dets, hw, hh [F, NP]) f32. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    c = ParticleConsts.of(fku, fkv, u0c, v0c, kd1, sd0, no_sigma)
+    return kform_outputs(kform_rows(zeroed, K0, Ksym, K2, lam, c), lam.shape[-1])
+
+
 def pack_rows_batch(xp, pxx7, ys6, pxy, pyy):
     """The shared rows [B, 56] and slot rows [B, F, 84] from the TPU
     wrapper's operands (pallas_particle.py:413-423): xp [B, 7], pxx7
@@ -235,18 +312,23 @@ def pack_rows_batch(xp, pxx7, ys6, pxy, pyy):
     return shared, slot
 
 
+def pad_lambda(lam: torch.Tensor) -> torch.Tensor:
+    """lam [..., NP] on the padded row of padded_lanes(NP) lanes, 1.0 in the
+    padding lanes (the TPU wrappers' padding: it keeps the chain finite)."""
+    NP = lam.shape[-1]
+    pad = torch.ones((*lam.shape[:-1], padded_lanes(NP) - NP), dtype=lam.dtype, device=lam.device)
+    return torch.cat([lam, pad], dim=-1)
+
+
 def particle_predict_plain(shared, slot_rows, lam, c: ParticleConsts):
     """Plain PyTorch K10. shared [B, 56], slot_rows [B, F, 84], lam
-    [B, F, NP] f32. Returns the [B, F, 8, 128] prediction rows; lanes NP..127
-    are computed at lambda = 1."""
-    Bn, Fn, NP = lam.shape
-    lam_p = torch.ones((Bn, Fn, NP_PAD), dtype=lam.dtype, device=lam.device)
-    lam_p[..., :NP] = lam
-    return particle_tail(lam_p, *geometry_prologue(shared[:, None, :], slot_rows), c)
+    [B, F, NP] f32. Returns the [B, F, 8, padded_lanes(NP)] prediction rows;
+    the lanes beyond NP are computed at lambda = 1."""
+    return particle_tail(pad_lambda(lam), *geometry_prologue(shared[:, None, :], slot_rows), c)
 
 
 class _K10Params(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_int) for n in ("n_lanes", "F", "NP")]
+    _fields_ = ([(n, ctypes.c_int) for n in ("n_lanes", "F", "NP", "lanes")]
                 + [(n, ctypes.c_float) for n in (
                     "fku", "fkv", "u0c", "v0c", "two_kd1", "neg_two_kd1", "sd0", "maxdist",
                     "no_sigma")])
@@ -262,15 +344,14 @@ def particle_predict(shared, slot_rows, lam, c: ParticleConsts):
     if lam.device.type == "cpu":
         return particle_predict_plain(shared, slot_rows, lam, c)
     Bn, Fn, NP = lam.shape
-    if NP > NP_PAD:
-        raise ValueError(f"K10: at most {NP_PAD} particles, got {NP}")
+    lanes = padded_lanes(NP)
     f32 = torch.float32
     shared, slot_rows, lam = shared.contiguous(), slot_rows.contiguous(), lam.contiguous()
     _build.check_tensor(shared, "shared", f32, (Bn, NSHARED))
     _build.check_tensor(slot_rows, "slot_rows", f32, (Bn, Fn, NSLOT))
     _build.check_tensor(lam, "lam", f32, (Bn, Fn, NP))
-    out = torch.empty((Bn, Fn, 8, NP_PAD), dtype=f32, device=lam.device)
-    prm = _K10Params(n_lanes=Bn, F=Fn, NP=NP, fku=c.fku, fkv=c.fkv, u0c=c.u0c, v0c=c.v0c,
+    out = torch.empty((Bn, Fn, 8, lanes), dtype=f32, device=lam.device)
+    prm = _K10Params(n_lanes=Bn, F=Fn, NP=NP, lanes=lanes, fku=c.fku, fkv=c.fkv, u0c=c.u0c, v0c=c.v0c,
                      two_kd1=2.0 * c.kd1, neg_two_kd1=-2.0 * c.kd1, sd0=c.sd0,
                      maxdist=c.maxdist, no_sigma=c.no_sigma)
     fn = _build.function(NAME, "k10_particle_predict", _ARGTYPES)
@@ -281,9 +362,24 @@ def particle_predict(shared, slot_rows, lam, c: ParticleConsts):
     return out
 
 
+class _K10bParams(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_int) for n in ("F", "NP", "lanes")] + _K10Params._fields_[4:])
+
+
+# tensor pointers (the geometry rows, lam, the output), the params struct, the stream
+_ARGTYPES_KFORM = [ctypes.c_void_p] * 3 + [ctypes.POINTER(_K10bParams), ctypes.c_void_p]
+
+
+def bytes_and_flops_kform(Fn: int, NP: int) -> tuple[int, int]:
+    """Least bytes (each slot's 33 geometry values and its NP depths in;
+    hpi, sinv, dets, hw, hh out: 9 values a particle) and operations (~90
+    per particle) of one K10b call."""
+    return Fn * (33 + NP) * 4 + Fn * NP * 9 * 4, Fn * 90 * NP
+
+
 def bytes_and_flops(Bn: int, Fn: int, NP: int) -> tuple[int, int]:
-    """Least bytes (rows in, the padded prediction rows out) and operations
-    (~1.5 k of the prologue per slot, ~90 per padded particle lane) of one
-    K10 call."""
-    nbytes = Bn * NSHARED * 4 + Bn * Fn * (NSLOT + NP) * 4 + Bn * Fn * 8 * NP_PAD * 4
-    return nbytes, Bn * Fn * (1500 + 90 * NP_PAD)
+    """Least bytes (rows in, the NP particles' 8 prediction values out: the
+    padding lanes of the rows are read by no one) and operations (~1.5 k of
+    the prologue per slot, ~90 per particle) of one K10 call."""
+    nbytes = Bn * NSHARED * 4 + Bn * Fn * (NSLOT + NP) * 4 + Bn * Fn * 8 * NP * 4
+    return nbytes, Bn * Fn * (1500 + 90 * NP)

@@ -33,14 +33,16 @@ SearchMultipleOverlappingEllipses, search_multiple_overlapping_ellipses.cpp:
 Bound on an H100: ~60 KB of frame and state in and out, and the score
 work of the scanned cells (3 x 121 multiply-adds each, up to ~77 k cells):
 under ~3 us at the f32 rate in the worst case. Design (csrc/search_bayes.cu):
-one block of 1024 threads; the prologue on thread 0 and the particle chain
-on the padded particle row (128 lanes, or 256 above 128 particles, as the
-TPU kernel pads NP: 200 at hires) into shared memory; the union box by one
-thread; the scores of the scanned cells into a global workspace [H, W] that
-the wrapper allocates (300 KB at 320x240 and 1.2 MB at 640x480 do not fit
-in shared memory); each warp then searches particles (its lanes stride over
-the particle's box, one comparison-based warp reduction); the Bayes sums as
-fixed trees over the padded row in shared memory.
+one block of 1024 threads, thread t holding the particles t, t + 1024, ...
+(up to bayes.MAX_NP = 4,096: every NP the TPU kernel pads to a multiple of
+128 up to there; built for one and for four particles a thread, picked at
+launch); the prologue on thread 0 and the particle chain of every
+particle into prediction rows in dynamic shared memory; the union box
+reduced over warps; the scores of the scanned cells into a global workspace [H, W]
+that the wrapper allocates (300 KB at 320x240 and 1.2 MB at 640x480 do not
+fit in shared memory); each warp then searches particles (its lanes stride
+over the particle's box, one comparison-based warp reduction); the Bayes
+sums as fixed trees over bayes.tree_width(NP) lanes in shared memory.
 
 K11 (batch step, and any step with more than one partial slot) is the same
 TPU kernel in its other mode: the prediction rows come in from K10
@@ -67,7 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from scenelib2_torch.kernels import _build
-from scenelib2_torch.kernels.bayes import BayesConsts, bayes_tail
+from scenelib2_torch.kernels.bayes import MAX_NP, BayesConsts, bayes_tail, padded_lanes, tree_width
 from scenelib2_torch.kernels.particle import (
     NSHARED,
     NSLOT,
@@ -90,7 +92,6 @@ NAME_K11 = "search_bayes_maps"   # K11's launch count (the library's second entr
 MISS = 1e6                 # score of a masked or invalid cell
 BIG = float(1 << 24)       # empty union-box sentinel
 CHUNK = 128                # column chunk of the TPU kernel's scan
-MAX_NP = 256               # K4's particle lanes (K11 takes K10's 128-wide rows)
 
 
 @dataclass(frozen=True)
@@ -300,7 +301,7 @@ def search_bayes_plain(frame, prob, lam, palive, making, pmask, match_attempts, 
 def search_bayes_maps_plain(corr_maps, pred_rows, prob, lam, palive, making, pmask,
                             match_attempts, c: SearchBayesConsts):
     """Plain PyTorch K11. corr_maps [B, F, H, W] f32 (K9's maps); pred_rows
-    [B, F, 8, 128] f32 (K10's rows); prob, lam [B, F, NP] f32 and palive
+    [B, F, 8, padded_lanes(NP)] f32 (K10's rows); prob, lam [B, F, NP] f32 and palive
     [B, F, NP] bool (the partial slots' rows); making, pmask [B, F] bool;
     match_attempts [B, F] i32 (incremented this frame).
 
@@ -346,7 +347,7 @@ def _visited(g: dict, v_lo: int, v_hi: int, u_lo: int, u_hi: int) -> torch.Tenso
 
 
 class _K4Params(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_int) for n in ("H", "W", "B", "MF", "NP", "win_radius")]
+    _fields_ = ([(n, ctypes.c_int) for n in ("H", "W", "B", "MF", "NP", "win_radius", "pred_w", "width")]
                 + [(n, ctypes.c_float) for n in (
                     "no_sigma", "corr_thresh2", "corr_sigma_thresh", "low_sigma_penalty",
                     "fku", "fkv", "u0c", "v0c", "two_kd1", "neg_two_kd1", "sd0", "maxdist",
@@ -357,7 +358,8 @@ class _K4Params(ctypes.Structure):
 def _k4_params(c: SearchBayesConsts, MF: int, NP: int) -> _K4Params:
     pc, bc = c.particle, c.bayes
     return _K4Params(
-        H=c.H, W=c.W, B=c.boxsize, MF=MF, NP=NP, win_radius=c.win_radius, no_sigma=c.no_sigma,
+        H=c.H, W=c.W, B=c.boxsize, MF=MF, NP=NP, win_radius=c.win_radius, pred_w=padded_lanes(NP),
+        width=tree_width(NP), no_sigma=c.no_sigma,
         corr_thresh2=c.corr_thresh2, corr_sigma_thresh=c.corr_sigma_thresh,
         low_sigma_penalty=c.low_sigma_penalty, fku=pc.fku, fkv=pc.fkv, u0c=pc.u0c, v0c=pc.v0c,
         two_kd1=2.0 * pc.kd1, neg_two_kd1=-2.0 * pc.kd1, sd0=pc.sd0, maxdist=pc.maxdist,
@@ -424,14 +426,14 @@ def search_bayes_maps(corr_maps, pred_rows, prob, lam, palive, making, pmask, ma
         return search_bayes_maps_plain(*args, c)
     Bn, Fn, NP = prob.shape
     H, W = c.H, c.W
-    if NP > 128:
-        raise ValueError(f"K11: at most 128 particles, got {NP}")
+    if NP > MAX_NP:
+        raise ValueError(f"K11: at most {MAX_NP} particles, got {NP}")
     f32, b, i32 = torch.float32, torch.bool, torch.int32
     args = tuple(t.contiguous() for t in args)
     for t, name, dty, shp in zip(
         args, ("corr_maps", "pred_rows", "prob", "lam", "palive", "making", "pmask", "match_attempts"),
         (f32, f32, f32, f32, b, b, b, i32),
-        ((Bn, Fn, H, W), (Bn, Fn, 8, 128), (Bn, Fn, NP), (Bn, Fn, NP), (Bn, Fn, NP), (Bn, Fn),
+        ((Bn, Fn, H, W), (Bn, Fn, 8, padded_lanes(NP)), (Bn, Fn, NP), (Bn, Fn, NP), (Bn, Fn, NP), (Bn, Fn),
          (Bn, Fn), (Bn, Fn)),
     ):
         _build.check_tensor(t, name, dty, shp)
@@ -458,7 +460,7 @@ def bytes_and_flops_maps(Bn: int, Fn: int, NP: int, n_scanned: int, n_searched: 
     and particle rows in, the results out; ~40 operations per particle of
     the geometry and the Bayes tail and ~12 per cell that a particle's
     search visits (n_searched, summed over lanes and slots)."""
-    per_slot = 8 * 128 * 4 + NP * (4 + 4 + 1) + 6 + NP * (4 + 1) + 4 * 4 + NP * (1 + 8 + 4)
+    per_slot = 8 * NP * 4 + NP * (4 + 4 + 1) + 6 + NP * (4 + 1) + 4 * 4 + NP * (1 + 8 + 4)
     return 4 * n_scanned + Bn * Fn * per_slot, Bn * Fn * NP * 40 + 12 * n_searched
 
 

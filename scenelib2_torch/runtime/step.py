@@ -56,7 +56,7 @@ from scenelib2_torch.core.quaternion import (
 )
 from scenelib2_torch.device import resolve_device, resolve_dtype
 from scenelib2_torch.kernels import correlate
-from scenelib2_torch.kernels.bayes import bayes_update
+from scenelib2_torch.kernels.bayes import MAX_NP, bayes_update
 from scenelib2_torch.kernels.ekf_update import UpdateConsts, joint_update
 from scenelib2_torch.kernels.measure import (
     O_H,
@@ -72,7 +72,6 @@ from scenelib2_torch.kernels.measure import (
     stable_top_k,
 )
 from scenelib2_torch.kernels.particle import (
-    NP_PAD,
     ROW_HU,
     ROW_HV,
     ROW_S00,
@@ -217,10 +216,12 @@ def unpack_outputs(flat: torch.Tensor, nsel: int, maxp: int = 1, npart: int = 0)
 
 
 XLA_ROUTE_REFUSED = (
-    "use_pallas=False selects the JAX step's pure-XLA route, which launches no kernel "
-    "(scenelib2_tpu/runtime/step.py: the branches where use_pallas is false); that route is "
-    "not ported (ROADMAP Queue 1). The port runs the JAX kernel route, use_pallas=True, the "
-    "default of scenelib2_torch.config.Params"
+    "use_pallas=False selects the JAX step's pure-XLA route (scenelib2_tpu/runtime/step.py: "
+    "the branches where use_pallas is false); that route is not ported (ROADMAP Queue 1 item 2). "
+    "In f32 its single-stream form launches one kernel, K14, the Cholesky inverse of S "
+    "(ekf.joint_update(..., pallas_chol=not params.batch_mode), step.py:529-531, "
+    "core/ekf.py:136-139); only its batch form and f64 launch none. The port runs the JAX "
+    "kernel route, use_pallas=True, the default of scenelib2_torch.config.Params"
 )
 
 
@@ -248,7 +249,7 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     dtype = resolve_dtype(precision)
     if dtype != torch.float32:
         raise NotImplementedError(
-            "the f64 parity mode of the step is not ported yet (ROADMAP Queue 1 item 7)"
+            "the f64 parity mode of the step is not ported yet (ROADMAP Queue 1 item 3)"
         )
     if not params.use_pallas:
         raise NotImplementedError(XLA_ROUTE_REFUSED)
@@ -264,7 +265,7 @@ def make_step(params: Params, device=None, precision: str = "f32"):
         raise NotImplementedError(
             "max_features_to_init_at_once > 1 runs the batch-route particle kernels "
             "(K9, K10, K11), which are ported; the single-stream step glue around them "
-            "is not written yet (ROADMAP Queue 1 item 7)"
+            "is not written yet (ROADMAP Queue 1 item 1)"
         )
     if MF > MAX_FEATURES:
         raise NotImplementedError(
@@ -273,6 +274,10 @@ def make_step(params: Params, device=None, precision: str = "f32"):
             "init proposal kernel needs it, step.py:707-708), so there is no reference "
             "route to port above that"
         )
+    if params.n_particles > MAX_NP:
+        raise NotImplementedError(
+            f"n_particles = {params.n_particles}: K4 holds at most {MAX_NP} particles in shared "
+            "memory (ROADMAP Queue 3)")
     D = CAM_DIM + SLOT_DIM * MF
     fused = D <= FUSED_MAX_D
     heavy_always = D <= HEAVY_ALWAYS_MAX_D
@@ -727,10 +732,14 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
     if MAXP != 1:
         raise NotImplementedError(
             "the batch step is ported for max_features_to_init_at_once = 1 "
-            "(ROADMAP Queue 1 item 7)"
+            "(ROADMAP Queue 1 item 1)"
         )
-    if MF > MAX_FEATURES or NP > NP_PAD:
-        raise NotImplementedError(f"the batch kernels hold MF <= {MAX_FEATURES} and NP <= {NP_PAD}")
+    if MF > MAX_FEATURES:
+        raise NotImplementedError(f"the batch kernels hold MF <= {MAX_FEATURES}, as the JAX fast step does")
+    if NP > MAX_NP:
+        raise NotImplementedError(
+            f"n_particles = {NP}: K11 and K12 hold at most {MAX_NP} particles in shared memory "
+            "(ROADMAP Queue 3)")
     xla = route == "bp0"
     Bx = params.boxsize
     half = (Bx - 1) // 2

@@ -1,0 +1,214 @@
+"""A/B of the particle Bayes kernels (K4, K11, K12) between source trees on one card.
+
+    python3 scripts/ab_particle_kernels.py TREE_A TREE_B TREE_B TREE_A
+
+Each TREE is the root of a checkout of this repo (`.` for the working tree;
+unpack another commit with `git archive` into a directory that .gitignore
+lists). For each TREE, in the order given, a subprocess imports that tree's
+scenelib2_torch, builds its kernels there and reports, on the same seeded
+inputs, each kernel's device time: the median over REPEATS traced loops of
+N_CALLS calls (torch.profiler, the kernel's own device time per launch seen) and
+a sha256 of its outputs. The cases are the shapes the main paths give the
+kernels: K4 at the std configuration (100 particles, 320x240, 16 slots) and
+at hires (200 particles, 640x480, 60 slots), K11 over 64 (lane, slot) blocks
+of 100 particles, K12 over 64 rows of 100 and of 200 particles in both of its
+forms. Particle counts up to 256 keep every sum's order, so all trees must
+give equal outputs; the script fails if they do not. Prints the card's name
+and power limit, one JSON line per tree, and the median device time of each
+case per distinct tree.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+N_CALLS = 50
+REPEATS = 5
+SEED = 20
+
+
+def _cases(dev):
+    """(name, kernel symbol, fn) of every timed case; fn() returns the
+    kernel's outputs."""
+    import numpy as np
+    import torch
+
+    from scenelib2_torch.config import Params
+    from scenelib2_torch.eval.synthetic import HIRES_PARAMS
+    from scenelib2_torch.kernels import bayes, particle, search_bayes
+    from scenelib2_torch.runtime.state import patch_row
+
+    rng = np.random.default_rng(SEED)
+    f = dict(dtype=torch.float32, device=dev)
+    out = []
+
+    def slots(n):
+        # a camera near the origin, rays close to the optical axis, one
+        # joint SPD covariance over the camera's first 7 dimensions and the slots
+        q = np.array([1.0, *rng.normal(0, 0.02, 3)])
+        d = 7 + 6 * n
+        M = rng.normal(size=(d, d))
+        s = np.sqrt(np.r_[np.full(7, 1e-5), np.full(6 * n, 1e-4)])
+        C = s[:, None] * (np.eye(d) + 0.5 * M @ M.T / d) * s[None, :]
+        shared = np.concatenate([rng.normal(0, 0.01, 3), q / np.linalg.norm(q), C[:7, :7].ravel()])
+        rows = []
+        for k in range(n):
+            h = np.array([*rng.normal(0, 0.06, 2), 1.0])
+            o = 7 + 6 * k
+            rows.append(np.concatenate([rng.normal(0, 0.1, 3), h / np.linalg.norm(h), C[:7, o : o + 6].ravel(),
+                                        C[o : o + 6, o : o + 6].ravel()]))
+        return torch.tensor(shared, **f), torch.tensor(np.stack(rows), **f)
+
+    def lam(NP, n):
+        return torch.tensor(np.tile(np.linspace(0.5, 5.0, NP), (n, 1)), **f)
+
+    for tag, p, MF in (("std", Params(), 16), ("hires", Params(**HIRES_PARAMS), 60)):
+        NP, H, W, B = p.n_particles, p.cam_height, p.cam_width, p.boxsize
+        sbc = search_bayes.SearchBayesConsts.from_params(p)
+        shared, rows = slots(1)
+        frame = torch.tensor(rng.integers(0, 256, (H, W), dtype=np.uint8), device=dev)
+        # the patch planted where the middle depth of the ray projects
+        pred = particle.particle_predict_plain(shared[None], rows[None], lam(100, 1)[None],
+                                               particle.ParticleConsts.from_params(p))
+        u = min(max(int(pred[0, 0, 0, 50]), 20), W - 21)
+        v = min(max(int(pred[0, 0, 1, 50]), 20), H - 21)
+        patch = frame[v - B // 2 : v + B // 2 + 1, u - B // 2 : u + B // 2 + 1]
+        a4 = (frame, torch.full((MF, NP), 1.0 / NP, **f), lam(NP, MF),
+              torch.tensor(rng.uniform(size=(MF, NP)) > 0.1, device=dev), torch.tensor([True], device=dev),
+              torch.tensor([True], device=dev), torch.tensor([3], dtype=torch.int32, device=dev),
+              torch.tensor([1], dtype=torch.int32, device=dev), patch_row(patch), shared, rows[0], sbc)
+        out.append((f"K4 {tag} NP {NP}", "k4_kernel", lambda a4=a4: search_bayes.search_bayes(*a4)))
+
+    p = Params()
+    NP, H, W, n = p.n_particles, p.cam_height, p.cam_width, 64
+    sbc = search_bayes.SearchBayesConsts.from_params(p)
+    shared, rows = slots(n)
+    lam11 = lam(NP, n)[:, None]
+    pred = particle.particle_predict(shared[None].expand(n, 56).contiguous(), rows[:, None], lam11,
+                                     particle.ParticleConsts.from_params(p))
+    maps = torch.tensor(rng.uniform(0.3, 2.0, (n, 1, H, W)), **f)
+    ones = torch.ones((n, 1), dtype=torch.bool, device=dev)
+    a11 = (maps, pred, torch.tensor(rng.uniform(0.5, 1.5, (n, 1, NP)) / NP, **f), lam11,
+           torch.tensor(rng.uniform(size=(n, 1, NP)) > 0.1, device=dev), ones, ones,
+           torch.full((n, 1), 3, dtype=torch.int32, device=dev), sbc)
+    out.append((f"K11 64 blocks NP {NP}", "k11_kernel", lambda: search_bayes.search_bayes_maps(*a11)))
+
+    for NP in (100, 200):
+        bc = bayes.BayesConsts.from_params(p)
+        lanes = bayes.padded_lanes(NP)
+
+        def t(a):
+            return torch.tensor(a, **f)
+
+        common = (t(rng.uniform(0.005, 0.02, (n, NP))), t(np.tile(np.linspace(0.5, 5.0, NP), (n, 1))),
+                  torch.tensor(rng.uniform(size=(n, NP)) > 0.1, device=dev),
+                  torch.tensor(rng.uniform(size=(n, NP)) > 0.6, device=dev),
+                  torch.tensor(rng.uniform(size=(n, NP)) > 0.95, device=dev), t(rng.uniform(100, 115, (n, NP, 2))))
+        tail = (torch.ones(n, dtype=torch.bool, device=dev), torch.ones(n, dtype=torch.bool, device=dev),
+                torch.full((n,), 3, dtype=torch.int32, device=dev), bc)
+        geo = (t(rng.uniform(100, 115, (n, NP, 2))), t(np.tile([[0.05, 0.01], [0.01, 0.04]], (n, NP, 1, 1))),
+               t(rng.uniform(300, 600, (n, NP))))
+        pr = t(rng.uniform(0.01, 0.06, (n, 8, lanes)))
+        pr[:, 0:2] = t(rng.uniform(100, 115, (n, 2, lanes)))
+        pr[:, 5] = t(rng.uniform(300, 600, (n, lanes)))
+        out.append((f"K12 64 rows NP {NP}", "k12_kernel",
+                    lambda common=common, geo=geo, tail=tail: bayes.bayes_update(*common, *geo, *tail)))
+        out.append((f"K12 pred 64 rows NP {NP}", "k12_kernel",
+                    lambda common=common, pr=pr, tail=tail: bayes.bayes_update(*common, None, None, None, *tail,
+                                                                                 pred_rows=pr)))
+    return out
+
+
+def _digest(outs) -> str:
+    import torch
+
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.detach().to("cpu").reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _device_ms(fn, sym: str) -> float:
+    """Median over REPEATS traced loops of N_CALLS calls of the kernel's
+    device time per launch the profiler saw."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    res = []
+    for _ in range(REPEATS):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(N_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and sym in e.key:
+                us = getattr(e, "self_device_time_total", None)
+                total += (us if us is not None else e.self_cuda_time_total) / 1e3
+                count += e.count
+        if count == 0:
+            raise SystemExit(f"{sym}: the profiler saw no launch")
+        res.append(total / count)
+    return statistics.median(res)
+
+
+def one_tree(tree: str) -> dict:
+    """Time every case with the scenelib2_torch of `tree` (run in its own process)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import scenelib2_torch
+
+    if not os.path.abspath(scenelib2_torch.__file__).startswith(os.path.abspath(tree) + os.sep):
+        raise SystemExit(f"imported {scenelib2_torch.__file__}, not the package of {tree}")
+    dev = torch.device("cuda")
+    rec = {"tree": tree}
+    for name, sym, fn in _cases(dev):
+        outs = fn()
+        torch.cuda.synchronize()
+        rec[name] = {"ms": _device_ms(fn, sym), "digest": _digest(outs)}
+    return rec
+
+
+def main(trees: list[str]) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()
+    print(smi[0] if smi else "nvidia-smi: no card")
+    recs = []
+    for tree in trees:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            print(res.stderr[-4000:], file=sys.stderr)
+            return 1
+        recs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(json.dumps(recs[-1]), flush=True)
+    names = [k for k in recs[0] if k != "tree"]
+    bad = [n for n in names if len({r[n]["digest"] for r in recs}) != 1]
+    for tree in dict.fromkeys(trees):
+        for n in names:
+            ms = statistics.median(r[n]["ms"] for r in recs if r["tree"] == tree)
+            print(f"{tree:>24}  {n:<26} {ms * 1e3:9.3f} us")
+    if bad:
+        print(f"outputs differ between trees: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--one"]:
+        print(json.dumps(one_tree(sys.argv[2])))
+    else:
+        sys.exit(main(sys.argv[1:]))

@@ -13,6 +13,12 @@ as the kernels do, with the contraction emulated, and in f64:
     earlier in phase): the NSSD of a selected feature's best cell against
     the match threshold corr_thresh2.
 
+The 16-lane batch-hires replay (BASELINE config 3, the lanes of
+scenelib2_torch/data/expected_fingerprint_batch_hires.json) has one such
+lane-frame, evaluated the same way:
+
+  lane 4, output index 26: K6's discriminant, as for lane 59 above.
+
     python scripts/batch64_near_ties.py
 """
 
@@ -32,9 +38,15 @@ from scenelib2_torch.eval.batch import make_lanes  # noqa: E402
 from scenelib2_torch.parallel.mesh import make_batched_step  # noqa: E402
 
 
-def replay_to(lane: int, index: int, wrapper: str, tmp: str):
-    """The arguments and result of `wrapper` at output index `index` of one lane."""
-    params, states, frames = make_lanes(tmp, device="cpu", dtype=torch.float32, lanes=[lane])
+# configuration -> the make_lanes arguments of its committed replay
+REPLAYS = {"std": dict(batch=64, n_textures=32, n_frames=64), "hires": dict(batch=16, n_textures=8, n_frames=40)}
+
+
+def replay_to(lane: int, index: int, wrapper: str, tmp: str, config: str = "std"):
+    """The arguments and result of `wrapper` at output index `index` of one
+    lane of the committed replay at `config`."""
+    params, states, frames = make_lanes(tmp, device="cpu", dtype=torch.float32, lanes=[lane], config=config,
+                                        **REPLAYS[config])
     step = make_batched_step(params, device="cpu")
     seen = {}
     orig = getattr(step_mod, wrapper)
@@ -52,8 +64,8 @@ def replay_to(lane: int, index: int, wrapper: str, tmp: str):
     return params, seen, out
 
 
-def k6_tie(tmp: str) -> None:
-    params, seen, out = replay_to(59, 39, "shi_tomasi", tmp)
+def k6_tie(tmp: str, lane: int = 59, index: int = 39, config: str = "std") -> None:
+    params, seen, out = replay_to(lane, index, "shi_tomasi", tmp, config)
     frame = seen["args"][0][0].numpy().astype(np.int64)
     us, vs, uf, vf = (int(t[0]) for t in seen["args"][1:5])
     half = (params.boxsize - 1) // 2
@@ -76,7 +88,8 @@ def k6_tie(tmp: str) -> None:
             if worst is None or fused < worst[0]:
                 worst = (fused, unfused, exact, u, v, float(A), float(C), float(B))
     fused, unfused, exact, u, v, A, C, B = worst
-    print(f"lane 59, output index 39: region [{us}, {uf}) x [{vs}, {vf}); did_init {bool(out.did_init[0])}")
+    print(f"{config} lane {lane}, output index {index}: region [{us}, {uf}) x [{vs}, {vf}); "
+          f"did_init {bool(out.did_init[0])}")
     print(f"  cell (u, v) = ({u}, {v}): A = {A}, C = {C}, B = {B}")
     print(f"  discriminant: f32 unfused {unfused}, f32 with fused multiply-add {fused}, exact {exact}")
     print(f"  -> sqrt is {'NaN' if fused < 0 else 'real'} with contraction, "
@@ -105,6 +118,7 @@ def main() -> None:
         k6_tie(tmp)
         k2_tie(41, 48, 4, tmp)
         k2_tie(9, 49, 1, tmp)
+        k6_tie(tmp, 4, 26, "hires")
 
 
 if __name__ == "__main__":

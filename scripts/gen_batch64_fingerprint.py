@@ -37,6 +37,22 @@ with lane 59 taken from the run without FMA:
         python scripts/gen_batch64_fingerprint.py --out nofma.json
     python scripts/gen_batch64_fingerprint.py --merge default.json nofma.json --take 59 \
         --out scenelib2_torch/data/expected_fingerprint_batch64.json
+
+--config hires makes the lanes at BASELINE config 3 (the configuration of
+scenelib2_tpu/eval/benchmark.py::bench_hires: 640x480, max_features 60,
+search radius 48, particle radius 52, 200 particles), each texture rendered
+at that calibration with the same seeds (7 + texture). The committed
+batch-hires file is 16 lanes = 8 textures x 2 offsets, 39 frames a lane,
+made by the same two runs (with and without FMA) and merged the same way:
+
+    SCENELIB2_X64=0 JAX_PLATFORMS=cpu python scripts/gen_batch64_fingerprint.py --config hires \
+        --batch 16 --textures 8 --frames 40 --out hires_default.json
+    XLA_FLAGS=--xla_cpu_max_isa=AVX SCENELIB2_X64=0 JAX_PLATFORMS=cpu \
+        python scripts/gen_batch64_fingerprint.py --config hires --batch 16 --textures 8 \
+        --frames 40 --out hires_nofma.json
+    python scripts/gen_batch64_fingerprint.py --merge hires_default.json hires_nofma.json \
+        --take <the lanes where the two differ, if any> \
+        --out scenelib2_torch/data/expected_fingerprint_batch_hires.json
 """
 
 from __future__ import annotations
@@ -50,15 +66,27 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+
+from gen_largemap_fingerprints import CONFIGS as LARGEMAP_CONFIGS  # noqa: E402
 
 ROUTES = ("default", "bp0", "sb0")
+# configuration -> (the dataset's Params overrides, the step's overrides); "hires"
+# is scenelib2_tpu/eval/benchmark.py::bench_hires (BASELINE config 3), as the
+# single-stream hires reference takes it (the reference scripts keep their one
+# copy apart from the port's)
+CONFIGS = {
+    "std": (None, dict(max_features=16)),
+    "hires": LARGEMAP_CONFIGS["hires"][1:],
+}
 
 
-def lanes(batch: int, n_textures: int, n_frames: int, route: str = "default"):
+def lanes(batch: int, n_textures: int, n_frames: int, route: str = "default", config: str = "std"):
     """(params, stacked JAX states, frames [T, B, H, W] u8) of bench_batch64
-    on the JAX batch route `route` (ROUTES). "sb0" sets SCENELIB2_BATCH_SB=0
-    in this process; the JAX step reads it when it is traced."""
+    on the JAX batch route `route` (ROUTES) at the configuration `config`
+    (CONFIGS). "sb0" sets SCENELIB2_BATCH_SB=0 in this process; the JAX step
+    reads it when it is traced."""
     if route not in ROUTES:
         raise ValueError(f"route {route!r} is not one of {ROUTES}")
     if route == "sb0":
@@ -66,20 +94,23 @@ def lanes(batch: int, n_textures: int, n_frames: int, route: str = "default"):
     import jax
     import jax.numpy as jnp
 
-    from scenelib2_tpu.config import load_config
+    from scenelib2_tpu.config import Params, load_config
     from scenelib2_tpu.eval.benchmark import _dataset
     from scenelib2_tpu.io.pgm import read_pgm
     from scenelib2_tpu.rng import pack_state, srand48
     from scenelib2_tpu.runtime import state as st
 
+    dataset, overrides = CONFIGS[config]
     offsets = max(1, batch // n_textures)
     lane_frames, lane_cfgs = [], []
     for tex in range(n_textures):
-        fr, cfg_path, _ = _dataset(n_frames + offsets, seed=7 + tex, tag=f"b64t{tex}")
+        fr, cfg_path, _ = _dataset(n_frames + offsets, seed=7 + tex,
+                                   params=None if dataset is None else Params(**dataset),
+                                   tag=f"b64t{tex}" if config == "std" else f"b{config}t{tex}")
         lane_cfgs.append(load_config(cfg_path))
         lane_frames.append(fr)
     params = dataclasses.replace(
-        lane_cfgs[0].params, max_features=16, use_pallas=True, batch_mode=True,
+        lane_cfgs[0].params, **overrides, use_pallas=True, batch_mode=True,
         batch_pallas=route != "bp0",
     )
     states = []
@@ -105,7 +136,7 @@ def merge(base_path: str, other_path: str, take: list[int], out: str) -> None:
         doc = json.load(f)
     with open(other_path) as f:
         other = json.load(f)
-    for k in ("dataset_version", "batch", "n_textures", "n_frames", "max_features", "route"):
+    for k in ("dataset_version", "batch", "n_textures", "n_frames", "max_features", "route", "config"):
         if doc.get(k, "default") != other.get(k, "default"):
             raise SystemExit(f"the two files differ in {k}")
     differing = [i for i, (a, b) in enumerate(zip(doc["lanes"], other["lanes"])) if a != b]
@@ -128,6 +159,7 @@ def main() -> None:
     ap.add_argument("--textures", type=int, default=32)
     ap.add_argument("--frames", type=int, default=64, help="frames rendered; one less is replayed")
     ap.add_argument("--route", choices=ROUTES, default="default")
+    ap.add_argument("--config", choices=tuple(CONFIGS), default="std")
     ap.add_argument("--lanes-per-run", type=int, default=0,
                     help="step the lanes this many at a time (0: all at once)")
     ap.add_argument("--dump", default=None)
@@ -145,7 +177,7 @@ def main() -> None:
 
     if jnp.zeros(()).dtype != jnp.float32:
         raise SystemExit("needs fast (f32) mode: run with SCENELIB2_X64=0")
-    params, states, fb = lanes(a.batch, a.textures, a.frames, a.route)
+    params, states, fb = lanes(a.batch, a.textures, a.frames, a.route, a.config)
     vstep = jax.jit(jax.vmap(step_mod.make_step(params), in_axes=(0, 0, None)))
     n = a.lanes_per_run or a.batch
     chunks = []
@@ -168,6 +200,9 @@ def main() -> None:
     )
     if a.route != "default":
         doc["route"] = a.route
+    if a.config != "std":
+        doc["config"] = a.config
+        doc["n_particles"] = params.n_particles
     with open(a.out, "w") as f:
         json.dump(doc, f, indent=1, sort_keys=True)
         f.write("\n")

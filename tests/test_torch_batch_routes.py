@@ -8,8 +8,8 @@ SCENELIB2_BATCH_SB=0 or batch_sb=False) and "bp0" (batch_pallas=False).
 Each runs its own wrappers (kernels/_build.py launch counts on the CPU stay
 0, so the test watches the wrappers the step calls). The fingerprint check
 replays lanes 0-3 x 63 frames of the bench_batch64 recipe (one texture
-each, ~25 s for sb0 and ~60 s for bp0 on one core) against
-eval.batch.EXPECTED_OF_ROUTE.
+each, ~25 s for sb0 and ~60 s for bp0 on one core) against the committed
+file, which every JAX route reproduces (eval.batch.check_lanes).
 """
 
 from __future__ import annotations

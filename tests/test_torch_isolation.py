@@ -30,7 +30,14 @@ from scenelib2_torch.config import Params
 from scenelib2_torch.kernels import _build
 from scenelib2_torch.kernels.bayes import BayesConsts, bayes_update, bayes_update_plain
 from scenelib2_torch.kernels.chol_inv import chol_inv, chol_linv
-from scenelib2_torch.kernels.ekf_update import UpdateConsts, joint_update, joint_update_plain
+from scenelib2_torch.kernels.ekf_update import (
+    UpdateConsts,
+    joint_update,
+    joint_update_dense,
+    joint_update_dense_plain,
+    joint_update_plain,
+)
+from scenelib2_torch.kernels.multi_ellipse import multi_ellipse_search, multi_ellipse_search_plain
 from scenelib2_torch.kernels.measure import (
     NOUT,
     MeasureConsts,
@@ -41,6 +48,8 @@ from scenelib2_torch.kernels.correlate import gather_windows_u8
 from scenelib2_torch.kernels.particle import (
     ParticleConsts,
     particle_predict,
+    particle_predict_kform,
+    particle_predict_kform_plain,
     particle_predict_plain,
 )
 from scenelib2_torch.kernels.particle_search import (
@@ -370,6 +379,29 @@ def _k13_args(rng, dev):
             torch.ones((N_L, 1, NP), dtype=torch.bool, device=dev))
 
 
+def _k10b_args(rng, dev):
+    from scenelib2_torch.kernels.particle import geometry_prologue
+
+    a = _k10_args(rng, torch.device("cpu"))
+    zr, zh, K0, Ks, K2 = geometry_prologue(a[0][:, None], a[1])
+    return tuple(t.reshape(N_L, *t.shape[2:]).to(dev) for t in (torch.cat([zr, zh], -1), K0, Ks, K2, a[2]))
+
+
+def _k15_args(rng, dev):
+    x, P = _k3_args(rng, dev)[:2]
+    D, M = x.shape[0], 6
+    H = torch.tensor(rng.normal(size=(M, D)) * 0.1, dtype=torch.float32, device=dev)
+    keep = torch.ones(D, dtype=torch.bool, device=dev)
+    keep[-6:] = False
+    return (x, P, H, torch.tensor(rng.normal(size=M), dtype=torch.float32, device=dev),
+            torch.eye(M, device=dev), torch.tensor(True, device=dev), keep)
+
+
+def _k16_args(rng, dev):
+    a = _k13_args(rng, dev)
+    return a[0][:, 0], a[1][:, 0], a[2][:, 0], a[3][:, 0]
+
+
 def _cases():
     p = Params()
     k1kw = dict(nsel=10, maxp=1, dt=p.delta_t, sd_a=p.sd_a, sd_alpha=p.sd_alpha,
@@ -397,6 +429,12 @@ def _cases():
         "K11": (lambda d, r: search_bayes_maps(*_k11_args(r, d), SearchBayesConsts.from_params(p)),
                 lambda d, r: search_bayes_maps_plain(*_k11_args(r, d), SearchBayesConsts.from_params(p))),
         "K14": (lambda d, r: (chol_inv(_k14_args(r, d)),), lambda d, r: (chol_linv(_k14_args(r, d)),)),
+        "K10b": (lambda d, r: particle_predict_kform(*_k10b_args(r, d)),
+                 lambda d, r: particle_predict_kform_plain(*_k10b_args(r, d))),
+        "K15": (lambda d, r: joint_update_dense(*_k15_args(r, d)),
+                lambda d, r: joint_update_dense_plain(*_k15_args(r, d))),
+        "K16": (lambda d, r: multi_ellipse_search(*_k16_args(r, d), win_radius=p.particle_win_radius),
+                lambda d, r: multi_ellipse_search_plain(*_k16_args(r, d), win_radius=p.particle_win_radius)),
         "K8": (lambda d, r: search_windows(*_k8_args(r, d), SearchConsts.from_params(p)),
                lambda d, r: search_windows_plain(*_k8_args(r, d), SearchConsts.from_params(p))),
         "K12": (lambda d, r: bayes_update(*_k12_args(r, d, False)[0]),
@@ -420,7 +458,7 @@ def _per_lane(fn, args):
 
 
 KERNELS = ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12", "K12 pred rows",
-           "K13", "K14", "K2 lanes", "K6 lanes"]
+           "K13", "K14", "K2 lanes", "K6 lanes", "K10b", "K15", "K16"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -439,7 +477,8 @@ def test_wrapper_takes_plain_path_only_for_cpu_tensors(kernel):
 
 
 @pytest.mark.parametrize("kernel", ["K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12",
-                                    "K12 pred rows", "K13", "K14", "K2 lanes", "K6 lanes"])
+                                    "K12 pred rows", "K13", "K14", "K2 lanes", "K6 lanes", "K10b", "K15",
+                                    "K16"])
 def test_wrapper_raises_when_its_kernel_cannot_be_built(kernel, monkeypatch, tmp_path):
     """A non-CPU request whose kernel cannot be built (no CUDA toolkit)
     raises; the wrapper never answers with its plain version instead."""

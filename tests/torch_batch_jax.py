@@ -8,7 +8,7 @@ in_axes=(0, 0, None))) in fast (f32) mode on one JAX batch route
 x64), its Pallas kernels in interpret mode. The lanes are the bench_batch64
 recipe: scene textures x 2 one-frame phase offsets, each lane with its own
 known-feature patches and its own random stream srand48(lane),
-max_features 16, mapping on.
+max_features 16 (60 at hires), mapping on.
 
 Both sides start from the same stacked state (the JAX lanes go through
 convert.state_from_jax; the port's own eval.batch.make_lanes must build the
@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from scenelib2_torch.convert import state_from_jax, state_to_numpy
-from scenelib2_torch.eval.batch import make_lanes
+from scenelib2_torch.eval.batch import CONFIGS, make_lanes
 from scenelib2_torch.eval.fingerprint import DECISION_FIELDS, selection_set
 from scenelib2_torch.parallel.mesh import make_batched_step, run_batch
 from scenelib2_torch.runtime.step import StepOutputs, batch_route
@@ -60,9 +60,9 @@ sys.path.insert(0, os.path.join(sys.argv[1], 'scripts'))
 from gen_batch64_fingerprint import lanes
 from scenelib2_tpu.runtime import step as step_mod
 
-out_dir, batch, textures, n, route = (sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]),
-                                      sys.argv[6])
-params, states, fb = lanes(batch, textures, n + 1, route)
+out_dir, batch, textures, n, route, config = (sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]),
+                                              sys.argv[6], sys.argv[7])
+params, states, fb = lanes(batch, textures, n + 1, route, config)
 assert params.batch_mode and params.use_pallas and params.batch_pallas == (route != 'bp0')
 np.savez(os.path.join(out_dir, 'jax_state0.npz'),
          **{k: np.asarray(v) for k, v in states._asdict().items()})
@@ -77,9 +77,10 @@ np.savez(os.path.join(out_dir, 'jax_outs.npz'), frames=np.asarray(fb),
 """
 
 
-def run_jax_lanes(out, n_lanes: int, n_textures: int, n_frames: int, route: str = "default"):
-    """Run the JAX batch step on `route` in a subprocess writing into the
-    directory `out`; returns (outputs {field: [T, B, ...]} with frames,
+def run_jax_lanes(out, n_lanes: int, n_textures: int, n_frames: int, route: str = "default",
+                  config: str = "std"):
+    """Run the JAX batch step on `route` at `config` in a subprocess writing
+    into the directory `out`; returns (outputs {field: [T, B, ...]} with frames,
     final_active, final_full; the stacked initial state {field: array})."""
     env = {k: v for k, v in os.environ.items() if k not in ("JAX_ENABLE_X64", "SCENELIB2_BATCH_SB")}
     env["PYTHONPATH"] = REPO
@@ -88,7 +89,7 @@ def run_jax_lanes(out, n_lanes: int, n_textures: int, n_frames: int, route: str 
                         + " --xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1").strip()
     res = subprocess.run(
         [sys.executable, "-c", _JAX_RUNNER, REPO, str(out), str(n_lanes), str(n_textures), str(n_frames),
-         route],
+         route, config],
         capture_output=True, text=True, timeout=900, env=env, cwd=REPO)
     assert res.returncode == 0, res.stderr[-3000:]
     with np.load(os.path.join(out, "jax_outs.npz")) as z:
@@ -113,20 +114,21 @@ def history(lane_outs) -> str:
 
 
 def assert_port_equals_jax(want, state0, tmp_path, n_lanes: int, n_textures: int, n_frames: int,
-                           route: str = "default"):
-    """Replay the port's batch step on `route` (CPU) from the JAX lanes'
-    state and hold it to the JAX outputs; returns the port's outputs."""
+                           route: str = "default", config: str = "std"):
+    """Replay the port's batch step on `route` (CPU) at `config` from the JAX
+    lanes' state and hold it to the JAX outputs; returns the port's
+    outputs."""
     frames = want["frames"]                                         # [T, B, H, W]
     assert frames.shape[:2] == (n_frames, n_lanes)
 
     # the port builds the same lanes from its own generator and config reader
     params, own, own_frames = make_lanes(str(tmp_path), n_lanes, n_textures, n_frames + 1,
-                                         device="cpu", dtype=torch.float32)
+                                         device="cpu", dtype=torch.float32, config=config)
     assert own_frames.tobytes() == frames.tobytes()
     states = state_from_jax(state0, "cpu", torch.float32)
     for k, v in state_to_numpy(own).items():
         np.testing.assert_array_equal(v, state_to_numpy(states)[k], err_msg=k)
-    assert params.batch_mode and params.max_features == 16
+    assert params.batch_mode and params.max_features == CONFIGS[config][1]["max_features"]
 
     if route == "bp0":
         params = dataclasses.replace(params, batch_pallas=False)
@@ -149,3 +151,14 @@ def assert_port_equals_jax(want, state0, tmp_path, n_lanes: int, n_textures: int
     np.testing.assert_array_equal(final.full.numpy(), want["final_full"])
     np.testing.assert_array_equal(final.frame_no.numpy(), np.full(n_lanes, n_frames))
     return got
+
+
+def assert_hires_route_equals_jax(route: str, tmp_path_factory, tmp_path, n_lanes: int = 2, n_frames: int = 12):
+    """Two lanes of the hires texture of seed 7 on `route` at BASELINE config
+    3, port against JAX frame by frame: every particle row is 256 lanes wide
+    at its 200 particles, and a partial feature is searched and converts."""
+    want, state0 = run_jax_lanes(tmp_path_factory.mktemp(f"jax_hires_{route}"), n_lanes, 1, n_frames,
+                                 route=route, config="hires")
+    got = assert_port_equals_jax(want, state0, tmp_path, n_lanes, 1, n_frames, route=route, config="hires")
+    assert state0["lam"].shape[-1] == 200 and got.par_alive.shape[-1] == 200
+    assert want["par_mask"].any() and want["did_convert"].any()
