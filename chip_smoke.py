@@ -16,17 +16,19 @@ Phases (any failure exits non-zero before the last line is printed):
     empty union box, overflowing particles, a sell-by kill) and on the
     inputs of real frames of the synthetic sequence with mapping on (output
     index 9: the first init; 20: the first conversion; 120): decisions and
-    integers exactly equal, floats within the stated tolerances; then each
+    integers exactly equal, floats within the stated tolerances (K3, K9,
+    K14 and the kernels of phases 2b-3f: max abs error 0); then each
     kernel's and plain version's time.
  2b. the particle kernels past 128 particles and the three kernels that no
     route runs: K10, K11 (making and not), K12 in both row forms and K4 with
-    its variations at NP = 200, 300 and 1,100 (rows of 256, 512 and 1,152
-    lanes) on seeded slots; K10b (NP 100, 200, degenerate depths), K15
+    its variations at NP = 200, 300, 1,100, 5,120 and 16,384 (rows of 256,
+    512 and 1,152 lanes held in shared memory, and two rows past its 4,096
+    particles, on the kernels' workspace path) on seeded slots; K10b (NP 100, 200, degenerate depths), K15
     (D = 109 and 128, M up to 128, any_succ false, a NaN in a deleted slot,
     and frame 120's inputs) and K16 (degenerate particles, dead ones, a tie,
     a NaN score) on seeded cases: each at max abs error 0 against its plain
     version; K15 on the JAX XLA branch's H, nu, R of frame 120 against K3
-    (K3_TOL); K10b in 3b on K10's prologue geometry of captured batch steps
+    (bit for bit); K10b in 3b on K10's prologue geometry of captured batch steps
     (K10's rows bit for bit), K16 in 3e on the maps and clouds of K13's
     captured calls (K13's decisions for every live particle); each one's
     kernel, device and plain times; K12 re-timed at 200 particles.
@@ -93,6 +95,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import statistics
@@ -114,10 +117,8 @@ PEAK_F32 = 67e12
 
 K1_TOL = 1e-5     # |a - b| <= K1_TOL * (largest |entry| of that row / matrix)
 K2_BEST_ULP = 2   # NSSD best: within 2 ulp
-K3_TOL = 1e-5     # x', P': |a - b| <= K3_TOL * max |entry|
 K4_TOL = 1e-5     # K4 floats (prob, moments, prediction rows, best): within K4_TOL * max |entry|
 K6_TOL = 1e-6     # K6 eigenvalue: relative
-K9_TOL = 2e-5     # K9 score map: absolute, on cells that are neither 1e6 on both
 K14_TOL = 1e-5    # K14 L^-1: within K14_TOL * max |entry| (the recurrence is K3's, bit-exact by design)
 N_LANES, N_TEXTURES, N_BATCH_FRAMES = 64, 32, 64    # the batch replay: 63 frames a lane
 BATCH_AT = (9, 20, 40)     # output indices whose kernel inputs are captured
@@ -388,11 +389,12 @@ def check_k3(args, c) -> float:
     for name, a, b in zip(("attempts", "successes", "sched", "kill"), got[2:], want[2:]):
         if not same(a, b):
             fail(f"K3 {name} differs: kernel {a.tolist()} plain {b.tolist()}")
-    if not (matrix_close(got[0], want[0], K3_TOL) and matrix_close(got[1], want[1], K3_TOL)):
-        fail("K3 x'/P' outside tolerance")
+    err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+    if not (same_floats(got[0], want[0]) and same_floats(got[1], want[1])):
+        fail(f"K3 x'/P' differ from the plain version (max abs err {err})")
     if not same(got[1], got[1].T):
         fail("K3 P' not symmetric")
-    return max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+    return err
 
 
 def same_floats(a, b) -> bool:
@@ -593,8 +595,8 @@ def check_k9(frames, rows, c) -> float:
     torch.cuda.synchronize()
     if not same(got == MISS, want == MISS):
         fail("K9 invalid-centre cells differ")
-    if not (nonfinite_equal(got, want) and max_err(got, want) <= K9_TOL):
-        fail(f"K9 scores outside tolerance: max abs err {max_err(got, want)}")
+    if not same_floats(got, want):
+        fail(f"K9 scores differ from the plain version: max abs err {max_err(got, want)}")
     return max_err(got, want)
 
 
@@ -1149,7 +1151,9 @@ def check_k14(S) -> float:
 
 # ------------------------------------------------------------ 2b: K10b, K15, K16; the widened particle kernels
 
-WIDE_NP = (200, 300, 1100)   # the widened particle kernels' seeded NP: hires', 3 lane chunks, above 1,024 threads
+# the widened particle kernels' seeded NP: hires', 3 lane chunks, above 1,024
+# threads, and two rows past the 4,096 held in shared memory (the workspace path)
+WIDE_NP = (200, 300, 1100, 5120, 16384)
 
 
 def wide_slot(rng, dev, n_slots: int):
@@ -2025,6 +2029,9 @@ def main() -> int:
             errs["K2"] = max(errs["K2"], check_k2(k2_random_scene(rng, p, dev, tie=trial < 2), sc))
             mode = ("none", "run", "mixed")[trial % 3]
             errs["K3"] = max(errs["K3"], check_k3(k3_random_scene(rng, p, dev, mode), uc))
+        # M = 34 > 32: K3 factorises with the whole block instead of one warp
+        p34 = dataclasses.replace(p, max_features=20, n_features_to_select=17)
+        errs["K3"] = max(errs["K3"], check_k3(k3_random_scene(rng, p34, dev, "mixed"), uc))
         seen = capture_inputs(slam, frames, at=(9, 20, 120))
         a1, kw1 = seen[120]["predict_measure"]
         a2, _ = seen[120]["search"]
@@ -2046,7 +2053,7 @@ def main() -> int:
             for _label, args in k4_variations(a4, rng, H, W, B, p.erase_partial_after_attempts):
                 errs["K4"] = max(errs["K4"], check_k4(args))
                 n_cases["K4"] += 1
-        log(f"[2] kernels equal their plain versions: K1-K3 on 6 random scenes + frame 120, "
+        log(f"[2] kernels equal their plain versions: K1-K3 on 6 random scenes + frame 120 (K3 also at M = 34), "
             f"K4/K5/K6 on {n_cases} cases from frames 9, 20, 120 and their variations "
             f"(max abs err {json.dumps(errs)})")
         k14_err = 0.0
@@ -2058,7 +2065,8 @@ def main() -> int:
         # ---- 2b. the widened particle kernels; K10b, K15, K16 (entry points of their own)
         werrs = check_wide(rng, p, dev)
         log(f"[2b] K10, K11 (making and not), K12 (both forms) and K4 (with its variations) equal their "
-            f"plain versions at NP = {WIDE_NP} on seeded slots (rows of 256, 512 and 1,152 lanes) "
+            f"plain versions at NP = {WIDE_NP} on seeded slots (rows of 256, 512, 1,152, 5,120 and "
+            f"16,384 lanes) "
             f"(max abs err {json.dumps(werrs)})")
         lerrs = {"K10b": 0.0, "K15": 0.0, "K16": 0.0}
         for _label, args in k10b_seeded(rng, p, dev):
@@ -2070,8 +2078,8 @@ def main() -> int:
         lerrs["K15"] = max(lerrs["K15"], check_k15(a15))
         k15_res = ekf_update.joint_update_dense(*a15)
         torch.cuda.synchronize()
-        if not (matrix_close(k15_res[0], k3_res[0], K3_TOL) and matrix_close(k15_res[1], k3_res[1], K3_TOL)):
-            fail("K15 on the JAX XLA branch's H, nu, R differs from K3 on frame 120 beyond K3_TOL")
+        if not (same_floats(k15_res[0], k3_res[0]) and same_floats(k15_res[1], k3_res[1])):
+            fail("K15 on the JAX XLA branch's H, nu, R differs from K3 on frame 120")
         k15_vs_k3 = max(max_err(k15_res[0], k3_res[0]), max_err(k15_res[1], k3_res[1]))
         for wr in (16, p.particle_win_radius):
             lerrs["K16"] = max(lerrs["K16"], check_k16(k16_seeded(rng, p, dev), dict(
@@ -2080,7 +2088,7 @@ def main() -> int:
             f"a NaN in a deleted slot) and K16 (centres off the frame, NaN centre and S^-1, an indefinite "
             f"S^-1, dead particles, a tie, a NaN score) equal their plain versions on seeded cases, K15 also "
             f"on frame 120 (max abs err {json.dumps(lerrs)}); K15 on the XLA branch's H, nu, R of frame 120 "
-            f"equals K3 within K3_TOL (max abs err {k15_vs_k3})")
+            f"equals K3 bit for bit (max abs err {k15_vs_k3})")
         last = {"K15": dict(
             ms=time_ms(lambda: ekf_update.joint_update_dense(*a15)),
             plain_ms=time_ms(lambda: ekf_update.joint_update_dense_plain(*a15), n=5, batches=3),
@@ -2271,10 +2279,14 @@ def main() -> int:
         for _trial in range(3):
             worse("K7", check_k7(k7_random_scene(rng, p, dev), mc, nsel))
             worse("K9", check_k9(*k9_random_scene(rng, p, dev), smc))
+        # a frame width that is no multiple of 4: K9 stages bytes and stores scalars
+        f9, r9 = k9_random_scene(rng, p, dev)
+        worse("K9", check_k9(f9[:, 3:, 2:].contiguous(), r9, dataclasses.replace(smc, H=H - 3, W=W - 2)))
         for at in (9, 20, 120):
             check_k10_k11_against_k4(seen[at]["search_bayes"][0], smc, sbc)
         log("[3b] K7 and K9 equal their plain versions on 3 seeded scenes each (a NaN score, an "
-            "all-invisible lane, equal scores; a flat image, a flat patch, tied scores); K10's rows "
+            "all-invisible lane, equal scores; a flat image, a flat patch, tied scores; K9 also at "
+            f"{W - 2}x{H - 3}); K10's rows "
             "and K11's results given K9's map equal K4's exactly on the single-stream frames 9, 20, 120")
 
         t0 = time.time()

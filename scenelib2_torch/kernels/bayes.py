@@ -29,8 +29,11 @@ Design (csrc/bayes.cu): one block per row, one particle a thread up to
 1,024 particles (a thread per lane of the sums' tree); above it a thread
 holds up to bayes_tail.cuh's BT_MAX_CHUNKS particles, strided by the
 block's 1,024 threads (the kernel is built for both and picks one at
-launch), calling bayes_tail.cuh exactly as K11 does. The kernels take at most MAX_NP particles: the tree's
-buffer and K4's and K11's per-particle rows live in shared memory.
+launch), calling bayes_tail.cuh exactly as K11 does. Rows of more than
+CHUNK_NP particles take a third form that the kernel is built for too: the
+threads loop over the row and the tree's buffer lies in a global workspace
+that the wrapper allocates (K4 and K11 likewise move their per-particle
+rows there), with the same trees, so the kernels take any NP.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ import torch
 from scenelib2_torch.kernels import _build
 
 LANE_BLOCK = 128
-MAX_NP = 4096      # particles of K4, K11 and K12 (bayes_tail.cuh: BT_MAX_CHUNKS x 1,024 threads)
+# the largest row that K4, K11 and K12 hold in registers and shared memory
+# (bayes_tail.cuh: BT_MAX_CHUNKS x 1,024 threads); longer rows need a workspace
+CHUNK_NP = 4096
 NAME = "bayes"
 # K10's prediction rows: HU, HV, S00, S01, S11, DET first (kernels/particle.py ROW_*)
 PRED_HU, PRED_HV, PRED_S00, PRED_S01, PRED_S11, PRED_DET = range(6)
@@ -168,8 +173,8 @@ class _K12Params(ctypes.Structure):
                                                  "erase_partial_after_attempts")])
 
 
-# tensor pointers (13 inputs, 7 outputs), F, the params struct, the stream
-_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int, ctypes.POINTER(_K12Params), ctypes.c_void_p]
+# tensor pointers (13 inputs, 7 outputs, the wide rows' workspace), F, the params struct, the stream
+_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int, ctypes.POINTER(_K12Params), ctypes.c_void_p]
 
 
 def bayes_update(prob, lam, palive, found, p_over, z, hpi, sinv, dets, making, pmask,
@@ -198,8 +203,6 @@ def bayes_update(prob, lam, palive, found, p_over, z, hpi, sinv, dets, making, p
 def _launch(prob, lam, palive, found, p_over, z, hpi, sinv, dets, making, pmask, match_attempts,
             bc: BayesConsts, pred):
     Fn, NP = prob.shape
-    if NP > MAX_NP:
-        raise ValueError(f"K12: at most {MAX_NP} particles, got {NP}")
     f32, b, i32 = torch.float32, torch.bool, torch.int32
     ins = [t.contiguous() for t in (prob, lam, palive, found, p_over, z)]
     checks = list(zip(ins, ("prob", "lam", "palive", "found", "p_over", "z"), (f32, f32, b, b, b, f32),
@@ -223,12 +226,15 @@ def _launch(prob, lam, palive, found, p_over, z, hpi, sinv, dets, making, pmask,
             torch.empty(Fn, dtype=f32, device=dev), torch.empty(Fn, dtype=f32, device=dev),
             torch.empty(Fn, dtype=b, device=dev), torch.empty(Fn, dtype=b, device=dev),
             torch.empty(Fn, dtype=i32, device=dev))
+    # rows past CHUNK_NP keep each row's tree in global memory
+    wide = torch.empty((Fn, tree_width(NP)), dtype=f32, device=dev) if NP > CHUNK_NP else None
     prm = _K12Params(NP=NP, width=tree_width(NP), pred_w=pred_w, prune_prob_thresh=bc.prune_prob_thresh,
                      sd_depth_ratio=bc.sd_depth_ratio, min_particles=bc.min_particles,
                      erase_partial_after_attempts=bc.erase_partial_after_attempts)
     fn = _build.function(NAME, "k12_bayes", _ARGTYPES)
     err = fn(*(t.data_ptr() for t in ins), *geo_ptrs, *(t.data_ptr() for t in flags),
-             *(t.data_ptr() for t in outs), Fn, ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
+             *(t.data_ptr() for t in outs), None if wide is None else wide.data_ptr(), Fn, ctypes.byref(prm),
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K12 bayes")
     _build.launches[NAME] += 1
     return outs

@@ -4,8 +4,8 @@
 // Replaces scenelib2_tpu/kernels/pallas_ekf.py (pallas_joint_update_norm /
 // _update_kernel, pallas_call at pallas_ekf.py:150, kernel :39-114): S = H P
 // H' + R; L^-1, S^-1, W = P H' S^-1, x' = x + W nu, P' = P - (W S) W' and
-// the quaternion-norm transform of P' (update_tail.cuh, the device code K3
-// runs from S on); the prior where any_succ is false; the keep mask as a
+// the quaternion-norm transform of P' (update_tail.cuh: the operations K3
+// runs from S on, in one block); the prior where any_succ is false; the keep mask as a
 // multiply (P * keep keep', x * keep: a NaN in a deleted row stays NaN, as
 // in the TPU kernel); P/2 + P'/2, P' formed as the TPU kernel forms it, the
 // product P I (a non-finite entry spreads NaN along its row of P'). The

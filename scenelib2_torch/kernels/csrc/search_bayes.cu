@@ -21,9 +21,12 @@
 // over the whole frame), ~77 k scored cells x 3 x 121 multiply-adds:
 // ~3 us at the f32 rate; typically far less. Design: one block of 1024
 // threads, in phases separated by __syncthreads; thread t holds the
-// particles t, t + 1024, ... (bayes_tail.cuh's chunks: NP <= 4,096; each
-// kernel is built for NC = 1 and NC = 4 chunks a thread and picks one at
-// launch, so that up to 1,024 particles it keeps no per-thread arrays):
+// particles t, t + 1024, ... (bayes_tail.cuh's chunks; each kernel is built
+// for NC = 1 and NC = 4 chunks a thread and picks one at launch, so that up
+// to 1,024 particles it keeps no per-thread arrays; beyond 4,096 particles
+// NC = 0: the threads loop over the row, the per-particle arrays below move
+// from dynamic shared memory to a global workspace that the wrapper
+// allocates, and the tail is bayes_tail_wide, with the same trees):
 //   1. thread 0: the slot geometry prologue; each thread: the particle chain
 //      of its particles into the prediction rows (dynamic shared memory,
 //      [8][NP]);
@@ -128,12 +131,30 @@ __device__ __forceinline__ SearchGeom search_geom(float hu, float hv, float hw, 
 // [8][NP], best [NP], key [NP], the tree buffer [width]
 static size_t sb_smem(int NP, int width) { return sizeof(float) * ((size_t)10 * NP + width); }
 
+// f(l) for each of this thread's particles: l = t, t + blockDim.x, ... (NC
+// of them at most; NC = 0: as many as the row needs)
+template <int NC, typename F>
+__device__ __forceinline__ void sb_particles(int NP, int nc, F f) {
+  if constexpr (NC == 0) {
+    for (int l = threadIdx.x; l < NP; l += blockDim.x) f(l);
+  } else {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int l = threadIdx.x + c * blockDim.x;
+      if (c < nc && l < NP) f(l);
+    }
+  }
+}
+
 // PRE = false (K4): frame is the u8 frame, corr_maps and pred_in are unused,
 // prob / lam / palive are the whole [MF, NP] arrays and pidx_p picks the row.
 // PRE = true (K11): block blk serves (lane, slot) blk; corr_maps [blk][H][W]
 // and pred_in [blk][8][pred_w] are read, prob / lam / palive / outputs are
 // [blk][NP] rows, making / pmask / ma and the scalars are [blk]; frame,
 // pidx_p, patch_row, shared_row, slot_row, pred_o and ws are unused.
+// NC = 1 or BT_MAX_CHUNKS: the per-particle arrays in dynamic shared memory;
+// NC = 0 (rows of more than BT_MAX_CHUNKS x K4_THREADS particles): in
+// wide_ws, sb_smem's floats a block (K11: block blk at blk x that).
 template <bool PRE, int NC>
 __device__ __forceinline__ void
 sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
@@ -146,7 +167,7 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
           uint8_t* __restrict__ palive_o, float* __restrict__ mean_o, float* __restrict__ cov_o,
           uint8_t* __restrict__ convert_o, uint8_t* __restrict__ kill_o, int* __restrict__ nover_o,
           uint8_t* __restrict__ found_o, float* __restrict__ z_o, float* __restrict__ best_o,
-          float* __restrict__ pred_o, float* __restrict__ ws, K4Params p) {
+          float* __restrict__ pred_o, float* __restrict__ ws, float* wide_ws, K4Params p) {
   __shared__ float geom[GEOM_N];
   __shared__ float patch[128];
   __shared__ int scan[4];  // v_lo, v_hi, u_lo, u_hi of the scanned region
@@ -154,12 +175,12 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
   extern __shared__ float dyn[];
   const int t = threadIdx.x, nt = blockDim.x;
   const int NP = p.NP, H = p.H, W = p.W;
-  float* pred = dyn;                   // [NROWS][NP]
+  const int blk = PRE ? blockIdx.x : 0;
+  float* pred = NC == 0 ? wide_ws + (size_t)blk * (NROWS + 2) * NP + (size_t)blk * p.width : dyn;  // [NROWS][NP]
   float* s_best = pred + NROWS * NP;   // [NP]
   float* s_kbest = s_best + NP;        // [NP]
   float* buf = s_kbest + NP;           // [width]
   const int nc = bt_nc<NC>(NP);
-  const int blk = PRE ? blockIdx.x : 0;
   const int pidx = PRE ? blk : pidx_p[0];  // the row of prob / lam / palive
   const bool making = making_p[blk] != 0;
   const bool pmask = pmask_p[blk] != 0;
@@ -173,30 +194,20 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
     if (t < 128) patch[t] = patch_row[t];
     __syncthreads();
   }
-  BayesLane in[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int l = t + c * nt;
-    BayesLane q = {0.0f, 0.0f, false, false, false, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (c < nc && l < NP) {
-      q.prob = prob[pidx * NP + l];
-      q.lam = lam[pidx * NP + l];
-      q.palive = palive[pidx * NP + l] != 0;
-      float pr[NROWS];
-      if (PRE) {
-        for (int r = 0; r < NROWS; ++r) pr[r] = pred_in[((size_t)blk * NROWS + r) * p.pred_w + l];
-      } else {
-        const ParticleConsts pc = {p.fku, p.fkv, p.u0c, p.v0c, p.two_kd1, p.neg_two_kd1, p.sd0,
-                                   p.maxdist, p.no_sigma};
-        particle_tail(q.lam, geom, pc, pr);
-      }
-      for (int r = 0; r < NROWS; ++r) {
-        pred[r * NP + l] = pr[r];
-        if (!PRE) pred_o[r * NP + l] = pr[r];
-      }
+  sb_particles<NC>(NP, nc, [&](int l) {
+    float pr[NROWS];
+    if (PRE) {
+      for (int r = 0; r < NROWS; ++r) pr[r] = pred_in[((size_t)blk * NROWS + r) * p.pred_w + l];
+    } else {
+      const ParticleConsts pc = {p.fku, p.fkv, p.u0c, p.v0c, p.two_kd1, p.neg_two_kd1, p.sd0,
+                                 p.maxdist, p.no_sigma};
+      particle_tail(lam[pidx * NP + l], geom, pc, pr);
     }
-    in[c] = q;
-  }
+    for (int r = 0; r < NROWS; ++r) {
+      pred[r * NP + l] = pr[r];
+      if (!PRE) pred_o[r * NP + l] = pr[r];
+    }
+  });
   __syncthreads();
 
   // ---- 2. union box and scanned region ------------------------------------
@@ -205,18 +216,16 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
   const int warp = t >> 5, wl = t & 31;
   {
     float box[4] = {K4_BIG, -K4_BIG, K4_BIG, -K4_BIG};  // v_lo, v_hi, u_lo, u_hi
-#pragma unroll
-    for (int c = 0; c < NC && c < nc; ++c) {
-      const int l = t + c * nt;
-      if (l >= NP || !(in[c].palive && making)) continue;
+    sb_particles<NC>(NP, nc, [&](int l) {
+      if (!(palive[pidx * NP + l] != 0 && making)) return;
       const SearchGeom g = search_geom(pred[ROW_HU * NP + l], pred[ROW_HV * NP + l], pred[ROW_HW * NP + l],
                                        pred[ROW_HH * NP + l], p);
-      if (!(g.vlo < g.vhi && g.ulo < g.uhi)) continue;
+      if (!(g.vlo < g.vhi && g.ulo < g.uhi)) return;
       box[0] = fminf(box[0], g.vlo);
       box[1] = fmaxf(box[1], g.vhi);
       box[2] = fminf(box[2], g.ulo);
       box[3] = fmaxf(box[3], g.uhi);
-    }
+    });
     for (int o = 16; o > 0; o >>= 1) {
       box[0] = fminf(box[0], __shfl_xor_sync(0xffffffffu, box[0], o));
       box[1] = fmaxf(box[1], __shfl_xor_sync(0xffffffffu, box[1], o));
@@ -316,14 +325,15 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
   __syncthreads();
 
   // ---- 5. Bayes tail and outputs --------------------------------------------
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int l = t + c * nt;
-    if (!(c < nc && l < NP)) continue;
-    BayesLane& q = in[c];
+  // particle l's tail inputs: its row, its search result, its prediction rows
+  auto lane_of = [&](int l) {
+    BayesLane q;
+    q.prob = prob[pidx * NP + l];
+    q.lam = lam[pidx * NP + l];
+    q.palive = palive[pidx * NP + l] != 0;
     const bool searchable = q.palive && making;
-    const float best = s_best[l], kb = s_kbest[l];
-    q.found = searchable && best <= p.corr_thresh2;
+    const float kb = s_kbest[l];
+    q.found = searchable && s_best[l] <= p.corr_thresh2;
     q.p_over = searchable && (pred[ROW_HW * NP + l] > (float)p.win_radius ||
                               pred[ROW_HH * NP + l] > (float)p.win_radius);
     q.zu = truncf((kb + 0.5f) / (float)H);
@@ -334,23 +344,41 @@ sb_body(const uint8_t* __restrict__ frame, const float* __restrict__ corr_maps,
     q.b = pred[ROW_S01 * NP + l];
     q.c = pred[ROW_S11 * NP + l];
     q.det = pred[ROW_DET * NP + l];
+    return q;
+  };
+  sb_particles<NC>(NP, nc, [&](int l) {
+    const BayesLane q = lane_of(l);
     found_o[blk * NP + l] = q.found;
     z_o[2 * (blk * NP + l)] = q.zu;
     z_o[2 * (blk * NP + l) + 1] = q.zv;
-    best_o[blk * NP + l] = best;
-  }
+    best_o[blk * NP + l] = s_best[l];
+  });
   const BayesConsts bc = {p.prune_prob_thresh, p.sd_depth_ratio, p.min_particles,
                           p.erase_partial_after_attempts};
-  float prob_f[NC];
-  bool alive_f[NC];
-  const BayesResult res = bayes_tail<NC>(in, nc, making, pmask, ma, bc, buf, p.width, prob_f, alive_f);
+  BayesResult res;
   // the slot's row (K4: row pidx of the full-width arrays; K11: the block's row)
+  if constexpr (NC == 0) {
+    res = bayes_tail_wide(lane_of, NP, making, pmask, ma, bc, buf, p.width, prob_o + (size_t)pidx * NP,
+                          palive_o + (size_t)pidx * NP);
+  } else {
+    BayesLane in[NC];
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int l = t + c * nt;
-    if (c < nc && l < NP) {
-      prob_o[pidx * NP + l] = prob_f[c];
-      palive_o[pidx * NP + l] = alive_f[c];
+    for (int c = 0; c < NC; ++c) {
+      const int l = t + c * nt;
+      BayesLane q = {0.0f, 0.0f, false, false, false, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (c < nc && l < NP) q = lane_of(l);
+      in[c] = q;
+    }
+    float prob_f[NC];
+    bool alive_f[NC];
+    res = bayes_tail<NC>(in, nc, making, pmask, ma, bc, buf, p.width, prob_f, alive_f);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int l = t + c * nt;
+      if (c < nc && l < NP) {
+        prob_o[pidx * NP + l] = prob_f[c];
+        palive_o[pidx * NP + l] = alive_f[c];
+      }
     }
   }
   if (!PRE) {
@@ -377,10 +405,10 @@ k4_kernel(const uint8_t* frame, const float* prob, const float* lam, const uint8
           const float* patch_row, const float* shared_row, const float* slot_row, float* prob_o,
           uint8_t* palive_o, float* mean_o, float* cov_o, uint8_t* convert_o, uint8_t* kill_o,
           int* nover_o, uint8_t* found_o, float* z_o, float* best_o, float* pred_o, float* ws,
-          K4Params p) {
+          float* wide_ws, K4Params p) {
   sb_body<false, NC>(frame, nullptr, nullptr, prob, lam, palive, making, pmask, ma, pidx, patch_row,
                  shared_row, slot_row, prob_o, palive_o, mean_o, cov_o, convert_o, kill_o, nover_o,
-                 found_o, z_o, best_o, pred_o, ws, p);
+                 found_o, z_o, best_o, pred_o, ws, wide_ws, p);
 }
 
 template <int NC>
@@ -388,26 +416,34 @@ __global__ void __launch_bounds__(K4_THREADS)
 k11_kernel(const float* corr_maps, const float* pred_rows, const float* prob, const float* lam,
            const uint8_t* palive, const uint8_t* making, const uint8_t* pmask, const int* ma,
            float* prob_o, uint8_t* palive_o, float* mean_o, float* cov_o, uint8_t* convert_o,
-           uint8_t* kill_o, int* nover_o, uint8_t* found_o, float* z_o, float* best_o, K4Params p) {
+           uint8_t* kill_o, int* nover_o, uint8_t* found_o, float* z_o, float* best_o, float* wide_ws,
+           K4Params p) {
   sb_body<true, NC>(nullptr, corr_maps, pred_rows, prob, lam, palive, making, pmask, ma, nullptr, nullptr,
                 nullptr, nullptr, prob_o, palive_o, mean_o, cov_o, convert_o, kill_o, nover_o, found_o,
-                z_o, best_o, nullptr, nullptr, p);
+                z_o, best_o, nullptr, nullptr, wide_ws, p);
 }
 
-// the dynamic shared memory of either kernel (out: smem) and its chunks a
-// thread (out: one, NC = 1 up to K4_THREADS particles); invalid if NP or
-// width is out of range. NC = 1 needs at most 45 KB; the NC = 4 kernels opt
-// in to the size of BT_MAX_CHUNKS x K4_THREADS particles once per device
-// (`opted`: a bit per device) on their first launch there.
+// the chunks a thread of the launch (out: nc, 1 up to K4_THREADS particles,
+// BT_MAX_CHUNKS up to BT_MAX_CHUNKS x K4_THREADS, else 0: the wide path,
+// which needs wide_ws) and its dynamic shared memory (out: smem, 0 on the
+// wide path); invalid if NP or width is out of range. NC = 1 needs at most
+// 45 KB; the NC = 4 kernels opt in to the size of BT_MAX_CHUNKS x K4_THREADS
+// particles once per device (`opted`: a bit per device) on their first
+// launch there.
 template <typename K>
-static cudaError_t sb_prepare(K kernel4, unsigned long long* opted, const K4Params* p, size_t* smem, bool* one) {
+static cudaError_t sb_prepare(K kernel4, unsigned long long* opted, const K4Params* p, const float* wide_ws,
+                              size_t* smem, int* nc) {
   const int max_np = BT_MAX_CHUNKS * K4_THREADS;
-  if (p->NP < 1 || p->NP > max_np || p->width < p->NP || (p->width & (p->width - 1)) != 0 ||
-      p->B * p->B + 2 > 128)
+  if (p->NP < 1 || p->width < p->NP || (p->width & (p->width - 1)) != 0 || p->B * p->B + 2 > 128)
     return cudaErrorInvalidValue;
+  if (p->NP > max_np) {
+    *nc = 0;
+    *smem = 0;
+    return wide_ws == nullptr ? cudaErrorInvalidValue : cudaSuccess;
+  }
   *smem = sb_smem(p->NP, p->width);
-  *one = p->NP <= K4_THREADS;
-  if (*one) return cudaSuccess;
+  *nc = p->NP <= K4_THREADS ? 1 : BT_MAX_CHUNKS;
+  if (*nc == 1) return cudaSuccess;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -418,22 +454,24 @@ static cudaError_t sb_prepare(K kernel4, unsigned long long* opted, const K4Para
   return e;
 }
 
+// wide_ws: sb_smem(NP, width) bytes a block where NP > BT_MAX_CHUNKS x
+// K4_THREADS (search_bayes.py::wide_workspace_floats), else unused
 extern "C" int k4_search_bayes(const uint8_t* frame, const float* prob, const float* lam,
                                const uint8_t* palive, const uint8_t* making, const uint8_t* pmask,
                                const int* match_attempts, const int* pidx, const float* patch_row,
                                const float* shared_row, const float* slot_row, float* prob_o,
                                uint8_t* palive_o, float* mean, float* cov, uint8_t* convert,
                                uint8_t* kill, int* n_over, uint8_t* found, float* z, float* best,
-                               float* pred, float* workspace, const K4Params* p, void* stream) {
+                               float* pred, float* workspace, float* wide_ws, const K4Params* p, void* stream) {
   static unsigned long long opted = 0;
   size_t smem = 0;
-  bool one = true;
-  const cudaError_t e = sb_prepare(k4_kernel<BT_MAX_CHUNKS>, &opted, p, &smem, &one);
+  int nc = 1;
+  const cudaError_t e = sb_prepare(k4_kernel<BT_MAX_CHUNKS>, &opted, p, wide_ws, &smem, &nc);
   if (e != cudaSuccess) return (int)e;
-  auto kernel = one ? k4_kernel<1> : k4_kernel<BT_MAX_CHUNKS>;
+  auto kernel = nc == 0 ? k4_kernel<0> : nc == 1 ? k4_kernel<1> : k4_kernel<BT_MAX_CHUNKS>;
   kernel<<<1, K4_THREADS, smem, (cudaStream_t)stream>>>(
       frame, prob, lam, palive, making, pmask, match_attempts, pidx, patch_row, shared_row, slot_row,
-      prob_o, palive_o, mean, cov, convert, kill, n_over, found, z, best, pred, workspace, *p);
+      prob_o, palive_o, mean, cov, convert, kill, n_over, found, z, best, pred, workspace, wide_ws, *p);
   return (int)cudaGetLastError();
 }
 
@@ -443,17 +481,17 @@ extern "C" int k11_search_bayes_maps(const float* corr_maps, const float* pred_r
                                      const uint8_t* pmask, const int* match_attempts, float* prob_o,
                                      uint8_t* palive_o, float* mean, float* cov, uint8_t* convert,
                                      uint8_t* kill, int* n_over, uint8_t* found, float* z, float* best,
-                                     int n_blocks, const K4Params* p, void* stream) {
+                                     float* wide_ws, int n_blocks, const K4Params* p, void* stream) {
   if (p->pred_w < p->NP) return (int)cudaErrorInvalidValue;
   static unsigned long long opted = 0;
   size_t smem = 0;
-  bool one = true;
-  const cudaError_t e = sb_prepare(k11_kernel<BT_MAX_CHUNKS>, &opted, p, &smem, &one);
+  int nc = 1;
+  const cudaError_t e = sb_prepare(k11_kernel<BT_MAX_CHUNKS>, &opted, p, wide_ws, &smem, &nc);
   if (e != cudaSuccess) return (int)e;
   if (n_blocks == 0) return 0;
-  auto kernel = one ? k11_kernel<1> : k11_kernel<BT_MAX_CHUNKS>;
+  auto kernel = nc == 0 ? k11_kernel<0> : nc == 1 ? k11_kernel<1> : k11_kernel<BT_MAX_CHUNKS>;
   kernel<<<n_blocks, K4_THREADS, smem, (cudaStream_t)stream>>>(
       corr_maps, pred_rows, prob, lam, palive, making, pmask, match_attempts, prob_o, palive_o, mean,
-      cov, convert, kill, n_over, found, z, best, *p);
+      cov, convert, kill, n_over, found, z, best, wide_ws, *p);
   return (int)cudaGetLastError();
 }

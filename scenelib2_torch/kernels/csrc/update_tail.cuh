@@ -9,7 +9,8 @@
 // quaternion-norm Jacobian (monoslam.cpp:616-637). The plain PyTorch twin is
 // scenelib2_torch/kernels/ekf_update.py::update_tail; every sum runs left to
 // right in the same order there and here (built with -fmad=false). Included
-// by ekf_update.cu (K3) and ekf_update_dense.cu (K15).
+// by ekf_update_dense.cu (K15); K3 (ekf_update.cu) runs the same operations
+// in the same order spread over a thread-block cluster.
 //
 // Every thread of the block calls it. On entry: PHt [D][M] = P H', S [M][M]
 // = H P H' + R and its copy in A, U [M][M] zero, nu [M]; x [D], P [D][D].

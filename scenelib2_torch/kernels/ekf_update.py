@@ -19,20 +19,24 @@ Replaces the TPU kernel scenelib2_tpu/kernels/pallas_ekf.py
     the persistent scheduled flag;
   zero the killed slots' rows/cols and entries, then P = P/2 + P'/2.
 
-Bound on an H100 at the std shapes (D=109, M=20): ~0.1 MB of P in and out
-and ~1 MFLOP, below a microsecond; the launch and the 2M dependent
-factorisation / substitution steps dominate. Design: one block of 256
-threads; H is never formed (10 non-zeros a row, read from the selected
-columns); the D x M and M x M intermediates live in shared memory, P' in the
-output buffer; each factorisation step is one block-wide pass.
+Bound on an H100: P in and out (0.1 MB at D = 109, 1.1 MB at D = 373) and
+D^2 M multiply-adds, under a microsecond; the launch and the 2M dependent
+factorisation / substitution steps cost more. Design (csrc/ekf_update.cu):
+one launch of a thread-block cluster of 8 CTAs. CTA 0 runs the O(D M^2 + M^3)
+prefix (H is never formed: 10 non-zeros a row, read from the selected
+columns; the factorisation in one warp) up to W, W S, x' and the transform's
+rows and columns 3..6; CTA 1 the bookkeeping; both publish to a global
+workspace that the wrapper allocates; after the cluster barrier every CTA
+forms its share of the 64 x 64 tiles of the upper triangle, both halves of
+P/2 + P'/2 at once.
 
 K15 (joint_update_dense) replaces the TPU kernel's non-compact sibling,
 pallas_ekf.py::pallas_joint_update_norm (pallas_call at pallas_ekf.py:150,
 kernel :39-114), which no step route reaches (the JAX step calls it only
 when fused_update holds without fast_kpath, and fused_update implies
 fast_kpath): H [M, D], nu [M] and R [M, M] come in dense, S = H P H' + R
-sums over every state dimension, the update from S on is K3's
-(update_tail, csrc/update_tail.cuh), then the any-success select, the keep
+sums over every state dimension, the update from S on is the one K3's twin
+runs (update_tail; in the kernel csrc/update_tail.cuh), then the any-success select, the keep
 mask as a multiply (a NaN in a deleted row stays NaN) and P/2 + P'/2, with
 P' formed as the TPU kernel forms it, a product by the identity (a
 non-finite entry spreads NaN along its row of P'). Bound
@@ -46,6 +50,7 @@ block-wide pass.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -83,10 +88,9 @@ def bookkeeping(attempts, successes, sched, active, label, sel_mask, succ, top_i
     MF = attempts.shape[0]
     dev = attempts.device
     idx = top_idx.long()
-    att = attempts.clone()
-    att[idx] = att[idx] + sel_mask.to(torch.int32)
-    suc = successes.clone()
-    suc[idx] = suc[idx] + succ.to(torch.int32)
+    # scatter-add, as the TPU kernel and K3 do: a slot selected twice counts twice
+    att = attempts.index_add(0, idx, sel_mask.to(torch.int32))
+    suc = successes.index_add(0, idx, succ.to(torch.int32))
     f32 = torch.float32
     ratio = torch.where(att > 0, suc.to(f32) / torch.clamp(att, min=1).to(f32),
                         torch.ones((), dtype=f32, device=dev))
@@ -108,7 +112,8 @@ def bookkeeping(attempts, successes, sched, active, label, sel_mask, succ, top_i
 
 
 def update_tail(x, P, PHt, S, nu):
-    """The update from S on, shared by K3 and K15 (csrc/update_tail.cuh):
+    """The update from S on, shared by the twins of K3 and K15 (K15's kernel
+    runs it as csrc/update_tail.cuh, K3's as its cluster's phases):
     L^-1 of S (chol_linv), S^-1 = L^-T L^-1, W = P H' S^-1, x' = x + W nu,
     P' = P - (W S) W', then P' transformed by the quaternion-norm Jacobian
     with the qq=|q|^2 quirk (pallas_ekf.py:68-90). PHt [D, M] = P H', S
@@ -174,8 +179,17 @@ class _K3Params(ctypes.Structure):
     _fields_ = [("min_attempts", ctypes.c_float), ("success_fraction", ctypes.c_float)]
 
 
-# tensor pointers, ints, the params struct, the stream
-_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 3 + [ctypes.POINTER(_K3Params), ctypes.c_void_p]
+# tensor pointers (13 inputs, 6 outputs, the workspace), ints, the params struct, the stream
+_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 3 + [ctypes.POINTER(_K3Params), ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def workspace_floats(D: int, NSEL: int) -> int:
+    """Floats of K3's workspace (csrc/ekf_update.cu::k3_layout): W' and
+    (W S)' [M][Dp], the transform's columns and rows [Dp][4], [4][Dp], the
+    keep factors [Dp] and the any-match flag, Dp = D rounded up to 32."""
+    fn = _build.function(NAME, "k3_workspace_floats", [ctypes.c_int, ctypes.c_int])
+    return int(fn(D, NSEL))
 
 
 def joint_update(x, P, sel, z, succ, offs, attempts, successes, sched, active, label,
@@ -205,11 +219,12 @@ def joint_update(x, P, sel, z, succ, offs, attempts, successes, sched, active, l
     suc = torch.empty_like(successes)
     sch = torch.empty_like(sched)
     kill = torch.empty_like(sched)
+    ws = torch.empty(workspace_floats(D, NSEL), dtype=f32, device=x.device)
     prm = _K3Params(min_attempts=c.min_attempts, success_fraction=c.success_fraction)
     fn = _build.function(NAME, "k3_joint_update", _ARGTYPES)
     err = fn(
         *(t.data_ptr() for t in args), xo.data_ptr(), Po.data_ptr(), att.data_ptr(),
-        suc.data_ptr(), sch.data_ptr(), kill.data_ptr(), D, NSEL, MF, ctypes.byref(prm),
+        suc.data_ptr(), sch.data_ptr(), kill.data_ptr(), ws.data_ptr(), D, NSEL, MF, ctypes.byref(prm),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "K3 joint_update")

@@ -21,10 +21,13 @@ version's order, so the two agree bit for bit.
 Bound on an H100 at 64 lanes of 320x240: 4.9 MB of frames in and 19.7 MB of
 maps out (~7 us at the memory rate) against 64 x 71300 valid centres x 313
 operations (search.nssd_cell_ops) = 1.4 GOP (~21 us at the f32 rate): bound
-by operations. Design:
-one block per (lane x slot, 16 x 32 tile of centres); the tile of the u8
-frame with its 5-pixel halo and the patch row in shared memory; one thread
-per centre sums its 121 taps.
+by operations, most of them the score formula's. Design: one block per
+(lane, 16 x 64 tile of centres), each thread a run of 8 adjacent centres
+along u; the u8 frame tile staged in shared memory; the box sums separable
+in int32 (column sums over B rows, then a sliding sum along u); the cross
+sum with __dp4a on u8 quads (4 exact multiply-adds an instruction: the
+integer sums equal the twin's f32 sums after one exact conversion, which
+tests/test_torch_score_map_int.py holds); the map written 16 bytes a store.
 """
 
 from __future__ import annotations
@@ -57,14 +60,13 @@ class ScoreMapConsts:
                               low_sigma_penalty=p.low_sigma_penalty)
 
 
-def score_map_plain(frames, patch_rows, c: ScoreMapConsts):
-    """Plain PyTorch K9. frames [B, H, W] u8; patch_rows [B, F, 128] f32
-    (pixels | sum | sum of squares). Returns [B, F, H, W] f32. The integer
-    sums are taken as shifted adds in f32 (exact in any order)."""
+def window_sums_plain(frames, patch_rows, c: ScoreMapConsts):
+    """The three sums of every centre as K9's twin takes them, shifted adds
+    in f32 (exact in any order: integers below 2^24): (window sum, window
+    sum of squares [B, 1, H, W], cross sum with each patch [B, F, H, W])."""
     Bn, H, W = frames.shape
     b = c.boxsize
     half = (b - 1) // 2
-    dev = frames.device
     f32 = torch.float32
     img = F.pad(frames.to(f32), (half, half, half, half))              # [B, H+2h, W+2h]
     img2 = img * img
@@ -78,13 +80,22 @@ def score_map_plain(frames, patch_rows, c: ScoreMapConsts):
             out = out + rows[:, :, dx : dx + W]
         return out[:, None]                                            # [B, 1, H, W]
 
-    sg1, sg1sq = box(img), box(img2)
-    cross = torch.zeros((Bn, patch_rows.shape[1], H, W), dtype=f32, device=dev)
+    cross = torch.zeros((Bn, patch_rows.shape[1], H, W), dtype=f32, device=frames.device)
     for dy in range(b):
         for dx in range(b):
             cross = cross + (patch_rows[:, :, dy * b + dx, None, None]
                              * img[:, None, dy : dy + H, dx : dx + W])
-    n = torch.full((), float(b * b), dtype=f32, device=dev)
+    return box(img), box(img2), cross
+
+
+def score_of_sums(sg1, sg1sq, cross, patch_rows, c: ScoreMapConsts):
+    """The penalized NSSD of every centre from its sums ([B, F, H, W] f32),
+    exactly 1e6 where the patch leaves the frame."""
+    H, W = cross.shape[-2:]
+    b = c.boxsize
+    half = (b - 1) // 2
+    dev = cross.device
+    n = torch.full((), float(b * b), dtype=torch.float32, device=dev)
     sg0 = patch_rows[:, :, b * b, None, None]
     sg0sq = patch_rows[:, :, b * b + 1, None, None]
     corr, _sd0, sd1 = nssd_corr_f32(sg0, sg0sq, sg1, sg1sq, cross, n)
@@ -93,6 +104,12 @@ def score_map_plain(frames, patch_rows, c: ScoreMapConsts):
     uu = torch.arange(W, device=dev)[None, :]
     valid = (uu >= half) & (uu <= W - 1 - half) & (vv >= half) & (vv <= H - 1 - half)
     return torch.where(valid, corr, torch.full_like(corr, MISS))
+
+
+def score_map_plain(frames, patch_rows, c: ScoreMapConsts):
+    """Plain PyTorch K9. frames [B, H, W] u8; patch_rows [B, F, 128] f32
+    (pixels | sum | sum of squares). Returns [B, F, H, W] f32."""
+    return score_of_sums(*window_sums_plain(frames, patch_rows, c), patch_rows, c)
 
 
 class _K9Params(ctypes.Structure):
@@ -107,12 +124,14 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.POINTER(_K9Params), ctypes.c_void_p]
 def score_map(frames, patch_rows, c: ScoreMapConsts, out=None):
     """K9. CPU tensors take the plain version; CUDA tensors launch the
     kernel (or raise). `out` is an optional [B, F, H, W] f32 workspace to
-    write into (the step allocates it once, not per frame)."""
+    write into (the step allocates it once, not per frame). The patch
+    pixels are u8 values (runtime/state.py::patch_row): the kernel sums
+    them as bytes."""
     if frames.device.type == "cpu":
         return score_map_plain(frames, patch_rows, c)
     Bn, Fn = patch_rows.shape[:2]
-    if c.boxsize * c.boxsize + 2 > 128 or c.boxsize > 11:
-        raise ValueError(f"K9: unsupported boxsize {c.boxsize}")
+    if c.boxsize > 11 or c.boxsize % 2 == 0:
+        raise ValueError(f"K9: unsupported boxsize {c.boxsize} (odd, at most 11)")
     _build.check_tensor(frames, "frames", torch.uint8, (Bn, c.H, c.W))
     _build.check_tensor(patch_rows, "patch_rows", torch.float32, (Bn, Fn, 128))
     if out is None:

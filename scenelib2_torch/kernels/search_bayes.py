@@ -34,10 +34,12 @@ Bound on an H100: ~60 KB of frame and state in and out, and the score
 work of the scanned cells (3 x 121 multiply-adds each, up to ~77 k cells):
 under ~3 us at the f32 rate in the worst case. Design (csrc/search_bayes.cu):
 one block of 1024 threads, thread t holding the particles t, t + 1024, ...
-(up to bayes.MAX_NP = 4,096: every NP the TPU kernel pads to a multiple of
-128 up to there; built for one and for four particles a thread, picked at
-launch); the prologue on thread 0 and the particle chain of every
-particle into prediction rows in dynamic shared memory; the union box
+(built for one and for four particles a thread, picked at launch, up to
+bayes.CHUNK_NP = 4,096; longer rows, any NP, loop over their particles with
+the per-particle rows and the sums' tree in a global workspace that the
+wrapper allocates, wide_workspace); the prologue on thread 0 and the
+particle chain of every particle into prediction rows in dynamic shared
+memory; the union box
 reduced over warps; the scores of the scanned cells into a global workspace [H, W]
 that the wrapper allocates (300 KB at 320x240 and 1.2 MB at 640x480 do not
 fit in shared memory); each warp then searches particles (its lanes stride
@@ -69,7 +71,7 @@ import torch
 import torch.nn.functional as F
 
 from scenelib2_torch.kernels import _build
-from scenelib2_torch.kernels.bayes import MAX_NP, BayesConsts, bayes_tail, padded_lanes, tree_width
+from scenelib2_torch.kernels.bayes import CHUNK_NP, BayesConsts, bayes_tail, padded_lanes, tree_width
 from scenelib2_torch.kernels.particle import (
     NSHARED,
     NSLOT,
@@ -368,8 +370,22 @@ def _k4_params(c: SearchBayesConsts, MF: int, NP: int) -> _K4Params:
     )
 
 
-# tensor pointers (11 inputs, 11 outputs, the workspace), the params struct, the stream
-_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.POINTER(_K4Params), ctypes.c_void_p]
+# tensor pointers (11 inputs, 11 outputs, the workspace, the wide rows' workspace), the params
+# struct, the stream
+_ARGTYPES = [ctypes.c_void_p] * 24 + [ctypes.POINTER(_K4Params), ctypes.c_void_p]
+
+
+def wide_workspace(n_blocks: int, NP: int, dev):
+    """K4's / K11's per-particle rows for rows past bayes.CHUNK_NP particles
+    (None below): per block, the prediction rows [8, NP], best and key [NP]
+    and the sums' tree [tree_width(NP)] (csrc/search_bayes.cu::sb_smem)."""
+    if NP <= CHUNK_NP:
+        return None
+    return torch.empty((n_blocks, 10 * NP + tree_width(NP)), dtype=torch.float32, device=dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def search_bayes(frame, prob, lam, palive, making, pmask, match_attempts, pidx, patch_row,
@@ -382,8 +398,8 @@ def search_bayes(frame, prob, lam, palive, making, pmask, match_attempts, pidx, 
         return search_bayes_plain(*args, c)
     MF, NP = prob.shape
     H, W = c.H, c.W
-    if not (NP <= MAX_NP and c.boxsize * c.boxsize + 2 <= 128):
-        raise ValueError(f"K4: unsupported shapes NP={NP} boxsize={c.boxsize}")
+    if c.boxsize * c.boxsize + 2 > 128:
+        raise ValueError(f"K4: unsupported boxsize {c.boxsize}")
     f32, b, i32 = torch.float32, torch.bool, torch.int32
     for t, name, dty, shp in (
         (frame, "frame", torch.uint8, (H, W)), (prob, "prob", f32, (MF, NP)),
@@ -403,18 +419,19 @@ def search_bayes(frame, prob, lam, palive, making, pmask, match_attempts, pidx, 
         torch.empty((1, 8, NP), dtype=f32, device=dev),
     )
     workspace = torch.empty((H, W), dtype=f32, device=dev)
+    wide = wide_workspace(1, NP, dev)
     prm = _k4_params(c, MF=MF, NP=NP)
     fn = _build.function(NAME, "k4_search_bayes", _ARGTYPES)
-    err = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs), workspace.data_ptr(),
+    err = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs), workspace.data_ptr(), _ptr(wide),
              ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K4 search_bayes")
     _build.launches[NAME] += 1
     return outs
 
 
-# tensor pointers (8 inputs, 10 outputs), the number of (lane, slot) blocks, the params
-# struct, the stream
-_ARGTYPES_K11 = [ctypes.c_void_p] * 18 + [ctypes.c_int, ctypes.POINTER(_K4Params), ctypes.c_void_p]
+# tensor pointers (8 inputs, 10 outputs, the wide rows' workspace), the number of (lane, slot)
+# blocks, the params struct, the stream
+_ARGTYPES_K11 = [ctypes.c_void_p] * 19 + [ctypes.c_int, ctypes.POINTER(_K4Params), ctypes.c_void_p]
 
 
 def search_bayes_maps(corr_maps, pred_rows, prob, lam, palive, making, pmask, match_attempts,
@@ -426,8 +443,6 @@ def search_bayes_maps(corr_maps, pred_rows, prob, lam, palive, making, pmask, ma
         return search_bayes_maps_plain(*args, c)
     Bn, Fn, NP = prob.shape
     H, W = c.H, c.W
-    if NP > MAX_NP:
-        raise ValueError(f"K11: at most {MAX_NP} particles, got {NP}")
     f32, b, i32 = torch.float32, torch.bool, torch.int32
     args = tuple(t.contiguous() for t in args)
     for t, name, dty, shp in zip(
@@ -445,9 +460,10 @@ def search_bayes_maps(corr_maps, pred_rows, prob, lam, palive, making, pmask, ma
         torch.empty((Bn, Fn), dtype=i32, device=dev), torch.empty((Bn, Fn, NP), dtype=b, device=dev),
         torch.empty((Bn, Fn, NP, 2), dtype=f32, device=dev), torch.empty((Bn, Fn, NP), dtype=f32, device=dev),
     )
+    wide = wide_workspace(Bn * Fn, NP, dev)
     fn = _build.function(NAME, "k11_search_bayes_maps", _ARGTYPES_K11)
     prm = _k4_params(c, MF=Fn, NP=NP)
-    err = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs), Bn * Fn,
+    err = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs), _ptr(wide), Bn * Fn,
              ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K11 search_bayes_maps")
     _build.launches[NAME_K11] += 1

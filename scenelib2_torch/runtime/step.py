@@ -56,7 +56,7 @@ from scenelib2_torch.core.quaternion import (
 )
 from scenelib2_torch.device import resolve_device, resolve_dtype
 from scenelib2_torch.kernels import correlate
-from scenelib2_torch.kernels.bayes import MAX_NP, bayes_update
+from scenelib2_torch.kernels.bayes import bayes_update
 from scenelib2_torch.kernels.ekf_update import UpdateConsts, joint_update
 from scenelib2_torch.kernels.measure import (
     O_H,
@@ -274,10 +274,6 @@ def make_step(params: Params, device=None, precision: str = "f32"):
             "init proposal kernel needs it, step.py:707-708), so there is no reference "
             "route to port above that"
         )
-    if params.n_particles > MAX_NP:
-        raise NotImplementedError(
-            f"n_particles = {params.n_particles}: K4 holds at most {MAX_NP} particles in shared "
-            "memory (ROADMAP Queue 3)")
     D = CAM_DIM + SLOT_DIM * MF
     fused = D <= FUSED_MAX_D
     heavy_always = D <= HEAVY_ALWAYS_MAX_D
@@ -736,10 +732,6 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
         )
     if MF > MAX_FEATURES:
         raise NotImplementedError(f"the batch kernels hold MF <= {MAX_FEATURES}, as the JAX fast step does")
-    if NP > MAX_NP:
-        raise NotImplementedError(
-            f"n_particles = {NP}: K11 and K12 hold at most {MAX_NP} particles in shared memory "
-            "(ROADMAP Queue 3)")
     xla = route == "bp0"
     Bx = params.boxsize
     half = (Bx - 1) // 2

@@ -1,0 +1,117 @@
+"""What the A/B scripts of kernels between source trees share
+(scripts/ab_particle_kernels.py, scripts/ab_update_kernels.py).
+
+A script gives run() its list of trees and a cases(dev) function that
+returns (name, kernel symbol, fn) for every timed case, fn() returning the
+kernel's outputs. For each tree, in the order given, a subprocess (the
+script itself with --one TREE) imports that tree's scenelib2_torch, builds
+its kernels there and reports each case's device time (the median over
+REPEATS traced loops of N_CALLS calls, torch.profiler, the kernel's own
+device time per launch seen) and a sha256 of its outputs. Prints the card's
+name and power limit, one JSON line per tree and the median device time of
+each case per distinct tree; fails if any output differs between trees.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+N_CALLS = 50
+REPEATS = 5
+
+
+def _digest(outs) -> str:
+    import torch
+
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.detach().to("cpu").reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _device_ms(fn, sym: str) -> float:
+    """Median over REPEATS traced loops of N_CALLS calls of the kernel's
+    device time per launch the profiler saw."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    res = []
+    for _ in range(REPEATS):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(N_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and sym in e.key:
+                us = getattr(e, "self_device_time_total", None)
+                total += (us if us is not None else e.self_cuda_time_total) / 1e3
+                count += e.count
+        if count == 0:
+            raise SystemExit(f"{sym}: the profiler saw no launch")
+        res.append(total / count)
+    return statistics.median(res)
+
+
+def one_tree(tree: str, cases) -> dict:
+    """Time every case with the scenelib2_torch of `tree` (run in its own process)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import scenelib2_torch
+
+    if not os.path.abspath(scenelib2_torch.__file__).startswith(os.path.abspath(tree) + os.sep):
+        raise SystemExit(f"imported {scenelib2_torch.__file__}, not the package of {tree}")
+    dev = torch.device("cuda")
+    rec = {"tree": tree}
+    for name, sym, fn in cases(dev):
+        outs = fn()
+        torch.cuda.synchronize()
+        rec[name] = {"ms": _device_ms(fn, sym), "digest": _digest(outs)}
+    return rec
+
+
+def _compare(trees: list[str], script: str) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()
+    print(smi[0] if smi else "nvidia-smi: no card")
+    recs = []
+    for tree in trees:
+        res = subprocess.run([sys.executable, script, "--one", tree], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            print(res.stderr[-4000:], file=sys.stderr)
+            return 1
+        recs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(json.dumps(recs[-1]), flush=True)
+    names = [k for k in recs[0] if k != "tree"]
+    bad = [n for n in names if len({r[n]["digest"] for r in recs}) != 1]
+    for tree in dict.fromkeys(trees):
+        for n in names:
+            ms = statistics.median(r[n]["ms"] for r in recs if r["tree"] == tree)
+            print(f"{tree:>24}  {n:<26} {ms * 1e3:9.3f} us")
+    if bad:
+        print(f"outputs differ between trees: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def run(argv: list[str], script: str, cases) -> int:
+    """The script's entry point: `--one TREE` times one tree (the
+    subprocess), else argv lists the trees to compare."""
+    if argv[:1] == ["--one"]:
+        print(json.dumps(one_tree(argv[1], cases)))
+        return 0
+    return _compare(argv, script)

@@ -6,9 +6,8 @@ Each TREE is the root of a checkout of this repo (`.` for the working tree;
 unpack another commit with `git archive` into a directory that .gitignore
 lists). For each TREE, in the order given, a subprocess imports that tree's
 scenelib2_torch, builds its kernels there and reports, on the same seeded
-inputs, each kernel's device time: the median over REPEATS traced loops of
-N_CALLS calls (torch.profiler, the kernel's own device time per launch seen) and
-a sha256 of its outputs. The cases are the shapes the main paths give the
+inputs, each kernel's device time and a sha256 of its outputs
+(scripts/ab_kernels.py). The cases are the shapes the main paths give the
 kernels: K4 at the std configuration (100 particles, 320x240, 16 slots) and
 at hires (200 particles, 640x480, 60 slots), K11 over 64 (lane, slot) blocks
 of 100 particles, K12 over 64 rows of 100 and of 200 particles in both of its
@@ -20,15 +19,11 @@ case per distinct tree.
 
 from __future__ import annotations
 
-import hashlib
-import json
 import os
-import statistics
-import subprocess
 import sys
 
-N_CALLS = 50
-REPEATS = 5
+import ab_kernels
+
 SEED = 20
 
 
@@ -124,91 +119,5 @@ def _cases(dev):
     return out
 
 
-def _digest(outs) -> str:
-    import torch
-
-    h = hashlib.sha256()
-    for o in outs:
-        h.update(o.detach().to("cpu").reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
-def _device_ms(fn, sym: str) -> float:
-    """Median over REPEATS traced loops of N_CALLS calls of the kernel's
-    device time per launch the profiler saw."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    res = []
-    for _ in range(REPEATS):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(N_CALLS):
-                fn()
-            torch.cuda.synchronize()
-        total, count = 0.0, 0
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and sym in e.key:
-                us = getattr(e, "self_device_time_total", None)
-                total += (us if us is not None else e.self_cuda_time_total) / 1e3
-                count += e.count
-        if count == 0:
-            raise SystemExit(f"{sym}: the profiler saw no launch")
-        res.append(total / count)
-    return statistics.median(res)
-
-
-def one_tree(tree: str) -> dict:
-    """Time every case with the scenelib2_torch of `tree` (run in its own process)."""
-    sys.path.insert(0, os.path.abspath(tree))
-    import torch
-
-    import scenelib2_torch
-
-    if not os.path.abspath(scenelib2_torch.__file__).startswith(os.path.abspath(tree) + os.sep):
-        raise SystemExit(f"imported {scenelib2_torch.__file__}, not the package of {tree}")
-    dev = torch.device("cuda")
-    rec = {"tree": tree}
-    for name, sym, fn in _cases(dev):
-        outs = fn()
-        torch.cuda.synchronize()
-        rec[name] = {"ms": _device_ms(fn, sym), "digest": _digest(outs)}
-    return rec
-
-
-def main(trees: list[str]) -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no card")
-    recs = []
-    for tree in trees:
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree], capture_output=True,
-                             text=True)
-        if res.returncode != 0:
-            print(res.stderr[-4000:], file=sys.stderr)
-            return 1
-        recs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-        print(json.dumps(recs[-1]), flush=True)
-    names = [k for k in recs[0] if k != "tree"]
-    bad = [n for n in names if len({r[n]["digest"] for r in recs}) != 1]
-    for tree in dict.fromkeys(trees):
-        for n in names:
-            ms = statistics.median(r[n]["ms"] for r in recs if r["tree"] == tree)
-            print(f"{tree:>24}  {n:<26} {ms * 1e3:9.3f} us")
-    if bad:
-        print(f"outputs differ between trees: {bad}", file=sys.stderr)
-        return 1
-    return 0
-
-
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--one"]:
-        print(json.dumps(one_tree(sys.argv[2])))
-    else:
-        sys.exit(main(sys.argv[1:]))
+    sys.exit(ab_kernels.run(sys.argv[1:], os.path.abspath(__file__), _cases))

@@ -7,7 +7,9 @@ reproduce scenelib2_torch/data/expected_fingerprint_batch_hires.json: lane
 (the JAX runs with and without FMA split there; the committed file and the
 port side with exact arithmetic: scripts/batch64_near_ties.py), and lane
 13. The builders take every particle count that the JAX kernels pad to a
-multiple of 128 up to bayes.MAX_NP and refuse more, naming the limit.
+multiple of 128, on both sides of bayes.CHUNK_NP (the longest row the
+particle kernels hold in registers and shared memory; longer rows take the
+kernels' workspace path).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from scenelib2_torch.config import Params
 from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints, make_lanes
 from scenelib2_torch.eval.fingerprint import load_expected
-from scenelib2_torch.kernels.bayes import MAX_NP
+from scenelib2_torch.kernels.bayes import CHUNK_NP
 from scenelib2_torch.parallel.mesh import make_batched_step, run_batch
 from scenelib2_torch.runtime.step import XLA_ROUTE_REFUSED, make_batch_step, make_step
 
@@ -50,7 +52,7 @@ def test_hires_lanes_reproduce_the_committed_fingerprints():
     assert bool(outs.did_convert[:, 0].any()) and bool(outs.par_mask.any())
 
 
-@pytest.mark.parametrize("NP", [129, 200, 300, 1100, MAX_NP])
+@pytest.mark.parametrize("NP", [129, 200, 300, 1100, CHUNK_NP])
 def test_step_builders_take_every_padded_particle_count(NP):
     p = dataclasses.replace(Params(), n_particles=NP)
     make_step(p, device="cpu")
@@ -60,10 +62,12 @@ def test_step_builders_take_every_padded_particle_count(NP):
 
 
 def test_step_builders_refuse_particles_beyond_the_kernels_limit():
-    p = dataclasses.replace(Params(), n_particles=MAX_NP + 1)
+    """The particle kernels have no limit any more: one particle past the
+    rows they hold in shared memory builds every step, single stream and
+    batch, without a refusal."""
+    p = dataclasses.replace(Params(), n_particles=CHUNK_NP + 1)
     for build in (make_step, make_batch_step):
-        with pytest.raises(NotImplementedError, match=f"at most {MAX_NP} particles"):
-            build(p, device="cpu")
+        build(p, device="cpu")
 
 
 def test_xla_route_refusal_names_the_kernel_that_route_launches():

@@ -1,7 +1,8 @@
 """The particle kernels on rows wider than 128 lanes: the plain versions of
-K10, K11, K12 (both row forms) and K4 at 200 and 300 particles against the
-JAX Pallas kernels they port, run in interpret mode in this process
-(pallas_particle.py::pallas_particle_predict_fused,
+K10, K11, K12 (both row forms) and K4 at 200 and 300 particles, and K11 and
+K12 at 5,120 (past the 4,096 that the kernels hold in shared memory: on the
+card their workspace path), against the JAX Pallas kernels they port, run
+in interpret mode in this process (pallas_particle.py::pallas_particle_predict_fused,
 pallas_search_bayes.py::pallas_search_bayes in its pred-rows and merged
 frame modes, pallas_bayes.py::pallas_bayes_update), on seeded slots: a
 camera near the origin and rays near the optical axis, so that every depth
@@ -48,6 +49,7 @@ PROB_RTOL = 1e-5
 BEST_ATOL = 2e-5
 MISS = 1e6
 WIDE = (200, 300)
+LONG = 5120        # past the 4,096 particles the kernels hold in shared memory: their workspace path
 NAMES = ("prob", "palive", "mean", "cov", "convert", "kill", "n_over", "found", "z", "best")
 BAYES_KW = dict(prune_prob_thresh=P_STD.prune_prob_thresh, sd_depth_ratio=P_STD.sd_depth_ratio,
                 min_particles=P_STD.min_particles,
@@ -170,7 +172,7 @@ def _k11_case(NP, making=True):
 
 
 @pytest.mark.parametrize("making", [True, False])
-@pytest.mark.parametrize("NP", WIDE)
+@pytest.mark.parametrize("NP", WIDE + (LONG,))
 def test_k11_matches_pallas_at_wide_rows(NP, making):
     a = _k11_case(NP, making)
     got = search_bayes_maps_plain(*a)
@@ -187,7 +189,7 @@ def test_k11_matches_pallas_at_wide_rows(NP, making):
 
 
 @pytest.mark.parametrize("form", ["rows13", "pred_rows"])
-@pytest.mark.parametrize("NP", WIDE)
+@pytest.mark.parametrize("NP", WIDE + (LONG,))
 def test_k12_matches_pallas_at_wide_rows(NP, form):
     rng = np.random.default_rng(2000 + NP)
     F = 4
@@ -273,3 +275,23 @@ def test_k4_matches_pallas_at_wide_rows(NP, case):
         assert want[6][0] > 0
     else:
         assert not want[7].any()
+
+
+@pytest.mark.parametrize("NP", [LONG, 16384])
+def test_step_builders_take_rows_past_the_shared_memory_path(NP):
+    """No particle limit: the single-stream step and the three batch routes
+    build at NP past bayes.CHUNK_NP, and the kernels' workspace is sized as
+    csrc/search_bayes.cu's per-block arrays (8 prediction rows, best, key,
+    the tree)."""
+    from scenelib2_torch.kernels.bayes import CHUNK_NP
+    from scenelib2_torch.kernels.search_bayes import wide_workspace
+    from scenelib2_torch.parallel.mesh import make_batched_step
+    from scenelib2_torch.runtime.step import make_step
+
+    p = dataclasses.replace(Params(), n_particles=NP)
+    make_step(p, device="cpu")
+    make_batched_step(p, device="cpu")
+    make_batched_step(p, device="cpu", batch_sb=False)
+    make_batched_step(dataclasses.replace(p, batch_pallas=False), device="cpu")
+    assert NP > CHUNK_NP and wide_workspace(3, CHUNK_NP, "cpu") is None
+    assert wide_workspace(3, NP, "cpu").shape == (3, 10 * NP + tree_width(NP))
