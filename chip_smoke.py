@@ -17,8 +17,13 @@ Phases (any failure exits non-zero before the last line is printed):
     inputs of real frames of the synthetic sequence with mapping on (output
     index 9: the first init; 20: the first conversion; 120): decisions and
     integers exactly equal, floats within the stated tolerances (K3, K9,
-    K14 and the kernels of phases 2b-3f: max abs error 0); then each
-    kernel's and plain version's time.
+    K14 and the kernels of phases 2b-3f: max abs error 0; K2 and K8: best
+    identical bit for bit); K2 and K8 also on seeded edge cases at 320x240
+    and 640x480 (search_edge_scene: an ellipse beyond the window, a 3 x 3
+    box, NaN, infinite and huge half-widths, centres on and past each
+    border and at +-3e9, a tie of perfect matches, perfect matches, an
+    unselected NaN centre; K = 1, 10 and 64 x 10 / 16 x 10 lanes); then
+    each kernel's and plain version's time.
  2b. the particle kernels past 128 particles and the three kernels that no
     route runs: K10, K11 (making and not), K12 in both row forms and K4 with
     its variations at NP = 200, 300, 1,100, 5,120 and 16,384 (rows of 256,
@@ -82,8 +87,9 @@ Phases (any failure exits non-zero before the last line is printed):
     of the route launched once a step and no other, two lanes against
     their CPU plain replay, 30 steps under sync debug mode "error", ms a
     step, aggregate frames/s, an 8-step traced window, peak device memory,
-    K10's and K11's times at 200 particles. Every replay phase (3, 3b-3f)
-    requires zero launches of K10b, K15 and K16: no route reaches them.
+    K10's and K11's times at 200 particles and K2's over the 16 lanes.
+    Every replay phase (3, 3b-3f) requires zero launches of K10b, K15 and
+    K16: no route reaches them.
  4. a `kernels` JSON line, then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -116,7 +122,6 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
 K1_TOL = 1e-5     # |a - b| <= K1_TOL * (largest |entry| of that row / matrix)
-K2_BEST_ULP = 2   # NSSD best: within 2 ulp
 K4_TOL = 1e-5     # K4 floats (prob, moments, prediction rows, best): within K4_TOL * max |entry|
 K6_TOL = 1e-6     # K6 eigenvalue: relative
 K14_TOL = 1e-5    # K14 L^-1: within K14_TOL * max |entry| (the recurrence is K3's, bit-exact by design)
@@ -193,16 +198,6 @@ def matrix_close(a, b, tol) -> bool:
     a, b = a[fin], b[fin]
     scale = max(float(b.abs().max()), 1e-30) if b.numel() else 1.0
     return bool(((a - b).abs() <= tol * scale).all())
-
-
-def ulp_close(a, b, n_ulp) -> bool:
-    a = a.float().cpu()
-    b = b.float().cpu()
-    ai = a.view(torch.int32).long()
-    bi = b.view(torch.int32).long()
-    ai = torch.where(ai < 0, -(ai & 0x7FFFFFFF), ai)
-    bi = torch.where(bi < 0, -(bi & 0x7FFFFFFF), bi)
-    return bool(((ai - bi).abs() <= n_ulp).all())
 
 
 def same(a, b) -> bool:
@@ -295,6 +290,116 @@ def k2_random_scene(rng, params, dev, tie=False):
             torch.tensor(active, device=dev))
 
 
+# K2 / K8 edge cases (search_edge_scene): feature j of a lane is of kind
+# SEARCH_KINDS[j % 10]
+SEARCH_KINDS = ("random", "overflow", "box3", "nan_half", "inf_half", "huge_half", "border", "far", "tie",
+                "perfect")
+
+
+def search_edge_scene(rng, c, dev, n_lanes: int, K: int, kinds=SEARCH_KINDS):
+    """K2 and K8 arguments over n_lanes random u8 frames of the shapes of c
+    (search.SearchConsts), K features a lane,
+    feature j of kind kinds[j % len(kinds)]:
+      random: S^-1 of deviations 1-10.7 px (half-heights 3-32), any tilt;
+      overflow: deviations 40 and 35 px, an ellipse beyond the window;
+      box3: deviations 0.5 px, a 3 x 3 box;
+      nan_half: a - b^2 / c < 0, a NaN half-width (nothing admitted);
+      inf_half: a - b^2 / c = 0 = c - b^2 / a exactly, infinite half-widths
+        (the whole window; a strip of it inside the degenerate ellipse);
+      huge_half: half-widths near 9.5e6, above 2^22 (the whole window);
+      border: a centre on or past a border of the frame (cycling);
+      far: a centre at +-3e9 (K8 saturates it) with infinite half-widths;
+      tie: a random patch planted at two cells of the window (a tie of
+        perfect matches: the larger u*H + v wins);
+      perfect: the patch cut at the centre (best a rounding residue near 0);
+        in every third lane unselected, with a NaN centre.
+    Returns (K2 arguments over lanes: frame [n_lanes, H, W], the rest
+    [n_lanes, K, ...]; K8 arguments [n_lanes, K, ...])."""
+    from scenelib2_torch.kernels.correlate import gather_windows_u8
+    from scenelib2_torch.kernels.search import search_window_origin
+    from scenelib2_torch.runtime.state import patch_row
+
+    H, W, B, R = c.H, c.W, c.boxsize, c.win_radius
+    half = (B - 1) // 2
+    frames = rng.integers(0, 256, (n_lanes, H, W), dtype=np.uint8)
+    patches = np.zeros((n_lanes, K, B, B), np.uint8)
+    h = np.zeros((n_lanes, K, 2))
+    abc = np.zeros((n_lanes, K, 3))
+    active = np.ones((n_lanes, K), bool)
+    borders = ((2.3, None), (W - 1.7, None), (None, 1.2), (None, H - 1.4), (-40.0, None), (None, H + 60.0))
+
+    def sinv(su, sv, rho):
+        return np.linalg.inv(np.array([[su * su, rho * su * sv], [rho * su * sv, sv * sv]]))[[0, 0, 1], [0, 1, 1]]
+
+    for b in range(n_lanes):
+        for j in range(K):
+            kind = kinds[j % len(kinds)]
+            u, v = rng.uniform(60, W - 60), rng.uniform(60, H - 60)
+            s = sinv(*rng.uniform(1.0, 32 / 3, 2), rng.uniform(-0.6, 0.6))
+            cu = int(np.clip(round(u) + rng.integers(-4, 5), half, W - 1 - half))
+            cv = int(np.clip(round(v) + rng.integers(-4, 5), half, H - 1 - half))
+            patch = frames[b, cv - half : cv + half + 1, cu - half : cu + half + 1].copy()
+            if kind == "overflow":
+                s = sinv(40.0, 35.0, 0.3)
+            elif kind == "box3":
+                s = sinv(0.5, 0.5, 0.0)
+            elif kind == "nan_half":
+                s = [0.01, 0.1, 0.01]
+            elif kind in ("inf_half", "far"):
+                s = [1.0, 0.5, 0.25]
+            elif kind == "huge_half":
+                s = [1e-13, 0.0, 1e-13]
+            elif kind == "border":
+                bu, bv = borders[(b * K + j) % len(borders)]
+                u, v = (bu if bu is not None else u), (bv if bv is not None else v)
+            elif kind == "tie":
+                s = sinv(5.0, 5.0, 0.0)
+                patch = rng.integers(0, 256, (B, B), dtype=np.uint8)
+                iu, iv = int(np.floor(u + 0.5)), int(np.floor(v + 0.5))
+                for du, dv in ((-6, -2), (5, 4)):
+                    frames[b, iv + dv - half : iv + dv + half + 1, iu + du - half : iu + du + half + 1] = patch
+            elif kind == "perfect":
+                iu, iv = int(np.floor(u + 0.5)), int(np.floor(v + 0.5))
+                patch = frames[b, iv - half : iv + half + 1, iu - half : iu + half + 1].copy()
+                if b % 3 == 2:
+                    u = v = float("nan")
+                    active[b, j] = False
+            if kind == "far":
+                u, v = (3e9, -3e9) if b % 2 == 0 else (-3e9, 3e9)
+            patches[b, j] = patch
+            h[b, j] = (u, v)
+            abc[b, j] = s
+    f32 = dict(dtype=torch.float32, device=dev)
+    frames_t = torch.tensor(frames, device=dev)
+    patches_t = torch.tensor(patches, device=dev)
+    h_t = torch.tensor(h, **f32)
+    abc_t = torch.tensor(abc, **f32)
+    active_t = torch.tensor(active, device=dev)
+    u0, v0, uc, vc = search_window_origin(h_t, R, W, H, B)
+    k2 = (frames_t, patch_row(patches_t), u0, v0, uc, vc, abc_t, active_t)
+    k8 = (gather_windows_u8(frames_t, u0, v0, R, B), patches_t, u0, v0, h_t, abc_t, active_t)
+    return k2, k8
+
+
+def check_search_edges(rng, p, dev, n_lanes: int) -> tuple[int, float]:
+    """K2 (one frame and over lanes) and K8 on search_edge_scene: each kind
+    alone at K = 1, the ten kinds at K = 10 on one frame, and over n_lanes
+    lanes x 10; every output bit for bit. Returns (cases, max abs error)."""
+    from scenelib2_torch.kernels.search import SearchConsts
+
+    sc = SearchConsts.from_params(p)
+    err, n = 0.0, 0
+    K = p.n_features_to_select
+    cases = [search_edge_scene(rng, sc, dev, 1, 1, (kind,)) for kind in SEARCH_KINDS]
+    cases.append(search_edge_scene(rng, sc, dev, 1, K))
+    for k2, k8 in cases:
+        err = max(err, check_k2(tuple(t[0] for t in k2), sc), check_k8(k8, sc))
+        n += 2
+    k2, k8 = search_edge_scene(rng, sc, dev, n_lanes, K)
+    err = max(err, check_k2_lanes(k2, sc), check_k8(k8, sc))
+    return n + 2, err
+
+
 def k3_random_scene(rng, params, dev, mode="mixed"):
     from scenelib2_torch.kernels.measure import NOUT, O_H, O_HX, O_HY, O_RD
 
@@ -364,20 +469,30 @@ def check_k1(args, kw) -> float:
     return max(max_err(meas, wm), max_err(sel, ws), max_err(xo, wx), max_err(Po, wP))
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (floats compared as their 32-bit patterns)."""
+    return torch.equal(a.float().cpu().view(torch.int32), b.float().cpu().view(torch.int32))
+
+
+def check_search(got, want, what: str) -> float:
+    """K2's and K8's outputs: found, u, v, over equal, best identical bit for bit."""
+    for name, a, b in zip(("found", "u", "v"), got[:3], want[:3]):
+        if not same(a, b):
+            fail(f"{what} {name} differs: kernel {a.tolist()} plain {b.tolist()}")
+    if not same(got[4], want[4]):
+        fail(f"{what} overflow differs")
+    if not same_bits(got[3], want[3]):
+        fail(f"{what} best differs bit for bit: {got[3].tolist()} vs {want[3].tolist()}")
+    return max_err(got[3], want[3])
+
+
 def check_k2(args, c) -> float:
     from scenelib2_torch.kernels.search import search, search_plain
 
     got = search(*args, c)
     want = search_plain(*args, c)
     torch.cuda.synchronize()
-    for name, a, b in zip(("found", "u", "v"), got[:3], want[:3]):
-        if not same(a, b):
-            fail(f"K2 {name} differs: kernel {a.tolist()} plain {b.tolist()}")
-    if not same(got[4], want[4]):
-        fail("K2 overflow differs")
-    if not ulp_close(got[3], want[3], K2_BEST_ULP):
-        fail(f"K2 best beyond {K2_BEST_ULP} ulp: {got[3].tolist()} vs {want[3].tolist()}")
-    return max_err(got[3], want[3])
+    return check_search(got, want, "K2")
 
 
 def check_k3(args, c) -> float:
@@ -678,14 +793,7 @@ def check_k2_lanes(args, c) -> float:
     got = search(*args[:8], c)
     want = search_lanes_plain(args, c)
     torch.cuda.synchronize()
-    for name, a, b in zip(("found", "u", "v"), got[:3], want[:3]):
-        if not same(a, b):
-            fail(f"K2 over lanes: {name} differs")
-    if not same(got[4], want[4]):
-        fail("K2 over lanes: overflow differs")
-    if not ulp_close(got[3], want[3], K2_BEST_ULP):
-        fail(f"K2 over lanes: best beyond {K2_BEST_ULP} ulp")
-    return max_err(got[3], want[3])
+    return check_search(got, want, "K2 over lanes:")
 
 
 def check_k6_lanes(args, kw) -> float:
@@ -764,7 +872,7 @@ def check_k8(args, sc) -> float:
     flat = [t.reshape(-1, *t.shape[2:]) for t in args]
     want = tuple(o.reshape(got[0].shape) for o in search_windows_plain(*flat, sc))
     torch.cuda.synchronize()
-    return compare_exact(got, want, ("found", "u", "v", "best", "over"), "K8")
+    return check_search(got, want, "K8")
 
 
 def check_k12(args, kw) -> float:
@@ -958,7 +1066,7 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
                 uc, vc = window_centre(a[4])
                 admit = candidate_geometry(a[2].reshape(-1), a[3].reshape(-1), uc.reshape(-1),
                                            vc.reshape(-1), a[5].reshape(-1, 3), sc)[0]
-                costs.append(("K8", search.bytes_and_flops_windows(a[2].numel(), sc, int(admit.sum()))))
+                costs.append(("K8", search.bytes_and_flops_windows(a[2].numel(), sc, admit)))
             elif n == "bayes_update":
                 costs.append((k12_key, bayes.bytes_and_flops(a[0][..., 0].numel(), a[0].shape[-1])))
             elif n == "particle_search":
@@ -1637,7 +1745,7 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
     costs = {"K2": [], "K4": []}
     for a, _k in calls["search"]:
         admit = search.candidate_geometry(*(t.reshape(-1) for t in a[2:6]), a[6].reshape(-1, 3), sc)[0]
-        costs["K2"].append(search.bytes_and_flops(a[2].numel(), sc, int(admit.sum())))
+        costs["K2"].append(search.bytes_and_flops(a[2].numel(), sc, admit))
     for a, _k in calls["search_bayes"]:
         MF, NP = a[1].shape
         costs["K4"].append(search_bayes.bytes_and_flops(MF, NP, H, W, B, *search_bayes.work_counts(*a)))
@@ -1758,7 +1866,7 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
     log(f"[3f] the route's kernels equal their plain versions on whole {Bn}-lane steps at output indices "
         f"{HIRES_AT} ({making} lane-slots making; K10's rows 256 lanes wide) (max abs err {json.dumps(errs)})")
 
-    costs = {k: [] for k in ("K10", "K11")}
+    costs = {k: [] for k in ("K10", "K11", "K2 lanes")}
     k11_args = []
 
     def record(n, a, k):
@@ -1766,6 +1874,10 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
             costs["K10"].append(particle.bytes_and_flops(*a[2].shape))
         elif n == "search_bayes_maps":
             k11_args.append((a[1], a[4], a[5]))
+        elif n == "search":
+            admit = search.candidate_geometry(a[2].reshape(-1), a[3].reshape(-1), a[4].reshape(-1),
+                                              a[5].reshape(-1), a[6].reshape(-1, 3), sc)[0]
+            costs["K2 lanes"].append(search.bytes_and_flops(a[2].numel(), sc, admit))
 
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -1867,20 +1979,24 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
         hits = [v for k, v in by.items() if sym in k]
         return sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits)) if hits else None
 
-    # K10's and K11's times at 200 particles, on the output-index-20 inputs
+    # K10's and K11's times at 200 particles and K2's over the 16 lanes of
+    # 640x480 windows, on the output-index-20 inputs
     a10, a11 = seen[20]["particle_predict"][0], seen[20]["search_bayes_maps"][0]
+    a2 = seen[20]["search"][0]
     timings = {}
-    for short, fk, fp_, sym in (
-        ("K10", lambda: particle.particle_predict(*a10), lambda: particle.particle_predict_plain(*a10), "k10_kernel"),
+    for short, fk, fp_, sym, lname, what in (
+        ("K10", lambda: particle.particle_predict(*a10), lambda: particle.particle_predict_plain(*a10), "k10_kernel",
+         "particle_predict", "at 200 particles"),
         ("K11", lambda: search_bayes.search_bayes_maps(*a11), lambda: search_bayes.search_bayes_maps_plain(*a11),
-         "k11_kernel"),
+         "k11_kernel", "search_bayes_maps", "at 200 particles"),
+        ("K2 lanes", lambda: search.search(*a2[:8], sc), lambda: search_lanes_plain(a2, sc), "k2_kernel", "search",
+         f"over {Bn} lanes of 640x480"),
     ):
         b_ms, b_by = bound(costs[short])
         timings[short] = dict(ms=time_ms(fk, n=50, batches=3), plain_ms=time_ms(fp_, n=2, batches=3),
                               device_ms=dev_ms(sym), bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                              launches=launches["particle_predict" if short == "K10" else "search_bayes_maps"],
-                              max_abs_err=errs[short])
-        log(f"[3f] {short} at 200 particles: {json.dumps(timings[short])}")
+                              launches=launches[lname], max_abs_err=errs[short])
+        log(f"[3f] {short} {what}: {json.dumps(timings[short])}")
     res["timings"] = timings
     return res
 
@@ -1990,7 +2106,7 @@ def main() -> int:
         return 2
     from scenelib2_torch import MonoSLAM
     from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected
-    from scenelib2_torch.eval.synthetic import generate_dataset
+    from scenelib2_torch.eval.synthetic import HIRES_PARAMS, generate_dataset
     from scenelib2_torch.kernels import (
         _build, bayes, ekf_update, measure, particle, predict_measure, propose, score_map, search,
         search_bayes, shi_tomasi,
@@ -2039,6 +2155,13 @@ def main() -> int:
         errs["K1"] = max(errs["K1"], check_k1(a1, kw1))
         errs["K2"] = max(errs["K2"], check_k2(a2[:-1], sc))
         errs["K3"] = max(errs["K3"], check_k3(a3[:-1], uc))
+        n_edge = 0
+        for ep, n_lanes in ((p, N_LANES), (dataclasses.replace(p, **HIRES_PARAMS), N_HIRES_LANES)):
+            n, e = check_search_edges(rng, ep, dev, n_lanes)
+            n_edge += n
+            errs["K2"] = max(errs["K2"], e)
+        log(f"[2] K2 and K8 bit for bit on {n_edge} seeded edge cases (320x240 and 640x480; K = 1, 10, "
+            f"{N_LANES} x 10 and {N_HIRES_LANES} x 10 lanes; kinds {', '.join(SEARCH_KINDS)})")
         n_cases = {"K4": 0, "K5": 0, "K6": 0}
         for at in (9, 20, 120):
             a5, _ = seen[at]["propose"]
@@ -2452,7 +2575,7 @@ def main() -> int:
         for u0_, v0_, uc_, vc_, sinv_ in k2_args:
             admit = search.candidate_geometry(u0_.reshape(-1), v0_.reshape(-1), uc_.reshape(-1),
                                               vc_.reshape(-1), sinv_.reshape(-1, 3), sc)[0]
-            bcosts["K2"].append(search.bytes_and_flops(N_LANES * nsel, sc, int(admit.sum())))
+            bcosts["K2"].append(search.bytes_and_flops(N_LANES * nsel, sc, admit))
 
         # reference on a small input: four lanes replayed by the CPU plain versions
         idx = list(REF_LANES)
@@ -2551,7 +2674,7 @@ def main() -> int:
         hires_b = batch_hires_phase(os.path.join(tmp, "bhires"), dev, rng)
 
     # ---- 4. kernel records ------------------------------------------------
-    costs["K2"] = [search.bytes_and_flops(K, sc, int(admit.sum())) for admit, K in costs["K2"]]
+    costs["K2"] = [search.bytes_and_flops(K, sc, admit) for admit, K in costs["K2"]]
     recs = []
     for short, name, src, rep, key in (
         ("K1", "K1 predict_measure", "predict_measure.cu", "pallas_predict_measure.py:375", "predict_measure"),
@@ -2646,6 +2769,8 @@ def main() -> int:
          "pallas_particle.py:434", hires_b["timings"]["K10"], max(werrs["K10"], hires_b["errs"]["K10"])),
         ("K11", "K11 search_bayes_maps (200 particles, batch-hires)", "search_bayes.cu",
          "pallas_search_bayes.py:638", hires_b["timings"]["K11"], max(werrs["K11"], hires_b["errs"]["K11"])),
+        ("K2 lanes", "K2 search (16 lanes of 107 x 107 windows, batch-hires)", "search.cu",
+         "pallas_search.py:476", hires_b["timings"]["K2 lanes"], hires_b["errs"]["K2 lanes"]),
     ):
         recs.append(dict(
             name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",

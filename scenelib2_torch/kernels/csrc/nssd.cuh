@@ -1,21 +1,21 @@
-// Penalized NSSD score from exact integer sums.
+// NSSD score from exact integer sums, and its penalized form.
 //
 // The CUDA form of scenelib2_torch/kernels/search.py::nssd_corr_f32 (a port
 // of scenelib2_tpu/kernels/pallas_score_map.py::nssd_corr_f32,
 // improc.cpp:55-134) followed by the low-sigma penalty of the score map
 // (pallas_score_map.py:131-135). The same f32 operations in the same order
-// (built with -fmad=false). Included by score_map.cu (K9) and
-// search_bayes.cu (K4).
+// (built with -fmad=false). Included by score_map.cu (K9),
+// search_bayes.cu (K4) and search.cu (K2, K8: nssd_corr alone).
 #pragma once
 
 #include <math.h>
 
 // sg0, sg0sq: the patch's sum and sum of squares; sg1, sg1sq, cross: the
 // image window's sum, sum of squares and cross sum with the patch; n: the
-// number of pixels.
-__device__ __forceinline__ float nssd_penalized(float sg0, float sg0sq, float sg1, float sg1sq,
-                                                float cross, float n, float corr_sigma_thresh,
-                                                float low_sigma_penalty) {
+// number of pixels. Returns the NSSD with its 0 / 1 zero-variance specials
+// (search.py::nssd_corr_f32) and the two deviations in *sd0_o, *sd1_o.
+__device__ __forceinline__ float nssd_corr(float sg0, float sg0sq, float sg1, float sg1sq, float cross, float n,
+                                           float* sd0_o, float* sd1_o) {
   const float g0bar = sg0 / n;
   const float g1bar = sg1 / n;
   const float varg0 = sg0sq / n - g0bar * g0bar;
@@ -27,9 +27,20 @@ __device__ __forceinline__ float nssd_penalized(float sg0, float sg0sq, float sg
   const float v0s = varg0 == 0.0f ? 1.0f : varg0;
   const float s0 = sqrtf(v0s);
   const float kk = g0bar / s0 - g1bar / s1;
-  float corr = (sg0sq / v0s + sg1sq / v1s + n * (kk * kk) - cross * 2.0f / (s0 * s1)
-                - sg0 * 2.0f * kk / s0 + sg1 * 2.0f * kk / s1) / n;
+  const float corr = (sg0sq / v0s + sg1sq / v1s + n * (kk * kk) - cross * 2.0f / (s0 * s1)
+                      - sg0 * 2.0f * kk / s0 + sg1 * 2.0f * kk / s1) / n;
   const bool both_zero = sd0 == 0.0f && sd1 == 0.0f;
-  corr = (sd0 != 0.0f && sd1 != 0.0f) ? corr : (both_zero ? 0.0f : 1.0f);
+  *sd0_o = sd0;
+  *sd1_o = sd1;
+  return (sd0 != 0.0f && sd1 != 0.0f) ? corr : (both_zero ? 0.0f : 1.0f);
+}
+
+// The score map's form: the NSSD plus low_sigma_penalty where the image
+// deviation is below corr_sigma_thresh.
+__device__ __forceinline__ float nssd_penalized(float sg0, float sg0sq, float sg1, float sg1sq,
+                                                float cross, float n, float corr_sigma_thresh,
+                                                float low_sigma_penalty) {
+  float sd0, sd1;
+  const float corr = nssd_corr(sg0, sg0sq, sg1, sg1sq, cross, n, &sd0, &sd1);
   return sd1 < corr_sigma_thresh ? corr + low_sigma_penalty : corr;
 }

@@ -5,120 +5,361 @@
 // _score_and_select, with pallas_score_map.py::nssd_corr_f32); K8 replaces
 // the same file's pallas_elliptical_search (_search_kernel, pallas_call at
 // pallas_search.py:312), the batch route with batch_pallas=False, whose
-// caller gathers each feature's u8 window from its frame first. Both score
-// and select in search_cell.cuh. The plain PyTorch twins are
-// scenelib2_torch/kernels/search.py::search_plain and search_windows_plain;
-// the NSSD formula runs the same f32 operations in the same order (built
-// with -fmad=false), and the integer sums are exact in any order.
+// caller gathers each feature's u8 window from its frame first. The plain
+// PyTorch twins are scenelib2_torch/kernels/search.py::search_plain and
+// search_windows_plain. The three sums of a cell are integers below 2^24
+// (at most 121 x 255^2 = 7,868,025), exact in any order, so integer sums
+// equal the twins' f32 sums after one exact conversion; only the NSSD
+// formula rounds (nssd.cuh::nssd_corr, the twins' operation order, built
+// with -fmad=false). Kernel and twin agree bit for bit.
 //
-// Bound on an H100: ~60 KB of windows and ~10 MFLOP for 10 features, far
-// below a microsecond; the launch dominates (at 64 lanes x 10 features,
-// 3.6 MB of u8 windows: ~1 us at the memory rate). Design: one block per
-// selected feature; in the batch step the features of all lanes are one
-// grid (K2: feature k searches frame k / per_lane), so one launch serves
-// every lane. The block stages its (side + B - 1)^2 window (K2: from the u8
-// frame; K8: from the gathered u8 window) as floats in dynamic shared
-// memory (75^2 floats at 320x240, 107^2 at the 640x480 radius 48) and its
-// patch in shared memory; threads stride over the candidate centres, score
-// only those inside the ellipse's 3-sigma box (every other candidate is
-// masked out anyway), then reduce the minimum and, among the cells at the
-// minimum, the largest u*H + v key.
+// Bound on an H100 (search.py::bytes_and_flops): the window pixels under
+// the admitted cells and those cells' sums and score formula, far below a
+// microsecond for 10 features. The launch and the latency of one feature's
+// chain of loads, sums and the score formula set the time. Design:
+//   - only the 3-sigma box can be admitted, so a feature scores the
+//     rectangle where its box meets the window and the valid centres
+//     (box_range: half-widths from the twin's f32 operations, a NaN one
+//     gives no cell, an infinite or huge one the whole window; every cell in
+//     it is still tested exactly as the twin tests it);
+//   - the rectangle's pixels are staged as u8 words in shared memory; a
+//     thread takes a run of 4 adjacent centres along u, aligns the words of
+//     each patch row into byte quads once (__byte_perm) and takes all three
+//     sums with __dp4a: the cross sum with the patch row's zero-padded u8
+//     quads, the sum with masked ones, the sum of squares of the masked
+//     quads with themselves (12 quads a row serve the 4 centres; no column
+//     pass and no second barrier);
+//   - one pass and one reduction: an admitted cell becomes one 64-bit key,
+//     the order-preserving bits of its score above the complement of
+//     u * H + v, so the unsigned minimum is the least score and, among its
+//     ties, the largest u * H + v (the twin keeps the LAST tie in
+//     u-outer / v-inner order); warp shuffles, then one shared atomicMin;
+//   - where the grid is small (the single stream's 10 features) a feature
+//     is a thread-block cluster of up to 8 CTAs (the wrapper picks the size
+//     from K and the SMs), each taking a share of the rectangle's rows;
+//     rank 0 reads the others' keys through distributed shared memory
+//     after cluster.sync(). Batch grids (160-640 features) run one CTA a
+//     feature.
+// In the batch step the features of all lanes are one grid (K2: feature k
+// searches frame k / per_lane), so one launch serves every lane. K8 takes
+// the predicted centres and the u8 patches and forms the centre and the
+// patch sums itself, so its wrapper launches nothing else.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "search_cell.cuh"
+#include "nssd.cuh"
+
+namespace cg = cooperative_groups;
 
 #define K2_THREADS 256
-// the (side + B - 1)^2 window is dynamic shared memory: 107^2 floats
-// (45.8 KB) at the hires radius 48, up to 200 KB on request
-#define K2_MAX_WIN_BYTES (200 * 1024)
+#define K2_RUN 4               // adjacent centres a thread takes along u
+#define K2_NQ 3                // u8 quads a patch row (B <= 12, zero-padded)
+#define K2_MAX_B 11            // the K2 patch row holds B * B + 2 <= 128 floats
+#define K2_MAX_CLUSTER 8       // portable cluster size
+// the staged rectangle stays within the 48 KB of shared memory a kernel has
+// without opting in (1 KB left for the static arrays): windows of radius up
+// to 103 px; the configurations reach 6 KB (radius 32) and 12 KB (radius 48)
+#define K2_MAX_STAGE_BYTES (47 * 1024)
+#define K2_NO_MATCH 1e6f       // the value of a masked-out cell
+#define K2_NONE 0xFFFFFFFFFFFFFFFFull  // the key of no admitted cell
 
+struct K2Params {
+  int H, W, B, side_v, side_u, per_lane, cluster;
+  float no_sigma, no_sigma2, corr_thresh2, corr_sigma_thresh;
+};
+
+// The cells x of [lo0, hi0] that the box test |float(x - centre)| <= h can
+// admit, as [*lo, *hi] (empty when *lo > *hi). h is a floor()ed f32
+// half-width: an integer, +-inf or NaN. NaN or negative: no cell. At or above
+// 2^22 (inf included): the whole range, each cell then tested exactly. Below:
+// an admitted cell has |x - centre| <= h < 2^22 as an int32 difference,
+// which did not wrap (x >= 0), so x lies in [centre - h, centre + h], taken in
+// 64 bits because a saturated centre is INT_MIN or INT_MAX.
+__device__ __forceinline__ void box_range(float h, int centre, int lo0, int hi0, int* lo, int* hi) {
+  if (!(h >= 0.0f)) {
+    *lo = 1;
+    *hi = 0;
+  } else if (h >= 4194304.0f) {
+    *lo = lo0;
+    *hi = hi0;
+  } else {
+    const long long r = __float2int_rz(h);  // exact: an integer in [0, 2^22)
+    *lo = (int)max((long long)lo0, (long long)centre - r);
+    *hi = (int)min((long long)hi0, (long long)centre + r);
+  }
+}
+
+// a - b in int32 with two's-complement wrap, as the twins' int32 tensors
+__device__ __forceinline__ int wrap_sub(int a, int b) { return (int)((unsigned)a - (unsigned)b); }
+
+// An admitted cell's key. Its score is finite: it passed sd0, sd1 >=
+// corr_sigma_thresh, so neither deviation is NaN, both variances are >= 0
+// and, where not 0 (the 0 / 1 specials), the divisors are positive and
+// every term finite. The score is never -0 (its numerator's first terms are
+// >= +0 and x - x rounds to +0), and +0 stands for any zero all the same, so
+// equal scores have equal bits and the low word alone breaks ties.
+__device__ __forceinline__ unsigned long long cell_key(float corr, int uv) {
+  const uint32_t b = __float_as_uint(corr == 0.0f ? 0.0f : corr);
+  const uint32_t hi = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((unsigned long long)hi << 32) | (uint32_t)~(uint32_t)uv;
+}
+
+// floor(h + 0.5) converted to int32 as XLA converts (NaN -> 0, saturating):
+// search.py::window_centre
+__device__ __forceinline__ int centre_i32(float h) {
+  const float f = floorf(h + 0.5f);
+  if (isnan(f)) return 0;
+  if (f >= 2147483648.0f) return INT_MAX;
+  if (f <= -2147483648.0f) return INT_MIN;
+  return __float2int_rz(f);
+}
+
+// One feature on one CTA (rank `rank` of a cluster of p.cluster): the
+// rectangle's rows of this rank, staged from win (pixel (0, 0) of the
+// feature's window, `pitch` bytes a row), scored and reduced to *kmin.
+// Rank 0's thread 0 writes the feature's outputs. pq: the patch rows as
+// K2_NQ zero-padded u8 quads each; psum: the patch's sum and sum of squares.
+// The caller has set *kmin to K2_NONE and filled pq and psum before the
+// first barrier here.
+__device__ __forceinline__ void search_feature(const uint8_t* __restrict__ win, int pitch, const uint32_t* pq,
+                                               const float* psum, int k, int u0, int v0, int uc, int vc,
+                                               float a, float b, float c, bool act, const K2Params& p,
+                                               uint32_t* stage, unsigned long long* kmin, uint8_t* found,
+                                               int* uo, int* vo, float* best_o, uint8_t* over_o) {
+  const int B = p.B, half = (B - 1) / 2;
+  const int sv = p.side_v, su = p.side_u;
+  const int tid = threadIdx.x, cs = p.cluster, rank = (int)(blockIdx.x % cs);
+  const float halfwidth = floorf(p.no_sigma / sqrtf(a - b * b / c));
+  const float halfheight = floorf(p.no_sigma / sqrtf(c - b * b / a));
+  int ulo, uhi, vlo, vhi;
+  box_range(halfwidth, uc, max(u0, half), min(u0 + su - 1, p.W - 1 - half), &ulo, &uhi);
+  box_range(halfheight, vc, max(v0, half), min(v0 + sv - 1, p.H - 1 - half), &vlo, &vhi);
+  const int nu = max(uhi - ulo + 1, 0), nv = max(vhi - vlo + 1, 0);
+  // this rank's window rows [ra, rb) of centres, and the first column ca
+  const int ra = vlo - v0 + nv * rank / cs, rb = vlo - v0 + nv * (rank + 1) / cs;
+  const int ca = ulo - u0;
+  const int nrun = (nu + K2_RUN - 1) / K2_RUN;  // runs a row
+  const int spw = nrun + 3;                     // staged words a row: a run reads 4 from its own
+  const int n_items = nu > 0 ? (rb - ra) * nrun : 0;
+
+  // ---- stage window rows ra .. rb + B - 2, columns ca .. ca + nu + B - 2 (0 past them)
+  const int nb = nu + B - 1;
+  for (int e = tid; e < (n_items > 0 ? (rb - ra + B - 1) * spw : 0); e += K2_THREADS) {
+    const int r = e / spw, j = e - r * spw;
+    const uint8_t* src = win + (size_t)(ra + r) * pitch + ca + 4 * j;
+    uint32_t w = 0;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (4 * j + t < nb) w |= (uint32_t)src[t] << (8 * t);
+    stage[e] = w;
+  }
+  __syncthreads();
+
+  uint32_t msk[K2_NQ];  // the bytes of quad t that hold patch columns (4t + k < B)
+#pragma unroll
+  for (int t = 0; t < K2_NQ; ++t) {
+    const int nk = min(max(B - 4 * t, 0), 4);
+    msk[t] = nk == 4 ? 0xFFFFFFFFu : (1u << (8 * nk)) - 1u;
+  }
+  const float sg0 = psum[0], sg0sq = psum[1];
+  const float n = (float)(B * B);
+  unsigned long long key = K2_NONE;
+  for (int it = tid; it < n_items; it += K2_THREADS) {
+    const int r = it / nrun, i = it - r * nrun;  // staged row, run
+    uint32_t cross[K2_RUN], s1[K2_RUN], s2[K2_RUN];
+#pragma unroll
+    for (int s = 0; s < K2_RUN; ++s) cross[s] = s1[s] = s2[s] = 0u;
+    for (int dy = 0; dy < B; ++dy) {
+      const uint32_t* row = stage + (r + dy) * spw + i;
+      uint32_t w[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) w[t] = row[t];
+      uint32_t q[4 * K2_NQ];  // q[o]: the 4 bytes from byte o of the run
+#pragma unroll
+      for (int o = 0; o < 4 * K2_NQ; ++o)
+        q[o] = (o & 3) == 0 ? w[o >> 2] : __byte_perm(w[o >> 2], w[(o >> 2) + 1], 0x3210 + 0x1111 * (o & 3));
+#pragma unroll
+      for (int t = 0; t < K2_NQ; ++t) {
+        const uint32_t pw = pq[dy * K2_NQ + t], ones = msk[t] & 0x01010101u;
+#pragma unroll
+        for (int s = 0; s < K2_RUN; ++s) {
+          const uint32_t x = q[s + 4 * t], xm = x & msk[t];
+          cross[s] = __dp4a(x, pw, cross[s]);
+          s1[s] = __dp4a(x, ones, s1[s]);
+          s2[s] = __dp4a(xm, xm, s2[s]);
+        }
+      }
+    }
+    // the 4 scores straight-line (the patch's terms once), then the masks
+    const int vv = v0 + ra + r;
+    const float vrel = (float)wrap_sub(vv, vc);
+#pragma unroll
+    for (int s = 0; s < K2_RUN; ++s) {
+      const int uu = u0 + ca + K2_RUN * i + s;
+      const float urel = (float)wrap_sub(uu, uc);
+      float sd0, sd1;
+      const float corr = nssd_corr(sg0, sg0sq, (float)s1[s], (float)s2[s], (float)cross[s], n, &sd0, &sd1);
+      const bool box = fabsf(urel) <= halfwidth && fabsf(vrel) <= halfheight;
+      const bool ellipse = a * urel * urel + 2.0f * b * urel * vrel + c * vrel * vrel < p.no_sigma2;
+      if (K2_RUN * i + s < nu && box && ellipse && sd1 >= p.corr_sigma_thresh && sd0 >= p.corr_sigma_thresh)
+        key = min(key, cell_key(corr, uu * p.H + vv));
+    }
+  }
+
+  // ---- one unsigned minimum: the warp, then one shared word, then the cluster
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) key = min(key, __shfl_xor_sync(0xffffffffu, key, o));
+  if ((tid & 31) == 0 && key != K2_NONE) atomicMin(kmin, key);
+  __syncthreads();
+  unsigned long long m = *kmin;
+  if (cs > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every rank's *kmin is final
+    if (rank == 0 && tid == 0)
+      for (int j = 1; j < cs; ++j) m = min(m, *cluster.map_shared_rank(kmin, j));
+    cluster.sync();  // no rank leaves while rank 0 reads its shared memory
+  }
+  if (rank == 0 && tid == 0) {
+    // the twin's masked cells read 1e6: a least score above it leaves best
+    // at 1e6 with no cell at the minimum
+    float best = K2_NO_MATCH;
+    int kb = -1;
+    if (m != K2_NONE) {
+      const uint32_t hi = (uint32_t)(m >> 32);
+      const float corr = __uint_as_float((hi & 0x80000000u) ? (hi & 0x7FFFFFFFu) : ~hi);
+      if (corr <= K2_NO_MATCH) {
+        best = corr;
+        kb = (int)~(uint32_t)m;
+      }
+    }
+    best_o[k] = best;
+    uo[k] = kb >= 0 ? kb / p.H : -1;
+    vo[k] = kb >= 0 ? kb % p.H : -1;
+    found[k] = act && best <= p.corr_thresh2;
+    over_o[k] = act && (halfwidth > (float)(su / 2) || halfheight > (float)(sv / 2));
+  }
+}
+
+// K2: frame [n_lanes][H][W] u8, patch_rows [K][128] f32 (u8 pixels | sum | sum
+// of squares), centres and origins [K] i32, sinv_abc [K][3]
 __global__ void __launch_bounds__(K2_THREADS)
 k2_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ patch_rows,
           const int* __restrict__ u0s, const int* __restrict__ v0s, const int* __restrict__ ucs,
           const int* __restrict__ vcs, const float* __restrict__ sinv_abc,
           const uint8_t* __restrict__ active, uint8_t* __restrict__ found, int* __restrict__ uo,
-          int* __restrict__ vo, float* __restrict__ best_o, uint8_t* __restrict__ over_o,
-          K2Params p) {
-  extern __shared__ float win[];  // [wv][wu]
-  __shared__ float patch[128];
-  __shared__ float redf[32];
-  __shared__ int redi[32];
-  const int k = blockIdx.x;
+          int* __restrict__ vo, float* __restrict__ best_o, uint8_t* __restrict__ over_o, K2Params p) {
+  extern __shared__ uint32_t stage[];
+  __shared__ uint32_t pq[K2_MAX_B * K2_NQ];
+  __shared__ float psum[2];
+  __shared__ unsigned long long kmin;
+  const int k = blockIdx.x / p.cluster;
   const int B = p.B, half = (B - 1) / 2;
-  const int wv = p.side_v + B - 1, wu = p.side_u + B - 1;
-  const int u0 = u0s[k], v0 = v0s[k];
-
-  const uint8_t* __restrict__ fr = frame + (size_t)(k / p.per_lane) * p.H * p.W;
-  for (int e = threadIdx.x; e < wv * wu; e += blockDim.x) {
-    const int r = e / wu, cc = e - r * wu;
-    win[e] = (float)fr[(v0 - half + r) * p.W + (u0 - half + cc)];
+  const float* row = patch_rows + 128 * (size_t)k;
+  for (int e = threadIdx.x; e < B * K2_NQ; e += K2_THREADS) {
+    const int dy = e / K2_NQ, t = e - dy * K2_NQ;
+    uint32_t w = 0;
+    for (int j = 0; j < 4 && 4 * t + j < B; ++j) w |= __float2uint_rz(row[dy * B + 4 * t + j]) << (8 * j);
+    pq[e] = w;
   }
-  for (int e = threadIdx.x; e < 128; e += blockDim.x) patch[e] = patch_rows[128 * k + e];
-  __syncthreads();
-  search_select(win, patch, patch[B * B], patch[B * B + 1], k, u0, v0, ucs[k], vcs[k],
-                sinv_abc[3 * k], sinv_abc[3 * k + 1], sinv_abc[3 * k + 2], active[k] != 0, p, redf,
-                redi, found, uo, vo, best_o, over_o);
+  if (threadIdx.x == 0) {
+    psum[0] = row[B * B];
+    psum[1] = row[B * B + 1];
+    kmin = K2_NONE;
+  }
+  const int u0 = u0s[k], v0 = v0s[k];
+  const uint8_t* win = frame + (size_t)(k / p.per_lane) * p.H * p.W + (size_t)(v0 - half) * p.W + (u0 - half);
+  search_feature(win, p.W, pq, psum, k, u0, v0, ucs[k], vcs[k], sinv_abc[3 * k], sinv_abc[3 * k + 1],
+                 sinv_abc[3 * k + 2], active[k] != 0, p, stage, &kmin, found, uo, vo, best_o, over_o);
 }
 
 // K8: windows [K][wv][wu] u8 (gathered at (u0 - half, v0 - half)), patches
-// [K][B][B] u8, sg0 / sg0sq [K] (the patch's integer sums, from the wrapper)
+// [K][B][B] u8, h_centre [K][2] f32 (the predicted positions)
 __global__ void __launch_bounds__(K2_THREADS)
 k8_kernel(const uint8_t* __restrict__ windows, const uint8_t* __restrict__ patches,
-          const float* __restrict__ sg0s, const float* __restrict__ sg0sqs,
-          const int* __restrict__ u0s, const int* __restrict__ v0s, const int* __restrict__ ucs,
-          const int* __restrict__ vcs, const float* __restrict__ sinv_abc,
-          const uint8_t* __restrict__ active, uint8_t* __restrict__ found, int* __restrict__ uo,
-          int* __restrict__ vo, float* __restrict__ best_o, uint8_t* __restrict__ over_o,
+          const int* __restrict__ u0s, const int* __restrict__ v0s, const float* __restrict__ h_centre,
+          const float* __restrict__ sinv_abc, const uint8_t* __restrict__ active, uint8_t* __restrict__ found,
+          int* __restrict__ uo, int* __restrict__ vo, float* __restrict__ best_o, uint8_t* __restrict__ over_o,
           K2Params p) {
-  extern __shared__ float win[];  // [wv][wu]
-  __shared__ float patch[128];
-  __shared__ float redf[32];
-  __shared__ int redi[32];
-  const int k = blockIdx.x;
+  extern __shared__ uint32_t stage[];
+  __shared__ uint32_t pq[K2_MAX_B * K2_NQ];
+  __shared__ float psum[2];
+  __shared__ unsigned long long kmin;
+  const int k = blockIdx.x / p.cluster;
   const int B = p.B;
-  const int n_win = (p.side_v + B - 1) * (p.side_u + B - 1);
-  const uint8_t* __restrict__ w = windows + (size_t)k * n_win;
-  for (int e = threadIdx.x; e < n_win; e += blockDim.x) win[e] = (float)w[e];
-  for (int e = threadIdx.x; e < B * B; e += blockDim.x) patch[e] = (float)patches[(size_t)k * B * B + e];
-  __syncthreads();
-  search_select(win, patch, sg0s[k], sg0sqs[k], k, u0s[k], v0s[k], ucs[k], vcs[k], sinv_abc[3 * k],
-                sinv_abc[3 * k + 1], sinv_abc[3 * k + 2], active[k] != 0, p, redf, redi, found, uo,
-                vo, best_o, over_o);
+  const int wu = p.side_u + B - 1;
+  // the patch as quads and its integer sums (exact), on warp 0
+  if (threadIdx.x < 32) {
+    const uint8_t* pt = patches + (size_t)k * B * B;
+    uint32_t s = 0, q = 0;
+    for (int e = threadIdx.x; e < B * K2_NQ; e += 32) {
+      const int dy = e / K2_NQ, t = e - dy * K2_NQ;
+      uint32_t w = 0;
+      for (int j = 0; j < 4 && 4 * t + j < B; ++j) w |= (uint32_t)pt[dy * B + 4 * t + j] << (8 * j);
+      pq[e] = w;
+      s = __dp4a(w, 0x01010101u, s);
+      q = __dp4a(w, w, q);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      q += __shfl_xor_sync(0xffffffffu, q, o);
+    }
+    if (threadIdx.x == 0) {
+      psum[0] = (float)s;
+      psum[1] = (float)q;
+      kmin = K2_NONE;
+    }
+  }
+  const uint8_t* win = windows + (size_t)k * (p.side_v + B - 1) * wu;
+  search_feature(win, wu, pq, psum, k, u0s[k], v0s[k], centre_i32(h_centre[2 * k]),
+                 centre_i32(h_centre[2 * k + 1]), sinv_abc[3 * k], sinv_abc[3 * k + 1], sinv_abc[3 * k + 2],
+                 active[k] != 0, p, stage, &kmin, found, uo, vo, best_o, over_o);
 }
 
-static size_t window_bytes(const K2Params* p) {
-  return sizeof(float) * (size_t)(p->side_v + p->B - 1) * (p->side_u + p->B - 1);
+// the staged rectangle's words at most: the whole window's centres on one CTA
+static size_t stage_bytes(const K2Params* p) {
+  return sizeof(uint32_t) * (size_t)(p->side_v + p->B - 1) * ((p->side_u + K2_RUN - 1) / K2_RUN + 3);
 }
 
-extern "C" int k2_search(const uint8_t* frame, const float* patch_rows, const int* u0,
-                         const int* v0, const int* uc, const int* vc, const float* sinv_abc,
-                         const uint8_t* active, uint8_t* found, int* u, int* v, float* best,
-                         uint8_t* over, int K, const K2Params* p, void* stream) {
-  const size_t smem = window_bytes(p);
-  if (smem > K2_MAX_WIN_BYTES || p->per_lane < 1) return (int)cudaErrorInvalidValue;
+template <typename Kernel, typename... Args>
+static int k2_launch(Kernel kernel, int K, const K2Params* p, void* stream, Args... args) {
+  const size_t smem = stage_bytes(p);
+  if (smem > K2_MAX_STAGE_BYTES || p->B < 1 || p->B > K2_MAX_B || p->per_lane < 1 || p->cluster < 1 ||
+      p->cluster > K2_MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
   if (K == 0) return 0;
-  // above 48 KB of static + dynamic shared memory the kernel must opt in;
-  // the attribute belongs to the current device, so it is set on every launch
-  cudaError_t e = cudaFuncSetAttribute(k2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)K * p->cluster, 1, 1);
+  cfg.blockDim = dim3(K2_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p->cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p->cluster > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args..., *p);
   if (e != cudaSuccess) return (int)e;
-  k2_kernel<<<K, K2_THREADS, smem, (cudaStream_t)stream>>>(frame, patch_rows, u0, v0, uc, vc, sinv_abc,
-                                                           active, found, u, v, best, over, *p);
   return (int)cudaGetLastError();
 }
 
-extern "C" int k8_search_windows(const uint8_t* windows, const uint8_t* patches, const float* sg0,
-                                 const float* sg0sq, const int* u0, const int* v0, const int* uc,
-                                 const int* vc, const float* sinv_abc, const uint8_t* active,
+extern "C" int k2_search(const uint8_t* frame, const float* patch_rows, const int* u0, const int* v0,
+                         const int* uc, const int* vc, const float* sinv_abc, const uint8_t* active,
+                         uint8_t* found, int* u, int* v, float* best, uint8_t* over, int K, const K2Params* p,
+                         void* stream) {
+  return k2_launch(k2_kernel, K, p, stream, frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, found, u, v,
+                   best, over);
+}
+
+extern "C" int k8_search_windows(const uint8_t* windows, const uint8_t* patches, const int* u0, const int* v0,
+                                 const float* h_centre, const float* sinv_abc, const uint8_t* active,
                                  uint8_t* found, int* u, int* v, float* best, uint8_t* over, int K,
                                  const K2Params* p, void* stream) {
-  const size_t smem = window_bytes(p);
-  if (smem > K2_MAX_WIN_BYTES || p->B * p->B > 128) return (int)cudaErrorInvalidValue;
-  if (K == 0) return 0;
-  cudaError_t e = cudaFuncSetAttribute(k8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  k8_kernel<<<K, K2_THREADS, smem, (cudaStream_t)stream>>>(windows, patches, sg0, sg0sq, u0, v0, uc, vc,
-                                                           sinv_abc, active, found, u, v, best, over, *p);
-  return (int)cudaGetLastError();
+  return k2_launch(k8_kernel, K, p, stream, windows, patches, u0, v0, h_centre, sinv_abc, active, found, u, v,
+                   best, over);
 }

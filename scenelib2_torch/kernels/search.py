@@ -18,35 +18,39 @@ features, over its (side x side) candidate centres in the window at
   order (the max of u*H + v, docs/PARITY.md); overflow when the box exceeds
   the window; found = active & best <= corr_thresh2.
 
-The TPU kernel scores only the ellipse's row band in 32/48-row slabs, a
-TPU economy with bit-identical results; here every candidate is considered.
-
-Bound on an H100 at the std shapes (K=10, 75x75 windows of a 320x240 u8
-frame): ~60 KB in and ~10 MFLOP of box sums and correlation, well under a
-microsecond; the launch dominates. Design: one block per selected feature;
-its window and patch in shared memory; threads stride over the candidates,
-score only those inside the ellipse's box, and reduce the minimum and then
-the tie key across the block. In the batch step every argument carries a
-leading lane dimension (frame [B, H, W], the rest [B, K, ...]) and the
-B x K features are one grid: one launch for all lanes.
+Bound on an H100 (bytes_and_flops): only the window pixels under the
+cells that the geometry admits are needed (read_pixels), a few KB a feature,
+and the admitted cells' sums and score formula; well under a microsecond at
+the std shapes (K=10, 75x75 windows of a 320x240 u8 frame), so the launch
+and one feature's chain of loads, sums and score formula dominate. Design (csrc/search.cu): a feature scores only the
+rectangle where its 3-sigma box meets the window and the valid centres
+(the TPU kernel's 32/48-row slabs, generalised); the rectangle's pixels are
+staged as u8 words and all three sums are taken in int32 with __dp4a, 4
+adjacent centres a thread; each admitted cell is one 64-bit key (score
+bits, then the complement of u*H + v), so one unsigned minimum gives best
+and the tie; with a small grid (the single stream) a feature is a cluster of
+up to 8 CTAs (cluster_size) reduced through distributed shared memory. In
+the batch step every argument carries a leading lane dimension (frame
+[B, H, W], the rest [B, K, ...]) and the B x K features are one grid: one
+launch for all lanes.
 
 K8 (search_windows) replaces the same file's other kernel,
 ``pallas_elliptical_search`` (pallas_search.py:253-329, pallas_call at
 :312), which the batch step runs with batch_pallas=False: the caller
 gathers each selected feature's u8 window first
-(correlate.gather_windows_u8) and hands in the stored u8 patches; the
-wrapper takes the patch sums as integer sums (pallas_search.py:287-289) and
-the centre as floor(h + 0.5) converted as XLA converts (NaN -> 0,
-saturating). Its scoring and selection are K2's (csrc/search_cell.cuh, and
-_select_plain here), on the given window instead of one read from the frame.
-Bound on an H100 at 64 lanes x 10 features: 3.6 MB of u8 windows in (~1 us
-at the memory rate) against the scored cells' operations; the launch
-dominates.
+(correlate.gather_windows_u8) and hands in the stored u8 patches and the
+predicted centres; the kernel takes the patch sums as integer sums
+(pallas_search.py:287-289) and the centre as floor(h + 0.5) converted as
+XLA converts (NaN -> 0, saturating), so the wrapper launches nothing else.
+Its scoring and selection are K2's, on the given window instead of one read
+from the frame. Its bound (bytes_and_flops_windows) likewise reads only the
+gathered windows' pixels under the admitted cells.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -56,6 +60,7 @@ from scenelib2_torch.kernels import _build
 NAME = "search"              # the library (csrc/search.cu) and K2's launch count
 NAME_K8 = "search_windows"   # K8's launch count (the library's second entry point)
 NO_MATCH = 1e6
+MAX_CLUSTER = 8              # CTAs a feature at most (csrc/search.cu K2_MAX_CLUSTER)
 
 
 @dataclass(frozen=True)
@@ -134,6 +139,16 @@ def nssd_corr_f32(sg0, sg0sq, sg1, sg1sq, cross, n):
     return corr, sd0, sd1
 
 
+def half_widths(sinv_abc, c: SearchConsts):
+    """The 3-sigma box's f32 half-width and half-height of each S^-1 (a, b, c)
+    in sinv_abc [..., 3]: floor(no_sigma / sqrt(a - b^2 / c)) and
+    floor(no_sigma / sqrt(c - b^2 / a)); NaN where the root is of a
+    negative, inf where it is 0."""
+    a, b, cc = sinv_abc[..., 0], sinv_abc[..., 1], sinv_abc[..., 2]
+    ns = torch.tensor(c.no_sigma, dtype=torch.float32, device=sinv_abc.device)
+    return torch.floor(ns / torch.sqrt(a - b * b / cc)), torch.floor(ns / torch.sqrt(cc - b * b / a))
+
+
 def candidate_geometry(u0, v0, uc, vc, sinv_abc, c: SearchConsts):
     """Per-candidate geometry of every window cell, [K, side_v, side_u]:
     returns (admit, uu, vv, halfwidth, halfheight) where admit is the part
@@ -150,9 +165,7 @@ def candidate_geometry(u0, v0, uc, vc, sinv_abc, c: SearchConsts):
     vv = v0[:, None, None] + torch.arange(sv, device=dev, dtype=torch.int32)[None, :, None]
     urel = (uu - uc[:, None, None]).to(f32)
     vrel = (vv - vc[:, None, None]).to(f32)
-    ns = torch.tensor(c.no_sigma, dtype=f32, device=dev)
-    halfwidth = torch.floor(ns / torch.sqrt(a - b * b / cc))
-    halfheight = torch.floor(ns / torch.sqrt(cc - b * b / a))
+    halfwidth, halfheight = (h[:, None, None] for h in half_widths(sinv_abc, c))
     box = (torch.abs(urel) <= halfwidth) & (torch.abs(vrel) <= halfheight)
     ellipse = a * urel * urel + 2.0 * b * urel * vrel + cc * vrel * vrel < c.no_sigma * c.no_sigma
     centre_ok = (uu >= half) & (uu <= c.W - 1 - half) & (vv >= half) & (vv <= c.H - 1 - half)
@@ -175,18 +188,18 @@ def search_plain(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchC
                          u0, v0, uc, vc, sinv_abc, active, c)
 
 
-def _select_plain(win, patch_pix, sg0, sg0sq, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts):
-    """The scoring and selection of K2 and K8 on the gathered u8 windows
-    win [K, wv, wu], patch pixels [K, B*B] and the patch sums sg0, sg0sq [K]."""
-    dev = win.device
+def window_sums(win, patch_pix, c: SearchConsts):
+    """The three sums of every cell as the twins take them, shifted f32 adds
+    (exact in any order: integers below 2^24): window sum, sum of squares
+    and cross sum with the patch, each [K, side_v, side_u], of u8 windows
+    win [K, wv, wu] and patch pixels [K, B*B]."""
     f32 = torch.float32
     B = c.boxsize
-    K = u0.shape[0]
     sv, su = c.side_v, c.side_u
     win = win.to(f32)
     win2 = win * win
     patch_pix = patch_pix.to(f32)
-    sg1 = torch.zeros((K, sv, su), dtype=f32, device=dev)
+    sg1 = torch.zeros((win.shape[0], sv, su), dtype=f32, device=win.device)
     sg1sq = torch.zeros_like(sg1)
     cross = torch.zeros_like(sg1)
     for dy in range(B):
@@ -195,11 +208,29 @@ def _select_plain(win, patch_pix, sg0, sg0sq, u0, v0, uc, vc, sinv_abc, active, 
             sg1 = sg1 + w
             sg1sq = sg1sq + win2[:, dy : dy + sv, dx : dx + su]
             cross = cross + patch_pix[:, dy * B + dx, None, None] * w
-    n = torch.tensor(float(B * B), dtype=f32, device=dev)
-    corr, sd0, sd1 = nssd_corr_f32(sg0[:, None, None], sg0sq[:, None, None], sg1, sg1sq, cross, n)
+    return sg1, sg1sq, cross
 
+
+def score_cells(win, patch_pix, sg0, sg0sq, u0, v0, uc, vc, sinv_abc, c: SearchConsts):
+    """Every cell's NSSD and mask, [K, side_v, side_u]: returns (corr, mask,
+    uu, vv, halfwidth, halfheight) on the gathered u8 windows win [K, wv,
+    wu], patch pixels [K, B*B] and the patch sums sg0, sg0sq [K]."""
+    f32 = torch.float32
+    n = torch.tensor(float(c.boxsize * c.boxsize), dtype=f32, device=win.device)
+    sg1, sg1sq, cross = window_sums(win, patch_pix, c)
+    corr, sd0, sd1 = nssd_corr_f32(sg0[:, None, None], sg0sq[:, None, None], sg1, sg1sq, cross, n)
     admit, uu, vv, halfwidth, halfheight = candidate_geometry(u0, v0, uc, vc, sinv_abc, c)
     mask = admit & (sd1 >= c.corr_sigma_thresh) & (sd0 >= c.corr_sigma_thresh)
+    return corr, mask, uu, vv, halfwidth, halfheight
+
+
+def _select_plain(win, patch_pix, sg0, sg0sq, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts):
+    """The scoring and selection of K2 and K8 on the gathered u8 windows
+    win [K, wv, wu], patch pixels [K, B*B] and the patch sums sg0, sg0sq [K]."""
+    K = u0.shape[0]
+    sv, su = c.side_v, c.side_u
+    corr, mask, uu, vv, halfwidth, halfheight = score_cells(win, patch_pix, sg0, sg0sq, u0, v0, uc, vc,
+                                                            sinv_abc, c)
     vals = torch.where(mask, corr, torch.full_like(corr, NO_MATCH)).reshape(K, -1)
     best = vals.min(dim=1).values
     key = (uu * c.H + vv).expand(K, sv, su).reshape(K, -1)
@@ -209,21 +240,57 @@ def _select_plain(win, patch_pix, sg0, sg0sq, u0, v0, uc, vc, sinv_abc, active, 
     u = torch.where(has, kbest // c.H, -1).to(torch.int32)
     v = torch.where(has, kbest % c.H, -1).to(torch.int32)
     over = ((halfwidth > float(su // 2)) | (halfheight > float(sv // 2))).reshape(K)
-    thr = torch.tensor(c.corr_thresh2, dtype=f32, device=dev)
+    thr = torch.tensor(c.corr_thresh2, dtype=torch.float32, device=win.device)
     found = active & (best <= thr)
     return found, u, v, best, over & active
+
+
+# ---- the launches
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cluster_size(K: int, n_sms: int) -> int:
+    """CTAs that share one feature (a thread-block cluster): the largest
+    power of two up to MAX_CLUSTER with K x it at most 3 CTAs an SM (4 fit),
+    so the grid stays one wave: the single stream's 10 features take 8 CTAs
+    each, batch-hires' 160 take 2, batch64's 640 one (the sizes that
+    `scripts/ab_search_kernels.py --clusters` found fastest, PERF.md §6)."""
+    cs = 1
+    while cs < MAX_CLUSTER and 2 * cs * K <= 3 * n_sms:
+        cs *= 2
+    return cs
 
 
 class _K2Params(ctypes.Structure):
     _fields_ = [
         ("H", ctypes.c_int), ("W", ctypes.c_int), ("B", ctypes.c_int),
         ("side_v", ctypes.c_int), ("side_u", ctypes.c_int), ("per_lane", ctypes.c_int),
+        ("cluster", ctypes.c_int),
         ("no_sigma", ctypes.c_float), ("no_sigma2", ctypes.c_float),
         ("corr_thresh2", ctypes.c_float), ("corr_sigma_thresh", ctypes.c_float),
     ]
 
 
-# tensor pointers, ints, the params struct, the stream
+def _params(c: SearchConsts, K: int, per_lane: int, dev) -> _K2Params:
+    return _K2Params(
+        H=c.H, W=c.W, B=c.boxsize, side_v=c.side_v, side_u=c.side_u, per_lane=per_lane,
+        cluster=cluster_size(K, _n_sms(dev.index if dev.index is not None else torch.cuda.current_device())),
+        no_sigma=c.no_sigma, no_sigma2=c.no_sigma * c.no_sigma,
+        corr_thresh2=c.corr_thresh2, corr_sigma_thresh=c.corr_sigma_thresh,
+    )
+
+
+def _outputs(K: int, dev):
+    return (torch.empty(K, dtype=torch.bool, device=dev), torch.empty(K, dtype=torch.int32, device=dev),
+            torch.empty(K, dtype=torch.int32, device=dev), torch.empty(K, dtype=torch.float32, device=dev),
+            torch.empty(K, dtype=torch.bool, device=dev))
+
+
+# tensor pointers (8 inputs, 5 outputs), K, the params struct, the stream
 _ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.POINTER(_K2Params), ctypes.c_void_p]
 
 
@@ -231,7 +298,8 @@ def search(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts)
     """K2. A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (or raises). Same outputs as search_plain. With a lane dimension
     (frame [B, H, W], every other argument [B, K, ...]) the outputs are
-    [B, K] and the kernel is launched once for all lanes."""
+    [B, K] and the kernel is launched once for all lanes. The patch rows'
+    pixels are u8 values (runtime/state.py::patch_row)."""
     if frame.dim() == 3:
         return _search_lanes(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c)
     if frame.device.type == "cpu":
@@ -251,7 +319,13 @@ def _search_lanes(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: Search
 
 def _launch(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts, n_lanes: int):
     """Launch K2 over K features, K / n_lanes consecutive ones per frame of
-    frame [n_lanes, H, W] (or [H, W] for one lane)."""
+    frame [n_lanes, H, W] (or [H, W] for one lane). The B*B pixels of each
+    patch row must be u8 values, integers in 0..255, as patch_row
+    (runtime/state.py) writes them: the kernel packs them into byte quads
+    by truncation, where search_plain takes the f32 values as they are
+    (tests/test_torch_search_int.py holds patch_row to this). The staged
+    window must fit the 48 KB of shared memory a kernel has without opting
+    in: search radii up to 103 px (std 32, hires 48); a larger one raises."""
     K = u0.shape[0]
     if c.boxsize * c.boxsize + 2 > 128:
         raise ValueError("K2: the patch row holds at most 126 pixels")
@@ -261,27 +335,15 @@ def _launch(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts
         _build.check_tensor(t, name, torch.int32, (K,))
     _build.check_tensor(sinv_abc, "sinv_abc", torch.float32, (K, 3))
     _build.check_tensor(active, "active", torch.bool, (K,))
-    dev = frame.device
-    found = torch.empty(K, dtype=torch.bool, device=dev)
-    u = torch.empty(K, dtype=torch.int32, device=dev)
-    v = torch.empty(K, dtype=torch.int32, device=dev)
-    best = torch.empty(K, dtype=torch.float32, device=dev)
-    over = torch.empty(K, dtype=torch.bool, device=dev)
-    prm = _K2Params(
-        H=c.H, W=c.W, B=c.boxsize, side_v=c.side_v, side_u=c.side_u, per_lane=max(K // n_lanes, 1),
-        no_sigma=c.no_sigma, no_sigma2=c.no_sigma * c.no_sigma,
-        corr_thresh2=c.corr_thresh2, corr_sigma_thresh=c.corr_sigma_thresh,
-    )
     fn = _build.function(NAME, "k2_search", _ARGTYPES)
-    err = fn(
-        frame.data_ptr(), patch_rows.data_ptr(), u0.data_ptr(), v0.data_ptr(),
-        uc.data_ptr(), vc.data_ptr(), sinv_abc.data_ptr(), active.data_ptr(),
-        found.data_ptr(), u.data_ptr(), v.data_ptr(), best.data_ptr(), over.data_ptr(),
-        K, ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    outs = _outputs(K, frame.device)
+    prm = _params(c, K, max(K // n_lanes, 1), frame.device)
+    err = fn(*(t.data_ptr() for t in (frame, patch_rows, u0, v0, uc, vc, sinv_abc, active)),
+             *(t.data_ptr() for t in outs), K, ctypes.byref(prm),
+             torch.cuda.current_stream(frame.device).cuda_stream)
     _build.check(err, "K2 search")
     _build.launches[NAME] += 1
-    return found, u, v, best, over
+    return outs
 
 
 def window_centre(h_centre):
@@ -313,8 +375,8 @@ def search_windows_plain(windows, patches, u0, v0, h_centre, sinv_abc, active, c
                          active, c)
 
 
-# tensor pointers (10 inputs, 5 outputs), K, the params struct, the stream
-_ARGTYPES_K8 = [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.POINTER(_K2Params), ctypes.c_void_p]
+# tensor pointers (7 inputs, 5 outputs), K, the params struct, the stream
+_ARGTYPES_K8 = [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.POINTER(_K2Params), ctypes.c_void_p]
 
 
 def search_windows(windows, patches, u0, v0, h_centre, sinv_abc, active, c: SearchConsts):
@@ -331,31 +393,24 @@ def search_windows(windows, patches, u0, v0, h_centre, sinv_abc, active, c: Sear
 
 
 def _launch_k8(windows, patches, u0, v0, h_centre, sinv_abc, active, c: SearchConsts):
+    """One launch and its output allocations, nothing else: the kernel forms
+    the centres and the patch sums itself."""
     K = u0.shape[0]
     B = c.boxsize
-    if B * B > 128:
-        raise ValueError("K8: the patch holds at most 128 pixels")
-    sg0, sg0sq = patch_sums(patches)
-    uc, vc = window_centre(h_centre)
-    ins = [t.contiguous() for t in (windows, patches, sg0, sg0sq, u0, v0, uc, vc, sinv_abc, active)]
+    if B > 11:
+        raise ValueError("K8: the patch is at most 11 x 11")
+    ins = (windows, patches, u0, v0, h_centre, sinv_abc, active)
     for t, name, dty, shp in zip(
-        ins, ("windows", "patches", "sg0", "sg0sq", "u0", "v0", "uc", "vc", "sinv_abc", "active"),
-        (torch.uint8, torch.uint8) + (torch.float32,) * 2 + (torch.int32,) * 4 + (torch.float32, torch.bool),
-        ((K, c.side_v + B - 1, c.side_u + B - 1), (K, B, B)) + ((K,),) * 6 + ((K, 3), (K,)),
+        ins, ("windows", "patches", "u0", "v0", "h_centre", "sinv_abc", "active"),
+        (torch.uint8, torch.uint8, torch.int32, torch.int32, torch.float32, torch.float32, torch.bool),
+        ((K, c.side_v + B - 1, c.side_u + B - 1), (K, B, B), (K,), (K,), (K, 2), (K, 3), (K,)),
     ):
         _build.check_tensor(t, name, dty, shp)
-    dev = windows.device
-    outs = (torch.empty(K, dtype=torch.bool, device=dev), torch.empty(K, dtype=torch.int32, device=dev),
-            torch.empty(K, dtype=torch.int32, device=dev), torch.empty(K, dtype=torch.float32, device=dev),
-            torch.empty(K, dtype=torch.bool, device=dev))
-    prm = _K2Params(
-        H=c.H, W=c.W, B=B, side_v=c.side_v, side_u=c.side_u, per_lane=1,
-        no_sigma=c.no_sigma, no_sigma2=c.no_sigma * c.no_sigma,
-        corr_thresh2=c.corr_thresh2, corr_sigma_thresh=c.corr_sigma_thresh,
-    )
     fn = _build.function(NAME, "k8_search_windows", _ARGTYPES_K8)
+    outs = _outputs(K, windows.device)
+    prm = _params(c, K, 1, windows.device)
     err = fn(*(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs), K, ctypes.byref(prm),
-             torch.cuda.current_stream(dev).cuda_stream)
+             torch.cuda.current_stream(windows.device).cuda_stream)
     _build.check(err, "K8 search_windows")
     _build.launches[NAME_K8] += 1
     return outs
@@ -369,21 +424,34 @@ def nssd_cell_ops(B: int) -> int:
     return 2 * B * B + 2 * 2 * (B - 1) + 1 + 30
 
 
-def bytes_and_flops(K: int, c: SearchConsts, n_scored: int) -> tuple[int, int]:
-    """Least bytes (the K windows read once, patch rows and per-feature
-    inputs, results written) and the operations that the n_scored candidates
-    admitted by this call's geometry (candidate_geometry) need."""
-    B = c.boxsize
-    wv, wu = c.side_v + B - 1, c.side_u + B - 1
-    nbytes = K * (wv * wu + 128 * 4 + 4 * 4 + 3 * 4 + 1) + K * (1 + 4 + 4 + 4 + 1)
-    return nbytes, n_scored * nssd_cell_ops(B)
+def read_pixels(admit, B: int) -> int:
+    """Window pixels that some admitted cell reads: the union of the B x B
+    footprints of the cells of admit [K, side_v, side_u] (candidate_geometry's
+    mask), counted once per feature. A cell that the geometry rejects needs
+    no pixel, so these are all the window bytes the search needs."""
+    if admit.numel() == 0:
+        return 0
+    m = admit.to(torch.float32, copy=True).reshape(-1, 1, *admit.shape[-2:]).cpu()
+    under = torch.nn.functional.max_pool2d(torch.nn.functional.pad(m, (B - 1,) * 4), B, stride=1)
+    return int(under.sum())
 
 
-def bytes_and_flops_windows(K: int, c: SearchConsts, n_scored: int) -> tuple[int, int]:
-    """Least bytes and operations of one K8 call: the K u8 windows, u8
-    patches and per-feature inputs read once, the results written, and the
-    n_scored admitted candidates' operations."""
+def bytes_and_flops(K: int, c: SearchConsts, admit) -> tuple[int, int]:
+    """Least bytes and operations of one K2 call of K features whose
+    candidate_geometry mask is admit [K, side_v, side_u]: the window pixels
+    under the admitted cells (read_pixels), each feature's patch pixels and
+    sums, centres, S^-1 and active flag read once and its results written;
+    the admitted cells' operations."""
     B = c.boxsize
-    wv, wu = c.side_v + B - 1, c.side_u + B - 1
-    nbytes = K * (wv * wu + B * B + 2 * 4 + 4 * 4 + 2 * 4 + 3 * 4 + 1) + K * (1 + 4 + 4 + 4 + 1)
-    return nbytes, n_scored * nssd_cell_ops(B)
+    nbytes = read_pixels(admit, B) + K * ((B * B + 2) * 4 + 4 * 4 + 3 * 4 + 1) + K * (1 + 4 + 4 + 4 + 1)
+    return nbytes, int(admit.sum()) * nssd_cell_ops(B)
+
+
+def bytes_and_flops_windows(K: int, c: SearchConsts, admit) -> tuple[int, int]:
+    """Least bytes and operations of one K8 call, as bytes_and_flops: the
+    gathered windows' pixels under the admitted cells, the u8 patches,
+    origins, predicted centres, S^-1 and active flags read once, the
+    results written, and the admitted cells' operations."""
+    B = c.boxsize
+    nbytes = read_pixels(admit, B) + K * (B * B + 2 * 4 + 2 * 4 + 3 * 4 + 1) + K * (1 + 4 + 4 + 4 + 1)
+    return nbytes, int(admit.sum()) * nssd_cell_ops(B)

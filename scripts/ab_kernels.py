@@ -1,5 +1,6 @@
 """What the A/B scripts of kernels between source trees share
-(scripts/ab_particle_kernels.py, scripts/ab_update_kernels.py).
+(scripts/ab_particle_kernels.py, scripts/ab_update_kernels.py,
+scripts/ab_search_kernels.py).
 
 A script gives run() its list of trees and a cases(dev) function that
 returns (name, kernel symbol, fn) for every timed case, fn() returning the
