@@ -19,6 +19,7 @@ Nothing here runs at import: the package imports on a machine without
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -122,6 +123,21 @@ def function(name: str, symbol: str, argtypes: list):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def n_sms(dev) -> int:
+    """The streaming multiprocessors of CUDA device `dev` (a torch.device),
+    for the wrappers that size their grids by it."""
+    import torch
+
+    return _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
 
 
 def check_tensor(t, name: str, dtype, shape) -> None:

@@ -6,82 +6,53 @@
 // the box sums are integers (exact in any order), and the eigenvalue runs
 // the twin's f32 operations in its order (built with -fmad=false).
 //
-// Bound on an H100: a 72 x 92 u8 window and ~2 MOP: far below a
-// microsecond; the launch dominates. Design: one block of 512 threads per
-// lane (the batch step's lanes are the grid: one launch for all); the
-// window (u8) and the doubled gradients (int16) in shared memory; a thread
-// per output cell sums its 121 gradient products in int32 and takes the
-// eigenvalue; block reductions give the maximum (NaN if any masked value is
-// NaN, as jnp.max) and then the smallest v*W + u key among the cells at the
-// maximum (the reference's first-in-scan-order pick).
+// Bound on an H100 (shi_tomasi.py::bytes_and_flops): a 72 x 92 u8 window
+// and ~0.2 M operations of separable sums and eigenvalues: a fraction of a
+// microsecond; the launch and the chain of passes set the time. Design:
+//   - the region's rows of cells are split into bands over a cluster of
+//     p.cluster CTAs (the wrapper picks the size, shi_tomasi.py::
+//     cluster_size); each lane of the batch step is its own cluster;
+//   - a CTA stages its band's window rows (the band plus its 12-row halo)
+//     as u8, then, K6_CHUNK rows of cells at a time, takes the 11-row sums
+//     of gx2^2, gy2^2 and gx2 gy2 (int32, a running sum down each column)
+//     into shared memory and the 11-column sums of those (a running sum
+//     along each row); every sum is an integer below 2^23, so the order
+//     does not change it;
+//   - each admitted cell's eigenvalue becomes one 64-bit key: the high
+//     word its bits when it is > 0 (positive floats order as unsigned
+//     integers), else 0; the low word 0xFFFFFFFF - (v W + u), so the
+//     maximum key is the largest eigenvalue and, among its ties, the
+//     smallest scan key (the reference's first-in-scan-order pick); a NaN
+//     eigenvalue sets a flag (the twin's maximum is then NaN: no pick);
+//   - one maximum over the block, then over the cluster through
+//     distributed shared memory; rank 0 writes the pick.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 #define K6_THREADS 512
-#define K6_MAX_WV 80   // region_h + 2 * off
-#define K6_MAX_WU 100  // region_w + 2 * off
+#define K6_MAX_WV 80     // region_h + 2 * off
+#define K6_MAX_WU 100    // region_w + 2 * off
+#define K6_CHUNK 20      // rows of cells a pass of the column sums holds
+#define K6_VSTRIDE 99    // words a row of the column sums (odd: no bank conflicts down a column)
+#define K6_MAX_CLUSTER 8
 
 struct K6Params {
-  int H, W, B, region_w, region_h;
+  int H, W, B, region_w, region_h, cluster;
 };
 
-__device__ __forceinline__ float block_max_f(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? red[lane] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  v = red[0];
-  __syncthreads();
-  return v;
-}
-
-__device__ __forceinline__ int block_min_i(int v, int* red) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0x7fffffff;
-    for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  v = red[0];
-  __syncthreads();
-  return v;
-}
-
-// the smaller eigenvalue of cell (i, j) and whether the mask admits it
-__device__ __forceinline__ bool cell_ev(const int16_t* gx, const int16_t* gy, int gu, int i, int j,
-                                        int u0, int v0, float fus, float fvs, float fuf, float fvf,
-                                        int off, const K6Params& p, float* ev_out) {
-  const int uu = u0 + j, vv = v0 + i;
-  const float uuf = (float)uu, vvf = (float)vv;
-  const bool mask = uuf >= fus && uuf < fuf && vvf >= fvs && vvf < fvf && uu >= off &&
-                    uu <= p.W - 1 - off && vv >= off && vv <= p.H - 1 - off;
-  if (!mask) return false;
-  int sxx = 0, syy = 0, sxy = 0;
-  for (int dy = 0; dy < p.B; ++dy) {
-    const int16_t* rx = gx + (i + dy) * gu + j;
-    const int16_t* ry = gy + (i + dy) * gu + j;
-    for (int dx = 0; dx < p.B; ++dx) {
-      const int a = rx[dx], b = ry[dx];
-      sxx += a * a;
-      syy += b * b;
-      sxy += a * b;
-    }
-  }
-  const float A = (float)sxx * 0.25f, C = (float)syy * 0.25f, Bq = (float)sxy * 0.25f;
-  const float BB = sqrtf((A + C) * (A + C) - 4.0f * (A * C - Bq * Bq));
-  *ev_out = (A + C - BB) / 2.0f;
-  return true;
+// the doubled central differences at gradient point (g, j) of the staged
+// window (the window's interior point (g + 1, j + 1)), and their products
+__device__ __forceinline__ void grad_products(const uint8_t* win, int wu, int g, int j, int& xx, int& yy,
+                                              int& xy) {
+  const int gx = (int)win[(g + 1) * wu + j + 2] - (int)win[(g + 1) * wu + j];
+  const int gy = (int)win[(g + 2) * wu + j + 1] - (int)win[g * wu + j + 1];
+  xx = gx * gx;
+  yy = gy * gy;
+  xy = gx * gy;
 }
 
 __global__ void __launch_bounds__(K6_THREADS)
@@ -89,62 +60,136 @@ k6_kernel(const uint8_t* __restrict__ frame, const int* __restrict__ us_p, const
           const int* __restrict__ uf_p, const int* __restrict__ vf_p, int* __restrict__ ubest_o,
           int* __restrict__ vbest_o, float* __restrict__ ev_o, K6Params p) {
   __shared__ uint8_t win[K6_MAX_WV * K6_MAX_WU];
-  __shared__ int16_t gx[(K6_MAX_WV - 2) * (K6_MAX_WU - 2)];
-  __shared__ int16_t gy[(K6_MAX_WV - 2) * (K6_MAX_WU - 2)];
-  __shared__ float redf[32];
-  __shared__ int redi[32];
-  const int off = 1 + (p.B - 1) / 2;
+  __shared__ int vsum[3][K6_CHUNK][K6_VSTRIDE];
+  __shared__ unsigned long long red[K6_THREADS / 32];
+  __shared__ unsigned long long kblock;
+  __shared__ int nan_block;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int cs = p.cluster, rank = (int)(blockIdx.x % cs), ln = (int)(blockIdx.x / cs);
+  const int B = p.B, off = 1 + (B - 1) / 2;
   const int rw = p.region_w, rh = p.region_h;
-  const int wv = rh + 2 * off, wu = rw + 2 * off, gu = wu - 2;
-  const int ln = blockIdx.x;
+  const int wu = rw + 2 * off, gu = wu - 2;
+  const int nb = (rh + cs - 1) / cs;
+  const int r0 = min(rh, rank * nb), r1 = min(rh, r0 + nb);
   frame += (size_t)ln * p.H * p.W;
   const int ustart = us_p[ln], vstart = vs_p[ln];
   const float fus = (float)ustart, fvs = (float)vstart, fuf = (float)uf_p[ln], fvf = (float)vf_p[ln];
   const int u0 = min(max(ustart, off), p.W - rw - off);
   const int v0 = min(max(vstart, off), p.H - rh - off);
 
-  for (int e = threadIdx.x; e < wv * wu; e += blockDim.x) {
+  // the band's window rows: cells [r0, r1) read window rows [r0, r1 + 2 off)
+  const int wrows = r1 > r0 ? r1 - r0 + 2 * off : 0;
+  const uint8_t* src = frame + (size_t)(v0 - off + r0) * p.W + (u0 - off);
+  for (int e = tid; e < wrows * wu; e += nt) {
     const int r = e / wu, c = e - r * wu;
-    win[e] = frame[(v0 - off + r) * p.W + (u0 - off + c)];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < (wv - 2) * gu; e += blockDim.x) {
-    const int i = e / gu, j = e - i * gu;
-    gx[e] = (int16_t)((int)win[(i + 1) * wu + j + 2] - (int)win[(i + 1) * wu + j]);
-    gy[e] = (int16_t)((int)win[(i + 2) * wu + j + 1] - (int)win[i * wu + j + 1]);
+    win[e] = src[r * p.W + c];
   }
   __syncthreads();
 
-  float vmax = -INFINITY;
-  int has_nan = 0;
-  for (int e = threadIdx.x; e < rh * rw; e += blockDim.x) {
-    const int i = e / rw, j = e - i * rw;
-    float ev;
-    if (cell_ev(gx, gy, gu, i, j, u0, v0, fus, fvs, fuf, fvf, off, p, &ev)) {
-      if (ev != ev) has_nan = 1;
-      else vmax = fmaxf(vmax, ev);
+  unsigned long long key = 0ull;
+  int nan = 0;
+  for (int c0 = r0; c0 < r1; c0 += K6_CHUNK) {
+    const int nr = min(K6_CHUNK, r1 - c0), g0 = c0 - r0;
+    // 11-row sums: a thread takes one gradient column and a run of rows
+    {
+      const int runs = max(1, nt / gu), lv = (nr + runs - 1) / runs;
+      const int j = tid % gu, run = tid / gu;
+      const int rs = run * lv, re = min(nr, rs + lv);
+      if (run < runs && rs < re) {
+        int sxx = 0, syy = 0, sxy = 0, a, b, c;
+        for (int dy = 0; dy < B; ++dy) {
+          grad_products(win, wu, g0 + rs + dy, j, a, b, c);
+          sxx += a;
+          syy += b;
+          sxy += c;
+        }
+        vsum[0][rs][j] = sxx;
+        vsum[1][rs][j] = syy;
+        vsum[2][rs][j] = sxy;
+        for (int r = rs + 1; r < re; ++r) {
+          int a2, b2, c2;
+          grad_products(win, wu, g0 + r + B - 1, j, a, b, c);
+          grad_products(win, wu, g0 + r - 1, j, a2, b2, c2);
+          sxx += a - a2;
+          syy += b - b2;
+          sxy += c - c2;
+          vsum[0][r][j] = sxx;
+          vsum[1][r][j] = syy;
+          vsum[2][r][j] = sxy;
+        }
+      }
+    }
+    __syncthreads();
+    // 11-column sums and the cells' keys: a thread takes one row of cells
+    // and a run of columns
+    {
+      const int runs = max(1, nt / nr), lh = (rw + runs - 1) / runs;
+      const int i = tid % nr, run = tid / nr;
+      const int js = run * lh, je = min(rw, js + lh);
+      if (run < runs && js < je) {
+        const int vv = v0 + c0 + i;
+        const float vvf = (float)vv;
+        const bool row_ok = vvf >= fvs && vvf < fvf && vv >= off && vv <= p.H - 1 - off;
+        int sxx = 0, syy = 0, sxy = 0;
+        for (int dx = 0; dx < B; ++dx) {
+          sxx += vsum[0][i][js + dx];
+          syy += vsum[1][i][js + dx];
+          sxy += vsum[2][i][js + dx];
+        }
+        for (int jj = js; jj < je; ++jj) {
+          if (jj > js) {
+            sxx += vsum[0][i][jj + B - 1] - vsum[0][i][jj - 1];
+            syy += vsum[1][i][jj + B - 1] - vsum[1][i][jj - 1];
+            sxy += vsum[2][i][jj + B - 1] - vsum[2][i][jj - 1];
+          }
+          const int uu = u0 + jj;
+          const float uuf = (float)uu;
+          if (row_ok && uuf >= fus && uuf < fuf && uu >= off && uu <= p.W - 1 - off) {
+            const float A = (float)sxx * 0.25f, C = (float)syy * 0.25f, Bq = (float)sxy * 0.25f;
+            const float BB = sqrtf((A + C) * (A + C) - 4.0f * (A * C - Bq * Bq));
+            const float ev = (A + C - BB) / 2.0f;
+            if (ev != ev) nan = 1;
+            else if (ev > 0.0f)
+              key = max(key, ((unsigned long long)__float_as_uint(ev) << 32) |
+                                 (unsigned long long)(0xFFFFFFFFu - (uint32_t)(vv * p.W + uu)));
+          }
+        }
+      }
+    }
+    __syncthreads();  // before the next chunk overwrites vsum
+  }
+
+  // ---- one maximum: the warp, the block, then the cluster
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) key = max(key, __shfl_xor_sync(0xffffffffu, key, o));
+  if ((tid & 31) == 0) red[tid >> 5] = key;
+  nan = __syncthreads_or(nan);  // also the barrier for red[]
+  if (tid < 32) {
+    key = tid < nt / 32 ? red[tid] : 0ull;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) key = max(key, __shfl_xor_sync(0xffffffffu, key, o));
+    if (tid == 0) {
+      kblock = key;
+      nan_block = nan;
     }
   }
-  float best = block_max_f(vmax, redf);
-  const bool nan_best = __syncthreads_or(has_nan) != 0;
-  if (nan_best) best = NAN;
-
-  int kmin = 0x7fffffff;
-  if (!nan_best) {
-    for (int e = threadIdx.x; e < rh * rw; e += blockDim.x) {
-      const int i = e / rw, j = e - i * rw;
-      float ev;
-      if (cell_ev(gx, gy, gu, i, j, u0, v0, fus, fvs, fuf, fvf, off, p, &ev) && ev == best)
-        kmin = min(kmin, (v0 + i) * p.W + (u0 + j));
-    }
+  if (cs > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every rank's kblock is final
+    if (rank == 0 && tid == 0)
+      for (int r = 1; r < cs; ++r) {
+        key = max(key, *cluster.map_shared_rank(&kblock, r));
+        nan |= *cluster.map_shared_rank(&nan_block, r);
+      }
+    cluster.sync();  // no rank leaves while rank 0 reads its shared memory
   }
-  kmin = block_min_i(kmin, redi);
-
-  if (threadIdx.x == 0) {
-    const bool found = best > 0.0f;
-    ubest_o[ln] = found ? kmin % p.W : ustart;
-    vbest_o[ln] = found ? kmin / p.W : vstart;
-    ev_o[ln] = found ? best : 0.0f;
+  if (rank == 0 && tid == 0) {
+    const uint32_t hi = (uint32_t)(key >> 32);
+    const bool found = !nan && hi > 0u;
+    const int k = (int)(0xFFFFFFFFu - (uint32_t)key);
+    ubest_o[ln] = found ? k % p.W : ustart;
+    vbest_o[ln] = found ? k / p.W : vstart;
+    ev_o[ln] = found ? __uint_as_float(hi) : 0.0f;
   }
 }
 
@@ -152,8 +197,23 @@ extern "C" int k6_shi_tomasi(const uint8_t* frame, const int* us, const int* vs,
                              const int* vf, int* ubest, int* vbest, float* evbest, int n_lanes,
                              const K6Params* p, void* stream) {
   const int off = 1 + (p->B - 1) / 2;
-  if (p->region_h + 2 * off > K6_MAX_WV || p->region_w + 2 * off > K6_MAX_WU) return (int)cudaErrorInvalidValue;
+  if (p->region_h + 2 * off > K6_MAX_WV || p->region_w + 2 * off > K6_MAX_WU || p->region_h < 1 ||
+      p->region_w < 1 || p->cluster < 1 || p->cluster > K6_MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
   if (n_lanes == 0) return 0;
-  k6_kernel<<<n_lanes, K6_THREADS, 0, (cudaStream_t)stream>>>(frame, us, vs, uf, vf, ubest, vbest, evbest, *p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n_lanes * p->cluster, 1, 1);
+  cfg.blockDim = dim3(K6_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p->cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p->cluster > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, k6_kernel, frame, us, vs, uf, vf, ubest, vbest, evbest, *p);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

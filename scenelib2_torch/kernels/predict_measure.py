@@ -15,12 +15,16 @@ Replaces the TPU kernel scenelib2_tpu/kernels/pallas_predict_measure.py
     selected [NOUT, NSEL] column block with non-finite entries zeroed; the
     visible count; the first MAXP partial slots, lowest lane first.
 
-Bound on an H100 at the std shapes (D=109, MF=16): the work is ~0.1 MB of
-P in and out and ~0.5 MFLOP, well under a microsecond of either; a launch
-costs a few microseconds, so the kernel is launch-latency bound. Design:
-one block of 256 threads; the 13 x D camera rows of F P in shared memory;
-one thread per slot for the measurement chain; the rank by pairwise
-comparison, one thread per slot.
+Bound on an H100 (bytes_and_flops): P read once and P' written once, 8 D^2
+bytes (0.095 MB at D = 109, 1.1 MB at D = 373), a fraction of a microsecond;
+the operations are fewer still. Design (csrc/predict_measure.cu): a grid of
+1 + copy_ctas(D, SMs) CTAs of 256 threads. CTA 0 runs the critical path
+(F and Q with the entries split over threads, the camera block of F P and
+the columns each slot reads, A, Pc, x', one thread per slot for the
+measurement chain, the rank by pairwise comparison, n_visible and the
+partial slots by ballots); the other CTAs write the rest of P' in 16-byte
+units of the flat index, each building F itself, so each element of P' is
+written once, by one CTA, with no CTA waiting for another.
 """
 
 from __future__ import annotations
@@ -153,6 +157,21 @@ def predict_measure_plain(x, P, xp_org, act_full, act_part, *, nsel: int, maxp: 
     return meas, sel, xo, Po, top_idx, top_score, n_visible, pidx, pmask
 
 
+# float4 units of P' a copy CTA's thread takes (scripts/ab_predict_st_kernels.py
+# --grid, PERF.md section 6)
+UNITS_PER_THREAD = 2
+THREADS = 256    # csrc/predict_measure.cu K1_THREADS
+
+
+def copy_ctas(D: int, n_sms: int) -> int:
+    """The CTAs that write P' outside the camera block: enough for
+    UNITS_PER_THREAD 16-byte units a thread, at most one wave beside CTA 0
+    (D = 109: 6 CTAs, D = 373: 68 on 132 SMs)."""
+    units = (D * D + 3) // 4
+    per_cta = THREADS * UNITS_PER_THREAD
+    return max(1, min(n_sms - 1, (units + per_cta - 1) // per_cta))
+
+
 class _K1Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_float) for n in (
         "dt", "half_dt", "lin_var", "ang_var",
@@ -161,8 +180,8 @@ class _K1Params(ctypes.Structure):
     )]
 
 
-# tensor pointers, ints, the params struct, the stream
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.POINTER(_K1Params), ctypes.c_void_p]
+# tensor pointers, ints (D, MF, nsel, maxp, the copy CTAs), the params struct, the stream
+_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.POINTER(_K1Params), ctypes.c_void_p]
 
 
 def predict_measure(x, P, xp_org, act_full, act_part, *, nsel: int, maxp: int,
@@ -207,7 +226,9 @@ def predict_measure(x, P, xp_org, act_full, act_part, *, nsel: int, maxp: int,
         act_part.data_ptr(), meas.data_ptr(), sel.data_ptr(), xo.data_ptr(),
         Po.data_ptr(), top_idx.data_ptr(), top_score.data_ptr(),
         n_visible.data_ptr(), pidx.data_ptr(), pmask.data_ptr(),
-        D, MF, nsel, maxp, ctypes.byref(prm),
+        D, MF, nsel, maxp,
+        copy_ctas(D, _build.n_sms(dev)),
+        ctypes.byref(prm),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "K1 predict_measure")

@@ -50,7 +50,6 @@ gathered windows' pixels under the admitted cells.
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
 
 import torch
@@ -248,11 +247,6 @@ def _select_plain(win, patch_pix, sg0, sg0sq, u0, v0, uc, vc, sinv_abc, active, 
 # ---- the launches
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def cluster_size(K: int, n_sms: int) -> int:
     """CTAs that share one feature (a thread-block cluster): the largest
     power of two up to MAX_CLUSTER with K x it at most 3 CTAs an SM (4 fit),
@@ -278,7 +272,7 @@ class _K2Params(ctypes.Structure):
 def _params(c: SearchConsts, K: int, per_lane: int, dev) -> _K2Params:
     return _K2Params(
         H=c.H, W=c.W, B=c.boxsize, side_v=c.side_v, side_u=c.side_u, per_lane=per_lane,
-        cluster=cluster_size(K, _n_sms(dev.index if dev.index is not None else torch.cuda.current_device())),
+        cluster=cluster_size(K, _build.n_sms(dev)),
         no_sigma=c.no_sigma, no_sigma2=c.no_sigma * c.no_sigma,
         corr_thresh2=c.corr_thresh2, corr_sigma_thresh=c.corr_sigma_thresh,
     )

@@ -17,13 +17,17 @@ the frame, off = 1 + half):
   the SMALLEST scan key v*W + u (the reference's first-in-scan-order pick);
   found = best > 0, else (ustart, vstart, 0).
 
-Bound on an H100: a 72 x 92 u8 window in and ~2 MOP of box sums, far below
-a microsecond; the launch dominates. Design: one block; the window as u8
-and the two gradient planes as int16 in shared memory; one thread per
-output cell sums its 121 gradient products in int32 (exact), evaluates the
-eigenvalue, and two block reductions give the maximum and the tie key.
-In the batch step the frame is [B, H, W] and the bounds [B]: one block per
-lane, one launch for all lanes.
+Bound on an H100 (bytes_and_flops): a 72 x 92 u8 window in and ~0.2 M
+operations of separable sums and eigenvalues, a fraction of a microsecond;
+the launch and the chain of passes set the time. Design
+(csrc/shi_tomasi.cu): the rows of cells split into bands over a cluster of
+cluster_size(lanes, SMs) CTAs, each lane its own cluster; a CTA stages its
+band's window rows as u8, takes the 11-row and then the 11-column sums of
+the three gradient products in int32 (running sums, exact), and turns each
+admitted cell into one 64-bit key (the eigenvalue's bits when it is > 0,
+then 0xFFFFFFFF - (v*W + u)); one maximum over the block and the cluster
+(distributed shared memory) gives the pick; a NaN eigenvalue sets a flag
+that voids it. One launch for all lanes.
 
 The JAX package's XLA form of the same pick,
 find_best_patch_in_image_window (scenelib2_tpu/kernels/shi_tomasi.py:85-146),
@@ -44,6 +48,8 @@ from scenelib2_torch.kernels import _build
 
 NAME = "shi_tomasi"
 INT_MAX = 2**31 - 1
+MAX_CLUSTER = 8           # csrc/shi_tomasi.cu K6_MAX_CLUSTER (portable cluster size)
+MAX_WU, MAX_WV = 100, 80  # csrc/shi_tomasi.cu K6_MAX_WU / K6_MAX_WV: the window's largest sides
 
 
 def clamp_region(ustart, vstart, ufinish, vfinish, width: int, height: int, boxsize: int):
@@ -123,8 +129,22 @@ def shi_tomasi_plain(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int,
     return ubest.reshape(lead), vbest.reshape(lead), evbest.reshape(lead)
 
 
+def cluster_size(n_lanes: int, n_sms: int) -> int:
+    """CTAs that share one lane's region (a thread-block cluster, each a
+    band of its rows of cells): the largest power of two with n_lanes x it
+    at most the SMs, up to MAX_CLUSTER for one lane and half that over
+    lanes: the single stream takes 8, batch-hires' 16 lanes 4, batch64's
+    64 lanes 2 (the sizes that `scripts/ab_predict_st_kernels.py --grid`
+    found fastest, PERF.md section 6)."""
+    cap = MAX_CLUSTER if n_lanes == 1 else MAX_CLUSTER // 2
+    cs = 1
+    while cs < cap and 2 * cs * n_lanes <= n_sms:
+        cs *= 2
+    return cs
+
+
 class _K6Params(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_int) for n in ("H", "W", "B", "region_w", "region_h")]
+    _fields_ = [(n, ctypes.c_int) for n in ("H", "W", "B", "region_w", "region_h", "cluster")]
 
 
 # tensor pointers (frame, 4 bounds, 3 outputs), the lanes, the params struct, the stream
@@ -144,7 +164,7 @@ def shi_tomasi(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int, region_
     H, W = frame.shape[-2:]
     shp = (frame.shape[0],) if lanes else ()
     off, rw, rh = region_geometry(H, W, boxsize, region_w, region_h)
-    if not (0 < rw and 0 < rh and rw + 2 * off <= 100 and rh + 2 * off <= 80):
+    if not (0 < rw and 0 < rh and rw + 2 * off <= MAX_WU and rh + 2 * off <= MAX_WV):
         raise ValueError(f"K6: unsupported region {rw}x{rh} (+{2 * off})")
     _build.check_tensor(frame, "frame", torch.uint8, (*shp, H, W))
     for name, t in (("ustart", ustart), ("vstart", vstart), ("ufinish", ufinish),
@@ -154,11 +174,13 @@ def shi_tomasi(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int, region_
     ubest = torch.empty(shp, dtype=torch.int32, device=dev)
     vbest = torch.empty(shp, dtype=torch.int32, device=dev)
     evbest = torch.empty(shp, dtype=torch.float32, device=dev)
-    prm = _K6Params(H=H, W=W, B=boxsize, region_w=rw, region_h=rh)
     fn = _build.function(NAME, "k6_shi_tomasi", _ARGTYPES)
+    n_lanes = frame.shape[0] if lanes else 1
+    prm = _K6Params(H=H, W=W, B=boxsize, region_w=rw, region_h=rh,
+                    cluster=cluster_size(n_lanes, _build.n_sms(dev)))
     err = fn(frame.data_ptr(), ustart.data_ptr(), vstart.data_ptr(), ufinish.data_ptr(),
              vfinish.data_ptr(), ubest.data_ptr(), vbest.data_ptr(), evbest.data_ptr(),
-             frame.shape[0] if lanes else 1, ctypes.byref(prm),
+             n_lanes, ctypes.byref(prm),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K6 shi_tomasi")
     _build.launches[NAME] += 1
@@ -167,11 +189,15 @@ def shi_tomasi(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int, region_
 
 def bytes_and_flops(boxsize: int, region_w: int, region_h: int) -> tuple[int, int]:
     """Least bytes (the window read once, the bounds in, three results out)
-    and operations of one K6 call: gradients, three 11x11 box sums per cell
-    (taken separably: 2(B-1) adds each) and ~12 operations of the
-    eigenvalue."""
+    and operations of one K6 call: the gradients and their three products,
+    the three box sums taken separably as running sums (B - 1 adds to start
+    a column or a row of cells, then an add and a subtract a step: fewer
+    than 2(B - 1) adds a cell) and ~12 operations of the eigenvalue."""
     off = 1 + (boxsize - 1) // 2
     nbytes = (region_h + 2 * off) * (region_w + 2 * off) + 4 * 4 + 3 * 4
-    g = (region_h + boxsize - 1) * (region_w + boxsize - 1)
-    flops = 2 * g + 3 * g + 3 * 2 * (boxsize - 1) * region_h * region_w + 12 * region_h * region_w
+    gw = region_w + boxsize - 1
+    g = (region_h + boxsize - 1) * gw
+    column_sums = 3 * gw * (boxsize - 1 + 2 * (region_h - 1))
+    row_sums = 3 * region_h * (boxsize - 1 + 2 * (region_w - 1))
+    flops = 2 * g + 3 * g + column_sums + row_sums + 12 * region_h * region_w
     return nbytes, flops

@@ -24,6 +24,7 @@ import sys
 
 N_CALLS = 50
 REPEATS = 5
+TRIES = 3      # traced loops in which the profiler saw no launch of the kernel, at most
 
 
 def _digest(outs) -> str:
@@ -37,26 +38,32 @@ def _digest(outs) -> str:
 
 def _device_ms(fn, sym: str) -> float:
     """Median over REPEATS traced loops of N_CALLS calls of the kernel's
-    device time per launch the profiler saw."""
+    device time per launch the profiler saw. A loop in which the profiler
+    recorded no launch of the kernel (it happens now and then after many
+    traced loops in one process) is traced again, at most TRIES times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     res = []
     for _ in range(REPEATS):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(N_CALLS):
-                fn()
+        for _try in range(TRIES):
+            fn()
             torch.cuda.synchronize()
-        total, count = 0.0, 0
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and sym in e.key:
-                us = getattr(e, "self_device_time_total", None)
-                total += (us if us is not None else e.self_cuda_time_total) / 1e3
-                count += e.count
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(N_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+            total, count = 0.0, 0
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA and sym in e.key:
+                    us = getattr(e, "self_device_time_total", None)
+                    total += (us if us is not None else e.self_cuda_time_total) / 1e3
+                    count += e.count
+            if count:
+                break
         if count == 0:
-            raise SystemExit(f"{sym}: the profiler saw no launch")
+            seen = sorted({e.key[:40] for e in prof.key_averages()})[:8]
+            raise SystemExit(f"{sym}: the profiler saw no launch in {TRIES} traced loops (it saw {seen})")
         res.append(total / count)
     return statistics.median(res)
 
