@@ -23,7 +23,7 @@
 // lanes) of one particle each (NC = 1), above it 1,024 threads striding over
 // the particles, up to bayes_tail.cuh's BT_MAX_CHUNKS each (NC = 4); the
 // sums are bayes_tail.cuh's fixed pairwise trees over `width` lanes in
-// dynamic shared memory. Rows of more particles (NC = 0) take
+// dynamic shared memory, in three passes of sums side by side. Rows of more particles (NC = 0) take
 // bayes_tail_wide: 1,024 threads loop over the row, the tree in a global
 // workspace that the wrapper allocates, the same trees.
 #include <cuda_runtime.h>
@@ -88,7 +88,7 @@ k12_kernel(const float* __restrict__ prob, const float* __restrict__ lam,
            const int* __restrict__ ma_p, float* __restrict__ prob_o, uint8_t* __restrict__ palive_o,
            float* __restrict__ mean_o, float* __restrict__ cov_o, uint8_t* __restrict__ convert_o,
            uint8_t* __restrict__ kill_o, int* __restrict__ nover_o, float* wide_ws, K12Params p) {
-  extern __shared__ float buf[];  // [width] (NC > 0)
+  extern __shared__ float buf[];  // BT_TREE_FLOATS(blockDim.x) (NC > 0)
   const int f = blockIdx.x, t = threadIdx.x, NP = p.NP;
   const BayesConsts bc = {p.prune_prob_thresh, p.sd_depth_ratio, p.min_particles,
                           p.erase_partial_after_attempts};
@@ -149,7 +149,7 @@ extern "C" int k12_bayes(const float* prob, const float* lam, const uint8_t* pal
   if (pred != nullptr && p->pred_w < p->NP) return (int)cudaErrorInvalidValue;
   if (wide && wide_ws == nullptr) return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
-  const size_t smem = wide ? 0 : sizeof(float) * (size_t)p->width;
+  const size_t smem = wide ? 0 : sizeof(float) * (size_t)BT_TREE_FLOATS(threads);
   auto kernel = wide ? k12_kernel<0> : one ? k12_kernel<1> : k12_kernel<BT_MAX_CHUNKS>;
   kernel<<<F, threads, smem, (cudaStream_t)stream>>>(prob, lam, palive, found, p_over, z, hpi, sinv, dets, pred,
                                                      making, pmask, match_attempts, prob_o, palive_o, mean, cov,

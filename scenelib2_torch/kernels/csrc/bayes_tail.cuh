@@ -5,22 +5,28 @@
 // same per-particle operations (bt_* below) and the same trees.
 // bayes_tail<NC>: each thread holds the particles t, t + blockDim.x, ...
 // (nc = bt_nc<NC>(NP) of them, at most the template's NC), one BayesLane
-// each; particles at or beyond NP hold zeros and false. Every thread of the block calls it, since the sums are block
-// reductions: the pairwise tree over `width` lanes (bayes.py::tree_width:
-// the TPU kernel's padded row of max(128, NP rounded up to 128) lanes,
-// zero-padded on to a power of two) that the twin's tree_sum takes: width / 2,
-// ..., 1, each level adding lane i + s to lane i. The kernels are built for
-// NC = 1 (one particle a thread, width <= blockDim.x: NP <= 1,024) and NC =
-// BT_MAX_CHUNKS, and pick one at launch from NP, so that rows of up to 1,024
-// particles hold no per-thread arrays. bayes_tail_wide: rows of more than
-// BT_MAX_CHUNKS x blockDim.x particles; threads loop over as many chunks as
-// the row needs, a callback rebuilds each particle's BayesLane from global
-// memory, and the tree and the intermediates live in global memory (the
-// tree buffer in a workspace, the intermediates in the row's outputs).
+// each; particles at or beyond NP hold zeros and false. Every thread of the
+// block calls it, since the sums are block reductions: the pairwise tree
+// over `width` lanes (bayes.py::tree_width: the TPU kernel's padded row of
+// max(128, NP rounded up to 128) lanes, zero-padded on to a power of two)
+// that the twin's tree_sum takes: width / 2, ..., 1, each level adding lane
+// i + s to lane i. The seven sums go through the tree in three passes
+// (tree_sums: the sums of a pass side by side, one barrier a level down to
+// 128 lanes, the last seven levels in every warp). The kernels are built
+// for NC = 1 (width <= blockDim.x) and NC = BT_MAX_CHUNKS and pick one at
+// launch. bayes_tail_wide: rows of more than BT_MAX_CHUNKS x blockDim.x
+// particles; threads loop over as many chunks as the row needs, a callback
+// rebuilds each particle's BayesLane from global memory, and the tree and
+// the intermediates live in global memory (the tree buffer in a workspace,
+// the intermediates in the row's outputs), one sum at a time.
 // Included by search_bayes.cu (K4, K11) and bayes.cu (K12).
 #pragma once
 
 #include <stdint.h>
+
+#ifndef SB_MARK
+#define SB_MARK(k)  // a phase boundary: scripts/sb_timeline.py stamps the time there
+#endif
 
 #define BT_MAX_CHUNKS 4  // particles a thread holds: NP <= BT_MAX_CHUNKS x blockDim.x
 
@@ -92,83 +98,117 @@ __device__ __forceinline__ BayesResult bt_result(float mean, float exp2, bool al
 template <int NC>
 __device__ __forceinline__ int bt_nc(int NP) { return NC == 1 ? 1 : (NP + blockDim.x - 1) / blockDim.x; }
 
-// sum over the tree of `width` lanes of the values v[c] of particle
-// threadIdx.x + c blockDim.x (c < nc); buf: width floats of shared memory
-template <int NC>
-__device__ inline float tree_sum(const float v[NC], int nc, float* buf, int width) {
-  const int t = threadIdx.x, nt = blockDim.x;
-  if (NC == 1) {
-    if (t < width) buf[t] = v[0];
-    __syncthreads();
-    for (int s = width / 2; s > 0; s >>= 1) {
-      if (t < s) buf[t] = buf[t] + buf[t + s];
-      __syncthreads();
-    }
-  } else {
+// K sums over the pairwise tree of `width` lanes at once, each bit for bit
+// bayes.py::tree_sum: level s = width / 2, ..., 1 adds lane i + s to lane i.
+// Lane l = threadIdx.x + c blockDim.x holds lanes[c][k] (zeros past the row);
+// blockDim.x is a power of two >= 128 and width <= NC x blockDim.x. Levels
+// s >= blockDim.x add chunk c + s / blockDim.x to chunk c in registers; the
+// lanes left, w = min(width, blockDim.x), go to shared memory (buf: K x
+// blockDim.x floats, k-major), levels w / 2 .. 128 add in place there; then
+// every warp takes levels 64 and 32 from the 128 lanes left and 16 .. 1 by
+// __shfl_down_sync, so every thread holds the sums in out[] with no barrier
+// after the last level. A later call may reuse buf once a barrier lies
+// between (bayes_tail alternates two buffers).
+template <int NC, int K>
+__device__ __forceinline__ void tree_sums(const float (&lanes)[NC][K], float* buf, int width, float (&out)[K]) {
+  const int t = threadIdx.x, T = blockDim.x, l = t & 31;
+  float v[NC][K];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int l = t + c * nt;
-      if (c < nc && l < width) buf[l] = v[c];
-    }
-    for (int l = nc * nt + t; l < width; l += nt) buf[l] = 0.0f;
-    __syncthreads();
-    for (int s = width / 2; s > 0; s >>= 1) {
-      for (int i = t; i < s; i += nt) buf[i] = buf[i] + buf[i + s];
-      __syncthreads();
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[c][k] = lanes[c][k];
+  }
+#pragma unroll
+  for (int h = NC / 2; h >= 1; h >>= 1) {
+    if (width >= 2 * h * T) {
+#pragma unroll
+      for (int c = 0; c < h; ++c) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[c][k] = v[c][k] + v[c + h][k];
+      }
     }
   }
-  const float r = buf[0];
+  const int w = min(width, T);
+  if (t < w) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) buf[k * T + t] = v[0][k];
+  }
   __syncthreads();
-  return r;
+  for (int s = w / 2; s >= 128; s >>= 1) {
+    if (t < s) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) buf[k * T + t] = buf[k * T + t] + buf[k * T + t + s];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float* b = buf + k * T;
+    float x = (b[l] + b[l + 64]) + (b[l + 32] + b[l + 96]);
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) x = x + __shfl_down_sync(0xffffffffu, x, s);
+    out[k] = __shfl_sync(0xffffffffu, x, 0);
+  }
 }
 
+// floats of buf that bayes_tail<NC> takes for a block of T threads
+#define BT_TREE_FLOATS(T) (5 * (T))
+
 // in[c]: this thread's particles; block-uniform: making, pmask,
-// match_attempts. Writes each particle's prob_f and palive_f and returns the
-// block-uniform scalars.
+// match_attempts; buf: BT_TREE_FLOATS(blockDim.x) floats of shared memory.
+// Writes each particle's prob_f and palive_f and returns the block-uniform
+// scalars. Three passes of tree_sums: (total, n_alive), total2, (n_alive_f,
+// mean, exp2, n_over), the first and the last in buf, the second past it.
 template <int NC>
 __device__ inline BayesResult bayes_tail(const BayesLane in[NC], int nc, bool making, bool pmask,
                                          float match_attempts, const BayesConsts& bc, float* buf, int width,
                                          float prob_f_out[NC], bool palive_f_out[NC]) {
-  float prob1[NC], v[NC];
-  // every per-particle loop runs over the thread's nc chunks only: tree_sum
-  // reads v[c] for c < nc, the callers read prob_f / palive_f there
+  float prob1[NC], v1[NC][2], s1[2];
 #pragma unroll
-  for (int c = 0; c < NC && c < nc; ++c) {
-    prob1[c] = bt_prob1(in[c], making);
-    v[c] = in[c].palive ? prob1[c] : 0.0f;
+  for (int c = 0; c < NC; ++c) {
+    prob1[c] = 0.0f;
+    v1[c][0] = v1[c][1] = 0.0f;
+    if (c < nc) {
+      prob1[c] = bt_prob1(in[c], making);
+      v1[c][0] = in[c].palive ? prob1[c] : 0.0f;
+      v1[c][1] = in[c].palive ? 1.0f : 0.0f;
+    }
   }
-  const float total = tree_sum<NC>(v, nc, buf, width);
+  tree_sums<NC, 2>(v1, buf, width, s1);
+  SB_MARK(7);
+  const float total = s1[0], n_alive = s1[1];
   const bool all_zero = making && total == 0.0f;
   const float safe_total = total > 0.0f ? total : 1.0f;
-
-#pragma unroll
-  for (int c = 0; c < NC && c < nc; ++c) v[c] = in[c].palive ? 1.0f : 0.0f;
-  const float n_alive = tree_sum<NC>(v, nc, buf, width);
   const float thresh = bc.prune_prob_thresh / fmaxf(n_alive, 1.0f);
-  bool keep[NC];
-  float prob_k[NC];
-#pragma unroll
-  for (int c = 0; c < NC && c < nc; ++c)
-    prob_k[c] = bt_prob_k(prob1[c], in[c].palive, making, safe_total, thresh, &keep[c]);
-  const float total2 = tree_sum<NC>(prob_k, nc, buf, width);
-#pragma unroll
-  for (int c = 0; c < NC && c < nc; ++c) {
-    prob_f_out[c] = bt_prob_f(prob_k[c], making, total2);
-    palive_f_out[c] = bt_palive_f(keep[c], in[c].palive, making);
-    v[c] = palive_f_out[c] ? 1.0f : 0.0f;
-  }
-  const float n_alive_f = tree_sum<NC>(v, nc, buf, width);
 
+  bool keep[NC];
+  float v2[NC][1], s2[1];
 #pragma unroll
-  for (int c = 0; c < NC && c < nc; ++c) v[c] = in[c].lam * prob_f_out[c];
-  const float mean = tree_sum<NC>(v, nc, buf, width);
+  for (int c = 0; c < NC; ++c) {
+    keep[c] = false;
+    v2[c][0] = 0.0f;
+    if (c < nc) v2[c][0] = bt_prob_k(prob1[c], in[c].palive, making, safe_total, thresh, &keep[c]);
+  }
+  tree_sums<NC, 1>(v2, buf + 4 * blockDim.x, width, s2);
+  SB_MARK(8);
+  const float total2 = s2[0];
+
+  float v3[NC][4], s3[4];
 #pragma unroll
-  for (int c = 0; c < NC && c < nc; ++c) v[c] = in[c].lam * in[c].lam * prob_f_out[c];
-  const float exp2 = tree_sum<NC>(v, nc, buf, width);
-#pragma unroll
-  for (int c = 0; c < NC && c < nc; ++c) v[c] = in[c].p_over ? 1.0f : 0.0f;
-  const float n_over = tree_sum<NC>(v, nc, buf, width);
-  return bt_result(mean, exp2, all_zero, n_alive_f, n_over, making, pmask, match_attempts, bc);
+  for (int c = 0; c < NC; ++c) {
+    v3[c][0] = v3[c][1] = v3[c][2] = v3[c][3] = 0.0f;
+    if (c < nc) {
+      prob_f_out[c] = bt_prob_f(v2[c][0], making, total2);
+      palive_f_out[c] = bt_palive_f(keep[c], in[c].palive, making);
+      v3[c][0] = palive_f_out[c] ? 1.0f : 0.0f;
+      v3[c][1] = in[c].lam * prob_f_out[c];
+      v3[c][2] = in[c].lam * in[c].lam * prob_f_out[c];
+      v3[c][3] = in[c].p_over ? 1.0f : 0.0f;
+    }
+  }
+  tree_sums<NC, 4>(v3, buf, width, s3);
+  SB_MARK(12);
+  return bt_result(s3[1], s3[2], all_zero, s3[0], s3[3], making, pmask, match_attempts, bc);
 }
 
 // the pairwise tree over buf[0 .. width) (filled by the caller, who ends

@@ -5,7 +5,8 @@
 // (_geometry_prologue with _dot_row / _mat_mul_t / _drq_dqbar, and
 // _particle_tail). Every float operation is the twin's, in its order: dot
 // rows skip the literal zeros of N1 / N2 and start from their first term.
-// Included by search_bayes.cu (K4), whose prologue runs it.
+// Included by search_bayes.cu (K4), whose prologue runs it, and
+// particle_predict.cu (K10).
 #pragma once
 
 enum { ROW_HU, ROW_HV, ROW_S00, ROW_S01, ROW_S11, ROW_DET, ROW_HW, ROW_HH, NROWS };
@@ -40,8 +41,59 @@ __device__ inline void drq_dqbar(float qw, float qx, float qy, float qz, const f
   }
 }
 
-// shared: xp[7] + Pxx7 row-major [49]; slot: y6[6] + pxy7 [7][6] + pyy [6][6]
-__device__ inline void geometry_prologue(const float* sh, const float* sl, float* g) {
+// entry (r, c) of C = [[Pxx7, Pxy7], [Pxy7', Pyy]] from the packed rows
+__device__ __forceinline__ float cov_at(const float* sh, const float* sl, int r, int c) {
+  if (r < 7 && c < 7) return sh[7 + 7 * r + c];
+  if (r < 7) return sl[6 + 6 * r + (c - 7)];
+  if (c < 7) return sl[6 + 6 * c + (r - 7)];
+  return sl[48 + 6 * (r - 7) + (c - 7)];
+}
+
+// column t of the live columns of N1 (10: 0..9) and of N2 (7: 3..6, 10..12)
+__device__ __forceinline__ int live_col(int n2, int t) { return n2 ? (t < 4 ? 3 + t : 6 + t) : t; }
+
+// shared floats of geometry_prologue: the rows [56 + 84], C [13][13], N
+// [2][3][13], C N' [2][13][3], K12 [3][3]
+#define PROLOGUE_SCRATCH 474
+
+// a dot row: sum over the live columns c of N1 (n2 = 0) or N2 of a[c * sa]
+// b[c * sb], from the first term, in column order
+__device__ __forceinline__ float live_dot(int n2, const float* a, int sa, const float* b, int sb) {
+  int c = live_col(n2, 0);
+  float d = a[c * sa] * b[c * sb];
+  for (int t = 1; t < (n2 ? 7 : 10); ++t) {
+    c = live_col(n2, t);
+    d = d + a[c * sa] * b[c * sb];
+  }
+  return d;
+}
+
+// The slot geometry on every thread of the block (tid of nt >= 128 threads;
+// the caller's barrier follows): the two packed rows copied to shared
+// memory (every load in flight at once) and C laid out there; every thread
+// forms R, the rotated vectors and N1, N2 (thread 0 writes zr, zh); then
+// the 78 entries of C N1' and C N2', the 27 of K0, K12, K2 and the 9 of
+// Ksym, each on one thread with the serial form's operations in its order
+// (dot rows skip the literal zeros of N1 / N2 and start from their first
+// term), the dots of one length on one warp. g and scratch: shared memory.
+// shared_row: xp[7] + Pxx7 row-major [49]; slot_row: y6[6] + pxy7 [7][6] + pyy [6][6]
+__device__ inline void geometry_prologue(const float* shared_row, const float* slot_row, float* g, float* scratch,
+                                         int tid, int nt) {
+  float* sh = scratch;            // [56]
+  float* sl = scratch + 56;       // [84]
+  float* Cs = scratch + 140;      // [13][13]
+  float* Ns = scratch + 309;      // [2][3][13]
+  float* CNs = scratch + 387;     // [2][13][3]
+  float* K12s = scratch + 465;    // [3][3]
+  {
+    const int i0 = tid, i1 = tid + nt;  // 0 .. 55: shared_row, 56 .. 139: slot_row
+    const float x0 = i0 < 56 ? shared_row[i0] : i0 < 140 ? slot_row[i0 - 56] : 0.0f;
+    const float x1 = i1 < 56 ? shared_row[i1] : i1 < 140 ? slot_row[i1 - 56] : 0.0f;
+    if (i0 < 140) scratch[i0] = x0;
+    if (i1 < 140) scratch[i1] = x1;
+  }
+  __syncthreads();
+  for (int e = tid; e < 169; e += nt) Cs[e] = cov_at(sh, sl, e / 13, e % 13);
   const float w = sh[3], x = sh[4], y = sh[5], z = sh[6];
   const float inv_n2 = 1.0f / (w * w + x * x + y * y + z * z);
   const float qw = w * inv_n2, qx = -x * inv_n2, qy = -y * inv_n2, qz = -z * inv_n2;
@@ -56,66 +108,57 @@ __device__ inline void geometry_prologue(const float* sh, const float* sl, float
     ym[i] = sl[i] - sh[i];
     hh[i] = sl[3 + i];
   }
-  for (int i = 0; i < 3; ++i) {
-    g[GEOM_ZR + i] = R[i][0] * ym[0] + R[i][1] * ym[1] + R[i][2] * ym[2];
-    g[GEOM_ZH + i] = R[i][0] * hh[0] + R[i][1] * hh[1] + R[i][2] * hh[2];
-  }
+  if (tid == 0)
+    for (int i = 0; i < 3; ++i) {
+      g[GEOM_ZR + i] = R[i][0] * ym[0] + R[i][1] * ym[1] + R[i][2] * ym[2];
+      g[GEOM_ZH + i] = R[i][0] * hh[0] + R[i][1] * hh[1] + R[i][2] * hh[2];
+    }
   float B1[3][4], B2[3][4];
   drq_dqbar(qw, qx, qy, qz, ym, B1);
   drq_dqbar(qw, qx, qy, qz, hh, B2);
   // N1 = [-R | B1 | R | 0] (columns 0..9 live), N2 = [0 | B2 | 0 | R]
-  // (columns 3..6 and 10..12 live)
-  float N1[3][13], N2[3][13];
+  // (columns 3..6 and 10..12 live); thread e writes entry e
+  float N[2][3][13];
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
-    for (int k = 0; k < 13; ++k) N1[i][k] = N2[i][k] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 13; ++k) N[0][i][k] = N[1][i][k] = 0.0f;
+#pragma unroll
     for (int k = 0; k < 3; ++k) {
-      N1[i][k] = -R[i][k];
-      N1[i][7 + k] = R[i][k];
-      N2[i][10 + k] = R[i][k];
+      N[0][i][k] = -R[i][k];
+      N[0][i][7 + k] = R[i][k];
+      N[1][i][10 + k] = R[i][k];
     }
+#pragma unroll
     for (int k = 0; k < 4; ++k) {
-      N1[i][3 + k] = B1[i][k];
-      N2[i][3 + k] = B2[i][k];
+      N[0][i][3 + k] = B1[i][k];
+      N[1][i][3 + k] = B2[i][k];
     }
   }
-  const int nz1[10] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9};
-  const int nz2[7] = {3, 4, 5, 6, 10, 11, 12};
-  // C = [[Pxx7, Pxy7], [Pxy7', Pyy]]
-  float C[13][13];
-  for (int r = 0; r < 13; ++r)
-    for (int c = 0; c < 13; ++c) {
-      if (r < 7 && c < 7) C[r][c] = sh[7 + 7 * r + c];
-      else if (r < 7) C[r][c] = sl[6 + 6 * r + (c - 7)];
-      else if (c < 7) C[r][c] = sl[6 + 6 * c + (r - 7)];
-      else C[r][c] = sl[48 + 6 * (r - 7) + (c - 7)];
-    }
-  float CN1[13][3], CN2[13][3];
-  for (int r = 0; r < 13; ++r)
-    for (int i = 0; i < 3; ++i) {
-      float a = C[r][nz1[0]] * N1[i][nz1[0]];
-      for (int t = 1; t < 10; ++t) a = a + C[r][nz1[t]] * N1[i][nz1[t]];
-      CN1[r][i] = a;
-      float b = C[r][nz2[0]] * N2[i][nz2[0]];
-      for (int t = 1; t < 7; ++t) b = b + C[r][nz2[t]] * N2[i][nz2[t]];
-      CN2[r][i] = b;
-    }
-  float K12[3][3];
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) {
-      float a = N1[i][nz1[0]] * CN1[nz1[0]][j];
-      float b = N1[i][nz1[0]] * CN2[nz1[0]][j];
-      for (int t = 1; t < 10; ++t) {
-        a = a + N1[i][nz1[t]] * CN1[nz1[t]][j];
-        b = b + N1[i][nz1[t]] * CN2[nz1[t]][j];
-      }
-      float c = N2[i][nz2[0]] * CN2[nz2[0]][j];
-      for (int t = 1; t < 7; ++t) c = c + N2[i][nz2[t]] * CN2[nz2[t]][j];
-      g[GEOM_K0 + 3 * i + j] = a;
-      K12[i][j] = b;
-      g[GEOM_K2 + 3 * i + j] = c;
-    }
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) g[GEOM_KS + 3 * i + j] = K12[i][j] + K12[j][i];
+#pragma unroll
+  for (int e = 0; e < 78; ++e)
+    if (e == tid) Ns[e] = N[e / 39][(e % 39) / 13][e % 13];
+  __syncthreads();
+  // (C N1')[r][i] on threads 0 .. 38, (C N2')[r][i] on threads 64 .. 102
+  if (tid < 39 || (tid >= 64 && tid < 103)) {
+    const int n2 = tid >= 64, e = tid - 64 * n2, r = e / 3, i = e % 3;
+    CNs[39 * n2 + e] = live_dot(n2, Cs + 13 * r, 1, Ns + 39 * n2 + 13 * i, 1);
+  }
+  __syncthreads();
+  // K0 = N1 (C N1') and K12 = N1 (C N2') on threads 0 .. 17, K2 = N2 (C N2') on 32 .. 40
+  if (tid < 18 || (tid >= 32 && tid < 41)) {
+    const int kind = tid < 18 ? tid / 9 : 2, e = tid < 18 ? tid % 9 : tid - 32, i = e / 3, j = e % 3;
+    const int n2 = kind == 2;
+    const float a = live_dot(n2, Ns + 39 * n2 + 13 * i, 1, CNs + 39 * (kind != 0) + j, 3);
+    if (kind == 0) g[GEOM_K0 + e] = a;
+    else if (kind == 1) K12s[e] = a;
+    else g[GEOM_K2 + e] = a;
+  }
+  __syncthreads();
+  if (tid < 9) {
+    const int i = tid / 3, j = tid % 3;
+    g[GEOM_KS + 3 * i + j] = K12s[3 * i + j] + K12s[3 * j + i];
+  }
 }
 
 __device__ inline void particle_tail(float lam, const float* g, const ParticleConsts& c, float out[NROWS]) {

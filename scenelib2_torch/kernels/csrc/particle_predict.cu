@@ -8,7 +8,7 @@
 //
 // Bound on an H100 at 64 lanes x 1 slot: ~0.3 MB in and out and ~0.7 MFLOP,
 // well under a microsecond; the launch dominates. Design: one block of 128
-// threads per (lane, slot); thread 0 runs the slot geometry prologue into
+// threads per (lane, slot); the block runs the slot geometry prologue into
 // shared memory; thread t runs the per-particle tail of particles t, t + 128,
 // ... (lanes at or beyond NP at lambda = 1, as the TPU wrapper pads them) and
 // writes their columns of the [8, lanes] rows, lanes = max(128, NP rounded up
@@ -31,10 +31,12 @@ __global__ void __launch_bounds__(K10_THREADS)
 k10_kernel(const float* __restrict__ shared_rows, const float* __restrict__ slot_rows,
            const float* __restrict__ lam, float* __restrict__ out, K10Params p) {
   __shared__ float geom[GEOM_N];
+  __shared__ float scratch[PROLOGUE_SCRATCH];
   const int bf = blockIdx.x;  // lane * F + slot
   const int lane = bf / p.F;
   const int t = threadIdx.x;
-  if (t == 0) geometry_prologue(shared_rows + (size_t)lane * NSHARED, slot_rows + (size_t)bf * NSLOT, geom);
+  geometry_prologue(shared_rows + (size_t)lane * NSHARED, slot_rows + (size_t)bf * NSLOT, geom, scratch, t,
+                    K10_THREADS);
   __syncthreads();
   for (int l = t; l < p.lanes; l += K10_THREADS) {
     float pr[NROWS];

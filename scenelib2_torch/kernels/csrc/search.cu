@@ -25,15 +25,16 @@
 //   - the rectangle's pixels are staged as u8 words in shared memory; a
 //     thread takes a run of 4 adjacent centres along u, aligns the words of
 //     each patch row into byte quads once (__byte_perm) and takes all three
-//     sums with __dp4a: the cross sum with the patch row's zero-padded u8
-//     quads, the sum with masked ones, the sum of squares of the masked
-//     quads with themselves (12 quads a row serve the 4 centres; no column
-//     pass and no second barrier);
+//     sums with __dp4a (window_sums.cuh, shared with K4): the cross sum
+//     with the patch row's zero-padded u8 quads, the sum with masked ones,
+//     the sum of squares of the masked quads with themselves (12 quads a
+//     row serve the 4 centres; no column pass and no second barrier);
 //   - one pass and one reduction: an admitted cell becomes one 64-bit key,
 //     the order-preserving bits of its score above the complement of
-//     u * H + v, so the unsigned minimum is the least score and, among its
-//     ties, the largest u * H + v (the twin keeps the LAST tie in
-//     u-outer / v-inner order); warp shuffles, then one shared atomicMin;
+//     u * H + v (nssd.cuh::score_key), so the unsigned minimum is the
+//     least score and, among its ties, the largest u * H + v (the twin
+//     keeps the LAST tie in u-outer / v-inner order); warp shuffles, then
+//     one shared atomicMin;
 //   - where the grid is small (the single stream's 10 features) a feature
 //     is a thread-block cluster of up to 8 CTAs (the wrapper picks the size
 //     from K and the SMs), each taking a share of the rectangle's rows;
@@ -51,13 +52,12 @@
 #include <stdint.h>
 
 #include "nssd.cuh"
+#include "window_sums.cuh"
 
 namespace cg = cooperative_groups;
 
 #define K2_THREADS 256
-#define K2_RUN 4               // adjacent centres a thread takes along u
-#define K2_NQ 3                // u8 quads a patch row (B <= 12, zero-padded)
-#define K2_MAX_B 11            // the K2 patch row holds B * B + 2 <= 128 floats
+#define K2_RUN WS_RUN          // adjacent centres a thread takes along u
 #define K2_MAX_CLUSTER 8       // portable cluster size
 // the staged rectangle stays within the 48 KB of shared memory a kernel has
 // without opting in (1 KB left for the static arrays): windows of radius up
@@ -95,18 +95,6 @@ __device__ __forceinline__ void box_range(float h, int centre, int lo0, int hi0,
 // a - b in int32 with two's-complement wrap, as the twins' int32 tensors
 __device__ __forceinline__ int wrap_sub(int a, int b) { return (int)((unsigned)a - (unsigned)b); }
 
-// An admitted cell's key. Its score is finite: it passed sd0, sd1 >=
-// corr_sigma_thresh, so neither deviation is NaN, both variances are >= 0
-// and, where not 0 (the 0 / 1 specials), the divisors are positive and
-// every term finite. The score is never -0 (its numerator's first terms are
-// >= +0 and x - x rounds to +0), and +0 stands for any zero all the same, so
-// equal scores have equal bits and the low word alone breaks ties.
-__device__ __forceinline__ unsigned long long cell_key(float corr, int uv) {
-  const uint32_t b = __float_as_uint(corr == 0.0f ? 0.0f : corr);
-  const uint32_t hi = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return ((unsigned long long)hi << 32) | (uint32_t)~(uint32_t)uv;
-}
-
 // floor(h + 0.5) converted to int32 as XLA converts (NaN -> 0, saturating):
 // search.py::window_centre
 __device__ __forceinline__ int centre_i32(float h) {
@@ -121,7 +109,7 @@ __device__ __forceinline__ int centre_i32(float h) {
 // rectangle's rows of this rank, staged from win (pixel (0, 0) of the
 // feature's window, `pitch` bytes a row), scored and reduced to *kmin.
 // Rank 0's thread 0 writes the feature's outputs. pq: the patch rows as
-// K2_NQ zero-padded u8 quads each; psum: the patch's sum and sum of squares.
+// WS_NQ zero-padded u8 quads each; psum: the patch's sum and sum of squares.
 // The caller has set *kmin to K2_NONE and filled pq and psum before the
 // first barrier here.
 __device__ __forceinline__ void search_feature(const uint8_t* __restrict__ win, int pitch, const uint32_t* pq,
@@ -158,41 +146,15 @@ __device__ __forceinline__ void search_feature(const uint8_t* __restrict__ win, 
   }
   __syncthreads();
 
-  uint32_t msk[K2_NQ];  // the bytes of quad t that hold patch columns (4t + k < B)
-#pragma unroll
-  for (int t = 0; t < K2_NQ; ++t) {
-    const int nk = min(max(B - 4 * t, 0), 4);
-    msk[t] = nk == 4 ? 0xFFFFFFFFu : (1u << (8 * nk)) - 1u;
-  }
+  uint32_t msk[WS_NQ];
+  quad_masks(B, msk);
   const float sg0 = psum[0], sg0sq = psum[1];
   const float n = (float)(B * B);
   unsigned long long key = K2_NONE;
   for (int it = tid; it < n_items; it += K2_THREADS) {
     const int r = it / nrun, i = it - r * nrun;  // staged row, run
     uint32_t cross[K2_RUN], s1[K2_RUN], s2[K2_RUN];
-#pragma unroll
-    for (int s = 0; s < K2_RUN; ++s) cross[s] = s1[s] = s2[s] = 0u;
-    for (int dy = 0; dy < B; ++dy) {
-      const uint32_t* row = stage + (r + dy) * spw + i;
-      uint32_t w[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) w[t] = row[t];
-      uint32_t q[4 * K2_NQ];  // q[o]: the 4 bytes from byte o of the run
-#pragma unroll
-      for (int o = 0; o < 4 * K2_NQ; ++o)
-        q[o] = (o & 3) == 0 ? w[o >> 2] : __byte_perm(w[o >> 2], w[(o >> 2) + 1], 0x3210 + 0x1111 * (o & 3));
-#pragma unroll
-      for (int t = 0; t < K2_NQ; ++t) {
-        const uint32_t pw = pq[dy * K2_NQ + t], ones = msk[t] & 0x01010101u;
-#pragma unroll
-        for (int s = 0; s < K2_RUN; ++s) {
-          const uint32_t x = q[s + 4 * t], xm = x & msk[t];
-          cross[s] = __dp4a(x, pw, cross[s]);
-          s1[s] = __dp4a(x, ones, s1[s]);
-          s2[s] = __dp4a(xm, xm, s2[s]);
-        }
-      }
-    }
+    run_sums(stage + r * spw + i, spw, B, pq, msk, cross, s1, s2);
     // the 4 scores straight-line (the patch's terms once), then the masks
     const int vv = v0 + ra + r;
     const float vrel = (float)wrap_sub(vv, vc);
@@ -205,7 +167,7 @@ __device__ __forceinline__ void search_feature(const uint8_t* __restrict__ win, 
       const bool box = fabsf(urel) <= halfwidth && fabsf(vrel) <= halfheight;
       const bool ellipse = a * urel * urel + 2.0f * b * urel * vrel + c * vrel * vrel < p.no_sigma2;
       if (K2_RUN * i + s < nu && box && ellipse && sd1 >= p.corr_sigma_thresh && sd0 >= p.corr_sigma_thresh)
-        key = min(key, cell_key(corr, uu * p.H + vv));
+        key = min(key, score_key(corr, uu * p.H + vv));  // corr is finite: sd0, sd1 >= corr_sigma_thresh
     }
   }
 
@@ -228,11 +190,10 @@ __device__ __forceinline__ void search_feature(const uint8_t* __restrict__ win, 
     float best = K2_NO_MATCH;
     int kb = -1;
     if (m != K2_NONE) {
-      const uint32_t hi = (uint32_t)(m >> 32);
-      const float corr = __uint_as_float((hi & 0x80000000u) ? (hi & 0x7FFFFFFFu) : ~hi);
+      const float corr = key_score(m);
       if (corr <= K2_NO_MATCH) {
         best = corr;
-        kb = (int)~(uint32_t)m;
+        kb = key_uv(m);
       }
     }
     best_o[k] = best;
@@ -252,18 +213,13 @@ k2_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ patch_row
           const uint8_t* __restrict__ active, uint8_t* __restrict__ found, int* __restrict__ uo,
           int* __restrict__ vo, float* __restrict__ best_o, uint8_t* __restrict__ over_o, K2Params p) {
   extern __shared__ uint32_t stage[];
-  __shared__ uint32_t pq[K2_MAX_B * K2_NQ];
+  __shared__ uint32_t pq[WS_MAX_B * WS_NQ];
   __shared__ float psum[2];
   __shared__ unsigned long long kmin;
   const int k = blockIdx.x / p.cluster;
   const int B = p.B, half = (B - 1) / 2;
   const float* row = patch_rows + 128 * (size_t)k;
-  for (int e = threadIdx.x; e < B * K2_NQ; e += K2_THREADS) {
-    const int dy = e / K2_NQ, t = e - dy * K2_NQ;
-    uint32_t w = 0;
-    for (int j = 0; j < 4 && 4 * t + j < B; ++j) w |= __float2uint_rz(row[dy * B + 4 * t + j]) << (8 * j);
-    pq[e] = w;
-  }
+  patch_quads(row, B, pq, threadIdx.x, K2_THREADS);
   if (threadIdx.x == 0) {
     psum[0] = row[B * B];
     psum[1] = row[B * B + 1];
@@ -284,7 +240,7 @@ k8_kernel(const uint8_t* __restrict__ windows, const uint8_t* __restrict__ patch
           int* __restrict__ uo, int* __restrict__ vo, float* __restrict__ best_o, uint8_t* __restrict__ over_o,
           K2Params p) {
   extern __shared__ uint32_t stage[];
-  __shared__ uint32_t pq[K2_MAX_B * K2_NQ];
+  __shared__ uint32_t pq[WS_MAX_B * WS_NQ];
   __shared__ float psum[2];
   __shared__ unsigned long long kmin;
   const int k = blockIdx.x / p.cluster;
@@ -294,8 +250,8 @@ k8_kernel(const uint8_t* __restrict__ windows, const uint8_t* __restrict__ patch
   if (threadIdx.x < 32) {
     const uint8_t* pt = patches + (size_t)k * B * B;
     uint32_t s = 0, q = 0;
-    for (int e = threadIdx.x; e < B * K2_NQ; e += 32) {
-      const int dy = e / K2_NQ, t = e - dy * K2_NQ;
+    for (int e = threadIdx.x; e < B * WS_NQ; e += 32) {
+      const int dy = e / WS_NQ, t = e - dy * WS_NQ;
       uint32_t w = 0;
       for (int j = 0; j < 4 && 4 * t + j < B; ++j) w |= (uint32_t)pt[dy * B + 4 * t + j] << (8 * j);
       pq[e] = w;
@@ -327,7 +283,7 @@ static size_t stage_bytes(const K2Params* p) {
 template <typename Kernel, typename... Args>
 static int k2_launch(Kernel kernel, int K, const K2Params* p, void* stream, Args... args) {
   const size_t smem = stage_bytes(p);
-  if (smem > K2_MAX_STAGE_BYTES || p->B < 1 || p->B > K2_MAX_B || p->per_lane < 1 || p->cluster < 1 ||
+  if (smem > K2_MAX_STAGE_BYTES || p->B < 1 || p->B > WS_MAX_B || p->per_lane < 1 || p->cluster < 1 ||
       p->cluster > K2_MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
   if (K == 0) return 0;

@@ -8,10 +8,11 @@ slot's blocks of the state. It writes the [8, lanes] prediction rows
 (ROW_*) that K11 reads, lanes = max(128, NP rounded up to 128) as the TPU
 wrapper pads them (bayes.padded_lanes; 256 at hires' 200 particles), the
 lanes beyond NP computed at lambda = 1. The CUDA kernel is
-csrc/particle_predict.cu: one block per (lane, slot), its threads striding
-over the particle lanes, over csrc/particle_chain.cuh, the same device code
-that K4 (csrc/search_bayes.cu) runs in its prologue, so K10's rows equal the
-rows K4 produces for the same slot.
+csrc/particle_predict.cu: one block per (lane, slot), the slot's geometry
+prologue spread over the block, its threads striding over the particle
+lanes, over csrc/particle_chain.cuh, the same device code that K4
+(csrc/search_bayes.cu) runs in its prologue, so K10's rows equal the rows
+K4 produces for the same slot.
 
 K10b (particle_predict_kform) replaces the TPU kernel's K-form-input
 sibling, pallas_particle.py::pallas_particle_predict (pallas_call at

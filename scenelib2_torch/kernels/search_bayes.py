@@ -1,7 +1,7 @@
 """K4 and K11: partial-feature particle search and Bayes update.
 
-K4 (single stream): particle predict, union-box score map, per-particle
-search and Bayes update of one partial slot, in one kernel.
+K4 (single stream): particle predict, the scores where the searches read,
+per-particle search and Bayes update of one partial slot, in one kernel.
 
 Replaces the TPU kernel scenelib2_tpu/kernels/pallas_search_bayes.py
 (``pallas_search_bayes`` / ``_kernel``) in the one mode the single-stream
@@ -30,36 +30,44 @@ SearchMultipleOverlappingEllipses, search_multiple_overlapping_ellipses.cpp:
      z = (trunc((k + 0.5) / H), k - H zu);
   5. the Bayes tail (kernels/bayes.py).
 
-Bound on an H100: ~60 KB of frame and state in and out, and the score
-work of the scanned cells (3 x 121 multiply-adds each, up to ~77 k cells):
-under ~3 us at the f32 rate in the worst case. Design (csrc/search_bayes.cu):
-one block of 1024 threads, thread t holding the particles t, t + 1024, ...
-(built for one and for four particles a thread, picked at launch, up to
-bayes.CHUNK_NP = 4,096; longer rows, any NP, loop over their particles with
-the per-particle rows and the sums' tree in a global workspace that the
-wrapper allocates, wide_workspace); the prologue on thread 0 and the
-particle chain of every particle into prediction rows in dynamic shared
-memory; the union box
-reduced over warps; the scores of the scanned cells into a global workspace [H, W]
-that the wrapper allocates (300 KB at 320x240 and 1.2 MB at 640x480 do not
-fit in shared memory); each warp then searches particles (its lanes stride
-over the particle's box, one comparison-based warp reduction); the Bayes
-sums as fixed trees over bayes.tree_width(NP) lanes in shared memory.
+Bound on an H100 (bytes_and_flops): ~60 KB of frame and state in and out,
+the score work of the read box's cells (read_box: every particle's box
+within the scanned region; search.nssd_cell_ops each) and ~12 operations a
+cell that a particle's search visits: a few microseconds at the f32 rate in
+the worst case, typically well under one. Design (csrc/search_bayes.cu): a
+thread-block cluster of cluster_size(1, SMs) = 8 CTAs of block_threads(NP)
+threads, thread t holding the particles t, t + threads, ... (one or up to
+four a thread, picked at launch, up to bayes.CHUNK_NP = 4,096; longer rows,
+any NP, run one CTA of 1,024 threads that loops over its particles with the
+per-particle rows and the sums' tree in a global workspace that the
+wrapper allocates, wide_workspace). Every CTA runs the prologue over its
+threads and the particle chain of every particle into prediction rows in
+dynamic shared memory, and finds the union box, the region and the read
+box; each scores a band of the read box's rows (band) with int32 __dp4a
+sums into a global workspace [H, W] that the wrapper allocates; after a
+cluster barrier each stages the read box's scores in shared memory and
+searches its share of the particles (rank, rank + cluster, ...: a warp a
+particle, the cells row by row, one 64-bit key a cell, one unsigned
+minimum) into CTA 0's shared memory; after a second barrier CTA 0 runs the
+Bayes tail (its sums as fixed trees over bayes.tree_width(NP) lanes, three
+passes of sums side by side) while the others copy the other rows of prob
+and palive.
 
 K11 (batch step, and any step with more than one partial slot) is the same
 TPU kernel in its other mode: the prediction rows come in from K10
 (``pred_rows``), the scores are read from K9's precomputed map [F, H, W]
 instead of being built from the frame, prob / lam / palive are the compact
-[F, NP] rows of the partial slots, and the grid has one block per (lane,
-slot). Steps 2, 4 and 5 are K4's, in the same device code (a template
-parameter of the one kernel body selects the mode), so on the same slot
-K11 given K9's map returns K4's found, z, best and overflow. Cells outside
-[0, H) x [0, W) are never read. Bound on an H100 at 64 lanes x 1 slot: the
-scanned cells of each lane's map read once (at most 64 x 307 KB = 19.7 MB,
-~6 us at the memory rate; typically a small part of it) against ~12
-operations per cell that a particle's search visits; every particle visits
-its own box of the shared region, so on the replay's data the operations
-bound it (under half a microsecond either way).
+[F, NP] rows of the partial slots, and the grid has one cluster per (lane,
+slot) (cluster_size: 2 CTAs for 64 slots, 8 for 16). Steps 2, 4 and 5 are
+K4's, in the same device code (a template parameter of the one kernel body
+selects the mode), so on the same slot K11 given K9's map returns K4's
+found, z, best and overflow. Cells outside [0, H) x [0, W) are never read.
+Bound on an H100 at 64 lanes x 1 slot: the read box's cells of each lane's
+map read once (at most 64 x 307 KB = 19.7 MB, ~6 us at the memory rate;
+typically a small part of it) against ~12 operations per cell that a
+particle's search visits; every particle visits its own box of the shared
+region, so on the replay's data the operations bound it (under half a
+microsecond either way).
 """
 
 from __future__ import annotations
@@ -94,6 +102,8 @@ NAME_K11 = "search_bayes_maps"   # K11's launch count (the library's second entr
 MISS = 1e6                 # score of a masked or invalid cell
 BIG = float(1 << 24)       # empty union-box sentinel
 CHUNK = 128                # column chunk of the TPU kernel's scan
+THREADS = 256              # a CTA's threads, at least (block_threads)
+MAX_CLUSTER = 8            # CTAs a slot, at most (cluster_size)
 
 
 @dataclass(frozen=True)
@@ -330,26 +340,77 @@ def search_bayes_maps_plain(corr_maps, pred_rows, prob, lam, palive, making, pma
 def work_counts(frame, prob, lam, palive, making, pmask, match_attempts, pidx, patch_row,
                 shared, slot_row, c: SearchBayesConsts) -> tuple[int, int, int]:
     """The data-dependent work of one K4 call on these inputs: (rows and
-    columns of the scanned region, cells visited by the per-particle
-    searches: each particle's box within the scanned region)."""
-    _rows, _pred, _s, g, _o, (v_lo, v_hi, u_lo, u_hi) = _predict_and_scan(
+    columns of the read box, the cells that must be scored; cells visited
+    by the per-particle searches: each particle's box within the scanned
+    region)."""
+    _rows, _pred, _s, g, _o, region = _predict_and_scan(
         frame, prob, lam, palive, making, pidx, shared, slot_row, c)
+    v0, v1, u0, u1 = read_box(g, *region)
+    return v1 - v0, u1 - u0, int(_visited(g, *region).sum())
 
-    return v_hi - v_lo, u_hi - u_lo, int(_visited(g, v_lo, v_hi, u_lo, u_hi).sum())
+
+def cell_boxes(g: dict, v_lo: int, v_hi: int, u_lo: int, u_hi: int):
+    """Each particle's box within the scanned region as cells [r0, r1) x
+    [c0, c1) ([NP] int64 each; empty where r1 <= r0 or c1 <= c0): every cell
+    that particle_search's mask can admit (csrc/search_bayes.cu cell_box;
+    the bounds are integer-valued or infinite, a NaN one gives no cell)."""
+    def span(lo, hi, a, b):
+        lo = torch.nan_to_num(torch.floor(lo), nan=float(b)).clamp(a, b)
+        hi = torch.nan_to_num(torch.ceil(hi), nan=float(a)).clamp(a, b)
+        return lo.long(), hi.long()
+
+    return (*span(g["vlo"], g["vhi"], v_lo, v_hi), *span(g["ulo"], g["uhi"], u_lo, u_hi))
+
+
+def read_box(g: dict, v_lo: int, v_hi: int, u_lo: int, u_hi: int) -> tuple[int, int, int, int]:
+    """The cells that any particle's search can read, (v0, v1, u0, u1): the
+    bounding box of every particle's box within the scanned region (the
+    union box's cells for the searchable particles, and the region's cells
+    that the others' boxes meet); all 0 when there is none. K4 scores these
+    cells and K11 stages them."""
+    r0, r1, c0, c1 = cell_boxes(g, v_lo, v_hi, u_lo, u_hi)
+    some = (r1 > r0) & (c1 > c0)
+    if not bool(some.any()):
+        return 0, 0, 0, 0
+    return int(r0[some].min()), int(r1[some].max()), int(c0[some].min()), int(c1[some].max())
+
+
+def band(n_rows: int, cluster: int, rank: int) -> tuple[int, int]:
+    """The rows [a, b) of the read box's n_rows that CTA `rank` of K4's
+    cluster scores."""
+    return n_rows * rank // cluster, n_rows * (rank + 1) // cluster
 
 
 def _visited(g: dict, v_lo: int, v_hi: int, u_lo: int, u_hi: int) -> torch.Tensor:
     """[NP] cells of each particle's box within the scanned region."""
-    def span(lo, hi, a, b):
-        lo = torch.nan_to_num(torch.floor(lo), nan=float(b)).clamp(a, b)
-        hi = torch.nan_to_num(torch.ceil(hi), nan=float(a)).clamp(a, b)
-        return (hi - lo).clamp(min=0)
+    r0, r1, c0, c1 = cell_boxes(g, v_lo, v_hi, u_lo, u_hi)
+    return (r1 - r0).clamp(min=0) * (c1 - c0).clamp(min=0)
 
-    return span(g["vlo"], g["vhi"], v_lo, v_hi) * span(g["ulo"], g["uhi"], u_lo, u_hi)
+
+def block_threads(NP: int) -> int:
+    """A CTA's threads: THREADS, or a quarter of the sums' tree width
+    where that is more (the kernel holds at most 4 particles a thread), and
+    1,024 past CHUNK_NP particles (the wide rows' loop)."""
+    if NP > CHUNK_NP:
+        return 1024
+    return min(1024, max(THREADS, tree_width(NP) // 4))
+
+
+def cluster_size(n_slots: int, n_sms: int) -> int:
+    """CTAs that share one slot (a thread-block cluster, each a share of the
+    particles' searches and, in K4, a band of the scored rows): the largest
+    power of two up to MAX_CLUSTER with n_slots x it at most the SMs, 1 past
+    CHUNK_NP particles (the caller's check): the single stream takes 8,
+    batch-hires' 16 slots 8, batch64's 64 slots 2."""
+    cs = 1
+    while cs < MAX_CLUSTER and 2 * cs * n_slots <= n_sms:
+        cs *= 2
+    return cs
 
 
 class _K4Params(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_int) for n in ("H", "W", "B", "MF", "NP", "win_radius", "pred_w", "width")]
+    _fields_ = ([(n, ctypes.c_int) for n in ("H", "W", "B", "MF", "NP", "win_radius", "pred_w", "width",
+                                             "threads", "cluster", "stage")]
                 + [(n, ctypes.c_float) for n in (
                     "no_sigma", "corr_thresh2", "corr_sigma_thresh", "low_sigma_penalty",
                     "fku", "fkv", "u0c", "v0c", "two_kd1", "neg_two_kd1", "sd0", "maxdist",
@@ -357,11 +418,13 @@ class _K4Params(ctypes.Structure):
                     "erase_partial_after_attempts")])
 
 
-def _k4_params(c: SearchBayesConsts, MF: int, NP: int) -> _K4Params:
+def _k4_params(c: SearchBayesConsts, MF: int, NP: int, n_slots: int, dev) -> _K4Params:
     pc, bc = c.particle, c.bayes
     return _K4Params(
         H=c.H, W=c.W, B=c.boxsize, MF=MF, NP=NP, win_radius=c.win_radius, pred_w=padded_lanes(NP),
-        width=tree_width(NP), no_sigma=c.no_sigma,
+        width=tree_width(NP), threads=block_threads(NP),
+        cluster=1 if NP > CHUNK_NP else cluster_size(n_slots, _build.n_sms(dev)), stage=0,
+        no_sigma=c.no_sigma,
         corr_thresh2=c.corr_thresh2, corr_sigma_thresh=c.corr_sigma_thresh,
         low_sigma_penalty=c.low_sigma_penalty, fku=pc.fku, fkv=pc.fkv, u0c=pc.u0c, v0c=pc.v0c,
         two_kd1=2.0 * pc.kd1, neg_two_kd1=-2.0 * pc.kd1, sd0=pc.sd0, maxdist=pc.maxdist,
@@ -378,7 +441,7 @@ _ARGTYPES = [ctypes.c_void_p] * 24 + [ctypes.POINTER(_K4Params), ctypes.c_void_p
 def wide_workspace(n_blocks: int, NP: int, dev):
     """K4's / K11's per-particle rows for rows past bayes.CHUNK_NP particles
     (None below): per block, the prediction rows [8, NP], best and key [NP]
-    and the sums' tree [tree_width(NP)] (csrc/search_bayes.cu::sb_smem)."""
+    and the sums' tree [tree_width(NP)] (csrc/search_bayes.cu sb_body)."""
     if NP <= CHUNK_NP:
         return None
     return torch.empty((n_blocks, 10 * NP + tree_width(NP)), dtype=torch.float32, device=dev)
@@ -420,8 +483,8 @@ def search_bayes(frame, prob, lam, palive, making, pmask, match_attempts, pidx, 
     )
     workspace = torch.empty((H, W), dtype=f32, device=dev)
     wide = wide_workspace(1, NP, dev)
-    prm = _k4_params(c, MF=MF, NP=NP)
     fn = _build.function(NAME, "k4_search_bayes", _ARGTYPES)
+    prm = _k4_params(c, MF=MF, NP=NP, n_slots=1, dev=dev)
     err = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs), workspace.data_ptr(), _ptr(wide),
              ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K4 search_bayes")
@@ -462,7 +525,7 @@ def search_bayes_maps(corr_maps, pred_rows, prob, lam, palive, making, pmask, ma
     )
     wide = wide_workspace(Bn * Fn, NP, dev)
     fn = _build.function(NAME, "k11_search_bayes_maps", _ARGTYPES_K11)
-    prm = _k4_params(c, MF=Fn, NP=NP)
+    prm = _k4_params(c, MF=Fn, NP=NP, n_slots=Bn * Fn, dev=dev)
     err = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs), _ptr(wide), Bn * Fn,
              ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K11 search_bayes_maps")
@@ -472,7 +535,7 @@ def search_bayes_maps(corr_maps, pred_rows, prob, lam, palive, making, pmask, ma
 
 def bytes_and_flops_maps(Bn: int, Fn: int, NP: int, n_scanned: int, n_searched: int) -> tuple[int, int]:
     """Least bytes and operations of one K11 call with this run's data: the
-    n_scanned map cells of the scanned regions read once, the prediction
+    n_scanned map cells of the read boxes read once, the prediction
     and particle rows in, the results out; ~40 operations per particle of
     the geometry and the Bayes tail and ~12 per cell that a particle's
     search visits (n_searched, summed over lanes and slots)."""
@@ -481,24 +544,24 @@ def bytes_and_flops_maps(Bn: int, Fn: int, NP: int, n_scanned: int, n_searched: 
 
 
 def work_counts_maps(pred_rows, palive, making, c: SearchBayesConsts) -> tuple[int, int]:
-    """The data-dependent work of one K11 call: (cells of the scanned
-    regions, cells visited by the per-particle searches), summed over lanes
-    and slots."""
+    """The data-dependent work of one K11 call: (cells of the read boxes,
+    cells visited by the per-particle searches), summed over lanes and
+    slots."""
     Bn, Fn, NP = palive.shape
     n_scanned = n_searched = 0
     for bi in range(Bn):
         for f in range(Fn):
-            g, _o, (v_lo, v_hi, u_lo, u_hi) = _scan_region(
-                pred_rows[bi, f, :, :NP], palive[bi, f] & making[bi, f], c)
-            n_scanned += (v_hi - v_lo) * (u_hi - u_lo)
-            n_searched += int(_visited(g, v_lo, v_hi, u_lo, u_hi).sum())
+            g, _o, region = _scan_region(pred_rows[bi, f, :, :NP], palive[bi, f] & making[bi, f], c)
+            v0, v1, u0, u1 = read_box(g, *region)
+            n_scanned += (v1 - v0) * (u1 - u0)
+            n_searched += int(_visited(g, *region).sum())
     return n_scanned, n_searched
 
 
 def bytes_and_flops(MF: int, NP: int, H: int, W: int, boxsize: int, n_rows: int, n_cols: int,
                     n_searched: int) -> tuple[int, int]:
     """Least bytes and operations of one K4 call with this run's data
-    (work_counts): the frame pixels under the scanned n_rows x n_cols
+    (work_counts): the frame pixels under the read box's n_rows x n_cols
     centres and their halo, each read once, and the state rows in; prob /
     palive and the small outputs out. ~1.5 k operations of the prologue,
     ~90 per particle of the chain and ~40 of the Bayes tail,

@@ -1,6 +1,7 @@
-"""A/B of the particle Bayes kernels (K4, K11, K12) between source trees on one card.
+"""A/B of the particle kernels (K4, K10, K11, K12) between source trees on one card.
 
     python3 scripts/ab_particle_kernels.py TREE_A TREE_B TREE_B TREE_A
+    python3 scripts/ab_particle_kernels.py --grid TREE
 
 Each TREE is the root of a checkout of this repo (`.` for the working tree;
 unpack another commit with `git archive` into a directory that .gitignore
@@ -9,12 +10,16 @@ scenelib2_torch, builds its kernels there and reports, on the same seeded
 inputs, each kernel's device time and a sha256 of its outputs
 (scripts/ab_kernels.py). The cases are the shapes the main paths give the
 kernels: K4 at the std configuration (100 particles, 320x240, 16 slots) and
-at hires (200 particles, 640x480, 60 slots), K11 over 64 (lane, slot) blocks
-of 100 particles, K12 over 64 rows of 100 and of 200 particles in both of its
-forms. Particle counts up to 256 keep every sum's order, so all trees must
-give equal outputs; the script fails if they do not. Prints the card's name
-and power limit, one JSON line per tree, and the median device time of each
-case per distinct tree.
+at hires (200 particles, 640x480, 60 slots), K10 and K11 over 64 (lane,
+slot) blocks of 100 particles (batch64) and over 16 of 200 at 640x480
+(batch-hires), K12 over 64 rows of 100 and of 200 particles in both of its
+forms. Every kernel keeps its plain twin bit for bit, so all trees must give
+equal outputs; the script fails if they do not. Prints the card's name and
+power limit, one JSON line per tree, and the median device time of each case
+per distinct tree. With --grid, times K4's and K11's cases of TREE at 256,
+512 and 1,024 threads a CTA (search_bayes.THREADS) times 1, 2, 4 and 8
+CTAs a slot (search_bayes.cluster_size forced; a launch the card refuses is
+reported), failing if any output differs from the wrappers' own choice.
 """
 
 from __future__ import annotations
@@ -79,20 +84,24 @@ def _cases(dev):
               torch.tensor([1], dtype=torch.int32, device=dev), patch_row(patch), shared, rows[0], sbc)
         out.append((f"K4 {tag} NP {NP}", "k4_kernel", lambda a4=a4: search_bayes.search_bayes(*a4)))
 
-    p = Params()
-    NP, H, W, n = p.n_particles, p.cam_height, p.cam_width, 64
-    sbc = search_bayes.SearchBayesConsts.from_params(p)
-    shared, rows = slots(n)
-    lam11 = lam(NP, n)[:, None]
-    pred = particle.particle_predict(shared[None].expand(n, 56).contiguous(), rows[:, None], lam11,
-                                     particle.ParticleConsts.from_params(p))
-    maps = torch.tensor(rng.uniform(0.3, 2.0, (n, 1, H, W)), **f)
-    ones = torch.ones((n, 1), dtype=torch.bool, device=dev)
-    a11 = (maps, pred, torch.tensor(rng.uniform(0.5, 1.5, (n, 1, NP)) / NP, **f), lam11,
-           torch.tensor(rng.uniform(size=(n, 1, NP)) > 0.1, device=dev), ones, ones,
-           torch.full((n, 1), 3, dtype=torch.int32, device=dev), sbc)
-    out.append((f"K11 64 blocks NP {NP}", "k11_kernel", lambda: search_bayes.search_bayes_maps(*a11)))
+    for tag, p, n in (("", Params(), 64), (" 640x480", Params(**HIRES_PARAMS), 16)):
+        NP, H, W = p.n_particles, p.cam_height, p.cam_width
+        sbc = search_bayes.SearchBayesConsts.from_params(p)
+        shared, rows = slots(n)
+        lam11 = lam(NP, n)[:, None]
+        a10 = (shared[None].expand(n, 56).contiguous(), rows[:, None], lam11, particle.ParticleConsts.from_params(p))
+        out.append((f"K10 {n} slots NP {NP}{tag}", "k10_kernel", lambda a10=a10: (particle.particle_predict(*a10),)))
+        pred = particle.particle_predict(*a10)
+        maps = torch.tensor(rng.uniform(0.3, 2.0, (n, 1, H, W)), **f)
+        ones = torch.ones((n, 1), dtype=torch.bool, device=dev)
+        a11 = (maps, pred, torch.tensor(rng.uniform(0.5, 1.5, (n, 1, NP)) / NP, **f), lam11,
+               torch.tensor(rng.uniform(size=(n, 1, NP)) > 0.1, device=dev), ones, ones,
+               torch.full((n, 1), 3, dtype=torch.int32, device=dev), sbc)
+        out.append((f"K11 {n} blocks NP {NP}{tag}", "k11_kernel",
+                    lambda a11=a11: search_bayes.search_bayes_maps(*a11)))
 
+    p = Params()
+    n = 64
     for NP in (100, 200):
         bc = bayes.BayesConsts.from_params(p)
         lanes = bayes.padded_lanes(NP)
@@ -119,5 +128,44 @@ def _cases(dev):
     return out
 
 
+def _grid(tree: str) -> int:
+    """K4's and K11's cases of `tree` at each grid shape, in this process."""
+    import subprocess
+
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from scenelib2_torch.kernels import _build, search_bayes
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()
+    print(smi[0] if smi else "nvidia-smi: no card")
+    dev = torch.device("cuda")
+    cases = [c for c in _cases(dev) if c[0].startswith(("K4", "K11"))]
+    threads, choice = search_bayes.THREADS, search_bayes.cluster_size
+    digests = {}
+    for forced in [None] + [(t, cs) for t in (256, 512, 1024) for cs in (1, 2, 4, 8)]:
+        search_bayes.THREADS = threads if forced is None else forced[0]
+        search_bayes.cluster_size = choice if forced is None else (lambda n, sms, f=forced[1]: f)
+        for name, sym, fn in cases:
+            try:
+                d = ab_kernels._digest(fn())
+            except RuntimeError as e:          # a cluster the card cannot place
+                print(f"{name:<30} forced {forced}: refused ({e})", flush=True)
+                continue
+            if digests.setdefault(name, d) != d:
+                print(f"{name}: outputs at grid {forced} differ", file=sys.stderr)
+                return 1
+            NP, n_slots = (fn.__defaults__[0][1].shape[-1], 1) if name.startswith("K4") else \
+                (fn.__defaults__[0][2].shape[-1], fn.__defaults__[0][2].shape[0])
+            shape = (f"{search_bayes.block_threads(NP)} threads, "
+                     f"{search_bayes.cluster_size(n_slots, _build.n_sms(dev))} CTAs a slot")
+            shape = ("choice: " if forced is None else "forced: ") + shape
+            print(f"{name:<30} {shape:<40} {ab_kernels._device_ms(fn, sym) * 1e3:9.3f} us", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--grid"]:
+        sys.exit(_grid(sys.argv[2]))
     sys.exit(ab_kernels.run(sys.argv[1:], os.path.abspath(__file__), _cases))
