@@ -9,7 +9,9 @@ Phases (any failure exits non-zero before the last line is printed):
     all at once; timed).
  2. kernel vs plain: each kernel (K1 predict+measure+select, K2 search,
     K3 update+bookkeeping, K4 particle search+Bayes, K5 init region
-    proposal, K6 Shi-Tomasi pick; K14 L^-1 on seeded SPD matrices) and its
+    proposal, K6 Shi-Tomasi pick; K14 L^-1 on seeded matrices, bit for
+    bit: SPD at M = 1..128, stacks of 3 and 64, a negative pivot, an
+    infinite entry) and its
     plain PyTorch version on the same
     CUDA tensors: on seeded random scenes and variations (no attempt, no
     room, every try clashing, a flat region, built ties, making false, an
@@ -24,6 +26,13 @@ Phases (any failure exits non-zero before the last line is printed):
     border and at +-3e9, a tie of perfect matches, perfect matches, an
     unselected NaN centre; K = 1, 10 and 64 x 10 / 16 x 10 lanes); then
     each kernel's and plain version's time.
+ 2c. past the caps the kernels once had: K2 (one frame and over lanes) and
+    K8 at search radii 104, 110 and 160 at 320x240 (160: the whole frame)
+    and 320 at 640x480 (a CTA's rows past the device's shared memory:
+    staged in passes), and K6 (one frame and over lanes) on regions 100 x
+    60, 200 x 150 and the whole frame (308 x 228, 628 x 468), each with the
+    stage the launcher sizes and with one row a pass: bit for bit; the widest
+    cases timed.
  2b. the particle kernels past 128 particles and the three kernels that no
     route runs: K10, K11 (making and not), K12 in both row forms and K4 with
     its variations at NP = 200, 300, 1,100, 5,120 and 16,384 (rows of 256,
@@ -43,7 +52,9 @@ Phases (any failure exits non-zero before the last line is printed):
     of the path launched once per frame (K5 and K6 run only with mapping
     on; the counts are zeroed just before each run and read just after
     it); the first mapping-on frames agree with the CPU
-    plain replay; 30 steps run with PyTorch's sync debug mode raising on any
+    plain replay; 30 frames at search radius 110 and init region 100 equal
+    the port's CPU run of the same frames decision by decision; 30 steps
+    run with PyTorch's sync debug mode raising on any
     host synchronisation; ms/frame, device busy ms/frame and idle share of
     each path.
  3b. batch mode: 64 independent lanes (32 scene textures x 2 phase offsets)
@@ -73,8 +84,10 @@ Phases (any failure exits non-zero before the last line is printed):
     rest as tensor ops) and SCENELIB2_BATCH_SB=0 (K7, K2, K6, K9, K10, then
     K13 and K12 on K10's rows in place of K11). K8, K12 in both forms and
     K13 against their plain versions on seeded cases (ties, an overflowing
-    ellipse, an all-zero likelihood, a sell-by, degenerate S, empty regions)
-    and on captured steps; each route's replay reproduces all 64 per-lane
+    ellipse, an all-zero likelihood, a sell-by, degenerate S, empty regions;
+    K13 also the in-kernel geometry's edges and windows that are the whole
+    map) and on captured steps (K13 on every step of the sb0 replay); each
+    route's replay reproduces all 64 per-lane
     fingerprints of its committed file with its kernels launched once a
     step and no other; two lanes agree with their CPU plain replay; 30
     steps without a host synchronisation; aggregate frames/s, an 8-step
@@ -122,7 +135,6 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
 K7_TOL = 1e-5     # K7 rows: |a - b| <= K7_TOL * (largest |entry| of the row)
-K14_TOL = 1e-5    # K14 L^-1: within K14_TOL * max |entry| (the recurrence is K3's, bit-exact by design)
 N_LANES, N_TEXTURES, N_BATCH_FRAMES = 64, 32, 64    # the batch replay: 63 frames a lane
 BATCH_AT = (9, 20, 40)     # output indices whose kernel inputs are captured
 N_REF_BATCH, REF_LANES = 20, (0, 1, 32, 33)
@@ -184,18 +196,6 @@ def rowwise_close(a, b, tol) -> bool:
     scale = torch.where(fin, b.abs(), torch.zeros_like(b)).amax(dim=-1, keepdim=True).clamp_min(1e-30)
     d = torch.where(fin, (a - b).abs(), torch.zeros_like(b))
     return bool((d <= tol * scale).all())
-
-
-def matrix_close(a, b, tol) -> bool:
-    """Non-finite entries equal; the rest within tol x max |finite entry|."""
-    if not nonfinite_equal(a, b):
-        return False
-    a = a.double().cpu()
-    b = b.double().cpu()
-    fin = torch.isfinite(b)
-    a, b = a[fin], b[fin]
-    scale = max(float(b.abs().max()), 1e-30) if b.numel() else 1.0
-    return bool(((a - b).abs() <= tol * scale).all())
 
 
 def same(a, b) -> bool:
@@ -398,6 +398,128 @@ def check_search_edges(rng, p, dev, n_lanes: int) -> tuple[int, float]:
     k2, k8 = search_edge_scene(rng, sc, dev, n_lanes, K)
     err = max(err, check_k2_lanes(k2, sc), check_k8(k8, sc))
     return n + 2, err
+
+
+# K2 / K8 past the old 103 px radius cap, and K6 past the old 88 x 68 region
+# cap (phase 2c): (frame height, width, search radius) and (region width,
+# height); 10**4 is the whole frame after the clamp
+WIDE_RADII = ((240, 320, 104), (240, 320, 110), (240, 320, 160), (480, 640, 320))
+WIDE_REGIONS = ((100, 60), (200, 150), (10**4, 10**4))
+
+
+def check_wide_windows(rng, p, dev) -> tuple[dict, dict]:
+    """Phase 2c: K2 (one frame, K = 1 of each edge kind and K = 10; over
+    lanes) and K8 (over lanes) at the radii of WIDE_RADII on
+    search_edge_scene, and K6 (one frame and over lanes) on regions of
+    WIDE_REGIONS at 320x240 and 640x480: each bit for bit with its plain
+    version, with the stage the launcher sizes (one pass, above 48 KB opted
+    in; passes where a CTA's rows exceed the device: R = 320 at 640x480 on
+    one CTA a feature) and with the stage forced to one centre row (K2, K8)
+    or one row of cells (K6) a pass. Returns (max abs errors, {label:
+    timing record}) with the times of the widest cases."""
+    from scenelib2_torch.kernels import search, shi_tomasi
+
+    errs = {"K2": 0.0, "K8": 0.0, "K6": 0.0}
+    n = {"K2": 0, "K8": 0, "K6": 0}
+    timed = {}
+    for H, W, R in WIDE_RADII:
+        q = dataclasses.replace(p, cam_height=H, cam_width=W, search_win_radius=R)
+        sc = search.SearchConsts.from_params(q)
+        n_lanes = N_LANES if W == 320 else N_HIRES_LANES
+        K = p.n_features_to_select
+        cases = [search_edge_scene(rng, sc, dev, 1, 1, (kind,)) for kind in SEARCH_KINDS]
+        cases.append(search_edge_scene(rng, sc, dev, 1, K))
+        cases.append(search_edge_scene(rng, sc, dev, n_lanes, K))
+        for k2, k8 in cases:
+            lanes = k2[0].shape[0]
+            flat2 = tuple(t.reshape(-1, *t.shape[2:]) for t in k2[1:])
+            frame = k2[0] if lanes > 1 else k2[0][0]
+            flat8 = tuple(t.reshape(-1, *t.shape[2:]) for t in k8)
+            want2 = tuple(o.reshape(-1) for o in search_lanes_plain(k2, sc))
+            want8 = search.search_windows_plain(*flat8, sc)
+            for rows in (0, 1):   # the launcher's own stage; passes of one centre row
+                got2 = search._launch(frame, *flat2, sc, lanes, rows)
+                got8 = search._launch_k8(*flat8, sc, rows)
+                torch.cuda.synchronize()
+                errs["K2"] = max(errs["K2"], check_search(got2, want2, f"K2 at R = {R} ({W}x{H}, pass rows {rows})"))
+                errs["K8"] = max(errs["K8"], check_search(got8, want8, f"K8 at R = {R} ({W}x{H}, pass rows {rows})"))
+                n["K2"] += 1
+                n["K8"] += 1
+        # the widest case of each kernel timed: K2 on one frame (a cluster of 8 a
+        # feature: one pass) and over lanes, K8 over lanes (one CTA a feature)
+        if R in (110, 320):
+            k2, k8 = cases[-1]
+            k2_1 = tuple(t[0] for t in k2)
+            admit1 = search.candidate_geometry(*k2_1[2:7], sc)[0]
+            flat2 = tuple(t.reshape(-1, *t.shape[2:]) for t in k2[1:])
+            admit = search.candidate_geometry(*flat2[1:6], sc)[0]
+            flat8 = tuple(t.reshape(-1, *t.shape[2:]) for t in k8)
+            for label, fk, fp_, sym, cost in (
+                (f"K2 R={R} one frame", lambda: search.search(*k2_1, sc), lambda: search.search_plain(*k2_1, sc),
+                 "k2_kernel", search.bytes_and_flops(K, sc, admit1)),
+                (f"K2 R={R} {n_lanes} lanes", lambda: search.search(*k2, sc), lambda: search_lanes_plain(k2, sc),
+                 "k2_kernel", search.bytes_and_flops(K * n_lanes, sc, admit)),
+                (f"K8 R={R} {n_lanes} lanes", lambda: search.search_windows(*k8, sc),
+                 lambda: search.search_windows_plain(*flat8, sc), "k8_kernel",
+                 search.bytes_and_flops_windows(K * n_lanes, sc, admit)),
+            ):
+                b_ms, b_by = bound([cost])
+                timed[label] = dict(ms=time_ms(fk, n=20, batches=3), plain_ms=time_ms(fp_, n=2, batches=3),
+                                    device_ms=kernel_device_ms(fk, sym), bound_ms=b_ms, bound_by=b_by,
+                                    inputs=f"search_edge_scene at {W}x{H}, R = {R}, side {sc.side_u} x {sc.side_v}")
+    i32 = dict(dtype=torch.int32, device=dev)
+    B = p.boxsize
+    for H, W in ((240, 320), (480, 640)):
+        n_lanes = N_LANES if W == 320 else N_HIRES_LANES
+        frame = torch.tensor(rng.integers(0, 256, (H, W), dtype=np.uint8), device=dev)
+        frames = torch.tensor(rng.integers(0, 256, (n_lanes, H, W), dtype=np.uint8), device=dev)
+        for rw_, rh_ in WIDE_REGIONS:
+            kw = dict(boxsize=B, region_w=rw_, region_h=rh_)
+            singles = []
+            for u, v in ((6, 6), (W // 3, H // 4), (W - 30, H - 30)):
+                singles.append(tuple(torch.tensor(x, **i32) for x in (u, v, min(u + rw_, W - 6), min(v + rh_, H - 6))))
+            us = torch.tensor(rng.integers(6, W // 2, n_lanes), **i32)
+            vs = torch.tensor(rng.integers(6, H // 2, n_lanes), **i32)
+            lanes = (us, vs, torch.clamp(us + rw_, max=W - 6).to(torch.int32),
+                     torch.clamp(vs + rh_, max=H - 6).to(torch.int32))
+            for rows in (0, 1):   # the launcher's own stage; stages of one row of cells
+                for b in singles:
+                    got = shi_tomasi._launch(frame, *b, **kw, rows=rows)
+                    want = shi_tomasi.shi_tomasi_plain(frame, *b, **kw)
+                    torch.cuda.synchronize()
+                    if not all(same_bits_or_nan(x, y) for x, y in zip(got, want)):
+                        fail(f"K6 at region {rw_} x {rh_} ({W}x{H}, stage rows {rows}) differs from its plain version")
+                    errs["K6"] = max(errs["K6"], max_err(got[2], want[2]))
+                    n["K6"] += 1
+                got = shi_tomasi._launch(frames, *lanes, **kw, rows=rows)
+                want = shi_tomasi.shi_tomasi_plain(frames, *lanes, **kw)
+                torch.cuda.synchronize()
+                if not all(same_bits_or_nan(x, y) for x, y in zip(got, want)):
+                    fail(f"K6 over {n_lanes} lanes at region {rw_} x {rh_} ({W}x{H}, stage rows {rows}) differs")
+                errs["K6"] = max(errs["K6"], max_err(got[2], want[2]))
+                n["K6"] += 1
+            if rw_ == 10**4:
+                _off, rw, rh = shi_tomasi.region_geometry(H, W, B, rw_, rh_)
+                b = singles[0]
+                for label, fk, fp_, cost in (
+                    (f"K6 {rw}x{rh} one frame", lambda: shi_tomasi.shi_tomasi(frame, *b, **kw),
+                     lambda: shi_tomasi.shi_tomasi_plain(frame, *b, **kw), shi_tomasi.bytes_and_flops(B, rw, rh)),
+                    (f"K6 {rw}x{rh} {n_lanes} lanes", lambda: shi_tomasi.shi_tomasi(frames, *lanes, **kw),
+                     lambda: shi_tomasi.shi_tomasi_plain(frames, *lanes, **kw),
+                     tuple(n_lanes * x for x in shi_tomasi.bytes_and_flops(B, rw, rh))),
+                ):
+                    b_ms, b_by = bound([cost])
+                    timed[label] = dict(ms=time_ms(fk, n=20, batches=3), plain_ms=time_ms(fp_, n=2, batches=3),
+                                        device_ms=kernel_device_ms(fk, "k6_kernel"), bound_ms=b_ms, bound_by=b_by,
+                                        inputs=f"seeded noise frames at {W}x{H}, the whole-frame region {rw} x {rh}")
+    log(f"[2c] K2 ({n['K2']} calls) and K8 ({n['K8']}) at search radii "
+        f"{', '.join(f'{R} ({W}x{H})' for H, W, R in WIDE_RADII)} and K6 ({n['K6']}) on regions "
+        f"{', '.join(f'{w} x {h}' for w, h in WIDE_REGIONS[:2])} and the whole frame at 320x240 and 640x480, "
+        f"each with its own stage and with one row a pass, one frame and over lanes: bit for bit "
+        f"(max abs err {json.dumps(errs)})")
+    for label, t_ in timed.items():
+        log(f"[2c] {label}: {json.dumps(t_)}")
+    return errs, timed
 
 
 def k3_random_scene(rng, params, dev, mode="mixed"):
@@ -983,8 +1105,11 @@ def k12_seeded(rng, p, dev, pred_form: bool, n_rows=6, NP=None):
 def k13_seeded(rng, p, dev, n_lanes=4):
     """K13 arguments: random maps and particle clouds along rays; lane 0 with
     degenerate particles (NaN, huge and indefinite S^-1, an overflowing
-    ellipse, centres far off the frame), lane 1 with empty regions and dead
-    particles, lane 2 with a planted three-way tie."""
+    ellipse, centres far off the frame: regions whose bounds lie 2^31
+    apart), lane 1 with empty regions and dead particles, lane 2 with a
+    planted three-way tie, lane 3 with the in-kernel geometry's edges (S^-1
+    with c = 0, +-inf and NaN entries, centres at +-2^31 and NaN, half-
+    extents above R), NaN cells and cells at and above 1e6."""
     from scenelib2_torch.kernels.particle_search import ParticleSearchConsts
 
     H, W, NP = p.cam_height, p.cam_width, p.n_particles
@@ -1007,7 +1132,37 @@ def k13_seeded(rng, p, dev, n_lanes=4):
     alive[1, 0, 10:20] = False
     maps[2, 0, 102, 104] = maps[2, 0, 100, 104] = maps[2, 0, 101, 103] = 0.05
     h[2, 0, :] = torch.tensor([104.3, 101.2])
+    inf, nan = float("inf"), float("nan")
+    for q, si in enumerate(([[0.05, 0.01], [0.01, 0.0]], [[inf, 0.0], [0.0, 0.04]], [[0.05, inf], [inf, 0.04]],
+                            [[0.05, 0.0], [0.0, -inf]], [[0.05, nan], [nan, 0.04]], [[1e-5, 0.0], [0.0, 1e-5]])):
+        sinv[3, 0, q] = torch.tensor(si)
+    for q, hc in enumerate(((2.0**31, 2.0**31), (-(2.0**31), -(2.0**31)), (nan, nan), (2147483520.0, 30.0)), 6):
+        h[3, 0, q] = torch.tensor(hc)
+    maps[3, 0, 100:110, 85:95] = float("nan")
+    maps[3, 0, 110:120, 120:130] = 1e6
+    maps[3, 0, 120:125, 140:150] = 3e6
     return maps, h, sinv, alive, ParticleSearchConsts.from_params(p)
+
+
+def k13_whole(rng, p, dev, n_slots=3):
+    """K13 arguments whose windows are the whole map (particle radius 200 on
+    320x240 maps, correlate.window_search's rule): slot 0 admits every cell
+    of maps above 1e6 (best above 1e6, its key kept), slot 1 admits a few
+    (the 1e6 of the others joins the minimum), slot 2 a cell at exactly 1e6
+    among cells above it."""
+    from scenelib2_torch.kernels.particle_search import ParticleSearchConsts
+
+    H, W, NP = p.cam_height, p.cam_width, 40
+    f = dict(dtype=torch.float32, device=dev)
+    maps = torch.tensor(rng.uniform(1.5e6, 3e6, (n_slots, 1, H, W)), **f)
+    maps[2, 0, 120, 160] = 1e6
+    h = torch.tensor(np.stack([rng.uniform(100, 220, (n_slots, 1, NP)), rng.uniform(80, 160, (n_slots, 1, NP))], -1),
+                     **f)
+    sinv = torch.tensor(np.tile([[1e-6, 0.0], [0.0, 1e-6]], (n_slots, 1, NP, 1, 1)), **f)
+    sinv[1] = torch.tensor([[0.5, 0.0], [0.0, 0.5]])
+    alive = torch.ones((n_slots, 1, NP), dtype=torch.bool, device=dev)
+    c = dataclasses.replace(ParticleSearchConsts.from_params(p), win_radius=200)
+    return maps, h, sinv, alive, c
 
 
 def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_frame) -> dict:
@@ -1033,25 +1188,32 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
         for form, key in ((False, "K12"), (True, "K12 pred rows")):
             a, kw = k12_seeded(rng, p, dev, form)
             errs[key] = max(errs[key], check_k12(a, kw))
-        errs["K13"] = max(errs["K13"], check_k13(k13_seeded(rng, p, dev)))
+        errs["K13"] = max(errs["K13"], check_k13(k13_seeded(rng, p, dev)), check_k13(k13_whole(rng, p, dev)))
     log("[3e] K8 (a tie, an overflowing ellipse, a NaN centre), K12 in both forms (an all-zero "
-        "likelihood, a sell-by, a row not making) and K13 (degenerate S^-1, far centres, empty "
-        "regions, dead particles, a tie) equal their plain versions on seeded cases")
+        "likelihood, a sell-by, a row not making) and K13 (degenerate S^-1, far and NaN centres, c = 0, "
+        "infinite and NaN S^-1, empty regions, dead particles, a tie, NaN cells, cells at and above 1e6, "
+        "windows that are the whole map) equal their plain versions on seeded cases")
 
     res = {}
     for route, (label, path) in ROUTE_PATH.items():
         rparams = dataclasses.replace(bparams, batch_pallas=route != "bp0")
         sb = False if route == "sb0" else None
         step = make_batched_step(rparams, device="cuda", batch_sb=sb)
-        # kernel inputs of whole batch steps (all lanes at once)
+        # kernel inputs of whole batch steps (all lanes at once); on sb0 every
+        # step's K13 call is held to its plain version as it is made
         seen, cur = {}, {}
+        n13 = 0
 
         def keep(n, a, k):
+            nonlocal n13
             cur[n] = (tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in a), dict(k))
+            if n == "particle_search":
+                errs["K13"] = max(errs["K13"], check_k13(a))
+                n13 += 1
 
         with observe_wrappers(keep):
             st_b = states0
-            for t in range(max(BATCH_AT) + 1):
+            for t in range(T if route == "sb0" else max(BATCH_AT) + 1):
                 cur.clear()
                 st_b, _o = step(st_b, bseq[t], True)
                 if t in BATCH_AT:
@@ -1072,6 +1234,7 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
         log(f"[3e] {label}: the route's kernels equal their plain versions on whole {N_LANES}-lane "
             f"steps at output indices {BATCH_AT} (max abs err {json.dumps(errs)})")
         if route == "sb0":
+            log(f"[3e] K13 equals its plain version bit for bit on all {n13} calls of the {T}-step replay")
             log(f"[3e] K16 on the maps and clouds of K13's calls at {BATCH_AT}: found and overflow equal K13's "
                 f"everywhere, (u, v) for every live particle; dead particles whose (u, v) differ (K13 gives a "
                 f"dead particle no key by design, K16 searches it): {json.dumps(k16_dead)}")
@@ -1243,17 +1406,38 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
 # ------------------------------------------------------------ large maps: K14
 
 
+K14_SPD_MS = (1, 2, 7, 20, 31, 32, 33, 64, 128)   # k14_random_cases' SPD sizes
+K3_MORE_NSEL = (8, 16)   # K3 also at M = 16 and 32: the register form at an M of no configuration
+
+
+def build_variants() -> list:
+    """The (source, defines) builds this script's K14 and K3 calls take
+    beside every source's own: the register form at each M <= 32 they
+    see (chol_inv.reg_defines)."""
+    from scenelib2_torch.config import Params
+    from scenelib2_torch.kernels import chol_inv
+
+    k14 = [M for M in K14_SPD_MS if M <= chol_inv.REG_MAX_M]
+    k3 = [2 * n for n in (Params().n_features_to_select, *K3_MORE_NSEL)]
+    return ([("chol_inv", chol_inv.reg_defines(M)) for M in k14]
+            + [("ekf_update", chol_inv.reg_defines(M)) for M in k3])
+
+
 def k14_random_cases(rng, dev):
-    """(label, S) SPD cases for K14: seeded matrices of every size class the
-    kernel takes, a stack of three, and an EKF-shaped S = H P H' + R at
-    M = 20 whose missed rows are identity blocks (H = 0, R = 1)."""
+    """(label, S) cases for K14: seeded SPD matrices of every size class the
+    kernel takes (the warp form up to M = 32, the block form above), a stack
+    of three and one of 64 at M = 20 (the warp form, four matrices a CTA),
+    an EKF-shaped S = H P H' + R at M = 20 whose missed rows are identity
+    blocks (H = 0, R = 1), and S that are not SPD (a negative pivot: NaN
+    from there on; an infinite entry) at M = 20 and 40."""
     f = dict(dtype=torch.float32, device=dev)
     out = []
-    for M in (1, 2, 7, 20, 64, 128):
+    for M in K14_SPD_MS:
         A = rng.normal(size=(M, M))
         out.append((f"spd{M}", torch.tensor(A @ A.T / M + np.eye(M) * 0.5, **f)))
-    A = rng.normal(size=(3, 20, 20))
-    out.append(("stack3x20", torch.tensor(A @ A.transpose(0, 2, 1) / 20 + np.eye(20), **f)))
+    for n in (3, 64):
+        A = rng.normal(size=(n, 20, 20))
+        out.append((f"stack{n}x20", torch.tensor(A @ A.transpose(0, 2, 1) / 20 + np.eye(20), **f)))
     D = 109
     B = rng.normal(size=(D, D))
     P = B @ B.T / D * 1e-3 + np.eye(D) * 1e-4
@@ -1262,17 +1446,27 @@ def k14_random_cases(rng, dev):
     H[np.repeat(miss, 2)] = 0.0
     R = np.diag(np.where(np.repeat(miss, 2), 1.0, rng.uniform(1.0, 2.0, 20)))
     out.append(("ekf", torch.tensor(H @ P @ H.T + R, **f)))
+    for M in (20, 40):
+        A = rng.normal(size=(M, M))
+        S = A @ A.T / M + np.eye(M) * 0.5
+        S[M // 2, M // 2] = -5.0
+        out.append((f"negative_pivot{M}", torch.tensor(S, **f)))
+        S = A @ A.T / M + np.eye(M) * 0.5
+        S[3, 3] = np.inf
+        out.append((f"inf{M}", torch.tensor(S, **f)))
     return out
 
 
 def check_k14(S) -> float:
+    """K14 against its plain version bit for bit (NaN equal to NaN)."""
     from scenelib2_torch.kernels.chol_inv import chol_inv, chol_linv
 
     got = chol_inv(S)
     want = chol_linv(S)
     torch.cuda.synchronize()
-    if not matrix_close(got, want, K14_TOL):
-        fail(f"K14 L^-1 outside tolerance at M={S.shape[-1]} (max abs err {max_err(got, want)})")
+    if not same_bits_or_nan(got, want):
+        fail(f"K14 L^-1 differs from its plain version bit for bit at M={S.shape[-1]} "
+             f"(max abs err {max_err(got, want)})")
     return max_err(got, want)
 
 
@@ -1786,7 +1980,7 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
     else:
         S = c["chol_inv"][0][0]
         eye = torch.eye(S.shape[-1], device=dev)
-        kern["K14"] = (lambda: chol_inv.chol_inv(S), lambda: chol_inv.chol_linv(S), "k14_kernel")
+        kern["K14"] = (lambda: chol_inv.chol_inv(S), lambda: chol_inv.chol_linv(S), "k14_")
         costs["K14"] = [chol_inv.bytes_and_flops(a[0][..., 0, 0].numel(), a[0].shape[-1])
                         for a, _k in calls["chol_inv"]]
         # the nearest library form: two calls (factor, then a triangular solve)
@@ -2151,10 +2345,15 @@ def main() -> int:
     log(f"[1] device: {kind} (count {torch.cuda.device_count()}), torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     t0 = time.time()
-    _build.build_all(verbose=True)
+    variants = build_variants()
+    _build.build_all(verbose=True, variants=variants)
     for n in _build.SOURCES:
         _build.load(n)
-    log(f"[1] built {len(_build.SOURCES)} kernel libraries in {time.time() - t0:.1f} s")
+    for n, defines in variants:
+        _build.load(n, defines)
+    sizes = ", ".join(f"{n} M = {dict(d)['CHOL_REG_M']}" for n, d in variants)
+    log(f"[1] built {len(_build.SOURCES)} kernel libraries and {len(variants)} register-form builds ({sizes}) "
+        f"in {time.time() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory() as tmp:
         frames, gt_r, _gt_q, cfg = generate_dataset(tmp, n_frames=240, seed=7)
@@ -2184,9 +2383,13 @@ def main() -> int:
                 (p, k1kw, 2, 0.3), (p, k1kw, 2, 1.0))):
             errs["K1"] = max(errs["K1"], check_k1(
                 k1_random_scene(rng, pp, dev, nan_lane=trial < 2, partial=part), dict(kw_, maxp=maxp)))
-        # M = 34 > 32: K3 factorises with the whole block instead of one warp
+        # M = 34 > 32: K3 factorises with the whole block instead of one warp;
+        # M = 16 and 32: the register form at an M of no configuration
         p34 = dataclasses.replace(p, max_features=20, n_features_to_select=17)
         errs["K3"] = max(errs["K3"], check_k3(k3_random_scene(rng, p34, dev, "mixed"), uc))
+        for nsel in K3_MORE_NSEL:
+            pm = dataclasses.replace(p, n_features_to_select=nsel)
+            errs["K3"] = max(errs["K3"], check_k3(k3_random_scene(rng, pm, dev, "mixed"), uc))
         seen = capture_inputs(slam, frames, at=(9, 20, 120))
         a1, kw1 = seen[120]["predict_measure"]
         a2, _ = seen[120]["search"]
@@ -2201,6 +2404,7 @@ def main() -> int:
             errs["K2"] = max(errs["K2"], e)
         log(f"[2] K2 and K8 bit for bit on {n_edge} seeded edge cases (320x240 and 640x480; K = 1, 10, "
             f"{N_LANES} x 10 and {N_HIRES_LANES} x 10 lanes; kinds {', '.join(SEARCH_KINDS)})")
+        wide_errs, wide_timed = check_wide_windows(rng, p, dev)
         n_cases = {"K4": 0, "K5": 0, "K6": 0}
         for at in (9, 20, 120):
             a5, _ = seen[at]["propose"]
@@ -2215,15 +2419,16 @@ def main() -> int:
             for _label, args in k4_variations(a4, rng, H, W, B, p.erase_partial_after_attempts):
                 errs["K4"] = max(errs["K4"], check_k4(args))
                 n_cases["K4"] += 1
-        log(f"[2] kernels equal their plain versions: K1-K3 on 6 random scenes + frame 120 (K3 also at M = 34; "
+        log(f"[2] kernels equal their plain versions: K1-K3 on 6 random scenes + frame 120 (K3 also at M = 16, 32 and 34; "
             f"K1 also at D = 373 and MAXP 2 with a NaN lane, no and every slot partial), "
             f"K4/K5/K6 on {n_cases} cases from frames 9, 20, 120 and their variations "
             f"(max abs err {json.dumps(errs)})")
         k14_err = 0.0
         for label, S in k14_random_cases(rng, dev):
             k14_err = max(k14_err, check_k14(S))
-        log(f"[2] K14 equals its plain version on seeded SPD matrices (M = 1, 2, 7, 20, 64, 128, a "
-            f"stack of three 20 x 20, an EKF-shaped S with missed rows) (max abs err {k14_err})")
+        log(f"[2] K14 equals its plain version bit for bit on seeded matrices (SPD at M = 1, 2, 7, 20, 31, "
+            f"32, 33, 64, 128, stacks of 3 and 64 at M = 20, an EKF-shaped S with missed rows, a negative "
+            f"pivot and an infinite entry at M = 20 and 40) (max abs err {k14_err})")
 
         # ---- 2b. the widened particle kernels; K10b, K15, K16 (entry points of their own)
         werrs = check_wide(rng, p, dev)
@@ -2368,6 +2573,31 @@ def main() -> int:
         log(f"[3] CUDA run equals the CPU plain replay on frames 1..{N_REF} with mapping on "
             f"(inits at {torch.nonzero(ref.did_init).flatten().tolist()}, conversions at "
             f"{torch.nonzero(ref.did_convert).flatten().tolist()}; max |dxv| {dr:.3g})")
+
+        # a search radius and an init region past the old caps (K2's windows
+        # of 221 x 221 centres, K6's window of 112 x 72 pixels): the first
+        # frames on the card against the port's CPU run, decision by decision
+        wide = dict(search_win_radius=110, init_search_width=100)
+        wslam = MonoSLAM(cfg, max_features=16, device="cuda", **wide)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        wouts = wslam.run_sequence(seq[:N_REF], enable_mapping=True)
+        wide_launches = dict(_build.launches)
+        wref = MonoSLAM(cfg, max_features=16, device="cpu", **wide).run_sequence(
+            frames[1 : N_REF + 1], enable_mapping=True)
+        for k in ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init",
+                  "did_convert", "n_overflow", "sel_slot", "sel_matched", "init_box", "par_alive"):
+            if not torch.equal(getattr(wref, k), getattr(wouts, k)):
+                fail(f"search radius 110, init region 100: CUDA vs CPU run: {k} differs in the first {N_REF} frames")
+        dw = float((wref.xv.double() - wouts.xv.double()).abs().max())
+        if dw > STEP_TOL:
+            fail(f"search radius 110, init region 100: CUDA vs CPU run: xv differs by {dw}")
+        for n in _build.KERNELS:
+            if wide_launches.get(n, 0) != (N_REF if n in SINGLE_PATH else 0):
+                fail(f"search radius 110, init region 100: kernel {n} launched {wide_launches.get(n, 0)} times")
+        log(f"[3] search radius 110 and init region 100: the CUDA run equals the port's CPU run on frames "
+            f"1..{N_REF} decision by decision (inits at {torch.nonzero(wref.did_init).flatten().tolist()}, "
+            f"{int(wref.n_matched.sum())} matches; max |dxv| {dw:.3g}); launches {json.dumps(wide_launches)}")
 
         # the step makes no host synchronisation: 30 mapping-on steps (four
         # inits, two conversions) with PyTorch's sync debug mode raising on
@@ -2834,6 +3064,19 @@ def main() -> int:
             timed_on=t_["inputs"],
         ))
     recs[3]["max_abs_err_wide"] = werrs["K4"]
+    # K2, K8 and K6 past the radius and region caps they once had (phase 2c)
+    for label, t_ in wide_timed.items():
+        short = label.split()[0]
+        src, rep_ = {"K2": ("search.cu", "pallas_search.py:476"), "K8": ("search.cu", "pallas_search.py:312"),
+                     "K6": ("shi_tomasi.cu", "pallas_shi_tomasi.py:211")}[short]
+        # timed on seeded inputs, not on a replay: no launches of a main path
+        recs.append(dict(
+            name=f"{label} (past the old cap)", route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
+            replaces=f"scenelib2_tpu/kernels/{rep_}", launches=0,
+            max_abs_err=wide_errs[short], ms=t_["ms"], plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"],
+            bound_by=t_["bound_by"], library_ms=None, device_ms=t_["device_ms"],
+            path="seeded (phase 2c)", timed_on=t_["inputs"],
+        ))
     log(f"[4] empty-launch floor {empty_ms:.4f} ms; total {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     on, off = paths["mapping-on"], paths["mapping-off"]

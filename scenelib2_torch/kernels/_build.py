@@ -2,10 +2,15 @@
 
 Each source under ``csrc/`` has a plain C entry point and is compiled by
 ``nvcc`` into its own shared library, which is loaded with ``ctypes``. Every
-library is named after the hash of its source and flags, so an edited source
-is rebuilt and an unchanged one is loaded from the build directory
-(``scenelib2_torch/_build/``, listed in .gitignore). All missing libraries
-are compiled in parallel, one ``nvcc`` process per source.
+library is named after the hash of its source, flags and defines, so an
+edited source is rebuilt and an unchanged one is loaded from the build
+directory (``scenelib2_torch/_build/``, listed in .gitignore). All missing
+libraries are compiled in parallel, one ``nvcc`` process per library.
+
+A source may also be built with defines that fix a size when compiled (a
+variant: ``chol_inv.reg_defines`` gives K14 and K3 their register form at the
+M of the caller's matrices); each variant is a library of its own, built on
+first use beside the plain build of every source.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no ``--use_fast_math``, and
 ``-fmad=false`` so that each float operation rounds exactly as the plain
@@ -44,7 +49,7 @@ NVCC_FLAGS = (
 # where it launches its kernel and nowhere else
 launches: dict[str, int] = {n: 0 for n in KERNELS}
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}   # (name, defines) -> the loaded library
 _lock = threading.Lock()
 
 
@@ -64,61 +69,75 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on first use and need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> str:
+def define_flags(defines: tuple = ()) -> list[str]:
+    """nvcc's -D flags for defines ((name, value), ...)."""
+    return [f"-D{k}={v}" for k, v in defines]
+
+
+def _lib_path(name: str, defines: tuple = ()) -> str:
     h = hashlib.sha256()
     for fn in sorted(os.listdir(CSRC)):
         if fn == f"{name}.cu" or fn.endswith(".cuh"):
             with open(os.path.join(CSRC, fn), "rb") as f:
                 h.update(fn.encode() + f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *define_flags(defines))).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build_all(verbose: bool = False) -> dict[str, str]:
-    """Compile every missing library, all nvcc processes at once; returns
-    {name: library path}. Raises with nvcc's output if a build fails."""
+def build_all(verbose: bool = False, variants=()) -> dict[tuple, str]:
+    """Compile every missing library (each source as it is, and each
+    (name, defines) of variants), all nvcc processes at once; returns
+    {(name, defines): library path}. Raises with nvcc's output if a build
+    fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    paths = {n: _lib_path(n) for n in SOURCES}
-    todo = [n for n, p in paths.items() if not os.path.exists(p)]
+    keys = dict.fromkeys([(n, ()) for n in SOURCES] + [(n, tuple(d)) for n, d in variants])
+    paths = {k: _lib_path(*k) for k in keys}
+    todo = [k for k, p in paths.items() if not os.path.exists(p)]
     if todo:
         nvcc = find_nvcc()
         procs = {}
-        for n in todo:
-            tmp = paths[n] + f".tmp{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+        for k in todo:
+            n, defines = k
+            tmp = paths[k] + f".tmp{os.getpid()}"
+            cmd = [nvcc, *NVCC_FLAGS, *define_flags(defines), "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            procs[n] = (proc, tmp)
+            procs[k] = (proc, tmp)
         errors = []
-        for n, (proc, tmp) in procs.items():
+        for k, (proc, tmp) in procs.items():
+            n, defines = k
+            label = " ".join([f"{n}.cu", *define_flags(defines)])
             out, _ = proc.communicate()
             if proc.returncode != 0:
-                errors.append(f"nvcc failed for {n}.cu:\n{out}")
+                errors.append(f"nvcc failed for {label}:\n{out}")
                 continue
             if verbose and out:
-                print(f"[nvcc {n}.cu]\n{out}")
-            os.replace(tmp, paths[n])
+                print(f"[nvcc {label}]\n{out}")
+            os.replace(tmp, paths[k])
         if errors:
             raise RuntimeError("\n".join(errors))
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, building on first use."""
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (built with defines), building
+    on first use."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(build_all()[name])
-            _libs[name] = lib
+            lib = ctypes.CDLL(build_all(variants=(key,))[key])
+            _libs[key] = lib
         return lib
 
 
-def function(name: str, symbol: str, argtypes: list):
-    """C entry point `symbol` of csrc/<name>.cu returning an int error code.
-    argtypes must name c_void_p for every pointer and the stream: an
-    undeclared argument is passed as a 32-bit C int."""
-    fn = getattr(load(name), symbol)
+def function(name: str, symbol: str, argtypes: list, defines: tuple = ()):
+    """C entry point `symbol` of csrc/<name>.cu (built with defines)
+    returning an int error code. argtypes must name c_void_p for every
+    pointer and the stream: an undeclared argument is passed as a 32-bit C
+    int."""
+    fn = getattr(load(name, defines), symbol)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

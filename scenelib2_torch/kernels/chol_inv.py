@@ -10,8 +10,12 @@ core/ekf.py::joint_update.
 
 Bound on an H100 at M = 20: 1.6 KB in, 1.6 KB out and ~5 k operations,
 nanoseconds; the launch and the 2M dependent steps of the recurrence are
-the cost. Design (csrc/chol_inv.cu): one block per matrix, S, U and X in
-shared memory, each step one block-wide pass; the recurrences are
+the cost. Design (csrc/chol_inv.cu): at M <= 32 one warp a matrix, four a
+CTA, the matrix in the warp's registers (column l in lane l, the other
+columns' entries by shuffle: no shared memory, no barrier), from a build
+whose M is fixed when compiled (reg_defines: a library for each M that
+the caller's matrices have); at M > 32 one block a matrix, S, U and X in
+shared memory, each step one block-wide pass. The recurrences are
 csrc/chol_linv.cuh, which K3 (csrc/ekf_update.cu) runs too.
 """
 
@@ -26,6 +30,14 @@ from scenelib2_torch.kernels import _build
 
 NAME = "chol_inv"
 MAX_M = 128
+REG_MAX_M = 32   # the largest M of the register form: a lane a column
+
+
+def reg_defines(M: int) -> tuple:
+    """The build defines that give chol_linv.cuh's register form at M (a
+    library of its own for each M, kernels/_build.py); none above
+    REG_MAX_M."""
+    return (("CHOL_REG_M", M),) if M <= REG_MAX_M else ()
 
 
 def chol_linv(S: torch.Tensor) -> torch.Tensor:
@@ -60,7 +72,7 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctype
 def chol_inv(S: torch.Tensor) -> torch.Tensor:
     """K14: L^-1 of each SPD S [..., M, M] f32 (M <= 128). A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel (or raises),
-    one block per matrix."""
+    one warp (M <= 32) or one block a matrix."""
     if S.device.type == "cpu":
         return chol_linv(S)
     M = S.shape[-1]
@@ -69,7 +81,7 @@ def chol_inv(S: torch.Tensor) -> torch.Tensor:
     n = S[..., 0, 0].numel()
     _build.check_tensor(S, "S", torch.float32, S.shape)
     out = torch.empty_like(S)
-    fn = _build.function(NAME, "k14_chol_inv", _ARGTYPES)
+    fn = _build.function(NAME, "k14_chol_inv", _ARGTYPES, reg_defines(M))
     err = fn(S.data_ptr(), out.data_ptr(), n, M, torch.cuda.current_stream(S.device).cuda_stream)
     _build.check(err, "K14 chol_inv")
     _build.launches[NAME] += 1

@@ -9,16 +9,29 @@
 // same order here and there (built with -fmad=false).
 //
 // Bound on an H100 at M = 20: 1.6 KB in and out and ~5 k operations, a few
-// nanoseconds; the launch and the 2M dependent steps of the recurrence
-// (each a block-wide pass between barriers) are the whole cost. Design: one
-// block of 256 threads per matrix (the JAX kernel takes one; a leading
-// batch dimension becomes the grid); S, U and X live in shared memory.
+// nanoseconds; the launch and the 2M dependent steps of the recurrence are
+// the whole cost. Design: at the M of the register form (CHOL_REG_M, which
+// the wrapper has the build set to the M of its matrices where M <= 32)
+// one warp a matrix and K14_WARPS matrices a CTA, the matrix in the warp's
+// registers (chol_linv_reg: a step is a few shuffles and two divisions, no
+// barrier); at any other M up to 128 one block of 256 threads a matrix, S,
+// U and X in shared memory (chol_linv_block, a block-wide pass between
+// barriers a step). A leading batch dimension becomes the grid.
 #include <cuda_runtime.h>
 
 #include "chol_linv.cuh"
 
 #define K14_THREADS 256
+#define K14_WARPS 4  // matrices a CTA of the warp form
 #define K14_MAX_M 128
+
+__global__ void __launch_bounds__(32 * K14_WARPS)
+k14_warp_kernel(const float* __restrict__ S, float* __restrict__ Linv, int n, int M) {
+  const int m = blockIdx.x * K14_WARPS + (threadIdx.x >> 5);
+  if (m >= n) return;  // the whole warp
+  const size_t base = (size_t)m * M * M;
+  chol_linv_reg_any(S + base, Linv + base, M);
+}
 
 __global__ void __launch_bounds__(K14_THREADS)
 k14_kernel(const float* __restrict__ S, float* __restrict__ Linv, int M) {
@@ -37,11 +50,17 @@ k14_kernel(const float* __restrict__ S, float* __restrict__ Linv, int M) {
 extern "C" int k14_chol_inv(const float* S, float* Linv, int n, int M, void* stream) {
   if (M < 1 || M > K14_MAX_M) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
+  if (chol_linv_reg_sized(M)) {
+    k14_warp_kernel<<<(n + K14_WARPS - 1) / K14_WARPS, 32 * K14_WARPS, 0, (cudaStream_t)stream>>>(S, Linv, n, M);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = sizeof(float) * 3 * (size_t)M * M;
   // above 48 KB (M > 64) the kernel must opt in; the attribute belongs to
-  // the current device, so it is set on every launch (a cheap host call)
-  cudaError_t e = cudaFuncSetAttribute(k14_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  // the current device, so it is set on every such launch (a cheap host call)
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(k14_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   k14_kernel<<<n, K14_THREADS, smem, (cudaStream_t)stream>>>(S, Linv, M);
   return (int)cudaGetLastError();
 }

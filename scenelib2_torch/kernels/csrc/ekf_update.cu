@@ -16,9 +16,10 @@
 //   1. CTA 0, the O(D M^2 + M^3) prefix: H (never formed: 10 non-zeros a
 //      row, read from K1's selected columns), nu, R; P H' at the 7 + 3 NSEL
 //      rows that H reads, which is all S needs; S; then L^-1 by
-//      chol_linv.cuh in one warp (M <= 32), the chain of M dependent steps
-//      that sets this phase's length, while the other 15 warps gather the
-//      7 + 3 NSEL columns of P that H reads and form P H' at every row;
+//      chol_linv.cuh in one warp's registers (at the M the build fixed,
+//      CHOL_REG_M; the whole block at any other M), the chain of M dependent
+//      steps that sets this phase's length, while the other 15 warps gather
+//      the 7 + 3 NSEL columns of P that H reads and form P H' at every row;
 //      S^-1; W = P H' S^-1; x'; W S;
 //      the strips of P' = P - (W S) W' in rows and columns 3..6 and from
 //      them the quaternion-norm transform's columns (cols) and rows (rowsb).
@@ -251,14 +252,16 @@ k3_kernel(const float* __restrict__ x, const float* __restrict__ P, const float*
         U[m * M + n] = 0.0f;
       }
       __syncthreads();
-      // ---- X = L^-1 (chol_linv.cuh) on warp 0 (M <= 32) while the other
-      // warps gather the columns of P that H reads into Pc [NC][Dp + 1] (a
-      // thread a row, 16 loads in flight; the odd pitch keeps the stores and
-      // the reads free of bank conflicts; Pc is parked in the W' .. rowsb
-      // region, which W overwrites later) and form P H' at every row
-      const bool split = M <= 32;
+      // ---- X = L^-1 (chol_linv.cuh) on warp 0 where M has the register
+      // form (the build's CHOL_REG_M) while the other warps gather the
+      // columns of P that H reads into Pc [NC][Dp + 1] (a thread a row, 16
+      // loads in flight; the odd pitch keeps the stores and the reads free of
+      // bank conflicts; Pc is parked in the W' .. rowsb region, which W
+      // overwrites later) and form P H' at every row; at any other M the
+      // whole block gathers, then factorises
+      const bool split = chol_linv_reg_sized(M);
       if (split && tid < 32) {
-        chol_linv_warp(A, U, X, M);
+        chol_linv_reg_any(A, X, M);
       } else {
         const int t0 = split ? tid - 32 : tid, n0 = split ? nt - 32 : nt;
         float* Pc = Wt;

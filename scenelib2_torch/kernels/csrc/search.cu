@@ -22,7 +22,11 @@
 //     (box_range: half-widths from the twin's f32 operations, a NaN one
 //     gives no cell, an infinite or huge one the whole window; every cell in
 //     it is still tested exactly as the twin tests it);
-//   - the rectangle's pixels are staged as u8 words in shared memory; a
+//   - the rectangle's pixels are staged as u8 words in shared memory, in
+//     one pass where a CTA's rows fit (above 48 KB after opting in,
+//     dyn_smem.cuh), else in passes of as many
+//     centre rows as fit (any search radius: the words, and so the sums,
+//     are the same whatever the passes); a
 //     thread takes a run of 4 adjacent centres along u, aligns the words of
 //     each patch row into byte quads once (__byte_perm) and takes all three
 //     sums with __dp4a (window_sums.cuh, shared with K4): the cross sum
@@ -51,6 +55,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dyn_smem.cuh"
 #include "nssd.cuh"
 #include "window_sums.cuh"
 
@@ -59,15 +64,13 @@ namespace cg = cooperative_groups;
 #define K2_THREADS 256
 #define K2_RUN WS_RUN          // adjacent centres a thread takes along u
 #define K2_MAX_CLUSTER 8       // portable cluster size
-// the staged rectangle stays within the 48 KB of shared memory a kernel has
-// without opting in (1 KB left for the static arrays): windows of radius up
-// to 103 px; the configurations reach 6 KB (radius 32) and 12 KB (radius 48)
-#define K2_MAX_STAGE_BYTES (47 * 1024)
 #define K2_NO_MATCH 1e6f       // the value of a masked-out cell
 #define K2_NONE 0xFFFFFFFFFFFFFFFFull  // the key of no admitted cell
 
 struct K2Params {
   int H, W, B, side_v, side_u, per_lane, cluster;
+  int pass_rows;    // centre rows a pass at most (0: a CTA's rows of the widest rectangle); fewer force passes
+  int stage_words;  // set by k2_launch: words of the stage, a CTA's rows or fewer (passes)
   float no_sigma, no_sigma2, corr_thresh2, corr_sigma_thresh;
 };
 
@@ -105,13 +108,61 @@ __device__ __forceinline__ int centre_i32(float h) {
   return __float2int_rz(f);
 }
 
+// Window rows r0 .. r1 + B - 2 of this CTA's rectangle, columns ca ..
+// ca + nb - 1 (0 past them), staged as spw u8 words a row.
+__device__ __forceinline__ void stage_rows(const uint8_t* __restrict__ win, int pitch, int ca, int nb, int spw,
+                                           int r0, int r1, int B, uint32_t* stage) {
+  for (int e = threadIdx.x; e < (r1 - r0 + B - 1) * spw; e += K2_THREADS) {
+    const int r = e / spw, j = e - r * spw;
+    const uint8_t* src = win + (size_t)(r0 + r) * pitch + ca + 4 * j;
+    uint32_t w = 0;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (4 * j + t < nb) w |= (uint32_t)src[t] << (8 * t);
+    stage[e] = w;
+  }
+}
+
+// The admitted cells of staged rows [0, r1 - r0), whose first cell is
+// (u_first, v_first), into *key: a thread a run of K2_RUN centres along u,
+// their three sums by __dp4a, the 4 scores straight-line (the patch's terms
+// once), then the masks.
+__device__ __forceinline__ void score_rows(const uint32_t* stage, int spw, int nrun, int nu, int r0, int r1,
+                                           int u_first, int v_first, int uc, int vc, float a, float b, float c,
+                                           float halfwidth, float halfheight, const uint32_t* pq,
+                                           const uint32_t msk[WS_NQ], const float* psum, const K2Params& p,
+                                           unsigned long long* key) {
+  const float sg0 = psum[0], sg0sq = psum[1];
+  const float n = (float)(p.B * p.B);
+  for (int it = threadIdx.x; it < (nu > 0 ? (r1 - r0) * nrun : 0); it += K2_THREADS) {
+    const int r = it / nrun, i = it - r * nrun;  // staged row, run
+    uint32_t cross[K2_RUN], s1[K2_RUN], s2[K2_RUN];
+    run_sums(stage + r * spw + i, spw, p.B, pq, msk, cross, s1, s2);
+    const int vv = v_first + r;
+    const float vrel = (float)wrap_sub(vv, vc);
+#pragma unroll
+    for (int s = 0; s < K2_RUN; ++s) {
+      const int uu = u_first + K2_RUN * i + s;
+      const float urel = (float)wrap_sub(uu, uc);
+      float sd0, sd1;
+      const float corr = nssd_corr(sg0, sg0sq, (float)s1[s], (float)s2[s], (float)cross[s], n, &sd0, &sd1);
+      const bool box = fabsf(urel) <= halfwidth && fabsf(vrel) <= halfheight;
+      const bool ellipse = a * urel * urel + 2.0f * b * urel * vrel + c * vrel * vrel < p.no_sigma2;
+      if (K2_RUN * i + s < nu && box && ellipse && sd1 >= p.corr_sigma_thresh && sd0 >= p.corr_sigma_thresh)
+        *key = min(*key, score_key(corr, uu * p.H + vv));  // corr is finite: sd0, sd1 >= corr_sigma_thresh
+    }
+  }
+}
+
 // One feature on one CTA (rank `rank` of a cluster of p.cluster): the
 // rectangle's rows of this rank, staged from win (pixel (0, 0) of the
-// feature's window, `pitch` bytes a row), scored and reduced to *kmin.
-// Rank 0's thread 0 writes the feature's outputs. pq: the patch rows as
-// WS_NQ zero-padded u8 quads each; psum: the patch's sum and sum of squares.
-// The caller has set *kmin to K2_NONE and filled pq and psum before the
-// first barrier here.
+// feature's window, `pitch` bytes a row), scored and reduced to *kmin;
+// PASSES: in passes of as many centre rows as p.stage_words hold (one
+// where they hold them all), else in one. Rank 0's thread 0 writes the feature's outputs. pq: the patch rows
+// as WS_NQ zero-padded u8 quads each; psum: the patch's sum and sum of
+// squares. The caller has set *kmin to K2_NONE and filled pq and psum
+// before the first barrier here.
+template <bool PASSES>
 __device__ __forceinline__ void search_feature(const uint8_t* __restrict__ win, int pitch, const uint32_t* pq,
                                                const float* psum, int k, int u0, int v0, int uc, int vc,
                                                float a, float b, float c, bool act, const K2Params& p,
@@ -131,44 +182,28 @@ __device__ __forceinline__ void search_feature(const uint8_t* __restrict__ win, 
   const int ca = ulo - u0;
   const int nrun = (nu + K2_RUN - 1) / K2_RUN;  // runs a row
   const int spw = nrun + 3;                     // staged words a row: a run reads 4 from its own
-  const int n_items = nu > 0 ? (rb - ra) * nrun : 0;
-
-  // ---- stage window rows ra .. rb + B - 2, columns ca .. ca + nu + B - 2 (0 past them)
   const int nb = nu + B - 1;
-  for (int e = tid; e < (n_items > 0 ? (rb - ra + B - 1) * spw : 0); e += K2_THREADS) {
-    const int r = e / spw, j = e - r * spw;
-    const uint8_t* src = win + (size_t)(ra + r) * pitch + ca + 4 * j;
-    uint32_t w = 0;
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      if (4 * j + t < nb) w |= (uint32_t)src[t] << (8 * t);
-    stage[e] = w;
-  }
-  __syncthreads();
-
   uint32_t msk[WS_NQ];
   quad_masks(B, msk);
-  const float sg0 = psum[0], sg0sq = psum[1];
-  const float n = (float)(B * B);
   unsigned long long key = K2_NONE;
-  for (int it = tid; it < n_items; it += K2_THREADS) {
-    const int r = it / nrun, i = it - r * nrun;  // staged row, run
-    uint32_t cross[K2_RUN], s1[K2_RUN], s2[K2_RUN];
-    run_sums(stage + r * spw + i, spw, B, pq, msk, cross, s1, s2);
-    // the 4 scores straight-line (the patch's terms once), then the masks
-    const int vv = v0 + ra + r;
-    const float vrel = (float)wrap_sub(vv, vc);
-#pragma unroll
-    for (int s = 0; s < K2_RUN; ++s) {
-      const int uu = u0 + ca + K2_RUN * i + s;
-      const float urel = (float)wrap_sub(uu, uc);
-      float sd0, sd1;
-      const float corr = nssd_corr(sg0, sg0sq, (float)s1[s], (float)s2[s], (float)cross[s], n, &sd0, &sd1);
-      const bool box = fabsf(urel) <= halfwidth && fabsf(vrel) <= halfheight;
-      const bool ellipse = a * urel * urel + 2.0f * b * urel * vrel + c * vrel * vrel < p.no_sigma2;
-      if (K2_RUN * i + s < nu && box && ellipse && sd1 >= p.corr_sigma_thresh && sd0 >= p.corr_sigma_thresh)
-        key = min(key, score_key(corr, uu * p.H + vv));  // corr is finite: sd0, sd1 >= corr_sigma_thresh
+  if constexpr (PASSES) {
+    // centre rows a pass: the stage holds them and the B - 1 rows below them
+    // (k2_launch guarantees B rows of the widest rectangle)
+    const int pass = max(p.stage_words / spw - (B - 1), 1);
+    __syncthreads();  // the caller's pq, psum and *kmin
+    for (int r0 = nu > 0 ? ra : rb; r0 < rb; r0 += pass) {
+      const int r1 = min(rb, r0 + pass);
+      if (r0 > ra) __syncthreads();  // the previous pass's words are read
+      stage_rows(win, pitch, ca, nb, spw, r0, r1, B, stage);
+      __syncthreads();
+      score_rows(stage, spw, nrun, nu, r0, r1, u0 + ca, v0 + r0, uc, vc, a, b, c, halfwidth, halfheight, pq, msk,
+                 psum, p, &key);
     }
+  } else {
+    if (nu > 0 && rb > ra) stage_rows(win, pitch, ca, nb, spw, ra, rb, B, stage);
+    __syncthreads();  // the words, and the caller's pq, psum and *kmin
+    score_rows(stage, spw, nrun, nu, ra, rb, u0 + ca, v0 + ra, uc, vc, a, b, c, halfwidth, halfheight, pq, msk, psum,
+               p, &key);
   }
 
   // ---- one unsigned minimum: the warp, then one shared word, then the cluster
@@ -206,6 +241,7 @@ __device__ __forceinline__ void search_feature(const uint8_t* __restrict__ win, 
 
 // K2: frame [n_lanes][H][W] u8, patch_rows [K][128] f32 (u8 pixels | sum | sum
 // of squares), centres and origins [K] i32, sinv_abc [K][3]
+template <bool PASSES>
 __global__ void __launch_bounds__(K2_THREADS)
 k2_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ patch_rows,
           const int* __restrict__ u0s, const int* __restrict__ v0s, const int* __restrict__ ucs,
@@ -227,12 +263,13 @@ k2_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ patch_row
   }
   const int u0 = u0s[k], v0 = v0s[k];
   const uint8_t* win = frame + (size_t)(k / p.per_lane) * p.H * p.W + (size_t)(v0 - half) * p.W + (u0 - half);
-  search_feature(win, p.W, pq, psum, k, u0, v0, ucs[k], vcs[k], sinv_abc[3 * k], sinv_abc[3 * k + 1],
+  search_feature<PASSES>(win, p.W, pq, psum, k, u0, v0, ucs[k], vcs[k], sinv_abc[3 * k], sinv_abc[3 * k + 1],
                  sinv_abc[3 * k + 2], active[k] != 0, p, stage, &kmin, found, uo, vo, best_o, over_o);
 }
 
 // K8: windows [K][wv][wu] u8 (gathered at (u0 - half, v0 - half)), patches
 // [K][B][B] u8, h_centre [K][2] f32 (the predicted positions)
+template <bool PASSES>
 __global__ void __launch_bounds__(K2_THREADS)
 k8_kernel(const uint8_t* __restrict__ windows, const uint8_t* __restrict__ patches,
           const int* __restrict__ u0s, const int* __restrict__ v0s, const float* __restrict__ h_centre,
@@ -270,27 +307,44 @@ k8_kernel(const uint8_t* __restrict__ windows, const uint8_t* __restrict__ patch
     }
   }
   const uint8_t* win = windows + (size_t)k * (p.side_v + B - 1) * wu;
-  search_feature(win, wu, pq, psum, k, u0s[k], v0s[k], centre_i32(h_centre[2 * k]),
+  search_feature<PASSES>(win, wu, pq, psum, k, u0s[k], v0s[k], centre_i32(h_centre[2 * k]),
                  centre_i32(h_centre[2 * k + 1]), sinv_abc[3 * k], sinv_abc[3 * k + 1], sinv_abc[3 * k + 2],
                  active[k] != 0, p, stage, &kmin, found, uo, vo, best_o, over_o);
 }
 
-// the staged rectangle's words at most: the whole window's centres on one CTA
-static size_t stage_bytes(const K2Params* p) {
-  return sizeof(uint32_t) * (size_t)(p->side_v + p->B - 1) * ((p->side_u + K2_RUN - 1) / K2_RUN + 3);
-}
-
-template <typename Kernel, typename... Args>
-static int k2_launch(Kernel kernel, int K, const K2Params* p, void* stream, Args... args) {
-  const size_t smem = stage_bytes(p);
-  if (smem > K2_MAX_STAGE_BYTES || p->B < 1 || p->B > WS_MAX_B || p->per_lane < 1 || p->cluster < 1 ||
-      p->cluster > K2_MAX_CLUSTER)
+// Checks *p, sizes the stage (p->stage_words: a CTA's rows of the widest
+// rectangle, or p->pass_rows of them, at most what the device allows),
+// picks the kernel (ds[0]: the one-pass form, where a
+// CTA's rows fit within 48 KB; else ds[1], the pass form, which also runs
+// one pass where the rows fit above 48 KB: with its 80-92 registers it ran
+// those windows faster than the one-pass form's 64, PERF.md section 6), opts
+// it in where the stage exceeds 48 KB (dyn_smem.cuh) and launches K x
+// p->cluster CTAs, a cluster a feature when p->cluster > 1.
+template <typename... Args>
+static int k2_launch(DynSmem ds[2], int K, K2Params* p, void* stream, Args... args) {
+  if (p->B < 1 || p->B > WS_MAX_B || p->per_lane < 1 || p->cluster < 1 || p->cluster > K2_MAX_CLUSTER ||
+      p->pass_rows < 0)
     return (int)cudaErrorInvalidValue;
+  int dyn_max = 0, dyn_one = 0;
+  cudaError_t e = ds_max(&ds[1], &dyn_max);
+  if (e == cudaSuccess) e = ds_max(&ds[0], &dyn_one);
+  if (e != cudaSuccess) return (int)e;
+  const int spw = (p->side_u + K2_RUN - 1) / K2_RUN + 3;  // words a row of the widest rectangle
+  const int cta_rows = (p->side_v + p->cluster - 1) / p->cluster;
+  const int one_pass = (cta_rows + p->B - 1) * spw;
+  const int rows = p->pass_rows > 0 ? min(p->pass_rows, cta_rows) : cta_rows;
+  p->stage_words = min((rows + p->B - 1) * spw, dyn_max / (int)sizeof(uint32_t));
+  // a pass holds one centre row and the B - 1 rows below it
+  if (p->stage_words < p->B * spw) return (int)cudaErrorInvalidValue;
+  const int bytes = (int)sizeof(uint32_t) * p->stage_words;
+  DynSmem* d = &ds[p->stage_words < one_pass || ds[0].stat + bytes > DS_DEFAULT ? 1 : 0];
   if (K == 0) return 0;
+  e = ds_prepare(d, bytes);
+  if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)K * p->cluster, 1, 1);
   cfg.blockDim = dim3(K2_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = sizeof(uint32_t) * (size_t)p->stage_words;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -299,7 +353,8 @@ static int k2_launch(Kernel kernel, int K, const K2Params* p, void* stream, Args
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = p->cluster > 1 ? 1 : 0;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args..., *p);
+  void* argv[] = {(void*)&args..., (void*)p};
+  e = cudaLaunchKernelExC(&cfg, d->fn, argv);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -308,14 +363,18 @@ extern "C" int k2_search(const uint8_t* frame, const float* patch_rows, const in
                          const int* uc, const int* vc, const float* sinv_abc, const uint8_t* active,
                          uint8_t* found, int* u, int* v, float* best, uint8_t* over, int K, const K2Params* p,
                          void* stream) {
-  return k2_launch(k2_kernel, K, p, stream, frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, found, u, v,
-                   best, over);
+  static DynSmem ds[2] = {{(const void*)k2_kernel<false>, {0}, {0}, 0}, {(const void*)k2_kernel<true>, {0}, {0}, 0}};
+  K2Params q = *p;
+  return k2_launch(ds, K, &q, stream, frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, found, u, v, best,
+                   over);
 }
 
 extern "C" int k8_search_windows(const uint8_t* windows, const uint8_t* patches, const int* u0, const int* v0,
                                  const float* h_centre, const float* sinv_abc, const uint8_t* active,
                                  uint8_t* found, int* u, int* v, float* best, uint8_t* over, int K,
                                  const K2Params* p, void* stream) {
-  return k2_launch(k8_kernel, K, p, stream, windows, patches, u0, v0, h_centre, sinv_abc, active, found, u, v,
-                   best, over);
+  static DynSmem ds[2] = {{(const void*)k8_kernel<false>, {0}, {0}, 0}, {(const void*)k8_kernel<true>, {0}, {0}, 0}};
+  K2Params q = *p;
+  return k2_launch(ds, K, &q, stream, windows, patches, u0, v0, h_centre, sinv_abc, active, found, u, v, best,
+                   over);
 }

@@ -24,7 +24,8 @@ D^2 M multiply-adds, under a microsecond; the launch and the 2M dependent
 factorisation / substitution steps cost more. Design (csrc/ekf_update.cu):
 one launch of a thread-block cluster of 8 CTAs. CTA 0 runs the O(D M^2 + M^3)
 prefix (H is never formed: 10 non-zeros a row, read from the selected
-columns; the factorisation in one warp) up to W, W S, x' and the transform's
+columns; the factorisation in one warp's registers at M <= 32, from a
+build whose M is fixed when compiled, chol_inv.reg_defines) up to W, W S, x' and the transform's
 rows and columns 3..6; CTA 1 the bookkeeping; both publish to a global
 workspace that the wrapper allocates; after the cluster barrier every CTA
 forms its share of the 64 x 64 tiles of the upper triangle, both halves of
@@ -58,7 +59,7 @@ import torch
 from scenelib2_torch.core.ekf import symmetrize
 from scenelib2_torch.core.quaternion import dqnorm_by_dq, seqsum
 from scenelib2_torch.kernels import _build
-from scenelib2_torch.kernels.chol_inv import chol_linv
+from scenelib2_torch.kernels.chol_inv import chol_linv, reg_defines
 from scenelib2_torch.kernels.measure import NOUT, O_H, O_HX, O_HY, O_RD
 
 CAM_DIM = 13
@@ -188,7 +189,7 @@ def workspace_floats(D: int, NSEL: int) -> int:
     """Floats of K3's workspace (csrc/ekf_update.cu::k3_layout): W' and
     (W S)' [M][Dp], the transform's columns and rows [Dp][4], [4][Dp], the
     keep factors [Dp] and the any-match flag, Dp = D rounded up to 32."""
-    fn = _build.function(NAME, "k3_workspace_floats", [ctypes.c_int, ctypes.c_int])
+    fn = _build.function(NAME, "k3_workspace_floats", [ctypes.c_int, ctypes.c_int], reg_defines(2 * NSEL))
     return int(fn(D, NSEL))
 
 
@@ -221,7 +222,7 @@ def joint_update(x, P, sel, z, succ, offs, attempts, successes, sched, active, l
     kill = torch.empty_like(sched)
     ws = torch.empty(workspace_floats(D, NSEL), dtype=f32, device=x.device)
     prm = _K3Params(min_attempts=c.min_attempts, success_fraction=c.success_fraction)
-    fn = _build.function(NAME, "k3_joint_update", _ARGTYPES)
+    fn = _build.function(NAME, "k3_joint_update", _ARGTYPES, reg_defines(2 * NSEL))
     err = fn(
         *(t.data_ptr() for t in args), xo.data_ptr(), Po.data_ptr(), att.data_ptr(),
         suc.data_ptr(), sch.data_ptr(), kill.data_ptr(), ws.data_ptr(), D, NSEL, MF, ctypes.byref(prm),

@@ -7,13 +7,13 @@ SCENELIB2_BATCH_SB=0 (reference SearchMultipleOverlappingEllipses,
 search_multiple_overlapping_ellipses.cpp:106-196). For every particle of
 every (lane, partial slot), from its predicted position and S^-1:
 
-  the geometry, in the wrapper as the TPU wrapper computes it outside its
-  kernel (pallas_particle_search.py:158-176), with XLA's int32 semantics
+  the geometry, which the TPU wrapper computes outside its kernel
+  (pallas_particle_search.py:158-176) and this kernel inside, with XLA's int32 semantics
   (correlate.particle_geometry: trunc / floor converted with NaN -> 0 and
   saturation, sums wrapping): the clamped window of side 2R + 1 and the
   effective region [v_lo, v_hi) x [u_lo, u_hi), the window cut to the
   ellipse's 3-sigma box; overflow = a half-extent above R;
-  in the kernel: over the region's cells inside the ellipse, the minimum of
+  over the region's cells inside the ellipse, the minimum of
   the slot's score map against the 1e6 of a masked cell (NaN if such a cell
   is NaN) and the largest key u*H + v among the cells at the minimum;
   found = alive & best <= corr_thresh2; (u, v) = (key // H, key % H).
@@ -22,13 +22,19 @@ Its results equal correlate.multi_ellipse_search_dense's wherever the
 half-extents fit int32 (the TPU kernel's docstring; the CPU tests hold
 both). The key stays int32 (JAX passes it through f32, exact below 2^24).
 
-Bound on an H100 at 64 lanes x 100 particles: the map cells under each
-slot's live regions (their union) read once and ~10 operations per cell of
-each particle's region; a converged cloud's regions are a few hundred cells
-each and overlap, so a few microseconds at most. Design
-(csrc/particle_search.cu): one block per (lane, slot), one warp per
-particle, the lanes striding over the particle's region in the map in
-global memory, one warp reduction (the minimum, then the largest key).
+Bound on an H100 at 64 lanes x 100 particles (bytes_and_flops): the map
+cells under each slot's live regions (their union) read once and ~10
+operations per cell of each particle's region; a converged cloud's regions
+are a few hundred cells each and overlap, so well under a microsecond. The
+launch, one chain of loads a particle and the host glue set the time.
+Design (csrc/particle_search.cu, K11's search with K13's semantics):
+the wrapper checks, allocates the outputs and launches once with the inputs
+as they are; the kernel computes the geometry (region_geometry's int32
+semantics), cluster_size CTAs a (lane, slot) each stage the read box (the
+bounding box of the live particles' regions) where it fits and take every
+cluster-th particle, a warp a particle walking its region row by row, one
+64-bit key a cell. region_geometry and _results stay as the plain
+version's code; region_cells and bytes_and_flops count the bound.
 """
 
 from __future__ import annotations
@@ -46,9 +52,10 @@ from scenelib2_torch.kernels.correlate import (
     window_search,
     wrap_i32,
 )
+from scenelib2_torch.kernels.search_bayes import cluster_size
 
 NAME = "particle_search"
-N_GEO = 7   # uc, vc, v_lo, v_hi, u_lo, u_hi, alive
+GEOM_OPS = 24   # a particle's geometry: two conversions, two roots and divisions, the clamps and wrapped sums
 
 
 @dataclass(frozen=True)
@@ -121,37 +128,43 @@ def particle_search_plain(corr_maps, h_centres, sinv, alive, c: ParticleSearchCo
 
 
 class _K13Params(ctypes.Structure):
-    _fields_ = [("H", ctypes.c_int), ("W", ctypes.c_int), ("P", ctypes.c_int),
-                ("no_sigma2", ctypes.c_float)]
+    _fields_ = ([(n, ctypes.c_int) for n in ("H", "W", "P", "win_radius", "side_u", "side_v", "cluster",
+                                             "stage")]
+                + [(n, ctypes.c_float) for n in ("no_sigma", "no_sigma2", "corr_thresh2")])
 
 
-# tensor pointers (maps, geo, abc, best, key), the (lane, slot) blocks, the params struct, the stream
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.POINTER(_K13Params), ctypes.c_void_p]
+# tensor pointers (maps, h_centres, sinv, alive; found, u, v, over), the
+# (lane, slot) pairs, the params struct, the stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.POINTER(_K13Params), ctypes.c_void_p]
 
 
 def particle_search(corr_maps, h_centres, sinv, alive, c: ParticleSearchConsts):
     """K13. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (or raise). Same outputs as particle_search_plain; one launch for
-    all lanes and slots."""
+    kernel (or raise). Same outputs as particle_search_plain: one launch for
+    all lanes and slots, and no other tensor operation."""
     if corr_maps.device.type == "cpu":
         return particle_search_plain(corr_maps, h_centres, sinv, alive, c)
-    Bn, Fn, H, W = corr_maps.shape
+    Bn, Fn = corr_maps.shape[:2]
     P = alive.shape[-1]
-    geo, abc, over, _u0, _v0 = region_geometry(h_centres, sinv, alive, c)
-    maps, geo, abc = corr_maps.contiguous(), geo.contiguous(), abc.contiguous()
-    _build.check_tensor(maps, "corr_maps", torch.float32, (Bn, Fn, c.H, c.W))
-    _build.check_tensor(geo, "geo", torch.int32, (Bn, Fn, P, N_GEO))
-    _build.check_tensor(abc, "abc", torch.float32, (Bn, Fn, P, 3))
+    for t, name, dty, shp in ((corr_maps, "corr_maps", torch.float32, (Bn, Fn, c.H, c.W)),
+                              (h_centres, "h_centres", torch.float32, (Bn, Fn, P, 2)),
+                              (sinv, "sinv", torch.float32, (Bn, Fn, P, 2, 2)),
+                              (alive, "alive", torch.bool, (Bn, Fn, P))):
+        _build.check_tensor(t, name, dty, shp)
     dev = corr_maps.device
-    best = torch.empty((Bn, Fn, P), dtype=torch.float32, device=dev)
-    key = torch.empty((Bn, Fn, P), dtype=torch.int32, device=dev)
-    prm = _K13Params(H=c.H, W=c.W, P=P, no_sigma2=c.no_sigma * c.no_sigma)
+    found = torch.empty((Bn, Fn, P), dtype=torch.bool, device=dev)
+    u = torch.empty((Bn, Fn, P), dtype=torch.int32, device=dev)
+    v = torch.empty((Bn, Fn, P), dtype=torch.int32, device=dev)
+    over = torch.empty((Bn, Fn, P), dtype=torch.bool, device=dev)
     fn = _build.function(NAME, "k13_particle_search", _ARGTYPES)
-    err = fn(maps.data_ptr(), geo.data_ptr(), abc.data_ptr(), best.data_ptr(), key.data_ptr(), Bn * Fn,
+    prm = _K13Params(H=c.H, W=c.W, P=P, win_radius=c.win_radius, side_u=c.side_u, side_v=c.side_v,
+                     cluster=cluster_size(Bn * Fn, _build.n_sms(dev)), stage=0,
+                     no_sigma=c.no_sigma, no_sigma2=c.no_sigma * c.no_sigma, corr_thresh2=c.corr_thresh2)
+    err = fn(*(t.data_ptr() for t in (corr_maps, h_centres, sinv, alive, found, u, v, over)), Bn * Fn,
              ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K13 particle_search")
     _build.launches[NAME] += 1
-    return _results(best, key, alive, over, c)
+    return found, u, v, over
 
 
 def region_cells(h_centres, sinv, alive, c: ParticleSearchConsts) -> tuple[int, int]:
@@ -176,7 +189,8 @@ def region_cells(h_centres, sinv, alive, c: ParticleSearchConsts) -> tuple[int, 
 def bytes_and_flops(Bn: int, Fn: int, P: int, n_read: int, n_searched: int) -> tuple[int, int]:
     """Least bytes and operations of one K13 call with this run's data
     (region_cells): the n_read map cells under the slots' live regions read
-    once, the per-particle geometry in and best / key out; ~10 operations
-    per cell of each particle's search (the ellipse test and the
-    comparison)."""
-    return 4 * n_read + Bn * Fn * P * (N_GEO * 4 + 3 * 4 + 4 + 4), 10 * n_searched
+    once, each particle's position, S^-1 and alive flag in and found, u, v,
+    overflow out; its geometry (GEOM_OPS) and ~10 operations per cell of
+    each particle's search (the ellipse test and the comparison)."""
+    per = 2 * 4 + 4 * 4 + 1 + 1 + 4 + 4 + 1
+    return 4 * n_read + Bn * Fn * P * per, Bn * Fn * P * GEOM_OPS + 10 * n_searched

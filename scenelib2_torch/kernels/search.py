@@ -25,7 +25,9 @@ the std shapes (K=10, 75x75 windows of a 320x240 u8 frame), so the launch
 and one feature's chain of loads, sums and score formula dominate. Design (csrc/search.cu): a feature scores only the
 rectangle where its 3-sigma box meets the window and the valid centres
 (the TPU kernel's 32/48-row slabs, generalised); the rectangle's pixels are
-staged as u8 words and all three sums are taken in int32 with __dp4a, 4
+staged as u8 words (one pass where a CTA's rows fit the device's shared
+memory, else passes of as many rows as fit, so any search radius runs; the
+launcher sizes the stage) and all three sums are taken in int32 with __dp4a, 4
 adjacent centres a thread; each admitted cell is one 64-bit key (score
 bits, then the complement of u*H + v), so one unsigned minimum gives best
 and the tie; with a small grid (the single stream) a feature is a cluster of
@@ -263,16 +265,18 @@ class _K2Params(ctypes.Structure):
     _fields_ = [
         ("H", ctypes.c_int), ("W", ctypes.c_int), ("B", ctypes.c_int),
         ("side_v", ctypes.c_int), ("side_u", ctypes.c_int), ("per_lane", ctypes.c_int),
-        ("cluster", ctypes.c_int),
+        ("cluster", ctypes.c_int), ("pass_rows", ctypes.c_int), ("stage_words", ctypes.c_int),
         ("no_sigma", ctypes.c_float), ("no_sigma2", ctypes.c_float),
         ("corr_thresh2", ctypes.c_float), ("corr_sigma_thresh", ctypes.c_float),
     ]
 
 
-def _params(c: SearchConsts, K: int, per_lane: int, dev) -> _K2Params:
+def _params(c: SearchConsts, K: int, per_lane: int, dev, rows: int = 0) -> _K2Params:
+    """The launch's parameters; rows: centre rows a pass at most (0: the
+    launcher's own stage, one pass where the device allows)."""
     return _K2Params(
         H=c.H, W=c.W, B=c.boxsize, side_v=c.side_v, side_u=c.side_u, per_lane=per_lane,
-        cluster=cluster_size(K, _build.n_sms(dev)),
+        cluster=cluster_size(K, _build.n_sms(dev)), pass_rows=rows,
         no_sigma=c.no_sigma, no_sigma2=c.no_sigma * c.no_sigma,
         corr_thresh2=c.corr_thresh2, corr_sigma_thresh=c.corr_sigma_thresh,
     )
@@ -311,15 +315,16 @@ def _search_lanes(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: Search
     return tuple(o.reshape(Bn, K) for o in _launch(frame, *flat, c, Bn))
 
 
-def _launch(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts, n_lanes: int):
+def _launch(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts, n_lanes: int,
+            rows: int = 0):
     """Launch K2 over K features, K / n_lanes consecutive ones per frame of
     frame [n_lanes, H, W] (or [H, W] for one lane). The B*B pixels of each
     patch row must be u8 values, integers in 0..255, as patch_row
     (runtime/state.py) writes them: the kernel packs them into byte quads
     by truncation, where search_plain takes the f32 values as they are
-    (tests/test_torch_search_int.py holds patch_row to this). The staged
-    window must fit the 48 KB of shared memory a kernel has without opting
-    in: search radii up to 103 px (std 32, hires 48); a larger one raises."""
+    (tests/test_torch_search_int.py holds patch_row to this). rows > 0
+    forces passes of at most that many centre rows, which give the same
+    bits (a check's hook; the step's calls leave it 0)."""
     K = u0.shape[0]
     if c.boxsize * c.boxsize + 2 > 128:
         raise ValueError("K2: the patch row holds at most 126 pixels")
@@ -331,7 +336,7 @@ def _launch(frame, patch_rows, u0, v0, uc, vc, sinv_abc, active, c: SearchConsts
     _build.check_tensor(active, "active", torch.bool, (K,))
     fn = _build.function(NAME, "k2_search", _ARGTYPES)
     outs = _outputs(K, frame.device)
-    prm = _params(c, K, max(K // n_lanes, 1), frame.device)
+    prm = _params(c, K, max(K // n_lanes, 1), frame.device, rows)
     err = fn(*(t.data_ptr() for t in (frame, patch_rows, u0, v0, uc, vc, sinv_abc, active)),
              *(t.data_ptr() for t in outs), K, ctypes.byref(prm),
              torch.cuda.current_stream(frame.device).cuda_stream)
@@ -386,9 +391,9 @@ def search_windows(windows, patches, u0, v0, h_centre, sinv_abc, active, c: Sear
     return tuple(o.reshape(lead) for o in _launch_k8(*flat, c))
 
 
-def _launch_k8(windows, patches, u0, v0, h_centre, sinv_abc, active, c: SearchConsts):
+def _launch_k8(windows, patches, u0, v0, h_centre, sinv_abc, active, c: SearchConsts, rows: int = 0):
     """One launch and its output allocations, nothing else: the kernel forms
-    the centres and the patch sums itself."""
+    the centres and the patch sums itself. rows as _launch's."""
     K = u0.shape[0]
     B = c.boxsize
     if B > 11:
@@ -402,7 +407,7 @@ def _launch_k8(windows, patches, u0, v0, h_centre, sinv_abc, active, c: SearchCo
         _build.check_tensor(t, name, dty, shp)
     fn = _build.function(NAME, "k8_search_windows", _ARGTYPES_K8)
     outs = _outputs(K, windows.device)
-    prm = _params(c, K, 1, windows.device)
+    prm = _params(c, K, 1, windows.device, rows)
     err = fn(*(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs), K, ctypes.byref(prm),
              torch.cuda.current_stream(windows.device).cuda_stream)
     _build.check(err, "K8 search_windows")

@@ -22,7 +22,9 @@ operations of separable sums and eigenvalues, a fraction of a microsecond;
 the launch and the chain of passes set the time. Design
 (csrc/shi_tomasi.cu): the rows of cells split into bands over a cluster of
 cluster_size(lanes, SMs) CTAs, each lane its own cluster; a CTA stages its
-band's window rows as u8, takes the 11-row and then the 11-column sums of
+band's window rows as u8 (all at once where they fit the device's shared
+memory, else in stages: any region; the launcher sizes them), takes the
+11-row and then the 11-column sums of
 the three gradient products in int32 (running sums, exact), and turns each
 admitted cell into one 64-bit key (the eigenvalue's bits when it is > 0,
 then 0xFFFFFFFF - (v*W + u)); one maximum over the block and the cluster
@@ -49,7 +51,6 @@ from scenelib2_torch.kernels import _build
 NAME = "shi_tomasi"
 INT_MAX = 2**31 - 1
 MAX_CLUSTER = 8           # csrc/shi_tomasi.cu K6_MAX_CLUSTER (portable cluster size)
-MAX_WU, MAX_WV = 100, 80  # csrc/shi_tomasi.cu K6_MAX_WU / K6_MAX_WV: the window's largest sides
 
 
 def clamp_region(ustart, vstart, ufinish, vfinish, width: int, height: int, boxsize: int):
@@ -144,7 +145,8 @@ def cluster_size(n_lanes: int, n_sms: int) -> int:
 
 
 class _K6Params(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_int) for n in ("H", "W", "B", "region_w", "region_h", "cluster")]
+    _fields_ = [(n, ctypes.c_int) for n in ("H", "W", "B", "region_w", "region_h", "cluster", "band_rows",
+                                            "vstride", "stage_rows")]
 
 
 # tensor pointers (frame, 4 bounds, 3 outputs), the lanes, the params struct, the stream
@@ -157,6 +159,14 @@ def shi_tomasi(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int, region_
     kernel (or raises). Same outputs as shi_tomasi_plain. With a lane
     dimension (frame [B, H, W], bounds [B]) the outputs are [B] and the
     kernel is launched once for all lanes."""
+    return _launch(frame, ustart, vstart, ufinish, vfinish, boxsize=boxsize, region_w=region_w,
+                   region_h=region_h)
+
+
+def _launch(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int, region_w: int, region_h: int,
+            rows: int = 0):
+    """shi_tomasi; rows > 0 forces stages of at most that many rows of cells,
+    which give the same bits (a check's hook; the step's calls leave it 0)."""
     kw = dict(boxsize=boxsize, region_w=region_w, region_h=region_h)
     lanes = frame.dim() == 3
     if frame.device.type == "cpu":
@@ -164,8 +174,8 @@ def shi_tomasi(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int, region_
     H, W = frame.shape[-2:]
     shp = (frame.shape[0],) if lanes else ()
     off, rw, rh = region_geometry(H, W, boxsize, region_w, region_h)
-    if not (0 < rw and 0 < rh and rw + 2 * off <= MAX_WU and rh + 2 * off <= MAX_WV):
-        raise ValueError(f"K6: unsupported region {rw}x{rh} (+{2 * off})")
+    if not (0 < rw and 0 < rh):
+        raise ValueError(f"K6: empty region {rw}x{rh} in a {W}x{H} frame")
     _build.check_tensor(frame, "frame", torch.uint8, (*shp, H, W))
     for name, t in (("ustart", ustart), ("vstart", vstart), ("ufinish", ufinish),
                     ("vfinish", vfinish)):
@@ -177,7 +187,7 @@ def shi_tomasi(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int, region_
     fn = _build.function(NAME, "k6_shi_tomasi", _ARGTYPES)
     n_lanes = frame.shape[0] if lanes else 1
     prm = _K6Params(H=H, W=W, B=boxsize, region_w=rw, region_h=rh,
-                    cluster=cluster_size(n_lanes, _build.n_sms(dev)))
+                    cluster=cluster_size(n_lanes, _build.n_sms(dev)), band_rows=rows)
     err = fn(frame.data_ptr(), ustart.data_ptr(), vstart.data_ptr(), ufinish.data_ptr(),
              vfinish.data_ptr(), ubest.data_ptr(), vbest.data_ptr(), evbest.data_ptr(),
              n_lanes, ctypes.byref(prm),

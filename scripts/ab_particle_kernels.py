@@ -1,4 +1,4 @@
-"""A/B of the particle kernels (K4, K10, K11, K12) between source trees on one card.
+"""A/B of the particle kernels (K4, K10, K11, K12, K13) between source trees on one card.
 
     python3 scripts/ab_particle_kernels.py TREE_A TREE_B TREE_B TREE_A
     python3 scripts/ab_particle_kernels.py --grid TREE
@@ -13,7 +13,8 @@ kernels: K4 at the std configuration (100 particles, 320x240, 16 slots) and
 at hires (200 particles, 640x480, 60 slots), K10 and K11 over 64 (lane,
 slot) blocks of 100 particles (batch64) and over 16 of 200 at 640x480
 (batch-hires), K12 over 64 rows of 100 and of 200 particles in both of its
-forms. Every kernel keeps its plain twin bit for bit, so all trees must give
+forms, K13 (route sb0) on K11's maps with the positions and S^-1 of K10's
+rows, as the step hands them over. Every kernel keeps its plain twin bit for bit, so all trees must give
 equal outputs; the script fails if they do not. Prints the card's name and
 power limit, one JSON line per tree, and the median device time of each case
 per distinct tree. With --grid, times K4's and K11's cases of TREE at 256,
@@ -40,7 +41,7 @@ def _cases(dev):
 
     from scenelib2_torch.config import Params
     from scenelib2_torch.eval.synthetic import HIRES_PARAMS
-    from scenelib2_torch.kernels import bayes, particle, search_bayes
+    from scenelib2_torch.kernels import bayes, particle, particle_search, search_bayes
     from scenelib2_torch.runtime.state import patch_row
 
     rng = np.random.default_rng(SEED)
@@ -99,6 +100,14 @@ def _cases(dev):
                torch.full((n, 1), 3, dtype=torch.int32, device=dev), sbc)
         out.append((f"K11 {n} blocks NP {NP}{tag}", "k11_kernel",
                     lambda a11=a11: search_bayes.search_bayes_maps(*a11)))
+        # K13 on the same maps and rows (runtime/step.py, route sb0)
+        pr = pred[..., :NP]
+        hpi = torch.stack([pr[:, :, particle.ROW_HU], pr[:, :, particle.ROW_HV]], dim=-1)
+        sinv = torch.stack([pr[:, :, particle.ROW_S00], pr[:, :, particle.ROW_S01], pr[:, :, particle.ROW_S01],
+                            pr[:, :, particle.ROW_S11]], dim=-1).reshape(n, 1, NP, 2, 2)
+        a13 = (maps, hpi, sinv, a11[4], particle_search.ParticleSearchConsts.from_params(p))
+        out.append((f"K13 {n} blocks NP {NP}{tag}", "k13_kernel",
+                    lambda a13=a13: particle_search.particle_search(*a13)))
 
     p = Params()
     n = 64

@@ -1,4 +1,4 @@
-"""A/B of K3 (the fused joint update) and K9 (the batch score map) between source trees on one card.
+"""A/B of K3 (the fused joint update), K9 (the batch score map) and K14 (L^-1) between source trees on one card.
 
     python3 scripts/ab_update_kernels.py TREE_A TREE_B TREE_B TREE_A
 
@@ -11,7 +11,9 @@ inputs, each kernel's device time and a sha256 of its outputs
 give the kernels: K3 at the std map (D = 109) and at hires (D = 373), both
 with NSEL 10 (M = 20), mixed match flags and exactly one slot killed; K9
 over 64 lanes of 320x240 (batch64) and 16 lanes of 640x480 (batch-hires),
-one partial slot a lane. Every redesign keeps its plain twin bit for bit,
+one partial slot a lane; K14 on one S at M = 20 (the split route's
+2 NSEL), on a stack of 64 at M = 20 and on one at M = 40 (the block form).
+Every redesign keeps its plain twin bit for bit,
 so all trees must give equal outputs; the script fails if they do not.
 Prints the card's name and power limit, one JSON line per tree, and the
 median device time of each case per distinct tree.
@@ -34,7 +36,7 @@ def _cases(dev):
     import torch
 
     from scenelib2_torch.config import Params
-    from scenelib2_torch.kernels import ekf_update, score_map
+    from scenelib2_torch.kernels import chol_inv, ekf_update, score_map
     from scenelib2_torch.kernels.measure import NOUT, O_H, O_HX, O_HY, O_RD
     from scenelib2_torch.runtime.state import patch_row
 
@@ -83,6 +85,11 @@ def _cases(dev):
         ws = torch.empty((n, 1, H, W), **f)
         out.append((f"K9 {n} x {W}x{H}", "k9_kernel",
                     lambda frames=frames, rows=rows, c=c, ws=ws: (score_map.score_map(frames, rows, c, out=ws),)))
+    for label, n, M in (("K14 M 20", 1, 20), ("K14 64 x M 20", 64, 20), ("K14 M 40", 1, 40)):
+        A = rng.normal(size=(n, M, M))
+        S = torch.tensor(A @ A.transpose(0, 2, 1) / M + np.eye(M), **f)
+        S = S[0] if n == 1 else S
+        out.append((label, "k14_", lambda S=S: (chol_inv.chol_inv(S),)))
     return out
 
 

@@ -38,7 +38,7 @@ MARKS = (
     ("    __syncthreads();\n    if (any_s) {\n", 1, "after"),
     ("      __syncthreads();\n      // ---- S = H P H' + R", 2, "mid"),
     ("      __syncthreads();\n      // ---- X = L^-1", 3, "mid"),
-    ("        chol_linv_warp(A, U, X, M);\n", 4, "after"),
+    ("        chol_linv_reg_any(A, X, M);\n", 4, "after"),
     ("      __syncthreads();\n      if (!split) {", 5, "before32"),
     ("      if (!split) {\n        chol_linv_block", 6, "before"),
     ("      __syncthreads();\n      // ---- W = P H' S^-1", 7, "mid"),
@@ -94,7 +94,7 @@ def main() -> int:
     import torch
 
     from scenelib2_torch.config import Params
-    from scenelib2_torch.kernels import _build, ekf_update
+    from scenelib2_torch.kernels import _build, chol_inv, ekf_update
     from scenelib2_torch.kernels.measure import NOUT, O_H, O_HX, O_HY, O_RD
 
     if not torch.cuda.is_available():
@@ -114,19 +114,20 @@ def main() -> int:
         with open(src, "w") as f:
             f.write(text)
         lib_path = os.path.join(tmp, "libk3_timeline.so")
-        r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib_path, src], capture_output=True,
-                           text=True)
+        p = Params()
+        defines = chol_inv.reg_defines(2 * p.n_features_to_select)  # the build K3's wrapper asks for
+        r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, *_build.define_flags(defines), "-o", lib_path,
+                            src], capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stdout + r.stderr, file=sys.stderr)
             return 1
         lib = ctypes.CDLL(lib_path)
-        _build._libs[ekf_update.NAME] = lib      # the wrapper now launches the instrumented kernel
+        _build._libs[(ekf_update.NAME, defines)] = lib      # the wrapper now launches the instrumented kernel
         read = lib.k3_marks_read
         read.argtypes = [ctypes.c_void_p]
         read.restype = ctypes.c_int
         dev = torch.device("cuda")
         rng = np.random.default_rng(SEED)
-        p = Params()
         uc = ekf_update.UpdateConsts.from_params(p)
         f32 = dict(dtype=torch.float32, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)

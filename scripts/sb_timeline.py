@@ -1,19 +1,20 @@
-"""Where K4's and K11's time goes: the phases of one launch, timed on the card.
+"""Where K4's, K11's and K13's time goes: the phases of one launch, timed on the card.
 
     python3 scripts/sb_timeline.py [TREE]
 
 TREE is the root of a checkout of this repo (default: the script's own; unpack
 another commit with `git archive` into a directory that .gitignore lists).
-Builds an instrumented copy of TREE's scenelib2_torch/kernels/csrc/
-search_bayes.cu in a temporary directory: thread 0 of each block reads
-%globaltimer at the phase boundaries and stores it in a device array. The
-kernel marks its boundaries with SB_MARK(k) (a no-op unless this script
-defines it); a source without SB_MARK, the single-block kernel of earlier
-commits, gets its marks inserted at the texts of PLAIN_ANCHORS. Runs K4 and
-K11 through TREE's wrappers on the seeded inputs of
+Builds instrumented copies of TREE's scenelib2_torch/kernels/csrc/
+search_bayes.cu and particle_search.cu in a temporary directory: thread 0 of
+each block reads %globaltimer at the phase boundaries and stores it in a
+device array. The kernels mark their boundaries with SB_MARK(k) (and
+SB_MARK_ALL(k), once every thread is there; no-ops unless this script
+defines them); a source without them, the single-block kernels of earlier
+commits, gets its marks inserted at the texts of PLAIN_ANCHORS. Runs K4,
+K11 and K13 through TREE's wrappers on the seeded inputs of
 scripts/ab_particle_kernels.py: K4 std (100 particles, 320x240, 16 slots),
-K4 hires (200, 640x480, 60 slots), K11 over 64 blocks of 100 particles and
-over 16 blocks of 200 at 640x480. Checks the instrumented kernel's outputs
+K4 hires (200, 640x480, 60 slots), K11 and K13 over 64 blocks of 100
+particles and over 16 blocks of 200 at 640x480. Checks the instrumented kernel's outputs
 against the plain version, then prints the card's name and power limit and,
 per case, the median over REPEATS launches of each phase on block 0 (from
 the previous mark that block stamped, in microseconds), the median over
@@ -39,12 +40,13 @@ sys.path.insert(0, HERE)
 REPEATS = 9
 N_MARKS = 16
 MAX_BLOCKS = 1024
-CASES = ("K4 std NP 100", "K4 hires NP 200", "K11 64 blocks NP 100", "K11 16 blocks NP 200 640x480")
+CASES = ("K4 std NP 100", "K4 hires NP 200", "K11 64 blocks NP 100", "K11 16 blocks NP 200 640x480",
+         "K13 64 blocks NP 100", "K13 16 blocks NP 200 640x480")
 
 # the phase that ends at each mark
 LABELS = {
     1: "prologue", 2: "particle chain", 3: "union box, region (read box)",
-    4: "scores (cluster barrier)", 15: "read box staged", 5: "search (cluster barrier)",
+    4: "scores (cluster barrier)", 15: "read box staged", 5: "search (cluster barrier; K13: the block's end)",
     6: "sum total",
     7: "sum n_alive (pass 1: total, n_alive)", 8: "sum total2 (pass 2)", 9: "sum n_alive_f", 10: "sum mean",
     11: "sum exp2", 12: "sum n_over (pass 3: the four)", 13: "tail's outputs", 14: "pass-through, end",
@@ -69,7 +71,10 @@ PLAIN_ANCHORS = (
     ("bayes_tail.cuh", "  const float n_over = tree_sum<NC>(v, nc, buf, width);\n", 12, "after"),
     ("search_bayes.cu", "  if (!PRE) {\n    // every other row passes through", 13, "before"),
     ("search_bayes.cu", "    nover_o[blk] = res.n_over;\n  }\n}\n", 14, "end"),
+    ("particle_search.cu", "  for (int q = warp; q < p.P; q += n_warps) {\n", 0, "before"),
+    ("particle_search.cu", "      key_o[(size_t)blk * p.P + q] = nan ? -1 : key;\n    }\n  }\n}\n", 5, "end"),
 )
+KERNEL_SOURCES = ("search_bayes.cu", "particle_search.cu")
 
 DEBUG = '''__device__ unsigned long long sb_marks[%d * %d];
 extern "C" int sb_marks_read(unsigned long long* h) {
@@ -87,19 +92,26 @@ extern "C" int sb_marks_clear() {
       sb_marks[blockIdx.x * %d + (k)] = g_;                                    \\
     }                                                                          \\
   } while (0)
+#define SB_MARK_ALL(k) \\
+  do {                 \\
+    __syncthreads();   \\
+    SB_MARK(k);        \\
+  } while (0)
 ''' % (MAX_BLOCKS, N_MARKS, MAX_BLOCKS, N_MARKS, N_MARKS)
 
 
-def instrumented(tree_csrc: str, out_dir: str) -> str:
-    """Copy search_bayes.cu and the headers into out_dir with the marks on;
-    returns the path of the copy of search_bayes.cu."""
+def instrumented(tree_csrc: str, out_dir: str, kernel: str) -> str:
+    """Copy `kernel` (a .cu of KERNEL_SOURCES) and the headers into out_dir
+    with the marks on; returns the path of the copy of `kernel`."""
     texts = {}
     for fn in os.listdir(tree_csrc):
-        if fn.endswith(".cuh") or fn == "search_bayes.cu":
+        if fn.endswith(".cuh") or fn == kernel:
             with open(os.path.join(tree_csrc, fn)) as f:
                 texts[fn] = f.read()
-    if "SB_MARK(" not in texts["search_bayes.cu"]:
+    if "SB_MARK(" not in texts[kernel]:
         for fn, anchor, k, where in PLAIN_ANCHORS:
+            if fn != kernel and not (fn.endswith(".cuh") and kernel == "search_bayes.cu"):
+                continue
             if texts[fn].count(anchor) != 1:
                 raise SystemExit(f"sb_timeline: {fn} has no single phase boundary {anchor!r}")
             mark = f"  SB_MARK({k});\n"
@@ -114,11 +126,11 @@ def instrumented(tree_csrc: str, out_dir: str) -> str:
                 rep = anchor[: -len("}\n")] + "  __syncthreads();\n" + mark + "}\n"
             texts[fn] = texts[fn].replace(anchor, rep)
     # the macro before any include, so the headers see it too
-    texts["search_bayes.cu"] = "#include <cuda_runtime.h>\n" + DEBUG + texts["search_bayes.cu"]
+    texts[kernel] = "#include <cuda_runtime.h>\n" + DEBUG + texts[kernel]
     for fn, text in texts.items():
         with open(os.path.join(out_dir, fn), "w") as f:
             f.write(text)
-    return os.path.join(out_dir, "search_bayes.cu")
+    return os.path.join(out_dir, kernel)
 
 
 def same_bits(a, b) -> bool:
@@ -161,7 +173,7 @@ def main() -> int:
 
     tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else REPO)
     sys.path.insert(0, tree)
-    from scenelib2_torch.kernels import _build, search_bayes
+    from scenelib2_torch.kernels import _build, particle_search, search_bayes
 
     import ab_particle_kernels
 
@@ -176,24 +188,32 @@ def main() -> int:
     print(f"tree: {tree}")
     tmp = tempfile.mkdtemp()
     try:
-        src = instrumented(_build.CSRC, tmp)
-        lib_path = os.path.join(tmp, "libsb_timeline.so")
-        r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib_path, src], capture_output=True,
-                           text=True)
-        if r.returncode != 0:
-            print(r.stdout + r.stderr, file=sys.stderr)
-            return 1
-        lib = ctypes.CDLL(lib_path)
-        _build._libs[search_bayes.NAME] = lib    # the wrappers now launch the instrumented kernels
-        read, clear = lib.sb_marks_read, lib.sb_marks_clear
-        read.argtypes = [ctypes.c_void_p]
-        read.restype = clear.restype = ctypes.c_int
+        libs = {}
+        for kernel, mod in zip(KERNEL_SOURCES, (search_bayes, particle_search)):
+            out = os.path.join(tmp, kernel[:-3])
+            os.makedirs(out)
+            src = instrumented(_build.CSRC, out, kernel)
+            lib_path = os.path.join(out, "libsb_timeline.so")
+            r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib_path, src], capture_output=True,
+                               text=True)
+            if r.returncode != 0:
+                print(r.stdout + r.stderr, file=sys.stderr)
+                return 1
+            lib = ctypes.CDLL(lib_path)
+            _build._libs[(mod.NAME, ())] = lib    # the wrappers now launch the instrumented kernels
+            lib.sb_marks_read.argtypes = [ctypes.c_void_p]
+            lib.sb_marks_read.restype = lib.sb_marks_clear.restype = ctypes.c_int
+            libs[mod.NAME] = lib
         cases = {name: fn for name, _sym, fn in ab_particle_kernels._cases(torch.device("cuda"))}
         for name in CASES:
             fn = cases[name]
+            lib = libs[particle_search.NAME if name.startswith("K13") else search_bayes.NAME]
+            read, clear = lib.sb_marks_read, lib.sb_marks_clear
             got = fn()
             args = fn.__defaults__[0]
-            plain = search_bayes.search_bayes_plain if name.startswith("K4") else search_bayes.search_bayes_maps_plain
+            plain = (search_bayes.search_bayes_plain if name.startswith("K4") else
+                     particle_search.particle_search_plain if name.startswith("K13") else
+                     search_bayes.search_bayes_maps_plain)
             want = plain(*args)
             torch.cuda.synchronize()
             if not all(same_bits(g, w) for g, w in zip(got, want)):

@@ -17,7 +17,10 @@ mirror here):
     +-0, -inf and only non-positive values;
 (c) every sum stays below 2^23, so int32 holds it and the f32 conversion
     is exact;
-(d) the wrapper's region limits are the kernel's, and its cluster rule;
+(d) the parameter struct is the kernel's, the launcher's stage and
+    column-sum sizes (stage_sizes, its mirror) hold any region up to the
+    whole frame (a CTA's band staged in turns where it does not fit, the
+    configurations' region in the one-stage form), and the cluster rule;
 and the plain version against the TPU kernel at 640x480 (interpret mode).
 """
 
@@ -38,7 +41,8 @@ from scenelib2_tpu.kernels.pallas_shi_tomasi import pallas_shi_tomasi_region
 from scenelib2_torch.config import Params
 from scenelib2_torch.kernels import shi_tomasi as k6
 from scenelib2_torch.kernels.shi_tomasi import (
-    INT_MAX, bytes_and_flops, clamp_region, cluster_size, region_geometry, shi_tomasi_plain, window_origin,
+    INT_MAX, bytes_and_flops, clamp_region, cluster_size, region_geometry, shi_tomasi_plain,
+    window_origin,
 )
 
 P_STD = Params()
@@ -55,6 +59,20 @@ def _cu_define(name: str) -> int:
 
 
 THREADS, CHUNK, MAX_CLUSTER = _cu_define("K6_THREADS"), _cu_define("K6_CHUNK"), _cu_define("K6_MAX_CLUSTER")
+ONE_WV, ONE_WU, ONE_VS = _cu_define("K6_ONE_WV"), _cu_define("K6_ONE_WU"), _cu_define("K6_ONE_VS")
+
+
+def stage_sizes(rh: int, rw: int, cs: int):
+    """k6_shi_tomasi's sizes (csrc/shi_tomasi.cu) with nothing forced and
+    no device limit: (staged, words a row of the column sums, window rows a
+    stage). The one-stage form's where a CTA's band window fits its static
+    arrays, else the gradient columns made odd and a CTA's band and its
+    halo."""
+    off = 1 + (B - 1) // 2
+    nb = -(-rh // cs)
+    if nb + 2 * off <= ONE_WV and rw + 2 * off <= ONE_WU:
+        return False, ONE_VS, nb + 2 * off
+    return True, (rw + 2 * off - 2) | 1, nb + 2 * off
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -146,8 +164,10 @@ def row_keys(V, c0: int, u0: int, v0: int, bounds, H: int, W: int, rw: int):
     return keys.max(initial=np.uint64(0)), nan, S
 
 
-def band_key(frame, bounds, cs: int, rank: int, region_w: int = RW, region_h: int = RH):
-    """One CTA of a cluster of cs: its band, its chunks, its key and flag."""
+def band_key(frame, bounds, cs: int, rank: int, region_w: int = RW, region_h: int = RH, rows=None):
+    """One CTA of a cluster of cs: its band, staged in turns of `rows`
+    window rows (by default stage_sizes': the whole band), its chunks, its
+    key and flag."""
     H, W = frame.shape
     off, rw, rh = region_geometry(H, W, B, region_w, region_h)
     u0, v0 = (int(t) for t in window_origin(torch.tensor(int(bounds[0])), torch.tensor(int(bounds[1])),
@@ -155,12 +175,14 @@ def band_key(frame, bounds, cs: int, rank: int, region_w: int = RW, region_h: in
     nb = -(-rh // cs)
     r0 = min(rh, rank * nb)
     r1 = min(rh, r0 + nb)
+    band = (stage_sizes(rh, rw, cs)[2] if rows is None else rows) - 2 * off
     key, nan, top = np.uint64(0), False, 0
-    if r1 > r0:
-        win = band_window(frame, u0, v0, off, rw, r0, r1)
-        for c0 in range(r0, r1, CHUNK):
-            nr = min(CHUNK, r1 - c0)
-            V = column_sums(win, c0 - r0, nr)
+    for b0 in range(r0, r1, band):
+        b1 = min(r1, b0 + band)
+        win = band_window(frame, u0, v0, off, rw, b0, b1)
+        for c0 in range(b0, b1, CHUNK):
+            nr = min(CHUNK, b1 - c0)
+            V = column_sums(win, c0 - b0, nr)
             k, n, S = row_keys(V, c0, u0, v0, bounds, H, W, rw)
             key, nan = max(key, k), nan or n
             top = max(top, int(np.abs(V).max()), int(np.abs(S).max()))
@@ -181,8 +203,8 @@ def pick(key, nan: bool, ustart: int, vstart: int, W: int):
     return k % W, k // W, np.array([hi], np.uint32).view(np.float32)[0]
 
 
-def kernel_mirror(frame, bounds, cs: int, region_w: int = RW, region_h: int = RH):
-    parts = [band_key(frame, bounds, cs, r, region_w, region_h) for r in range(cs)]
+def kernel_mirror(frame, bounds, cs: int, region_w: int = RW, region_h: int = RH, rows=None):
+    parts = [band_key(frame, bounds, cs, r, region_w, region_h, rows) for r in range(cs)]
     key, nan = merge_keys([(k, n) for k, n, _t in parts])
     return pick(key, nan, int(bounds[0]), int(bounds[1]), frame.shape[1]), max(t for _k, _n, t in parts)
 
@@ -282,6 +304,34 @@ def test_mirror_scenes(shape, scene):
         assert want[0] < u + 35 and want[2] > 0
 
 
+WIDE_REGIONS = {"w100": (100, 60), "w200": (200, 150), "whole": (10**4, 10**4)}
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("region", list(WIDE_REGIONS))
+@pytest.mark.parametrize("rows", [None, 13, 40])
+def test_mirror_wide_regions_in_stages(shape, region, rows):
+    """Regions past the old 88 x 68 cap (init_search_width 100 and 200, the
+    whole frame after the clamp: 308 x 228 and 628 x 468), a CTA's band
+    staged whole or in turns of 13 and 40 window rows (one and 28 rows of
+    cells), the gradient columns past the 512 threads taken in turn: the
+    twin's pick bit for bit."""
+    H, W = SHAPES[shape]
+    rw_, rh_ = WIDE_REGIONS[region]
+    _off, rw, rh = region_geometry(H, W, B, rw_, rh_)
+    frame = _frame("noise", 11, H, W)
+    for u, v in ((0, 0), (W // 5, H // 6)):
+        bounds = _bounds(u, v, u + rw_, v + rh_, H, W)
+        ub, vb, ev = shi_tomasi_plain(torch.tensor(frame), *(torch.tensor(b, dtype=torch.int32) for b in bounds),
+                                      boxsize=B, region_w=rw_, region_h=rh_)
+        for cs in (1, 8):
+            got, top = kernel_mirror(frame, bounds, cs, rw_, rh_, rows)
+            _same_pick(got, (int(ub), int(vb), np.float32(ev)))
+            assert top < 2**23
+    if region == "whole":
+        assert (rw, rh) == (W - 12, H - 12)
+
+
 # ---------------------------------------------------------------- (b) keys on synthetic planes
 
 
@@ -366,16 +416,29 @@ def test_sums_fit_int32_and_f32():
 
 
 def test_wrapper_limits_are_the_kernels():
-    assert (k6.MAX_WU, k6.MAX_WV) == (_cu_define("K6_MAX_WU"), _cu_define("K6_MAX_WV"))
+    """The wrapper's parameters are the kernel's: the kernel's parameter
+    struct has the wrapper's fields in order; the launcher's column sums
+    hold every gradient column at an odd stride and its stage a CTA's band
+    and its halo, for regions up to the whole frame; the configurations'
+    region takes the one-stage form at every cluster size."""
     assert k6.MAX_CLUSTER == MAX_CLUSTER
-    off = 1 + (B - 1) // 2
-    for H, W in SHAPES.values():
-        _off, rw, rh = region_geometry(H, W, B, RW, RH)
-        assert rw + 2 * off <= k6.MAX_WU and rh + 2 * off <= k6.MAX_WV
-    # the chunk of column sums fits the kernel's rows and the band's halo fits the window
     with open(CU) as f:
         src = f.read()
-    assert int(re.search(r"#define K6_VSTRIDE (\d+)", src).group(1)) >= k6.MAX_WU - 2
+    struct = re.search(r"struct K6Params \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"(\w+)[,;]", re.sub(r"//[^\n]*", "", struct))
+    assert fields == [n for n, _t in k6._K6Params._fields_]
+    assert "K6_MAX_WU" not in src and "K6_MAX_WV" not in src
+    assert ONE_VS % 2 == 1 and ONE_VS >= ONE_WU - 2
+    off = 1 + (B - 1) // 2
+    for H, W in SHAPES.values():
+        for region in ((RW, RH), (100, 60), (200, 150), (W, H)):
+            _off, rw, rh = region_geometry(H, W, B, *region)
+            assert 0 < rw <= W - 2 * off and 0 < rh <= H - 2 * off
+            for cs in (1, 2, 4, 8):
+                staged, vs, rows = stage_sizes(rh, rw, cs)
+                assert vs % 2 == 1 and vs >= rw + 2 * off - 2
+                assert rows == -(-rh // cs) + 2 * off
+                assert staged == (region != (RW, RH))
 
 
 def test_cluster_rule():
