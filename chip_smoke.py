@@ -9,7 +9,8 @@ Phases (any failure exits non-zero before the last line is printed):
     all at once; timed).
  2. kernel vs plain: each kernel (K1 predict+measure+select, K2 search,
     K3 update+bookkeeping, K4 particle search+Bayes, K5 init region
-    proposal, K6 Shi-Tomasi pick; K14 L^-1 on seeded matrices, bit for
+    proposal with the step's speed gate and the region's clamp, K6
+    Shi-Tomasi pick; K14 L^-1 on seeded matrices, bit for
     bit: SPD at M = 1..128, stacks of 3 and 64, a negative pivot, an
     infinite entry) and its
     plain PyTorch version on the same
@@ -17,10 +18,10 @@ Phases (any failure exits non-zero before the last line is printed):
     room, every try clashing, a flat region, built ties, making false, an
     empty union box, overflowing particles, a sell-by kill) and on the
     inputs of real frames of the synthetic sequence with mapping on (output
-    index 9: the first init; 20: the first conversion; 120): decisions and
-    integers exactly equal, floats within the stated tolerances (K3, K9,
-    K14 and the kernels of phases 2b-3f: max abs error 0; K2 and K8: best
-    identical bit for bit); K2 and K8 also on seeded edge cases at 320x240
+    index 9: the first init; 20: the first conversion; 120; K5 there also
+    at 17 and 40 tries, past the 16 it once held): decisions and integers
+    exactly equal, floats bit for bit or at max abs error 0 (K2 and K8:
+    best identical bit for bit); K2 and K8 also on seeded edge cases at 320x240
     and 640x480 (search_edge_scene: an ellipse beyond the window, a 3 x 3
     box, NaN, infinite and huge half-widths, centres on and past each
     border and at +-3e9, a tie of perfect matches, perfect matches, an
@@ -59,8 +60,10 @@ Phases (any failure exits non-zero before the last line is printed):
     each path.
  3b. batch mode: 64 independent lanes (32 scene textures x 2 phase offsets)
     x 63 frames through parallel.mesh.make_batched_step / run_batch. Phase 2
-    of the batch kernels runs here, on inputs captured from this replay (K7
-    measurement rows, K9 score maps, K10 particle rows, K11 search + Bayes on
+    of the batch kernels runs here, on inputs captured from this replay (K7's
+    selection, selected rows and every slot's chain rows bit for bit, also
+    on seeded lanes at 16 x 60, 1 x 100 and 3 x 100 slots; K9 score maps,
+    K10 particle rows, K11 search + Bayes on
     the maps, and K2 / K6 launched over lanes, each against its plain
     version; K10 and K11 also against K4 on the same slot), after seeded
     scenes. Then the replay itself: all 64 per-lane fingerprints equal the
@@ -134,12 +137,15 @@ sys.path.insert(0, REPO)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
-K7_TOL = 1e-5     # K7 rows: |a - b| <= K7_TOL * (largest |entry| of the row)
 N_LANES, N_TEXTURES, N_BATCH_FRAMES = 64, 32, 64    # the batch replay: 63 frames a lane
 BATCH_AT = (9, 20, 40)     # output indices whose kernel inputs are captured
 N_REF_BATCH, REF_LANES = 20, (0, 1, 32, 33)
 STEP_TOL = 1e-4   # CUDA vs CPU plain replay: r, xv
 N_REF = 30        # CPU plain replay frames (4 inits, 2 conversions)
+K5_TIMED_TRIES = 40
+# K5 past the 16 tries it once held (the default is 5); at 100 tries every
+# try clashing consumes 200 draws, past the 128 the kernel stages
+K5_MORE_TRIES = (17, K5_TIMED_TRIES, 100)
 
 
 T_START = time.time()
@@ -183,19 +189,6 @@ def nonfinite_equal(a, b) -> bool:
         return False
     inf = torch.isinf(a)
     return torch.equal(a[inf], b[inf])
-
-
-def rowwise_close(a, b, tol) -> bool:
-    """Per row of a [R, C] matrix: |a - b| <= tol * max |b| of the row's
-    finite entries; non-finite entries must match exactly."""
-    if not nonfinite_equal(a, b):
-        return False
-    a = a.double().cpu()
-    b = b.double().cpu()
-    fin = torch.isfinite(b)
-    scale = torch.where(fin, b.abs(), torch.zeros_like(b)).amax(dim=-1, keepdim=True).clamp_min(1e-30)
-    d = torch.where(fin, (a - b).abs(), torch.zeros_like(b))
-    return bool((d <= tol * scale).all())
 
 
 def same(a, b) -> bool:
@@ -753,16 +746,65 @@ def check_k4(args) -> float:
     return compare_sb(got, want, "K4", K11_NAMES + ("pred",))
 
 
-def check_k5(args) -> float:
-    from scenelib2_torch.kernels.propose import propose, propose_plain
+def k5_jax_args(args):
+    """propose_plain's arguments (the JAX kernel's: x, rng, occ, want, c)
+    from the step's propose_region arguments: the active full slots and the
+    step's gate."""
+    from scenelib2_torch.kernels.propose import init_gate
 
-    got = propose(*args)
-    want = propose_plain(*args)
+    x, rng_l, active, full, speed, n_visible, c = args
+    return x, rng_l, active & full, init_gate(active, full, speed, n_visible, c), c
+
+
+def k5_region_variations(args, rng):
+    """(label, args) cases of K5 from a real frame's propose_region inputs:
+    the gate shut by speed, by the visible count, by a partial slot; and,
+    with the gate open, k5_variations' no room, every try clashing and
+    seeded streams."""
+    x, rng_l, active, full, speed, n_visible, c = args
+    out = [("real", args)]
+
+    def case(label, **repl):
+        b = list(args)
+        for i, v in repl.items():
+            b[int(i[1:])] = v
+        out.append((label, tuple(b)))
+
+    case("slow", i4=torch.full_like(speed, c.min_speed))
+    case("enough_visible", i5=torch.full_like(n_visible, c.keep_visible))
+    part = full.clone()
+    part[-1] = False
+    case("partial_slot", i2=torch.ones_like(active), i3=part)
+    fast = speed + 1.0
+    for label, jax_args in k5_variations(k5_jax_args(args), rng)[2:]:
+        case(label, i0=jax_args[0], i1=jax_args[1], i2=jax_args[2], i3=torch.ones_like(full), i4=fast,
+             i5=torch.zeros_like(n_visible))
+    return out
+
+
+def check_k5(args) -> float:
+    from scenelib2_torch.kernels.propose import propose_region, propose_region_plain
+
+    got = propose_region(*args)
+    want = propose_region_plain(*args)
     torch.cuda.synchronize()
-    for name, a, b in zip(("region_us", "region_vs", "any_ok", "rng_new"), got, want):
+    for name, a, b in zip(got._fields, got, want):
         if not same(a, b):
             fail(f"K5 {name} differs: kernel {a.tolist()} plain {b.tolist()}")
     return 0.0
+
+
+def draws_consumed(args) -> int | None:
+    """The drand48 draws K5's plain version consumed on args (None past 4,096)."""
+    from scenelib2_torch.kernels.propose import propose_plain
+    from scenelib2_torch.rng import drand48_many
+
+    rng_new = propose_plain(*args)[3]
+    states, _ = drand48_many(args[1], 4096)
+    if torch.equal(rng_new, args[1]):
+        return 0
+    hit = torch.nonzero((states == rng_new).all(dim=-1)).flatten()
+    return int(hit[0]) + 1 if hit.numel() else None
 
 
 def check_k6(args) -> float:
@@ -788,47 +830,47 @@ def lanes_of(fn, n):
 
 
 def k7_random_scene(rng, params, dev, n_lanes=6):
-    """K7 inputs of n_lanes seeded lanes: lane 0 holds a NaN score, lane 1
-    has no visible feature (nothing active), lane 2 equal scores (every slot
-    the same point and covariance)."""
-    from scenelib2_torch.runtime import state as st
-
+    """K7's arguments (x, P, xp_org, active, full) for n_lanes seeded lanes
+    of params.max_features slots: lane 0 holds a NaN score, lane 1 has no
+    visible feature (nothing active), lane 2 equal scores (every slot the
+    same point and covariance)."""
     MF = params.max_features
-    xs, Ps, xpos, acts = [], [], [], []
+    xs, Ps, xpos, acts, fulls = [], [], [], [], []
     for b in range(n_lanes):
-        x, P, xpo, act_full, _part = k1_random_scene(rng, params, dev, nan_lane=b == 0)
+        x, P, xpo, act_full, part = k1_random_scene(rng, params, dev, nan_lane=b == 0)
+        active, full = act_full | part, ~part
         if b == 1:
-            act_full = torch.zeros_like(act_full)
+            active = torch.zeros_like(active)
         if b == 2:
             x = x.clone()
             P = torch.eye(x.shape[0], device=dev) * 1e-4
             for k in range(1, MF):
                 x[13 + 6 * k : 19 + 6 * k] = x[13:19]
             xpo = xpo[:1].expand(MF, 7).contiguous()
-            act_full = torch.ones_like(act_full)
-        xs.append(x); Ps.append(P); xpos.append(xpo); acts.append(act_full)
-    x, P = torch.stack(xs), torch.stack(Ps)
-    return (x[:, :7].contiguous(), P[:, :7, :7].contiguous(), st.slot_states(x, MF)[..., :3].contiguous(),
-            torch.stack(xpos), st.slot_pxy(P, MF)[..., :7, :3].contiguous(),
-            st.slot_pyy(P, MF)[..., :3, :3].contiguous(), torch.stack(acts))
+            active, full = torch.ones_like(active), torch.ones_like(full)
+        xs.append(x); Ps.append(P); xpos.append(xpo); acts.append(active); fulls.append(full)
+    return tuple(torch.stack(t) for t in (xs, Ps, xpos, acts, fulls))
 
 
 def check_k7(args, c, nsel) -> float:
-    from scenelib2_torch.kernels.measure import (
-        O_SCORE, O_VIS, measure_predict, measure_predict_plain, stable_top_k)
+    """K7 against its plain version on (x, P, xp_org, active, full): the
+    selection, the count, the selected rows and every slot's chain rows bit
+    for bit (NaN equal to NaN)."""
+    from scenelib2_torch.kernels.measure import measure_select, measure_select_plain
 
-    got = measure_predict(*args, c)
-    want = measure_predict_plain(*args, c)
+    got = measure_select(*args, nsel, c, rows=True)
+    want = measure_select_plain(*args, nsel, c, rows=True)
     torch.cuda.synchronize()
-    if not same(got[:, O_VIS], want[:, O_VIS]):
-        fail("K7 visibility flags differ")
-    (gs, gi), (ws, wi) = stable_top_k(got[:, O_SCORE], nsel), stable_top_k(want[:, O_SCORE], nsel)
-    if not (same(gi, wi) and same(gs > -torch.inf, ws > -torch.inf)):
-        fail(f"K7 selection differs: kernel {gi.tolist()} plain {wi.tolist()}")
-    for b in range(got.shape[0]):
-        if not rowwise_close(got[b], want[b], K7_TOL):
-            fail(f"K7 rows outside tolerance in lane {b}")
-    return max_err(got, want)
+    err = 0.0
+    for name, g, w in zip(got._fields, got, want):
+        g, w = g.contiguous(), w.contiguous()
+        if g.is_floating_point():
+            if not same_bits_or_nan(g, w):
+                fail(f"K7 {name} differs from the plain version bit for bit (max abs err {max_err(g, w)})")
+            err = max(err, max_err(g, w))
+        elif not same(g, w):
+            fail(f"K7 {name} differs: kernel {g.tolist()} plain {w.tolist()}")
+    return err
 
 
 def k9_random_scene(rng, params, dev):
@@ -1783,7 +1825,7 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
     from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected
     from scenelib2_torch.eval.synthetic import HIRES_OVERRIDES, HIRES_PARAMS, generate_dataset
     from scenelib2_torch.kernels import (
-        _build, chol_inv, ekf_update, predict_measure, search, search_bayes)
+        _build, chol_inv, ekf_update, measure, predict_measure, search, search_bayes)
 
     spec = LARGE_MAPS[name]
     if name == "hires":
@@ -1810,7 +1852,7 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
     # inputs of the frames in spec["at"] kept, and every launch's inputs for
     # its cost (the first wrapper of a frame is K1 on the fused route, K7 on
     # the split one)
-    first = "predict_measure" if D <= 384 else "measure_predict"
+    first = "predict_measure" if D <= 384 else "measure_select"
     seen, calls, frame = {}, {}, [-1]
 
     def keep(n, a, k):
@@ -1853,8 +1895,8 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
             worse("K2", check_k2(a2[:-1], sc))
             worse("K3", check_k3(c["joint_update"][0][:-1], uc))
         else:
-            worse("K7", check_k7(c["measure_predict"][0][:7], c["measure_predict"][0][7],
-                                 p.n_features_to_select))
+            a7, _ = c["measure_select"]
+            worse("K7", check_k7(a7[:5], a7[6], a7[5]))
             worse("K2", check_k2_lanes(a2, sc))
             worse("K14", check_k14(c["chol_inv"][0][0]))
         for _label, args in k4_variations(c["search_bayes"][0], rng, H, W, B,
@@ -1978,6 +2020,11 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
         costs["K3"] = [ekf_update.bytes_and_flops(a[0].shape[0], a[2].shape[1], a[6].shape[0])
                        for a, _k in calls["joint_update"]]
     else:
+        a7, _ = c["measure_select"]
+        kern["K7"] = (lambda: measure.measure_select(*a7), lambda: measure.measure_select_plain(*a7),
+                      "k7_kernel")
+        costs["K7"] = [measure.bytes_and_flops(*a[0].shape, a[3].shape[1], a[5])
+                       for a, _k in calls["measure_select"]]
         S = c["chol_inv"][0][0]
         eye = torch.eye(S.shape[-1], device=dev)
         kern["K14"] = (lambda: chol_inv.chol_inv(S), lambda: chol_inv.chol_linv(S), "k14_")
@@ -2026,7 +2073,7 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
     import traceback
 
     from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints, make_lanes
-    from scenelib2_torch.kernels import _build, particle, score_map, search, search_bayes, shi_tomasi
+    from scenelib2_torch.kernels import _build, measure, particle, score_map, search, search_bayes, shi_tomasi
     from scenelib2_torch.kernels.measure import MeasureConsts
     from scenelib2_torch.parallel.mesh import make_batched_step, run_batch
     from scenelib2_torch.runtime.state import SlamState
@@ -2063,7 +2110,8 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
     making = 0
     for at in HIRES_AT:
         c = seen[at]
-        errs["K7"] = max(errs["K7"], check_k7(c["measure_predict"][0][:7], mc, p.n_features_to_select))
+        a7 = c["measure_select"][0]
+        errs["K7"] = max(errs["K7"], check_k7(a7[:5], mc, a7[5]))
         errs["K9"] = max(errs["K9"], check_k9(c["score_map"][0][0], c["score_map"][0][1], smc))
         a10 = c["particle_predict"][0]
         got10, want10 = particle.particle_predict(*a10), particle.particle_predict_plain(*a10)
@@ -2083,11 +2131,13 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
     log(f"[3f] the route's kernels equal their plain versions on whole {Bn}-lane steps at output indices "
         f"{HIRES_AT} ({making} lane-slots making; K10's rows 256 lanes wide) (max abs err {json.dumps(errs)})")
 
-    costs = {k: [] for k in ("K10", "K11", "K2 lanes", "K6 lanes")}
+    costs = {k: [] for k in ("K7", "K10", "K11", "K2 lanes", "K6 lanes")}
     k11_args = []
 
     def record(n, a, k):
-        if n == "particle_predict":
+        if n == "measure_select":
+            costs["K7"].append(measure.bytes_and_flops(*a[0].shape, a[3].shape[1], a[5]))
+        elif n == "particle_predict":
             costs["K10"].append(particle.bytes_and_flops(*a[2].shape))
         elif n == "search_bayes_maps":
             k11_args.append((a[1], a[4], a[5]))
@@ -2202,10 +2252,12 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
     # K10's and K11's times at 200 particles and K2's and K6's over the 16
     # lanes of 640x480 frames, on the output-index-20 inputs
     a10, a11 = seen[20]["particle_predict"][0], seen[20]["search_bayes_maps"][0]
-    a2 = seen[20]["search"][0]
+    a2, a7 = seen[20]["search"][0], seen[20]["measure_select"][0]
     a6, kw6 = seen[20]["shi_tomasi"]
     timings = {}
     for short, fk, fp_, sym, lname, what in (
+        ("K7", lambda: measure.measure_select(*a7), lambda: measure.measure_select_plain(*a7), "k7_kernel",
+         "measure", f"over {Bn} lanes x {p.max_features} slots"),
         ("K10", lambda: particle.particle_predict(*a10), lambda: particle.particle_predict_plain(*a10), "k10_kernel",
          "particle_predict", "at 200 particles"),
         ("K11", lambda: search_bayes.search_bayes_maps(*a11), lambda: search_bayes.search_bayes_maps_plain(*a11),
@@ -2253,9 +2305,9 @@ def profile_main_path(slam, seq, n: int, mapping: bool) -> dict:
     return dict(wall_ms=wall_ms, device_ms=sum(v[0] for v in by_name.values()), by_name=by_name)
 
 
-SINGLE_WRAPPERS = ("predict_measure", "search", "joint_update", "propose", "shi_tomasi", "search_bayes")
-WRAPPERS = ("predict_measure", "search", "joint_update", "propose", "shi_tomasi", "search_bayes",
-            "measure_predict", "score_map", "particle_predict", "search_bayes_maps", "chol_inv",
+SINGLE_WRAPPERS = ("predict_measure", "search", "joint_update", "propose_region", "shi_tomasi", "search_bayes")
+WRAPPERS = ("predict_measure", "search", "joint_update", "propose_region", "shi_tomasi", "search_bayes",
+            "measure_select", "score_map", "particle_predict", "search_bayes_maps", "chol_inv",
             "search_windows", "bayes_update", "particle_search")
 # the kernels of each main path (launch-count names of kernels/_build.py)
 SINGLE_PATH = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "search_bayes")
@@ -2269,7 +2321,7 @@ KERNEL_OF = {"K1": "predict_measure", "K2": "search", "K3": "ekf_update", "K4": 
 def observe_wrappers(on_call):
     """Within the block, the steps call on_call(name, args, kwargs) before
     each kernel wrapper (K1 predict_measure, K2 search, K3 joint_update,
-    K5 propose, K6 shi_tomasi, K4 search_bayes; K7 measure_predict, K9
+    K5 propose_region, K6 shi_tomasi, K4 search_bayes; K7 measure_select, K9
     score_map, K10 particle_predict, K11 search_bayes_maps; K14 chol_inv,
     which core/ekf.py calls; K8 search_windows, K12 bayes_update, K13
     particle_search)."""
@@ -2406,11 +2458,16 @@ def main() -> int:
             f"{N_LANES} x 10 and {N_HIRES_LANES} x 10 lanes; kinds {', '.join(SEARCH_KINDS)})")
         wide_errs, wide_timed = check_wide_windows(rng, p, dev)
         n_cases = {"K4": 0, "K5": 0, "K6": 0}
+        k5_consumed = {}
         for at in (9, 20, 120):
-            a5, _ = seen[at]["propose"]
-            for _label, args in k5_variations(a5, rng):
-                errs["K5"] = max(errs["K5"], check_k5(args))
-                n_cases["K5"] += 1
+            a5, _ = seen[at]["propose_region"]
+            for tries in (a5[6].tries,) + K5_MORE_TRIES:
+                c5 = dataclasses.replace(a5[6], tries=tries)
+                for label, args in k5_region_variations(tuple(a5[:6]) + (c5,), rng):
+                    errs["K5"] = max(errs["K5"], check_k5(args))
+                    n_cases["K5"] += 1
+                    if label in ("real", "all_clash"):
+                        k5_consumed[f"{at}/{tries}/{label}"] = draws_consumed(k5_jax_args(args))
             a6, kw6 = seen[at]["shi_tomasi"]
             for _label, args in k6_variations(tuple(a6) + (kw6,), rng, H, W):
                 errs["K6"] = max(errs["K6"], check_k6(args))
@@ -2419,10 +2476,15 @@ def main() -> int:
             for _label, args in k4_variations(a4, rng, H, W, B, p.erase_partial_after_attempts):
                 errs["K4"] = max(errs["K4"], check_k4(args))
                 n_cases["K4"] += 1
+        most = K5_MORE_TRIES[-1]
+        if 2 * most not in (k5_consumed[f"{at}/{most}/all_clash"] for at in (9, 20, 120)):
+            fail(f"K5 at {most} tries: no case consumed all {2 * most} draws, so the draws past the staged "
+                 f"ones and the limbs after them went unchecked ({json.dumps(k5_consumed)})")
         log(f"[2] kernels equal their plain versions: K1-K3 on 6 random scenes + frame 120 (K3 also at M = 16, 32 and 34; "
             f"K1 also at D = 373 and MAXP 2 with a NaN lane, no and every slot partial), "
-            f"K4/K5/K6 on {n_cases} cases from frames 9, 20, 120 and their variations "
-            f"(max abs err {json.dumps(errs)})")
+            f"K4/K5/K6 on {n_cases} cases from frames 9, 20, 120 and their variations, K5 at tries "
+            f"{p.init_region_tries} and {K5_MORE_TRIES} (draws consumed, frame/tries/case: "
+            f"{json.dumps(k5_consumed)}) (max abs err {json.dumps(errs)})")
         k14_err = 0.0
         for label, S in k14_random_cases(rng, dev):
             k14_err = max(k14_err, check_k14(S))
@@ -2476,7 +2538,7 @@ def main() -> int:
                 f"({v['inputs']})")
 
         a4, _ = seen[20]["search_bayes"]
-        a5, _ = seen[9]["propose"]
+        a5, _ = seen[9]["propose_region"]
         a6, kw6 = seen[9]["shi_tomasi"]
         timings = {}
         for name, kern, plain in (
@@ -2485,7 +2547,7 @@ def main() -> int:
             ("K2", lambda: search.search(*a2), lambda: search.search_plain(*a2)),
             ("K3", lambda: ekf_update.joint_update(*a3), lambda: ekf_update.joint_update_plain(*a3)),
             ("K4", lambda: search_bayes.search_bayes(*a4), lambda: search_bayes.search_bayes_plain(*a4)),
-            ("K5", lambda: propose.propose(*a5), lambda: propose.propose_plain(*a5)),
+            ("K5", lambda: propose.propose_region(*a5), lambda: propose.propose_region_plain(*a5)),
             ("K6", lambda: shi_tomasi.shi_tomasi(*a6, **kw6), lambda: shi_tomasi.shi_tomasi_plain(*a6, **kw6)),
         ):
             timings[name] = (time_ms(kern), time_ms(plain, n=10, batches=3))
@@ -2494,6 +2556,16 @@ def main() -> int:
         for name, (k_ms, p_ms) in timings.items():
             log(f"[2] {name}: kernel {k_ms:.4f} ms/launch, plain {p_ms:.4f} ms/call "
                 f"(frame-{dict(K4=20, K5=9, K6=9).get(name, 120)} inputs)")
+        # K5 at the most tries of phase 2, on frame 9's inputs
+        a5_40 = tuple(a5[:6]) + (dataclasses.replace(a5[6], tries=K5_TIMED_TRIES),)
+        last["K5 tries"] = dict(
+            ms=time_ms(lambda: propose.propose_region(*a5_40)),
+            plain_ms=time_ms(lambda: propose.propose_region_plain(*a5_40), n=10, batches=3),
+            device_ms=kernel_device_ms(lambda: propose.propose_region(*a5_40), "k5_kernel"),
+            costs=[propose.bytes_and_flops(a5[2].shape[0], K5_TIMED_TRIES)],
+            inputs=f"frame 9 at tries {K5_TIMED_TRIES}")
+        log(f"[2] K5 at tries {K5_TIMED_TRIES}: kernel {last['K5 tries']['ms']:.4f} ms/launch (device "
+            f"{last['K5 tries']['device_ms']}), plain {last['K5 tries']['plain_ms']:.4f} ms")
         log(f"[2] empty kernel launch: {empty_ms:.4f} ms")
 
         # ---- 3. main paths ------------------------------------------------
@@ -2541,8 +2613,8 @@ def main() -> int:
             elif n == "joint_update":
                 costs["K3"].append(
                     ekf_update.bytes_and_flops(a[0].shape[0], a[2].shape[1], a[6].shape[0]))
-            elif n == "propose":
-                costs["K5"].append(propose.bytes_and_flops(a[2].shape[0], a[4].tries))
+            elif n == "propose_region":
+                costs["K5"].append(propose.bytes_and_flops(a[2].shape[0], a[6].tries))
             elif n == "shi_tomasi":
                 costs["K6"].append(shi_tomasi.bytes_and_flops(k["boxsize"], k["region_w"], k["region_h"]))
             else:
@@ -2672,13 +2744,20 @@ def main() -> int:
         for _trial in range(3):
             worse("K7", check_k7(k7_random_scene(rng, p, dev), mc, nsel))
             worse("K9", check_k9(*k9_random_scene(rng, p, dev), smc))
+        # K7 at the batch-hires and mf100 shapes: 16 lanes x 60 slots (640x480), 1 x 100 and 3 x 100
+        for pk, n_lanes in ((dataclasses.replace(p, **HIRES_PARAMS), N_HIRES_LANES),
+                            (dataclasses.replace(p, max_features=100), 1),
+                            (dataclasses.replace(p, max_features=100), 3)):
+            worse("K7", check_k7(k7_random_scene(rng, pk, dev, n_lanes=n_lanes), MeasureConsts.from_params(pk),
+                                 pk.n_features_to_select))
         # a frame width that is no multiple of 4: K9 stages bytes and stores scalars
         f9, r9 = k9_random_scene(rng, p, dev)
         worse("K9", check_k9(f9[:, 3:, 2:].contiguous(), r9, dataclasses.replace(smc, H=H - 3, W=W - 2)))
         for at in (9, 20, 120):
             check_k10_k11_against_k4(seen[at]["search_bayes"][0], smc, sbc)
         log("[3b] K7 and K9 equal their plain versions on 3 seeded scenes each (a NaN score, an "
-            "all-invisible lane, equal scores; a flat image, a flat patch, tied scores; K9 also at "
+            "all-invisible lane, equal scores; a flat image, a flat patch, tied scores; K7 also at "
+            f"{N_HIRES_LANES} x 60 slots, 1 x 100 and 3 x 100, K9 at "
             f"{W - 2}x{H - 3}); K10's rows "
             "and K11's results given K9's map equal K4's exactly on the single-stream frames 9, 20, 120")
 
@@ -2711,7 +2790,7 @@ def main() -> int:
         n_k11 = 0
         for at in BATCH_AT:
             c = bseen[at]
-            worse("K7", check_k7(c["measure_predict"][0][:7], mc, nsel))
+            worse("K7", check_k7(c["measure_select"][0][:5], mc, nsel))
             worse("K9", check_k9(c["score_map"][0][0], c["score_map"][0][1], smc))
             worse("K10", check_k10(*c["particle_predict"][0]))
             a11 = c["search_bayes_maps"][0]
@@ -2757,14 +2836,14 @@ def main() -> int:
             f"{last['K10b']['plain_ms']:.4f} ms ({last['K10b']['inputs']})")
 
         c20 = bseen[20]
-        a7, a9, a10 = c20["measure_predict"][0], c20["score_map"][0], c20["particle_predict"][0]
+        a7, a9, a10 = c20["measure_select"][0], c20["score_map"][0], c20["particle_predict"][0]
         a11, a2b = c20["search_bayes_maps"][0], c20["search"][0]
         a6b, kw6b = c20["shi_tomasi"]
         ws9 = torch.empty((N_LANES, 1, H, W), dtype=torch.float32, device=dev)
 
         btimings = {}
         for name, kern, plain in (
-            ("K7", lambda: measure.measure_predict(*a7), lambda: measure.measure_predict_plain(*a7)),
+            ("K7", lambda: measure.measure_select(*a7), lambda: measure.measure_select_plain(*a7)),
             ("K9", lambda: score_map.score_map(a9[0], a9[1], smc, out=ws9),
              lambda: score_map.score_map_plain(a9[0], a9[1], smc)),
             ("K10", lambda: particle.particle_predict(*a10), lambda: particle.particle_predict_plain(*a10)),
@@ -2799,8 +2878,8 @@ def main() -> int:
         def record_batch_cost(n, a, k):
             if n in SINGLE_WRAPPERS and n not in ("search", "shi_tomasi"):
                 raise AssertionError(f"the batch step called the single-stream wrapper {n}")
-            if n == "measure_predict":
-                bcosts["K7"].append(measure.bytes_and_flops(*a[6].shape))
+            if n == "measure_select":
+                bcosts["K7"].append(measure.bytes_and_flops(*a[0].shape, a[3].shape[1], a[5]))
             elif n == "score_map":
                 bcosts["K9"].append(score_map.bytes_and_flops(a[1].shape[0], a[1].shape[1], a[2]))
             elif n == "particle_predict":
@@ -2986,6 +3065,8 @@ def main() -> int:
     # the large-map paths: K14 (split route) and the kernels at the hires shapes
     for short, name, label, src, rep_ in (
         ("K14", "mf100", "K14 chol_inv", "chol_inv.cu (+ chol_linv.cuh)", "pallas_linalg.py:83"),
+        ("K7", "mf100", "K7 measure (mf100, 1 lane x 100 slots)", "measure.cu (+ measure_chain.cuh)",
+         "pallas_measure.py:310"),
         ("K1", "hires", "K1 predict_measure (hires, D=373)", "predict_measure.cu",
          "pallas_predict_measure.py:375"),
         ("K2", "hires", "K2 search (hires, 107 x 107 windows)", "search.cu", "pallas_search.py:476"),
@@ -3000,7 +3081,6 @@ def main() -> int:
             max_abs_err=t_["max_abs_err"], ms=t_["ms"], plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"],
             bound_by=t_["bound_by"], library_ms=t_["library_ms"], device_ms=t_["device_ms"], path=name,
         ))
-    recs[6]["launches_mf100"] = large["mf100"]["launches"]["measure"]
     # the alternative batch routes: K8 (bp0), K12 on 13 rows (bp0) and on K10's rows (sb0), K13 (sb0)
     for short, route, name, src, rep_ in (
         ("K8", "bp0", "K8 search_windows", "search.cu", "pallas_search.py:312"),
@@ -3036,6 +3116,8 @@ def main() -> int:
             device_ms=t_["device_ms"], path="entry point only (no route runs it)", timed_on=t_["inputs"],
         ))
     for short, name, src, rep_, t_, err in (
+        ("K7", "K7 measure (16 lanes x 60 slots, batch-hires)", "measure.cu", "pallas_measure.py:310",
+         hires_b["timings"]["K7"], hires_b["errs"]["K7"]),
         ("K10", "K10 particle_predict (200 particles, batch-hires)", "particle_predict.cu",
          "pallas_particle.py:434", hires_b["timings"]["K10"], max(werrs["K10"], hires_b["errs"]["K10"])),
         ("K11", "K11 search_bayes_maps (200 particles, batch-hires)", "search_bayes.cu",
@@ -3064,6 +3146,15 @@ def main() -> int:
             timed_on=t_["inputs"],
         ))
     recs[3]["max_abs_err_wide"] = werrs["K4"]
+    # K5 past the 16 tries it once held: frame 9's inputs (0 launches on a main path)
+    t_ = last["K5 tries"]
+    b_ms, b_by = bound(t_["costs"])
+    recs.append(dict(
+        name=f"K5 propose (tries {K5_TIMED_TRIES})", route="cuda",
+        source="scenelib2_torch/kernels/csrc/propose.cu", replaces="scenelib2_tpu/kernels/pallas_propose.py:306",
+        launches=0, max_abs_err=errs["K5"], ms=t_["ms"], plain_ms=t_["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, device_ms=t_["device_ms"], path="captured inputs at more tries", timed_on=t_["inputs"],
+    ))
     # K2, K8 and K6 past the radius and region caps they once had (phase 2c)
     for label, t_ in wide_timed.items():
         short = label.split()[0]

@@ -18,21 +18,34 @@ monoslam.cpp:823-1032). In f32, operation for operation:
     the first free try i, 2*tries when every try clashes) and the limbs after
     them.
 
-Outputs: region_us, region_vs ([] i32; a non-finite region, which only
-arises without room, converts as 0, and the values are clamped to +-2^20
-first), any_ok ([] bool), rng_new ([3] i32 limbs).
+Outputs of ``propose_plain`` (the JAX kernel's arguments and results, held
+against it by the tests): region_us, region_vs ([] i32; a non-finite
+region, which only arises without room, converts as 0, and the values are
+clamped to +-2^20 first), any_ok ([] bool), rng_new ([3] i32 limbs).
+
+The step runs K5 as ``propose_region``: the kernel also takes the step's
+glue around the TPU kernel (the gate on speed, the visible count and the
+partial slots; the region's clamp to the frame; the init box the step
+reports), so stage 7's proposal is one launch; its twin
+``propose_region_plain`` composes that glue with ``propose_plain``.
 
 Bound on an H100: ~1 KB in and a few hundred scalar operations: nothing;
-the launch dominates. Design: one block of 128 threads; thread 0 runs the
-scalar chain and the draws (64-bit integer arithmetic, whose limbs equal
-the 16-bit limb arithmetic's), one lane per slot projects the occupancy
-points, and one block-wide OR per try decides its clash.
+the launch and the dependent scalar chains set the time. Design
+(csrc/propose.cu): one block; thread 0 runs the rollforward and the safe
+box while a thread per slot projects the occupancy points; each draw is
+one jump ahead from the input state (x_k = A_k x_0 + C_k mod 2^48 in 64-bit
+integers, whose limbs equal the 16-bit limb arithmetic's), from the table
+``jump_table`` makes once on the host and uploads once; each warp takes
+every nwarps-th try and a shared minimum keeps the first free one. Any
+number of tries: two block barriers after the safe box whatever it is.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -42,7 +55,8 @@ from scenelib2_torch.core.quaternion import (
     quat_to_rotation_parts,
 )
 from scenelib2_torch.kernels import _build
-from scenelib2_torch.rng import drand48_many
+from scenelib2_torch.kernels.shi_tomasi import clamp_region
+from scenelib2_torch.rng import drand48_many, jump_constants
 
 NAME = "propose"
 REGION_LIM = float(1 << 20)
@@ -64,6 +78,10 @@ class ProposeConsts:
     u0c: float
     v0c: float
     kd1: float
+    # the step's gate (propose_region): speed, visible count, partial count
+    min_speed: float
+    keep_visible: int
+    max_init: int
 
     @staticmethod
     def from_params(p) -> "ProposeConsts":
@@ -72,7 +90,8 @@ class ProposeConsts:
             region_h=p.init_search_height, boxsize=p.boxsize, tries=p.init_region_tries,
             sep=p.feature_separation_min, dtN=p.init_steps_to_predict * p.delta_t,
             depth=p.init_depth_hypothesis, fku=p.cam_fku, fkv=p.cam_fkv, u0c=p.cam_u0,
-            v0c=p.cam_v0, kd1=p.cam_kd1,
+            v0c=p.cam_v0, kd1=p.cam_kd1, min_speed=p.min_speed_for_init,
+            keep_visible=p.n_features_to_keep_visible, max_init=p.max_features_to_init_at_once,
         )
 
 
@@ -169,51 +188,100 @@ def propose_plain(x, rng, occ_flags, want, c: ProposeConsts):
     return _to_i32(_pick(us_all, first_ok)), _to_i32(_pick(vs_all, first_ok)), any_ok, rng_new
 
 
+class Region(NamedTuple):
+    """Stage 7's proposal as the step reads it (propose_region)."""
+    ru: torch.Tensor        # [] i32, the region clamped to the frame (clamp_region)
+    rv: torch.Tensor
+    ruf: torch.Tensor
+    rvf: torch.Tensor
+    any_ok: torch.Tensor    # [] bool
+    rng_new: torch.Tensor   # [3] i32
+    init_box: torch.Tensor  # [2] i32, the unclamped region where the gate wants an init, else 0
+
+
+def init_gate(active, full, speed, n_visible, c: ProposeConsts):
+    """The step's auto-init gate (step.py want_init): fast enough, too few
+    visible features, room for another partial feature."""
+    n_partial = (active & ~full).sum().to(torch.int32)
+    return (speed > c.min_speed) & (n_visible < c.keep_visible) & (n_partial < c.max_init)
+
+
+def propose_region_plain(x, rng, active, full, speed, n_visible, c: ProposeConsts) -> Region:
+    """Plain PyTorch K5 with the step's glue: the gate, propose_plain on the
+    active full slots, the region's clamp and the reported init box.
+    x [D] f32, rng [3] i32, active, full [MF] bool, speed [] f32, n_visible
+    [] i32."""
+    want = init_gate(active, full, speed, n_visible, c)
+    us, vs, any_ok, rng_new = propose_plain(x, rng, active & full, want, c)
+    ru, rv, ruf, rvf = clamp_region(us, vs, us + c.region_w, vs + c.region_h, c.W, c.H, c.boxsize)
+    box = torch.stack([us, vs])
+    return Region(ru, rv, ruf, rvf, any_ok, rng_new, torch.where(want, box, torch.zeros_like(box)))
+
+
 class _K5Params(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in ("H", "W", "region_w", "region_h", "boxsize",
-                                             "tries", "sep", "MF")]
+                                             "tries", "sep", "MF", "keep_visible", "max_init")]
                 + [(n, ctypes.c_float) for n in ("dtN", "depth", "fku", "fkv", "u0c", "v0c",
-                                                 "two_kd1")])
+                                                 "two_kd1", "min_speed")])
 
 
-# tensor pointers (x, rng, occ, want, 4 outputs), the params struct, the stream
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.POINTER(_K5Params), ctypes.c_void_p]
+# tensor pointers (x, rng, active, full, speed, n_visible, the jump table,
+# 3 outputs), the params struct, the stream
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.POINTER(_K5Params), ctypes.c_void_p]
+MAX_MF = 128   # csrc/propose.cu K5_MAX_MF: JAX's step needs it too (step.py:707-708)
 
 
-def propose(x, rng, occ_flags, want, c: ProposeConsts):
-    """K5. A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises). Same outputs as propose_plain."""
+@functools.lru_cache(maxsize=None)
+def jump_table(tries: int, device: str) -> torch.Tensor:
+    """[2 tries, 2] int64 (A_k, C_k) on `device`: draw k (k = 1 .. 2 tries)
+    from the state x_0 is (A_k x_0 + C_k) mod 2^48. Made from Python ints
+    once per (tries, device) and uploaded once, so that no step copies a
+    host constant (a blocking copy); the step builds it when it is built."""
+    ai, ci = jump_constants(2 * tries)
+    return torch.tensor(list(zip(ai, ci)), dtype=torch.int64, device=device)
+
+
+def propose_region(x, rng, active, full, speed, n_visible, c: ProposeConsts) -> Region:
+    """K5 as the step runs it: the gate, the proposal and the region's
+    clamp in one launch, at any c.tries. CPU tensors take
+    propose_region_plain; CUDA tensors launch the kernel (or raise)."""
     if x.device.type == "cpu":
-        return propose_plain(x, rng, occ_flags, want, c)
-    MF = occ_flags.shape[0]
+        return propose_region_plain(x, rng, active, full, speed, n_visible, c)
+    MF = active.shape[0]
     D = x.shape[0]
-    if not (D == 13 + 6 * MF and MF <= 128 and 1 <= c.tries <= 16):
+    if not (D == 13 + 6 * MF and 1 <= MF <= MAX_MF and c.tries >= 1):
         raise ValueError(f"K5: unsupported shapes D={D} MF={MF} tries={c.tries}")
-    _build.check_tensor(x, "x", torch.float32, (D,))
-    _build.check_tensor(rng, "rng", torch.int32, (3,))
-    _build.check_tensor(occ_flags, "occ_flags", torch.bool, (MF,))
-    _build.check_tensor(want, "want", torch.bool, ())
+    for t, name, dty, shp in zip(
+        (x, rng, active, full, speed, n_visible), ("x", "rng", "active", "full", "speed", "n_visible"),
+        (torch.float32, torch.int32, torch.bool, torch.bool, torch.float32, torch.int32),
+        ((D,), (3,), (MF,), (MF,), (), ()),
+    ):
+        _build.check_tensor(t, name, dty, shp)
     dev = x.device
-    us = torch.empty((), dtype=torch.int32, device=dev)
-    vs = torch.empty((), dtype=torch.int32, device=dev)
+    table = jump_table(c.tries, str(dev))
     any_ok = torch.empty((), dtype=torch.bool, device=dev)
     rng_new = torch.empty(3, dtype=torch.int32, device=dev)
+    region = torch.empty(6, dtype=torch.int32, device=dev)
     prm = _K5Params(H=c.H, W=c.W, region_w=c.region_w, region_h=c.region_h, boxsize=c.boxsize,
-                    tries=c.tries, sep=c.sep, MF=MF, dtN=c.dtN, depth=c.depth, fku=c.fku,
-                    fkv=c.fkv, u0c=c.u0c, v0c=c.v0c, two_kd1=2.0 * c.kd1)
+                    tries=c.tries, sep=c.sep, MF=MF, keep_visible=c.keep_visible,
+                    max_init=c.max_init, dtN=c.dtN, depth=c.depth, fku=c.fku, fkv=c.fkv,
+                    u0c=c.u0c, v0c=c.v0c, two_kd1=2.0 * c.kd1, min_speed=c.min_speed)
     fn = _build.function(NAME, "k5_propose", _ARGTYPES)
-    err = fn(x.data_ptr(), rng.data_ptr(), occ_flags.data_ptr(), want.data_ptr(), us.data_ptr(),
-             vs.data_ptr(), any_ok.data_ptr(), rng_new.data_ptr(), ctypes.byref(prm),
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(x.data_ptr(), rng.data_ptr(), active.data_ptr(), full.data_ptr(), speed.data_ptr(),
+             n_visible.data_ptr(), table.data_ptr(), any_ok.data_ptr(), rng_new.data_ptr(),
+             region.data_ptr(), ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K5 propose")
     _build.launches[NAME] += 1
-    return us, vs, any_ok, rng_new
+    return Region(region[0], region[1], region[2], region[3], any_ok, rng_new, region[4:])
 
 
 def bytes_and_flops(MF: int, tries: int) -> tuple[int, int]:
-    """Least bytes (the camera state and slot points in, four results out)
-    and operations of one K5 call: ~150 scalar operations of the chain, ~40
-    per slot projection and 5 compares per slot and try."""
-    nbytes = (13 + 3 * MF) * 4 + 3 * 4 + MF + 1 + 4 + 4 + 1 + 3 * 4
-    flops = 150 + 40 * MF + 5 * MF * tries + 12 * 2 * tries
+    """Least bytes (the camera state, slot points, limbs, the two masks,
+    speed and the visible count in; any_ok, the limbs and the region out:
+    not the jump table, which is this kernel's design and not the
+    function's) and operations of one propose_region call: ~150 scalar
+    operations of the chain, ~40 per slot projection, 12 per draw, 5
+    compares per slot and try, ~20 for the gate and the clamp."""
+    nbytes = (13 + 3 * MF) * 4 + 3 * 4 + 2 * MF + 4 + 4 + 1 + 3 * 4 + 6 * 4
+    flops = 150 + 40 * MF + 5 * MF * tries + 12 * 2 * tries + 20
     return nbytes, flops

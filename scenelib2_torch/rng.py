@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 __all__ = ["srand48", "Drand48", "pack_state", "unpack_state", "drand48_step",
-           "drand48_many", "jump_limbs", "host_drand48_sequence"]
+           "drand48_many", "jump_constants", "jump_limbs", "host_drand48_sequence"]
 
 _A = 0x5DEECE66D
 _C = 0xB
@@ -99,7 +99,7 @@ def drand48_step(state: torch.Tensor, dtype=torch.float64):
     return torch.stack([r0, r1, r2]).to(state.dtype), _limbs_value(r0, r1, r2, dtype)
 
 
-def _jump_constants(n: int):
+def jump_constants(n: int):
     """(A^{i+1} mod 2^48, C*(A^i+...+A+1) mod 2^48) for i = 0..n-1, as
     Python ints: n sequential LCG steps are one affine map x_i = Ai*x0 + Ci."""
     ai, ci = [], []
@@ -118,7 +118,7 @@ def jump_limbs(n: int, device: str):
     (a0, a1, a2), (c0, c1, c2). Cached: the host-to-device copy happens once
     per (n, device), so a step that calls drand48_many every frame makes no
     host synchronisation after its first frame."""
-    ai, ci = _jump_constants(n)
+    ai, ci = jump_constants(n)
 
     def limbs(xs, sh):
         return torch.tensor([(x >> sh) & _M16 for x in xs], dtype=torch.int64, device=device)

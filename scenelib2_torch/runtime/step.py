@@ -21,8 +21,9 @@ monoslam.cpp:108-180):
 
 Above D = 384 (62 <= MF <= 128) stages 1-6 take the split route
 (make_split_stages, the batch step's code on the state as one lane):
-core.ekf.predict, K7 and a top-k, K2, the dense update with S inverted by
-K14; stages 7-8 as above. MF > 128 is refused, as in the JAX fast step.
+core.ekf.predict, K7 (the chain and the top-k), K2, the dense update with
+S inverted by K14; stages 7-8 as above. MF > 128 is refused, as in the JAX
+fast step.
 
 The step makes no host synchronisation: data-dependent choices stay masks,
 and each kernel wrapper launches on the current stream. Where the JAX step
@@ -60,15 +61,10 @@ from scenelib2_torch.kernels.bayes import bayes_update
 from scenelib2_torch.kernels.ekf_update import UpdateConsts, joint_update
 from scenelib2_torch.kernels.measure import (
     O_H,
-    O_HX,
-    O_HY,
-    O_RD,
     O_S,
-    O_SCORE,
     O_SINV,
-    O_VIS,
     MeasureConsts,
-    measure_predict,
+    measure_select,
     stable_top_k,
 )
 from scenelib2_torch.kernels.particle import (
@@ -83,7 +79,7 @@ from scenelib2_torch.kernels.particle import (
 )
 from scenelib2_torch.kernels.particle_search import ParticleSearchConsts, particle_search
 from scenelib2_torch.kernels.predict_measure import NEG_SENTINEL, predict_measure
-from scenelib2_torch.kernels.propose import REGION_LIM, ProposeConsts, propose
+from scenelib2_torch.kernels.propose import REGION_LIM, ProposeConsts, jump_table, propose_region
 from scenelib2_torch.kernels.score_map import ScoreMapConsts, score_map
 from scenelib2_torch.kernels.search import (
     SearchConsts,
@@ -291,6 +287,8 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     kw = dict(device=device)
     lane_nsel = torch.arange(NSEL, dtype=torch.int32, **kw)
     lane_mf = torch.arange(MF, **kw)
+    if lane_mf.is_cuda:   # K5's jump table: uploaded now, never in a step
+        jump_table(pc.tries, str(lane_mf.device))
     patch_offs = torch.arange(B, **kw) - half
     neg_sentinel = torch.tensor(NEG_SENTINEL, dtype=dtype, **kw)
     dt_t = torch.tensor(params.delta_t, dtype=dtype, **kw)
@@ -300,14 +298,10 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     zero = torch.zeros((), dtype=dtype, **kw)
 
     def auto_init(mid: SlamState, frame_u8, speed, n_visible):
-        """Stage 7: K5's region, K6's patch, the ray insertion."""
-        n_partial = (mid.active & ~mid.full).sum().to(torch.int32)
-        want_init = ((speed > params.min_speed_for_init)
-                     & (n_visible < params.n_features_to_keep_visible)
-                     & (n_partial < params.max_features_to_init_at_once))
-        region_us, region_vs, any_ok, rng_new = propose(
-            mid.x, mid.rng, mid.active & mid.full, want_init, pc)
-        ru, rv, ruf, rvf = clamp_region(region_us, region_vs, region_us + RW, region_vs + RH, W, H, B)
+        """Stage 7: K5's region (with the speed gate and the clamp), K6's
+        patch, the ray insertion."""
+        ru, rv, ruf, rvf, any_ok, rng_new, init_box = propose_region(
+            mid.x, mid.rng, mid.active, mid.full, speed, n_visible, pc)
         ubest, vbest, evbest = shi_tomasi(frame_u8, ru, rv, ruf, rvf, boxsize=B,
                                           region_w=RW, region_h=RH)
         did_init = any_ok & (evbest > params.init_patch_score_thresh)
@@ -318,7 +312,6 @@ def make_step(params: Params, device=None, precision: str = "f32"):
         mid = st.add_partial_feature(
             mid._replace(rng=rng_new), cam, torch.stack([ubest, vbest]).to(dtype), patch, lam0,
             did_init)
-        init_box = torch.where(want_init, torch.stack([region_us, region_vs]), no_box)
         return mid, did_init, init_box
 
     def fused_stages(state: SlamState, frame_u8):
@@ -494,10 +487,11 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool,
 
     The JAX step's route where neither fused kernel applies
     (scenelib2_tpu/runtime/step.py:261-304, 351-384, 434-465, 492-540):
-    core.ekf.predict; K7's per-slot measurement rows; the stable top-NSEL
-    selection with sel_mask = top score > -inf and n_visible from the
-    visibility row; the partial slots by top-k over the partial flags; K2;
-    the bookkeeping closed form; H, R and nu as dense matrices;
+    core.ekf.predict; K7, one launch from x and P in place: the per-slot
+    measurement chain, the stable top-NSEL selection (sel_mask = top score
+    > -inf, as JAX's batch step) and n_visible from the visibility row; the
+    partial slots by top-k over the partial flags; K2; the bookkeeping
+    closed form; H, R and nu as dense matrices;
     core.ekf.joint_update, normalise, the any-success gate, delete_mask with
     x and P zeroed, symmetrize. The batch step runs it with
     pallas_chol=False (JAX: pallas_chol=not batch_mode); the single-stream
@@ -541,29 +535,17 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool,
 
     def stages(state: SlamState, frames: torch.Tensor):
         Bn = state.x.shape[0]
-        act_full = state.active & state.full
 
         # ---- 1. EKF predict ------------------------------------------------
         x, P = ekf.predict(state.x, state.P, u_zero, params.delta_t, params.sd_a, params.sd_alpha)
 
-        # ---- 2. predict measurements (K7, or the XLA chain) + select --------
+        # ---- 2. predict measurements + select (K7, or the XLA chain) --------
         if measure_kernel:
-            meas = measure_predict(
-                x[:, :7], P[:, :7, :7], st.slot_states(x, MF)[..., :3], state.xp_org,
-                st.slot_pxy(P, MF)[..., :7, :3], st.slot_pyy(P, MF)[..., :3, :3], act_full, mc)
-            n_visible = (act_full & (meas[:, O_VIS] == 0.0)).sum(-1).to(torch.int32)
-            top_score, top_idx = stable_top_k(meas[:, O_SCORE], NSEL)
+            (top_idx, top_score, n_visible, h_sel, hx_sel, hy_sel, Rd_sel, S_sel, sinv_abc,
+             _rows) = measure_select(x, P, state.xp_org, state.active, state.full, NSEL, mc)
             top64 = top_idx.long()
-            sel = torch.gather(meas, 2, top64[:, None, :].expand(Bn, meas.shape[1], NSEL))   # [B, NOUT, NSEL]
-            h_sel = sel[:, O_H : O_H + 2].mT
-            hx_sel = sel[:, O_HX : O_HX + 14].mT.reshape(Bn, NSEL, 2, 7)
-            hy_sel = sel[:, O_HY : O_HY + 6].mT.reshape(Bn, NSEL, 2, 3)
-            Rd_sel = sel[:, O_RD]
-            S_sel = torch.stack(
-                [sel[:, O_S], sel[:, O_S + 1], sel[:, O_S + 1], sel[:, O_S + 2]], dim=-1
-            ).reshape(Bn, NSEL, 2, 2)
-            sinv_abc = sel[:, O_SINV : O_SINV + 3].mT.contiguous()
         else:
+            act_full = state.active & state.full
             xp = x[:, None, :7]
             ys3 = st.slot_states(x, MF)[..., :3]
             h_all, hx_all, hy_all, _zeroed = models.full_predict_measurement(cam, ys3, xp)
@@ -696,7 +678,7 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
                                                default  sb0      bp0
       1.   core.ekf.predict as tensor ops      .        .        .
       2.   per-slot measurement prediction     K7       K7       XLA chain
-           stable top-NSEL selection (measure.stable_top_k)
+           stable top-NSEL selection           (K7)     (K7)     measure.stable_top_k
       3.   NSSD search, B x NSEL programs      K2       K2       K8 on
                                                                  gathered windows
       4-6. bookkeeping closed form, dense H / R assembly,

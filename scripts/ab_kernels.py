@@ -1,6 +1,7 @@
 """What the A/B scripts of kernels between source trees share
 (scripts/ab_particle_kernels.py, scripts/ab_update_kernels.py,
-scripts/ab_search_kernels.py).
+scripts/ab_search_kernels.py, scripts/ab_predict_st_kernels.py,
+scripts/ab_propose_measure_kernels.py).
 
 A script gives run() its list of trees and a cases(dev) function that
 returns (name, kernel symbol, fn) for every timed case, fn() returning the
@@ -8,9 +9,12 @@ kernel's outputs. For each tree, in the order given, a subprocess (the
 script itself with --one TREE) imports that tree's scenelib2_torch, builds
 its kernels there and reports each case's device time (the median over
 REPEATS traced loops of N_CALLS calls, torch.profiler, the kernel's own
-device time per launch seen) and a sha256 of its outputs. Prints the card's
-name and power limit, one JSON line per tree and the median device time of
-each case per distinct tree; fails if any output differs between trees.
+device time per launch seen; with the symbol None, the device time of every
+kernel the call launches, per call, and their number) and a sha256 of its
+outputs. A tree may lack a case (a shape its kernel refuses). Prints the
+card's name and power limit, one JSON line per tree and the median device
+time of each case per distinct tree; fails if any output differs between
+the trees that have the case.
 """
 
 from __future__ import annotations
@@ -36,11 +40,12 @@ def _digest(outs) -> str:
     return h.hexdigest()[:16]
 
 
-def _device_ms(fn, sym: str) -> float:
-    """Median over REPEATS traced loops of N_CALLS calls of the kernel's
-    device time per launch the profiler saw. A loop in which the profiler
-    recorded no launch of the kernel (it happens now and then after many
-    traced loops in one process) is traced again, at most TRIES times."""
+def _traced(fn, sym: str | None) -> list[tuple[float, int]]:
+    """(device ms, launches) of the kernels whose name holds sym (every
+    kernel for None) in each of REPEATS traced loops of N_CALLS calls. A
+    loop in which the profiler recorded no launch of the kernel (it happens
+    now and then after many traced loops in one process) is traced again,
+    at most TRIES times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -55,7 +60,7 @@ def _device_ms(fn, sym: str) -> float:
                 torch.cuda.synchronize()
             total, count = 0.0, 0
             for e in prof.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA and sym in e.key:
+                if e.device_type == torch.autograd.DeviceType.CUDA and (sym is None or sym in e.key):
                     us = getattr(e, "self_device_time_total", None)
                     total += (us if us is not None else e.self_cuda_time_total) / 1e3
                     count += e.count
@@ -64,8 +69,20 @@ def _device_ms(fn, sym: str) -> float:
         if count == 0:
             seen = sorted({e.key[:40] for e in prof.key_averages()})[:8]
             raise SystemExit(f"{sym}: the profiler saw no launch in {TRIES} traced loops (it saw {seen})")
-        res.append(total / count)
-    return statistics.median(res)
+        res.append((total, count))
+    return res
+
+
+def _device_ms(fn, sym: str) -> float:
+    """Median over the traced loops of the kernel's device time per launch."""
+    return statistics.median(total / count for total, count in _traced(fn, sym))
+
+
+def _call_ms(fn) -> tuple[float, float]:
+    """Median over the traced loops of the device time of every kernel a
+    call launches, per call; and the kernels a call launches."""
+    res = _traced(fn, None)
+    return statistics.median(total / N_CALLS for total, _c in res), res[-1][1] / N_CALLS
 
 
 def one_tree(tree: str, cases) -> dict:
@@ -82,7 +99,11 @@ def one_tree(tree: str, cases) -> dict:
     for name, sym, fn in cases(dev):
         outs = fn()
         torch.cuda.synchronize()
-        rec[name] = {"ms": _device_ms(fn, sym), "digest": _digest(outs)}
+        if sym is None:
+            ms, kernels = _call_ms(fn)
+            rec[name] = {"ms": ms, "kernels": kernels, "digest": _digest(outs)}
+        else:
+            rec[name] = {"ms": _device_ms(fn, sym), "digest": _digest(outs)}
     return rec
 
 
@@ -104,12 +125,16 @@ def _compare(trees: list[str], script: str) -> int:
             return 1
         recs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         print(json.dumps(recs[-1]), flush=True)
-    names = [k for k in recs[0] if k != "tree"]
-    bad = [n for n in names if len({r[n]["digest"] for r in recs}) != 1]
+    names = list(dict.fromkeys(k for r in recs for k in r if k != "tree"))
+    bad = [n for n in names if len({r[n]["digest"] for r in recs if n in r}) != 1]
     for tree in dict.fromkeys(trees):
         for n in names:
-            ms = statistics.median(r[n]["ms"] for r in recs if r["tree"] == tree)
-            print(f"{tree:>24}  {n:<26} {ms * 1e3:9.3f} us")
+            got = [r[n] for r in recs if r["tree"] == tree and n in r]
+            if not got:
+                continue
+            ms = statistics.median(g["ms"] for g in got)
+            per = f"  ({got[0]['kernels']:.0f} kernels a call)" if "kernels" in got[0] else ""
+            print(f"{tree:>24}  {n:<26} {ms * 1e3:9.3f} us{per}")
     if bad:
         print(f"outputs differ between trees: {bad}", file=sys.stderr)
         return 1

@@ -56,8 +56,10 @@ from scenelib2_torch.kernels.measure import (
     O_SCORE,
     O_VIS,
     MeasureConsts,
-    measure_predict,
+    chain_inputs,
     measure_predict_plain,
+    measure_select,
+    measure_select_plain,
     stable_top_k,
 )
 from scenelib2_torch.kernels.particle import ParticleConsts, particle_predict_plain
@@ -88,7 +90,7 @@ K7_TOL = 1e-5
 MAP_ATOL = MAP_RTOL = 2e-5
 ROW_TOL_K10 = 1e-4
 PROB_RTOL = 1e-5
-BATCH_WRAPPERS = ("measure_predict", "search", "shi_tomasi", "score_map", "particle_predict",
+BATCH_WRAPPERS = ("measure_select", "search", "shi_tomasi", "score_map", "particle_predict",
                   "search_bayes_maps")
 
 
@@ -194,7 +196,8 @@ def _k7_random(seed: int, n_lanes: int = 3):
 
 def _k7_case(case, batch_inputs):
     if case.startswith("real"):
-        a = list(batch_inputs[0][("measure_predict", int(case[4:]))][0][:7])
+        x, P, xpo, active, full = batch_inputs[0][("measure_select", int(case[4:]))][0][:5]
+        a = list(chain_inputs(x, P, xpo, active & full))
     else:
         a = _k7_random({"random": 3, "all_invisible": 4, "equal_scores": 5}[case])
     if case == "all_invisible":
@@ -452,7 +455,8 @@ def test_k11_plain_matches_pallas_on_real_frames(which, batch_inputs):
 
 
 def test_batch_wrappers_route_cpu_tensors_to_the_plain_versions(batch_inputs):
-    a = batch_inputs[0][("measure_predict", 5)][0]
+    a = batch_inputs[0][("measure_select", 5)][0]
     _build.reset_launches()
-    assert torch.equal(measure_predict(*a), measure_predict_plain(*a))
+    for g, w in zip(measure_select(*a, rows=True), measure_select_plain(*a, rows=True)):
+        assert torch.equal(g, w)
     assert all(v == 0 for v in _build.launches.values())

@@ -31,9 +31,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LANES = (0, 1, 2, 3)
 # the wrappers of stages 2, 3, 7 and 8 that each route calls (and no other)
 ROUTE_WRAPPERS = {
-    "default": {"measure_predict", "search", "shi_tomasi", "score_map", "particle_predict",
+    "default": {"measure_select", "search", "shi_tomasi", "score_map", "particle_predict",
                 "search_bayes_maps"},
-    "sb0": {"measure_predict", "search", "shi_tomasi", "score_map", "particle_predict",
+    "sb0": {"measure_select", "search", "shi_tomasi", "score_map", "particle_predict",
             "particle_search", "bayes_update"},
     "bp0": {"search_windows", "shi_tomasi_plain", "bayes_update"},
 }

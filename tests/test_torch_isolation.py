@@ -41,8 +41,8 @@ from scenelib2_torch.kernels.multi_ellipse import multi_ellipse_search, multi_el
 from scenelib2_torch.kernels.measure import (
     NOUT,
     MeasureConsts,
-    measure_predict,
-    measure_predict_plain,
+    measure_select,
+    measure_select_plain,
 )
 from scenelib2_torch.kernels.correlate import gather_windows_u8
 from scenelib2_torch.kernels.particle import (
@@ -58,7 +58,7 @@ from scenelib2_torch.kernels.particle_search import (
     particle_search_plain,
 )
 from scenelib2_torch.kernels.predict_measure import predict_measure, predict_measure_plain
-from scenelib2_torch.kernels.propose import ProposeConsts, propose, propose_plain
+from scenelib2_torch.kernels.propose import ProposeConsts, propose_region, propose_region_plain
 from scenelib2_torch.kernels.score_map import ScoreMapConsts, score_map, score_map_plain
 from scenelib2_torch.kernels.search import (
     SearchConsts,
@@ -256,8 +256,10 @@ def _k5_args(rng, dev):
     x[7:13] = rng.normal(0, 0.3, 6)
     x[13:] = rng.uniform(-0.2, 0.2, D - 13)
     act = rng.uniform(size=MF) > 0.3
+    full = rng.uniform(size=MF) > 0.2
     return (torch.tensor(x, device=dev), torch.tensor([0x330E, 0, 0], dtype=torch.int32, device=dev),
-            torch.tensor(act, device=dev), torch.tensor(True, device=dev))
+            torch.tensor(act, device=dev), torch.tensor(full, device=dev), torch.tensor(0.3, device=dev),
+            torch.tensor(4, dtype=torch.int32, device=dev))
 
 
 def _k6_args(rng, dev):
@@ -303,11 +305,8 @@ def _lanes(fn, rng, dev):
 
 
 def _k7_args(rng, dev):
-    from scenelib2_torch.runtime import state as st
-
     x, P, xpo, act, _ = _lanes(_k1_args, rng, dev)
-    return (x[:, :7], P[:, :7, :7], st.slot_states(x, 16)[..., :3], xpo,
-            st.slot_pxy(P, 16)[..., :7, :3], st.slot_pyy(P, 16)[..., :3, :3], act)
+    return x, P, xpo, act, torch.ones_like(act), 10
 
 
 def _k9_args(rng, dev):
@@ -416,12 +415,12 @@ def _cases():
                lambda d, r: joint_update_plain(*_k3_args(r, d), UpdateConsts.from_params(p))),
         "K4": (lambda d, r: search_bayes(*_k4_args(r, d), SearchBayesConsts.from_params(p)),
                lambda d, r: search_bayes_plain(*_k4_args(r, d), SearchBayesConsts.from_params(p))),
-        "K5": (lambda d, r: propose(*_k5_args(r, d), ProposeConsts.from_params(p)),
-               lambda d, r: propose_plain(*_k5_args(r, d), ProposeConsts.from_params(p))),
+        "K5": (lambda d, r: propose_region(*_k5_args(r, d), ProposeConsts.from_params(p)),
+               lambda d, r: propose_region_plain(*_k5_args(r, d), ProposeConsts.from_params(p))),
         "K6": (lambda d, r: shi_tomasi(*_k6_args(r, d), **st_kw),
                lambda d, r: shi_tomasi_plain(*_k6_args(r, d), **st_kw)),
-        "K7": (lambda d, r: (measure_predict(*_k7_args(r, d), MeasureConsts.from_params(p)),),
-               lambda d, r: (measure_predict_plain(*_k7_args(r, d), MeasureConsts.from_params(p)),)),
+        "K7": (lambda d, r: measure_select(*_k7_args(r, d), MeasureConsts.from_params(p), rows=True),
+               lambda d, r: measure_select_plain(*_k7_args(r, d), MeasureConsts.from_params(p), rows=True)),
         "K9": (lambda d, r: (score_map(*_k9_args(r, d), ScoreMapConsts.from_params(p)),),
                lambda d, r: (score_map_plain(*_k9_args(r, d), ScoreMapConsts.from_params(p)),)),
         "K10": (lambda d, r: (particle_predict(*_k10_args(r, d), ParticleConsts.from_params(p)),),

@@ -39,7 +39,13 @@ from scenelib2_torch import MonoSLAM
 from scenelib2_torch.config import Params
 from scenelib2_torch.eval.synthetic import generate_dataset
 from scenelib2_torch.kernels import _build
-from scenelib2_torch.kernels.propose import ProposeConsts, propose, propose_plain
+from scenelib2_torch.kernels.propose import (
+    ProposeConsts,
+    init_gate,
+    propose_plain,
+    propose_region,
+    propose_region_plain,
+)
 from scenelib2_torch.kernels.search_bayes import MISS, SearchBayesConsts, search_bayes_plain
 from scenelib2_torch.kernels.shi_tomasi import clamp_region, shi_tomasi_plain
 
@@ -67,15 +73,21 @@ def _one_torch_thread():
 
 @contextlib.contextmanager
 def _capture(store: dict, frame_no: list):
-    """Record the arguments of the step's K4-K6 wrappers, by frame."""
+    """Record the arguments of the step's K4-K6 wrappers, by frame. K5's
+    step form (propose_region) is also stored under "propose" with the JAX
+    kernel's arguments: the active full slots and the step's gate."""
     import scenelib2_torch.runtime.step as step_mod
 
-    names = ("propose", "shi_tomasi", "search_bayes")
+    names = ("propose_region", "shi_tomasi", "search_bayes")
     orig = {n: getattr(step_mod, n) for n in names}
 
     def wrap(n):
         def call(*a, **k):
             store[(n, frame_no[0])] = (a, k)
+            if n == "propose_region":
+                x, rng, active, full, speed, n_visible, c = a
+                store[("propose", frame_no[0])] = (
+                    (x, rng, active & full, init_gate(active, full, speed, n_visible, c), c), k)
             return orig[n](*a, **k)
         return call
 
@@ -343,9 +355,9 @@ def test_k4_tie_breaks_to_the_largest_key(real_inputs):
 
 
 def test_wrappers_route_cpu_tensors_to_the_plain_versions(real_inputs):
-    a, _ = real_inputs[("propose", 9)]
+    a, _ = real_inputs[("propose_region", 9)]
     _build.reset_launches()
-    got = propose(*a)
-    want = propose_plain(*a)
+    got = propose_region(*a)
+    want = propose_region_plain(*a)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert all(v == 0 for v in _build.launches.values())

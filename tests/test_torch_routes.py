@@ -33,7 +33,7 @@ from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expecte
 from scenelib2_torch.eval.synthetic import DATASET_VERSION, generate_dataset
 from scenelib2_torch.runtime.step import make_step
 
-WRAPPERS = ("predict_measure", "measure_predict", "search", "joint_update", "chol_inv", "propose",
+WRAPPERS = ("predict_measure", "measure_select", "search", "joint_update", "chol_inv", "propose_region",
             "shi_tomasi", "search_bayes", "score_map", "particle_predict", "search_bayes_maps")
 
 
@@ -86,9 +86,9 @@ def test_route_by_state_dimension(mf, route, std_frames):
         outs = slam.run_sequence(frames[1:4], enable_mapping=True)
     assert bool(torch.isfinite(outs.xv).all())
     once = {"fused": ("predict_measure", "search", "joint_update"),
-            "split": ("measure_predict", "search", "chol_inv")}[route]
+            "split": ("measure_select", "search", "chol_inv")}[route]
     for n in WRAPPERS:
-        want = 3 if n in once + ("propose", "shi_tomasi", "search_bayes") else 0
+        want = 3 if n in once + ("propose_region", "shi_tomasi", "search_bayes") else 0
         assert counts[n] == want, (mf, n, counts)
 
 

@@ -126,7 +126,7 @@ def test_unported_modes_are_refused_and_nomap_never_inits(std_sequence, monkeypa
     def stage7(*a, **k):
         raise AssertionError("stage 7 ran with mapping off")
 
-    monkeypatch.setattr(step_mod, "propose", stage7)
+    monkeypatch.setattr(step_mod, "propose_region", stage7)
     monkeypatch.setattr(step_mod, "shi_tomasi", stage7)
     slam = MonoSLAM(cfg, max_features=16, device="cpu")
     outs = slam.run_sequence(frames[1:31], enable_mapping=False)     # mapping on inits at 9
