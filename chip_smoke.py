@@ -40,10 +40,17 @@ Phases (any failure exits non-zero before the last line is printed):
     512 and 1,152 lanes held in shared memory, and two rows past its 4,096
     particles, on the kernels' workspace path) on seeded slots; K10b (NP 100, 200, degenerate depths), K15
     (D = 109 and 128, M up to 128, any_succ false, a NaN in a deleted slot,
-    and frame 120's inputs) and K16 (degenerate particles, dead ones, a tie,
-    a NaN score) on seeded cases: each at max abs error 0 against its plain
-    version; K15 on the JAX XLA branch's H, nu, R of frame 120 against K3
-    (bit for bit); K10b in 3b on K10's prologue geometry of captured batch steps
+    D = 7, 13, 109 and 128 at M = 1, 2, 20, 32, 33, 64 and 128: both forms,
+    the register and the block factorisation; NaN, inf and -inf in a kept
+    and in a deleted row, in the same tile as their mirror and in another,
+    on the diagonal, any_succ true and false: the transposition rule's
+    pass; and frame 120's inputs) and K16 (degenerate particles, dead ones,
+    a tie, a NaN score; search radii 16, 32, 110 and 115, the widest window
+    it takes at 320x240, with ellipses wider than the window; 16 maps of
+    640x480 x 200 particles; a cloud spread over the whole map, whose read
+    box exceeds the stage: the in-place path) on seeded cases: each at max
+    abs error 0 against its plain version; K15 on the JAX XLA branch's H,
+    nu, R of frame 120 against K3 (bit for bit); K10b in 3b on K10's prologue geometry of captured batch steps
     (K10's rows bit for bit), K16 in 3e on the maps and clouds of K13's
     captured calls (K13's decisions for every live particle); each one's
     kernel, device and plain times; K12 re-timed at 200 particles.
@@ -1450,10 +1457,15 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
 
 K14_SPD_MS = (1, 2, 7, 20, 31, 32, 33, 64, 128)   # k14_random_cases' SPD sizes
 K3_MORE_NSEL = (8, 16)   # K3 also at M = 16 and 32: the register form at an M of no configuration
+# K15's seeded sizes (D, M) beyond the first six cases: M = 1, 32 (register
+# factorisations), 33, 64 (the block form), 128 (its M x M arrays in the
+# workspace); D = 7 and 13 (no slot), 128
+K15_SIZES = ((109, 1), (109, 32), (109, 33), (109, 64), (109, 128), (7, 20), (13, 32), (128, 20), (7, 1),
+             (128, 33))
 
 
 def build_variants() -> list:
-    """The (source, defines) builds this script's K14 and K3 calls take
+    """The (source, defines) builds this script's K14, K3 and K15 calls take
     beside every source's own: the register form at each M <= 32 they
     see (chol_inv.reg_defines)."""
     from scenelib2_torch.config import Params
@@ -1461,8 +1473,10 @@ def build_variants() -> list:
 
     k14 = [M for M in K14_SPD_MS if M <= chol_inv.REG_MAX_M]
     k3 = [2 * n for n in (Params().n_features_to_select, *K3_MORE_NSEL)]
+    k15 = sorted({M for _D, M in K15_SIZES + ((19, 2),) if M <= chol_inv.REG_MAX_M} | {k3[0]})
     return ([("chol_inv", chol_inv.reg_defines(M)) for M in k14]
-            + [("ekf_update", chol_inv.reg_defines(M)) for M in k3])
+            + [("ekf_update", chol_inv.reg_defines(M)) for M in k3]
+            + [("ekf_update_dense", chol_inv.reg_defines(M)) for M in k15])
 
 
 def k14_random_cases(rng, dev):
@@ -1657,7 +1671,9 @@ def k10b_seeded(rng, p, dev):
 def k15_seeded(rng, dev, D=109, M=20, n_bad=2, any_succ=True, nan_deleted=False):
     """K15 arguments of pallas_ekf's test problem (tests/test_pallas_ekf.py:
     an SPD P, H with each row pair on the camera and one slot, R = I, the
-    last n_bad slots deleted), optionally with a NaN in a deleted slot."""
+    last n_bad slots deleted), optionally with a NaN in a deleted slot. A
+    map with no slot (D < 19) gives H's rows on the camera alone, an odd M
+    a last row of its own."""
     MF = (D - 13) // 6
     A = rng.normal(size=(D, D))
     P = A @ A.T / D * 1e-3 + np.eye(D) * 1e-4
@@ -1665,10 +1681,13 @@ def k15_seeded(rng, dev, D=109, M=20, n_bad=2, any_succ=True, nan_deleted=False)
     x[3:7] = rng.normal(size=4)
     x[3:7] /= np.linalg.norm(x[3:7]) * (1.0 + 1e-3)
     H = np.zeros((M, D))
-    for k in range(M // 2):
-        off = 13 + 6 * (k % MF)
-        H[2 * k : 2 * k + 2, :7] = rng.normal(size=(2, 7))
-        H[2 * k : 2 * k + 2, off : off + 3] = rng.normal(size=(2, 3))
+    for k in range((M + 1) // 2):
+        rows = slice(2 * k, min(2 * k + 2, M))
+        n = rows.stop - rows.start
+        H[rows, :7] = rng.normal(size=(n, 7))
+        if MF > 0:
+            off = 13 + 6 * (k % MF)
+            H[rows, off : off + 3] = rng.normal(size=(n, 3))
     nu = rng.normal(size=M) * 0.5
     keep = np.ones(D, bool)
     for k in range(n_bad):
@@ -1681,6 +1700,30 @@ def k15_seeded(rng, dev, D=109, M=20, n_bad=2, any_succ=True, nan_deleted=False)
     f = dict(dtype=torch.float32, device=dev)
     return (torch.tensor(x, **f), torch.tensor(P, **f), torch.tensor(H, **f), torch.tensor(nu, **f),
             torch.tensor(np.eye(M), **f), torch.tensor(any_succ, device=dev), torch.tensor(keep, device=dev))
+
+
+def k15_nonfinite(rng, dev):
+    """(label, args) K15 cases at D = 109, M = 20 with one non-finite entry
+    of P (NaN, inf or -inf) placed in a kept row (on the diagonal, in the
+    same 32 x 32 tile as its mirror, in another tile, the mirror's side),
+    in a deleted row (the last slot: in its own tile, in another, on the
+    diagonal) and twice in one column, with any_succ false (P passes
+    through: the placement decides which rows the transposition rule makes
+    NaN) and true (the update spreads it first)."""
+    kept, dead = 20, 13 + 6 * 15    # slot 15 is deleted (n_bad = 2: slots 14 and 15)
+    places = (((kept, kept),), ((kept, 25),), ((kept, 90),), ((90, kept),), ((dead, dead + 1),), ((dead, 5),),
+              ((5, dead),), ((dead, dead),), ((kept, 60), (90, 60)))
+    out = []
+    for val in (float("nan"), float("inf"), -float("inf")):
+        for place in places:
+            for any_succ in (False, True):
+                a = list(k15_seeded(rng, dev, any_succ=any_succ))
+                P = a[1].clone()
+                for i, j in place:
+                    P[i, j] = val
+                a[1] = P
+                out.append((f"{val} at {place}, any_succ {any_succ}", tuple(a)))
+    return out
 
 
 def check_k15(args) -> float:
@@ -1704,13 +1747,13 @@ def k15_from_k3(a3, c):
     return (x, P, Hd, nu, R, succ.any(), keep_of_kill(k3[5])), k3
 
 
-def k16_seeded(rng, p, dev, F=3, P=64):
+def k16_seeded(rng, p, dev, F=3, P=64, H=None, W=None):
     """K16 arguments on random maps with planted minima and particle clouds,
     and the degenerate particles: centres outside the image and far off it,
     a NaN centre, a NaN S^-1, an S^-1 with a - b^2 / c < 0, a particle with
     no admitted cell (a tiny ellipse between cells), dead particles, a
-    planted three-way tie."""
-    H, W = p.cam_height, p.cam_width
+    planted three-way tie. H x W: the configuration's frame unless given."""
+    H, W = H or p.cam_height, W or p.cam_width
     f = dict(dtype=torch.float32, device=dev)
     maps = torch.tensor(rng.uniform(0.0, 2.0, (F, H, W)), **f)
     for fi in range(F):
@@ -1737,6 +1780,39 @@ def k16_seeded(rng, p, dev, F=3, P=64):
     maps[2, 60, 60] = float("nan")
     h[2, 0] = torch.tensor([60.0, 61.0])
     return maps, h, sinv, alive
+
+
+def k16_more(rng, p, dev):
+    """(label, args, kwargs) K16 cases past the configurations' windows:
+    search radius 110 and 115 (231 x 231: the widest window K16 takes at
+    320x240, whose band holds every row of the map; a window of all 240
+    rows would need a band past the padded map, which the TPU kernel's
+    slice and band_shape refuse) with half the ellipses wider than the
+    window; 16 maps of 640x480 x 200 particles at hires' radius 52; and a
+    cloud of wide ellipses spread over the whole 320x240 map, whose read
+    box (about the map) exceeds the 16,384-cell stage: the in-place path."""
+    from scenelib2_torch.eval.synthetic import HIRES_PARAMS
+
+    kw = dict(no_sigma=p.no_sigma, corr_thresh2=p.corr_thresh2)
+    out = [("R110", k16_seeded(rng, p, dev), dict(kw, win_radius=110))]
+    a = k16_seeded(rng, p, dev)
+    a[2][:, ::2] = torch.tensor([[1e-6, 0.0], [0.0, 1e-6]])
+    out.append(("R115, every window cell in half the ellipses", a, dict(kw, win_radius=115)))
+    out.append(("16 x 640x480 x 200", k16_seeded(rng, p, dev, F=16, P=200, H=480, W=640),
+                dict(kw, win_radius=HIRES_PARAMS["particle_win_radius"])))
+    F, P, H, W = 4, 100, p.cam_height, p.cam_width
+    f = dict(dtype=torch.float32, device=dev)
+    maps = torch.tensor(rng.uniform(0.0, 2.0, (F, H, W)), **f)
+    h = torch.tensor(np.stack([rng.uniform(0, W, (F, P)), rng.uniform(0, H, (F, P))], -1), **f)
+    sinv = torch.tensor(np.tile([[1e-4, 0.0], [0.0, 1e-4]], (F, P, 1, 1)), **f)   # half-extents 300: no cut
+    alive = torch.tensor(rng.uniform(size=(F, P)) > 0.2, device=dev)
+    R = p.particle_win_radius
+    lo, hi = torch.clamp(torch.trunc(h) - R, min=0), torch.trunc(h) + R + 1
+    box = (hi[..., 1].amax(1) - lo[..., 1].amin(1)) * (hi[..., 0].clamp(max=W).amax(1) - lo[..., 0].amin(1))
+    if not bool((box > 16384).all()):
+        fail(f"K16's spread cloud: a read box of {box.tolist()} cells fits the stage")
+    out.append(("spread cloud (in place)", (maps, h, sinv, alive), dict(kw, win_radius=R)))
+    return out
 
 
 def check_k16(args, kw) -> float:
@@ -2504,6 +2580,12 @@ def main() -> int:
         for kw in (dict(), dict(any_succ=False), dict(nan_deleted=True), dict(nan_deleted=True, any_succ=False),
                    dict(D=128, M=128, n_bad=3), dict(D=19, M=2, n_bad=0)):
             lerrs["K15"] = max(lerrs["K15"], check_k15(k15_seeded(rng, dev, **kw)))
+        for D, M in K15_SIZES:
+            lerrs["K15"] = max(lerrs["K15"], check_k15(k15_seeded(rng, dev, D=D, M=M, n_bad=min(2, max(0, (D - 13) // 6)))))
+        n15 = 0
+        for _label, args in k15_nonfinite(rng, dev):
+            lerrs["K15"] = max(lerrs["K15"], check_k15(args))
+            n15 += 1
         a15, k3_res = k15_from_k3(a3[:-1], uc)
         lerrs["K15"] = max(lerrs["K15"], check_k15(a15))
         k15_res = ekf_update.joint_update_dense(*a15)
@@ -2514,9 +2596,13 @@ def main() -> int:
         for wr in (16, p.particle_win_radius):
             lerrs["K16"] = max(lerrs["K16"], check_k16(k16_seeded(rng, p, dev), dict(
                 win_radius=wr, no_sigma=p.no_sigma, corr_thresh2=p.corr_thresh2)))
+        more16 = k16_more(rng, p, dev)
+        for _label, args, kw in more16:
+            lerrs["K16"] = max(lerrs["K16"], check_k16(args, kw))
         log(f"[2b] K10b (NP 100, 200, degenerate depths), K15 (D = 109 and 128 x M = 128, any_succ false, "
-            f"a NaN in a deleted slot) and K16 (centres off the frame, NaN centre and S^-1, an indefinite "
-            f"S^-1, dead particles, a tie, a NaN score) equal their plain versions on seeded cases, K15 also "
+            f"a NaN in a deleted slot; (D, M) = {list(K15_SIZES)}; {n15} placements of NaN, inf and -inf) and "
+            f"K16 (centres off the frame, NaN centre and S^-1, an indefinite S^-1, dead particles, a tie, a "
+            f"NaN score; {[lb for lb, _a, _k in more16]}) equal their plain versions on seeded cases, K15 also "
             f"on frame 120 (max abs err {json.dumps(lerrs)}); K15 on the XLA branch's H, nu, R of frame 120 "
             f"equals K3 bit for bit (max abs err {k15_vs_k3})")
         last = {"K15": dict(
@@ -3029,7 +3115,7 @@ def main() -> int:
     for short, name, src, rep, key in (
         ("K1", "K1 predict_measure", "predict_measure.cu", "pallas_predict_measure.py:375", "predict_measure"),
         ("K2", "K2 search", "search.cu", "pallas_search.py:476", "search"),
-        ("K3", "K3 ekf_update", "ekf_update.cu", "pallas_ekf.py:446", "ekf_update"),
+        ("K3", "K3 ekf_update", "ekf_update.cu (+ update_cluster.cuh)", "pallas_ekf.py:446", "ekf_update"),
         ("K4", "K4 search_bayes", "search_bayes.cu", "pallas_search_bayes.py:638", "search_bayes"),
         ("K5", "K5 propose", "propose.cu", "pallas_propose.py:306", "propose"),
         ("K6", "K6 shi_tomasi", "shi_tomasi.cu", "pallas_shi_tomasi.py:211", "shi_tomasi"),
@@ -3070,7 +3156,7 @@ def main() -> int:
         ("K1", "hires", "K1 predict_measure (hires, D=373)", "predict_measure.cu",
          "pallas_predict_measure.py:375"),
         ("K2", "hires", "K2 search (hires, 107 x 107 windows)", "search.cu", "pallas_search.py:476"),
-        ("K3", "hires", "K3 ekf_update (hires, D=373)", "ekf_update.cu", "pallas_ekf.py:446"),
+        ("K3", "hires", "K3 ekf_update (hires, D=373)", "ekf_update.cu (+ update_cluster.cuh)", "pallas_ekf.py:446"),
         ("K4", "hires", "K4 search_bayes (hires, 200 particles)", "search_bayes.cu",
          "pallas_search_bayes.py:638"),
     ):
@@ -3103,7 +3189,7 @@ def main() -> int:
     for short, name, src, rep_, key in (
         ("K10b", "K10b particle_kform", "particle_kform.cu (+ particle_chain.cuh)", "pallas_particle.py:197",
          "particle_kform"),
-        ("K15", "K15 ekf_update_dense", "ekf_update_dense.cu (+ update_tail.cuh)", "pallas_ekf.py:150",
+        ("K15", "K15 ekf_update_dense", "ekf_update_dense.cu (+ update_cluster.cuh)", "pallas_ekf.py:150",
          "ekf_update_dense"),
         ("K16", "K16 multi_ellipse", "multi_ellipse.cu", "pallas_search.py:618", "multi_ellipse"),
     ):

@@ -11,7 +11,7 @@
 // Bound on an H100: P in and out (0.1 MB at D = 109, 1.1 MB at D = 373) and
 // D^2 M multiply-adds (2.8 M at D = 373, M = 20): under a microsecond. What
 // costs is latency: the 2M dependent factorisation / substitution steps and
-// the launch. Design: ONE launch, a thread-block cluster of K3_CLUSTER CTAs
+// the launch. Design: ONE launch, a thread-block cluster of UC_CLUSTER CTAs
 // of 512 threads, three phases:
 //   1. CTA 0, the O(D M^2 + M^3) prefix: H (never formed: 10 non-zeros a
 //      row, read from K1's selected columns), nu, R; P H' at the 7 + 3 NSEL
@@ -20,46 +20,33 @@
 //      CHOL_REG_M; the whole block at any other M), the chain of M dependent
 //      steps that sets this phase's length, while the other 15 warps gather
 //      the 7 + 3 NSEL columns of P that H reads and form P H' at every row;
-//      S^-1; W = P H' S^-1; x'; W S;
-//      the strips of P' = P - (W S) W' in rows and columns 3..6 and from
-//      them the quaternion-norm transform's columns (cols) and rows (rowsb).
-//      D x M arrays are kept transposed ([m][d]) so that lanes read
-//      consecutive words. CTA 1, meanwhile: the bookkeeping and the kill
-//      mask. Both publish what the others need (W', (W S)', cols, rowsb, the
-//      keep factors, the any-match flag) to a global workspace that the
-//      wrapper allocates.
+//      then update_cluster.cuh's uc_from_linv: S^-1; W = P H' S^-1; x';
+//      W S; the strips of P' = P - (W S) W' in rows and columns 3..6 and
+//      from them the quaternion-norm transform's columns (cols) and rows
+//      (rowsb). CTA 1, meanwhile: the bookkeeping and the kill mask. Both
+//      publish what the others need (W', (W S)', cols, rowsb, the keep
+//      factors, the any-match flag) to a global workspace that the wrapper
+//      allocates.
 //   2. cluster.sync() (release / acquire at cluster scope); every CTA copies
-//      the workspace into its shared memory (L2 reads: one SM serving seven
-//      readers over distributed shared memory would be slower).
-//   3. Every CTA takes every K3_CLUSTER-th 64 x 64 tile (I <= J) of the upper
-//      triangle of P. It stages P[I][J] and P[J][I] in padded shared memory
-//      (coalesced both ways), forms each P'[i][j] and P'[j][i] with the same
-//      left-to-right sum over m (each thread 4 rows i x 2 columns j, lane
-//      and lane + 32: per m, 4 conflict-free words of W' and (W S)' at j and
-//      two broadcast float4 at i for 16 products each way), overwrites rows and columns 3..6 from rowsb / cols,
-//      applies the keep mask and writes both halves of P/2 + P'/2 back
-//      through the staged tiles. No transposed global read-back. Each
-//      thread's entries of its next tile are loaded into registers while
-//      the current one is formed (the first from the kernel's start).
+//      the workspace into its shared memory (uc_copy_in).
+//   3. Every CTA takes every UC_CLUSTER-th 64 x 64 tile (I <= J) of the upper
+//      triangle of P (uc_tiles<64, UC_SYM>: each thread 4 rows i x 2
+//      columns j, lane and lane + 32; per m, 4 conflict-free words of W' and
+//      (W S)' at j and two broadcast float4 at i for 16 products each way)
+//      and writes both halves of P/2 + P'/2. K15 (ekf_update_dense.cu) runs
+//      phases 2 and 3 and uc_from_linv as well.
 // With no match at all, P passes through untransformed, as before. Labels
 // are ranked as int32 (the TPU kernel ranked them as f32).
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "chol_linv.cuh"
-
-namespace cg = cooperative_groups;
+#include "update_cluster.cuh"
 
 #define CAM_DIM 13
 #define SLOT_DIM 6
 #define MAX_M 64
 #define MAX_MF 256
-#define K3_THREADS 512
-#define K3_CLUSTER 8   // portable cluster size
-#define K3_T 64        // tile side
-#define K3_TP 65       // padded pitch of a staged tile
-#define K3_RPT 4       // tile rows a thread: K3_T / (K3_THREADS / 32); its columns: lane, lane + 32
+#define K3_T 64        // tile side: a thread 4 rows x 2 columns (UcTile<64>)
 
 // measure.py row layout
 #define O_H 0
@@ -96,7 +83,7 @@ __host__ __device__ inline K3Layout k3_layout(int D, int M) {
   L.n_ws = o + 4;
   L.xu = o; o += L.Dp;
   L.R = o;
-  const int tiles = 2 * K3_T * K3_TP;
+  const int tiles = 2 * K3_T * UcTile<K3_T>::TP;
   o += M * L.Dp > tiles ? M * L.Dp : tiles;
   L.S = o; o += M * L.Mp;
   L.Sinv = o; o += M * L.Mp;
@@ -108,59 +95,7 @@ __host__ __device__ inline K3Layout k3_layout(int D, int M) {
   return L;
 }
 
-// tile t (I <= J, row-major over the upper triangle of nT x nT tiles)
-__device__ __forceinline__ void k3_tile(int t, int nT, int* I, int* J) {
-  int i = 0;
-  while (t >= nT - i) {
-    t -= nT - i;
-    ++i;
-  }
-  *I = i;
-  *J = i + t;
-}
-
-// this thread's entries of tile t: pa[rr][cc] = P[I0 + r0 + rr][J0 + lane
-// + 32 cc] and (off the diagonal) pb[rr][cc] = P[J0 + r0 + rr][I0 + lane +
-// 32 cc], 0 outside P
-__device__ __forceinline__ void k3_fetch(const float* __restrict__ P, int D, int nT, int t, int r0, int lane,
-                                         float pa[K3_RPT][2], float pb[K3_RPT][2]) {
-  int I, J;
-  k3_tile(t, nT, &I, &J);
-  const int I0 = I * K3_T, J0 = J * K3_T;
-#pragma unroll
-  for (int rr = 0; rr < K3_RPT; ++rr) {
-#pragma unroll
-    for (int cc = 0; cc < 2; ++cc) {
-      const int r = r0 + rr, c = lane + 32 * cc;
-      pa[rr][cc] = (I0 + r < D && J0 + c < D) ? P[(size_t)(I0 + r) * D + J0 + c] : 0.0f;
-      pb[rr][cc] = (I != J && J0 + r < D && I0 + c < D) ? P[(size_t)(J0 + r) * D + I0 + c] : 0.0f;
-    }
-  }
-}
-
-// out'[n][d] = sum_m in'[m][d] mat[m][n], m ascending (in' and out' are
-// [M][Dp], D x M matrices stored transposed; mat is [M][Mp]), into shared
-// memory and the workspace, 0 past D: a thread four columns n of a row d
-__device__ inline void k3_right_product(const float* in, const float* mat, float* out, float* out_ws, int D,
-                                        int Dp, int M, int Mp) {
-  for (int e = threadIdx.x; e < (Mp / 4) * Dp; e += blockDim.x) {
-    const int n0 = 4 * (e / Dp), d = e - (e / Dp) * Dp;
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (d < D) {
-      for (int m = 0; m < M; ++m) {
-        const float v = in[m * Dp + d];
-        const float4 s4 = *reinterpret_cast<const float4*>(mat + m * Mp + n0);
-        acc[0] = m == 0 ? v * s4.x : acc[0] + v * s4.x;
-        acc[1] = m == 0 ? v * s4.y : acc[1] + v * s4.y;
-        acc[2] = m == 0 ? v * s4.z : acc[2] + v * s4.z;
-        acc[3] = m == 0 ? v * s4.w : acc[3] + v * s4.w;
-      }
-    }
-    for (int q = 0; q < 4 && n0 + q < M; ++q) out[(n0 + q) * Dp + d] = out_ws[(n0 + q) * Dp + d] = acc[q];
-  }
-}
-
-__global__ void __launch_bounds__(K3_THREADS)
+__global__ void __launch_bounds__(UC_THREADS)
 k3_kernel(const float* __restrict__ x, const float* __restrict__ P, const float* __restrict__ sel,
           const float* __restrict__ z, const uint8_t* __restrict__ succ,
           const int* __restrict__ offs, const int* __restrict__ attempts,
@@ -178,16 +113,15 @@ k3_kernel(const float* __restrict__ x, const float* __restrict__ P, const float*
   const K3Layout L = k3_layout(D, M);
   const int Dp = L.Dp, Mp = L.Mp;
   float* Wt = dyn + L.Wt;
-  float* WSt = dyn + L.WSt;
-  float* cols = dyn + L.cols;
-  float* rowsb = dyn + L.rowsb;
   float* keep = dyn + L.keep;
   const int tid = threadIdx.x, nt = blockDim.x;
   // phase 3's first tile of P, in flight from the start (P is an input)
+  using Tile = UcTile<K3_T>;
   const int nT = Dp / K3_T, n_tiles = nT * (nT + 1) / 2;
-  const int lane = tid & 31, r0 = K3_RPT * (tid >> 5);  // lanes: columns; a warp: K3_RPT rows
-  float pa[K3_RPT][2] = {}, pb[K3_RPT][2] = {};
-  if (rank < n_tiles) k3_fetch(P, D, nT, rank, r0, lane, pa, pb);
+  const int lane = tid & 31, r0 = Tile::RPT * (tid >> 5);  // lanes: columns; a warp: Tile::RPT rows
+  float pa[Tile::RPT][Tile::CPT] = {}, pb[Tile::RPT][Tile::CPT] = {};
+  if (rank < n_tiles) uc_fetch<K3_T>(P, D, nT, rank, r0, lane, pa, pb);
+  UPD_MARK(0, 0);
 
   if (rank == 0) {
     // ================= phase 1, CTA 0: the update's prefix
@@ -217,6 +151,7 @@ k3_kernel(const float* __restrict__ x, const float* __restrict__ P, const float*
       ws[L.flag] = a ? 1.0f : 0.0f;
     }
     __syncthreads();
+    UPD_MARK(1, 0);
     if (any_s) {
       // the state dims H reads, in its order: 0..6, then each selection's
       // slot offs[k] .. offs[k] + 2 (a row index of P as well as a column)
@@ -235,6 +170,7 @@ k3_kernel(const float* __restrict__ x, const float* __restrict__ P, const float*
         PHs[e] = acc;
       }
       __syncthreads();
+      UPD_MARK(2, 0);
       // ---- S = H P H' + R (lanes along m)
       for (int e = tid; e < M * Mp; e += nt) {
         const int n = e / M, m = e - n * M;
@@ -252,6 +188,7 @@ k3_kernel(const float* __restrict__ x, const float* __restrict__ P, const float*
         U[m * M + n] = 0.0f;
       }
       __syncthreads();
+      UPD_MARK(3, 0);
       // ---- X = L^-1 (chol_linv.cuh) on warp 0 where M has the register
       // form (the build's CHOL_REG_M) while the other warps gather the
       // columns of P that H reads into Pc [NC][Dp + 1] (a thread a row, 16
@@ -262,6 +199,7 @@ k3_kernel(const float* __restrict__ x, const float* __restrict__ P, const float*
       const bool split = chol_linv_reg_sized(M);
       if (split && tid < 32) {
         chol_linv_reg_any(A, X, M);
+        UPD_MARK(4, 0);
       } else {
         const int t0 = split ? tid - 32 : tid, n0 = split ? nt - 32 : nt;
         float* Pc = Wt;
@@ -293,89 +231,15 @@ k3_kernel(const float* __restrict__ x, const float* __restrict__ P, const float*
           }
           PHt[e] = acc;
         }
+        UPD_MARK(5, 32);
       }
       __syncthreads();
+      UPD_MARK(6, 0);
       if (!split) {
         chol_linv_block(A, U, X, M);
         __syncthreads();
       }
-      // ---- S^-1 = L^-T L^-1
-      for (int e = tid; e < M * Mp; e += nt) {
-        const int i = e / Mp, j = e - i * Mp;
-        float acc = 0.0f;
-        if (j < M) {
-          acc = X[i] * X[j];
-          for (int k = 1; k < M; ++k) acc = acc + X[k * M + i] * X[k * M + j];
-        }
-        Sinv[e] = acc;
-      }
-      __syncthreads();
-      // ---- W = P H' S^-1
-      k3_right_product(PHt, Sinv, Wt, ws + L.Wt, D, Dp, M, Mp);
-      __syncthreads();
-      // ---- x' = x + W nu;  W S
-      for (int d = tid; d < D; d += nt) {
-        float acc = nu[0] * Wt[d];
-        for (int m = 1; m < M; ++m) acc = acc + nu[m] * Wt[m * Dp + d];
-        xu[d] = x[d] + acc;
-      }
-      k3_right_product(Wt, S, WSt, ws + L.WSt, D, Dp, M, Mp);
-      __syncthreads();
-      // ---- the quaternion-norm Jacobian with the qq=|q|^2 quirk
-      const float q[4] = {xu[3], xu[4], xu[5], xu[6]};
-      const float qq = q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3];
-      float J[4][4];
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c)
-          J[r][c] = r == c ? (1.0f - q[c] * q[c] / (qq * qq)) / qq : -(q[r] * q[c]) / (qq * qq * qq);
-      // ---- the strips of P': row d's columns 3..6 (cs), whose transform
-      // cols[d] = P'[d][3..6] J' is final, and column d's rows 3..6, parked
-      // in rowsb[.][d] until every row of cols is in
-      for (int d = tid; d < Dp; d += nt) {
-        float cs[4] = {0.0f, 0.0f, 0.0f, 0.0f}, r4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (d < D) {
-          for (int k = 0; k < 4; ++k) {
-            cs[k] = WSt[d] * Wt[3 + k];
-            r4[k] = WSt[3 + k] * Wt[d];
-          }
-          for (int m = 1; m < M; ++m) {
-            const float wsd = WSt[m * Dp + d], wd = Wt[m * Dp + d];
-            for (int k = 0; k < 4; ++k) {
-              cs[k] = cs[k] + wsd * Wt[m * Dp + 3 + k];
-              r4[k] = r4[k] + WSt[m * Dp + 3 + k] * wd;
-            }
-          }
-          for (int k = 0; k < 4; ++k) {
-            cs[k] = P[(size_t)d * D + 3 + k] - cs[k];
-            r4[k] = P[(size_t)(3 + k) * D + d] - r4[k];
-          }
-        }
-        float4 c4;
-        float* cv = &c4.x;
-        for (int c = 0; c < 4; ++c) {
-          float acc = cs[0] * J[c][0];
-          for (int k = 1; k < 4; ++k) acc = acc + cs[k] * J[c][k];
-          cv[c] = acc;
-        }
-        *reinterpret_cast<float4*>(cols + 4 * d) = c4;
-        *reinterpret_cast<float4*>(ws + L.cols + 4 * d) = c4;
-        for (int k = 0; k < 4; ++k) rowsb[k * Dp + d] = r4[k];
-      }
-      __syncthreads();
-      // ---- rowsb[r][d] = J[r] . (P' with columns 3..6 replaced by cols)[3..6][d]
-      for (int d = tid; d < Dp; d += nt) {
-        float pt[4];
-        for (int k = 0; k < 4; ++k) pt[k] = (d >= 3 && d < 7) ? cols[(3 + k) * 4 + (d - 3)] : rowsb[k * Dp + d];
-        for (int r = 0; r < 4; ++r) {
-          float acc = 0.0f;
-          for (int k = 0; k < 4; ++k) {
-            const float t = J[r][k] * pt[k];
-            acc = k == 0 ? t : acc + t;
-          }
-          rowsb[r * Dp + d] = acc;  // column d is this thread's alone
-          ws[L.rowsb + r * Dp + d] = acc;
-        }
-      }
+      uc_from_linv(x, P, nu, S, X, Sinv, PHt, dyn, xu, ws, D, Dp, M, Mp);
     } else {
       // no match at all: the prior passes through
       for (int d = tid; d < D; d += nt) xu[d] = x[d];
@@ -434,92 +298,19 @@ k3_kernel(const float* __restrict__ x, const float* __restrict__ P, const float*
 
   // ================= phase 2: publish (cluster barrier), then copy in
   cluster.sync();
+  UPD_MARK(12, 0);
   const bool any = __ldcg(ws + L.flag) != 0.0f;
   for (int d = tid; d < Dp; d += nt) keep[d] = __ldcg(ws + L.keep + d);
-  if (rank != 0 && any) {
-    // W', (W S)', cols, rowsb: contiguous in the workspace and in shared memory
-    const float4* src = reinterpret_cast<const float4*>(ws);
-#pragma unroll 8
-    for (int e = tid; e < (L.keep - L.Wt) / 4; e += nt) dyn4[e] = __ldcg(src + e);
-  }
+  // W', (W S)', cols, rowsb: contiguous in the workspace and in shared memory
+  if (rank != 0 && any) uc_copy_in(dyn4, ws, L.keep - L.Wt);
   __syncthreads();
+  UPD_MARK(13, 0);
   if (rank == 0)
     for (int d = tid; d < D; d += nt) xo[d] = dyn[L.xu + d] * keep[d];
 
   // ================= phase 3: the upper-triangle tiles of P/2 + P'/2
-  float* Pa = dyn + L.R;               // P[I0 + r][J0 + c] at r * K3_TP + c
-  float* Pb = Pa + K3_T * K3_TP;       // P[J0 + r][I0 + c]
-  for (int t = rank; t < n_tiles; t += K3_CLUSTER) {
-    int I, J;
-    k3_tile(t, nT, &I, &J);
-    const int I0 = I * K3_T, J0 = J * K3_T;
-    const bool diag = I == J;
-    for (int rr = 0; rr < K3_RPT; ++rr)
-      for (int cc = 0; cc < 2; ++cc) {
-        Pa[(r0 + rr) * K3_TP + lane + 32 * cc] = pa[rr][cc];
-        Pb[(r0 + rr) * K3_TP + lane + 32 * cc] = pb[rr][cc];
-      }
-    __syncthreads();
-    // the next tile's loads fly while this one is formed
-    if (t + K3_CLUSTER < n_tiles) k3_fetch(P, D, nT, t + K3_CLUSTER, r0, lane, pa, pb);
-    // P'[i][j] = P[i][j] - sum_m WS[i][m] W[j][m], m ascending, and P'[j][i]:
-    // rows i = I0 + r0 + rr, columns j = J0 + lane + 32 cc
-    float aij[K3_RPT][2] = {}, aji[K3_RPT][2] = {};
-    if (any) {
-      for (int m = 0; m < M; ++m) {
-        const float* wm = Wt + m * Dp;
-        const float* sm = WSt + m * Dp;
-        const float wj[2] = {wm[J0 + lane], wm[J0 + lane + 32]};
-        const float wsj[2] = {sm[J0 + lane], sm[J0 + lane + 32]};
-        const float4 wi4 = *reinterpret_cast<const float4*>(wm + I0 + r0);
-        const float4 wsi4 = *reinterpret_cast<const float4*>(sm + I0 + r0);
-        const float wi[4] = {wi4.x, wi4.y, wi4.z, wi4.w};
-        const float wsi[4] = {wsi4.x, wsi4.y, wsi4.z, wsi4.w};
-#pragma unroll
-        for (int rr = 0; rr < K3_RPT; ++rr)
-#pragma unroll
-          for (int cc = 0; cc < 2; ++cc) {
-            aij[rr][cc] = m == 0 ? wsi[rr] * wj[cc] : aij[rr][cc] + wsi[rr] * wj[cc];
-            aji[rr][cc] = m == 0 ? wsj[cc] * wi[rr] : aji[rr][cc] + wsj[cc] * wi[rr];
-          }
-      }
-    }
-    float oij[K3_RPT][2], oji[K3_RPT][2];
-    for (int rr = 0; rr < K3_RPT; ++rr)
-      for (int cc = 0; cc < 2; ++cc) {
-        const int i = I0 + r0 + rr, c = lane + 32 * cc, j = J0 + c;
-        float pij = Pa[(r0 + rr) * K3_TP + c];
-        float pji = diag ? Pa[c * K3_TP + r0 + rr] : Pb[c * K3_TP + r0 + rr];
-        if (any) {
-          // the transform: rows 3..6 from rowsb, else columns 3..6 from cols
-          pij = (i >= 3 && i < 7)   ? rowsb[(i - 3) * Dp + j]
-                : (j >= 3 && j < 7) ? cols[4 * i + (j - 3)]
-                                    : pij - aij[rr][cc];
-          pji = (j >= 3 && j < 7)   ? rowsb[(j - 3) * Dp + i]
-                : (i >= 3 && i < 7) ? cols[4 * j + (i - 3)]
-                                    : pji - aji[rr][cc];
-        }
-        const float k2 = keep[i] * keep[j];
-        const float a = pij * k2, b = pji * k2;
-        oij[rr][cc] = a * 0.5f + b * 0.5f;
-        oji[rr][cc] = b * 0.5f + a * 0.5f;
-      }
-    __syncthreads();
-    for (int rr = 0; rr < K3_RPT; ++rr)
-      for (int cc = 0; cc < 2; ++cc) {
-        const int c = lane + 32 * cc;
-        Pa[(r0 + rr) * K3_TP + c] = oij[rr][cc];
-        if (!diag) Pb[c * K3_TP + r0 + rr] = oji[rr][cc];
-      }
-    __syncthreads();
-    for (int rr = 0; rr < K3_RPT; ++rr)
-      for (int cc = 0; cc < 2; ++cc) {
-        const int r = r0 + rr, c = lane + 32 * cc;
-        if (I0 + r < D && J0 + c < D) Po[(size_t)(I0 + r) * D + J0 + c] = Pa[r * K3_TP + c];
-        if (!diag && J0 + r < D && I0 + c < D) Po[(size_t)(J0 + r) * D + I0 + c] = Pb[r * K3_TP + c];
-      }
-    __syncthreads();
-  }
+  uc_tiles<K3_T, UC_SYM>(P, Po, D, Dp, M, any, dyn, keep, dyn + L.R, rank, pa, pb, nullptr);
+  UPD_MARK(14, 0);
 }
 
 // floats of the workspace a call needs (ekf_update.py::workspace_floats)
@@ -541,13 +332,13 @@ extern "C" int k3_joint_update(const float* x, const float* P, const float* sel,
   cudaError_t e = cudaFuncSetAttribute(k3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(K3_CLUSTER, 1, 1);
-  cfg.blockDim = dim3(K3_THREADS, 1, 1);
+  cfg.gridDim = dim3(UC_CLUSTER, 1, 1);
+  cfg.blockDim = dim3(UC_THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = K3_CLUSTER;
+  attr[0].val.clusterDim.x = UC_CLUSTER;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;

@@ -29,7 +29,8 @@ build whose M is fixed when compiled, chol_inv.reg_defines) up to W, W S, x' and
 rows and columns 3..6; CTA 1 the bookkeeping; both publish to a global
 workspace that the wrapper allocates; after the cluster barrier every CTA
 forms its share of the 64 x 64 tiles of the upper triangle, both halves of
-P/2 + P'/2 at once.
+P/2 + P'/2 at once. The phases from L^-1 on are csrc/update_cluster.cuh,
+which K15 shares.
 
 K15 (joint_update_dense) replaces the TPU kernel's non-compact sibling,
 pallas_ekf.py::pallas_joint_update_norm (pallas_call at pallas_ekf.py:150,
@@ -37,15 +38,20 @@ kernel :39-114), which no step route reaches (the JAX step calls it only
 when fused_update holds without fast_kpath, and fused_update implies
 fast_kpath): H [M, D], nu [M] and R [M, M] come in dense, S = H P H' + R
 sums over every state dimension, the update from S on is the one K3's twin
-runs (update_tail; in the kernel csrc/update_tail.cuh), then the any-success select, the keep
-mask as a multiply (a NaN in a deleted row stays NaN) and P/2 + P'/2, with
-P' formed as the TPU kernel forms it, a product by the identity (a
-non-finite entry spreads NaN along its row of P'). Bound
-on an H100 at D = 109, M = 20: ~0.1 MB in and out and ~2 MFLOP, a
-microsecond at most. Design (csrc/ekf_update_dense.cu): one block of 512
-threads; the D x M and M x M intermediates in a global workspace that the
-wrapper allocates (at D = M = 128 they would need 512 KB), each step one
-block-wide pass.
+runs (update_tail), then the any-success select, the keep mask as a
+multiply (a NaN in a deleted row stays NaN) and P/2 + P'/2, with P' formed
+as the TPU kernel forms it, a product by the identity (a non-finite entry
+spreads NaN along its row of P'). Bound on an H100 at D = 109, M = 20:
+~0.1 MB in and out and ~2 MFLOP, a microsecond at most. Design
+(csrc/ekf_update_dense.cu): K3's cluster of 8 CTAs and its phases from L^-1
+on (update_cluster.cuh); each CTA stages its rows of P and H' in shared
+memory and forms the dense P H' at those rows into CTA 0's shared memory;
+CTA 0 forms S and factorises in one warp's registers at M <= 32 (a build
+for each M, reg_defines); the CTAs form 32 x 32 tiles and count each
+column's non-finite entries, and only where a count is not zero form them
+again with the TPU kernel's transposition rule, after another cluster
+barrier. At large M (D = M = 128) the M x M arrays move from shared memory
+to the workspace (the form is picked at launch).
 """
 
 from __future__ import annotations
@@ -113,8 +119,8 @@ def bookkeeping(attempts, successes, sched, active, label, sel_mask, succ, top_i
 
 
 def update_tail(x, P, PHt, S, nu):
-    """The update from S on, shared by the twins of K3 and K15 (K15's kernel
-    runs it as csrc/update_tail.cuh, K3's as its cluster's phases):
+    """The update from S on, shared by the twins of K3 and K15 (the kernels
+    run it as their cluster's phases, csrc/update_cluster.cuh):
     L^-1 of S (chol_linv), S^-1 = L^-T L^-1, W = P H' S^-1, x' = x + W nu,
     P' = P - (W S) W', then P' transformed by the quaternion-norm Jacobian
     with the qq=|q|^2 quirk (pallas_ekf.py:68-90). PHt [D, M] = P H', S
@@ -269,10 +275,15 @@ def transpose_by_identity(A: torch.Tensor) -> torch.Tensor:
 _ARGTYPES_DENSE = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
+@functools.lru_cache(maxsize=None)
 def dense_workspace_floats(D: int, M: int) -> int:
-    """Floats of K15's workspace: P H', W, W S [D, M]; the transform's
-    columns and rows [D, 4], [4, D]; x' [D]; S, A, U, L^-1, S^-1 [M, M]."""
-    return 3 * D * M + 8 * D + D + 5 * M * M
+    """Floats of K15's workspace (csrc/ekf_update_dense.cu::k15_layout):
+    the published W', (W S)' [M][Dp], the transform's columns and rows
+    [Dp][4], [4][Dp], each column's non-finite count [Dp] and, for the form
+    with the M x M arrays out of shared memory, S, S^-1, A, U, L^-1; Dp = D
+    rounded up to 32."""
+    fn = _build.function(NAME_DENSE, "k15_workspace_floats", [ctypes.c_int, ctypes.c_int], reg_defines(M))
+    return int(fn(D, M))
 
 
 def joint_update_dense(x, P, H, nu, R, any_succ, keep_dims):
@@ -293,7 +304,7 @@ def joint_update_dense(x, P, H, nu, R, any_succ, keep_dims):
     xo = torch.empty_like(ins[0])
     Po = torch.empty_like(ins[1])
     ws = torch.empty(dense_workspace_floats(D, M), dtype=f32, device=x.device)
-    fn = _build.function(NAME_DENSE, "k15_joint_update_dense", _ARGTYPES_DENSE)
+    fn = _build.function(NAME_DENSE, "k15_joint_update_dense", _ARGTYPES_DENSE, reg_defines(M))
     err = fn(*(t.data_ptr() for t in ins), xo.data_ptr(), Po.data_ptr(), ws.data_ptr(), D, M,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "K15 joint_update_dense")

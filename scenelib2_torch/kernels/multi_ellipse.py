@@ -33,14 +33,19 @@ SearchMultipleOverlappingEllipses, search_multiple_overlapping_ellipses.cpp:
 Dead particles are searched too (only found and overflow are gated by
 alive), where K13 gives them no key.
 
-Bound on an H100: the map cells under the particles' searched windows read
-once (each slot's union), ~12 operations per cell of each particle's window
-(the box and ellipse tests and the comparison): microseconds at most.
-Design (csrc/multi_ellipse.cu): one warp per particle, eight particles a
-block, a grid of (slot, particle group); the lanes stride over the
-particle's window-in-band cells in the map in global memory (the windows
-of a cloud overlap, so L1 / L2 serve most reads), then one warp reduction
-(the minimum, then the largest key; NaN propagates as jnp.min does).
+Bound on an H100: the map cells under the particles' searched rectangles
+read once (each slot's union) and ~12 operations per cell of each
+particle's rectangle (the box and ellipse tests and the comparison):
+microseconds at most. Design (csrc/multi_ellipse.cu, K13's with K16's
+rules): the wrapper checks, allocates the outputs and launches once with
+the inputs as they are; the kernel computes each particle's geometry,
+ctas_a_slot CTAs of THREADS threads a slot stage the read box (the bounding box
+of every particle's rectangle, dead particles' included) where it fits and
+take every cluster-th particle, a warp a particle walking its rectangle
+(window, band and u < W, cut by the 3-sigma box only where the cut is
+exact) row by row, one 64-bit key a cell, and write found, u, v and
+overflow. particle_rows, geometry and _outputs stay as the plain version's
+code; work_counts and bytes_and_flops count the bound.
 """
 
 from __future__ import annotations
@@ -51,9 +56,9 @@ import torch
 
 from scenelib2_torch.kernels import _build
 from scenelib2_torch.kernels.correlate import MISS, ellipse_mask, window_search, wrap_i32, xla_i32
-
+from scenelib2_torch.kernels.search_bayes import cluster_size
 NAME = "multi_ellipse"
-N_PAR = 6   # uc, vc, a, b, c, alive: the TPU kernel's per-particle row
+THREADS = 512   # a CTA's threads (csrc/multi_ellipse.cu: 32 to 1,024)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -98,6 +103,15 @@ def geometry(rows, win_radius: int, no_sigma: float, H: int, W: int) -> dict:
                 va=torch.clamp(v0 // 8 * 8, max=pad_h - band_v))
 
 
+def ctas_a_slot(n_slots: int, n_sms: int) -> int:
+    """CTAs that share one slot's particles (a plain grid):
+    search_bayes.cluster_size's rule with two CTAs of THREADS an SM, 4 over
+    64 slots, 8 over 16 (PERF.md section 6: of 256, 512 and 1,024
+    threads x 1-8 CTAs a slot these were the fastest at 64 x 100 and 16 x
+    200 particles)."""
+    return cluster_size(n_slots, 2 * n_sms)
+
+
 def _outputs(best, key, over, alive, H: int, corr_thresh2: float):
     key = key.to(torch.int64)
     found = alive & (best <= corr_thresh2)
@@ -137,42 +151,55 @@ def multi_ellipse_search_plain(corr_maps, h_centres, sinv, alive, win_radius: in
 
 
 class _K16Params(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_int) for n in ("H", "W", "P", "side_u", "side_v", "pad_h", "pad_w", "band_v")]
-                + [("no_sigma", ctypes.c_float), ("no_sigma2", ctypes.c_float)])
+    _fields_ = ([(n, ctypes.c_int) for n in ("H", "W", "P", "side_u", "side_v", "pad_h", "pad_w", "band_v",
+                                             "threads", "cluster", "stage")]
+                + [(n, ctypes.c_float) for n in ("no_sigma", "no_sigma2", "corr_thresh2")])
 
 
-# tensor pointers (maps, rows, best, key, over), the slots, the params struct, the stream
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.POINTER(_K16Params), ctypes.c_void_p]
+# tensor pointers (maps, h_centres, sinv, alive; found, u, v, over), the
+# slots, the params struct, the stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.POINTER(_K16Params), ctypes.c_void_p]
 
 
 def multi_ellipse_search(corr_maps, h_centres, sinv, alive, win_radius: int = 16, no_sigma: float = 3.0,
                          corr_thresh2: float = 0.40):
     """K16, with pallas_multi_ellipse_search's arguments in its order and
     its defaults. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (or raise). Same outputs as multi_ellipse_search_plain; one
-    launch for all slots."""
+    the kernel (or raise). Same outputs as multi_ellipse_search_plain: one
+    launch for all slots and, on f32 inputs, no other tensor operation
+    (other float types are converted first, h truncated before, as the TPU
+    wrapper's rows take it)."""
     if corr_maps.device.type == "cpu":
         return multi_ellipse_search_plain(corr_maps, h_centres, sinv, alive, win_radius, no_sigma,
                                           corr_thresh2)
     Fn, H, W = corr_maps.shape
     P = alive.shape[-1]
     side_u, side_v, pad_h, pad_w, band_v = band_shape(win_radius, H, W)
-    maps = corr_maps.to(torch.float32).contiguous()
-    rows = particle_rows(h_centres, sinv, alive).contiguous()
-    _build.check_tensor(maps, "corr_maps", torch.float32, (Fn, H, W))
-    _build.check_tensor(rows, "particle rows", torch.float32, (Fn, P, N_PAR))
+    f32 = torch.float32
+    if corr_maps.dtype != f32:
+        corr_maps = corr_maps.to(f32)
+    if h_centres.dtype != f32:
+        h_centres = torch.trunc(h_centres).to(f32)
+    if sinv.dtype != f32:
+        sinv = sinv.to(f32)
+    corr_maps, h_centres, sinv, alive = (t.contiguous() for t in (corr_maps, h_centres, sinv, alive))
+    for t, name, dty, shp in ((corr_maps, "corr_maps", f32, (Fn, H, W)), (h_centres, "h_centres", f32, (Fn, P, 2)),
+                              (sinv, "sinv", f32, (Fn, P, 2, 2)), (alive, "alive", torch.bool, (Fn, P))):
+        _build.check_tensor(t, name, dty, shp)
     dev = corr_maps.device
-    best = torch.empty((Fn, P), dtype=torch.float32, device=dev)
-    key = torch.empty((Fn, P), dtype=torch.int32, device=dev)
+    found = torch.empty((Fn, P), dtype=torch.bool, device=dev)
+    u = torch.empty((Fn, P), dtype=torch.int32, device=dev)
+    v = torch.empty((Fn, P), dtype=torch.int32, device=dev)
     over = torch.empty((Fn, P), dtype=torch.bool, device=dev)
-    prm = _K16Params(H=H, W=W, P=P, side_u=side_u, side_v=side_v, pad_h=pad_h, pad_w=pad_w, band_v=band_v,
-                     no_sigma=no_sigma, no_sigma2=no_sigma * no_sigma)
     fn = _build.function(NAME, "k16_multi_ellipse", _ARGTYPES)
-    err = fn(maps.data_ptr(), rows.data_ptr(), best.data_ptr(), key.data_ptr(), over.data_ptr(), Fn,
+    prm = _K16Params(H=H, W=W, P=P, side_u=side_u, side_v=side_v, pad_h=pad_h, pad_w=pad_w, band_v=band_v,
+                     threads=THREADS, cluster=ctas_a_slot(Fn, _build.n_sms(dev)), stage=0, no_sigma=no_sigma,
+                     no_sigma2=no_sigma * no_sigma, corr_thresh2=corr_thresh2)
+    err = fn(*(t.data_ptr() for t in (corr_maps, h_centres, sinv, alive, found, u, v, over)), Fn,
              ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K16 multi_ellipse")
     _build.launches[NAME] += 1
-    return _outputs(best, key, over, alive, H, corr_thresh2)
+    return found, u, v, over
 
 
 def work_counts(corr_maps, h_centres, sinv, alive, win_radius: int = 16,

@@ -10,11 +10,13 @@ script itself with --one TREE) imports that tree's scenelib2_torch, builds
 its kernels there and reports each case's device time (the median over
 REPEATS traced loops of N_CALLS calls, torch.profiler, the kernel's own
 device time per launch seen; with the symbol None, the device time of every
-kernel the call launches, per call, and their number) and a sha256 of its
-outputs. A tree may lack a case (a shape its kernel refuses). Prints the
-card's name and power limit, one JSON line per tree and the median device
-time of each case per distinct tree; fails if any output differs between
-the trees that have the case.
+kernel the call launches, per call, and their number), the wall time of a
+call (the median over REPEATS loops of N_CALLS calls back to back, one
+synchronisation at the end: the wrapper's host time where the host sets the
+pace) and a sha256 of its outputs. A tree may lack a case (a shape its
+kernel refuses). Prints the card's name and power limit, one JSON line per
+tree and the median device and wall time of each case per distinct tree;
+fails if any output differs between the trees that have the case.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 N_CALLS = 50
 REPEATS = 5
@@ -85,6 +88,23 @@ def _call_ms(fn) -> tuple[float, float]:
     return statistics.median(total / N_CALLS for total, _c in res), res[-1][1] / N_CALLS
 
 
+def _wall_ms(fn) -> float:
+    """Median over REPEATS loops of the wall time of a call, N_CALLS calls
+    back to back and one synchronisation at the end."""
+    import torch
+
+    res = []
+    for _ in range(REPEATS):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        res.append((time.perf_counter() - t0) / N_CALLS * 1e3)
+    return statistics.median(res)
+
+
 def one_tree(tree: str, cases) -> dict:
     """Time every case with the scenelib2_torch of `tree` (run in its own process)."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -104,6 +124,7 @@ def one_tree(tree: str, cases) -> dict:
             rec[name] = {"ms": ms, "kernels": kernels, "digest": _digest(outs)}
         else:
             rec[name] = {"ms": _device_ms(fn, sym), "digest": _digest(outs)}
+        rec[name]["wall_ms"] = _wall_ms(fn)
     return rec
 
 
@@ -133,8 +154,9 @@ def _compare(trees: list[str], script: str) -> int:
             if not got:
                 continue
             ms = statistics.median(g["ms"] for g in got)
+            wall = statistics.median(g["wall_ms"] for g in got)
             per = f"  ({got[0]['kernels']:.0f} kernels a call)" if "kernels" in got[0] else ""
-            print(f"{tree:>24}  {n:<26} {ms * 1e3:9.3f} us{per}")
+            print(f"{tree:>24}  {n:<26} {ms * 1e3:9.3f} us, wall {wall * 1e3:9.3f} us{per}")
     if bad:
         print(f"outputs differ between trees: {bad}", file=sys.stderr)
         return 1

@@ -1,4 +1,4 @@
-"""A/B of the particle kernels (K4, K10, K11, K12, K13) between source trees on one card.
+"""A/B of the particle kernels (K4, K10, K11, K12, K13, K16) between source trees on one card.
 
     python3 scripts/ab_particle_kernels.py TREE_A TREE_B TREE_B TREE_A
     python3 scripts/ab_particle_kernels.py --grid TREE
@@ -14,13 +14,18 @@ at hires (200 particles, 640x480, 60 slots), K10 and K11 over 64 (lane,
 slot) blocks of 100 particles (batch64) and over 16 of 200 at 640x480
 (batch-hires), K12 over 64 rows of 100 and of 200 particles in both of its
 forms, K13 (route sb0) on K11's maps with the positions and S^-1 of K10's
-rows, as the step hands them over. Every kernel keeps its plain twin bit for bit, so all trees must give
+rows, as the step hands them over, and K16 on K13's inputs (its kernel, and
+every kernel of one call with their number: the wrapper's tensor
+operations). Every kernel keeps its plain twin bit for bit, so all trees must give
 equal outputs; the script fails if they do not. Prints the card's name and
 power limit, one JSON line per tree, and the median device time of each case
 per distinct tree. With --grid, times K4's and K11's cases of TREE at 256,
 512 and 1,024 threads a CTA (search_bayes.THREADS) times 1, 2, 4 and 8
 CTAs a slot (search_bayes.cluster_size forced; a launch the card refuses is
 reported), failing if any output differs from the wrappers' own choice.
+With --grid16, times K16's cases of TREE at 256, 512 and 1,024 threads a
+CTA (multi_ellipse.THREADS) times 1, 2, 4 and 8 CTAs a slot
+(multi_ellipse.ctas_a_slot forced), failing likewise.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ def _cases(dev):
 
     from scenelib2_torch.config import Params
     from scenelib2_torch.eval.synthetic import HIRES_PARAMS
-    from scenelib2_torch.kernels import bayes, particle, particle_search, search_bayes
+    from scenelib2_torch.kernels import bayes, multi_ellipse, particle, particle_search, search_bayes
     from scenelib2_torch.runtime.state import patch_row
 
     rng = np.random.default_rng(SEED)
@@ -108,6 +113,12 @@ def _cases(dev):
         a13 = (maps, hpi, sinv, a11[4], particle_search.ParticleSearchConsts.from_params(p))
         out.append((f"K13 {n} blocks NP {NP}{tag}", "k13_kernel",
                     lambda a13=a13: particle_search.particle_search(*a13)))
+        # K16 on the same maps and clouds, lanes and slots flattened to slots
+        a16 = (maps.reshape(n, H, W), hpi.reshape(n, NP, 2), sinv.reshape(n, NP, 2, 2), a11[4].reshape(n, NP))
+        kw16 = dict(win_radius=p.particle_win_radius, no_sigma=p.no_sigma, corr_thresh2=p.corr_thresh2)
+        for sym, what in (("k16_kernel", ""), (None, " call")):
+            out.append((f"K16 {n} slots NP {NP}{tag}{what}", sym,
+                        lambda a16=a16, kw16=kw16: multi_ellipse.multi_ellipse_search(*a16, **kw16)))
 
     p = Params()
     n = 64
@@ -174,7 +185,41 @@ def _grid(tree: str) -> int:
     return 0
 
 
+def _grid16(tree: str) -> int:
+    """K16's cases of `tree` at each CTA size and CTAs a slot, in this process."""
+    import subprocess
+
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from scenelib2_torch.kernels import _build, multi_ellipse
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()
+    print(smi[0] if smi else "nvidia-smi: no card")
+    dev = torch.device("cuda")
+    cases = [c for c in _cases(dev) if c[0].startswith("K16") and c[1] is not None]
+    threads, choice = multi_ellipse.THREADS, multi_ellipse.ctas_a_slot
+    digests = {}
+    for forced in [None] + [(t, cs) for t in (256, 512, 1024) for cs in (1, 2, 4, 8)]:
+        multi_ellipse.THREADS = threads if forced is None else forced[0]
+        multi_ellipse.ctas_a_slot = choice if forced is None else (lambda n, sms, f=forced[1]: f)
+        for name, sym, fn in cases:
+            d = ab_kernels._digest(fn())
+            if digests.setdefault(name, d) != d:
+                print(f"{name}: outputs at grid {forced} differ", file=sys.stderr)
+                return 1
+            n_slots = fn.__defaults__[0][3].shape[0]
+            shape = (f"{multi_ellipse.THREADS} threads, "
+                     f"{multi_ellipse.ctas_a_slot(n_slots, _build.n_sms(dev))} CTAs a slot")
+            shape = ("choice: " if forced is None else "forced: ") + shape
+            print(f"{name:<34} {shape:<40} {ab_kernels._device_ms(fn, sym) * 1e3:9.3f} us", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--grid"]:
         sys.exit(_grid(sys.argv[2]))
+    if sys.argv[1:2] == ["--grid16"]:
+        sys.exit(_grid16(sys.argv[2]))
     sys.exit(ab_kernels.run(sys.argv[1:], os.path.abspath(__file__), _cases))

@@ -1,4 +1,4 @@
-"""A/B of K3 (the fused joint update), K9 (the batch score map) and K14 (L^-1) between source trees on one card.
+"""A/B of K3 and K15 (the fused joint updates), K9 (the batch score map) and K14 (L^-1) between source trees on one card.
 
     python3 scripts/ab_update_kernels.py TREE_A TREE_B TREE_B TREE_A
 
@@ -9,7 +9,12 @@ scenelib2_torch, builds its kernels there and reports, on the same seeded
 inputs, each kernel's device time and a sha256 of its outputs
 (scripts/ab_kernels.py). The cases are the shapes the main paths
 give the kernels: K3 at the std map (D = 109) and at hires (D = 373), both
-with NSEL 10 (M = 20), mixed match flags and exactly one slot killed; K9
+with NSEL 10 (M = 20), mixed match flags and exactly one slot killed; K15
+on each of them with H, nu and R assembled as the JAX step's XLA branch
+assembles them (ekf_update.dense_inputs) and K3's keep (the D = 109 case is
+the shape of the single stream's frames), and at the sizes of its forms:
+D = 109 at M = 32 (the largest register factorisation) and 33 (the block
+form), D = 128 at M = 128 (the M x M arrays in the workspace); K9
 over 64 lanes of 320x240 (batch64) and 16 lanes of 640x480 (batch-hires),
 one partial slot a lane; K14 on one S at M = 20 (the split route's
 2 NSEL), on a stack of 64 at M = 20 and on one at M = 40 (the block form).
@@ -75,7 +80,11 @@ def _cases(dev):
               torch.tensor(attempts, **i32), torch.tensor(sched, device=dev), torch.tensor(active, device=dev),
               torch.tensor(label, **i32), torch.tensor(sel_mask, device=dev), torch.tensor(top_idx, **i32))
         out.append((f"K3 D {D}", "k3_kernel", lambda a3=a3: ekf_update.joint_update(*a3, uc)))
-
+        if D <= ekf_update.DENSE_MAX:
+            kill = ekf_update.joint_update_plain(*a3, uc)[5]
+            a15 = (a3[0], a3[1], *ekf_update.dense_inputs(D, *a3[2:6]), a3[4].any(), ekf_update.keep_of_kill(kill))
+            out.append((f"K15 D {D} M {2 * NSEL}", "k15_kernel",
+                        lambda a15=a15: ekf_update.joint_update_dense(*a15)))
     for n, H, W in ((64, 240, 320), (16, 480, 640)):
         c = score_map.ScoreMapConsts(H=H, W=W, boxsize=p.boxsize, corr_sigma_thresh=p.corr_sigma_thresh,
                                      low_sigma_penalty=p.low_sigma_penalty)
@@ -90,6 +99,18 @@ def _cases(dev):
         S = torch.tensor(A @ A.transpose(0, 2, 1) / M + np.eye(M), **f)
         S = S[0] if n == 1 else S
         out.append((label, "k14_", lambda S=S: (chol_inv.chol_inv(S),)))
+    for D, M in ((109, 32), (109, 33), (128, 128)):
+        A = rng.normal(size=(D, D))
+        P = A @ A.T / D * 1e-3 + np.eye(D) * 1e-4
+        x = rng.normal(size=D) * 0.1
+        x[3:7] = rng.normal(size=4)
+        x[3:7] /= np.linalg.norm(x[3:7]) * (1.0 + 1e-3)
+        H = rng.normal(size=(M, D)) * (rng.uniform(size=(M, D)) < 0.1)
+        keep = np.ones(D, bool)
+        keep[D - 6 :] = False
+        a15 = (torch.tensor(x, **f), torch.tensor(P, **f), torch.tensor(H, **f), torch.tensor(rng.normal(size=M), **f),
+               torch.tensor(np.eye(M), **f), torch.tensor(True, device=dev), torch.tensor(keep, device=dev))
+        out.append((f"K15 D {D} M {M}", "k15_kernel", lambda a15=a15: ekf_update.joint_update_dense(*a15)))
     return out
 
 

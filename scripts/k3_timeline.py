@@ -1,23 +1,25 @@
-"""Where K3's time goes: the phases of one launch, timed on the card.
+"""Where K3's and K15's time goes: the phases of one launch, timed on the card.
 
     python3 scripts/k3_timeline.py
 
-Builds an instrumented copy of scenelib2_torch/kernels/csrc/ekf_update.cu in
-a temporary directory: thread 0 of each CTA (thread 32 of CTA 0 for the
-warps that form P H' while warp 0 factorises) reads %globaltimer at the
-phase boundaries named below and stores it in a device array. Runs K3
-through its wrapper on seeded inputs at D = 109 (std) and D = 373 (hires),
-NSEL 10, with mixed matches; prints the card's name and power limit and, per
-D, the median over REPEATS launches of each phase's duration in
-microseconds, CTA 0's phases first, then each CTA's end. The instrumented
-kernel computes what K3 computes (the script checks its outputs against the
-plain version) but runs slightly slower.
+Builds instrumented copies of scenelib2_torch/kernels/csrc/ekf_update.cu (K3)
+and ekf_update_dense.cu (K15) in a temporary directory: the kernels and
+update_cluster.cuh mark their phase boundaries with UPD_MARK(k, thread), a
+no-op unless defined; here it is defined before the includes so that the
+given thread of each CTA reads %globaltimer there and stores it in a device
+array. Runs K3 through its wrapper on seeded inputs at D = 109 (std) and
+D = 373 (hires), NSEL 10, with mixed matches, and K15 on the D = 109 case's
+H, nu, R as the JAX step's XLA branch assembles them (ekf_update.dense_inputs);
+prints the card's name and power limit and, per case, the median over
+REPEATS launches of each phase's duration in microseconds, CTA 0's phases
+first, then each CTA's end. The instrumented kernels compute what K3 and
+K15 compute (the script checks their outputs against the plain versions)
+but run slightly slower.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import os
 import shutil
 import statistics
@@ -32,61 +34,70 @@ REPEATS = 9
 SEED = 12
 N_MARKS = 16
 
-# (text in ekf_update.cu, mark, where the timestamp goes), in kernel order
-MARKS = (
-    ("  if (rank < n_tiles) k3_fetch(P, D, nT, rank, r0, lane, pa, pb);\n", 0, "after"),
-    ("    __syncthreads();\n    if (any_s) {\n", 1, "after"),
-    ("      __syncthreads();\n      // ---- S = H P H' + R", 2, "mid"),
-    ("      __syncthreads();\n      // ---- X = L^-1", 3, "mid"),
-    ("        chol_linv_reg_any(A, X, M);\n", 4, "after"),
-    ("      __syncthreads();\n      if (!split) {", 5, "before32"),
-    ("      if (!split) {\n        chol_linv_block", 6, "before"),
-    ("      __syncthreads();\n      // ---- W = P H' S^-1", 7, "mid"),
-    ("      __syncthreads();\n      // ---- x' = x + W nu", 8, "mid"),
-    ("      __syncthreads();\n      // ---- the quaternion-norm Jacobian", 9, "mid"),
-    ("      __syncthreads();\n      // ---- rowsb[r][d]", 10, "mid"),
-    ("    __threadfence();\n  } else if (rank == 1) {", 11, "before"),
-    ("    __threadfence();\n  }\n\n  // ================= phase 2", 11, "before"),
-    ("  cluster.sync();\n", 12, "after"),
-    ("  __syncthreads();\n  if (rank == 0)\n    for (int d = tid; d < D; d += nt) xo[d]", 13, "mid"),
-)
-PHASES = (  # (label, from mark, to mark) on CTA 0
-    ("H, nu, R", 0, 1), ("P H' at H's rows", 1, 2), ("S", 2, 3), ("L^-1 (warp 0)", 3, 4),
-    ("P H' at every row (warps 1-15)", 3, 5), ("both done", 3, 6), ("S^-1", 6, 7), ("W", 7, 8),
-    ("x', W S", 8, 9), ("strips, cols", 9, 10), ("rowsb, publish", 10, 11), ("cluster.sync", 11, 12),
-    ("copy in", 12, 13), ("tiles", 13, 14),
-)
-DEBUG = '''__device__ unsigned long long k3_marks[8 * 16];
-extern "C" int k3_marks_read(unsigned long long* h) {
-  return (int)cudaMemcpyFromSymbol(h, k3_marks, sizeof(k3_marks));
+PHASES = {  # (label, from mark, to mark) on CTA 0; the mark of each CTA's end
+    "K3": ((("H, nu, R", 0, 1), ("P H' at H's rows", 1, 2), ("S", 2, 3), ("L^-1 (warp 0)", 3, 4),
+            ("P H' at every row (warps 1-15)", 3, 5), ("both done", 3, 6), ("S^-1", 6, 7), ("W", 7, 8),
+            ("x', W S", 8, 9), ("strips, cols", 9, 10), ("rowsb, publish", 10, 11), ("cluster.sync", 11, 12),
+            ("copy in", 12, 13), ("tiles", 13, 14)), 14),
+    "K15": ((("stage P's rows, H' (each CTA)", 0, 1), ("P H' rows to CTA 0, cluster.sync", 1, 2), ("S", 2, 3),
+             ("L^-1", 3, 4), ("S^-1", 6, 7), ("W", 7, 8),
+             ("x', W S", 8, 9), ("strips, cols", 9, 10), ("rowsb, publish", 10, 11), ("cluster.sync", 11, 12),
+             ("copy in", 12, 13), ("tiles, counts", 13, 14), ("second cluster.sync", 14, 15)), 15),
 }
-#define K3_MARK(k, thread)                                                     \\
-  if (threadIdx.x == (thread)) {                                               \\
-    unsigned long long g_;                                                     \\
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g_));                     \\
-    k3_marks[(int)cluster.block_rank() * 16 + (k)] = g_;                       \\
+DEBUG = '''#include <cooperative_groups.h>
+__device__ unsigned long long upd_marks[8 * 16];
+extern "C" int upd_marks_read(unsigned long long* h) {
+  return (int)cudaMemcpyFromSymbol(h, upd_marks, sizeof(upd_marks));
+}
+#define UPD_MARK(k, thread)                                                                  \\
+  if (threadIdx.x == (thread)) {                                                             \\
+    unsigned long long g_;                                                                   \\
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g_));                                   \\
+    upd_marks[(int)cooperative_groups::this_cluster().block_rank() * 16 + (k)] = g_;         \\
   }
 '''
 
 
-def instrumented_source(src: str) -> str:
-    for anchor, k, where in MARKS:
-        if src.count(anchor) != 1:
-            raise SystemExit(f"k3_timeline: ekf_update.cu no longer has the phase boundary {anchor!r}")
-        if where == "after":
-            src = src.replace(anchor, anchor + f"  K3_MARK({k}, 0);\n")
-        elif where == "before":
-            src = src.replace(anchor, f"    K3_MARK({k}, 0);\n" + anchor)
-        elif where == "before32":
-            src = src.replace(anchor, f"      K3_MARK({k}, 32);\n" + anchor)
-        else:
-            first, rest = anchor.split("\n", 1)
-            src = src.replace(anchor, first + f"\n  K3_MARK({k}, 0);\n" + rest)
-    end = "    __syncthreads();\n  }\n}\n\n// floats of the workspace"
-    if src.count(end) != 1:
-        raise SystemExit("k3_timeline: ekf_update.cu no longer ends its tile loop as expected")
-    src = src.replace(end, "    __syncthreads();\n  }\n  K3_MARK(14, 0);\n}\n\n// floats of the workspace")
-    return src.replace("namespace cg = cooperative_groups;\n", "namespace cg = cooperative_groups;\n" + DEBUG)
+def instrumented_build(name: str, tmp: str, defines: tuple) -> ctypes.CDLL:
+    """csrc/<name>.cu with UPD_MARK defined, built into tmp and loaded."""
+    from scenelib2_torch.kernels import _build
+
+    with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
+        text = f.read()
+    if "UPD_MARK(" not in text:
+        raise SystemExit(f"k3_timeline: {name}.cu marks no phase boundary")
+    src = os.path.join(tmp, f"{name}.cu")
+    with open(src, "w") as f:
+        f.write(DEBUG + text)
+    lib_path = os.path.join(tmp, f"lib{name}_timeline.so")
+    r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, *_build.define_flags(defines), "-o", lib_path, src],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise SystemExit(r.stdout + r.stderr)
+    lib = ctypes.CDLL(lib_path)
+    lib.upd_marks_read.argtypes = [ctypes.c_void_p]
+    lib.upd_marks_read.restype = ctypes.c_int
+    return lib
+
+
+def report(label: str, kernel: str, launch, read) -> None:
+    import numpy as np
+    import torch
+
+    runs = []
+    for _ in range(REPEATS):
+        launch()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (8 * N_MARKS))()
+        read(ctypes.addressof(buf))
+        runs.append(np.array(buf[:], dtype=np.int64).reshape(8, N_MARKS))
+    phases, end = PHASES[kernel]
+    print(f"{label} (median of {REPEATS} launches, us)")
+    for name, a, b in phases:
+        us = statistics.median((r[0, b] - r[0, a]) / 1e3 for r in runs)
+        print(f"  {name:<34} {us:8.2f}")
+    ends = [statistics.median((r[k, end] - r[0, 0]) / 1e3 for r in runs) for k in range(8)]
+    print("  each CTA's end, from CTA 0's start: " + ", ".join(f"{e:.2f}" for e in ends))
 
 
 def main() -> int:
@@ -108,24 +119,12 @@ def main() -> int:
         for fn in os.listdir(_build.CSRC):
             if fn.endswith(".cuh"):
                 shutil.copy(os.path.join(_build.CSRC, fn), tmp)
-        src = os.path.join(tmp, "ekf_update.cu")
-        with open(os.path.join(_build.CSRC, "ekf_update.cu")) as f:
-            text = instrumented_source(f.read())
-        with open(src, "w") as f:
-            f.write(text)
-        lib_path = os.path.join(tmp, "libk3_timeline.so")
         p = Params()
-        defines = chol_inv.reg_defines(2 * p.n_features_to_select)  # the build K3's wrapper asks for
-        r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, *_build.define_flags(defines), "-o", lib_path,
-                            src], capture_output=True, text=True)
-        if r.returncode != 0:
-            print(r.stdout + r.stderr, file=sys.stderr)
-            return 1
-        lib = ctypes.CDLL(lib_path)
-        _build._libs[(ekf_update.NAME, defines)] = lib      # the wrapper now launches the instrumented kernel
-        read = lib.k3_marks_read
-        read.argtypes = [ctypes.c_void_p]
-        read.restype = ctypes.c_int
+        M = 2 * p.n_features_to_select
+        defines = chol_inv.reg_defines(M)  # the build K3's and K15's wrappers ask for
+        libs = {n: instrumented_build(n, tmp, defines) for n in (ekf_update.NAME, ekf_update.NAME_DENSE)}
+        for n, lib in libs.items():
+            _build._libs[(n, defines)] = lib      # the wrappers now launch the instrumented kernels
         dev = torch.device("cuda")
         rng = np.random.default_rng(SEED)
         uc = ekf_update.UpdateConsts.from_params(p)
@@ -158,21 +157,22 @@ def main() -> int:
             want = ekf_update.joint_update_plain(*args, uc)
             torch.cuda.synchronize()
             if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                print(f"D {D}: the instrumented kernel differs from the plain version", file=sys.stderr)
+                print(f"D {D}: the instrumented K3 differs from the plain version", file=sys.stderr)
                 return 1
-            runs = []
-            for _ in range(REPEATS):
-                ekf_update.joint_update(*args, uc)
-                torch.cuda.synchronize()
-                buf = (ctypes.c_ulonglong * (8 * N_MARKS))()
-                read(ctypes.addressof(buf))
-                runs.append(np.array(buf[:], dtype=np.int64).reshape(8, N_MARKS))
-            print(f"D = {D}, M = {2 * NSEL} (median of {REPEATS} launches, us)")
-            for label, a, b in PHASES:
-                us = statistics.median((r[0, b] - r[0, a]) / 1e3 for r in runs)
-                print(f"  {label:<34} {us:8.2f}")
-            ends = [statistics.median((r[k, 14] - r[0, 0]) / 1e3 for r in runs) for k in range(8)]
-            print("  each CTA's end, from CTA 0's start: " + ", ".join(f"{e:.2f}" for e in ends))
+            report(f"K3 D = {D}, M = {M}", "K3", lambda: ekf_update.joint_update(*args, uc),
+                   libs[ekf_update.NAME].upd_marks_read)
+            if D > ekf_update.DENSE_MAX:
+                continue
+            a15 = (args[0], args[1], *ekf_update.dense_inputs(D, *args[2:6]), args[4].any(),
+                   ekf_update.keep_of_kill(want[5]))
+            got = ekf_update.joint_update_dense(*a15)
+            want15 = ekf_update.joint_update_dense_plain(*a15)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want15)):
+                print(f"D {D}: the instrumented K15 differs from the plain version", file=sys.stderr)
+                return 1
+            report(f"K15 D = {D}, M = {M} (K3's case, H dense)", "K15",
+                   lambda: ekf_update.joint_update_dense(*a15), libs[ekf_update.NAME_DENSE].upd_marks_read)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0
