@@ -38,7 +38,8 @@ Phases (any failure exits non-zero before the last line is printed):
     route runs: K10, K11 (making and not), K12 in both row forms and K4 with
     its variations at NP = 200, 300, 1,100, 5,120 and 16,384 (rows of 256,
     512 and 1,152 lanes held in shared memory, and two rows past its 4,096
-    particles, on the kernels' workspace path) on seeded slots; K10b (NP 100, 200, degenerate depths), K15
+    particles, on the kernels' workspace path) on seeded slots; K10b (NP 100, 200, 1,100, 5,120 and
+    16,384 on 1 to 128 CTAs a slot, degenerate depths), K15
     (D = 109 and 128, M up to 128, any_succ false, a NaN in a deleted slot,
     D = 7, 13, 109 and 128 at M = 1, 2, 20, 32, 33, 64 and 128: both forms,
     the register and the block factorisation; NaN, inf and -inf in a kept
@@ -55,16 +56,33 @@ Phases (any failure exits non-zero before the last line is printed):
     captured calls (K13's decisions for every live particle); each one's
     kernel, device and plain times; K12 re-timed at 200 particles.
  3. main paths: the 240-frame seed-7 synthetic sequence through
-    MonoSLAM(device="cuda").run_sequence, with mapping off and then on,
-    each reproducing its committed decisions fingerprint, with every kernel
-    of the path launched once per frame (K5 and K6 run only with mapping
-    on; the counts are zeroed just before each run and read just after
-    it); the first mapping-on frames agree with the CPU
-    plain replay; 30 frames at search radius 110 and init region 100 equal
-    the port's CPU run of the same frames decision by decision; 30 steps
-    run with PyTorch's sync debug mode raising on any
-    host synchronisation; ms/frame, device busy ms/frame and idle share of
-    each path.
+    MonoSLAM(device="cuda"), with mapping off and then on: the eager loop
+    (MonoSLAM._run_sequence_eager) reproducing its committed decisions
+    fingerprint, with every kernel of the path launched once per frame (K5
+    and K6 run only with mapping on; the counts are zeroed just before each
+    run and read just after it); then run_sequence, which replays CUDA
+    graphs on the card (runtime/replay.py: a graph of 8 steps replayed once
+    for each full block of 8 frames, a one-step graph for the rest), as
+    every replay phase below does (3b-3f: run_batch) through graph_cell:
+    the first graph run reproduces the fingerprint, its packed outputs and
+    final state equal the eager loop's bit for bit, its captures launched
+    each kernel of the path once a captured step (the counters count
+    captures and each graph's warm-up step, not replays: 8 + 1 + 2 each in
+    that run), chunk=10 (full chunks and a remainder of one-step replays)
+    equals chunk=0 bit for bit, a traced graph run launched each kernel of
+    the path exactly once a step and no other kernel (these are the
+    launches of the kernel records), and the eager loop (once), the first
+    graph call (captures included) and the graph (median of 3) are timed
+    beside the graphs' capture + instantiate seconds, the device span of a
+    replay (CUDA events), the traced run's device busy and the idle share of
+    each, and peak device memory with the graphs' shared pool. The first
+    mapping-on frames agree
+    with the CPU plain replay; 30 frames at search radius 110 and init
+    region 100, through a graph, equal the port's CPU run of the same
+    frames decision by decision; 30 eager steps run with PyTorch's sync
+    debug mode raising on any host synchronisation (graph captures and
+    replays always run so); a step that synchronises cannot be captured
+    (the capture raises).
  3b. batch mode: 64 independent lanes (32 scene textures x 2 phase offsets)
     x 63 frames through parallel.mesh.make_batched_step / run_batch. Phase 2
     of the batch kernels runs here, on inputs captured from this replay (K7's
@@ -113,7 +131,10 @@ Phases (any failure exits non-zero before the last line is printed):
     K10's and K11's times at 200 particles and K2's over the 16 lanes.
     Every replay phase (3, 3b-3f) requires zero launches of K10b, K15 and
     K16: no route reaches them.
- 4. a `kernels` JSON line, then the last line
+ 4. a `graph_replay` JSON line (every cell: eager and graph ms a frame or
+    step, span, busy, idle shares, peak memory, capture seconds), a
+    `kernels` JSON line (launches: the mapping-on graph run's counts, a
+    warm-up step and the capture), then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Imports nothing of JAX; needs the repository beside it (the kernels are
@@ -127,6 +148,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1225,7 +1247,7 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
 
     from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints
     from scenelib2_torch.kernels import _build, bayes, multi_ellipse, particle_search, search
-    from scenelib2_torch.parallel.mesh import make_batched_step, run_batch
+    from scenelib2_torch.parallel.mesh import _run_batch_eager, make_batched_step, run_batch
     from scenelib2_torch.runtime.state import SlamState
 
     sc = search.SearchConsts.from_params(p)
@@ -1308,18 +1330,22 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
         torch.cuda.synchronize()
         _build.reset_launches()
         with observe_wrappers(record):
-            _st, outs = run_batch(step, states0, bseq, True, rparams)
+            st_eager, outs = _run_batch_eager(step, states0, bseq, True, rparams)
         launches = dict(_build.launches)
-        bad = check_lanes(lane_fingerprints(outs), route=route)
-        if bad:
-            fail(f"{label}: {len(bad)} of {N_LANES} lane fingerprints differ from the committed file:\n"
-                 + "\n".join(bad[:6]))
+
+        def check_fp(o, route=route, label=label):
+            bad = check_lanes(lane_fingerprints(o), route=route)
+            if bad:
+                fail(f"{label}: {len(bad)} of {N_LANES} lane fingerprints differ from the committed file:\n"
+                     + "\n".join(bad[:6]))
+
+        check_fp(outs)
         for n in _build.KERNELS:
             want = T if n in path else 0
             if launches.get(n, 0) != want:
                 fail(f"kernel {n} launched {launches.get(n, 0)} times on the {label} route, expected {want}")
         log(f"[3e] {label}: all {N_LANES} per-lane fingerprints equal the committed file; launches "
-            f"({T} steps of {N_LANES} lanes): {json.dumps(launches)}")
+            f"({T} steps of {N_LANES} lanes, eager loop): {json.dumps(launches)}")
         rb = outs.r.numpy()
         if rb.shape != (T, N_LANES, 3) or not np.isfinite(rb).all():
             fail(f"{label}: trajectories not finite/shaped: {rb.shape}")
@@ -1353,62 +1379,20 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
         log(f"[3e] {label}: {N_REF} batch steps ran with torch.cuda.set_sync_debug_mode('error'): "
             "no host synchronisation")
 
-        walls = []
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            run_batch(step, states0, bseq, True, rparams)
-            walls.append(time.perf_counter() - t)
-        peak_mb = (torch.cuda.max_memory_allocated() - before) / 2**20
-        wall = statistics.median(walls)
-        from torch.profiler import ProfilerActivity, profile
-
-        n_tr = ROUTE_TRACED_STEPS
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            run_batch(step, states0, bseq[:n_tr], True, rparams)
-            torch.cuda.synchronize()
-            traced_wall = time.perf_counter() - t
-        by = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            by[e.key] = (us / 1e3, e.count)
-        busy = sum(v[0] for v in by.values()) / n_tr
-        n_kern = sum(v[1] for v in by.values()) / n_tr
-        ms_step = wall / T * 1e3
-        r_ = dict(
-            route=label, lanes=N_LANES, frames_per_lane=T, wall_s=wall, runs_s=walls,
-            frames_per_s=N_LANES * T / wall, ms_per_step=ms_step,
-            device_ms_per_step=busy if busy > 0 else None,
-            idle_share=(1.0 - busy / ms_step) if busy > 0 else None, traced_steps=n_tr,
-            traced_ms_per_step=traced_wall / n_tr * 1e3, device_kernels_per_step=n_kern,
-            peak_device_mb_replay=peak_mb, single_stream_frames_per_s=1e3 / single_ms_frame,
-            launches=launches,
-        )
+        run, run_eager = batch_runs(step, states0, bseq, rparams)
+        g = graph_cell("3e", label, run, run_eager, step.graphs, T, path, (outs, st_eager), check_fp,
+                       trace_n=ROUTE_TRACED_STEPS)
+        launches = g["launches"]
+        r_ = {k: v for k, v in g.items() if k != "prof"}
+        r_.update(route=label, lanes=N_LANES, frames_per_lane=T, frames_per_s=N_LANES / g["graph_ms"] * 1e3,
+                  frames_per_s_eager=N_LANES / g["eager_ms"] * 1e3,
+                  single_stream_frames_per_s=1e3 / single_ms_frame)
         r_["vs_64x_single_stream"] = r_["frames_per_s"] / (N_LANES * r_["single_stream_frames_per_s"])
-        log(f"[3e] {label}: {r_['frames_per_s']:.1f} aggregate frames/s ({N_LANES} lanes x {T} frames in "
-            f"{wall:.4f} s, median of 3 runs: {', '.join(f'{v:.4f}' for v in walls)}); {ms_step:.4f} ms a "
-            f"batch step; {r_['vs_64x_single_stream']:.4f} of {N_LANES} x the single stream "
-            f"({r_['single_stream_frames_per_s']:.1f} frames/s); peak device memory of the replay "
-            f"{peak_mb:.1f} MiB above the {before / 2**20:.1f} MiB held before it")
-        if busy > 0:
-            log(f"[3e] {label} traced window ({n_tr} steps): device busy {busy:.4f} ms a step -> idle share "
-                f"{r_['idle_share']:.4f}; {n_kern:.2f} device kernels a step")
-            for name, (ms, cnt) in sorted(by.items(), key=lambda kv: -kv[1][0])[:12]:
-                log(f"[3e]   {ms / n_tr * 1e3:9.3f} us/step  x{cnt / n_tr:6.2f}/step  {name[:90]}")
-        else:
-            log(f"[3e] {label} traced window: the profiler recorded no device time (not measured)")
-        dev_ms = {}
-        for short, sym in (("K8", "k8_kernel"), ("K12", "k12_kernel"), ("K13", "k13_kernel")):
-            hits = [v for k, v in by.items() if sym in k]
-            dev_ms[short] = (sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits))) if hits else None
+        log(f"[3e] {label}: {r_['frames_per_s']:.1f} aggregate frames/s through the graph "
+            f"({r_['frames_per_s_eager']:.1f} eager); {r_['vs_64x_single_stream']:.4f} of {N_LANES} x the "
+            f"single stream's graph replay ({r_['single_stream_frames_per_s']:.1f} frames/s)")
+        dev_ms = {short: kernel_dev_ms(g["prof"], sym)
+                  for short, sym in (("K8", "k8_kernel"), ("K12", "k12_kernel"), ("K13", "k13_kernel"))}
 
         # each kernel's and its plain version's time on the output-index-20 inputs
         c20 = seen[20]
@@ -1440,11 +1424,12 @@ def batch_routes_phase(p, dev, rng, bparams, states0, bseq, bframes, single_ms_f
                 f"{res['K16']['plain_ms']:.4f} ms ({res['K16']['inputs']})")
         timings = {}
         for short, (fk, fp_, sym) in kern.items():
+            lname = "search_windows" if short == "K8" else "bayes" if short.startswith("K12") else "particle_search"
             b_ms, b_by = bound([c for k_, c in costs if k_ == short])
             timings[short] = dict(ms=time_ms(fk, n=50, batches=3), plain_ms=time_ms(fp_, n=2, batches=3),
                                   device_ms=dev_ms[sym], bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                                  launches=launches["search_windows" if short == "K8" else
-                                                    "bayes" if short.startswith("K12") else "particle_search"])
+                                  launches=launches[lname], launches_steps=g["launches_steps"],
+                                  launches_captured=g["captured"].get(lname, 0))
             log(f"[3e] {short} on the {label} route: {json.dumps(timings[short])}")
         r_["timings"] = timings
         res[route] = r_
@@ -1651,17 +1636,21 @@ def check_k10b(zeroed, K0, Ks, K2, lam, c) -> float:
     return max_err(got, want)
 
 
+# K10b's seeded rows: (particles, slots), the widest on 1 to 128 CTAs a slot
+K10B_SEEDED = ((100, 4), (200, 4), (1100, 8), (5120, 4), (16384, 2))
+
+
 def k10b_seeded(rng, p, dev):
-    """(label, args) K10b cases: seeded slots at NP = 100 and 200, and
-    degenerate depths (a ray through the camera centre, lambda 0 and
-    negative: z <= 0)."""
+    """(label, args) K10b cases: seeded slots at K10B_SEEDED, and degenerate
+    depths (a ray through the camera centre, lambda 0 and negative:
+    z <= 0)."""
     from scenelib2_torch.kernels.particle import ParticleConsts
 
     c = ParticleConsts.from_params(p)
     out = []
-    for NP in (100, 200):
-        shared, slots = wide_slot(rng, dev, 4)
-        out.append((f"NP{NP}", (*kform_inputs(shared[None], slots[None]), wide_lam(NP, 4, dev), c)))
+    for NP, n in K10B_SEEDED:
+        shared, slots = wide_slot(rng, dev, n)
+        out.append((f"NP{NP}", (*kform_inputs(shared[None], slots[None]), wide_lam(NP, n, dev), c)))
     shared, slots = wide_slot(rng, dev, 2)
     lam = torch.tensor([[-1.0, 0.0, 1e-30, 0.5, 1e30] + [1.0] * 95] * 2, dtype=torch.float32, device=dev)
     out.append(("degenerate", (*kform_inputs(shared[None], slots[None]), lam, c)))
@@ -1886,7 +1875,6 @@ LARGE_MAPS = {
     "mf100": dict(n_frames=240, at=(9, 20, 120)),      # the first init, the first conversion, later
 }
 N_REF_LARGE = 20   # CPU plain replay frames of each large-map path
-N_TIMED_LARGE = 2  # timed replays of each large-map path
 N_TRACE_LARGE = 40  # frames of the traced window (the profiler's own bookkeeping grows with events)
 
 
@@ -1921,7 +1909,7 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
     log(f"[{tag}] {name}: {W}x{H}, max_features {p.max_features} (D = {D}), {p.n_particles} particles, "
         f"search radius {p.search_win_radius}, particle radius {p.particle_win_radius}; {n_run} frames "
         f"rendered in {time.time() - t0:.1f} s; route {'fused' if D <= 384 else 'split'}")
-    slam.run_sequence(seq[:8], enable_mapping=True)          # warm-up
+    slam._run_sequence_eager(seq[:8], enable_mapping=True)   # warm-up
     torch.cuda.synchronize()
 
     # the main path: counts zeroed just before, read just after; the kernel
@@ -1938,18 +1926,23 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
             seen.setdefault(frame[0], {})[n] = (a, k)
         calls.setdefault(n, []).append((a, k))
 
-    outs, launches = run_main_path(slam, seq, mapping=True, on_call=keep)
-    fp = decisions_fingerprint(outs, n_run)
+    outs, launches, state_eager = run_main_path(slam, seq, mapping=True, on_call=keep)
     want = load_expected(f"expected_fingerprint_{name}")
-    log(f"[{tag}] fingerprint ({name}): {json.dumps(fp)}")
-    for k in ("n_frames", "matched_sum", "inits", "convs", "active_end", "decisions_sha256"):
-        if fp[k] != want[k]:
-            fail(f"{name} field {k}: got {fp[k]}, expected {want[k]}")
+
+    def check_fp(o):
+        fp_ = decisions_fingerprint(o, n_run)
+        log(f"[{tag}] fingerprint ({name}): {json.dumps(fp_)}")
+        for k in ("n_frames", "matched_sum", "inits", "convs", "active_end", "decisions_sha256"):
+            if fp_[k] != want[k]:
+                fail(f"{name} field {k}: got {fp_[k]}, expected {want[k]}")
+        return fp_
+
+    fp = check_fp(outs)
     for n in _build.KERNELS:
         if launches.get(n, 0) != (n_run if n in path else 0):
             fail(f"kernel {n} launched {launches.get(n, 0)} times on the {name} path, expected "
                  f"{n_run if n in path else 0}")
-    log(f"[{tag}] launches on the {name} path: {json.dumps(launches)}")
+    log(f"[{tag}] launches on the {name} path (eager loop): {json.dumps(launches)}")
     r = outs.r.numpy()
     if r.shape != (n_run, 3) or not np.isfinite(r).all():
         fail(f"{name} trajectory not finite/shaped: {r.shape}")
@@ -2014,54 +2007,17 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
     log(f"[{tag}] {N_REF} {name} steps ran with torch.cuda.set_sync_debug_mode('error'): "
         f"no host synchronisation in the step")
 
-    # times: untimed replays for ms/frame and peak memory, one traced replay.
-    # The path's peak memory: its frames and state, plus the most the
-    # replays allocated above what was allocated before them (the process
-    # still holds the earlier phases' tensors)
-    per_frame = []
-    slam.reset()
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(N_TIMED_LARGE):
-        slam.reset()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        slam.run_sequence(seq, enable_mapping=True)
-        per_frame.append((time.perf_counter() - t) / n_run * 1e3)
-    held = seq.numel() + sum(t_.numel() * t_.element_size() for t_ in slam.state)
-    peak_mb = (torch.cuda.max_memory_allocated() - base + held) / 2**20
-    ms_frame = statistics.median(per_frame)
-    # the traced window: its first N_TRACE_LARGE frames, beside an untraced
-    # replay of the same frames
-    nt = min(N_TRACE_LARGE, n_run)
-    slam.reset()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    slam.run_sequence(seq[:nt], enable_mapping=True)
-    ms_window = (time.perf_counter() - t) / nt * 1e3
-    prof = profile_main_path(slam, seq, nt, True)
-    busy = prof["device_ms"] / nt
-    res = dict(ms_frame=ms_frame, runs=per_frame, ms_frame_window=ms_window, traced_frames=nt,
-               busy=busy if busy > 0 else None,
-               idle_share=(1.0 - busy / ms_window) if busy > 0 else None, peak_mb=peak_mb,
-               kernels_per_frame=sum(c_ for _m, c_ in prof["by_name"].values()) / nt)
-    log(f"[{tag}] {name}: {ms_frame:.4f} ms/frame (median of {N_TIMED_LARGE} runs of {n_run} frames: "
-        f"{', '.join(f'{v:.4f}' for v in per_frame)}); peak device memory of the replay {peak_mb:.1f} MiB "
-        f"(frames and state included)")
-    if busy > 0:
-        log(f"[{tag}] {name} traced replay of frames 1..{nt}: device busy {busy:.4f} ms/frame of "
-            f"{ms_window:.4f} ms/frame untraced over the same frames -> idle share "
-            f"{res['idle_share']:.4f}; {res['kernels_per_frame']:.2f} device kernels/frame; traced "
-            f"wall {prof['wall_ms'] / nt:.4f} ms/frame")
-        for kname, (ms, cnt) in sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])[:12]:
-            log(f"[{tag}]   {ms / nt * 1e3:9.3f} us/frame  x{cnt / nt:6.2f}/frame  {kname[:90]}")
-    else:
-        log(f"[{tag}] {name} traced replay: the profiler recorded no device time (not measured)")
+    # the graph replay against the eager loop; times, busy, idle, peak memory
+    run, run_eager = single_runs(slam, seq, True)
+    g = graph_cell(tag, name, run, run_eager, slam._graphs, n_run, path, (outs, state_eager), check_fp,
+                   trace_n=min(N_TRACE_LARGE, n_run))
+    launches = g["launches"]
+    prof = g["prof"]
+    res = dict(g, ms_frame=g["graph_ms"])
+    del res["prof"]
 
     def dev_ms(sym):
-        hits = [v for k, v in prof["by_name"].items() if sym in k]
-        return sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits)) if hits else None
+        return kernel_dev_ms(prof, sym)
 
     # each kernel of the path that this slice added or widened: its time, its
     # plain version's, its bound from each launch's own inputs
@@ -2114,7 +2070,9 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
         b_ms, b_by = bound(costs[short])
         timings[short] = dict(ms=time_ms(fk), plain_ms=time_ms(fp_, n=5, batches=3), device_ms=dev_ms(sym),
                               bound_ms=b_ms, bound_by=b_by, library_ms=library.get(short),
-                              max_abs_err=errs[short], launches=launches[KERNEL_OF[short]])
+                              max_abs_err=errs[short], launches=launches[KERNEL_OF[short]],
+                              launches_steps=g["launches_steps"],
+                              launches_captured=g["captured"].get(KERNEL_OF[short], 0))
         log(f"[{tag}] {short} at the {name} shapes: {json.dumps(timings[short])}")
     res.update(timings=timings, fingerprint=fp, launches=launches, errs=errs)
     return res
@@ -2151,7 +2109,7 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
     from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints, make_lanes
     from scenelib2_torch.kernels import _build, measure, particle, score_map, search, search_bayes, shi_tomasi
     from scenelib2_torch.kernels.measure import MeasureConsts
-    from scenelib2_torch.parallel.mesh import make_batched_step, run_batch
+    from scenelib2_torch.parallel.mesh import _run_batch_eager, make_batched_step, run_batch
     from scenelib2_torch.runtime.state import SlamState
 
     t0 = time.time()
@@ -2228,19 +2186,24 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
     torch.cuda.synchronize()
     _build.reset_launches()
     with observe_wrappers(record):
-        _st, outs = run_batch(step, states0, seq, True, params)
+        st_eager, outs = _run_batch_eager(step, states0, seq, True, params)
     launches = dict(_build.launches)
+
+    def check_fp(o):
+        bad = check_lanes(lane_fingerprints(o), config="hires")
+        if bad:
+            fail(f"[3f] {len(bad)} of {Bn} lane fingerprints differ from the committed file:\n" + "\n".join(bad[:6]))
+
+    check_fp(outs)
     fps = lane_fingerprints(outs)
-    bad = check_lanes(fps, config="hires")
-    if bad:
-        fail(f"[3f] {len(bad)} of {Bn} lane fingerprints differ from the committed file:\n" + "\n".join(bad[:6]))
     for n in _build.KERNELS:
         want = T if n in BATCH_PATH else 0
         if launches.get(n, 0) != want:
             fail(f"kernel {n} launched {launches.get(n, 0)} times on the batch-hires path, expected {want}")
     log(f"[3f] all {Bn} per-lane fingerprints equal expected_fingerprint_batch_hires.json "
         f"({sum(f_['inits'] for f_ in fps)} inits, {sum(f_['convs'] for f_ in fps)} conversions, "
-        f"{sum(f_['matched_sum'] for f_ in fps)} matches); launches ({T} steps of {Bn} lanes): {json.dumps(launches)}")
+        f"{sum(f_['matched_sum'] for f_ in fps)} matches); launches ({T} steps of {Bn} lanes, eager loop): "
+        f"{json.dumps(launches)}")
     rb = outs.r.numpy()
     if rb.shape != (T, Bn, 3) or not np.isfinite(rb).all():
         fail(f"[3f] trajectories not finite/shaped: {rb.shape}")
@@ -2275,55 +2238,18 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
     torch.cuda.synchronize()
     log(f"[3f] {N_REF} batch-hires steps ran with torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
 
-    walls = []
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        run_batch(step, states0, seq, True, params)
-        walls.append(time.perf_counter() - t)
-    peak_mb = (torch.cuda.max_memory_allocated() - before) / 2**20
-    wall = statistics.median(walls)
-    from torch.profiler import ProfilerActivity, profile
-
-    n_tr = HIRES_TRACED_STEPS
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    run_batch(step, states0, seq[:n_tr], True, params)
-    torch.cuda.synchronize()
-    window_ms = (time.perf_counter() - t) / n_tr * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run_batch(step, states0, seq[:n_tr], True, params)
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        by[e.key] = ((us if us is not None else e.self_cuda_time_total) / 1e3, e.count)
-    busy = sum(v[0] for v in by.values()) / n_tr
-    n_kern = sum(v[1] for v in by.values()) / n_tr
-    ms_step = wall / T * 1e3
-    res = dict(lanes=Bn, frames_per_lane=T, wall_s=wall, runs_s=walls, frames_per_s=Bn * T / wall,
-               ms_per_step=ms_step, traced_steps=n_tr, ms_per_step_window=window_ms,
-               device_ms_per_step=busy if busy > 0 else None,
-               idle_share=(1.0 - busy / window_ms) if busy > 0 else None, device_kernels_per_step=n_kern,
-               peak_device_mb_replay=peak_mb, launches=launches, errs=errs)
-    log(f"[3f] batch-hires: {res['frames_per_s']:.1f} aggregate frames/s ({Bn} lanes x {T} frames in {wall:.4f} s, "
-        f"median of 3 runs: {', '.join(f'{v:.4f}' for v in walls)}); {ms_step:.4f} ms a batch step; peak device "
-        f"memory of the replay {peak_mb:.1f} MiB above the {before / 2**20:.1f} MiB held before it")
-    if busy > 0:
-        log(f"[3f] traced window ({n_tr} steps): device busy {busy:.4f} ms a step of {window_ms:.4f} ms a step "
-            f"untraced over the same steps -> idle share {res['idle_share']:.4f}; {n_kern:.2f} device kernels a step")
-        for name, (ms, cnt) in sorted(by.items(), key=lambda kv: -kv[1][0])[:12]:
-            log(f"[3f]   {ms / n_tr * 1e3:9.3f} us/step  x{cnt / n_tr:6.2f}/step  {name[:90]}")
-    else:
-        log("[3f] traced window: the profiler recorded no device time (not measured)")
+    run, run_eager = batch_runs(step, states0, seq, params)
+    g = graph_cell("3f", "batch-hires", run, run_eager, step.graphs, T, BATCH_PATH, (outs, st_eager), check_fp,
+                   trace_n=HIRES_TRACED_STEPS)
+    launches = g["launches"]
+    res = {k: v for k, v in g.items() if k != "prof"}
+    res.update(lanes=Bn, frames_per_lane=T, frames_per_s=Bn / g["graph_ms"] * 1e3,
+               frames_per_s_eager=Bn / g["eager_ms"] * 1e3, errs=errs)
+    log(f"[3f] batch-hires: {res['frames_per_s']:.1f} aggregate frames/s through the graph "
+        f"({res['frames_per_s_eager']:.1f} eager)")
 
     def dev_ms(sym):
-        hits = [v for k, v in by.items() if sym in k]
-        return sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits)) if hits else None
+        return kernel_dev_ms(g["prof"], sym)
 
     # K10's and K11's times at 200 particles and K2's and K6's over the 16
     # lanes of 640x480 frames, on the output-index-20 inputs
@@ -2347,38 +2273,14 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
         b_ms, b_by = bound(costs[short])
         timings[short] = dict(ms=time_ms(fk, n=50, batches=3), plain_ms=time_ms(fp_, n=2, batches=3),
                               device_ms=dev_ms(sym), bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                              launches=launches[lname], max_abs_err=errs[short])
+                              launches=launches[lname], launches_steps=g["launches_steps"],
+                              launches_captured=g["captured"].get(lname, 0), max_abs_err=errs[short])
         log(f"[3f] {short} {what}: {json.dumps(timings[short])}")
     res["timings"] = timings
     return res
 
 
 # ------------------------------------------------------------ main
-
-
-def profile_main_path(slam, seq, n: int, mapping: bool) -> dict:
-    """torch.profiler over an n-frame replay: device time by kernel name,
-    total device time, and wall time of the traced window. Every trace of
-    this script records the device's activity only: the host's operator
-    events would add most of the profiler's post-processing time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    slam.reset()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        slam.run_sequence(seq[:n], enable_mapping=mapping)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    by_name = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        by_name[e.key] = (us / 1e3, e.count)
-    return dict(wall_ms=wall_ms, device_ms=sum(v[0] for v in by_name.values()), by_name=by_name)
 
 
 SINGLE_WRAPPERS = ("predict_measure", "search", "joint_update", "propose_region", "shi_tomasi", "search_bayes")
@@ -2440,16 +2342,278 @@ def capture_inputs(slam, frames, at: tuple) -> dict:
 
 
 def run_main_path(slam, seq, mapping: bool, on_call=None):
-    """One replay with every launch count zeroed just before it; returns
-    (outputs, launches read just after it)."""
+    """The eager reference replay (MonoSLAM._run_sequence_eager: the step
+    called on every frame, so on_call sees every kernel's real inputs) with
+    every launch count zeroed just before it; returns (outputs, launches
+    read just after it, final state)."""
     from scenelib2_torch.kernels import _build
 
     slam.reset()
     torch.cuda.synchronize()
     _build.reset_launches()
     with observe_wrappers(on_call) if on_call else contextlib.nullcontext():
-        outs = slam.run_sequence(seq, enable_mapping=mapping)
-    return outs, dict(_build.launches)
+        outs = slam._run_sequence_eager(seq, enable_mapping=mapping)
+    return outs, dict(_build.launches), slam.state
+
+
+# ------------------------------------------------------------ graph replay (runtime/replay.py)
+
+N_GRAPH_TIMED = 3   # timed graph replays of each cell (median); the eager loop is timed once
+GRAPH_CHUNK = 10    # the chunk= each cell's graph replay is held to chunk = 0 at: full chunks and a
+                    # remainder of one-step replays (239 -> 23 x 10 + 9, 119 -> 11 x 10 + 9, 63 -> 6 x 10 + 3)
+TRACE_TRIES = 3     # traced graph runs in which the profiler's counts may come out short, at most
+# the device kernels of each launch count (kernels/_build.py KERNELS): each wrapper launches one of
+# its kernels where it counts a launch
+TRACE_SYMBOLS = {
+    "predict_measure": ("k1_kernel",), "search": ("k2_kernel",), "ekf_update": ("k3_kernel",),
+    "propose": ("k5_kernel",), "shi_tomasi": ("k6_kernel", "k6_kernel_one"), "search_bayes": ("k4_kernel",),
+    "measure": ("k7_kernel",), "score_map": ("k9_kernel",), "particle_predict": ("k10_kernel",),
+    "chol_inv": ("k14_kernel", "k14_warp_kernel"), "bayes": ("k12_kernel",),
+    "particle_search": ("k13_kernel",), "particle_kform": ("k10b_kernel",),
+    "ekf_update_dense": ("k15_kernel",), "multi_ellipse": ("k16_kernel",),
+    "search_bayes_maps": ("k11_kernel",), "search_windows": ("k8_kernel",),
+}
+
+
+def outputs_identical(a, b) -> bool:
+    """Two StepOutputs or states equal field by field, floats bit for bit
+    (any NaN equal to any NaN)."""
+    return all(same_bits_or_nan(x, y) if x.is_floating_point() else same(x, y) for x, y in zip(a, b))
+
+
+def device_profile(fn) -> dict:
+    """torch.profiler over fn(): device time by kernel name, total device
+    time and the wall time of the traced call. Every trace of this script
+    records the device's activity only: the host's operator events would add
+    most of the profiler's post-processing time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        by_name[e.key] = (us / 1e3, e.count)
+    return dict(wall_ms=wall_ms, device_ms=sum(v[0] for v in by_name.values()), by_name=by_name)
+
+
+def traced_launches(prof: dict) -> dict:
+    """The launches of each counted kernel (TRACE_SYMBOLS) in a trace."""
+    from scenelib2_torch.kernels import _build
+
+    pats = {n: re.compile(r"(?<![\w])(" + "|".join(TRACE_SYMBOLS[n]) + r")[<(]") for n in _build.KERNELS}
+    got = {n: 0 for n in _build.KERNELS}
+    for key, (_ms, cnt) in prof["by_name"].items():
+        for n, pat in pats.items():
+            if pat.search(key):
+                got[n] += cnt
+    return got
+
+
+def timed_s(fn) -> float:
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def graph_cell(tag: str, label: str, run, run_eager, graphs: dict, T: int, path, eager, check,
+               trace_n: int | None = None) -> dict:
+    """A cell's replay through CUDA graphs (run_sequence / run_batch on the
+    card) against its eager reference. run(chunk, n=None) replays the first
+    n (all) of the cell's T frames from its initial state through the graph
+    path and returns (outputs, final state); run_eager() the same through
+    the eager loop; graphs is the cache the graph path fills; path the
+    launch-count names of the cell's kernels; eager the (outputs, final
+    state) of the counted eager reference; check(outputs) its fingerprint
+    check.
+
+    1. The first graph run (its wall time, captures included, beside the
+       eager loop's), every count zeroed just before it and read just after:
+       it captures a graph of replay.REPLAY_BLOCK steps and, where T leaves
+       a remainder, a one-step graph, each after one warm-up step, so each
+       kernel of the path is counted once per captured step and warm-up
+       step and no other kernel is: the counters count captures, not
+       replays (StepGraph.launches: the capture alone). Its fingerprint; its
+       packed outputs and final state equal the eager reference's bit for
+       bit; capture + instantiate seconds; peak device memory above what was
+       allocated before it (the graphs' pools included) and the size of the
+       pool the cache's graphs share.
+    2. chunk = GRAPH_CHUNK (full chunks and a one-step remainder) equals
+       chunk = 0 bit for bit.
+    3. Times: the eager loop once, the graph replay N_GRAPH_TIMED times
+       (median), the device's span of one replay of the block graph (CUDA
+       events, from the same state each time), and a traced graph run of
+       trace_n (all) frames: each kernel of the path ran exactly once a step
+       in it and no other kernel ran (the launches of the kernel records),
+       device busy, kernels a step and the idle shares of the eager loop, of
+       the graph run (host wall of the traced frames) and of the replay's
+       span."""
+    from scenelib2_torch.kernels import _build
+    from scenelib2_torch.runtime import replay
+
+    before = set(graphs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    outs, state = run(0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    peak_mb = (torch.cuda.max_memory_allocated() - alloc0) / 2**20
+    new = [graphs[k] for k in graphs if k not in before]
+    sizes = sorted(g_.n for g_ in new)
+    if sizes != sorted(set(replay.chunk_plan(T, 0))):
+        fail(f"[{tag}] {label}: the graph run captured graphs of {sizes} steps, expected "
+             f"{sorted(set(replay.chunk_plan(T, 0)))}")
+    g = next(g_ for g_ in new if g_.n == replay.REPLAY_BLOCK)
+    # the graphs of a cache share one pool (runtime/replay.py), which may
+    # hold graphs captured before this cell's
+    pools = [graph_pool_mb(pid) for pid in sorted({tuple(g_.graph.pool()) for g_ in new})]
+    pool_mb = None if None in pools else sum(pools)
+    for n in _build.KERNELS:
+        want = sum(sizes) if n in path else 0
+        got_captured = sum(g_.launches.get(n, 0) for g_ in new)
+        if got_captured != want or launches.get(n, 0) != (want + len(new) if want else 0):
+            fail(f"[{tag}] {label}: kernel {n} launched {launches.get(n, 0)} times in the graph run, "
+                 f"{got_captured} of them captured; expected {want} captured and {len(new)} warm-up launches")
+    check(outs)
+    if not outputs_identical(outs, eager[0]):
+        bad = [f for f, a, b in zip(outs._fields, outs, eager[0]) if not outputs_identical((a,), (b,))]
+        fail(f"[{tag}] {label}: the graph replay's outputs differ from the eager loop's: {bad}")
+    if not outputs_identical(state, eager[1]):
+        fail(f"[{tag}] {label}: the graph replay's final state differs from the eager loop's")
+    warmup_s = sum(g_.warmup_s for g_ in new)
+    capture_s = sum(g_.capture_s for g_ in new)
+    log(f"[{tag}] {label}: graph replay of {T} steps ({len(replay.chunk_plan(T, 0))} replays of graphs of "
+        f"{sizes} steps) equals the eager loop bit for bit (outputs and final state); first call {first_s:.3f} s "
+        f"wall, of it warm-up steps {warmup_s:.3f} s and capture + instantiate {capture_s:.3f} s (host); "
+        f"launches counted in the graph run (warm-up steps and the captures, not the replays) "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    k = GRAPH_CHUNK
+    before = set(graphs)
+    outs_c, state_c = run(k)
+    chunk_sizes = sorted(graphs[key].n for key in graphs if key not in before)
+    if not (outputs_identical(outs_c, outs) and outputs_identical(state_c, state)):
+        fail(f"[{tag}] {label}: run with chunk={k} differs from chunk=0")
+    log(f"[{tag}] {label}: chunk={k} ({T // k} x {k} + {T % k} x 1; graphs captured {chunk_sizes}) equals "
+        f"chunk=0 bit for bit")
+    eager_s = timed_s(run_eager)
+    eager_ms = eager_s / T * 1e3
+    runs = [timed_s(lambda: run(0)) / T * 1e3 for _ in range(N_GRAPH_TIMED)]
+    graph_ms = statistics.median(runs)
+    # the device's span of one replay of the block graph (CUDA events around
+    # the replay alone, from the same static state each time): busy plus the
+    # gaps between its nodes
+    start = [t_.clone() for t_ in g.state_in]
+    span = []
+    for _ in range(N_GRAPH_TIMED):
+        for dst, src in zip(g.state_in, start):
+            dst.copy_(src)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        span.append(e0.elapsed_time(e1) / g.n)
+    span_ms = statistics.median(span)
+    n = trace_n or T
+    window_ms = graph_ms if n == T else timed_s(lambda: run(0, n)) / n * 1e3
+    for _try in range(TRACE_TRIES):
+        prof = device_profile(lambda: run(0, n))
+        replayed = traced_launches(prof)
+        if all(replayed[n_] == (n if n_ in path else 0) for n_ in _build.KERNELS):
+            break
+        log(f"[{tag}] {label}: traced graph run of {n} steps counted {json.dumps(replayed)}; tracing again")
+    else:
+        fail(f"[{tag}] {label}: in the traced graph run of {n} steps the kernels ran "
+             f"{json.dumps({k_: v for k_, v in replayed.items() if v})} times, expected {n} each of {list(path)}")
+    log(f"[{tag}] {label}: traced graph run of {n} steps: each kernel of the path ran {n} times, no other "
+        f"counted kernel ran")
+    busy = prof["device_ms"] / n
+    res = dict(eager_ms=eager_ms, eager_s=eager_s, first_s=first_s, graph_ms=graph_ms, graph_runs=runs,
+               span_ms=span_ms, warmup_s=warmup_s, capture_s=capture_s, steps=T, graphs=sizes,
+               chunk=k, traced_steps=n, graph_ms_window=window_ms,
+               busy=busy if busy > 0 else None,
+               idle_eager=(1.0 - busy / eager_ms) if busy > 0 else None,
+               idle_graph=(1.0 - busy / window_ms) if busy > 0 else None,
+               idle_span=(1.0 - busy / span_ms) if busy > 0 else None,
+               kernels=sum(c for _m, c in prof["by_name"].values()) / n,
+               peak_mb=peak_mb, pool_mb=pool_mb, pools_mb=pools, launches=replayed, launches_steps=n,
+               captured={k_: v for k_, v in launches.items() if v}, prof=prof)
+    log(f"[{tag}] {label}: eager {eager_ms:.4f} ms a step (one run of {T}: {eager_s:.3f} s; the graph "
+        f"path's first call {first_s:.3f} s), graph {graph_ms:.4f} ms a step "
+        f"(median of {N_GRAPH_TIMED}: {', '.join(f'{v:.4f}' for v in runs)}), of it the device's span of a "
+        f"replay {span_ms:.4f} ms a step (CUDA events); peak device memory of the first "
+        f"graph run {peak_mb:.1f} MiB above what was allocated before it, the graphs' private pools "
+        f"{pool_mb if pool_mb is None else round(pool_mb, 1)} MiB ({len(pools)} pool(s) for its graphs of "
+        f"{sizes} steps and any graph captured before them in the same cache)")
+    if busy > 0:
+        log(f"[{tag}] {label}: traced graph replay of {n} steps: device busy {busy:.4f} ms a step, "
+            f"{res['kernels']:.2f} device kernels a step -> idle share {res['idle_graph']:.4f} of the graph "
+            f"({window_ms:.4f} ms a step over those steps), {res['idle_eager']:.4f} of the eager loop, "
+            f"{res['idle_span']:.4f} of the replay's span")
+        for name, (ms, cnt) in sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])[:10]:
+            log(f"[{tag}]   {ms / n * 1e3:9.3f} us/step  x{cnt / n:6.2f}/step  {name[:90]}")
+    else:
+        log(f"[{tag}] {label}: the profiler recorded no device time in the graph replay (not measured)")
+    return res
+
+
+def graph_pool_mb(pool: tuple):
+    """MiB of the device memory segments of a graph pool (a CUDAGraph's
+    pool() id; the caching allocator's snapshot), None where the snapshot
+    names no pool."""
+    segs = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in seg for seg in segs):
+        return None
+    return sum(seg["total_size"] for seg in segs if tuple(seg.get("segment_pool_id", ())) == pool) / 2**20
+
+
+def kernel_dev_ms(prof: dict, sym: str):
+    """Device ms a launch of the kernels whose name holds sym in a trace."""
+    hits = [v for k, v in prof["by_name"].items() if sym in k]
+    return sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits)) if hits else None
+
+
+def single_runs(slam, seq, mapping: bool):
+    """graph_cell's run and run_eager for a MonoSLAM over seq."""
+    def run(chunk, n=None):
+        slam.reset()
+        outs = slam.run_sequence(seq[:n], enable_mapping=mapping, chunk=chunk)
+        return outs, slam.state
+
+    def run_eager():
+        slam.reset()
+        return slam._run_sequence_eager(seq, enable_mapping=mapping), slam.state
+
+    return run, run_eager
+
+
+def batch_runs(step, states0, seq, params):
+    """graph_cell's run and run_eager for a batched step over seq [T, B, H, W]."""
+    from scenelib2_torch.parallel.mesh import _run_batch_eager, run_batch
+
+    def run(chunk, n=None):
+        st_, outs = run_batch(step, states0, seq[:n], True, params, chunk=chunk)
+        return outs, st_
+
+    def run_eager():
+        st_, outs = _run_batch_eager(step, states0, seq, True, params)
+        return outs, st_
+
+    return run, run_eager
 
 
 def main() -> int:
@@ -2599,7 +2763,7 @@ def main() -> int:
         more16 = k16_more(rng, p, dev)
         for _label, args, kw in more16:
             lerrs["K16"] = max(lerrs["K16"], check_k16(args, kw))
-        log(f"[2b] K10b (NP 100, 200, degenerate depths), K15 (D = 109 and 128 x M = 128, any_succ false, "
+        log(f"[2b] K10b (NP x slots {K10B_SEEDED}, degenerate depths), K15 (D = 109 and 128 x M = 128, any_succ false, "
             f"a NaN in a deleted slot; (D, M) = {list(K15_SIZES)}; {n15} placements of NaN, inf and -inf) and "
             f"K16 (centres off the frame, NaN centre and S^-1, an indefinite S^-1, dead particles, a tie, a "
             f"NaN score; {[lb for lb, _a, _k in more16]}) equal their plain versions on seeded cases, K15 also "
@@ -2637,8 +2801,8 @@ def main() -> int:
             ("K6", lambda: shi_tomasi.shi_tomasi(*a6, **kw6), lambda: shi_tomasi.shi_tomasi_plain(*a6, **kw6)),
         ):
             timings[name] = (time_ms(kern), time_ms(plain, n=10, batches=3))
-        empty = _build.function("predict_measure", "k0_empty_launch", [ctypes.c_void_p])
-        empty_ms = time_ms(lambda: empty(torch.cuda.current_stream().cuda_stream))
+        empty = _build.function("predict_measure", "k0_empty_launch", [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        empty_ms = time_ms(lambda: empty(1, 1, 32, torch.cuda.current_stream().cuda_stream))
         for name, (k_ms, p_ms) in timings.items():
             log(f"[2] {name}: kernel {k_ms:.4f} ms/launch, plain {p_ms:.4f} ms/call "
                 f"(frame-{dict(K4=20, K5=9, K6=9).get(name, 120)} inputs)")
@@ -2658,7 +2822,7 @@ def main() -> int:
         seq = torch.as_tensor(frames[1:]).to(dev)
         n_run = seq.shape[0]
         slam.reset()
-        slam.run_sequence(seq[:8], enable_mapping=True)           # warm-up
+        slam._run_sequence_eager(seq[:8], enable_mapping=True)    # warm-up
         torch.cuda.synchronize()
 
         def check_fingerprint(outs, name):
@@ -2679,9 +2843,9 @@ def main() -> int:
                          f"expected {want}")
             log(f"[3] launches on the {what} path: {json.dumps(launches)}")
 
-        outs_nomap, launches_nomap = run_main_path(slam, seq, mapping=False)
+        outs_nomap, launches_nomap, state_nomap = run_main_path(slam, seq, mapping=False)
         check_fingerprint(outs_nomap, "expected_fingerprint_nomap")
-        check_launches(launches_nomap, "mapping-off", stage7=False)
+        check_launches(launches_nomap, "mapping-off (eager loop)", stage7=False)
 
         # cost model of each launch on the mapping-on path, from its own inputs
         costs = {k: [] for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
@@ -2706,9 +2870,9 @@ def main() -> int:
             else:
                 k4_args.append(a)
 
-        outs, launches = run_main_path(slam, seq, mapping=True, on_call=record_cost)
+        outs, launches, state_on = run_main_path(slam, seq, mapping=True, on_call=record_cost)
         check_fingerprint(outs, "expected_fingerprint")
-        check_launches(launches, "mapping-on", stage7=True)
+        check_launches(launches, "mapping-on (eager loop)", stage7=True)
         for a in k4_args:
             MF, NP = a[1].shape
             costs["K4"].append(search_bayes.bytes_and_flops(
@@ -2735,12 +2899,16 @@ def main() -> int:
         # a search radius and an init region past the old caps (K2's windows
         # of 221 x 221 centres, K6's window of 112 x 72 pixels): the first
         # frames on the card against the port's CPU run, decision by decision
+        # (through graphs: their warm-up steps and their captures launch each
+        # kernel of the path once a step)
         wide = dict(search_win_radius=110, init_search_width=100)
         wslam = MonoSLAM(cfg, max_features=16, device="cuda", **wide)
         torch.cuda.synchronize()
         _build.reset_launches()
         wouts = wslam.run_sequence(seq[:N_REF], enable_mapping=True)
         wide_launches = dict(_build.launches)
+        # each captured step and each graph's warm-up step
+        wide_want = sum(g_.n for g_ in wslam._graphs.values()) + len(wslam._graphs)
         wref = MonoSLAM(cfg, max_features=16, device="cpu", **wide).run_sequence(
             frames[1 : N_REF + 1], enable_mapping=True)
         for k in ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init",
@@ -2751,7 +2919,7 @@ def main() -> int:
         if dw > STEP_TOL:
             fail(f"search radius 110, init region 100: CUDA vs CPU run: xv differs by {dw}")
         for n in _build.KERNELS:
-            if wide_launches.get(n, 0) != (N_REF if n in SINGLE_PATH else 0):
+            if wide_launches.get(n, 0) != (wide_want if n in SINGLE_PATH else 0):
                 fail(f"search radius 110, init region 100: kernel {n} launched {wide_launches.get(n, 0)} times")
         log(f"[3] search radius 110 and init region 100: the CUDA run equals the port's CPU run on frames "
             f"1..{N_REF} decision by decision (inits at {torch.nonzero(wref.did_init).flatten().tolist()}, "
@@ -2775,48 +2943,49 @@ def main() -> int:
         log(f"[3] {N_REF} mapping-on steps ran with torch.cuda.set_sync_debug_mode('error'): "
             f"no host synchronisation in the step")
 
-        # timed replays (state reset each time; the host waits once per run),
-        # then where the device time goes: a traced replay of the same frames
+        # a step that synchronises with the host cannot be captured: the
+        # capture raises, and nothing steps on eagerly in its place
+        from scenelib2_torch.runtime import replay
+
+        def syncing_step(state_, frame_, em_):
+            st_, out_ = slam._step(state_, frame_, em_)
+            int(out_.n_matched)
+            return st_, out_
+
+        syncing_step.route = "syncing"
+        slam.reset()
+        try:
+            replay.StepGraph(syncing_step, slam.state, seq[:2], True)
+        except RuntimeError as e:
+            log(f"[3] a step with a host synchronisation: its capture raises ({str(e).splitlines()[0][:120]})")
+        else:
+            fail("a step that synchronises with the host was captured without an error")
+        torch.cuda.synchronize()
+
+        # the graph replay of each path against its eager loop; times, busy, idle
         paths = {}
-        for label, mapping in (("mapping-off", False), ("mapping-on", True)):
-            per_frame = []
-            for _ in range(3):
-                slam.reset()
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                slam.run_sequence(seq, enable_mapping=mapping)
-                per_frame.append((time.perf_counter() - t) / n_run * 1e3)
-            ms_frame = statistics.median(per_frame)
-            prof = profile_main_path(slam, seq, n_run, mapping)
-            busy = prof["device_ms"] / n_run
-            paths[label] = dict(ms_frame=ms_frame, runs=per_frame, prof=prof, busy=busy)
-            log(f"[3] {label}: {ms_frame:.4f} ms/frame (median of 3 runs of {n_run} frames: "
-                f"{', '.join(f'{v:.4f}' for v in per_frame)})")
-            if prof["device_ms"] > 0:
-                n_kern = sum(cnt for _ms, cnt in prof["by_name"].values()) / n_run
-                log(f"[3] {label} traced replay: device busy {busy:.4f} ms/frame of "
-                    f"{ms_frame:.4f} ms/frame untraced wall -> idle share {1.0 - busy / ms_frame:.4f}; "
-                    f"{n_kern:.2f} device kernels/frame; traced wall {prof['wall_ms'] / n_run:.4f} ms/frame")
-                top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])[:14]
-                for name, (ms, cnt) in top:
-                    log(f"[3]   {ms / n_run * 1e3:9.3f} us/frame  x{cnt / n_run:5.2f}/frame  {name[:90]}")
-            else:
-                log(f"[3] {label} traced replay: the profiler recorded no device time (not measured)")
+        path_off = tuple(n for n in SINGLE_PATH if n not in ("propose", "shi_tomasi"))
+        for label, mapping, eager, fp_name, path in (
+                ("mapping-off", False, (outs_nomap, state_nomap), "expected_fingerprint_nomap", path_off),
+                ("mapping-on", True, (outs, state_on), "expected_fingerprint", SINGLE_PATH)):
+            run, run_eager = single_runs(slam, seq, mapping)
+            res = graph_cell("3", label, run, run_eager, slam._graphs, n_run, path, eager,
+                             lambda o, fp_name=fp_name: check_fingerprint(o, fp_name))
+            res["ms_frame"] = res["graph_ms"]
+            paths[label] = res
+        launches = paths["mapping-on"]["launches"]
         kernel_dev = {}
-        by_name = paths["mapping-on"]["prof"]["by_name"]
         for short, sym in (("K1", "k1_kernel"), ("K2", "k2_kernel"), ("K3", "k3_kernel"),
                            ("K4", "k4_kernel"), ("K5", "k5_kernel"), ("K6", "k6_kernel")):
-            hits = [v for k, v in by_name.items() if sym in k]
-            kernel_dev[short] = (sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits))
-                                 if hits else None)
-        log("[3] device time per launch (mapping on): " + ", ".join(
+            kernel_dev[short] = kernel_dev_ms(paths["mapping-on"]["prof"], sym)
+        log("[3] device time per launch (mapping on, graph replay): " + ", ".join(
             f"{k} {v:.5f} ms" if v is not None else f"{k} not measured" for k, v in kernel_dev.items()))
         log(f"[3] mapping-on last position {r[-1].tolist()}; RMSE vs ground truth {rmse:.6f} m")
 
 
         # ---- 3b. batch mode: 64 lanes in one step -------------------------
         from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints, make_lanes
-        from scenelib2_torch.parallel.mesh import make_batched_step, run_batch
+        from scenelib2_torch.parallel.mesh import _run_batch_eager, make_batched_step, run_batch
         from scenelib2_torch.runtime.state import SlamState
 
         smc = score_map.ScoreMapConsts.from_params(p)
@@ -2978,19 +3147,20 @@ def main() -> int:
                 b_, f_ = shi_tomasi.bytes_and_flops(k["boxsize"], k["region_w"], k["region_h"])
                 bcosts["K6"].append((b_ * N_LANES, f_ * N_LANES))
 
-        def run_batch_path(on_call=None):
-            torch.cuda.synchronize()
-            _build.reset_launches()
-            with observe_wrappers(on_call) if on_call else contextlib.nullcontext():
-                _st, o = run_batch(bstep, states0, bseq, True, bparams)
-            return o, dict(_build.launches)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with observe_wrappers(record_batch_cost):
+            bst_eager, bouts = _run_batch_eager(bstep, states0, bseq, True, bparams)
+        blaunches = dict(_build.launches)
 
-        bouts, blaunches = run_batch_path(record_batch_cost)
+        def check_batch_fp(o):
+            bad = check_lanes(lane_fingerprints(o))
+            if bad:
+                fail(f"{len(bad)} of {N_LANES} lane fingerprints differ from the committed file:\n"
+                     + "\n".join(bad[:6]))
+
+        check_batch_fp(bouts)
         fps = lane_fingerprints(bouts)
-        bad = check_lanes(fps)
-        if bad:
-            fail(f"{len(bad)} of {N_LANES} lane fingerprints differ from the committed file:\n"
-                 + "\n".join(bad[:6]))
         distinct = len({f_["decisions_sha256"] for f_ in fps})
         ends = sorted({f_["active_end"] for f_ in fps})
         log(f"[3b] all {N_LANES} per-lane fingerprints equal expected_fingerprint_batch64.json "
@@ -3001,7 +3171,7 @@ def main() -> int:
             want = T if n in BATCH_PATH else 0
             if blaunches.get(n, 0) != want:
                 fail(f"kernel {n} launched {blaunches.get(n, 0)} times on the batch path, expected {want}")
-        log(f"[3b] launches on the batch path ({T} steps of {N_LANES} lanes): {json.dumps(blaunches)}")
+        log(f"[3b] launches on the batch path ({T} steps of {N_LANES} lanes, eager loop): {json.dumps(blaunches)}")
         rb = bouts.r.numpy()
         if rb.shape != (T, N_LANES, 3) or not np.isfinite(rb).all():
             fail(f"batch trajectories not finite/shaped: {rb.shape}")
@@ -3042,59 +3212,24 @@ def main() -> int:
         log(f"[3b] {N_REF} batch steps ran with torch.cuda.set_sync_debug_mode('error'): "
             f"no host synchronisation in the batch step")
 
-        walls = []
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            run_batch(bstep, states0, bseq, True, bparams)
-            walls.append(time.perf_counter() - t)
-        peak_mb = torch.cuda.max_memory_allocated() / 2**20
-        wall = statistics.median(walls)
-        from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run_batch(bstep, states0, bseq, True, bparams)
-            torch.cuda.synchronize()
-        bby = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            bby[e.key] = (us / 1e3, e.count)
-        bbusy = sum(v[0] for v in bby.values()) / T
-        bn_kern = sum(v[1] for v in bby.values()) / T
-        batch = dict(
-            lanes=N_LANES, frames_per_lane=T, wall_s=wall, runs_s=walls,
-            frames_per_s=N_LANES * T / wall, ms_per_step=wall / T * 1e3,
-            device_ms_per_step=bbusy if bbusy > 0 else None,
-            idle_share=(1.0 - bbusy / (wall / T * 1e3)) if bbusy > 0 else None,
-            device_kernels_per_step=bn_kern, peak_device_mb=peak_mb,
-            single_stream_frames_per_s=1e3 / paths["mapping-on"]["ms_frame"],
-        )
+        run, run_eager = batch_runs(bstep, states0, bseq, bparams)
+        g = graph_cell("3b", "batch64", run, run_eager, bstep.graphs, T, BATCH_PATH, (bouts, bst_eager),
+                       check_batch_fp)
+        blaunches = g["launches"]
+        batch = {k: v for k, v in g.items() if k != "prof"}
+        batch.update(lanes=N_LANES, frames_per_lane=T, frames_per_s=N_LANES / g["graph_ms"] * 1e3,
+                     frames_per_s_eager=N_LANES / g["eager_ms"] * 1e3,
+                     single_stream_frames_per_s=1e3 / paths["mapping-on"]["ms_frame"])
         batch["vs_64x_single_stream"] = batch["frames_per_s"] / (N_LANES * batch["single_stream_frames_per_s"])
-        log(f"[3b] batch replay: {batch['frames_per_s']:.1f} aggregate frames/s "
-            f"({N_LANES} lanes x {T} frames in {wall:.4f} s, median of 3 runs: "
-            f"{', '.join(f'{v:.4f}' for v in walls)}); {batch['ms_per_step']:.4f} ms a batch step; "
-            f"single stream with mapping on {batch['single_stream_frames_per_s']:.1f} frames/s, so the "
-            f"batch runs at {batch['vs_64x_single_stream']:.4f} of {N_LANES} x that; "
-            f"peak device memory {peak_mb:.1f} MiB")
-        if bbusy > 0:
-            log(f"[3b] batch traced replay: device busy {bbusy:.4f} ms a step -> idle share "
-                f"{batch['idle_share']:.4f}; {bn_kern:.2f} device kernels a step")
-            for name, (ms, cnt) in sorted(bby.items(), key=lambda kv: -kv[1][0])[:16]:
-                log(f"[3b]   {ms / T * 1e3:9.3f} us/step  x{cnt / T:6.2f}/step  {name[:90]}")
-        else:
-            log("[3b] batch traced replay: the profiler recorded no device time (not measured)")
+        log(f"[3b] batch replay: {batch['frames_per_s']:.1f} aggregate frames/s through the graph "
+            f"({batch['frames_per_s_eager']:.1f} eager); the single stream's graph replay with mapping on "
+            f"{batch['single_stream_frames_per_s']:.1f} frames/s, so the batch runs at "
+            f"{batch['vs_64x_single_stream']:.4f} of {N_LANES} x that")
         bkernel_dev = {}
         for short, sym in (("K7", "k7_kernel"), ("K9", "k9_kernel"), ("K10", "k10_kernel"),
                            ("K11", "k11_kernel"), ("K2", "k2_kernel"), ("K6", "k6_kernel")):
-            hits = [v for k, v in bby.items() if sym in k]
-            bkernel_dev[short] = (sum(h[0] for h in hits) / max(1, sum(h[1] for h in hits))
-                                  if hits else None)
-        log("[3b] device time per launch (batch): " + ", ".join(
+            bkernel_dev[short] = kernel_dev_ms(g["prof"], sym)
+        log("[3b] device time per launch (batch, graph replay): " + ", ".join(
             f"{k} {v:.5f} ms" if v is not None else f"{k} not measured" for k, v in bkernel_dev.items()))
 
         # ---- 3e. the alternative batch routes (batch_pallas=False; SCENELIB2_BATCH_SB=0)
@@ -3124,6 +3259,8 @@ def main() -> int:
         recs.append(dict(
             name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
             replaces=f"scenelib2_tpu/kernels/{rep}", launches=launches[key],
+            launches_steps=paths["mapping-on"]["launches_steps"],
+            launches_captured=paths["mapping-on"]["captured"].get(key, 0),
             max_abs_err=errs[short], ms=timings[short][0], plain_ms=timings[short][1],
             bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=kernel_dev[short],
         ))
@@ -3131,6 +3268,8 @@ def main() -> int:
     for rec, short in ((recs[1], "K2"), (recs[5], "K6")):
         b_ms, b_by = bound(bcosts[short])
         rec.update(launches_batch=blaunches[rec["source"].rsplit("/", 1)[1][:-3]],
+                   launches_batch_steps=batch["launches_steps"],
+                   launches_batch_captured=batch["captured"].get(rec["source"].rsplit("/", 1)[1][:-3], 0),
                    ms_batch=btimings[f"{short} lanes"][0], plain_ms_batch=btimings[f"{short} lanes"][1],
                    bound_ms_batch=b_ms, bound_by_batch=b_by, device_ms_batch=bkernel_dev[short],
                    max_abs_err_batch=berrs[f"{short} lanes"])
@@ -3144,6 +3283,7 @@ def main() -> int:
         recs.append(dict(
             name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
             replaces=f"scenelib2_tpu/kernels/{rep_}", launches=blaunches[key],
+            launches_steps=batch["launches_steps"], launches_captured=batch["captured"].get(key, 0),
             max_abs_err=berrs[short], ms=btimings[short][0], plain_ms=btimings[short][1],
             bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=bkernel_dev[short],
         ))
@@ -3164,6 +3304,7 @@ def main() -> int:
         recs.append(dict(
             name=label, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
             replaces=f"scenelib2_tpu/kernels/{rep_}", launches=t_["launches"],
+            launches_steps=t_["launches_steps"], launches_captured=t_["launches_captured"],
             max_abs_err=t_["max_abs_err"], ms=t_["ms"], plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"],
             bound_by=t_["bound_by"], library_ms=t_["library_ms"], device_ms=t_["device_ms"], path=name,
         ))
@@ -3178,6 +3319,7 @@ def main() -> int:
         recs.append(dict(
             name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
             replaces=f"scenelib2_tpu/kernels/{rep_}", launches=t_["launches"],
+            launches_steps=t_["launches_steps"], launches_captured=t_["launches_captured"],
             max_abs_err=routes["errs"][short], ms=t_["ms"], plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"],
             bound_by=t_["bound_by"], library_ms=t_["library_ms"], device_ms=t_["device_ms"],
             path=ROUTE_PATH[route][0],
@@ -3197,7 +3339,8 @@ def main() -> int:
         b_ms, b_by = bound(t_["costs"])
         recs.append(dict(
             name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
-            replaces=f"scenelib2_tpu/kernels/{rep_}", launches=launches[key], max_abs_err=lerrs[short],
+            replaces=f"scenelib2_tpu/kernels/{rep_}", launches=launches[key],
+            launches_steps=paths["mapping-on"]["launches_steps"], max_abs_err=lerrs[short],
             ms=t_["ms"], plain_ms=t_["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
             device_ms=t_["device_ms"], path="entry point only (no route runs it)", timed_on=t_["inputs"],
         ))
@@ -3215,7 +3358,8 @@ def main() -> int:
     ):
         recs.append(dict(
             name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
-            replaces=f"scenelib2_tpu/kernels/{rep_}", launches=t_["launches"], max_abs_err=err, ms=t_["ms"],
+            replaces=f"scenelib2_tpu/kernels/{rep_}", launches=t_["launches"], launches_steps=t_["launches_steps"],
+            launches_captured=t_["launches_captured"], max_abs_err=err, ms=t_["ms"],
             plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"], bound_by=t_["bound_by"], library_ms=None,
             device_ms=t_["device_ms"], path="batch-hires",
         ))
@@ -3256,19 +3400,17 @@ def main() -> int:
         ))
     log(f"[4] empty-launch floor {empty_ms:.4f} ms; total {time.time() - t_start:.1f} s")
     print(smi, flush=True)
-    on, off = paths["mapping-on"], paths["mapping-off"]
-    print(json.dumps({"ms_per_frame": on["ms_frame"], "device_ms_per_frame": on["busy"],
-                      "ms_per_frame_nomap": off["ms_frame"], "device_ms_per_frame_nomap": off["busy"],
+    # every cell's graph replay beside its eager loop (ms a frame or a batch step)
+    cells = {"std-nomap": paths["mapping-off"], "std-mapping": paths["mapping-on"], "hires": large["hires"],
+             "mf100": large["mf100"], "batch64": batch, "bp0": routes["bp0"], "sb0": routes["sb0"],
+             "batch-hires": hires_b}
+    keys = ("eager_ms", "graph_ms", "graph_runs", "span_ms", "graph_ms_window", "traced_steps", "busy",
+            "idle_eager", "idle_graph", "idle_span", "kernels", "peak_mb", "pool_mb", "warmup_s", "capture_s",
+            "eager_s", "first_s", "steps", "graphs", "pools_mb", "chunk", "captured")
+    print(json.dumps({"graph_replay": {c: {k: r_[k] for k in keys} for c, r_ in cells.items()},
                       "empty_launch_ms": empty_ms, "card": smi}))
-    print(json.dumps({"batch64": batch, "card": smi}))
     print(json.dumps({"batch_routes": {ROUTE_PATH[r][0]: {k: v for k, v in routes[r].items() if k != "timings"}
                                        for r in ROUTE_PATH}, "card": smi}))
-    print(json.dumps({"batch_hires": {k: v for k, v in hires_b.items() if k != "timings"}, "card": smi}))
-    print(json.dumps({"large_maps": {
-        name: {k: v for k, v in r_.items() if k in ("ms_frame", "runs", "ms_frame_window", "traced_frames",
-                                                   "busy", "idle_share", "peak_mb", "kernels_per_frame",
-                                                   "fingerprint", "launches")}
-        for name, r_ in large.items()}, "card": smi}))
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

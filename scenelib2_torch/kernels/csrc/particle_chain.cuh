@@ -5,8 +5,8 @@
 // (_geometry_prologue with _dot_row / _mat_mul_t / _drq_dqbar, and
 // _particle_tail). Every float operation is the twin's, in its order: dot
 // rows skip the literal zeros of N1 / N2 and start from their first term.
-// Included by search_bayes.cu (K4), whose prologue runs it, and
-// particle_predict.cu (K10).
+// Included by search_bayes.cu (K4), whose prologue runs it,
+// particle_predict.cu (K10) and particle_kform.cu (K10b, the tail alone).
 #pragma once
 
 enum { ROW_HU, ROW_HV, ROW_S00, ROW_S01, ROW_S11, ROW_DET, ROW_HW, ROW_HH, NROWS };

@@ -313,11 +313,14 @@ extern "C" int k1_predict_measure(const float* x, const float* P, const float* x
   return (int)cudaGetLastError();
 }
 
-// An empty kernel: its launch time is the floor under every kernel here
-// (chip_smoke.py reports it beside the byte/operation bounds).
+// An empty kernel on a grid of gx x gy CTAs of `threads` threads: its launch
+// time is the floor under a kernel on that grid (chip_smoke.py reports it at
+// one CTA of 32 beside the byte/operation bounds;
+// scripts/ab_particle_kernels.py on K10b's grids).
 __global__ void k0_empty() {}
 
-extern "C" int k0_empty_launch(void* stream) {
-  k0_empty<<<1, 32, 0, (cudaStream_t)stream>>>();
+extern "C" int k0_empty_launch(int gx, int gy, int threads, void* stream) {
+  if (gx <= 0 || gy <= 0 || gy > 65535 || threads <= 0 || threads > 1024) return (int)cudaErrorInvalidValue;
+  k0_empty<<<dim3((unsigned)gx, (unsigned)gy), threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

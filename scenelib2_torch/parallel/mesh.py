@@ -19,6 +19,7 @@ import torch
 
 from scenelib2_torch.config import Params
 from scenelib2_torch.rng import pack_state, srand48
+from scenelib2_torch.runtime import replay
 from scenelib2_torch.runtime import step as step_mod
 from scenelib2_torch.runtime.state import SlamState
 
@@ -57,26 +58,47 @@ def replicate_states(state: SlamState, batch: int) -> SlamState:
     return stacked._replace(rng=lane_seeds(batch, state.x.device))
 
 
-def run_batch(step, states_b: SlamState, frames, enable_mapping: bool, params: Params):
+def run_batch(step, states_b: SlamState, frames, enable_mapping: bool, params: Params, chunk: int = 0):
     """Replay frames [T, B, H, W] u8 through `step` (from make_batched_step).
-    Every step writes its packed outputs into one preallocated [T, B, K]
-    tensor on the state's device and the host waits once, at the end.
-    Returns (final states_b, StepOutputs with leading [T, B] dimensions on
-    the CPU)."""
+    The packed outputs of every step go into one [T, B, K] tensor on the
+    state's device and the host waits once, at the end. Returns (final
+    states_b, StepOutputs with leading [T, B] dimensions on the CPU).
+
+    On a CUDA device the steps replay CUDA graphs (runtime/replay.py), as
+    the reference's batch bench scans its step: one graph of chunk steps
+    (replay.REPLAY_BLOCK where chunk is 0) replayed once for each full block
+    of frames, and a one-step graph for the frames past the last full block.
+    Each graph is captured on its first use and kept on `step` (step.graphs,
+    at most replay.MAX_GRAPHS of them). On the CPU the step is called on
+    every frame, and chunk only groups the frames: the outputs are the
+    same."""
+    return _run_batch(step, states_b, frames, enable_mapping, params, chunk,
+                      graphs=states_b.x.device.type == "cuda")
+
+
+def _run_batch_eager(step, states_b: SlamState, frames, enable_mapping: bool, params: Params):
+    """run_batch with the step called from Python on every frame, on any
+    device: the reference that the graph replay is held to."""
+    return _run_batch(step, states_b, frames, enable_mapping, params, 0, graphs=False)
+
+
+def _run_batch(step, states_b, frames, enable_mapping, params, chunk, graphs):
     dev = states_b.x.device
     if isinstance(frames, torch.Tensor):
         seq = frames.to(device=dev, dtype=torch.uint8).contiguous()
     else:
         seq = torch.as_tensor(np.ascontiguousarray(frames, np.uint8)).to(dev)
+    replay.chunk_plan(seq.shape[0], chunk)   # refuses a bad chunk on every device
     nsel = params.n_features_to_select
     maxp = max(1, params.max_features_to_init_at_once)
     npart = params.n_particles
     T, Bn = seq.shape[:2]
     flat = torch.empty((T, Bn, step_mod.packed_size(nsel, maxp, npart)),
                        dtype=states_b.x.dtype, device=dev)
-    for t in range(T):
-        states_b, out = step(states_b, seq[t], enable_mapping)
-        flat[t] = step_mod.pack_outputs(out)
+    if graphs:
+        states_b = replay.replay_steps(step, step.graphs, states_b, seq, enable_mapping, chunk, flat)
+    else:
+        states_b = replay.eager_steps(step, states_b, seq, enable_mapping, flat)
     return states_b, step_mod.unpack_outputs(flat.cpu(), nsel, maxp, npart)
 
 

@@ -4,7 +4,9 @@ Port of scenelib2_tpu/runtime/slam.py. Mirrors the reference's public
 surface (monoslam.h:76-156): the constructor (config, camera, known
 features), GoOneStep with or without mapping (auto-initialisation and the
 partial-feature particle stage), the trajectory record, plus run_sequence
-over a whole frame stack and loading a JAX checkpoint.
+over a whole frame stack (on a CUDA device as CUDA-graph replay,
+runtime/replay.py: the counterpart of the reference's compiled scan) and
+loading a JAX checkpoint.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from scenelib2_torch.config import Params, SlamConfig, load_config
 from scenelib2_torch.convert import state_from_jax
 from scenelib2_torch.device import resolve_device, resolve_dtype
+from scenelib2_torch.runtime import replay
 from scenelib2_torch.runtime import state as st
 from scenelib2_torch.runtime import step as step_mod
 from scenelib2_torch.runtime.state import SlamState
@@ -39,6 +42,10 @@ class MonoSLAM:
             config, seed=seed, device=self.device, dtype=self.dtype)
         self.trajectory_store: list[np.ndarray] = []
         self.last_output: step_mod.StepOutputs | None = None
+        # run_sequence's CUDA graphs, one per (route, enable_mapping, steps,
+        # state shapes, frame shape), at most replay.MAX_GRAPHS; kept across
+        # reset() and load_state()
+        self._graphs: dict = {}
 
     # ------------------------------------------------------------------ API
 
@@ -62,23 +69,42 @@ class MonoSLAM:
         self.state = st.init_from_config(self.config, seed=seed, device=self.device, dtype=self.dtype)
         self.trajectory_store = []
 
-    def run_sequence(self, frames, enable_mapping: bool = True) -> step_mod.StepOutputs:
-        """Replay a [T,H,W] u8 frame stack. The frames go to the device once,
-        every step writes its packed outputs into one preallocated device
-        tensor, and the host waits once, at the end. Returns StepOutputs with
-        a leading time axis (CPU tensors)."""
+    def run_sequence(self, frames, enable_mapping: bool = True,
+                     chunk: int = 0) -> step_mod.StepOutputs:
+        """Replay a [T,H,W] u8 frame stack; returns StepOutputs with a leading
+        time axis (CPU tensors). The frames go to the device once and the
+        host waits once, at the end.
+
+        On a CUDA device the steps replay CUDA graphs (runtime/replay.py),
+        as the reference's run_sequence replays its compiled scan: one graph
+        of chunk steps (replay.REPLAY_BLOCK where chunk is 0) replayed once
+        for each full block of frames, and a one-step graph for the frames
+        past the last full block. Each graph is captured on its first use,
+        so the first call on a route pays for the capture of at most two
+        graphs, whatever the number of frames; this object keeps at most
+        replay.MAX_GRAPHS of them. On the CPU the step is called on every
+        frame, and chunk only groups the frames: the outputs are the same."""
+        return self._replay(frames, enable_mapping, chunk, graphs=self.device.type == "cuda")
+
+    def _run_sequence_eager(self, frames, enable_mapping: bool = True) -> step_mod.StepOutputs:
+        """run_sequence with the step called from Python on every frame, on
+        any device: the reference that the graph replay is held to."""
+        return self._replay(frames, enable_mapping, 0, graphs=False)
+
+    def _replay(self, frames, enable_mapping: bool, chunk: int, graphs: bool) -> step_mod.StepOutputs:
         seq = self._to_device(frames)
+        replay.chunk_plan(seq.shape[0], chunk)   # refuses a bad chunk on every device
         p = self.params
         nsel = p.n_features_to_select
         maxp = max(1, p.max_features_to_init_at_once)
         npart = p.n_particles
         flat = torch.empty((seq.shape[0], step_mod.packed_size(nsel, maxp, npart)),
                            dtype=self.dtype, device=self.device)
-        state = self.state
-        for t in range(seq.shape[0]):
-            state, out = self._step(state, seq[t], enable_mapping)
-            flat[t] = step_mod.pack_outputs(out)
-        self.state = state
+        if graphs:
+            self.state = replay.replay_steps(self._step, self._graphs, self.state, seq, enable_mapping,
+                                             chunk, flat)
+        else:
+            self.state = replay.eager_steps(self._step, self.state, seq, enable_mapping, flat)
         outs = step_mod.unpack_outputs(flat.cpu(), nsel, maxp, npart)
         self.last_output = step_mod.StepOutputs(*(a[-1] for a in outs))
         self.trajectory_store.extend(list(outs.r.numpy()))

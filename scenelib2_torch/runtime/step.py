@@ -434,6 +434,7 @@ def make_step(params: Params, device=None, precision: str = "f32"):
         )
         return mid._replace(frame_no=mid.frame_no + 1), out
 
+    step.route = "fused" if fused else "split"
     return step
 
 
@@ -922,4 +923,6 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
         )
         return mid._replace(frame_no=mid.frame_no + 1), out
 
+    step.route = route
+    step.graphs = {}   # parallel.mesh.run_batch's CUDA graphs of this step (runtime/replay.py)
     return step

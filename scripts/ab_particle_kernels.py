@@ -1,4 +1,4 @@
-"""A/B of the particle kernels (K4, K10, K11, K12, K13, K16) between source trees on one card.
+"""A/B of the particle kernels (K4, K10, K10b, K11, K12, K13, K16) between source trees on one card.
 
     python3 scripts/ab_particle_kernels.py TREE_A TREE_B TREE_B TREE_A
     python3 scripts/ab_particle_kernels.py --grid TREE
@@ -25,7 +25,11 @@ CTAs a slot (search_bayes.cluster_size forced; a launch the card refuses is
 reported), failing if any output differs from the wrappers' own choice.
 With --grid16, times K16's cases of TREE at 256, 512 and 1,024 threads a
 CTA (multi_ellipse.THREADS) times 1, 2, 4 and 8 CTAs a slot
-(multi_ellipse.ctas_a_slot forced), failing likewise.
+(multi_ellipse.ctas_a_slot forced), failing likewise. K10b runs on
+seeded slots at 64 x 100, 16 x 200, 8 x 1,100, 4 x 5,120, 2 x 16,384 and
+32 x 16,384 particles, beside an empty kernel (predict_measure.cu k0_empty)
+on its grid of (slot, block of 128 lanes) and on its first form's grid of
+one CTA a slot (a tree whose empty kernel takes no grid lacks those cases).
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import sys
 import ab_kernels
 
 SEED = 20
+# K10b's cases: (slots, particles)
+K10B_CASES = ((64, 100), (16, 200), (8, 1100), (4, 5120), (2, 16384), (32, 16384))
 
 
 def _cases(dev):
@@ -120,6 +126,23 @@ def _cases(dev):
             out.append((f"K16 {n} slots NP {NP}{tag}{what}", sym,
                         lambda a16=a16, kw16=kw16: multi_ellipse.multi_ellipse_search(*a16, **kw16)))
 
+    # K10b on seeded slots (the geometry K10's prologue gives them), and an
+    # empty kernel on K10b's grid and on its first form's (one CTA a slot)
+    pc = particle.ParticleConsts.from_params(Params())
+    empty = _empty_on_grid()
+    for n, NP in K10B_CASES:
+        shared, rows = slots(n)
+        zr, zh, K0, Ks, K2 = particle.geometry_prologue(shared[None, None], rows[None])
+        a10b = (torch.cat([zr, zh], -1).reshape(n, 6), K0.reshape(n, 3, 3), Ks.reshape(n, 3, 3),
+                K2.reshape(n, 3, 3), lam(NP, n), pc)
+        out.append((f"K10b {n} slots NP {NP}", "k10b_kernel",
+                    lambda a10b=a10b: (particle.kform_rows(*a10b),)))
+        if empty is not None:
+            blocks = bayes.padded_lanes(NP) // 128
+            for tag_, nb in (("grid", blocks), ("first-form grid", 1)):
+                out.append((f"empty {tag_} {n} x {nb}", "k0_empty",
+                            lambda n=n, nb=nb: _launch_empty(empty, n, nb)))
+
     p = Params()
     n = 64
     for NP in (100, 200):
@@ -146,6 +169,28 @@ def _cases(dev):
                     lambda common=common, pr=pr, tail=tail: bayes.bayes_update(*common, None, None, None, *tail,
                                                                                  pred_rows=pr)))
     return out
+
+
+def _empty_on_grid():
+    """The tree's empty kernel launched on a grid (csrc/predict_measure.cu
+    k0_empty_launch), None where its launcher takes no grid."""
+    import ctypes
+
+    from scenelib2_torch.kernels import _build
+
+    with open(os.path.join(_build.CSRC, "predict_measure.cu")) as f:
+        if "k0_empty_launch(int gx" not in f.read():
+            return None
+    return _build.function("predict_measure", "k0_empty_launch", [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def _launch_empty(fn, F, blocks):
+    import torch
+
+    from scenelib2_torch.kernels import _build
+
+    _build.check(fn(F, blocks, 128, torch.cuda.current_stream().cuda_stream), "empty launch")
+    return (torch.zeros(1),)
 
 
 def _grid(tree: str) -> int:
