@@ -131,8 +131,33 @@ Phases (any failure exits non-zero before the last line is printed):
     K10's and K11's times at 200 particles and K2's over the 16 lanes.
     Every replay phase (3, 3b-3f) requires zero launches of K10b, K15 and
     K16: no route reaches them.
+ 3g. the entry points users start the system through: (a) go_one_step
+    through its one-step CUDA graph over the 239 frames with mapping on,
+    one call a frame: expected_fingerprint.json, every packed row and the
+    final state bit for bit with _go_one_step_eager and with phase 3's
+    eager replay, one graph captured (each kernel of the path counted twice:
+    the capture and its warm-up step); 10 calls alternating mapping off and
+    on (one graph a mapping value, bit for bit with the eager step), then
+    run_sequence beside them within MAX_GRAPHS; median ms a call through
+    the graph and eagerly (host wall with the frame upload and the
+    trajectory fetch) on std-mapping and 40 frames of mf100; (b) a facade
+    script (steps, initialise_feature, initialise_auto_feature,
+    delete_feature of a marked label, add_new_known_feature,
+    save_checkpoint, load_checkpoint, reset) through the graph bit for bit
+    with the eager step and against the CPU port (decisions and bookkeeping
+    identical, x and P within STEP_TOL); initialise_auto_feature launches K5
+    and K6 once each, and both equal their plain versions on its inputs;
+    (c) `python -m scenelib2_torch.cli selftest` exits 0, and 1 on a copy
+    of the expected file with matched_sum + 1; (d) `cli run --mapping
+    --checkpoint` on a PGM directory of the frames, read by the native
+    grabber built by make: its decisions equal (a)'s and its checkpoint
+    (a)'s final state, and `cli print-state` reads it (c and d run side by
+    side); (e) `cli bench testseq autoinit hires batch64`: each JSON line
+    printed, each cell's timed replay reproducing its committed fingerprint
+    (batch64 reads the lanes phase 3b rendered).
  4. a `graph_replay` JSON line (every cell: eager and graph ms a frame or
-    step, span, busy, idle shares, peak memory, capture seconds), a
+    step, span, busy, idle shares, peak memory, capture seconds), an
+    `entry_points` JSON line (phase 3g's ms a call and frames/s), a
     `kernels` JSON line (launches: the mapping-on graph run's counts, a
     warm-up step and the capture), then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -2280,6 +2305,377 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
     return res
 
 
+# ------------------------------------------------------------ 3g: the entry points
+
+N_MF100_CALLS = 40    # go_one_step calls on mf100 (the split route, K14), timed graph and eager
+N_ALTERNATE = 10      # go_one_step calls alternating mapping off and on
+EP_DECISIONS = ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init", "did_convert")
+BENCH_CELLS = ("testseq", "autoinit", "hires", "batch64")
+
+
+def cache_root(tmp: str) -> str:
+    """The temporary directory of phase 3g's subprocesses: the rendered
+    sequences and lanes they read (3b renders its lanes there)."""
+    return os.path.join(tmp, "cache")
+
+
+def go_calls(slam, frames, n: int, mapping, graph: bool):
+    """go_one_step on frames[1 .. n] (the graph path, or its eager reference
+    _go_one_step_eager): (packed rows [n, K] on the device, host ms of each
+    call, the trajectory fetch included). mapping is a bool or a function of
+    the frame index."""
+    call = slam.go_one_step if graph else slam._go_one_step_eager
+    rows, ms = [], []
+    for t in range(1, n + 1):
+        em = mapping(t) if callable(mapping) else mapping
+        t0 = time.perf_counter()
+        call(frames[t], True, em)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(step_pack(slam.last_output))
+    return torch.stack(rows), ms
+
+
+def step_pack(out):
+    from scenelib2_torch.runtime.step import pack_outputs
+
+    return pack_outputs(out)
+
+
+def unpack_rows(rows, p):
+    from scenelib2_torch.runtime.step import unpack_outputs
+
+    return unpack_outputs(rows.cpu(), p.n_features_to_select, max(1, p.max_features_to_init_at_once),
+                          p.n_particles)
+
+
+def facade_script(slam, call, frames, xp, work: str, probe: dict | None = None):
+    """Phase 3g(b)'s facade calls between steps; call(slam, frame) steps.
+    Returns (tag, return value, packed row or None, state) after every call.
+    probe, where given, receives the kernel wrappers' arguments and the
+    launch counts of the initialise_auto_feature call."""
+    from scenelib2_torch.kernels import _build
+
+    recs, f = [], [1]
+
+    def rec(tag, ret=None, row=None):
+        recs.append((tag, ret, row, tuple(t.clone() for t in slam.state)))
+
+    def steps(n, tag):
+        for _ in range(n):
+            call(slam, frames[f[0]])
+            rec(f"{tag} frame {f[0]}", None, step_pack(slam.last_output))
+            f[0] += 1
+
+    steps(10, "steps 1")
+    rec("initialise_feature", slam.initialise_feature(frames[10], 160, 120))
+    if probe is not None:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with observe_wrappers(lambda n, a, k: probe.setdefault("calls", {}).__setitem__(n, (a, k))):
+            did = slam.initialise_auto_feature(frames[10])
+        probe["launches"] = dict(_build.launches)
+    else:
+        did = slam.initialise_auto_feature(frames[10])
+    rec("initialise_auto_feature", did)
+    slam.mark_feature_by_lab(1)
+    rec("delete_feature", slam.delete_feature())
+    slam.add_new_known_feature(np.array([0.05, -0.02, 0.0]), xp, frames[10][100:111, 150:161])
+    rec("add_new_known_feature")
+    steps(10, "steps 2")
+    slam.save_checkpoint(os.path.join(work, "facade.npz"))
+    steps(5, "steps 3")
+    slam.load_checkpoint(os.path.join(work, "facade.npz"))
+    rec("load_checkpoint")
+    f[0] -= 5
+    steps(5, "steps 3 again")
+    slam.mark_feature_by_lab(2)
+    slam.reset()
+    rec("reset", slam.marked_feature_label)
+    f[0] = 1
+    steps(5, "after reset")
+    return recs
+
+
+def entry_points_phase(tmp: str, dev, frames, gt_r, gt_q, cfg: str, outs_eager, state_eager, smi: str) -> dict:
+    """Phase 3g: the entry points users start the system through.
+    (a) go_one_step through the one-step graph over the 239-frame std
+        sequence, mapping on: its fingerprint, every packed row and the final
+        state bit for bit with the eager step and with phase 3's eager
+        replay, one graph captured (each kernel of the path counted twice:
+        the capture and its warm-up step); mapping off and on alternately
+        (two graphs, bit for bit with the eager step) and beside
+        run_sequence's block graph within replay.MAX_GRAPHS; ms a call
+        through the graph and eagerly, std-mapping and 40 frames of mf100;
+    (b) facade calls between steps on the card through the graph, bit for bit
+        with the same script through the eager step, and against the CPU
+        port (decisions and bookkeeping identical, x and P within STEP_TOL);
+        initialise_auto_feature launches K5 and K6 once each and nothing
+        else, and both equal their plain versions on its inputs;
+    (c) `cli selftest` returns 0, and 1 on a copy of the expected file with
+        matched_sum changed by one;
+    (d) `cli run --mapping --checkpoint` on a PGM directory of the frames,
+        read by the native grabber (built by make): its decisions are (a)'s
+        and its checkpoint is (a)'s final state; `cli print-state` reads it;
+    (e) `cli bench testseq autoinit hires batch64`: each cell's timed replay
+        reproduces its committed fingerprint."""
+    from scenelib2_torch import MonoSLAM
+    from scenelib2_torch.convert import state_to_numpy
+    from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected, selection_set
+    from scenelib2_torch.eval.selftest import EXPECTED_PATH, std_dataset
+    from scenelib2_torch.kernels import _build
+    from scenelib2_torch.runtime import replay
+    from scenelib2_torch.runtime.step import pack_outputs
+
+    t_phase = time.time()
+    res = {}
+    n_run = len(frames) - 1
+
+    # ---- (a) go_one_step through the one-step graph
+    slam = MonoSLAM(cfg, max_features=16, device="cuda")
+    p = slam.params
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    rows_g, ms_g = go_calls(slam, frames, n_run, True, graph=True)
+    launches_g = dict(_build.launches)
+    keys = list(slam._graphs)
+    if len(keys) != 1 or keys[0][1:3] != (True, 1):
+        fail(f"go_one_step with mapping on captured the graphs {[k[:3] for k in keys]}, expected one one-step graph")
+    for n in _build.KERNELS:
+        if launches_g.get(n, 0) != (2 if n in SINGLE_PATH else 0):
+            fail(f"go_one_step x {n_run}: kernel {n} counted {launches_g.get(n, 0)} launches, expected "
+                 f"{2 if n in SINGLE_PATH else 0} (one capture and its warm-up step)")
+    outs_g = unpack_rows(rows_g, p)
+    fp = decisions_fingerprint(outs_g, n_run)
+    want = load_expected("expected_fingerprint")
+    if any(fp[k] != want[k] for k in fp):
+        fail(f"go_one_step through the graph: fingerprint {fp} differs from expected_fingerprint.json {want}")
+    eager = MonoSLAM(cfg, max_features=16, device="cuda")
+    rows_e, ms_e = go_calls(eager, frames, n_run, True, graph=False)
+    if not same_bits_or_nan(rows_g, rows_e):
+        fail("go_one_step through the graph: packed rows differ from the eager step's")
+    if not outputs_identical(slam.state, eager.state):
+        fail("go_one_step through the graph: final state differs from the eager step's")
+    if not same_bits_or_nan(rows_g.cpu(), pack_outputs(outs_eager)):
+        fail("go_one_step through the graph: packed rows differ from phase 3's eager replay")
+    if not outputs_identical(slam.state, state_eager):
+        fail("go_one_step through the graph: final state differs from phase 3's eager replay")
+    if not np.array_equal(slam.trajectory(), outs_g.r.numpy()):
+        fail("go_one_step through the graph: the trajectory store differs from the steps' positions")
+    state_a = slam.state
+    log(f"[3g] go_one_step x {n_run} through the one-step graph (mapping on): fingerprint {json.dumps(fp)} "
+        f"equals expected_fingerprint.json; packed rows and final state bit for bit with the eager step "
+        f"and with phase 3's eager replay; one graph captured; launches {json.dumps(launches_g)}")
+
+    # mapping off and on alternately: one more graph, beside run_sequence's block graph
+    alt = lambda t: t % 2 == 0  # noqa: E731
+    slam.reset()
+    eager.reset()
+    rows_ga, _ = go_calls(slam, frames, N_ALTERNATE, alt, graph=True)
+    rows_ea, _ = go_calls(eager, frames, N_ALTERNATE, alt, graph=False)
+    if not (same_bits_or_nan(rows_ga, rows_ea) and outputs_identical(slam.state, eager.state)):
+        fail("go_one_step alternating mapping off and on: the graph path differs from the eager step")
+    one_step = {k for k in slam._graphs if k[2] == 1}
+    if sorted(k[1] for k in one_step) != [False, True] or len(slam._graphs) != 2:
+        fail(f"go_one_step alternating mapping: graphs {[k[:3] for k in slam._graphs]}, expected one a mapping value")
+    slam.reset()
+    slam.run_sequence(frames[1:12], enable_mapping=True)           # a block of 8 and 3 one-step replays
+    if not (one_step <= set(slam._graphs) and len(slam._graphs) == 3 <= replay.MAX_GRAPHS):
+        fail(f"run_sequence beside go_one_step's graphs: {[k[:3] for k in slam._graphs]}")
+    log(f"[3g] {N_ALTERNATE} calls alternating mapping off and on: bit for bit with the eager step, one "
+        f"graph a mapping value; run_sequence then reuses the one-step graph and adds its block graph "
+        f"({len(slam._graphs)} of MAX_GRAPHS = {replay.MAX_GRAPHS})")
+
+    big = MonoSLAM(cfg, max_features=100, device="cuda")
+    rows_bg, ms_bg = go_calls(big, frames, N_MF100_CALLS, True, graph=True)
+    big.reset()
+    rows_be, ms_be = go_calls(big, frames, N_MF100_CALLS, True, graph=False)
+    if not same_bits_or_nan(rows_bg, rows_be):
+        fail("mf100 go_one_step through the graph: packed rows differ from the eager step's")
+    per_call = {}
+    for cell, g_ms, e_ms in (("std-mapping", ms_g, ms_e), ("mf100", ms_bg, ms_be)):
+        per_call[cell] = dict(graph_ms=statistics.median(g_ms[1:]), eager_ms=statistics.median(e_ms[1:]),
+                              first_call_ms=g_ms[0], calls=len(g_ms), card=smi)
+        log(f"[3g] {cell}: go_one_step {per_call[cell]['graph_ms']:.4f} ms a call through the graph, "
+            f"{per_call[cell]['eager_ms']:.4f} ms eagerly (median of calls 2..{len(g_ms)}, host wall with "
+            f"the frame upload and the trajectory fetch; the first graph call {g_ms[0]:.1f} ms, its "
+            f"capture included) on {smi}")
+    res["per_call"] = per_call
+
+    # ---- (b) facade calls between steps
+    xp = np.concatenate([gt_r[10], gt_q[10]])
+    works = {k: os.path.join(tmp, f"facade_{k}") for k in ("graph", "eager", "cpu")}
+    for w_ in works.values():
+        os.makedirs(w_, exist_ok=True)
+    probe = {}
+    fg = facade_script(MonoSLAM(cfg, max_features=16, device="cuda"), lambda s_, f_: s_.go_one_step(f_),
+                       frames, xp, works["graph"], probe)
+    fe = facade_script(MonoSLAM(cfg, max_features=16, device="cuda"), lambda s_, f_: s_._go_one_step_eager(f_),
+                       frames, xp, works["eager"])
+    fc = facade_script(MonoSLAM(cfg, max_features=16, device="cpu"), lambda s_, f_: s_.go_one_step(f_),
+                       frames, xp, works["cpu"])
+    fields = list(state_a._fields)
+    exact = [fields.index(k) for k in ("active", "full", "label", "patches", "attempts", "successes", "rng")]
+    dmax = 0.0
+    for (tag, rg, wg, sg), (_t, re_, we, se), (_t2, rc, wc, sc_) in zip(fg, fe, fc):
+        if rg != re_ or rg != rc:
+            fail(f"facade script, {tag}: returned {rg} through the graph, {re_} eagerly, {rc} on the CPU")
+        if (wg is None) != (we is None) or (wg is not None and not same_bits_or_nan(wg, we)):
+            fail(f"facade script, {tag}: the graph's packed row differs from the eager step's")
+        if not outputs_identical(sg, se):
+            fail(f"facade script, {tag}: the state through the graph differs from the eager step's")
+        for i in exact:
+            if not same(sg[i], sc_[i]):
+                fail(f"facade script, {tag}: {fields[i]} differs from the CPU port's")
+        for k in ("x", "P"):
+            d = max_err(sg[fields.index(k)], sc_[fields.index(k)])
+            dmax = max(dmax, d)
+            if d > STEP_TOL:
+                fail(f"facade script, {tag}: {k} differs from the CPU port's by {d}")
+        if wg is not None:
+            og, oc = unpack_rows(wg[None], p), unpack_rows(wc[None], p)
+            for k in EP_DECISIONS + ("n_overflow",):
+                if not same(getattr(og, k), getattr(oc, k)):
+                    fail(f"facade script, {tag}: {k} differs from the CPU port's")
+            if not np.array_equal(selection_set(og), selection_set(oc)):
+                fail(f"facade script, {tag}: the selection differs from the CPU port's")
+    rets = {t_: r_ for t_, r_, _w, _s in fg if r_ is not None}
+    if not (rets["initialise_feature"] and rets["delete_feature"] and rets["reset"] == -1):
+        fail(f"facade script: the calls did not do what the script asks: {rets}")
+    want5 = {n: (1 if n in ("propose", "shi_tomasi") else 0) for n in _build.KERNELS}
+    if probe["launches"] != want5:
+        fail(f"initialise_auto_feature launched {probe['launches']}, expected K5 and K6 once each")
+    a5, _ = probe["calls"]["propose_region"]
+    a6, kw6 = probe["calls"]["shi_tomasi"]
+    check_k5(a5)
+    e6 = check_k6(tuple(a6) + (kw6,))
+    res["facade"] = dict(calls=len(fg), returns=rets, max_dx_cpu=dmax, manual_init_launches=probe["launches"])
+    log(f"[3g] facade script ({len(fg)} calls: steps, initialise_feature, initialise_auto_feature, "
+        f"delete_feature, add_new_known_feature, save/load_checkpoint, reset): through the graph bit for "
+        f"bit with the eager step, against the CPU port decisions identical (max |dx|, |dP| {dmax:.3g}); "
+        f"returns {json.dumps(rets)}; initialise_auto_feature launched K5 and K6 once each, both equal "
+        f"their plain versions on its inputs (K6 evbest max abs err {e6})")
+
+    # ---- (c) + (d): selftest and cli run, side by side in subprocesses
+    root = cache_root(tmp)
+    os.makedirs(root, exist_ok=True)
+    std_dataset(len(frames), root=root)          # rendered once for every subprocess
+    # the subprocesses launch kernels from one host thread each: no intra-op thread pools beside them
+    env = dict(os.environ, TMPDIR=root, OMP_NUM_THREADS="1",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with open(EXPECTED_PATH) as f_:
+        bad = json.load(f_)
+    bad["matched_sum"] += 1
+    bad_path = os.path.join(tmp, "expected_matched_sum_plus_one.json")
+    with open(bad_path, "w") as f_:
+        json.dump(bad, f_)
+    mk = subprocess.run(["make", "-C", os.path.join(REPO, "native"), "-s", "-B", "libframegrabber.so"],
+                        capture_output=True, text=True, timeout=300)
+    if mk.returncode != 0:
+        fail(f"make -C native failed: {mk.stderr[-2000:]}")
+    print(f"# native grabber: native/libframegrabber.so built by make in this run ({os.path.join(REPO, 'native')})",
+          flush=True)
+    from scenelib2_torch.io import native
+    from scenelib2_torch.io.pgm import write_pgm
+    from scenelib2_torch.io.sequence import ImageSequence
+
+    seq_dir = os.path.join(tmp, "pgm_seq")
+    os.makedirs(seq_dir, exist_ok=True)
+    for i, fr in enumerate(frames):
+        write_pgm(os.path.join(seq_dir, f"frame_{i:04d}.pgm"), fr)
+    if not native.available() or ImageSequence(seq_dir)._native is None:
+        fail("ImageSequence does not read the PGM directory through the native grabber")
+    run_dir = os.path.join(tmp, "cli_run")
+    cli = [sys.executable, "-m", "scenelib2_torch.cli"]
+    procs = {
+        "selftest": subprocess.Popen(cli + ["selftest"], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True),
+        "selftest (matched_sum + 1)": subprocess.Popen(cli + ["selftest", "--expected", bad_path], cwd=REPO, env=env,
+                                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        "run": subprocess.Popen(cli + ["run", "--config", cfg, "--seq", seq_dir, "--out", run_dir, "--mapping",
+                                       "--checkpoint"], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True),
+    }
+    hires_t0 = time.time()
+    from scenelib2_torch.config import Params
+    from scenelib2_torch.eval.synthetic import HIRES_PARAMS
+
+    std_dataset(120, params=Params(**HIRES_PARAMS), tag="hires", root=root)   # for (e), meanwhile
+    hires_s = time.time() - hires_t0
+    done = {}
+    for name, pr in procs.items():
+        try:
+            out_, err_ = pr.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            fail(f"cli {name} did not finish in 600 s")
+        done[name] = (pr.returncode, out_, err_)
+        for line in err_.splitlines():
+            if line.startswith("#"):
+                print(f"# cli {name}: {line[1:].strip()}", flush=True)
+    want_rc = {"selftest": 0, "selftest (matched_sum + 1)": 1, "run": 0}
+    for name, (rc, out_, err_) in done.items():
+        if rc != want_rc[name]:
+            fail(f"cli {name} exited {rc}, expected {want_rc[name]}:\n{out_[-1500:]}\n{err_[-3000:]}")
+    if "native grabber" not in done["run"][2]:
+        fail("cli run did not read its frames through the native grabber")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f_:
+        metrics = [json.loads(line) for line in f_]
+    if len(metrics) != n_run:
+        fail(f"cli run wrote {len(metrics)} metrics lines, expected {n_run}")
+    for k in EP_DECISIONS:
+        got_k = np.array([m[k] for m in metrics], dtype=np.int64)
+        if not np.array_equal(got_k, getattr(outs_g, k).numpy().astype(np.int64)):
+            fail(f"cli run: {k} differs from go_one_step's in phase 3g(a)")
+    with np.load(os.path.join(run_dir, "final_state.npz")) as z:
+        ck = {k[len("state_"):]: z[k] for k in z.files}
+    for k, v in state_to_numpy(state_a).items():
+        if not np.array_equal(ck[k], v, equal_nan=v.dtype.kind == "f"):
+            fail(f"cli run's checkpoint field {k} differs from phase 3g(a)'s final state")
+    ps = subprocess.run(cli + ["print-state", "--config", cfg, "--checkpoint",
+                               os.path.join(run_dir, "final_state.npz")],
+                        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    if ps.returncode != 0 or not ps.stdout.startswith("[Robot state]"):
+        fail(f"cli print-state failed ({ps.returncode}): {ps.stdout[-500:]} {ps.stderr[-2000:]}")
+    n_rows = sum(1 for line in ps.stdout.splitlines() if line.startswith("{'slot'"))
+    if n_rows != int(state_a.active.sum()):
+        fail(f"cli print-state listed {n_rows} features, the checkpoint holds {int(state_a.active.sum())}")
+    res["cli"] = dict(selftest_rc=done["selftest"][0], selftest_altered_rc=done["selftest (matched_sum + 1)"][0],
+                      run_frames=len(metrics), run_summary=json.loads(done["run"][1].strip().splitlines()[-1]))
+    log(f"[3g] cli selftest exited 0 ({done['selftest'][1].strip()}), and 1 on a copy of the expected file "
+        f"with matched_sum + 1; cli run --mapping --checkpoint read {len(metrics)} + 1 PGM frames through the "
+        f"native grabber: decisions equal go_one_step's, checkpoint equal to its final state; cli print-state "
+        f"read the checkpoint ({n_rows} features); hires sequence rendered meanwhile in {hires_s:.1f} s")
+
+    # ---- (e) the bench suite
+    b = subprocess.run(cli + ["bench", *BENCH_CELLS], cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=900)
+    if b.returncode != 0:
+        fail(f"cli bench exited {b.returncode}: {b.stdout[-1500:]} {b.stderr[-3000:]}")
+    bench = {}
+    for line in b.stdout.strip().splitlines():
+        r_ = json.loads(line)
+        print(line, flush=True)
+        bench[r_["metric"]] = r_
+    if len(bench) != len(BENCH_CELLS):
+        fail(f"cli bench printed {len(bench)} results, expected {len(BENCH_CELLS)}")
+    for r_ in bench.values():
+        if "lanes_differing" in r_:
+            if r_["lanes_differing"]:
+                fail(f"bench {r_['metric']}: lanes differ from {r_['fingerprint_file']}: {r_['lanes_differing'][:4]}")
+        else:
+            want_fp = {k: v for k, v in load_expected(r_["fingerprint_file"]).items() if k != "dataset_version"}
+            if r_["fingerprint"] != want_fp:
+                fail(f"bench {r_['metric']}: fingerprint {r_['fingerprint']} differs from {r_['fingerprint_file']}")
+    res["bench"] = {k: dict(value=v["value"], unit=v["unit"], card=v["card"]) for k, v in bench.items()}
+    log("[3g] cli bench: " + ", ".join(f"{k} {v['value']} {v['unit']}" for k, v in bench.items())
+        + f" on {smi}; each cell's timed replay reproduces its committed fingerprint "
+        f"(batch64: all 64 lanes)")
+    res["seconds"] = time.time() - t_phase
+    log(f"[3g] phase 3g took {res['seconds']:.1f} s")
+    return res
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2326,15 +2722,15 @@ def observe_wrappers(on_call):
 
 
 def capture_inputs(slam, frames, at: tuple) -> dict:
-    """Drive the step on the GPU with mapping on through output index
-    max(at) and return {index: {wrapper: (args, kwargs)}} for the indices in
-    `at`."""
+    """Drive the eager step (go_one_step's reference form: the wrappers see
+    every call) on the GPU with mapping on through output index max(at) and
+    return {index: {wrapper: (args, kwargs)}} for the indices in `at`."""
     seen, cur = {}, {}
     with observe_wrappers(lambda n, a, k: cur.__setitem__(n, (a, k))):
         slam.reset()
         for t in range(max(at) + 1):
             cur.clear()
-            slam.go_one_step(frames[t + 1])
+            slam._go_one_step_eager(frames[t + 1])
             if t in at:
                 seen[t] = dict(cur)
     torch.cuda.synchronize()
@@ -2984,7 +3380,7 @@ def main() -> int:
 
 
         # ---- 3b. batch mode: 64 lanes in one step -------------------------
-        from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints, make_lanes
+        from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints, lanes_cache_dir, make_lanes
         from scenelib2_torch.parallel.mesh import _run_batch_eager, make_batched_step, run_batch
         from scenelib2_torch.runtime.state import SlamState
 
@@ -3018,7 +3414,8 @@ def main() -> int:
 
         t0 = time.time()
         bparams, states0, bframes = make_lanes(
-            tmp, N_LANES, N_TEXTURES, N_BATCH_FRAMES, device=dev, dtype=torch.float32)
+            lanes_cache_dir(cache_root(tmp)), N_LANES, N_TEXTURES, N_BATCH_FRAMES, device=dev,
+            dtype=torch.float32)
         bseq = torch.as_tensor(bframes).to(dev)
         T = bseq.shape[0]
         log(f"[3b] {N_LANES} lanes ({N_TEXTURES} textures x {N_LANES // N_TEXTURES} offsets) x {T} "
@@ -3244,6 +3641,9 @@ def main() -> int:
         # ---- 3f. batch lanes at the hires configuration (200 particles)
         hires_b = batch_hires_phase(os.path.join(tmp, "bhires"), dev, rng)
 
+        # ---- 3g. the entry points: go_one_step, the facade, the CLI, the bench suite
+        entry = entry_points_phase(tmp, dev, frames, gt_r, _gt_q, cfg, outs, state_on, smi)
+
     # ---- 4. kernel records ------------------------------------------------
     costs["K2"] = [search.bytes_and_flops(K, sc, admit) for admit, K in costs["K2"]]
     recs = []
@@ -3411,6 +3811,7 @@ def main() -> int:
                       "empty_launch_ms": empty_ms, "card": smi}))
     print(json.dumps({"batch_routes": {ROUTE_PATH[r][0]: {k: v for k, v in routes[r].items() if k != "timings"}
                                        for r in ROUTE_PATH}, "card": smi}))
+    print(json.dumps({"entry_points": entry, "card": smi}))
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

@@ -13,8 +13,17 @@ Ported so far: the whole single-stream f32 step, stages 1-8 of go_one_step
 (EKF predict, measurement prediction and selection, NSSD search, joint
 update, bookkeeping, auto-initialisation, the partial-feature particle
 stage), with mapping on or off, at every map size the JAX fast step runs
-(max_features up to 128, routed by state size as JAX routes it); and batch
-mode (parallel.mesh). The f64 parity mode is not ported yet.
+(max_features up to 128, routed by state size as JAX routes it); batch
+mode (parallel.mesh); CUDA-graph replay of go_one_step (one graph replay a
+frame) and run_sequence; the rest of the MonoSLAM facade (manual inits,
+feature bookkeeping, checkpoints in the JAX package's layout); the entry
+points: io.ImageSequence with the native frame grabber, io.camera, the
+selftest, the bench suite and the CLI (python -m scenelib2_torch.cli). The
+f64 parity mode is not ported yet.
+
+    slam = MonoSLAM("data/SceneLib2.cfg")
+    for frame in ImageSequence(seq_dir):
+        slam.go_one_step(frame)
 """
 
 import torch as _torch
@@ -26,8 +35,9 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from scenelib2_torch.config import Params, SlamConfig, load_config, parse_cfg_file  # noqa: E402
+from scenelib2_torch.io.sequence import ImageSequence  # noqa: E402
 from scenelib2_torch.runtime.slam import MonoSLAM  # noqa: E402
 
-__all__ = ["Params", "SlamConfig", "load_config", "parse_cfg_file", "MonoSLAM"]
+__all__ = ["Params", "SlamConfig", "load_config", "parse_cfg_file", "MonoSLAM", "ImageSequence"]
 
 __version__ = "0.1.0"

@@ -27,3 +27,22 @@ def resolve_dtype(precision: str) -> torch.dtype:
         return PRECISIONS[precision]
     except KeyError:
         raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}") from None
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints
+    them (every time this package reports carries it), or "cpu"."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    import subprocess
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={idx}", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        return f"{torch.cuda.get_device_name(idx)}, power limit not read ({e.__class__.__name__})"

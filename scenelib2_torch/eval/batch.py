@@ -50,15 +50,23 @@ def make_lanes(out_dir: str, batch: int = 64, n_textures: int = 32, n_frames: in
     at the configuration `config` (CONFIGS): T = n_frames - 1 frames a lane.
     `lanes` picks a subset of the `batch` lanes (their indices; each keeps
     its texture, offset and seed). Renders the textures it needs into
-    out_dir."""
+    out_dir, or reads them back where an earlier call rendered them there
+    (each texture's frames.npy beside its config and patches)."""
     dataset, overrides, _file = CONFIGS[config]
     lanes = list(range(batch)) if lanes is None else list(lanes)
     offsets = max(1, batch // n_textures)
     tex_frames, tex_cfgs = {}, {}
     for tex in sorted({lane % n_textures for lane in lanes}):
-        frames, _rs, _qs, cfg_path = generate_dataset(
-            os.path.join(out_dir, f"b{config}t{tex}"), n_frames=n_frames + offsets, seed=7 + tex,
-            params=None if dataset is None else Params(**dataset))
+        tdir = os.path.join(out_dir, f"b{config}t{tex}")
+        fpath, cfg_path = os.path.join(tdir, "frames.npy"), os.path.join(tdir, "synthetic.cfg")
+        cached = os.path.exists(fpath) and os.path.exists(cfg_path)
+        if cached and np.load(fpath, mmap_mode="r").shape[0] == n_frames + offsets:
+            frames = np.load(fpath)
+        else:
+            frames, _rs, _qs, cfg_path = generate_dataset(
+                tdir, n_frames=n_frames + offsets, seed=7 + tex,
+                params=None if dataset is None else Params(**dataset))
+            np.save(fpath, frames)
         tex_frames[tex] = frames
         tex_cfgs[tex] = load_config(cfg_path)
     params = dataclasses.replace(next(iter(tex_cfgs.values())).params, **overrides, batch_mode=True)
@@ -71,6 +79,14 @@ def make_lanes(out_dir: str, batch: int = 64, n_textures: int = 32, n_frames: in
     states_b = stack_states(states)
     seeds = lane_seeds(batch, device)[np.asarray(lanes)]
     return params, states_b._replace(rng=seeds), np.ascontiguousarray(np.stack(fb, axis=1))
+
+
+def lanes_cache_dir(root: str) -> str:
+    """The directory under root where bench_batch64 (eval/benchmark.py)
+    renders its lanes, so that a later make_lanes there reads them."""
+    from scenelib2_torch.eval.synthetic import DATASET_VERSION
+
+    return os.path.join(root, f"scenelib2_torch_lanes_v{DATASET_VERSION}")
 
 
 def lane_fingerprints(outs: StepOutputs) -> list[dict]:

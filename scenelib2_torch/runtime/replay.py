@@ -13,6 +13,9 @@ sequence replays it once for each full block of its frames: N is ``chunk``,
 or REPLAY_BLOCK where chunk is 0, and the frames past the last full block go
 through a one-step graph (chunk_plan). So a capture costs the same for every
 sequence length, and the graphs a cache keeps are bounded (MAX_GRAPHS).
+``replay_one`` replays that same one-step graph for a single frame: the
+port's counterpart of JAX's jitted ``go_one_step`` (one dispatch a frame,
+scenelib2_tpu/runtime/slam.py:58-68).
 
 - inputs are static buffers, the state's fields and an [N, *frame] frame
   buffer; the graph ends by copying its final state back into the static
@@ -152,27 +155,54 @@ class StepGraph:
         return self.state_in
 
 
+def cached_graph(step, graphs: dict, state: SlamState, frames: torch.Tensor,
+                 enable_mapping: bool) -> StepGraph:
+    """The StepGraph of `step` for frames [N, *frame] from graphs, keyed by
+    (route, enable_mapping, N, state shapes, frame shape), or one captured
+    now from state and frames. graphs keeps at most MAX_GRAPHS, all in one
+    memory pool; the least recently used one goes first."""
+    key = (step.route, bool(enable_mapping), frames.shape[0], tuple(tuple(t.shape) for t in state),
+           tuple(frames.shape[1:]))
+    g = graphs.pop(key, None)
+    if g is None:
+        while len(graphs) >= MAX_GRAPHS:
+            del graphs[next(iter(graphs))]
+        pool = next(iter(graphs.values())).graph.pool() if graphs else None
+        g = StepGraph(step, state, frames, enable_mapping, pool)
+    graphs[key] = g                         # the most recently used last
+    return g
+
+
 def replay_steps(step, graphs: dict, state: SlamState, seq: torch.Tensor, enable_mapping: bool,
                  chunk: int, flat: torch.Tensor) -> SlamState:
     """seq [T, *frame] through CUDA graphs of `step` in the groups of
     chunk_plan(T, chunk), the packed outputs written to flat [T, ...].
-    graphs caches one StepGraph per (route, enable_mapping, N, state shapes,
-    frame shape), at most MAX_GRAPHS of them, all in one memory pool; a
-    missing one is captured from the state at hand. Returns the final state
-    as tensors of its own (a copy, not the graph's)."""
-    shapes = tuple(tuple(t.shape) for t in state)
+    graphs caches the graphs (cached_graph); a missing one is captured from
+    the state at hand. Returns the final state as tensors of its own (a
+    copy, not the graph's)."""
     t = 0
     for n in chunk_plan(seq.shape[0], chunk):
-        key = (step.route, bool(enable_mapping), n, shapes, tuple(seq.shape[1:]))
-        g = graphs.pop(key, None)
-        if g is None:
-            while len(graphs) >= MAX_GRAPHS:
-                del graphs[next(iter(graphs))]
-            pool = next(iter(graphs.values())).graph.pool() if graphs else None
-            g = StepGraph(step, state, seq[t : t + n], enable_mapping, pool)
-        graphs[key] = g                     # the most recently used last
+        g = cached_graph(step, graphs, state, seq[t : t + n], enable_mapping)
         with sync_error():
             state = g.replay(state, seq[t : t + n])
             flat[t : t + n].copy_(g.flat)
         t += n
     return SlamState(*(x.clone() for x in state))
+
+
+def replay_one(step, graphs: dict, state: SlamState, frame: torch.Tensor,
+               enable_mapping: bool) -> tuple[SlamState, torch.Tensor]:
+    """One step of `step` on frame [*frame] through the cache's one-step
+    graph, the one replay_steps replays past the last full block (the same
+    key, so the two share it): the state is copied into the graph's inputs
+    (whatever changed it since the last call: reset, a loaded checkpoint,
+    the facade's state surgery) and the frame into its frame buffer.
+    Returns the state after the step and that step's packed row
+    (pack_outputs), both as tensors of their own, which no later replay
+    overwrites."""
+    g = cached_graph(step, graphs, state, frame[None], enable_mapping)
+    with sync_error():
+        out = g.replay(state, frame[None])
+        row = g.flat[0].clone()
+        out = SlamState(*(x.clone() for x in out))
+    return out, row

@@ -1,28 +1,47 @@
 """MonoSLAM facade around the per-frame step.
 
 Port of scenelib2_tpu/runtime/slam.py. Mirrors the reference's public
-surface (monoslam.h:76-156): the constructor (config, camera, known
-features), GoOneStep with or without mapping (auto-initialisation and the
-partial-feature particle stage), the trajectory record, plus run_sequence
-over a whole frame stack (on a CUDA device as CUDA-graph replay,
-runtime/replay.py: the counterpart of the reference's compiled scan) and
-loading a JAX checkpoint.
+surface (monoslam.h:76-156):
+  Init (constructor)        config load, camera, known features, srand48(0)
+  GoOneStep                 one frame with or without mapping (on a CUDA
+                            device one replay of a one-step CUDA graph,
+                            runtime/replay.py: the counterpart of the
+                            reference's one jitted dispatch)
+  InitialiseAutoFeature     manual auto-init (no speed or count gates)
+  InitialiseFeature         manual init at a picked pixel
+  AddNewKnownFeature        a feature with known position, zero covariance
+  mark/toggle/delete_feature, SavePatch, print_robot_state
+  trajectory_store_         the last 1000 camera positions
+plus run_sequence over a whole frame stack (CUDA-graph replay on the card,
+the counterpart of the reference's compiled scan) and whole-state
+checkpoints in the JAX package's file layout, so that either package reads
+the other's files.
+
+The facade's state surgery (reset, the manual inits, deletion, loading a
+checkpoint) runs as tensor ops on the facade's device, outside any graph;
+the next go_one_step copies the state it finds into the graph's inputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import torch
 
 from scenelib2_torch.config import Params, SlamConfig, load_config
-from scenelib2_torch.convert import state_from_jax
+from scenelib2_torch.convert import state_from_jax, state_to_numpy
+from scenelib2_torch.core.camera import CameraParams
 from scenelib2_torch.device import resolve_device, resolve_dtype
+from scenelib2_torch.io.pgm import read_pgm, write_pgm
 from scenelib2_torch.runtime import replay
 from scenelib2_torch.runtime import state as st
 from scenelib2_torch.runtime import step as step_mod
 from scenelib2_torch.runtime.state import SlamState
+
+TRAJECTORY_LEN = 1000   # trajectory_store keeps the last this many positions
+
 
 class MonoSLAM:
     def __init__(self, config: str | SlamConfig, seed: int = 0, device=None,
@@ -35,17 +54,21 @@ class MonoSLAM:
             )
         self.config = config
         self.params: Params = config.params
+        self.cam = CameraParams.from_params(self.params)
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(precision)
         self._step = step_mod.make_step(self.params, self.device, precision)
         self.state: SlamState = st.init_from_config(
             config, seed=seed, device=self.device, dtype=self.dtype)
         self.trajectory_store: list[np.ndarray] = []
+        self.marked_feature_label = -1
+        self.selected_labels: set[int] = set()
         self.last_output: step_mod.StepOutputs | None = None
-        # run_sequence's CUDA graphs, one per (route, enable_mapping, steps,
-        # state shapes, frame shape), at most replay.MAX_GRAPHS; kept across
-        # reset() and load_state()
+        # the CUDA graphs of go_one_step and run_sequence, one per (route,
+        # enable_mapping, steps, state shapes, frame shape), at most
+        # replay.MAX_GRAPHS; kept across reset() and the loads
         self._graphs: dict = {}
+        self._lam0 = torch.as_tensor(st.lambda_grid(self.params), dtype=self.dtype, device=self.device)
 
     # ------------------------------------------------------------------ API
 
@@ -53,21 +76,49 @@ class MonoSLAM:
                     enable_mapping: bool = True) -> bool:
         """One SLAM step (reference GoOneStep, monoslam.cpp:108-180);
         enable_mapping=False skips auto-initialisation (the reference app's
-        "Enable Mapping" box)."""
-        self.state, out = self._step(self.state, self._to_device(frame), enable_mapping)
-        self.last_output = out
-        if save_trajectory:
-            self.trajectory_store.append(out.r.cpu().numpy())
-            if len(self.trajectory_store) > 1000:
-                self.trajectory_store.pop(0)
-        return True
+        "Enable Mapping" box).
+
+        On a CUDA device the step is one replay of the one-step CUDA graph
+        that run_sequence also replays (replay.replay_one: captured on the
+        first call for each enable_mapping, then replayed), and last_output
+        holds that step's outputs on the device. On the CPU the step is
+        called, as _go_one_step_eager does everywhere."""
+        if self.device.type != "cuda":
+            return self._go_one_step_eager(frame, save_trajectory, enable_mapping)
+        return self._go_one_step_graph(frame, save_trajectory, enable_mapping)
 
     GoOneStep = go_one_step
 
+    def _go_one_step_graph(self, frame, save_trajectory: bool, enable_mapping: bool) -> bool:
+        self.state, row = replay.replay_one(self._step, self._graphs, self.state, self._to_device(frame),
+                                            enable_mapping)
+        p = self.params
+        self.last_output = step_mod.unpack_outputs(
+            row, p.n_features_to_select, max(1, p.max_features_to_init_at_once), p.n_particles)
+        if save_trajectory:
+            self._record(self.last_output.r.cpu().numpy())
+        return True
+
+    def _go_one_step_eager(self, frame, save_trajectory: bool = True,
+                           enable_mapping: bool = True) -> bool:
+        """go_one_step with the step called from Python, on any device: the
+        reference that the graph replay is held to."""
+        self.state, out = self._step(self.state, self._to_device(frame), enable_mapping)
+        self.last_output = out
+        if save_trajectory:
+            self._record(out.r.cpu().numpy())
+        return True
+
+    def _record(self, r: np.ndarray) -> None:
+        self.trajectory_store.append(r)
+        if len(self.trajectory_store) > TRAJECTORY_LEN:
+            self.trajectory_store.pop(0)
+
     def reset(self, seed: int = 0) -> None:
-        """Reinitialise the filter from the config."""
+        """Reinitialise the filter from the config (keeps the graphs)."""
         self.state = st.init_from_config(self.config, seed=seed, device=self.device, dtype=self.dtype)
         self.trajectory_store = []
+        self.marked_feature_label = -1
 
     def run_sequence(self, frames, enable_mapping: bool = True,
                      chunk: int = 0) -> step_mod.StepOutputs:
@@ -108,7 +159,7 @@ class MonoSLAM:
         outs = step_mod.unpack_outputs(flat.cpu(), nsel, maxp, npart)
         self.last_output = step_mod.StepOutputs(*(a[-1] for a in outs))
         self.trajectory_store.extend(list(outs.r.numpy()))
-        self.trajectory_store = self.trajectory_store[-1000:]
+        self.trajectory_store = self.trajectory_store[-TRAJECTORY_LEN:]
         return outs
 
     def _to_device(self, frames) -> torch.Tensor:
@@ -117,25 +168,102 @@ class MonoSLAM:
             return frames.to(device=self.device, dtype=torch.uint8).contiguous()
         return torch.as_tensor(np.ascontiguousarray(frames, np.uint8)).to(self.device)
 
-    # ------------------------------------------------------------- state I/O
+    # ------------------------------------------------- manual initialisation
 
-    def load_state(self, state: SlamState) -> None:
-        """Adopt a state (e.g. from convert.state_from_jax) after checking its
-        shapes against this configuration."""
-        for name, want, got in zip(SlamState._fields, self.state, state):
-            if tuple(got.shape) != tuple(want.shape):
-                raise ValueError(
-                    f"state field '{name}' has shape {tuple(got.shape)} but this "
-                    f"configuration expects {tuple(want.shape)}"
-                )
-        self.state = SlamState(*(g.to(device=self.device, dtype=w.dtype)
-                                 for w, g in zip(self.state, state)))
+    def initialise_auto_feature(self, frame) -> bool:
+        """Manual auto-init (reference InitialiseAutoFeature,
+        monoslam.cpp:1526-1532): the region proposal (K5), the Shi-Tomasi
+        pick (K6) and the ray insertion with no speed, visibility or
+        partial-count gate. Returns whether a feature was proposed (JAX's
+        did: a full map refuses the insertion but not the answer)."""
+        self.state, did = self._step.initialise_auto(self.state, self._to_device(frame))
+        return bool(did)
 
-    def load_jax_checkpoint(self, path: str) -> None:
-        """Load the npz that scenelib2_tpu's MonoSLAM.save_checkpoint writes."""
-        with np.load(path if path.endswith(".npz") else path + ".npz") as data:
-            arrays = {k: data[k] for k in data.files}
-        self.load_state(state_from_jax(arrays, self.device, self.dtype))
+    InitialiseAutoFeature = initialise_auto_feature
+
+    def initialise_feature(self, frame, uu: int, vv: int) -> bool:
+        """Manual feature init at a picked pixel (reference InitialiseFeature,
+        monoslam.cpp:1211-1235: copy_into_patch at (uu, vv) + partial ray
+        insertion with the uniform lambda particle grid). The reference's GUI
+        sets (uu, vv) from a mouse click (pangolin_util.cpp:57-81)."""
+        B = self.params.boxsize
+        half = (B - 1) // 2
+        W, H = self.params.cam_width, self.params.cam_height
+        uu, vv = int(uu), int(vv)
+        if not (half <= uu < W - half and half <= vv < H - half):
+            return False
+        frame = self._to_device(frame)
+        patch = frame[vv - half : vv + half + 1, uu - half : uu + half + 1]
+        n_before = int(self.state.active.sum())
+        z = torch.tensor([float(uu), float(vv)], dtype=self.state.x.dtype, device=self.device)
+        self.state = st.add_partial_feature(self.state, self.cam, z, patch, self._lam0,
+                                            torch.ones((), dtype=torch.bool, device=self.device))
+        return int(self.state.active.sum()) > n_before
+
+    InitialiseFeature = initialise_feature
+
+    def add_new_known_feature(self, y, xp_org, patch) -> None:
+        """Reference AddNewKnownFeature (monoslam.cpp:1278-1291); patch is an
+        11x11 u8 array or the path of a PGM file."""
+        if isinstance(patch, str):
+            patch = read_pgm(patch)
+        self.state = st.add_known_feature(self.state, y, xp_org, patch)
+
+    AddNewKnownFeature = add_new_known_feature
+
+    # ------------------------------------------------- feature bookkeeping
+
+    def _slot_of_label(self, label: int) -> int | None:
+        hits = np.flatnonzero(self.state.active.cpu().numpy() & (self.state.label.cpu().numpy() == label))
+        return int(hits[0]) if len(hits) else None
+
+    def mark_feature_by_lab(self, label: int) -> None:
+        """Reference mark_feature_by_lab (monoslam.cpp:742-766), including
+        its quirk: the existence search runs only for lab > 0, so ANY
+        non-positive label (0, -2, ...) is accepted whenever the feature
+        list is non-empty, and -1 ("no selection") is always accepted."""
+        label = int(label)
+        if label > 0:
+            if self._slot_of_label(label) is None:
+                return
+        elif label != -1 and not bool(self.state.active.any()):
+            return
+        self.marked_feature_label = label
+
+    def toggle_feature_lab(self, label: int) -> bool:
+        """Manual (de)selection bookkeeping (reference monoslam.cpp:710-724).
+        As in the reference, auto-selection clears the selected set at the
+        start of every GoOneStep, so manual toggles only matter for
+        inspection flows between steps."""
+        if self._slot_of_label(label) is None:
+            return False
+        if label in self.selected_labels:
+            self.selected_labels.discard(label)
+        else:
+            self.selected_labels.add(label)
+        return True
+
+    def delete_feature(self, label: int | None = None) -> bool:
+        """Delete the marked (or given-label) feature (monoslam.cpp:770-812)."""
+        if label is None:
+            label = self.marked_feature_label
+        slot = self._slot_of_label(label)
+        if slot is None:
+            return False
+        kill = torch.arange(self.params.max_features, device=self.device) == slot
+        self.state = st.delete_mask(self.state, kill)
+        self.marked_feature_label = -1
+        return True
+
+    def save_patch(self, path: str = "patch.pgm") -> bool:
+        """Reference SavePatch (monoslam.cpp:1551-1572)."""
+        slot = self._slot_of_label(self.marked_feature_label)
+        if slot is None:
+            return False
+        write_pgm(path, self.state.patches[slot].cpu().numpy())
+        return True
+
+    SavePatch = save_patch
 
     # ------------------------------------------------------- introspection
 
@@ -146,6 +274,11 @@ class MonoSLAM:
     @property
     def pxx(self) -> np.ndarray:
         return self.state.P[:13, :13].cpu().numpy()
+
+    def print_robot_state(self) -> str:
+        s = f"[Robot state]\n{self.xv}\n[Robot covariance]\n{self.pxx}"
+        print(s)
+        return s
 
     def feature_table(self) -> list[dict]:
         active = self.state.active.cpu().numpy()
@@ -166,3 +299,65 @@ class MonoSLAM:
 
     def trajectory(self) -> np.ndarray:
         return np.asarray(self.trajectory_store)
+
+    # ------------------------------------------------------------- state I/O
+
+    def load_state(self, state: SlamState) -> None:
+        """Adopt a state (e.g. from convert.state_from_jax) after checking its
+        shapes against this configuration."""
+        for name, want, got in zip(SlamState._fields, self.state, state):
+            if tuple(got.shape) != tuple(want.shape):
+                raise ValueError(
+                    f"state field '{name}' has shape {tuple(got.shape)} but this "
+                    f"configuration expects {tuple(want.shape)}"
+                )
+        self.state = SlamState(*(g.to(device=self.device, dtype=w.dtype)
+                                 for w, g in zip(self.state, state)))
+
+    def save_checkpoint(self, path: str) -> None:
+        """Whole-state checkpoint in the JAX package's layout: an npz of
+        state_<field> arrays with the JAX package's dtypes (written as
+        np.savez_compressed writes `path`), and `path`.json with the params
+        and the marked label."""
+        arrays = {f"state_{k}": v for k, v in state_to_numpy(self.state).items()}
+        np.savez_compressed(path, **arrays)
+        meta = dict(params=self.params.__dict__, marked=self.marked_feature_label)
+        with open(path + ".json", "w") as f:
+            json.dump(meta, f, default=float)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Load a checkpoint that either package wrote, with the JAX loader's
+        rules: a file without `sched` or `patch_rows` (older writers) gets
+        them (all False; derived from the patches); unknown or missing
+        fields and a shape this configuration cannot hold raise ValueError;
+        a dtype that differs is cast (an f64 file from JAX's parity mode
+        loads into the f32 port)."""
+        with np.load(path if path.endswith(".npz") else path + ".npz") as data:
+            fields = {k[len("state_"):]: data[k] for k in data.files}
+        tmpl = self.state._asdict()
+        unknown = sorted(set(fields) - set(tmpl))
+        if unknown:
+            raise ValueError(
+                f"checkpoint {path!r} has unknown state fields {unknown} "
+                "(written by a newer version?)"
+            )
+        # state_from_jax supplies these two for older writers
+        missing = sorted(set(tmpl) - set(fields) - {"sched", "patch_rows"})
+        if missing:
+            raise ValueError(f"checkpoint {path!r} is missing state fields {missing}")
+        p = self.params
+        for k, got in fields.items():
+            want = tmpl[k]
+            if tuple(got.shape) != tuple(want.shape):
+                raise ValueError(
+                    f"checkpoint field '{k}' has shape {tuple(got.shape)} but "
+                    f"this configuration (max_features={p.max_features}, "
+                    f"n_particles={p.n_particles}, "
+                    f"max_features_to_init_at_once={p.max_features_to_init_at_once}) expects "
+                    f"{tuple(want.shape)} — was the checkpoint written with a "
+                    "different capacity config?"
+                )
+        self.load_state(state_from_jax(fields, self.device, self.dtype))
+
+    # the loader of the JAX package's files is the same loader
+    load_jax_checkpoint = load_checkpoint

@@ -40,6 +40,7 @@ features.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import NamedTuple
 
@@ -211,9 +212,20 @@ def unpack_outputs(flat: torch.Tensor, nsel: int, maxp: int = 1, npart: int = 0)
     )
 
 
+# the ROADMAP.md Queue 1 items that the refusals below name, by title (a
+# title stays true when the queue is renumbered)
+ROADMAP_XLA = "The pure-XLA route in f32"
+ROADMAP_F64 = "f64 parity mode"
+ROADMAP_MAXP = "Single-stream and batch MAXP > 1"
+
+
+def roadmap_item(title: str) -> str:
+    return f'ROADMAP.md Queue 1, "{title}"'
+
+
 XLA_ROUTE_REFUSED = (
     "use_pallas=False selects the JAX step's pure-XLA route (scenelib2_tpu/runtime/step.py: "
-    "the branches where use_pallas is false); that route is not ported (ROADMAP Queue 1 item 2). "
+    f"the branches where use_pallas is false); that route is not ported ({roadmap_item(ROADMAP_XLA)}). "
     "In f32 its single-stream form launches one kernel, K14, the Cholesky inverse of S "
     "(ekf.joint_update(..., pallas_chol=not params.batch_mode), step.py:529-531, "
     "core/ekf.py:136-139); only its batch form and f64 launch none. The port runs the JAX "
@@ -245,7 +257,7 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     dtype = resolve_dtype(precision)
     if dtype != torch.float32:
         raise NotImplementedError(
-            "the f64 parity mode of the step is not ported yet (ROADMAP Queue 1 item 3)"
+            f"the f64 parity mode of the step is not ported yet ({roadmap_item(ROADMAP_F64)})"
         )
     if not params.use_pallas:
         raise NotImplementedError(XLA_ROUTE_REFUSED)
@@ -261,7 +273,7 @@ def make_step(params: Params, device=None, precision: str = "f32"):
         raise NotImplementedError(
             "max_features_to_init_at_once > 1 runs the batch-route particle kernels "
             "(K9, K10, K11), which are ported; the single-stream step glue around them "
-            "is not written yet (ROADMAP Queue 1 item 1)"
+            f"is not written yet ({roadmap_item(ROADMAP_MAXP)})"
         )
     if MF > MAX_FEATURES:
         raise NotImplementedError(
@@ -283,6 +295,9 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     sc = SearchConsts.from_params(params)
     uc = UpdateConsts.from_params(params)
     pc = ProposeConsts.from_params(params)
+    # the facade's manual auto-init: K5's gate (speed, visible count, partial
+    # count) can never close
+    pc_open = dataclasses.replace(pc, min_speed=-1.0, keep_visible=1 << 30, max_init=1 << 30)
     sbc = SearchBayesConsts.from_params(params)
     kw = dict(device=device)
     lane_nsel = torch.arange(NSEL, dtype=torch.int32, **kw)
@@ -296,12 +311,13 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     no_init = torch.zeros((), dtype=torch.bool, **kw)
     no_box = torch.zeros(2, dtype=torch.int32, **kw)
     zero = torch.zeros((), dtype=dtype, **kw)
+    zero_count = torch.zeros((), dtype=torch.int32, **kw)
 
-    def auto_init(mid: SlamState, frame_u8, speed, n_visible):
-        """Stage 7: K5's region (with the speed gate and the clamp), K6's
-        patch, the ray insertion."""
+    def auto_init(mid: SlamState, frame_u8, speed, n_visible, consts=pc):
+        """Stage 7: K5's region (with the gate of `consts` and the clamp),
+        K6's patch, the ray insertion."""
         ru, rv, ruf, rvf, any_ok, rng_new, init_box = propose_region(
-            mid.x, mid.rng, mid.active, mid.full, speed, n_visible, pc)
+            mid.x, mid.rng, mid.active, mid.full, speed, n_visible, consts)
         ubest, vbest, evbest = shi_tomasi(frame_u8, ru, rv, ruf, rvf, boxsize=B,
                                           region_w=RW, region_h=RH)
         did_init = any_ok & (evbest > params.init_patch_score_thresh)
@@ -434,7 +450,20 @@ def make_step(params: Params, device=None, precision: str = "f32"):
         )
         return mid._replace(frame_no=mid.frame_no + 1), out
 
+    def initialise_auto(state: SlamState, frame_u8: torch.Tensor) -> tuple[SlamState, torch.Tensor]:
+        """Stage 7 alone with no gate: the facade's manual auto-init, JAX's
+        _auto_initialise(..., want_init=True) (scenelib2_tpu/runtime/step.py:698,
+        called from slam.py:141-147). K5 with a gate that cannot close (no
+        speed, visible-count or partial-count test), K6, then the ray
+        insertion. It still refuses for want of room, of a free try or of a
+        passing patch score (did_init false), and a full map leaves the
+        state as it was (did_init, as JAX's, does not look at the free
+        slot). Returns (state, did_init [] bool)."""
+        mid, did_init, _box = auto_init(state, frame_u8, zero, zero_count, pc_open)
+        return mid, did_init
+
     step.route = "fused" if fused else "split"
+    step.initialise_auto = initialise_auto
     return step
 
 
@@ -701,7 +730,8 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
     device = resolve_device(device)
     dtype = resolve_dtype(precision)
     if dtype != torch.float32:
-        raise NotImplementedError("the batch step is ported in f32 (the fast mode) only")
+        raise NotImplementedError(
+            f"the batch step is ported in f32 (the fast mode) only ({roadmap_item(ROADMAP_F64)})")
     if not params.use_pallas:
         raise NotImplementedError(XLA_ROUTE_REFUSED)
     route = batch_route(params, batch_sb)
@@ -711,7 +741,7 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
     if MAXP != 1:
         raise NotImplementedError(
             "the batch step is ported for max_features_to_init_at_once = 1 "
-            "(ROADMAP Queue 1 item 1)"
+            f"({roadmap_item(ROADMAP_MAXP)})"
         )
     if MF > MAX_FEATURES:
         raise NotImplementedError(f"the batch kernels hold MF <= {MAX_FEATURES}, as the JAX fast step does")

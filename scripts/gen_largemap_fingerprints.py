@@ -1,4 +1,4 @@
-"""Generate the reference fingerprints of the two large-map replays from the
+"""Generate the reference fingerprints of the larger-map replays from the
 JAX package, in fast (f32) mode on the CPU with interpret-mode kernels:
 
   hires   BASELINE config 3 (scenelib2_tpu/eval/benchmark.py::bench_hires):
@@ -8,6 +8,10 @@ JAX package, in fast (f32) mode on the CPU with interpret-mode kernels:
   mf100   the 240-frame std sequence of seed 7 with max_features 100
           (D = 613, the split route that inverts S with
           pallas_linalg.py::pallas_chol_inv_lower); 239 frames replayed.
+  autoinit bench_autoinit's configuration (scenelib2_tpu/eval/benchmark.py::
+          bench_autoinit): the same sequence with max_features 24 (D = 157,
+          the fused route, stage 8 under the light/heavy choice); 239
+          frames replayed.
 
 Both run MonoSLAM(cfg, ..., use_pallas=True).run_sequence(frames[1:],
 enable_mapping=True) and hash the outputs with
@@ -16,8 +20,8 @@ scenelib2_tpu.eval.selftest.decisions_fingerprint:
     SCENELIB2_X64=0 JAX_PLATFORMS=cpu python scripts/gen_largemap_fingerprints.py \
         --out-dir scenelib2_torch/data
 
-writes expected_fingerprint_hires.json and expected_fingerprint_mf100.json
-(about 75 s of compile each). --dump DIR also saves each replay's
+writes expected_fingerprint_<name>.json for each name (about 75 s of
+compile each; --configs NAME ... for some of them). --dump DIR also saves each replay's
 per-frame outputs as DIR/<name>.npz, for comparing a port frame by frame.
 
 XLA's CPU compiler contracts a*b + c into fused multiply-adds where the
@@ -49,6 +53,7 @@ CONFIGS = {
     "hires": (120, HIRES_PARAMS,
               dict(max_features=60, search_win_radius=48, particle_win_radius=52)),
     "mf100": (240, None, dict(max_features=100)),
+    "autoinit": (240, None, dict(max_features=24)),
 }
 
 

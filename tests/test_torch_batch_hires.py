@@ -75,8 +75,8 @@ def test_xla_route_refusal_names_the_kernel_that_route_launches():
     with K14 (ekf.joint_update(..., pallas_chol=not batch_mode)); only its
     batch form and f64 launch no kernel."""
     assert "K14" in XLA_ROUTE_REFUSED and "launches no kernel" not in XLA_ROUTE_REFUSED
-    assert "ROADMAP Queue 1 item 2" in XLA_ROUTE_REFUSED
-    with pytest.raises(NotImplementedError, match="item 3"):
+    assert '"The pure-XLA route in f32"' in XLA_ROUTE_REFUSED
+    with pytest.raises(NotImplementedError, match='"f64 parity mode"'):
         make_step(Params(), device="cpu", precision="f64")
-    with pytest.raises(NotImplementedError, match="item 1"):
+    with pytest.raises(NotImplementedError, match='"Single-stream and batch MAXP > 1"'):
         make_step(dataclasses.replace(Params(), max_features_to_init_at_once=2), device="cpu")

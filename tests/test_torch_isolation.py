@@ -1,9 +1,12 @@
 """The port stands alone: no JAX, CUDA by default, plain path only for CPU.
 
-  - no module of scenelib2_torch/ and not chip_smoke.py imports jax or
-    scenelib2_tpu (an AST scan, and a subprocess whose import system refuses
-    those names imports the package and steps 3 frames, the batch step on
-    each of its three routes and 2 frames of the split route);
+  - no module of scenelib2_torch/ and not chip_smoke.py imports jax,
+    scenelib2_tpu or the tests (an AST scan, and a subprocess whose import
+    system refuses those names imports the package and every entry-point
+    module: the CLI, the I/O, the selftest, the bench suite, viz and the
+    interactive session; steps 3 frames, calls the facade's manual inits,
+    deletion and checkpoints, runs the batch step on each of its three
+    routes and 2 frames of the split route);
   - MonoSLAM(cfg) and make_batched_step(params) without a device raise
     where CUDA is absent, on every batch route;
   - a kernel wrapper (K1-K14, K12 in both row forms, and K2 / K6 over
@@ -80,7 +83,12 @@ from scenelib2_torch.parallel.mesh import make_batched_step
 from scenelib2_torch.runtime.step import make_batch_step, make_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "scenelib2_tpu")
+FORBIDDEN = ("jax", "jaxlib", "scenelib2_tpu", "tests")
+# the modules users start the system through
+ENTRY_MODULES = ("scenelib2_torch.cli", "scenelib2_torch.io", "scenelib2_torch.io.sequence",
+                 "scenelib2_torch.io.native", "scenelib2_torch.io.camera", "scenelib2_torch.eval.selftest",
+                 "scenelib2_torch.eval.metrics", "scenelib2_torch.eval.benchmark", "scenelib2_torch.eval.viz",
+                 "scenelib2_torch.eval.interactive")
 
 
 
@@ -115,12 +123,14 @@ def test_no_source_imports_jax_or_the_jax_package():
                 continue
             bad += [(path, n) for n in names if n.split(".")[0] in FORBIDDEN]
     assert len(_port_sources()) > 15
+    names = {os.path.relpath(p_, REPO) for p_ in _port_sources()}
+    assert {m.replace(".", "/") + ".py" for m in ENTRY_MODULES if not m.endswith(".io")} <= names
     assert not bad, bad
 
 
 _GUARDED_RUN = r"""
-import importlib.abc, sys, tempfile
-FORBIDDEN = ("jax", "jaxlib", "scenelib2_tpu")
+import importlib, importlib.abc, sys, tempfile
+FORBIDDEN = ("jax", "jaxlib", "scenelib2_tpu", "tests")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -132,10 +142,20 @@ sys.meta_path.insert(0, Refuse())
 import chip_smoke  # noqa: F401
 from scenelib2_torch import MonoSLAM
 from scenelib2_torch.eval.synthetic import generate_dataset
-frames, _, _, cfg = generate_dataset(tempfile.mkdtemp(), n_frames=4)
+for m in ENTRY_MODULES:
+    importlib.import_module(m)
+work = tempfile.mkdtemp()
+frames, _, _, cfg = generate_dataset(work, n_frames=4)
 slam = MonoSLAM(cfg, device="cpu")
 for t in range(1, 4):
     slam.go_one_step(frames[t])                 # mapping on: stages 1-8
+# the facade's calls between steps
+slam.save_checkpoint(work + "/ck.npz")
+slam.initialise_feature(frames[3], 160, 120)
+slam.initialise_auto_feature(frames[3])
+slam.mark_feature_by_lab(1)
+assert slam.delete_feature()
+slam.load_checkpoint(work + "/ck.npz")
 # the batch step: two lanes of the same scene with their own random streams
 import torch
 from scenelib2_torch.eval import batch as _batch  # noqa: F401
@@ -162,7 +182,8 @@ print("OK", traj_shape)
 
 def test_package_runs_with_jax_refused():
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    res = subprocess.run([sys.executable, "-c", _GUARDED_RUN], capture_output=True, text=True,
+    run = f"ENTRY_MODULES = {ENTRY_MODULES!r}\n" + _GUARDED_RUN
+    res = subprocess.run([sys.executable, "-c", run], capture_output=True, text=True,
                          timeout=300, env=env, cwd=REPO)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "OK (3, 3)" in res.stdout
