@@ -152,9 +152,26 @@ Phases (any failure exits non-zero before the last line is printed):
     --checkpoint` on a PGM directory of the frames, read by the native
     grabber built by make: its decisions equal (a)'s and its checkpoint
     (a)'s final state, and `cli print-state` reads it (c and d run side by
-    side); (e) `cli bench testseq autoinit hires batch64`: each JSON line
-    printed, each cell's timed replay reproducing its committed fingerprint
-    (batch64 reads the lanes phase 3b rendered).
+    side); (e) `cli bench testseq autoinit hires hires_r48 batch64`: each
+    JSON line printed, each cell's timed replay reproducing its committed
+    fingerprint (hires: JAX's bench_hires configuration, radii 32 / 32,
+    against expected_fingerprint_hires_bench.json; hires_r48: radii 48 / 52
+    against expected_fingerprint_hires.json; batch64 reads the lanes phase
+    3b rendered).
+ 3h. JAX's pure-XLA route in f32 (use_pallas=False; xla_route_phase): the
+    std-mapping sequence through MonoSLAM(cfg, max_features=16,
+    use_pallas=False) by the eager loop, by run_sequence's graph replay and
+    by go_one_step one call a frame, each reproducing
+    expected_fingerprint_xla.json, rows and final state bit for bit across
+    the three, K14 launched exactly once a frame (counted in the eager loop
+    and from traces of the graph replay and of go_one_step) and no other
+    kernel, K14 bit for bit with its plain version on every S of the
+    replay, the CPU plain replay of the first frames, sync debug mode
+    "error"; then the batch route "xla" on the 64 lanes of 3b, every lane's
+    fingerprint equal to its committed file with no kernel launched, through
+    the eager loop and graph_cell; ms a frame eager and graph, busy, kernels
+    a step, idle shares and peak memory beside the card's line (an
+    `xla_route` JSON line).
  4. a `graph_replay` JSON line (every cell: eager and graph ms a frame or
     step, span, busy, idle shares, peak memory, capture seconds), an
     `entry_points` JSON line (phase 3g's ms a call and frames/s), a
@@ -2310,7 +2327,10 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
 N_MF100_CALLS = 40    # go_one_step calls on mf100 (the split route, K14), timed graph and eager
 N_ALTERNATE = 10      # go_one_step calls alternating mapping off and on
 EP_DECISIONS = ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init", "did_convert")
-BENCH_CELLS = ("testseq", "autoinit", "hires", "batch64")
+BENCH_CELLS = ("testseq", "autoinit", "hires", "hires_r48", "batch64")
+# the two hires cells and their files: JAX's bench_hires (radii 32 / 32) and the radii 48 / 52
+HIRES_BENCH_FILES = {"fps_640x480_60feat": "expected_fingerprint_hires_bench",
+                     "fps_640x480_60feat_r48": "expected_fingerprint_hires"}
 
 
 def cache_root(tmp: str) -> str:
@@ -2416,7 +2436,7 @@ def entry_points_phase(tmp: str, dev, frames, gt_r, gt_q, cfg: str, outs_eager, 
     (d) `cli run --mapping --checkpoint` on a PGM directory of the frames,
         read by the native grabber (built by make): its decisions are (a)'s
         and its checkpoint is (a)'s final state; `cli print-state` reads it;
-    (e) `cli bench testseq autoinit hires batch64`: each cell's timed replay
+    (e) `cli bench testseq autoinit hires hires_r48 batch64`: each cell's timed replay
         reproduces its committed fingerprint."""
     from scenelib2_torch import MonoSLAM
     from scenelib2_torch.convert import state_to_numpy
@@ -2667,12 +2687,225 @@ def entry_points_phase(tmp: str, dev, frames, gt_r, gt_q, cfg: str, outs_eager, 
             want_fp = {k: v for k, v in load_expected(r_["fingerprint_file"]).items() if k != "dataset_version"}
             if r_["fingerprint"] != want_fp:
                 fail(f"bench {r_['metric']}: fingerprint {r_['fingerprint']} differs from {r_['fingerprint_file']}")
+    for metric, fp_file in HIRES_BENCH_FILES.items():
+        if bench.get(metric, {}).get("fingerprint_file") != fp_file:
+            fail(f"bench {metric}: held to {bench.get(metric, {}).get('fingerprint_file')}, expected {fp_file}")
     res["bench"] = {k: dict(value=v["value"], unit=v["unit"], card=v["card"]) for k, v in bench.items()}
     log("[3g] cli bench: " + ", ".join(f"{k} {v['value']} {v['unit']}" for k, v in bench.items())
         + f" on {smi}; each cell's timed replay reproduces its committed fingerprint "
         f"(batch64: all 64 lanes)")
     res["seconds"] = time.time() - t_phase
     log(f"[3g] phase 3g took {res['seconds']:.1f} s")
+    return res
+
+
+# ------------------------------------------------------------ 3h: the pure-XLA route (use_pallas=False)
+
+XLA_PATH = ("chol_inv",)   # the single stream's pure-XLA route launches K14 alone; its batch form none
+XLA_TRACED_STEPS = 8       # ~4,000 device kernels a step: the profiler's bookkeeping grows with events
+XLA_GO_TRACED = 3          # go_one_step calls in the traced window of (c)
+XLA_AT = 20                # the output index whose S times K14 and its plain version
+
+
+def xla_route_phase(tmp: str, dev, frames, cfg: str, seq, bparams, states0, bseq, bframes, smi: str) -> dict:
+    """Phase 3h: JAX's pure-XLA route in f32 (use_pallas=False) on the card.
+
+    (a) std-mapping through MonoSLAM(cfg, max_features=16, use_pallas=False):
+        the counted eager loop reproduces expected_fingerprint_xla.json with
+        K14 launched once a frame and no other kernel (the wrappers see only
+        K14's), K14 against its plain version bit for bit on every S of the
+        replay, the CPU plain replay of the first frames, steps under sync
+        debug mode "error"; (b) run_sequence's graph replay through
+        graph_cell (fingerprint, outputs and final state bit for bit with
+        the eager loop, K14 exactly once a step in a traced window and no
+        other counted kernel, times, busy, idle, peak memory); (c)
+        go_one_step one call a frame through the one-step graph: the
+        fingerprint, every packed row and the final state bit for bit with
+        the eager loop, K14 once a call in a traced window, ms a call; (d)
+        the batch route "xla" on batch64's 64 lanes x 63 frames: every lane's
+        fingerprint equal to its committed file with no kernel launched, two
+        lanes against their CPU plain replay, steps under sync debug mode
+        "error", graph_cell; (e) K14's times on the route's S."""
+    from scenelib2_torch import MonoSLAM
+    from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints
+    from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected
+    from scenelib2_torch.kernels import _build, chol_inv
+    from scenelib2_torch.parallel.mesh import _run_batch_eager, make_batched_step, run_batch
+    from scenelib2_torch.runtime.state import SlamState
+    from scenelib2_torch.runtime.step import pack_outputs
+
+    t_phase = time.time()
+    res = {}
+    slam = MonoSLAM(cfg, max_features=16, device="cuda", use_pallas=False)
+    if slam._step.route != "xla":
+        fail(f"MonoSLAM(use_pallas=False) took the route {slam._step.route!r}, not the pure-XLA route")
+    n_run = seq.shape[0]
+    slam._run_sequence_eager(seq[:4], enable_mapping=True)    # warm-up
+    torch.cuda.synchronize()
+    want = load_expected("expected_fingerprint_xla")
+
+    def check_fp(o, what="std-mapping xla"):
+        fp_ = decisions_fingerprint(o, o.n_matched.shape[0])
+        for k in ("n_frames", "matched_sum", "inits", "convs", "active_end", "decisions_sha256"):
+            if fp_[k] != want[k]:
+                fail(f"[3h] {what}: fingerprint field {k}: got {fp_[k]}, expected {want[k]}")
+        return fp_
+
+    # ---- (a) the counted eager loop
+    S_all = []
+
+    def keep(n, a, k):
+        if n != "chol_inv":
+            fail(f"[3h] the pure-XLA step called the kernel wrapper {n}")
+        S_all.append(a[0].clone())
+
+    t0 = time.perf_counter()
+    outs, launches, state_eager = run_main_path(slam, seq, mapping=True, on_call=keep)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    fp = check_fp(outs)
+    for n in _build.KERNELS:
+        if launches.get(n, 0) != (n_run if n in XLA_PATH else 0):
+            fail(f"[3h] kernel {n} launched {launches.get(n, 0)} times on the pure-XLA route, expected "
+                 f"{n_run if n in XLA_PATH else 0}")
+    r = outs.r.numpy()
+    if r.shape != (n_run, 3) or not np.isfinite(r).all():
+        fail(f"[3h] trajectory not finite/shaped: {r.shape}")
+    log(f"[3h] std-mapping, use_pallas=False (route xla): fingerprint {json.dumps(fp)} equals "
+        f"expected_fingerprint_xla.json; launches (eager loop, {eager_s:.2f} s): "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    S = torch.cat(S_all)
+    k14_err = max(check_k14(S), check_k14(S_all[XLA_AT]))
+    log(f"[3h] K14 equals its plain version bit for bit on all {S.shape[0]} S of the replay "
+        f"({tuple(S.shape[1:])}; max abs err {k14_err})")
+
+    cpu = MonoSLAM(cfg, max_features=16, device="cpu", use_pallas=False)
+    ref = cpu.run_sequence(frames[1 : N_REF + 1], enable_mapping=True)
+    for k in ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init",
+              "did_convert", "n_overflow", "sel_slot", "sel_matched", "init_box", "par_alive"):
+        if not torch.equal(getattr(ref, k), getattr(outs, k)[:N_REF]):
+            fail(f"[3h] CUDA vs CPU plain replay: {k} differs in the first {N_REF} frames")
+    dxv = float((ref.xv.double() - outs.xv[:N_REF].double()).abs().max())
+    if dxv > STEP_TOL:
+        fail(f"[3h] CUDA vs CPU plain replay: xv differs by {dxv}")
+    log(f"[3h] the CUDA run equals the CPU plain replay on frames 1..{N_REF} (inits at "
+        f"{torch.nonzero(ref.did_init).flatten().tolist()}, conversions at "
+        f"{torch.nonzero(ref.did_convert).flatten().tolist()}; max |dxv| {dxv:.3g})")
+
+    slam.reset()
+    state = slam.state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(N_REF):
+            state, _out = slam._step(state, seq[t], True)
+    except RuntimeError as e:
+        fail(f"[3h] the pure-XLA step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[3h] {N_REF} pure-XLA steps ran with torch.cuda.set_sync_debug_mode('error')")
+
+    # ---- (b) run_sequence's graph replay
+    run, run_eager = single_runs(slam, seq, True)
+    g = graph_cell("3h", "std-mapping xla", run, run_eager, slam._graphs, n_run, XLA_PATH,
+                   (outs, state_eager), check_fp, trace_n=XLA_TRACED_STEPS, eager_s=eager_s)
+    res["std"] = {k: v for k, v in g.items() if k != "prof"}
+
+    # ---- (c) go_one_step, one call a frame through the one-step graph
+    slam.reset()
+    rows, ms = go_calls(slam, frames, n_run, True, graph=True)
+    torch.cuda.synchronize()
+    if not same_bits_or_nan(rows.cpu(), pack_outputs(outs)):
+        fail("[3h] go_one_step through the graph: packed rows differ from the eager loop's")
+    if not outputs_identical(slam.state, state_eager):
+        fail("[3h] go_one_step through the graph: final state differs from the eager loop's")
+    check_fp(unpack_rows(rows, slam.params), "go_one_step")
+    prof = device_profile(lambda: go_calls(slam, frames, XLA_GO_TRACED, True, graph=True))
+    go_launches = traced_launches(prof)
+    for n in _build.KERNELS:
+        if go_launches[n] != (XLA_GO_TRACED if n in XLA_PATH else 0):
+            fail(f"[3h] {XLA_GO_TRACED} go_one_step calls launched {n} {go_launches[n]} times")
+    res["go_one_step"] = dict(graph_ms_call=statistics.median(ms[1:]), first_call_ms=ms[0], calls=n_run,
+                              traced_calls=XLA_GO_TRACED, launches=go_launches)
+    log(f"[3h] go_one_step through the one-step graph, {n_run} calls: fingerprint, every packed row and the "
+        f"final state bit for bit with the eager loop; {statistics.median(ms[1:]):.4f} ms a call (median of "
+        f"calls 2..{n_run}; first {ms[0]:.1f} ms); a trace of {XLA_GO_TRACED} calls launched "
+        f"{json.dumps({k: v for k, v in go_launches.items() if v})}")
+
+    # ---- (d) the batch route "xla" on batch64's lanes
+    xparams = dataclasses.replace(bparams, use_pallas=False)
+    bstep = make_batched_step(xparams, device="cuda")
+    if bstep.route != "xla":
+        fail(f"[3h] make_batched_step(use_pallas=False) took the route {bstep.route!r}")
+    T = bseq.shape[0]
+    _run_batch_eager(bstep, states0, bseq[:2], True, xparams)     # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    bst_eager, bouts = _run_batch_eager(bstep, states0, bseq, True, xparams)
+    torch.cuda.synchronize()
+    beager_s = time.perf_counter() - t0
+    blaunches = dict(_build.launches)
+
+    def check_batch_fp(o):
+        bad = check_lanes(lane_fingerprints(o), route="xla")
+        if bad:
+            fail(f"[3h] batch xla: {len(bad)} of {N_LANES} lane fingerprints differ from the committed file:\n"
+                 + "\n".join(bad[:6]))
+
+    check_batch_fp(bouts)
+    if any(blaunches.get(n, 0) for n in _build.KERNELS):
+        fail(f"[3h] the batch pure-XLA route launched kernels: {json.dumps(blaunches)}")
+    log(f"[3h] batch64 on the route xla ({T} steps of {N_LANES} lanes, eager loop {beager_s:.2f} s): every "
+        f"lane's fingerprint equals the committed file; no kernel launched")
+    idx = list(ROUTE_REF_LANES)
+    cpu_states = SlamState(*(t[idx].cpu() for t in states0))
+    _s, bref = run_batch(make_batched_step(xparams, device="cpu"), cpu_states, bframes[:N_ROUTE_REF, idx], True,
+                         xparams)
+    for k in ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init",
+              "did_convert", "n_overflow", "sel_matched", "init_box", "par_alive"):
+        if not torch.equal(getattr(bref, k), getattr(bouts, k)[:N_ROUTE_REF, idx]):
+            fail(f"[3h] batch xla: CUDA vs CPU plain replay: {k} differs in lanes {idx}")
+    dxb = float((bref.xv.double() - bouts.xv[:N_ROUTE_REF, idx].double()).abs().max())
+    if dxb > STEP_TOL:
+        fail(f"[3h] batch xla: CUDA vs CPU plain replay: xv differs by {dxb}")
+    st_b = states0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(N_ROUTE_REF):
+            st_b, _o = bstep(st_b, bseq[t], True)
+    except RuntimeError as e:
+        fail(f"[3h] the batch pure-XLA step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[3h] batch xla: lanes {idx} equal their CPU plain replay on frames 1..{N_ROUTE_REF} (max |dxv| "
+        f"{dxb:.3g}); {N_ROUTE_REF} steps ran with sync debug mode 'error'")
+    brun, brun_eager = batch_runs(bstep, states0, bseq, xparams)
+    gb = graph_cell("3h", "batch64 xla", brun, brun_eager, bstep.graphs, T, (), (bouts, bst_eager),
+                    check_batch_fp, trace_n=ROUTE_TRACED_STEPS, eager_s=beager_s)
+    res["batch64"] = {k: v for k, v in gb.items() if k != "prof"}
+    res["batch64"].update(frames_per_s=N_LANES / gb["graph_ms"] * 1e3,
+                          frames_per_s_eager=N_LANES / gb["eager_ms"] * 1e3)
+
+    # ---- (e) K14 on the route's S: kernel, plain version, library form, bound
+    S20 = S_all[XLA_AT]
+    eye = torch.eye(S20.shape[-1], device=dev)
+    b_ms, b_by = bound([chol_inv.bytes_and_flops(s_[..., 0, 0].numel(), s_.shape[-1]) for s_ in S_all])
+    res["K14"] = dict(
+        ms=time_ms(lambda: chol_inv.chol_inv(S20)),
+        plain_ms=time_ms(lambda: chol_inv.chol_linv(S20), n=5, batches=3),
+        library_ms=time_ms(lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(S20)[0], eye,
+                                                                 upper=False)),
+        device_ms=kernel_dev_ms(g["prof"], "k14_"), bound_ms=b_ms, bound_by=b_by, max_abs_err=k14_err,
+        launches=g["launches"]["chol_inv"], launches_steps=g["launches_steps"],
+        launches_captured=g["captured"].get("chol_inv", 0))
+    log(f"[3h] K14 on the pure-XLA route's S (output index {XLA_AT}): {json.dumps(res['K14'])}")
+    res["fingerprint"] = fp
+    res["seconds"] = time.time() - t_phase
+    log(f"[3h] phase 3h took {res['seconds']:.1f} s on {smi}")
     return res
 
 
@@ -2823,7 +3056,7 @@ def timed_s(fn) -> float:
 
 
 def graph_cell(tag: str, label: str, run, run_eager, graphs: dict, T: int, path, eager, check,
-               trace_n: int | None = None) -> dict:
+               trace_n: int | None = None, eager_s: float | None = None) -> dict:
     """A cell's replay through CUDA graphs (run_sequence / run_batch on the
     card) against its eager reference. run(chunk, n=None) replays the first
     n (all) of the cell's T frames from its initial state through the graph
@@ -2846,7 +3079,8 @@ def graph_cell(tag: str, label: str, run, run_eager, graphs: dict, T: int, path,
        pool the cache's graphs share.
     2. chunk = GRAPH_CHUNK (full chunks and a one-step remainder) equals
        chunk = 0 bit for bit.
-    3. Times: the eager loop once, the graph replay N_GRAPH_TIMED times
+    3. Times: the eager loop once (or eager_s, the seconds of the counted
+       eager reference, where given), the graph replay N_GRAPH_TIMED times
        (median), the device's span of one replay of the block graph (CUDA
        events, from the same state each time), and a traced graph run of
        trace_n (all) frames: each kernel of the path ran exactly once a step
@@ -2905,7 +3139,8 @@ def graph_cell(tag: str, label: str, run, run_eager, graphs: dict, T: int, path,
         fail(f"[{tag}] {label}: run with chunk={k} differs from chunk=0")
     log(f"[{tag}] {label}: chunk={k} ({T // k} x {k} + {T % k} x 1; graphs captured {chunk_sizes}) equals "
         f"chunk=0 bit for bit")
-    eager_s = timed_s(run_eager)
+    if eager_s is None:
+        eager_s = timed_s(run_eager)
     eager_ms = eager_s / T * 1e3
     runs = [timed_s(lambda: run(0)) / T * 1e3 for _ in range(N_GRAPH_TIMED)]
     graph_ms = statistics.median(runs)
@@ -3644,6 +3879,9 @@ def main() -> int:
         # ---- 3g. the entry points: go_one_step, the facade, the CLI, the bench suite
         entry = entry_points_phase(tmp, dev, frames, gt_r, _gt_q, cfg, outs, state_on, smi)
 
+        # ---- 3h. JAX's pure-XLA route in f32 (use_pallas=False): single stream and batch
+        xla = xla_route_phase(tmp, dev, frames, cfg, seq, bparams, states0, bseq, bframes, smi)
+
     # ---- 4. kernel records ------------------------------------------------
     costs["K2"] = [search.bytes_and_flops(K, sc, admit) for admit, K in costs["K2"]]
     recs = []
@@ -3763,6 +4001,16 @@ def main() -> int:
             plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"], bound_by=t_["bound_by"], library_ms=None,
             device_ms=t_["device_ms"], path="batch-hires",
         ))
+    # K14 on the single stream's pure-XLA route (phase 3h): one launch a frame, M = 20
+    t_ = xla["K14"]
+    recs.append(dict(
+        name="K14 chol_inv (pure-XLA route, std, M = 20)", route="cuda",
+        source="scenelib2_torch/kernels/csrc/chol_inv.cu (+ chol_linv.cuh)",
+        replaces="scenelib2_tpu/kernels/pallas_linalg.py:83", launches=t_["launches"],
+        launches_steps=t_["launches_steps"], launches_captured=t_["launches_captured"],
+        max_abs_err=t_["max_abs_err"], ms=t_["ms"], plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"],
+        bound_by=t_["bound_by"], library_ms=t_["library_ms"], device_ms=t_["device_ms"], path="std-mapping xla",
+    ))
     for key, name in (("K12 NP200", "K12 bayes (13 rows, 200 particles)"),
                       ("K12 pred rows NP200", "K12 bayes (7 + 8 rows, 200 particles)")):
         t_ = last[key]
@@ -3812,6 +4060,12 @@ def main() -> int:
     print(json.dumps({"batch_routes": {ROUTE_PATH[r][0]: {k: v for k, v in routes[r].items() if k != "timings"}
                                        for r in ROUTE_PATH}, "card": smi}))
     print(json.dumps({"entry_points": entry, "card": smi}))
+    xkeys = keys + ("launches", "launches_steps")
+    print(json.dumps({"xla_route": {
+        "std-mapping": {k: xla["std"][k] for k in xkeys}, "batch64": {
+            k: xla["batch64"][k] for k in xkeys + ("frames_per_s", "frames_per_s_eager")},
+        "go_one_step": xla["go_one_step"], "fingerprint": xla["fingerprint"], "seconds": xla["seconds"]},
+        "card": smi}))
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

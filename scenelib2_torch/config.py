@@ -127,11 +127,13 @@ class Params:
     # window-gather strategy: dynamic_slice loops win single-stream on TPU;
     # index-grid gathers win under an outer vmap (batch datagen configs)
     index_gather: bool = False
-    # the kernel route (the JAX package's use_pallas=True): the port runs the
-    # JAX step's kernel route, which JAX's own benches select with
-    # use_pallas=_fast_mode() (scenelib2_tpu/eval/benchmark.py:112-197), so
-    # it is the default here; the JAX default False selects the pure-XLA
-    # route, which the port's step builders refuse (not ported)
+    # True: the JAX step's kernel route; False: its pure-XLA route (the
+    # single stream launches K14 alone, the batch step no kernel). The port
+    # keeps True as its default where JAX's Params say False: JAX ties False
+    # to its f64 parity mode (scenelib2_tpu/config.py:129-131), which the
+    # port does not run yet, and every JAX bench and the selftest pass
+    # use_pallas=True in f32 (scenelib2_tpu/eval/benchmark.py:112-197,
+    # eval/selftest.py:131)
     use_pallas: bool = True
     # batch_mode: pick vmap-friendly implementations (dense particle search,
     # unrolled Cholesky, vmapped particle predict) — single-invocation Pallas

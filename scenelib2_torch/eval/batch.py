@@ -10,9 +10,11 @@ timing of their initialisations and in their maps.
 
 scenelib2_torch/data/expected_fingerprint_batch64.json holds one decisions
 fingerprint per lane (eval/fingerprint.py), made by the JAX batch step on its
-default route. The two other routes (runtime.step.batch_route:
-batch_pallas=False, and SCENELIB2_BATCH_SB=0) decide as the default route
-(their JAX runs gave the default route's file again), so they read that file.
+default route. The other routes (runtime.step.batch_route: batch_pallas=False,
+SCENELIB2_BATCH_SB=0, and the pure-XLA route of use_pallas=False) decide as
+the default route (their JAX runs gave the default route's file again; the
+pure-XLA route's runs with and without FMA split on the same three tied
+lanes, 59 and 9 / 41, as the default route's), so they read that file.
 
 The lanes can also run at BASELINE config 3 (config="hires":
 eval/synthetic.py HIRES_PARAMS, 640x480, max_features 60, 200 particles):

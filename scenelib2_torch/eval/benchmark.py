@@ -5,11 +5,16 @@ scenelib2_tpu/eval/benchmark.py).
                  frames/s of run_sequence
   2. autoinit  — the same sequence at max_features 24 (D = 157): auto-init
                  and particle depth filtering from a 4-feature start
-  3. hires     — BASELINE config 3: 640x480, max_features 60, 200 particles,
-                 search radius 48, particle radius 52 (the configuration of
-                 expected_fingerprint_hires.json; JAX's bench_hires renders
-                 its dataset with those radii but gives MonoSLAM only
-                 max_features, so its step searches at the default 32)
+  3. hires     — BASELINE config 3 as JAX's bench_hires runs it: the
+                 640x480 dataset rendered with search radius 48 and particle
+                 radius 52, but MonoSLAM(cfg, max_features=60) only; the cfg
+                 file carries no radii, so the step searches at the
+                 defaults 32 and 32 (200 particles from the cfg;
+                 expected_fingerprint_hires_bench.json)
+     hires_r48 — the same dataset with the radii 48 / 52 given to the step
+                 as well (HIRES_OVERRIDES: the configuration of
+                 expected_fingerprint_hires.json and of the batch-hires
+                 lanes), under a metric name of its own; no JAX bench runs it
   4. batch64   — 64 independent lanes (32 textures x 2 phase offsets) in one
                  batched step: aggregate frames/s
   5. stress500*, ekf100* — the 100- and 500-feature EKF frames with the real
@@ -128,21 +133,35 @@ def bench_autoinit(n_frames: int = 240, device=None, repeats: int = 12):
     )
 
 
-def bench_hires(n_frames: int = 120, device=None, repeats: int = 8):
+def _hires(metric: str, overrides: dict, fp_file: str, n_frames: int, device, repeats: int):
     from scenelib2_torch import MonoSLAM
     from scenelib2_torch.config import Params
-    from scenelib2_torch.eval.synthetic import HIRES_OVERRIDES, HIRES_PARAMS
+    from scenelib2_torch.eval.synthetic import HIRES_PARAMS
 
     frames, cfg = std_dataset(n_frames, params=Params(**HIRES_PARAMS), tag="hires")
-    slam = MonoSLAM(cfg, device=device, **HIRES_OVERRIDES)
-    dt, outs, extra = _single(slam, frames, repeats, "expected_fingerprint_hires")
+    slam = MonoSLAM(cfg, device=device, **overrides)
+    dt, outs, extra = _single(slam, frames, repeats, fp_file)
     return dict(
-        metric="fps_640x480_60feat",
+        metric=metric,
         value=round(extra["frames"] / dt, 2),
         unit="frames/sec",
         final_map=int(outs.n_active[-1]),
         **extra,
     )
+
+
+def bench_hires(n_frames: int = 120, device=None, repeats: int = 8):
+    """JAX's bench_hires: the hires dataset, MonoSLAM(cfg, max_features=60)."""
+    return _hires("fps_640x480_60feat", dict(max_features=60), "expected_fingerprint_hires_bench",
+                  n_frames, device, repeats)
+
+
+def bench_hires_r48(n_frames: int = 120, device=None, repeats: int = 8):
+    """The hires dataset with the step at the dataset's radii (HIRES_OVERRIDES)."""
+    from scenelib2_torch.eval.synthetic import HIRES_OVERRIDES
+
+    return _hires("fps_640x480_60feat_r48", HIRES_OVERRIDES, "expected_fingerprint_hires", n_frames,
+                  device, repeats)
 
 
 def bench_batch64(n_frames: int = 64, batch: int = 64, n_textures: int = 32, device=None,
@@ -204,6 +223,7 @@ ALL_BENCHES = {
     "testseq": bench_testseq,
     "autoinit": bench_autoinit,
     "hires": bench_hires,
+    "hires_r48": bench_hires_r48,
     "batch64": bench_batch64,
     **{name: _not_ported(name) for name in NOT_PORTED},
 }
@@ -230,4 +250,4 @@ def run_all(names=None, device=None):
 
 
 __all__ = ["ALL_BENCHES", "NOT_PORTED", "run_all", "timed_replay", "bench_testseq", "bench_autoinit",
-           "bench_hires", "bench_batch64"]
+           "bench_hires", "bench_hires_r48", "bench_batch64"]

@@ -167,6 +167,65 @@ def bayes_update_plain(prob, lam, palive, found, p_over, z, hpi, sinv, dets, mak
     return tuple(torch.stack([r[i] for r in rows]).reshape(Fn, *rows[0][i].shape) for i in range(7))
 
 
+def bayes_update_xla(prob, lam, palive, found, p_over, z, hpi, sinv, dets, making, pmask, match_attempts,
+                     bc: BayesConsts):
+    """The pure-XLA route's Bayes chain (scenelib2_tpu/runtime/step.py:1228-1279),
+    which that route runs as tensor operations where the kernel routes run
+    K12 or K4 / K11. prob, lam [..., NP]; palive, found, p_over [..., NP]
+    bool; z, hpi [..., NP, 2]; sinv [..., NP, 2, 2]; dets [..., NP];
+    making, pmask [...] bool; match_attempts [...] (incremented this frame).
+    Returns (prob_f, palive_f, mean, cov, convert, kill, n_over), as
+    bayes_update_plain. The floats take the dtype of prob.
+
+    The same rules as bayes_tail (an overflowed particle with no match keeps
+    its prior; Bayes, renormalise, prune below thresh / N, renormalise; the
+    moments; convert, all-zero and sell-by kills), in the JAX chain's
+    operations: the quadratic form as its einsum's two contractions (S^-1
+    nu over the first index, then nu . that) and the sums over particles as
+    plain reductions, where bayes_tail sums in K12's fixed tree. The sums'
+    order is the only difference, so decisions agree except where a value
+    sits within rounding of its threshold."""
+    dt = prob.dtype
+    zero = torch.zeros((), dtype=dt, device=prob.device)
+    one = torch.ones((), dtype=dt, device=prob.device)
+    nu = z - hpi
+    nu0, nu1 = nu[..., 0], nu[..., 1]
+    t0 = nu0 * sinv[..., 0, 0] + nu1 * sinv[..., 1, 0]
+    t1 = nu0 * sinv[..., 0, 1] + nu1 * sinv[..., 1, 1]
+    quad = nu0 * t0 + nu1 * t1
+    gauss = (1.0 / torch.sqrt(2.0 * math.pi * dets)) * torch.exp(-0.5 * quad)
+    likelihood = torch.where(found, gauss, torch.where(p_over, one, zero))
+    mk = making[..., None]
+    prob1 = torch.where(mk & palive, prob * likelihood, prob)
+
+    total = torch.where(palive, prob1, zero).sum(-1)
+    all_zero = making & (total == 0.0)
+    safe_total = torch.where(total > 0.0, total, one)
+    prob_n = torch.where(mk, prob1 / safe_total[..., None], prob1)
+
+    n_alive = palive.sum(-1)
+    # a tensor divisor, not Python's reversed division (a reciprocal multiply)
+    thresh = torch.full((), bc.prune_prob_thresh, dtype=dt, device=prob.device) / torch.clamp(
+        n_alive, min=1).to(dt)
+    keep = palive & ~(mk & (prob_n < thresh[..., None]))
+    prob_k = torch.where(keep, prob_n, zero)
+    total2 = prob_k.sum(-1)
+    prob_f = torch.where(mk & (total2[..., None] > 0.0),
+                         prob_k / torch.where(total2 > 0.0, total2, one)[..., None], prob_k)
+    palive_f = torch.where(mk, keep, palive)
+    n_alive_f = palive_f.sum(-1)
+
+    mean = (lam * prob_f).sum(-1)
+    exp2 = (lam * lam * prob_f).sum(-1)
+    cov = exp2 - mean * mean
+    ratio = torch.sqrt(cov) / mean
+    convert = making & ~all_zero & (ratio < bc.sd_depth_ratio) & (n_alive_f > bc.min_particles)
+    sell_by = pmask & ~convert & ((match_attempts > bc.erase_partial_after_attempts)
+                                  | (n_alive_f <= bc.min_particles))
+    kill = all_zero | sell_by
+    return prob_f, palive_f, mean, cov, convert, kill, p_over.sum(-1).to(torch.int32)
+
+
 class _K12Params(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in ("NP", "width", "pred_w")]
                 + [(n, ctypes.c_float) for n in ("prune_prob_thresh", "sd_depth_ratio", "min_particles",

@@ -1,9 +1,12 @@
-"""The image operations of the batch route with batch_pallas=False, as
-tensor operations (no kernel of their own).
+"""The image operations of the batch route with batch_pallas=False and of
+the pure-XLA route (use_pallas=False), as tensor operations (no kernel of
+their own).
 
-Port of the parts of scenelib2_tpu/kernels/correlate.py that route runs
-(frame_sums, cross_sum_maps, patch_stats, nssd_score, penalized_score_map,
-multi_ellipse_search_dense) and of gather_windows_u8
+Port of the parts of scenelib2_tpu/kernels/correlate.py that those routes
+run (frame_sums, cross_sum_maps, cross_sum_windows, patch_stats,
+nssd_score, elliptical_search_batch, penalized_score_map,
+multi_ellipse_search_dense, which the single stream's XLA route also runs
+in place of multi_ellipse_search_unionbox) and of gather_windows_u8
 (scenelib2_tpu/kernels/pallas_search.py:639-653), in the fast mode's f32
 (the JAX package's astype(float64) is f32 there). Every leading dimension is
 a lane (or a lane and a slot).
@@ -97,6 +100,23 @@ def cross_sum_maps(frames_u8: torch.Tensor, patches_u8: torch.Tensor, boxsize: i
     return _centre_pad(out, H, W, half).to(torch.int32)
 
 
+def cross_sum_windows(frames_u8: torch.Tensor, patches_u8: torch.Tensor, u0: torch.Tensor,
+                      v0: torch.Tensor, win_radius: int, boxsize: int) -> torch.Tensor:
+    """Sg0g1 of each selected feature's patch on its own search window only
+    (correlate.py:177-214): frames [B, H, W], patches [B, K, b, b] u8, the
+    window origins u0, v0 [B, K] of search.search_window_origin -> [B, K,
+    side_v, side_u] int32. The JAX function gathers the windows by
+    dynamic_slice or, with Params.index_gather, by one index grid; both read
+    the same pixels, since the origins keep every window inside its frame,
+    so one gather stands for both."""
+    Bn, K = patches_u8.shape[:2]
+    wins = gather_windows_u8(frames_u8, u0, v0, win_radius, boxsize)
+    sw_v, sw_u = wins.shape[-2:]
+    out = _box_f64(wins.reshape(1, Bn * K, sw_v, sw_u),
+                   patches_u8.reshape(Bn * K, 1, boxsize, boxsize), groups=Bn * K)
+    return out[0].reshape(Bn, K, sw_v - boxsize + 1, sw_u - boxsize + 1).to(torch.int32)
+
+
 def patch_stats(patches_u8: torch.Tensor):
     """Per patch (Sg0, Sg0sq) as exact f32: patches [..., b, b] u8 -> [...]."""
     p = patches_u8.to(torch.int32)
@@ -109,6 +129,59 @@ def nssd_score(sg0, sg0sq, sg1, sg1sq, sg0g1, n: float):
     same order."""
     nt = torch.full((), n, dtype=torch.float32, device=sg1.device)
     return nssd_corr_f32(sg0, sg0sq, sg1, sg1sq, sg0g1.to(torch.float32), nt)
+
+
+def elliptical_search_batch(sg1, sg1sq, cross_win, sg0, sg0sq, u0, v0, h_centre, sinv_abc, active,
+                            boxsize: int, *, win_radius: int = 32, no_sigma: float = 3.0,
+                            corr_thresh2: float = 0.40, corr_sigma_thresh: float = 10.0):
+    """The reference's elliptical search (monoslam.cpp:401-477) for every
+    selected feature of every lane on its window of precomputed sums:
+    correlate.py:266-319. sg1, sg1sq [B, H, W] (frame_sums); cross_win [B, K,
+    side_v, side_u] int32 (cross_sum_windows); sg0, sg0sq [B, K]
+    (patch_stats); u0, v0 [B, K] window origins; h_centre [B, K, 2];
+    sinv_abc [B, K, 3] the entries (a, b, c) of S^-1; active [B, K] bool.
+
+    A window cell is a candidate where it lies in the 3-sigma box and the
+    ellipse about floor(h + 0.5), its patch lies inside the frame, and both
+    the image and the patch deviation reach corr_sigma_thresh. The best is
+    the masked minimum (1e6 where no cell is a candidate) with the
+    reference's tie-break: the last candidate of the u-outer / v-inner scan,
+    i.e. the largest u * H + v (_masked_min_last_tie_win). overflow marks a
+    box wider than the window, found a best <= corr_thresh2; both only where
+    active. Returns (found, u, v, best, overflow), each [B, K]; the floats
+    take the dtype of sg1."""
+    Bn, H, W = sg1.shape
+    half = (boxsize - 1) // 2
+    side_v, side_u = cross_win.shape[-2:]
+    dev, dt = sg1.device, sg1.dtype
+    a, b, c = sinv_abc[..., 0], sinv_abc[..., 1], sinv_abc[..., 2]
+    ns = torch.full((), no_sigma, dtype=dt, device=dev)
+    hw = xla_i32(torch.floor(ns / torch.sqrt(a - b * b / c)))
+    hh = xla_i32(torch.floor(ns / torch.sqrt(c - b * b / a)))
+    uc = xla_i32(torch.floor(h_centre[..., 0] + 0.5))
+    vc = xla_i32(torch.floor(h_centre[..., 1] + 0.5))
+    uu = u0.long()[..., None, None] + torch.arange(side_u, device=dev)            # [B, K, 1, su]
+    vv = v0.long()[..., None, None] + torch.arange(side_v, device=dev)[:, None]   # [B, K, sv, 1]
+    bi = torch.arange(Bn, device=dev).reshape(Bn, 1, 1, 1)
+    n = torch.full((), float(boxsize * boxsize), dtype=dt, device=dev)
+    corr, sd0, sd1 = nssd_corr_f32(sg0[..., None, None], sg0sq[..., None, None], sg1[bi, vv, uu],
+                                   sg1sq[bi, vv, uu], cross_win.to(dt), n)
+    urel = wrap_i32(uu - uc[..., None, None]).to(dt)
+    vrel = wrap_i32(vv - vc[..., None, None]).to(dt)
+    box = (torch.abs(urel) <= hw.to(dt)[..., None, None]) & (torch.abs(vrel) <= hh.to(dt)[..., None, None])
+    centre_ok = (uu >= half) & (uu <= W - 1 - half) & (vv >= half) & (vv <= H - 1 - half)
+    mask = (box & ellipse_mask(a, b, c, uc, vc, uu, vv, no_sigma) & centre_ok
+            & (sd1 >= corr_sigma_thresh) & (sd0 >= corr_sigma_thresh))
+    vals = torch.where(mask, corr, torch.full_like(corr, MISS)).flatten(-2)
+    best = vals.amin(dim=-1)
+    key = (uu * H + vv).expand(mask.shape).flatten(-2)
+    tie = (vals == best[..., None]) & mask.flatten(-2)
+    kbest = torch.where(tie, key, torch.full_like(key, -1)).amax(dim=-1)
+    u = torch.div(kbest, H, rounding_mode="floor").to(torch.int32)
+    v = torch.remainder(kbest, H).to(torch.int32)
+    over = (hw > win_radius) | (hh > win_radius)
+    found = active & (best <= corr_thresh2)
+    return found, u, v, best, over & active
 
 
 def penalized_score_map(sg1, sg1sq, valid, cross_map, sg0, sg0sq, boxsize: int,
@@ -181,10 +254,10 @@ def window_search(maps, u0, v0, side_v: int, side_u: int, mask_fn):
 
 def ellipse_mask(a, b, c, uc, vc, uu, vv, no_sigma: float):
     """(a urel) urel + ((2b) urel) vrel + (c vrel) vrel < no_sigma^2 with
-    urel, vrel the int32-wrapped offsets from (uc, vc) as f32; a, b, c, uc,
-    vc [..., P] broadcast against the cells uu, vv."""
-    urel = wrap_i32(uu - uc[..., None, None]).to(torch.float32)
-    vrel = wrap_i32(vv - vc[..., None, None]).to(torch.float32)
+    urel, vrel the int32-wrapped offsets from (uc, vc) in the dtype of a;
+    a, b, c, uc, vc [..., P] broadcast against the cells uu, vv."""
+    urel = wrap_i32(uu - uc[..., None, None]).to(a.dtype)
+    vrel = wrap_i32(vv - vc[..., None, None]).to(a.dtype)
     a, b2, c = a[..., None, None], (2.0 * b)[..., None, None], c[..., None, None]
     return (((a * urel) * urel + (b2 * urel) * vrel) + (c * vrel) * vrel) < no_sigma * no_sigma
 
@@ -193,7 +266,17 @@ def multi_ellipse_search_dense(corr_maps, h_centres, sinv, alive, *, win_radius:
                                no_sigma: float = 3.0, corr_thresh2: float = 0.40):
     """correlate.multi_ellipse_search_dense over lanes and slots:
     corr_maps [B, F, H, W] f32, h_centres [B, F, P, 2], sinv [B, F, P, 2, 2],
-    alive [B, F, P]. Returns (found, u, v, overflow), each [B, F, P]."""
+    alive [B, F, P]. Returns (found, u, v, overflow), each [B, F, P].
+
+    The single stream's pure-XLA route runs this in place of
+    correlate.multi_ellipse_search_unionbox (correlate.py:464-591, called at
+    scenelib2_tpu/runtime/step.py:1185-1201): that function picks, by
+    lax.cond on the particles' union box, one rung of a ladder of band sizes
+    or this dense form, and is bit-equal to the dense form on every rung for
+    the alive particles (the union box holds every alive particle's cells);
+    a CUDA graph cannot branch on data without a host synchronisation. The
+    u and v of a particle that is not alive may differ from the rung's; the
+    step reads them only where the particle is alive."""
     H, W = corr_maps.shape[-2:]
     side_u, side_v = min(2 * win_radius + 1, W), min(2 * win_radius + 1, H)
     uc, vc, hw, hh, u0, v0, a, b, c = particle_geometry(h_centres, sinv, win_radius, no_sigma, H, W)

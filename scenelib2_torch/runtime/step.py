@@ -25,6 +25,12 @@ core.ekf.predict, K7 (the chain and the top-k), K2, the dense update with
 S inverted by K14; stages 7-8 as above. MF > 128 is refused, as in the JAX
 fast step.
 
+With use_pallas=False the single stream takes the JAX step's pure-XLA
+route at every D: the batch step's route "xla" on the state as one lane
+(make_step), which launches one kernel, K14, to invert S in stage 4
+(JAX: ekf.joint_update(..., pallas_chol=not batch_mode)); the rest is
+tensor operations.
+
 The step makes no host synchronisation: data-dependent choices stay masks,
 and each kernel wrapper launches on the current stream. Where the JAX step
 skips stage 7 or the stage-8 surgery behind a lax.cond on data, this step
@@ -58,7 +64,7 @@ from scenelib2_torch.core.quaternion import (
 )
 from scenelib2_torch.device import resolve_device, resolve_dtype
 from scenelib2_torch.kernels import correlate
-from scenelib2_torch.kernels.bayes import bayes_update
+from scenelib2_torch.kernels.bayes import bayes_update, bayes_update_xla
 from scenelib2_torch.kernels.ekf_update import UpdateConsts, joint_update
 from scenelib2_torch.kernels.measure import (
     O_H,
@@ -214,23 +220,12 @@ def unpack_outputs(flat: torch.Tensor, nsel: int, maxp: int = 1, npart: int = 0)
 
 # the ROADMAP.md Queue 1 items that the refusals below name, by title (a
 # title stays true when the queue is renumbered)
-ROADMAP_XLA = "The pure-XLA route in f32"
 ROADMAP_F64 = "f64 parity mode"
 ROADMAP_MAXP = "Single-stream and batch MAXP > 1"
 
 
 def roadmap_item(title: str) -> str:
     return f'ROADMAP.md Queue 1, "{title}"'
-
-
-XLA_ROUTE_REFUSED = (
-    "use_pallas=False selects the JAX step's pure-XLA route (scenelib2_tpu/runtime/step.py: "
-    f"the branches where use_pallas is false); that route is not ported ({roadmap_item(ROADMAP_XLA)}). "
-    "In f32 its single-stream form launches one kernel, K14, the Cholesky inverse of S "
-    "(ekf.joint_update(..., pallas_chol=not params.batch_mode), step.py:529-531, "
-    "core/ekf.py:136-139); only its batch form and f64 launch none. The port runs the JAX "
-    "kernel route, use_pallas=True, the default of scenelib2_torch.config.Params"
-)
 
 
 # the JAX step's routes by state dimension D = 13 + 6 MF
@@ -247,20 +242,21 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     fast mode whose kernels this package ports. enable_mapping is a bool:
     False skips stage 7 (auto-initialisation) on the host.
 
-    The route follows the JAX step's by D = 13 + 6 max_features: up to
-    D = 384 the fused route (K1, K2, K3); above it the split route of
-    make_split_stages on the state as one lane (K7, K2, K14). Stage 8 runs
-    every frame up to D = 128 and, above, takes the results of JAX's
-    `light` branch where no partial feature is measurable. max_features
-    above 128 is refused, as the JAX fast step cannot run it."""
+    With use_pallas (the default) the route follows the JAX step's by
+    D = 13 + 6 max_features: up to D = 384 the fused route (K1, K2, K3);
+    above it the split route of make_split_stages on the state as one lane
+    (K7, K2, K14). Stage 8 runs every frame up to D = 128 and, above, takes
+    the results of JAX's `light` branch where no partial feature is
+    measurable. With use_pallas=False, the JAX step's pure-XLA route at
+    every D: make_batch_step's route "xla" on the state as one lane, with S
+    inverted by K14 (step.route "xla"). max_features above 128 is refused,
+    as the JAX fast step cannot run it."""
     device = resolve_device(device)
     dtype = resolve_dtype(precision)
     if dtype != torch.float32:
         raise NotImplementedError(
             f"the f64 parity mode of the step is not ported yet ({roadmap_item(ROADMAP_F64)})"
         )
-    if not params.use_pallas:
-        raise NotImplementedError(XLA_ROUTE_REFUSED)
     MF = params.max_features
     NSEL = params.n_features_to_select
     MAXP = max(1, params.max_features_to_init_at_once)
@@ -282,6 +278,8 @@ def make_step(params: Params, device=None, precision: str = "f32"):
             "init proposal kernel needs it, step.py:707-708), so there is no reference "
             "route to port above that"
         )
+    if not params.use_pallas:
+        return _one_lane(_lane_step(params, device, dtype, "xla", pallas_chol=True))
     D = CAM_DIM + SLOT_DIM * MF
     fused = D <= FUSED_MAX_D
     heavy_always = D <= HEAVY_ALWAYS_MAX_D
@@ -467,6 +465,30 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     return step
 
 
+def _one_lane(lane_step):
+    """The single-stream step (and its initialise_auto) of a lane step from
+    _lane_step: the state and the frame go in as one lane, and the lane
+    dimension comes off the results."""
+    def lane(state: SlamState) -> SlamState:
+        return SlamState(*(t[None] for t in state))
+
+    def unlane(state_b: SlamState) -> SlamState:
+        return SlamState(*(t[0] for t in state_b))
+
+    def step(state: SlamState, frame_u8: torch.Tensor,
+             enable_mapping: bool) -> tuple[SlamState, StepOutputs]:
+        mid, out = lane_step(lane(state), frame_u8[None], enable_mapping)
+        return unlane(mid), StepOutputs(*(t[0] for t in out))
+
+    def initialise_auto(state: SlamState, frame_u8: torch.Tensor) -> tuple[SlamState, torch.Tensor]:
+        mid, did_init = lane_step.initialise_auto(lane(state), frame_u8[None])
+        return unlane(mid), did_init[0]
+
+    step.route = lane_step.route
+    step.initialise_auto = initialise_auto
+    return step
+
+
 # ---------------------------------------------------------------------------
 # Batch mode: B independent lanes in one step
 # ---------------------------------------------------------------------------
@@ -502,18 +524,20 @@ class Selection(NamedTuple):
     pmask: torch.Tensor        # [B, MAXP] bool
 
 
-def make_split_stages(params: Params, device, dtype, pallas_chol: bool,
-                      measure_kernel: bool = True, window_search: bool = False):
+def make_split_stages(params: Params, device, dtype, pallas_chol: bool, route: str = "default"):
     """Stages 1-6 of the split route on states with a lane dimension:
     stages(state_b, frames_b [B, H, W]) -> (state_b after stage 6,
     Selection).
 
-    Two static choices follow the JAX step's batch routes: measure_kernel
-    (stage 2 by K7; False: the XLA per-slot chain of core.models,
-    core.camera.measurement_noise and core.ekf.inv2x2_via_chol, JAX
-    step.py:305-342, the route with batch_pallas=False) and window_search
-    (stage 3 by K8 on windows gathered by correlate.gather_windows_u8 and
-    the stored u8 patches, JAX step.py:385-403; False: K2 on the frame).
+    The route (batch_route's names) picks stages 2 and 3 as the JAX step's
+    routes do. Stage 2 is K7, or on routes bp0 and xla the XLA per-slot
+    chain of core.models, core.camera.measurement_noise and
+    core.ekf.inv2x2_via_chol (JAX step.py:305-342). Stage 3 is K2 on the
+    frame; on bp0 K8 on windows gathered by correlate.gather_windows_u8 and
+    the stored u8 patches (JAX step.py:385-403); on xla the pure-XLA route's
+    tensor operations (JAX step.py:404-418: correlate.frame_sums,
+    cross_sum_windows on the stored patches, patch_stats,
+    elliptical_search_batch).
 
     The JAX step's route where neither fused kernel applies
     (scenelib2_tpu/runtime/step.py:261-304, 351-384, 434-465, 492-540):
@@ -530,6 +554,11 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool,
     MF = params.max_features
     NSEL = params.n_features_to_select
     MAXP = max(1, params.max_features_to_init_at_once)
+    measure_kernel = route not in ("bp0", "xla")
+    if NSEL > MF:
+        # JAX's lax.top_k(score, NSEL) refuses this when the step is traced
+        raise ValueError(f"n_features_to_select = {NSEL} exceeds max_features = {MF}: the JAX step's "
+                         "top-k selection of these routes cannot run it")
     Bx = params.boxsize
     W, H = params.cam_width, params.cam_height
     D = params.state_dim
@@ -602,12 +631,21 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool,
         # the partial slots as of the start of the frame, lowest slot first
         pvals, pidx = stable_top_k((state.active & ~state.full).to(dtype), MAXP)
 
-        # ---- 3. windowed NSSD search (K2, or K8 on gathered windows) ---------
+        # ---- 3. windowed NSSD search (K2, K8 on gathered windows, or XLA) ---
         u0, v0, ucen, vcen = search_window_origin(h_sel, params.search_win_radius, W, H, Bx)
-        if window_search:
+        if route == "bp0":
             windows = correlate.gather_windows_u8(frames, u0, v0, params.search_win_radius, Bx)
             found, u, v, _best, over = search_windows(
                 windows, _lane_gather(state.patches, top64), u0, v0, h_sel, sinv_abc, sel_mask, sc)
+        elif route == "xla":
+            patches = _lane_gather(state.patches, top64)
+            sg1, sg1sq, _valid = correlate.frame_sums(frames, Bx)
+            cross = correlate.cross_sum_windows(frames, patches, u0, v0, params.search_win_radius, Bx)
+            sg0, sg0sq = correlate.patch_stats(patches)
+            found, u, v, _best, over = correlate.elliptical_search_batch(
+                sg1, sg1sq, cross, sg0, sg0sq, u0, v0, h_sel, sinv_abc, sel_mask, Bx,
+                win_radius=params.search_win_radius, no_sigma=params.no_sigma,
+                corr_thresh2=params.corr_thresh2, corr_sigma_thresh=params.corr_sigma_thresh)
         else:
             found, u, v, _best, over = search(
                 frames, _lane_gather(state.patch_rows, top64), u0, v0, ucen, vcen, sinv_abc,
@@ -644,11 +682,14 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool,
 
 
 def batch_route(params: Params, batch_sb: bool | None = None) -> str:
-    """The JAX batch route that these flags select: "bp0" for
-    batch_pallas=False; with batch_pallas=True, "sb0" where the search + Bayes
-    pair replaces the fused kernel (batch_sb False, or batch_sb None and the
-    environment variable SCENELIB2_BATCH_SB set to "0", which the JAX step
-    reads when it is traced, step.py:1061-1062), else "default"."""
+    """The JAX batch route that these flags select: "xla" for
+    use_pallas=False (the pure-XLA route, whatever batch_pallas says); "bp0"
+    for batch_pallas=False; with batch_pallas=True, "sb0" where the search +
+    Bayes pair replaces the fused kernel (batch_sb False, or batch_sb None
+    and the environment variable SCENELIB2_BATCH_SB set to "0", which the
+    JAX step reads when it is traced, step.py:1061-1062), else "default"."""
+    if not params.use_pallas:
+        return "xla"
     if not params.batch_pallas:
         return "bp0"
     if batch_sb is None:
@@ -697,29 +738,32 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
     for B independent lanes: every field of states_b and of the outputs
     carries a leading lane dimension and frames_b is [B, H, W] u8.
 
-    Port of the JAX step under jax.vmap with batch_mode=True and
-    use_pallas=True in f32, reached through
-    scenelib2_torch.parallel.mesh.make_batched_step, on the route that the
-    flags select as in JAX (batch_route): "default" (batch_pallas=True),
-    "sb0" (batch_pallas=True with the search + Bayes pair: batch_sb=False,
-    or batch_sb=None and SCENELIB2_BATCH_SB=0 when the step is built) or
-    "bp0" (batch_pallas=False). Stage by stage:
+    Port of the JAX step under jax.vmap with batch_mode=True in f32,
+    reached through scenelib2_torch.parallel.mesh.make_batched_step, on the
+    route that the flags select as in JAX (batch_route): "default"
+    (batch_pallas=True), "sb0" (batch_pallas=True with the search + Bayes
+    pair: batch_sb=False, or batch_sb=None and SCENELIB2_BATCH_SB=0 when the
+    step is built), "bp0" (batch_pallas=False) or "xla" (use_pallas=False,
+    the pure-XLA route: no kernel). Stage by stage:
 
-                                               default  sb0      bp0
-      1.   core.ekf.predict as tensor ops      .        .        .
-      2.   per-slot measurement prediction     K7       K7       XLA chain
+                                               default  sb0      bp0      xla
+      1.   core.ekf.predict as tensor ops      .        .        .        .
+      2.   per-slot measurement prediction     K7       K7       XLA chain XLA chain
            stable top-NSEL selection           (K7)     (K7)     measure.stable_top_k
-      3.   NSSD search, B x NSEL programs      K2       K2       K8 on
-                                                                 gathered windows
+      3.   NSSD search, B x NSEL programs      K2       K2       K8 on    correlate:
+                                                                 gathered windowed
+                                                                 windows  sums and
+                                                                          search
       4-6. bookkeeping closed form, dense H / R assembly,
-           core.ekf.joint_update + normalise, delete_mask, symmetrize
+           core.ekf.joint_update (unrolled factorisation) + normalise,
+           delete_mask, symmetrize
       7.   the proposal chain as tensor ops (the XLA form, not K5),
-           Shi-Tomasi pick, B regions         K6       K6       XLA form
+           Shi-Tomasi pick, B regions         K6       K6       XLA form XLA form
            runtime.state.add_partial_feature over lanes
       8.   whole-frame score maps             K9       K9       correlate.score_maps
            particle prediction                 K10      K10      kform_predict
            particle search                     K11      K13      correlate dense
-           Bayes update                        (K11)    K12      K12 (13 rows)
+           Bayes update                        (K11)    K12      K12      bayes_update_xla
            convert_feature + delete_mask over lanes
 
     Every kernel is launched once a frame for all lanes, nothing loops over
@@ -732,9 +776,16 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
     if dtype != torch.float32:
         raise NotImplementedError(
             f"the batch step is ported in f32 (the fast mode) only ({roadmap_item(ROADMAP_F64)})")
-    if not params.use_pallas:
-        raise NotImplementedError(XLA_ROUTE_REFUSED)
-    route = batch_route(params, batch_sb)
+    return _lane_step(params, device, dtype, batch_route(params, batch_sb), pallas_chol=False)
+
+
+def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
+    """The step of make_batch_step on `route` (batch_route's names). S is
+    inverted by K14 where pallas_chol (the single stream's pure-XLA route,
+    JAX's pallas_chol=not batch_mode), else by the unrolled factorisation.
+    The step also carries initialise_auto(states_b, frames_b) -> (states_b,
+    did_init [B]): stage 7 with no gate, JAX's _auto_initialise(...,
+    want_init=True)."""
     MF = params.max_features
     NP = params.n_particles
     MAXP = max(1, params.max_features_to_init_at_once)
@@ -745,7 +796,8 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
         )
     if MF > MAX_FEATURES:
         raise NotImplementedError(f"the batch kernels hold MF <= {MAX_FEATURES}, as the JAX fast step does")
-    xla = route == "bp0"
+    # the routes whose images run as tensor ops (JAX's XLA forms)
+    plain_images = route in ("bp0", "xla")
     Bx = params.boxsize
     half = (Bx - 1) // 2
     W, H = params.cam_width, params.cam_height
@@ -763,22 +815,25 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
     dt_t = torch.tensor(params.delta_t, dtype=dtype, **kw)
     lam0 = torch.as_tensor(st.lambda_grid(params), dtype=dtype, device=device)
     zero = torch.zeros((), dtype=dtype, **kw)
-    stages_1_to_6 = make_split_stages(params, device, dtype, pallas_chol=False,
-                                      measure_kernel=not xla, window_search=xla)
+    stages_1_to_6 = make_split_stages(params, device, dtype, pallas_chol, route)
     workspace: dict[int, torch.Tensor] = {}     # lanes -> the [B, MAXP, H, W] score maps
 
-    def auto_init(mid: SlamState, frames, speed, n_visible):
+    def auto_init(mid: SlamState, frames, speed, n_visible, force: bool = False):
         """Stage 7 over lanes: the region proposal chain, the Shi-Tomasi pick
-        (K6, or its XLA form on route bp0), the ray insertion; each an exact
-        no-op in a lane whose gate is false."""
+        (K6, or its XLA form on routes bp0 and xla), the ray insertion; each
+        an exact no-op in a lane whose gate is false. force opens the gate
+        (speed, visible and partial counts) in every lane."""
         Bn = mid.x.shape[0]
         bi = torch.arange(Bn, **kw)
         x = mid.x
         xp = x[:, :7]
-        n_partial = (mid.active & ~mid.full).sum(-1).to(torch.int32)
-        want_init = ((speed > params.min_speed_for_init)
-                     & (n_visible < params.n_features_to_keep_visible)
-                     & (n_partial < params.max_features_to_init_at_once))
+        if force:
+            want_init = torch.ones(Bn, dtype=torch.bool, **kw)
+        else:
+            n_partial = (mid.active & ~mid.full).sum(-1).to(torch.int32)
+            want_init = ((speed > params.min_speed_for_init)
+                         & (n_visible < params.n_features_to_keep_visible)
+                         & (n_partial < params.max_features_to_init_at_once))
         # the constant-velocity rollforward collapsed to one step of N dt
         qf = quat_mul(x[:, 3:7], quat_from_angular_velocity(x[:, 10:13] * dtN))
         yW = (x[:, 0:3] + x[:, 7:10] * dtN
@@ -821,7 +876,7 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
         ru, rv, ruf, rvf = clamp_region(region_us, region_vs, region_us + RW, region_vs + RH, W, H, Bx)
         # the XLA route's Shi-Tomasi (JAX find_best_patch_in_image_window)
         # has K6's plain operation order, so it is shi_tomasi_plain over lanes
-        pick_patch = shi_tomasi_plain if xla else shi_tomasi
+        pick_patch = shi_tomasi_plain if plain_images else shi_tomasi
         ubest, vbest, evbest = pick_patch(frames, ru, rv, ruf, rvf, boxsize=Bx,
                                           region_w=RW, region_h=RH)
         did_init = any_ok & (evbest > params.init_patch_score_thresh)
@@ -844,17 +899,20 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
         ys6 = _lane_gather(st.slot_states(mid.x, MF), p64)
         pxy6 = _lane_gather(st.slot_pxy(mid.P, MF), p64)
         pyy6 = _lane_gather(st.slot_pyy(mid.P, MF), p64)
-        if xla:
+        if plain_images:
             corr_maps = correlate.score_maps(frames, _lane_gather(mid.patches, p64), Bx,
                                              params.corr_sigma_thresh, params.low_sigma_penalty)
             hpi, sinv, dets = kform_predict(cam, mid.x[:, None, :7], mid.P[:, None, :7, :7], ys6, pxy6,
                                             pyy6, lam_c)
+            # the single stream's XLA route: in place of JAX's union-box search
+            # (bit-equal for the alive particles, correlate.py)
             found, zu, zv, p_over = correlate.multi_ellipse_search_dense(
                 corr_maps, hpi, sinv, searchable, win_radius=params.particle_win_radius,
                 no_sigma=params.no_sigma, corr_thresh2=params.corr_thresh2)
             z = torch.stack([zu, zv], dim=-1).to(dtype)
-            return (*bayes_update(prob_c, lam_c, palive_c, found, p_over, z, hpi, sinv, dets, making,
-                                  pmask, ma_c, sbc.bayes), hpi, sinv)
+            bayes = bayes_update_xla if route == "xla" else bayes_update
+            return (*bayes(prob_c, lam_c, palive_c, found, p_over, z, hpi, sinv, dets, making,
+                           pmask, ma_c, sbc.bayes), hpi, sinv)
         if Bn not in workspace:
             workspace[Bn] = torch.empty((Bn, MAXP, H, W), dtype=torch.float32, **kw)
         corr_maps = score_map(frames, _lane_gather(mid.patch_rows, p64), smc, out=workspace[Bn])
@@ -953,6 +1011,11 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
         )
         return mid._replace(frame_no=mid.frame_no + 1), out
 
+    def initialise_auto(states: SlamState, frames: torch.Tensor) -> tuple[SlamState, torch.Tensor]:
+        mid, did_init, _box = auto_init(states, frames, None, None, force=True)
+        return mid, did_init
+
     step.route = route
+    step.initialise_auto = initialise_auto
     step.graphs = {}   # parallel.mesh.run_batch's CUDA graphs of this step (runtime/replay.py)
     return step

@@ -12,9 +12,15 @@ Run on the CPU in fast (f32) mode; the Pallas kernels run in interpret mode:
 --route picks the JAX batch route: "default" (batch_pallas=True, the fused
 search + Bayes kernel), "bp0" (batch_pallas=False: the XLA measurement chain,
 the gathered-window search kernel, the XLA Shi-Tomasi, XLA score maps, the
-dense particle search and the Bayes kernel) or "sb0" (batch_pallas=True with
+dense particle search and the Bayes kernel), "sb0" (batch_pallas=True with
 SCENELIB2_BATCH_SB=0 set before the step is traced: the multi-ellipse search
-kernel and the Bayes kernel in place of the fused one). --lanes-per-run N
+kernel and the Bayes kernel in place of the fused one) or "xla"
+(use_pallas=False: the pure-XLA route, bp0's tensor ops with the windowed
+XLA search of correlate.elliptical_search_batch and the XLA Bayes chain; no
+kernel). Each route's merged file equals the default route's: on "xla" the
+run with FMA differs from it in lane 59 only and the run without in lanes 9
+and 41 only, the same ties as the default route's (each run ~64 min on ~3
+CPU cores with --lanes-per-run 16). --lanes-per-run N
 steps the lanes N at a time (each lane is independent under the vmap) to
 bound the memory of bp0's dense particle search ([N, 100, 240, 320] f32
 temporaries). --dump FILE.npz also saves every lane's per-frame decision
@@ -71,7 +77,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from gen_largemap_fingerprints import CONFIGS as LARGEMAP_CONFIGS  # noqa: E402
 
-ROUTES = ("default", "bp0", "sb0")
+ROUTES = ("default", "bp0", "sb0", "xla")
 # configuration -> (the dataset's Params overrides, the step's overrides); "hires"
 # is scenelib2_tpu/eval/benchmark.py::bench_hires (BASELINE config 3), as the
 # single-stream hires reference takes it (the reference scripts keep their one
@@ -110,8 +116,8 @@ def lanes(batch: int, n_textures: int, n_frames: int, route: str = "default", co
         lane_cfgs.append(load_config(cfg_path))
         lane_frames.append(fr)
     params = dataclasses.replace(
-        lane_cfgs[0].params, **overrides, use_pallas=True, batch_mode=True,
-        batch_pallas=route != "bp0",
+        lane_cfgs[0].params, **overrides, use_pallas=route != "xla", batch_mode=True,
+        batch_pallas=route not in ("bp0", "xla"),
     )
     states = []
     fb = np.empty((batch, n_frames - 1) + lane_frames[0].shape[1:], np.uint8)

@@ -12,16 +12,24 @@ JAX package, in fast (f32) mode on the CPU with interpret-mode kernels:
           bench_autoinit): the same sequence with max_features 24 (D = 157,
           the fused route, stage 8 under the light/heavy choice); 239
           frames replayed.
+  hires_bench bench_hires's own configuration (scenelib2_tpu/eval/benchmark.py::
+          bench_hires): hires' dataset, but MonoSLAM(cfg, max_features=60)
+          only; the cfg file carries no window radii, so the step searches
+          at the defaults 32 and 32 (200 particles from the cfg); 119
+          frames replayed.
+  xla     the std sequence with max_features 16 on the pure-XLA route,
+          MonoSLAM(cfg, max_features=16, use_pallas=False); 239 frames
+          replayed.
 
-Both run MonoSLAM(cfg, ..., use_pallas=True).run_sequence(frames[1:],
-enable_mapping=True) and hash the outputs with
-scenelib2_tpu.eval.selftest.decisions_fingerprint:
+Each runs MonoSLAM(cfg, ..., use_pallas=True unless the configuration says
+otherwise).run_sequence(frames[1:], enable_mapping=True) and hashes the
+outputs with scenelib2_tpu.eval.selftest.decisions_fingerprint:
 
     SCENELIB2_X64=0 JAX_PLATFORMS=cpu python scripts/gen_largemap_fingerprints.py \
         --out-dir scenelib2_torch/data
 
 writes expected_fingerprint_<name>.json for each name (about 75 s of
-compile each; --configs NAME ... for some of them). --dump DIR also saves each replay's
+compile each, ~30 s for xla; --configs NAME ... for some of them). --dump DIR also saves each replay's
 per-frame outputs as DIR/<name>.npz, for comparing a port frame by frame.
 
 XLA's CPU compiler contracts a*b + c into fused multiply-adds where the
@@ -54,6 +62,8 @@ CONFIGS = {
               dict(max_features=60, search_win_radius=48, particle_win_radius=52)),
     "mf100": (240, None, dict(max_features=100)),
     "autoinit": (240, None, dict(max_features=24)),
+    "hires_bench": (120, HIRES_PARAMS, dict(max_features=60)),
+    "xla": (240, None, dict(max_features=16, use_pallas=False)),
 }
 
 
@@ -71,7 +81,7 @@ def run(name: str, dump_dir: str | None) -> dict:
         frames, cfg, _ = _dataset(n_frames)
     else:
         frames, cfg, _ = _dataset(n_frames, params=Params(**dataset_params), tag="hires")
-    slam = MonoSLAM(cfg, use_pallas=True, **overrides)
+    slam = MonoSLAM(cfg, **{"use_pallas": True, **overrides})
     t0 = time.time()
     outs = slam.run_sequence(frames[1:], enable_mapping=True)
     outs = jax.tree_util.tree_map(np.asarray, outs)

@@ -25,7 +25,9 @@ from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints, make_lane
 from scenelib2_torch.eval.fingerprint import load_expected
 from scenelib2_torch.kernels.bayes import CHUNK_NP
 from scenelib2_torch.parallel.mesh import make_batched_step, run_batch
-from scenelib2_torch.runtime.step import XLA_ROUTE_REFUSED, make_batch_step, make_step
+from scenelib2_torch.core import ekf
+from scenelib2_torch.runtime.state import init_state
+from scenelib2_torch.runtime.step import make_batch_step, make_step
 
 LANES = (4, 13)
 
@@ -70,12 +72,26 @@ def test_step_builders_refuse_particles_beyond_the_kernels_limit():
         build(p, device="cpu")
 
 
-def test_xla_route_refusal_names_the_kernel_that_route_launches():
-    """The JAX single-stream f32 step with use_pallas=False still inverts S
-    with K14 (ekf.joint_update(..., pallas_chol=not batch_mode)); only its
-    batch form and f64 launch no kernel."""
-    assert "K14" in XLA_ROUTE_REFUSED and "launches no kernel" not in XLA_ROUTE_REFUSED
-    assert '"The pure-XLA route in f32"' in XLA_ROUTE_REFUSED
+def test_xla_route_refusal_names_the_kernel_that_route_launches(monkeypatch):
+    """The pure-XLA route is no longer refused. Its single-stream f32 step
+    inverts S with K14 (ekf.joint_update(..., pallas_chol=not batch_mode)),
+    once a step; its batch form launches no kernel (the unrolled
+    factorisation). f64 and MAXP > 1 stay refused by title."""
+    calls = []
+    real = ekf.chol_inv
+    monkeypatch.setattr(ekf, "chol_inv", lambda S: calls.append(tuple(S.shape)) or real(S))
+    p = dataclasses.replace(Params(), use_pallas=False)
+    frame = torch.zeros((p.cam_height, p.cam_width), dtype=torch.uint8)
+    state = init_state(p, torch.zeros(13).index_fill_(0, torch.tensor([3]), 1.0), torch.eye(13) * 1e-4,
+                       device="cpu", dtype=torch.float32)
+    step = make_step(p, device="cpu")
+    assert step.route == "xla"
+    step(state, frame, True)
+    assert calls == [(1, 2 * p.n_features_to_select, 2 * p.n_features_to_select)]
+    bstep = make_batched_step(p, device="cpu")
+    assert bstep.route == "xla"
+    bstep(type(state)(*(t[None] for t in state)), frame[None], True)
+    assert len(calls) == 1
     with pytest.raises(NotImplementedError, match='"f64 parity mode"'):
         make_step(Params(), device="cpu", precision="f64")
     with pytest.raises(NotImplementedError, match='"Single-stream and batch MAXP > 1"'):

@@ -7,7 +7,7 @@ its final state is handed back as the captured graph does):
     state between calls (initialise_feature, initialise_auto_feature,
     delete_feature, add_new_known_feature, load_checkpoint, reset) gives
     the same packed row and the same state after every call as the eager
-    step, bit for bit;
+    step, bit for bit, on the default route and on the pure-XLA route;
   - the one-step graph is the one run_sequence replays past its last full
     block (one key), and flipping enable_mapping makes exactly one more, so
     both fit MAX_GRAPHS beside run_sequence's block graphs;
@@ -101,10 +101,19 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def test_graph_step_equals_the_eager_step_through_facade_calls(world, stand_in, tmp_path):
+    _graph_equals_eager(world, tmp_path)
+
+
+def test_xla_graph_step_equals_the_eager_step_through_facade_calls(world, stand_in, tmp_path):
+    """The same script on the pure-XLA route (use_pallas=False)."""
+    _graph_equals_eager(world, tmp_path, use_pallas=False)
+
+
+def _graph_equals_eager(world, tmp_path, **kw):
     d, frames, rs, qs, cfg = world
-    eager = _script(MonoSLAM(cfg, device="cpu", **OVERRIDES),
+    eager = _script(MonoSLAM(cfg, device="cpu", **OVERRIDES, **kw),
                     lambda s, f, m: s._go_one_step_eager(f, True, m), frames, rs, qs, str(tmp_path))
-    slam = MonoSLAM(cfg, device="cpu", **OVERRIDES)
+    slam = MonoSLAM(cfg, device="cpu", **OVERRIDES, **kw)
     graph = _script(slam, lambda s, f, m: s._go_one_step_graph(f, True, m), frames, rs, qs, str(tmp_path))
     assert [r[0] for r in graph] == [r[0] for r in eager]
     for (tag, grow, gstate), (_t, erow, estate) in zip(graph, eager):

@@ -203,20 +203,20 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, data_dir):
 
 def test_unported_batch_routes_are_refused():
     """batch_mode belongs to the batch step (reached through parallel.mesh);
-    what is not ported is refused, not run some other way: the JAX step's
-    pure-XLA route (use_pallas=False) by both step builders, a partial
+    what is not ported is refused, not run some other way: a partial
     capacity above one, f64, and a single-stream state given to the batch
-    step. Every batch route itself builds."""
+    step. Every batch route itself builds, the JAX step's pure-XLA route
+    (use_pallas=False) on every builder as route "xla", whatever
+    batch_pallas says."""
     import dataclasses
 
     p = Params()
     with pytest.raises(NotImplementedError, match="make_batched_step"):
         make_step(dataclasses.replace(p, batch_mode=True), device="cpu")
     for builder in (make_step, make_batch_step, make_batched_step):
-        with pytest.raises(NotImplementedError, match="use_pallas=False"):
-            builder(dataclasses.replace(p, use_pallas=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="use_pallas=False"):
-        make_batched_step(dataclasses.replace(p, use_pallas=False, batch_pallas=False), device="cpu")
+        assert builder(dataclasses.replace(p, use_pallas=False), device="cpu").route == "xla"
+    assert make_batched_step(dataclasses.replace(p, use_pallas=False, batch_pallas=False),
+                             device="cpu").route == "xla"
     for kw in (dict(), dict(batch_pallas=False)):
         with pytest.raises(NotImplementedError):
             make_batch_step(dataclasses.replace(p, max_features_to_init_at_once=2, **kw), device="cpu")

@@ -11,12 +11,16 @@ import re
 
 import pytest
 
-from scenelib2_torch.config import Params
+import torch
+
+from scenelib2_torch import MonoSLAM
+from scenelib2_torch.config import Params, load_config
+from scenelib2_torch.core import ekf
+from scenelib2_torch.parallel.mesh import make_batched_step
 from scenelib2_torch.runtime import step as step_mod
 from scenelib2_torch.runtime.step import (
     ROADMAP_F64,
     ROADMAP_MAXP,
-    ROADMAP_XLA,
     make_batch_step,
     make_step,
 )
@@ -25,8 +29,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 P = Params()
 REFUSALS = {
-    "xla single stream": (ROADMAP_XLA, lambda: make_step(dataclasses.replace(P, use_pallas=False), device="cpu")),
-    "xla batch": (ROADMAP_XLA, lambda: make_batch_step(dataclasses.replace(P, use_pallas=False), device="cpu")),
     "f64 single stream": (ROADMAP_F64, lambda: make_step(P, device="cpu", precision="f64")),
     "f64 batch": (ROADMAP_F64, lambda: make_batch_step(P, device="cpu", precision="f64")),
     "maxp single stream": (ROADMAP_MAXP, lambda: make_step(
@@ -45,9 +47,54 @@ def test_refusal_names_its_roadmap_item_by_title(case):
     assert not re.search(r"item \d", str(e.value)), str(e.value)
 
 
-@pytest.mark.parametrize("title", [ROADMAP_XLA, ROADMAP_F64, ROADMAP_MAXP])
+@pytest.mark.parametrize("title", [ROADMAP_F64, ROADMAP_MAXP])
 def test_each_title_heads_an_item_of_the_roadmap(title):
     with open(os.path.join(REPO, "ROADMAP.md")) as f:
         text = f.read()
     queue1 = text.split("### Queue 1", 1)[1].split("### Queue 2", 1)[0]
     assert re.search(r"^\d+\. \*\*" + re.escape(title) + r"\b", queue1, re.M), title
+
+
+@pytest.mark.parametrize("builder", ["make_step", "make_batch_step", "make_batched_step"])
+def test_each_builder_returns_a_step_for_use_pallas_false(builder):
+    """The pure-XLA route is ported: every builder returns its step (route
+    "xla"), with batch_pallas either way."""
+    build = {"make_step": make_step, "make_batch_step": make_batch_step,
+             "make_batched_step": make_batched_step}[builder]
+    for bp in (True, False):
+        step = build(dataclasses.replace(P, use_pallas=False, batch_pallas=bp), device="cpu")
+        assert callable(step) and step.route == "xla"
+
+
+def test_use_pallas_defaults_to_the_kernel_route(monkeypatch):
+    """The port keeps use_pallas=True as its default, where JAX's Params say
+    False: JAX ties False to its f64 parity mode, which the port does not
+    run yet, and every JAX bench and the selftest pass use_pallas=True in
+    f32. A config file without the key takes the default too. use_pallas=False
+    on the CPU runs the XLA route, with K14's plain twin inverting S once a
+    step."""
+    assert Params().use_pallas is True
+    cfg = os.path.join(REPO, "data", "SceneLib2.cfg")
+    assert load_config(cfg).params.use_pallas is True
+    assert MonoSLAM(cfg, device="cpu")._step.route == "fused"
+    calls = []
+    real = ekf.chol_inv
+    monkeypatch.setattr(ekf, "chol_inv", lambda S: calls.append(S.device.type) or real(S))
+    slam = MonoSLAM(cfg, device="cpu", use_pallas=False)
+    assert slam._step.route == "xla" and slam.params.use_pallas is False
+    slam.go_one_step(torch.zeros((P.cam_height, P.cam_width), dtype=torch.uint8))
+    assert calls == ["cpu"]
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_more_selections_than_slots_is_refused_where_jax_takes_top_k(use_pallas):
+    """The JAX step's split, batch and pure-XLA routes select with
+    lax.top_k(score, n_features_to_select), which refuses more selections
+    than slots; the port refused nothing and counted slot 0 again for each
+    missing slot."""
+    p = dataclasses.replace(P, max_features=8, n_features_to_select=10, use_pallas=use_pallas)
+    with pytest.raises(ValueError, match="exceeds max_features"):
+        make_batched_step(p, device="cpu")
+    if not use_pallas:
+        with pytest.raises(ValueError, match="exceeds max_features"):
+            make_step(p, device="cpu")

@@ -14,13 +14,14 @@ groups the frames (on the card each group is one CUDA graph):
       chunk = 0, bit for bit, and chunk_plan's groups;
   (c) one step leaves every field of its input state unchanged (the graph's
       warm-up step runs on the static inputs before the capture), on the
-      single stream's fused and split routes and on each batch route;
+      single stream's fused, split and pure-XLA routes and on each batch
+      route;
   (d) replay_steps' bookkeeping, with a stand-in for the CUDA graph that
       calls the captured steps eagerly at replay (StepGraph's own replay and
       final-state handover kept): the groups, the handover of the state
       between graphs and replays, the copy it returns, the packed rows and
       the bound on the graphs a cache keeps, against the eager loop bit for
-      bit.
+      bit; the pure-XLA single stream likewise.
 """
 
 from __future__ import annotations
@@ -195,10 +196,10 @@ def _assert_unchanged(step, state, frame, enable_mapping=True):
         assert _same_bits(a, b), f"the step changed its input state's field {name}"
 
 
-@pytest.mark.parametrize("max_features, route", [(16, "fused"), (100, "split")])
+@pytest.mark.parametrize("max_features, route", [(16, "fused"), (100, "split"), (16, "xla")])
 def test_step_leaves_its_input_state_unchanged(std, max_features, route):
     frames, cfg = std
-    slam = MonoSLAM(cfg, max_features=max_features, device="cpu")
+    slam = MonoSLAM(cfg, max_features=max_features, device="cpu", use_pallas=route != "xla")
     assert slam._step.route == route
     slam.run_sequence(frames[1:N_FRAMES])
     assert int(slam.last_output.n_partial) > 0       # the surgery's fields are live
@@ -206,11 +207,13 @@ def test_step_leaves_its_input_state_unchanged(std, max_features, route):
         _assert_unchanged(slam._step, slam.state, slam._to_device(frames[N_FRAMES]), mapping)
 
 
-@pytest.mark.parametrize("route", ["default", "sb0", "bp0"])
+@pytest.mark.parametrize("route", ["default", "sb0", "bp0", "xla"])
 def test_batch_step_leaves_its_input_state_unchanged(two_lanes, route):
     params, states, frames = two_lanes
     if route == "bp0":
         params = dataclasses.replace(params, batch_pallas=False)
+    elif route == "xla":
+        params = dataclasses.replace(params, use_pallas=False)
     step = make_batched_step(params, device="cpu", batch_sb=route != "sb0")
     assert step.route == route
     states, outs = run_batch(step, states, frames[:-1], True, params)
@@ -287,6 +290,21 @@ def test_replay_steps_with_a_stand_in_graph(std, eager_flat, monkeypatch, chunk)
     # the same graphs replay again from the initial state, and give the same rows
     state2, flat2 = _replay_cpu(monkeypatch, slam, seq, chunk, graphs)
     assert _same_bits(flat2, eager_flat[0]) and _same_outputs(state2, eager_flat[1])
+
+
+@pytest.mark.parametrize("chunk", [0, 5])
+def test_xla_route_replays_through_a_stand_in_graph(std, monkeypatch, chunk):
+    """The pure-XLA single stream through replay_steps' graphs (the
+    stand-in) equals its eager loop bit for bit, rows and final state."""
+    frames, cfg = std
+    slam = MonoSLAM(cfg, max_features=16, device="cpu", use_pallas=False)
+    seq = slam._to_device(frames[1:])
+    want = torch.empty((seq.shape[0], replay_flat_width(slam)), dtype=slam.dtype)
+    want_state = replay.eager_steps(slam._step, slam.state, seq, True, want)
+    graphs = {}
+    state, flat = _replay_cpu(monkeypatch, slam, seq, chunk, graphs)
+    assert _same_bits(flat, want) and _same_outputs(state, want_state)
+    assert {k[0] for k in graphs} == {"xla"}
 
 
 def test_graph_cache_is_bounded(std, eager_flat, monkeypatch):

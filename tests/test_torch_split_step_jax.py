@@ -55,7 +55,7 @@ out_dir, n = sys.argv[1], int(sys.argv[2])
 dataset, overrides = json.loads(sys.argv[3]), json.loads(sys.argv[4])
 frames, _, _, cfg = generate_dataset(out_dir, n_frames=n + 1,
                                      params=Params(**dataset) if dataset else None)
-slam = MonoSLAM(cfg, use_pallas=True, **overrides)
+slam = MonoSLAM(cfg, **{'use_pallas': True, **overrides})
 rec = []
 for t in range(1, n + 1):
     slam.go_one_step(frames[t], enable_mapping=True)

@@ -1,9 +1,10 @@
 """Shared by the tests that hold the port's batch step against the JAX batch
 step lane by lane and frame by frame (tests/test_torch_batch*_step_jax.py).
 
-The JAX side is jax.jit(jax.vmap(make_step(batch_mode=True, use_pallas=True),
-in_axes=(0, 0, None))) in fast (f32) mode on one JAX batch route
-(scripts/gen_batch64_fingerprint.py ROUTES), run once in a subprocess
+The JAX side is jax.jit(jax.vmap(make_step(batch_mode=True), in_axes=(0, 0,
+None))) in fast (f32) mode on one JAX batch route
+(scripts/gen_batch64_fingerprint.py ROUTES: use_pallas=True on "default",
+"bp0" and "sb0", use_pallas=False on "xla"), run once in a subprocess
 (SCENELIB2_X64=0 is fixed when JAX initialises; a test process runs JAX with
 x64), its Pallas kernels in interpret mode. The lanes are the bench_batch64
 recipe: scene textures x 2 one-frame phase offsets, each lane with its own
@@ -63,7 +64,8 @@ from scenelib2_tpu.runtime import step as step_mod
 out_dir, batch, textures, n, route, config = (sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]),
                                               sys.argv[6], sys.argv[7])
 params, states, fb = lanes(batch, textures, n + 1, route, config)
-assert params.batch_mode and params.use_pallas and params.batch_pallas == (route != 'bp0')
+assert params.batch_mode and params.use_pallas == (route != 'xla')
+assert params.batch_pallas == (route not in ('bp0', 'xla'))
 np.savez(os.path.join(out_dir, 'jax_state0.npz'),
          **{k: np.asarray(v) for k, v in states._asdict().items()})
 vstep = jax.jit(jax.vmap(step_mod.make_step(params), in_axes=(0, 0, None)))
@@ -132,6 +134,8 @@ def assert_port_equals_jax(want, state0, tmp_path, n_lanes: int, n_textures: int
 
     if route == "bp0":
         params = dataclasses.replace(params, batch_pallas=False)
+    elif route == "xla":
+        params = dataclasses.replace(params, use_pallas=False)
     step = make_batched_step(params, device="cpu", batch_sb=False if route == "sb0" else None)
     assert batch_route(params, False if route == "sb0" else None) == route
     final, got = run_batch(step, states, frames, True, params)
