@@ -172,11 +172,32 @@ Phases (any failure exits non-zero before the last line is printed):
     the eager loop and graph_cell; ms a frame eager and graph, busy, kernels
     a step, idle shares and peak memory beside the card's line (an
     `xla_route` JSON line).
+ 3i. JAX's f64 parity mode (precision="f64"; f64_phase): (a) the parity
+    route, MonoSLAM(cfg, max_features=16, precision="f64",
+    use_pallas=False), and (b) JAX's hybrid route, use_pallas=True (K2 in
+    an f64 step), each by the eager loop, run_sequence's graph replay and
+    go_one_step: expected_fingerprint_f64.json / _f64_k2.json, rows and
+    final state bit for bit across the three, no kernel at all on the
+    parity route and K2 alone once a frame on the hybrid one (eager counts
+    and traces), K2 bit for bit with its plain version on three captured
+    frames, the CPU f64 replay of the first frames (decisions equal, r and
+    xv within F64_TOL), sync debug mode "error"; (c) the batch parity route
+    "xla-f64" on 3b's lanes made in f64, every lane equal to
+    expected_fingerprint_batch64_f64.json through the eager loop and
+    graph_cell with no kernel, then the hybrid batch routes "k2-f64" and
+    "k8-f64" (batch_pallas=False) over the 64 lanes: their kernel once a
+    step and no other, K2 / K8 bit for bit with their plain versions on a
+    captured step, two lanes against their CPU f64 replay; (d)
+    eval.metrics.run_parity_eval on the card (decision agreement 1.0,
+    drand48 in lockstep, RMSE against the oracle <= 1e-3); an `f64` JSON
+    line.
  4. a `graph_replay` JSON line (every cell: eager and graph ms a frame or
     step, span, busy, idle shares, peak memory, capture seconds), an
     `entry_points` JSON line (phase 3g's ms a call and frames/s), a
     `kernels` JSON line (launches: the mapping-on graph run's counts, a
-    warm-up step and the capture), then the last line
+    warm-up step and the capture), a `summary` JSON line under 4 KB (every
+    phase's fingerprint verdict and headline times, so that the 24 KB tail
+    a chip call returns always holds the result), then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Imports nothing of JAX; needs the repository beside it (the kernels are
@@ -2909,6 +2930,287 @@ def xla_route_phase(tmp: str, dev, frames, cfg: str, seq, bparams, states0, bseq
     return res
 
 
+F64_TOL = 1e-8            # CUDA vs CPU f64 replay: r, xv (exp and reduction orders may differ by ulps)
+F64_AT = (9, 20, 120)     # output indices whose K2 inputs the hybrid route's replay captures
+N_HYB, HYB_AT = 16, 9     # hybrid batch routes: eager steps over the 64 lanes, the captured step
+N_SYNC_HYB = 4            # hybrid batch steps under sync debug mode "error"
+PARITY_FRAMES = 24        # run_parity_eval's frames at tests/test_parity.py's 160x120 configuration
+F64_TRACED_STEPS = 4      # ~5,000 device kernels a step: the profiler's post-processing grows with events
+PARITY_PARAMS = dict(cam_width=160, cam_height=120, cam_fku=98.0, cam_fkv=98.0, cam_u0=80.0, cam_v0=60.0,
+                     max_features=10, n_particles=24, n_features_to_select=6, n_features_to_keep_visible=6,
+                     min_particles=4, erase_partial_after_attempts=8)
+F64_DECISIONS = ("n_visible", "n_selected", "n_matched", "n_active", "n_partial", "did_init", "did_convert",
+                 "n_overflow", "sel_slot", "sel_matched", "init_box", "par_alive")
+
+
+def f64_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
+    """Phase 3i: JAX's f64 parity mode (precision="f64") on the card.
+
+    (a) the parity route: std-mapping through MonoSLAM(cfg, max_features=16,
+        precision="f64", use_pallas=False) by the counted eager loop, the
+        graph replay (graph_cell) and go_one_step one call a frame, each
+        reproducing expected_fingerprint_f64.json, rows and final state bit
+        for bit across the three, no kernel wrapper called and no counted
+        kernel in the traces; the first N_REF frames against the port's CPU
+        f64 replay (decisions equal, r and xv within F64_TOL); N_REF steps
+        under sync debug mode "error" (graph captures and replays always
+        run so). (b) JAX's hybrid route: the same with use_pallas=True
+        (route "k2-f64"), expected_fingerprint_f64_k2.json, K2 launched once
+        a frame and no other kernel, K2 bit for bit with its plain version on
+        the inputs of three frames of the replay. (c) the batch parity route
+        "xla-f64" on batch64's lanes made in f64: every lane equal to
+        expected_fingerprint_batch64_f64.json through the eager loop and
+        graph_cell with no kernel launched, two lanes against their CPU f64
+        replay, steps under sync debug mode "error"; then the two hybrid
+        batch routes (K2 lanes, and K8 with batch_pallas=False) over the 64
+        lanes: one launch a step and no other kernel, K2 / K8 bit for bit
+        with their plain versions on a captured step, two lanes against
+        their CPU f64 replay, steps under sync debug mode "error". (d)
+        run_parity_eval on the card: decision agreement 1.0, drand48 in
+        lockstep, RMSE against the oracle <= 1e-3."""
+    from scenelib2_torch import MonoSLAM
+    from scenelib2_torch.config import Params
+    from scenelib2_torch.eval.batch import EXPECTED_F64, check_lanes, lane_fingerprints, lanes_cache_dir, make_lanes
+    from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected
+    from scenelib2_torch.eval.metrics import run_parity_eval
+    from scenelib2_torch.kernels import _build
+    from scenelib2_torch.kernels.search import SearchConsts
+    from scenelib2_torch.parallel.mesh import _run_batch_eager, make_batched_step, run_batch
+    from scenelib2_torch.runtime.state import SlamState
+    from scenelib2_torch.runtime.step import pack_outputs
+
+    t_phase = time.time()
+    res = {}
+    n_run = seq.shape[0]
+
+    def check_fp(o, name, what):
+        fp_ = decisions_fingerprint(o, o.n_matched.shape[0])
+        want = load_expected(name)
+        for k in ("n_frames", "matched_sum", "inits", "convs", "active_end", "decisions_sha256"):
+            if fp_[k] != want[k]:
+                fail(f"[3i] {what}: fingerprint field {k}: got {fp_[k]}, expected {want[k]} ({name}.json)")
+        return fp_
+
+    def against_cpu(got, ref, what, idx=None):
+        for k in F64_DECISIONS:
+            g = getattr(got, k)[: ref.n_matched.shape[0]]
+            if idx is not None:
+                g = g[:, idx]
+            if not torch.equal(getattr(ref, k), g):
+                fail(f"[3i] {what}: CUDA vs CPU f64 replay: {k} differs")
+        d = 0.0
+        for k in ("r", "xv"):
+            g = getattr(got, k)[: ref.n_matched.shape[0]]
+            g = g if idx is None else g[:, idx]
+            if getattr(ref, k).dtype != torch.float64 or g.dtype != torch.float64:
+                fail(f"[3i] {what}: {k} is not f64")
+            d = max(d, float((getattr(ref, k) - g).abs().max()))
+        if d > F64_TOL:
+            fail(f"[3i] {what}: CUDA vs CPU f64 replay: r / xv differ by {d}")
+        return d
+
+    def no_sync(step, state, frames_, n, what):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(n):
+                state, _o = step(state, frames_[t], True)
+        except RuntimeError as e:
+            fail(f"[3i] {what}: the f64 step synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+    # ---- (a) / (b) the single stream on the parity and the hybrid route
+    sc = None
+    k2_err, k2_checked = 0.0, 0
+    for route, use_pallas, fp_name, path in (("xla-f64", False, "expected_fingerprint_f64", ()),
+                                              ("k2-f64", True, "expected_fingerprint_f64_k2", ("search",))):
+        tag = f"std-mapping {route}"
+        slam = MonoSLAM(cfg, max_features=16, device="cuda", precision="f64", use_pallas=use_pallas)
+        if slam._step.route != route or slam.state.x.dtype != torch.float64:
+            fail(f"[3i] MonoSLAM(precision='f64', use_pallas={use_pallas}) took the route {slam._step.route!r}")
+        sc = SearchConsts.from_params(slam.params)
+        slam._run_sequence_eager(seq[:4], enable_mapping=True)    # warm-up
+        torch.cuda.synchronize()
+        seen, n_call = {}, [0]
+
+        def on_call(n, a, k, route=route, seen=seen, n_call=n_call):
+            if n != "search" or route != "k2-f64":
+                fail(f"[3i] {route}: the f64 step called the kernel wrapper {n}")
+            if n_call[0] in F64_AT:
+                seen[n_call[0]] = tuple(t_.clone() if isinstance(t_, torch.Tensor) else t_ for t_ in a)
+            n_call[0] += 1
+
+        t0 = time.perf_counter()
+        outs, launches, state_eager = run_main_path(slam, seq, mapping=True, on_call=on_call)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        fp = check_fp(outs, fp_name, tag)
+        for n in _build.KERNELS:
+            if launches.get(n, 0) != (n_run if n in path else 0):
+                fail(f"[3i] {tag}: kernel {n} launched {launches.get(n, 0)} times in the eager loop, expected "
+                     f"{n_run if n in path else 0}")
+        if outs.r.dtype != torch.float64 or not torch.isfinite(outs.r).all():
+            fail(f"[3i] {tag}: the trajectory is not finite f64")
+        log(f"[3i] {tag}: fingerprint {json.dumps(fp)} equals {fp_name}.json; launches (eager loop, "
+            f"{eager_s:.2f} s): {json.dumps({k: v for k, v in launches.items() if v})}")
+        if route == "k2-f64":
+            if sorted(seen) != list(F64_AT):
+                fail(f"[3i] {tag}: K2 was called {n_call[0]} times; inputs captured at {sorted(seen)}")
+            for at in F64_AT:
+                k2_err = max(k2_err, check_k2_lanes(seen[at], sc))
+                k2_checked += 1
+            log(f"[3i] {tag}: K2 equals its plain version bit for bit on the inputs of output indices {F64_AT} "
+                f"(f32 casts of the f64 S^-1; max abs err {k2_err})")
+        cpu = MonoSLAM(cfg, max_features=16, device="cpu", precision="f64", use_pallas=use_pallas)
+        d = against_cpu(outs, cpu.run_sequence(frames[1 : N_REF + 1], enable_mapping=True), tag)
+        log(f"[3i] {tag}: the CUDA run equals the CPU f64 replay on frames 1..{N_REF} decision by decision "
+            f"(max |dr|, |dxv| {d:.3g})")
+        slam.reset()
+        no_sync(slam._step, slam.state, seq, N_REF, tag)
+        log(f"[3i] {tag}: {N_REF} steps ran with torch.cuda.set_sync_debug_mode('error')")
+
+        run, run_eager = single_runs(slam, seq, True)
+        g = graph_cell("3i", tag, run, run_eager, slam._graphs, n_run, path, (outs, state_eager),
+                       lambda o, fp_name=fp_name, tag=tag: check_fp(o, fp_name, tag), trace_n=F64_TRACED_STEPS,
+                       eager_s=eager_s)
+        cell = {k: v for k, v in g.items() if k != "prof"}
+        if route == "k2-f64":
+            cell["k2_device_ms"] = kernel_dev_ms(g["prof"], "k2_")
+        slam.reset()
+        rows, ms = go_calls(slam, frames, n_run, True, graph=True)
+        torch.cuda.synchronize()
+        if not same_bits_or_nan(rows.cpu(), pack_outputs(outs)):
+            fail(f"[3i] {tag}: go_one_step through the graph: packed rows differ from the eager loop's")
+        if not outputs_identical(slam.state, state_eager):
+            fail(f"[3i] {tag}: go_one_step through the graph: final state differs from the eager loop's")
+        check_fp(unpack_rows(rows, slam.params), fp_name, f"{tag} go_one_step")
+        prof = device_profile(lambda: go_calls(slam, frames, XLA_GO_TRACED, True, graph=True))
+        go_launches = traced_launches(prof)
+        for n in _build.KERNELS:
+            if go_launches[n] != (XLA_GO_TRACED if n in path else 0):
+                fail(f"[3i] {tag}: {XLA_GO_TRACED} go_one_step calls launched {n} {go_launches[n]} times")
+        cell["go_one_step"] = dict(graph_ms_call=statistics.median(ms[1:]), first_call_ms=ms[0], calls=n_run,
+                                   traced_calls=XLA_GO_TRACED,
+                                   launches={k: v for k, v in go_launches.items() if v})
+        cell["fingerprint"] = fp
+        cell["cpu_max_diff"] = d
+        log(f"[3i] {tag}: go_one_step through the one-step graph, {n_run} calls: fingerprint, every packed row "
+            f"and the final state bit for bit with the eager loop; {statistics.median(ms[1:]):.4f} ms a call "
+            f"(median of calls 2..{n_run}; first {ms[0]:.1f} ms); a trace of {XLA_GO_TRACED} calls launched "
+            f"{json.dumps(cell['go_one_step']['launches'])}")
+        res[tag] = cell
+    res["K2"] = dict(max_abs_err=k2_err, checked=k2_checked)
+
+    # ---- (c) the batch routes on batch64's lanes, made in f64
+    bparams, states64, bframes = make_lanes(lanes_cache_dir(cache_root(tmp)), N_LANES, N_TEXTURES,
+                                            N_BATCH_FRAMES, device=dev, dtype=torch.float64)
+    bseq = torch.as_tensor(bframes).to(dev)
+    T = bseq.shape[0]
+    n_file = len(load_expected(EXPECTED_F64["std"])["lanes"])
+    xparams = dataclasses.replace(bparams, use_pallas=False)
+    bstep = make_batched_step(xparams, device="cuda", precision="f64")
+    if bstep.route != "xla-f64":
+        fail(f"[3i] make_batched_step(use_pallas=False, precision='f64') took the route {bstep.route!r}")
+    _run_batch_eager(bstep, states64, bseq[:2], True, xparams)     # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    bst_eager, bouts = _run_batch_eager(bstep, states64, bseq, True, xparams)
+    torch.cuda.synchronize()
+    beager_s = time.perf_counter() - t0
+    blaunches = dict(_build.launches)
+
+    def check_batch_fp(o):
+        bad = check_lanes(lane_fingerprints(o)[:n_file], route="xla-f64", precision="f64")
+        if bad:
+            fail(f"[3i] batch xla-f64: {len(bad)} of {n_file} lane fingerprints differ from the committed file:\n"
+                 + "\n".join(bad[:6]))
+
+    check_batch_fp(bouts)
+    if any(blaunches.get(n, 0) for n in _build.KERNELS):
+        fail(f"[3i] the batch f64 parity route launched kernels: {json.dumps(blaunches)}")
+    log(f"[3i] batch64 on the route xla-f64 ({T} steps of {N_LANES} lanes, eager loop {beager_s:.2f} s): "
+        f"the fingerprints of lanes 0..{n_file - 1} equal {EXPECTED_F64['std']}.json; no kernel launched")
+    idx = list(ROUTE_REF_LANES)
+    cpu_states = SlamState(*(t[idx].cpu() for t in states64))
+    _s, bref = run_batch(make_batched_step(xparams, device="cpu", precision="f64"), cpu_states,
+                         bframes[:N_ROUTE_REF, idx], True, xparams)
+    dxb = against_cpu(bouts, bref, "batch xla-f64", idx)
+    no_sync(bstep, states64, bseq, N_ROUTE_REF, "batch xla-f64")
+    log(f"[3i] batch xla-f64: lanes {idx} equal their CPU f64 replay on frames 1..{N_ROUTE_REF} (max |dr|, "
+        f"|dxv| {dxb:.3g}); {N_ROUTE_REF} steps ran with sync debug mode 'error'")
+    brun, brun_eager = batch_runs(bstep, states64, bseq, xparams)
+    gb = graph_cell("3i", "batch64 xla-f64", brun, brun_eager, bstep.graphs, T, (), (bouts, bst_eager),
+                    check_batch_fp, trace_n=F64_TRACED_STEPS, eager_s=beager_s)
+    res["batch64 xla-f64"] = {k: v for k, v in gb.items() if k != "prof"}
+    res["batch64 xla-f64"].update(frames_per_s=N_LANES / gb["graph_ms"] * 1e3,
+                                  frames_per_s_eager=N_LANES / gb["eager_ms"] * 1e3, lanes_checked=n_file)
+    del bstep, gb
+
+    hyb_errs = {}
+    for route, hparams, wrapper, count in (
+            ("k2-f64", dataclasses.replace(bparams, use_pallas=True, batch_pallas=True), "search", "search"),
+            ("k8-f64", dataclasses.replace(bparams, use_pallas=True, batch_pallas=False), "search_windows",
+             "search_windows")):
+        hstep = make_batched_step(hparams, device="cuda", precision="f64")
+        if hstep.route != route:
+            fail(f"[3i] the batch step took the route {hstep.route!r}, expected {route}")
+        _run_batch_eager(hstep, states64, bseq[:2], True, hparams)     # warm-up
+        torch.cuda.synchronize()
+        cap = {}
+
+        def on_call(n, a, k, wrapper=wrapper, route=route, cap=cap):
+            if n != wrapper:
+                fail(f"[3i] batch {route}: the f64 step called the kernel wrapper {n}")
+            cap.setdefault("n", 0)
+            if cap["n"] == HYB_AT:
+                cap["args"] = tuple(t_.clone() if isinstance(t_, torch.Tensor) else t_ for t_ in a)
+            cap["n"] += 1
+
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with observe_wrappers(on_call):
+            hst, houts = _run_batch_eager(hstep, states64, bseq[:N_HYB], True, hparams)
+        torch.cuda.synchronize()
+        h_s = time.perf_counter() - t0
+        hl = dict(_build.launches)
+        for n in _build.KERNELS:
+            if hl.get(n, 0) != (N_HYB if n == count else 0):
+                fail(f"[3i] batch {route}: kernel {n} launched {hl.get(n, 0)} times in {N_HYB} steps")
+        a = cap["args"]
+        err = check_k2_lanes(a, sc) if wrapper == "search" else check_k8(a[:7], sc)
+        hyb_errs[route] = err
+        _s, href = run_batch(make_batched_step(hparams, device="cpu", precision="f64"), cpu_states,
+                             bframes[:N_ROUTE_REF, idx], True, hparams)
+        dh = against_cpu(houts, href, f"batch {route}", idx)
+        no_sync(hstep, states64, bseq, N_SYNC_HYB, f"batch {route}")
+        res[f"batch64 {route}"] = dict(eager_ms=h_s / N_HYB * 1e3, steps=N_HYB, launches={count: hl[count]},
+                                       max_abs_err=err, cpu_max_diff=dh, lanes=N_LANES)
+        log(f"[3i] batch {route} over {N_LANES} lanes x {N_HYB} steps: {count} launched once a step and no "
+            f"other kernel; {'K2' if count == 'search' else 'K8'} bit for bit with its plain version on step "
+            f"{HYB_AT} (max abs err {err}); lanes {idx} equal their CPU f64 replay on frames 1..{N_ROUTE_REF} "
+            f"(max |dr|, |dxv| {dh:.3g}); {N_SYNC_HYB} steps under sync debug mode 'error'; eager "
+            f"{h_s / N_HYB * 1e3:.3f} ms a step")
+        del hstep
+
+    # ---- (d) run_parity_eval on the card
+    t0 = time.time()
+    pe = run_parity_eval(n_frames=PARITY_FRAMES, params=Params(**PARITY_PARAMS), device="cuda")
+    pe_s = time.time() - t0
+    if pe["decision_agreement"] != 1.0 or pe["drand48_in_lockstep"] is not True or not pe["rmse_vs_oracle"] <= 1e-3:
+        fail(f"[3i] run_parity_eval on the card misses a bar: {json.dumps(pe)}")
+    log(f"[3i] run_parity_eval (160x120, {PARITY_FRAMES} frames, {pe_s:.1f} s): rmse_vs_oracle "
+        f"{pe['rmse_vs_oracle']!r}, decision_agreement {pe['decision_agreement']}, drand48_in_lockstep "
+        f"{pe['drand48_in_lockstep']}, ATE rmse vs the renderer {pe['ate_vs_ground_truth']['rmse']!r}")
+    res["parity_eval"] = dict(pe, seconds=pe_s, frames=PARITY_FRAMES)
+    res["hybrid_errs"] = hyb_errs
+    res["seconds"] = time.time() - t_phase
+    log(f"[3i] phase 3i took {res['seconds']:.1f} s on {smi}")
+    return res
+
+
 # ------------------------------------------------------------ main
 
 
@@ -3245,6 +3547,42 @@ def batch_runs(step, states0, seq, params):
         return outs, st_
 
     return run, run_eager
+
+
+def run_summary(cells, entry, xla, f64, smi: str, total_s: float) -> dict:
+    """The run's result in under 4 KB, for the line just before the last:
+    every phase's fingerprint verdict (a failed check exits before it is
+    printed) and headline times, ms a frame or a batch step through the
+    graph and eagerly."""
+    def ms(r_):
+        return [round(r_["graph_ms"], 4), round(r_["eager_ms"], 3)]
+
+    # a phase that failed a check exited before this line: every verdict reads "equal"
+    verdicts = {ph: "equal" for ph in ("3 std-nomap, std-mapping", "3b batch64", "3c hires", "3d mf100",
+                                       "3e bp0, sb0", "3f batch-hires", "3g go_one_step, cli, bench",
+                                       "3h std-xla, batch64-xla", "3i std-f64, std-f64-k2, batch64-f64")}
+    out = {"card": smi, "seconds": round(total_s, 1), "fingerprints": verdicts,
+           "graph_eager_ms": {c: ms(r_) for c, r_ in cells.items()}}
+    out["graph_eager_ms"].update({f"{c} (3h)": ms(xla[k]) for c, k in (("std-xla", "std"),
+                                                                        ("batch64-xla", "batch64"))})
+    out["graph_eager_ms"].update({f"{c} (3i)": ms(f64[c]) for c in ("std-mapping xla-f64", "std-mapping k2-f64",
+                                                                      "batch64 xla-f64")})
+    out["busy_ms"] = {c: round(r_["busy"], 4) for c, r_ in cells.items() if r_.get("busy")}
+    out["busy_ms"].update({c: round(f64[c]["busy"], 4) for c in ("std-mapping xla-f64", "std-mapping k2-f64",
+                                                                 "batch64 xla-f64") if f64[c].get("busy")})
+    out["go_one_step_ms"] = {c: round(entry["per_call"][c]["graph_ms"], 4) for c in entry["per_call"]}
+    out["go_one_step_ms"].update({"xla": round(xla["go_one_step"]["graph_ms_call"], 4),
+                             "xla-f64": round(f64["std-mapping xla-f64"]["go_one_step"]["graph_ms_call"], 4),
+                             "k2-f64": round(f64["std-mapping k2-f64"]["go_one_step"]["graph_ms_call"], 4)})
+    out["bench_fps"] = {k: v["value"] for k, v in entry.get("bench", {}).items() if isinstance(v, dict)}
+    out["batch_f64_eager_ms"] = {r_: round(f64[f"batch64 {r_}"]["eager_ms"], 3) for r_ in ("k2-f64", "k8-f64")}
+    pe = f64["parity_eval"]
+    out["parity_eval"] = {k: pe[k] for k in ("rmse_vs_oracle", "decision_agreement", "drand48_in_lockstep")}
+    out["phase_s"] = {"3h": round(xla["seconds"], 1), "3i": round(f64["seconds"], 1),
+                      "3g": round(entry.get("seconds", 0.0), 1)}
+    if len(json.dumps(out)) > 4000:
+        fail(f"the summary line outgrew 4 KB ({len(json.dumps(out))} bytes)")
+    return out
 
 
 def main() -> int:
@@ -3882,6 +4220,9 @@ def main() -> int:
         # ---- 3h. JAX's pure-XLA route in f32 (use_pallas=False): single stream and batch
         xla = xla_route_phase(tmp, dev, frames, cfg, seq, bparams, states0, bseq, bframes, smi)
 
+        # ---- 3i. JAX's f64 parity mode (precision="f64"): parity and hybrid routes, batch, parity eval
+        f64 = f64_phase(tmp, dev, frames, cfg, seq, smi)
+
     # ---- 4. kernel records ------------------------------------------------
     costs["K2"] = [search.bytes_and_flops(K, sc, admit) for admit, K in costs["K2"]]
     recs = []
@@ -4024,6 +4365,17 @@ def main() -> int:
             timed_on=t_["inputs"],
         ))
     recs[3]["max_abs_err_wide"] = werrs["K4"]
+    # K2 inside the f64 step (phase 3i): JAX's hybrid route, single stream and over lanes; K8 on its batch route
+    k2h = f64["std-mapping k2-f64"]
+    recs[1].update(launches_f64=k2h["launches"]["search"], launches_f64_steps=k2h["launches_steps"],
+                   device_ms_f64=k2h["k2_device_ms"], max_abs_err_f64=max(f64["K2"]["max_abs_err"],
+                                                                           f64["hybrid_errs"]["k2-f64"]),
+                   launches_f64_batch=f64["batch64 k2-f64"]["launches"]["search"],
+                   launches_f64_batch_steps=f64["batch64 k2-f64"]["steps"])
+    k8_rec = next(r_ for r_ in recs if r_["name"] == "K8 search_windows")
+    k8_rec.update(launches_f64_batch=f64["batch64 k8-f64"]["launches"]["search_windows"],
+                  launches_f64_batch_steps=f64["batch64 k8-f64"]["steps"],
+                  max_abs_err_f64=f64["hybrid_errs"]["k8-f64"])
     # K5 past the 16 tries it once held: frame 9's inputs (0 launches on a main path)
     t_ = last["K5 tries"]
     b_ms, b_by = bound(t_["costs"])
@@ -4066,7 +4418,17 @@ def main() -> int:
             k: xla["batch64"][k] for k in xkeys + ("frames_per_s", "frames_per_s_eager")},
         "go_one_step": xla["go_one_step"], "fingerprint": xla["fingerprint"], "seconds": xla["seconds"]},
         "card": smi}))
+    fkeys = xkeys + ("go_one_step", "fingerprint", "cpu_max_diff")
+    print(json.dumps({"f64": {
+        "std-mapping xla-f64": {k: f64["std-mapping xla-f64"][k] for k in fkeys},
+        "std-mapping k2-f64": {k: f64["std-mapping k2-f64"][k] for k in fkeys + ("k2_device_ms",)},
+        "batch64 xla-f64": {k: f64["batch64 xla-f64"][k] for k in xkeys + (
+            "frames_per_s", "frames_per_s_eager", "lanes_checked")},
+        "batch64 k2-f64": f64["batch64 k2-f64"], "batch64 k8-f64": f64["batch64 k8-f64"],
+        "parity_eval": f64["parity_eval"], "seconds": f64["seconds"]}, "card": smi}))
     print(json.dumps({"kernels": recs}))
+    summary = run_summary(cells, entry, xla, f64, smi, time.time() - t_start)
+    print(json.dumps({"summary": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

@@ -18,8 +18,10 @@ mode (parallel.mesh); CUDA-graph replay of go_one_step (one graph replay a
 frame) and run_sequence; the rest of the MonoSLAM facade (manual inits,
 feature bookkeeping, checkpoints in the JAX package's layout); the entry
 points: io.ImageSequence with the native frame grabber, io.camera, the
-selftest, the bench suite and the CLI (python -m scenelib2_torch.cli). The
-f64 parity mode is not ported yet.
+selftest, the bench suite and the CLI (python -m scenelib2_torch.cli); the
+pure-XLA route (use_pallas=False) and the f64 parity mode
+(precision="f64": with use_pallas=False the parity route, no kernel; with
+use_pallas=True JAX's hybrid route) with eval.metrics.run_parity_eval.
 
     slam = MonoSLAM("data/SceneLib2.cfg")
     for frame in ImageSequence(seq_dir):

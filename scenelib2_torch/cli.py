@@ -16,7 +16,10 @@ state printing, frame dumps). This command line runs the same workflows headless
   print-state  load a checkpoint and print xv / Pxx (print_robot_state)
 
 Every subcommand that runs the pipeline runs it on CUDA; --cpu runs the
-plain PyTorch twins of the kernels on the CPU instead.
+plain PyTorch twins of the kernels on the CPU instead. run and print-state
+take --precision f64: the JAX package's default process, its f64 parity
+mode with use_pallas=False (MonoSLAM(..., precision="f64",
+use_pallas=False): no kernel); the default is f32.
 
 Usage:
   python -m scenelib2_torch.cli run --config data/SceneLib2.cfg --seq <dir> \
@@ -38,11 +41,17 @@ def _device(args):
     return "cpu" if args.cpu else None
 
 
+def _precision(args) -> dict:
+    """MonoSLAM's arguments for --precision: f64 is the JAX package's parity
+    process, which runs its f64 step with use_pallas=False."""
+    return dict(precision="f64", use_pallas=False) if args.precision == "f64" else {}
+
+
 def cmd_run(args):
     from scenelib2_torch import MonoSLAM
     from scenelib2_torch.io.sequence import ImageSequence
 
-    slam = MonoSLAM(args.config, max_features=args.max_features, device=_device(args))
+    slam = MonoSLAM(args.config, max_features=args.max_features, device=_device(args), **_precision(args))
     if args.camera is not None:
         # live input (reference input.mode=1, UsbCamGrabber)
         from scenelib2_torch.io.camera import CameraGrabber
@@ -204,7 +213,7 @@ def cmd_selftest(args):
 def cmd_print_state(args):
     from scenelib2_torch import MonoSLAM
 
-    slam = MonoSLAM(args.config, device=_device(args))
+    slam = MonoSLAM(args.config, device=_device(args), **_precision(args))
     slam.load_checkpoint(args.checkpoint)
     slam.print_robot_state()
     for row in slam.feature_table():
@@ -214,6 +223,11 @@ def cmd_print_state(args):
 def _cpu_flag(parser):
     parser.add_argument("--cpu", action="store_true",
                         help="run the plain PyTorch twins of the kernels on the CPU")
+
+
+def _precision_flag(parser):
+    parser.add_argument("--precision", choices=("f32", "f64"), default="f32",
+                        help="f64: the f64 parity mode with use_pallas=False (no kernel)")
 
 
 def main(argv=None):
@@ -234,6 +248,7 @@ def main(argv=None):
     pr.add_argument("--verbose", action="store_true")
     pr.add_argument("--profile", action="store_true", help="write a torch.profiler trace")
     _cpu_flag(pr)
+    _precision_flag(pr)
     pr.set_defaults(func=cmd_run, skip_first=True)
 
     pb = sub.add_parser("bench", help="run benchmark suite")
@@ -272,6 +287,7 @@ def main(argv=None):
     ps.add_argument("--config", required=True)
     ps.add_argument("--checkpoint", required=True)
     _cpu_flag(ps)
+    _precision_flag(ps)
     ps.set_defaults(func=cmd_print_state)
 
     args = p.parse_args(argv)

@@ -130,10 +130,11 @@ class Params:
     # True: the JAX step's kernel route; False: its pure-XLA route (the
     # single stream launches K14 alone, the batch step no kernel). The port
     # keeps True as its default where JAX's Params say False: JAX ties False
-    # to its f64 parity mode (scenelib2_tpu/config.py:129-131), which the
-    # port does not run yet, and every JAX bench and the selftest pass
-    # use_pallas=True in f32 (scenelib2_tpu/eval/benchmark.py:112-197,
-    # eval/selftest.py:131)
+    # to its f64 parity mode (scenelib2_tpu/config.py:129-131), and every
+    # JAX bench and the selftest pass use_pallas=True in f32
+    # (scenelib2_tpu/eval/benchmark.py:112-197, eval/selftest.py:131). In
+    # f64 the flag keeps JAX's meaning: False is the parity route, True the
+    # hybrid route with the search kernel in stage 3
     use_pallas: bool = True
     # batch_mode: pick vmap-friendly implementations (dense particle search,
     # unrolled Cholesky, vmapped particle predict) — single-invocation Pallas

@@ -138,12 +138,14 @@ def joint_update(x, P, H, nu, R, pallas_chol: bool = False):
     """Joint EKF update (kalman.cpp:96-119) through L, L^-1 and
     S^-1 = L^-T L^-1, as the reference does. Returns (x', P', S).
 
-    pallas_chol=True takes L^-1 from K14 (kernels/chol_inv.py), as the JAX
-    package's joint_update(pallas_chol=True) does on the single-stream
-    split route; False factors with chol_unrolled / tril_inv_unrolled (the
-    batch step, as JAX's pallas_chol=not batch_mode)."""
+    pallas_chol=True takes L^-1 from K14 (kernels/chol_inv.py) where S is
+    f32, as the JAX package's joint_update(pallas_chol=True) does on the
+    single-stream split route (core/ekf.py:136-142: `pallas_chol and
+    S.dtype == float32`); otherwise, the batch step (JAX's pallas_chol=not
+    batch_mode) and every f64 step, it factors with chol_unrolled /
+    tril_inv_unrolled."""
     S = mm_seq(mm_seq(H, P), H.mT) + R
-    if pallas_chol:
+    if pallas_chol and S.dtype == torch.float32:
         Linv = chol_inv(S)
     else:
         Linv = tril_inv_unrolled(chol_unrolled(S))

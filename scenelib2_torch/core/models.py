@@ -13,9 +13,8 @@ The ray functions take their products with mm_seq (sums left to right), so
 the state surgery that uses them (runtime/state.py) rounds the same on the
 CPU and on the GPU.
 
-Every function except part_predict_from_zeroed takes leading (lane, slot)
-dimensions: the point, pose or ray lies in the LAST dimension and Jacobians
-in the last two.
+Every function takes leading (lane, slot, particle) dimensions: the point,
+pose or ray lies in the LAST dimension and Jacobians in the last two.
 """
 
 from __future__ import annotations
@@ -188,12 +187,15 @@ def part_zeroedyi(y: torch.Tensor, xp: torch.Tensor):
 
 def part_predict_from_zeroed(cam: CameraParams, zeroed, dz_by_dxp, dz_by_dyi, lam):
     """Per-particle tail of the ray measurement prediction: the image point
-    at depth lam and its Jacobians. Returns (hpi[2], dhpi_by_dxp[2,7],
-    dhpi_by_dyi[2,6])."""
-    hLR = zeroed[0:3] + lam * zeroed[3:6]
+    at depth lam and its Jacobians. zeroed [..., 6], dz_by_dxp [..., 6, 7],
+    dz_by_dyi [..., 6, 6] and lam [...] broadcast together (a slot's
+    geometry against its particles' depths). Returns (hpi[..., 2],
+    dhpi_by_dxp[..., 2, 7], dhpi_by_dyi[..., 2, 6])."""
+    hLR = zeroed[..., 0:3] + lam[..., None] * zeroed[..., 3:6]
     hpi = cam_mod.project(cam, hLR)
     dh_by_dhLR = cam_mod.project_jacobian(cam, hLR)
-    dhLR_by_dz = torch.cat([_eye3(zeroed), lam * _eye3(zeroed)], dim=1)
+    eye = _eye3(zeroed).expand(*hLR.shape[:-1], 3, 3)
+    dhLR_by_dz = torch.cat([eye, lam[..., None, None] * eye], dim=-1)
     J = mm_seq(dh_by_dhLR, dhLR_by_dz)
     return hpi, mm_seq(J, dz_by_dxp), mm_seq(J, dz_by_dyi)
 

@@ -4,8 +4,11 @@ Port of scenelib2_tpu/core/motion.py (reference scenelib2/motion_model.cpp).
 State layout xv = [r(3), q(4, wxyz), v(3), omega(3)]:
 
   fv / dfv_by_dxv  (:84-146):  r += v*dt, q <- q * q(omega*dt), v += u*dt
+                               (func_fv alone is the value path, which the
+                               f64 auto-init rolls forward Jacobian-free)
   Q                (:148-217): Q = G Pnn G^T, Pnn = diag(sd_a^2 dt^2 (x3),
                                sd_alpha^2 dt^2 (x3))
+  xp / dxp_by_dxv  (:219-235)
   xvnorm / dxvnorm_by_dxv (:237-263): the reference never normalises the
     quaternion itself; only the covariance is transformed by dqnorm_by_dq.
 
@@ -27,9 +30,24 @@ from scenelib2_torch.core.quaternion import (
 )
 
 
+def extract_r_q_v_omega(xv: torch.Tensor):
+    return xv[..., 0:3], xv[..., 3:7], xv[..., 7:10], xv[..., 10:13]
+
+
+def func_fv(xv: torch.Tensor, u: torch.Tensor, delta_t: float) -> torch.Tensor:
+    """State transition only, no Jacobian (motion_model.cpp:84-117 value
+    path): the auto-init's future rollforward, which the reference runs
+    Jacobian-free (monoslam.cpp:880-883)."""
+    r, q, v, omega = extract_r_q_v_omega(xv)
+    rnew = r + v * delta_t
+    qnew = quat_mul(q, quat_from_angular_velocity(omega * delta_t))
+    vnew = v + u * delta_t
+    return torch.cat([rnew, qnew, vnew, omega], dim=-1)
+
+
 def func_fv_and_dfv_by_dxv(xv: torch.Tensor, u: torch.Tensor, delta_t: float):
     """Returns (fv[13], dfv_by_dxv[13,13])."""
-    r, q, v, omega = xv[..., 0:3], xv[..., 3:7], xv[..., 7:10], xv[..., 10:13]
+    r, q, v, omega = extract_r_q_v_omega(xv)
     rnew = r + v * delta_t
     qwt = quat_from_angular_velocity(omega * delta_t)
     qnew = quat_mul(q, qwt)
@@ -47,7 +65,7 @@ def func_Q(xv: torch.Tensor, delta_t: float, sd_a: float, sd_alpha: float) -> to
     """Process noise Q[13,13] (motion_model.cpp:148-217)."""
     lin_var = sd_a * sd_a * delta_t * delta_t
     ang_var = sd_alpha * sd_alpha * delta_t * delta_t
-    q, omega = xv[..., 3:7], xv[..., 10:13]
+    _, q, _, omega = extract_r_q_v_omega(xv)
     kw = dict(dtype=xv.dtype, device=xv.device)
     G = torch.zeros((*xv.shape[:-1], 13, 6), **kw)
     G[..., 0:3, 0:3] = torch.eye(3, **kw) * delta_t
@@ -57,6 +75,16 @@ def func_Q(xv: torch.Tensor, delta_t: float, sd_a: float, sd_alpha: float) -> to
     # the noise variances, filled on the device (no host copy)
     pnn = torch.diag(torch.cat([torch.full((3,), lin_var, **kw), torch.full((3,), ang_var, **kw)]))
     return mm_seq(mm_seq(G, pnn), G.mT)
+
+
+def func_xp(xv: torch.Tensor) -> torch.Tensor:
+    """Position state [r(3), q(4)] (motion_model.cpp:219-222)."""
+    return xv[..., 0:7]
+
+
+def dxp_by_dxv(dtype=torch.float64, device=None) -> torch.Tensor:
+    """[7, 13] selector of the position state (motion_model.cpp:224-235)."""
+    return torch.eye(7, 13, dtype=dtype, device=device)
 
 
 def func_xvnorm_and_dxvnorm_by_dxv(xv: torch.Tensor):

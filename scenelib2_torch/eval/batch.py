@@ -16,6 +16,12 @@ the default route (their JAX runs gave the default route's file again; the
 pure-XLA route's runs with and without FMA split on the same three tied
 lanes, 59 and 9 / 41, as the default route's), so they read that file.
 
+scenelib2_torch/data/expected_fingerprint_batch64_f64.json holds the same 64
+lanes made by the JAX batch step in its f64 parity mode (x64 on) on route
+"xla" (use_pallas=False), the reference of the port's f64 batch step
+(precision="f64"; check_lanes(..., precision="f64")). Its runs with and
+without FMA agree, and every lane decides as the f32 file does.
+
 The lanes can also run at BASELINE config 3 (config="hires":
 eval/synthetic.py HIRES_PARAMS, 640x480, max_features 60, 200 particles):
 each texture is rendered at that calibration with the same seeds.
@@ -44,6 +50,8 @@ CONFIGS = {
     "std": (None, dict(max_features=16), EXPECTED),
     "hires": (HIRES_PARAMS, HIRES_OVERRIDES, "expected_fingerprint_batch_hires"),
 }
+# configuration -> the committed lanes file of the f64 parity mode
+EXPECTED_F64 = {"std": "expected_fingerprint_batch64_f64"}
 
 
 def make_lanes(out_dir: str, batch: int = 64, n_textures: int = 32, n_frames: int = 64, *, device, dtype,
@@ -98,12 +106,14 @@ def lane_fingerprints(outs: StepOutputs) -> list[dict]:
     return [decisions_fingerprint(StepOutputs(*(a[:, b] for a in outs)), T) for b in range(Bn)]
 
 
-def check_lanes(got: list[dict], lanes=None, route: str = "default", config: str = "std") -> list[str]:
+def check_lanes(got: list[dict], lanes=None, route: str = "default", config: str = "std",
+                precision: str = "f32") -> list[str]:
     """Compare per-lane fingerprints with the committed ones at the
-    configuration `config` (every JAX batch route reproduces one file per
-    configuration; `route` names the route in the lines); returns one line
-    per differing lane (empty when all agree)."""
-    want = load_expected(CONFIGS[config][2])["lanes"]
+    configuration `config` and precision (every JAX batch route reproduces
+    one file per configuration and precision; `route` names the route in
+    the lines); returns one line per differing lane (empty when all
+    agree)."""
+    want = load_expected(CONFIGS[config][2] if precision == "f32" else EXPECTED_F64[config])["lanes"]
     lanes = list(range(len(got))) if lanes is None else list(lanes)
     bad = []
     for fp, lane in zip(got, lanes):

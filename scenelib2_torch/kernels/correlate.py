@@ -7,9 +7,13 @@ run (frame_sums, cross_sum_maps, cross_sum_windows, patch_stats,
 nssd_score, elliptical_search_batch, penalized_score_map,
 multi_ellipse_search_dense, which the single stream's XLA route also runs
 in place of multi_ellipse_search_unionbox) and of gather_windows_u8
-(scenelib2_tpu/kernels/pallas_search.py:639-653), in the fast mode's f32
-(the JAX package's astype(float64) is f32 there). Every leading dimension is
-a lane (or a lane and a slot).
+(scenelib2_tpu/kernels/pallas_search.py:639-653). Each runs in the step's
+dtype: f32 in the fast mode (the JAX package's astype(float64) is f32
+there) and f64 in the parity mode (precision="f64"), where frame_sums and
+patch_stats hand the exact integer sums on as f64 and the NSSD, the score
+maps, the ellipse masks and the particle geometry follow in f64, as the
+JAX functions do with x64 on. Every leading dimension is a lane (or a lane
+and a slot).
 
 Integer sums stay exact: the box sums and the patch cross sums are float64
 convolutions of u8 data (every partial sum is an integer below 2^53, and
@@ -74,15 +78,16 @@ def centre_valid(H: int, W: int, boxsize: int, device) -> torch.Tensor:
     return (uu >= half) & (uu <= W - 1 - half) & (vv >= half) & (vv <= H - 1 - half)
 
 
-def frame_sums(frames_u8: torch.Tensor, boxsize: int):
-    """(sg1, sg1sq [B, H, W] f32 box sums of the image and its square,
-    centre-indexed, 0 at invalid centres; valid [H, W]) of frames [B, H, W]."""
+def frame_sums(frames_u8: torch.Tensor, boxsize: int, dtype=torch.float32):
+    """(sg1, sg1sq [B, H, W] box sums of the image and its square,
+    centre-indexed, 0 at invalid centres; valid [H, W]) of frames [B, H, W].
+    The sums are exact integers below 2^24, handed on as `dtype`."""
     Bn, H, W = frames_u8.shape
     half = (boxsize - 1) // 2
     img = frames_u8[:, None].double()
     ones = torch.ones((1, 1, boxsize, boxsize), dtype=torch.float64, device=frames_u8.device)
-    sg1 = _centre_pad(_box_f64(img, ones)[:, 0], H, W, half).to(torch.float32)
-    sg1sq = _centre_pad(_box_f64(img * img, ones)[:, 0], H, W, half).to(torch.float32)
+    sg1 = _centre_pad(_box_f64(img, ones)[:, 0], H, W, half).to(dtype)
+    sg1sq = _centre_pad(_box_f64(img * img, ones)[:, 0], H, W, half).to(dtype)
     return sg1, sg1sq, centre_valid(H, W, boxsize, frames_u8.device)
 
 
@@ -117,18 +122,20 @@ def cross_sum_windows(frames_u8: torch.Tensor, patches_u8: torch.Tensor, u0: tor
     return out[0].reshape(Bn, K, sw_v - boxsize + 1, sw_u - boxsize + 1).to(torch.int32)
 
 
-def patch_stats(patches_u8: torch.Tensor):
-    """Per patch (Sg0, Sg0sq) as exact f32: patches [..., b, b] u8 -> [...]."""
+def patch_stats(patches_u8: torch.Tensor, dtype=torch.float32):
+    """Per patch (Sg0, Sg0sq), exact integer sums handed on as `dtype`:
+    patches [..., b, b] u8 -> [...]."""
     p = patches_u8.to(torch.int32)
-    return p.sum(dim=(-2, -1)).to(torch.float32), (p * p).sum(dim=(-2, -1)).to(torch.float32)
+    return p.sum(dim=(-2, -1)).to(dtype), (p * p).sum(dim=(-2, -1)).to(dtype)
 
 
 def nssd_score(sg0, sg0sq, sg1, sg1sq, sg0g1, n: float):
-    """(corr, sd0, sd1) of correlate.nssd_score in f32, with the 0/1
-    zero-variance specials: search.nssd_corr_f32, the same operations in the
-    same order."""
-    nt = torch.full((), n, dtype=torch.float32, device=sg1.device)
-    return nssd_corr_f32(sg0, sg0sq, sg1, sg1sq, sg0g1.to(torch.float32), nt)
+    """(corr, sd0, sd1) of correlate.nssd_score in the dtype of sg1, with
+    the 0/1 zero-variance specials: search.nssd_corr_f32's operations in the
+    same order, which are the JAX function's (f32 in the fast mode, f64 in
+    the parity mode)."""
+    nt = torch.full((), n, dtype=sg1.dtype, device=sg1.device)
+    return nssd_corr_f32(sg0, sg0sq, sg1, sg1sq, sg0g1.to(sg1.dtype), nt)
 
 
 def elliptical_search_batch(sg1, sg1sq, cross_win, sg0, sg0sq, u0, v0, h_centre, sinv_abc, active,
@@ -189,19 +196,19 @@ def penalized_score_map(sg1, sg1sq, valid, cross_map, sg0, sg0sq, boxsize: int,
     """The particle search's score map: the NSSD, + low_sigma_penalty where
     the image deviation is below the threshold, 1e6 at an invalid centre.
     sg1, sg1sq [B, 1, H, W]; cross_map [B, F, H, W]; sg0, sg0sq [B, F, 1, 1];
-    valid [H, W]. Returns [B, F, H, W] f32."""
+    valid [H, W]. Returns [B, F, H, W] in the dtype of sg1."""
     corr, _sd0, sd1 = nssd_score(sg0, sg0sq, sg1, sg1sq, cross_map, float(boxsize * boxsize))
     corr = torch.where(sd1 < corr_sigma_thresh, corr + low_sigma_penalty, corr)
     return torch.where(valid, corr, torch.full_like(corr, MISS))
 
 
 def score_maps(frames_u8: torch.Tensor, patches_u8: torch.Tensor, boxsize: int,
-               corr_sigma_thresh: float, low_sigma_penalty: float) -> torch.Tensor:
+               corr_sigma_thresh: float, low_sigma_penalty: float, dtype=torch.float32) -> torch.Tensor:
     """The JAX step's XLA score maps (step.py:609-620): frames [B, H, W],
-    the partial slots' patches [B, F, b, b] -> [B, F, H, W] f32."""
-    sg1, sg1sq, valid = frame_sums(frames_u8, boxsize)
+    the partial slots' patches [B, F, b, b] -> [B, F, H, W] in `dtype`."""
+    sg1, sg1sq, valid = frame_sums(frames_u8, boxsize, dtype)
     cross = cross_sum_maps(frames_u8, patches_u8, boxsize)
-    sg0, sg0sq = patch_stats(patches_u8)
+    sg0, sg0sq = patch_stats(patches_u8, dtype)
     return penalized_score_map(sg1[:, None], sg1sq[:, None], valid, cross, sg0[..., None, None],
                                sg0sq[..., None, None], boxsize, corr_sigma_thresh, low_sigma_penalty)
 
@@ -211,14 +218,13 @@ def particle_geometry(h_centres, sinv, win_radius: int, no_sigma: float, H: int,
     multi-ellipse kernel's wrapper (correlate.py:361-369,
     pallas_particle_search.py:159-176), with XLA's int32 semantics, as int64
     tensors [..., P]: (uc, vc, halfwidth, halfheight, u0, v0), and the S^-1
-    entries (a, b, c) as f32."""
+    entries (a, b, c); the floats in the dtype of sinv (f32 for the kernels'
+    wrappers and the fast mode, f64 in the parity mode)."""
     side_u, side_v = min(2 * win_radius + 1, W), min(2 * win_radius + 1, H)
     uc = xla_i32(torch.trunc(h_centres[..., 0]))
     vc = xla_i32(torch.trunc(h_centres[..., 1]))
-    a = sinv[..., 0, 0].to(torch.float32)
-    b = sinv[..., 0, 1].to(torch.float32)
-    c = sinv[..., 1, 1].to(torch.float32)
-    ns = torch.full((), no_sigma, dtype=torch.float32, device=a.device)
+    a, b, c = sinv[..., 0, 0], sinv[..., 0, 1], sinv[..., 1, 1]
+    ns = torch.full((), no_sigma, dtype=a.dtype, device=a.device)
     hw = xla_i32(torch.floor(ns / torch.sqrt(a - b * b / c)))
     hh = xla_i32(torch.floor(ns / torch.sqrt(c - b * b / a)))
     u0 = torch.clamp(wrap_i32(uc - win_radius), 0, W - side_u)
@@ -229,7 +235,7 @@ def particle_geometry(h_centres, sinv, win_radius: int, no_sigma: float, H: int,
 def window_search(maps, u0, v0, side_v: int, side_u: int, mask_fn):
     """Masked minimum and last-tie key of every particle over its window.
 
-    maps [B, F, H, W] f32; u0, v0 [B, F, P] (int64) window origins;
+    maps [B, F, H, W] (f32 or f64); u0, v0 [B, F, P] (int64) window origins;
     mask_fn(uu [B, F, P, 1, su], vv [B, F, P, sv, 1]) -> the admitted cells
     [B, F, P, sv, su]. Returns (best [B, F, P] f32, kbest [B, F, P] int64):
     the minimum over the admitted cells and the 1e6 of every other cell of
@@ -265,8 +271,11 @@ def ellipse_mask(a, b, c, uc, vc, uu, vv, no_sigma: float):
 def multi_ellipse_search_dense(corr_maps, h_centres, sinv, alive, *, win_radius: int = 32,
                                no_sigma: float = 3.0, corr_thresh2: float = 0.40):
     """correlate.multi_ellipse_search_dense over lanes and slots:
-    corr_maps [B, F, H, W] f32, h_centres [B, F, P, 2], sinv [B, F, P, 2, 2],
-    alive [B, F, P]. Returns (found, u, v, overflow), each [B, F, P].
+    corr_maps [B, F, H, W], h_centres [B, F, P, 2], sinv [B, F, P, 2, 2],
+    alive [B, F, P]. Returns (found, u, v, overflow), each [B, F, P]. The
+    offsets, the box and the ellipse are in the dtype of sinv, as the JAX
+    function's are in that of its map (f32 in the fast mode, f64 in the
+    parity mode, where the two agree).
 
     The single stream's pure-XLA route runs this in place of
     correlate.multi_ellipse_search_unionbox (correlate.py:464-591, called at
@@ -282,11 +291,11 @@ def multi_ellipse_search_dense(corr_maps, h_centres, sinv, alive, *, win_radius:
     uc, vc, hw, hh, u0, v0, a, b, c = particle_geometry(h_centres, sinv, win_radius, no_sigma, H, W)
 
     def mask_fn(uu, vv):
-        urel = wrap_i32(uu - uc[..., None, None]).to(torch.float32)
-        vrel = wrap_i32(vv - vc[..., None, None]).to(torch.float32)
-        # int32 half-extents compare with the f32 offsets as f32
-        box = ((torch.abs(urel) <= hw.to(torch.float32)[..., None, None])
-               & (torch.abs(vrel) <= hh.to(torch.float32)[..., None, None]))
+        urel = wrap_i32(uu - uc[..., None, None]).to(a.dtype)
+        vrel = wrap_i32(vv - vc[..., None, None]).to(a.dtype)
+        # int32 half-extents compare with the float offsets in their dtype
+        box = ((torch.abs(urel) <= hw.to(a.dtype)[..., None, None])
+               & (torch.abs(vrel) <= hh.to(a.dtype)[..., None, None]))
         return box & ellipse_mask(a, b, c, uc, vc, uu, vv, no_sigma)
 
     best, kbest = window_search(corr_maps, u0, v0, side_v, side_u, mask_fn)

@@ -37,7 +37,9 @@ which the batch step runs in place of the kernel when batch_pallas is False,
 has the plain version's f32 operation order (integer gradients and box sums,
 exact; A, C, B = the sums * 0.25; the eigenvalue as above), so that route
 calls shi_tomasi_plain over its lanes (the CPU tests hold the two to the JAX
-form on real frames).
+form on real frames). With x64 on, JAX's step runs that form in every
+route (its f64 eigenvalue math: A, C, B and ev in f64 from the same exact
+sums); shi_tomasi_plain(..., dtype=torch.float64) is that form.
 """
 
 from __future__ import annotations
@@ -74,10 +76,12 @@ def window_origin(ustart, vstart, H: int, W: int, B: int, region_w: int, region_
 
 
 def shi_tomasi_plain(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int,
-                     region_w: int, region_h: int):
+                     region_w: int, region_h: int, dtype=torch.float32):
     """Plain PyTorch K6. frame [..., H, W] u8; the region bounds are [...]
     int32 tensors (already clamp_region'ed), with any leading (lane)
-    dimensions. Returns (ubest, vbest [...] i32, evbest [...] f32)."""
+    dimensions. Returns (ubest, vbest [...] i32, evbest [...] `dtype`):
+    the eigenvalue math runs in `dtype` on the exact int32 box sums (f32 is
+    K6's, f64 the JAX form's with x64 on)."""
     lead = frame.shape[:-2]
     H, W = frame.shape[-2:]
     frame = frame.reshape(-1, H, W)
@@ -101,13 +105,13 @@ def shi_tomasi_plain(frame, ustart, vstart, ufinish, vfinish, *, boxsize: int,
         out = acc[:, :, 0:rw]
         for dx in range(1, B):
             out = out + acc[:, :, dx : dx + rw]
-        return out.to(torch.float32)
+        return out.to(dtype)
 
     A = box(gx2 * gx2) * 0.25
     C = box(gy2 * gy2) * 0.25
     Bq = box(gx2 * gy2) * 0.25
     BB = torch.sqrt((A + C) * (A + C) - 4.0 * (A * C - Bq * Bq))
-    ev = (A + C - BB) / torch.full((), 2.0, device=dev)
+    ev = (A + C - BB) / torch.full((), 2.0, dtype=dtype, device=dev)
 
     def e(t):
         return t[:, None, None]

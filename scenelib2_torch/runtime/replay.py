@@ -158,11 +158,11 @@ class StepGraph:
 def cached_graph(step, graphs: dict, state: SlamState, frames: torch.Tensor,
                  enable_mapping: bool) -> StepGraph:
     """The StepGraph of `step` for frames [N, *frame] from graphs, keyed by
-    (route, enable_mapping, N, state shapes, frame shape), or one captured
-    now from state and frames. graphs keeps at most MAX_GRAPHS, all in one
-    memory pool; the least recently used one goes first."""
-    key = (step.route, bool(enable_mapping), frames.shape[0], tuple(tuple(t.shape) for t in state),
-           tuple(frames.shape[1:]))
+    (route, enable_mapping, N, state shapes and dtypes, frame shape), or one
+    captured now from state and frames. graphs keeps at most MAX_GRAPHS, all
+    in one memory pool; the least recently used one goes first."""
+    key = (step.route, bool(enable_mapping), frames.shape[0],
+           tuple((tuple(t.shape), t.dtype) for t in state), tuple(frames.shape[1:]))
     g = graphs.pop(key, None)
     if g is None:
         while len(graphs) >= MAX_GRAPHS:

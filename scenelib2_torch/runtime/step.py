@@ -31,6 +31,19 @@ route at every D: the batch step's route "xla" on the state as one lane
 (JAX: ekf.joint_update(..., pallas_chol=not batch_mode)); the rest is
 tensor operations.
 
+precision="f64" is the JAX package's x64 step (its default process), on
+the state as one lane too. It branches where the JAX step tests the dtype
+(fast_kpath, fast_mode, `x.dtype == float32`): stage 2 is the XLA
+per-slot chain, stage 4 factors S unrolled (K14 is f32-only,
+core/ekf.py::joint_update), stage 7 rolls forward by ten literal
+motion.func_fv steps and picks the patch with the f64 Shi-Tomasi form,
+stage 8 runs the reference-order per-slot particle chain, the f64 score
+maps, the dense search and the XLA Bayes chain. Only stage 3 follows
+use_pallas: with use_pallas=False (the parity route, "xla-f64") the f64
+XLA search, so the step launches no kernel at all; with use_pallas=True
+(JAX's hybrid route, "k2-f64") K2 on f32 casts of S^-1, as JAX's wrapper
+casts them (pallas_search.py:430-437).
+
 The step makes no host synchronisation: data-dependent choices stay masks,
 and each kernel wrapper launches on the current stream. Where the JAX step
 skips stage 7 or the stage-8 surgery behind a lax.cond on data, this step
@@ -54,7 +67,7 @@ import torch
 
 from scenelib2_torch.config import Params
 from scenelib2_torch.core import camera as cam_mod
-from scenelib2_torch.core import ekf, models
+from scenelib2_torch.core import ekf, models, motion
 from scenelib2_torch.core.camera import CameraParams
 from scenelib2_torch.core.quaternion import (
     mm_seq,
@@ -218,9 +231,8 @@ def unpack_outputs(flat: torch.Tensor, nsel: int, maxp: int = 1, npart: int = 0)
     )
 
 
-# the ROADMAP.md Queue 1 items that the refusals below name, by title (a
+# the ROADMAP.md Queue 1 item that the refusals below name, by title (a
 # title stays true when the queue is renumbered)
-ROADMAP_F64 = "f64 parity mode"
 ROADMAP_MAXP = "Single-stream and batch MAXP > 1"
 
 
@@ -233,14 +245,18 @@ def roadmap_item(title: str) -> str:
 FUSED_MAX_D = 384      # K1 and K3 hold P as one zero-padded block of 384 x 384 at most
 HEAVY_ALWAYS_MAX_D = 128   # stage 8 runs every frame; above, only when a partial is measurable
 MAX_FEATURES = 128     # K7's and K5's slot row (pallas_measure.py:283, step.py:707-708)
+# the f64 steps' names by the flags' route (batch_route): stage 3 is the
+# only stage that follows them, the XLA search, K2 or K8 (step.py:371-418)
+F64_ROUTES = {"xla": "xla-f64", "default": "k2-f64", "sb0": "k2-f64", "bp0": "k8-f64"}
 
 
 def make_step(params: Params, device=None, precision: str = "f32"):
     """Build step(state, frame_u8, enable_mapping) -> (state', StepOutputs).
 
     device None means CUDA (raises without a GPU); precision "f32" is the
-    fast mode whose kernels this package ports. enable_mapping is a bool:
-    False skips stage 7 (auto-initialisation) on the host.
+    fast mode whose kernels this package ports, "f64" the JAX package's
+    parity mode (x64 on). enable_mapping is a bool: False skips stage 7
+    (auto-initialisation) on the host.
 
     With use_pallas (the default) the route follows the JAX step's by
     D = 13 + 6 max_features: up to D = 384 the fused route (K1, K2, K3);
@@ -250,13 +266,14 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     measurable. With use_pallas=False, the JAX step's pure-XLA route at
     every D: make_batch_step's route "xla" on the state as one lane, with S
     inverted by K14 (step.route "xla"). max_features above 128 is refused,
-    as the JAX fast step cannot run it."""
+    as the JAX fast step cannot run it.
+
+    In f64 the step is make_batch_step's f64 step on the state as one lane,
+    at any max_features, with JAX's flag semantics: use_pallas=False is the
+    parity route "xla-f64" (no kernel), use_pallas=True the hybrid route
+    "k2-f64" (K2 in stage 3, everything else in f64 tensor operations)."""
     device = resolve_device(device)
     dtype = resolve_dtype(precision)
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"the f64 parity mode of the step is not ported yet ({roadmap_item(ROADMAP_F64)})"
-        )
     MF = params.max_features
     NSEL = params.n_features_to_select
     MAXP = max(1, params.max_features_to_init_at_once)
@@ -271,6 +288,9 @@ def make_step(params: Params, device=None, precision: str = "f32"):
             "(K9, K10, K11), which are ported; the single-stream step glue around them "
             f"is not written yet ({roadmap_item(ROADMAP_MAXP)})"
         )
+    if dtype == torch.float64:
+        return _one_lane(_lane_step(params, device, dtype, "default" if params.use_pallas else "xla",
+                                    pallas_chol=True))
     if MF > MAX_FEATURES:
         raise NotImplementedError(
             f"max_features = {MF}: the JAX fast step holds at most {MAX_FEATURES} slots "
@@ -530,14 +550,17 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool, route: s
     Selection).
 
     The route (batch_route's names) picks stages 2 and 3 as the JAX step's
-    routes do. Stage 2 is K7, or on routes bp0 and xla the XLA per-slot
-    chain of core.models, core.camera.measurement_noise and
-    core.ekf.inv2x2_via_chol (JAX step.py:305-342). Stage 3 is K2 on the
-    frame; on bp0 K8 on windows gathered by correlate.gather_windows_u8 and
-    the stored u8 patches (JAX step.py:385-403); on xla the pure-XLA route's
-    tensor operations (JAX step.py:404-418: correlate.frame_sums,
-    cross_sum_windows on the stored patches, patch_stats,
-    elliptical_search_batch).
+    routes do. Stage 2 is K7, or on routes bp0 and xla, and on every route
+    in f64, the XLA per-slot chain of core.models,
+    core.camera.measurement_noise and core.ekf.inv2x2_via_chol (JAX
+    step.py:305-342). Stage 3 is K2 on the frame; on bp0 K8 on windows
+    gathered by correlate.gather_windows_u8 and the stored u8 patches (JAX
+    step.py:385-403); on xla the pure-XLA route's tensor operations (JAX
+    step.py:404-418: correlate.frame_sums, cross_sum_windows on the stored
+    patches, patch_stats, elliptical_search_batch), in the step's dtype. In
+    f64 K2 and K8 take S^-1 cast to f32, and K8 the centres floor(h + 0.5)
+    cast to f32, as JAX's wrappers pass them (pallas_search.py:290-296,
+    430-437).
 
     The JAX step's route where neither fused kernel applies
     (scenelib2_tpu/runtime/step.py:261-304, 351-384, 434-465, 492-540):
@@ -550,11 +573,12 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool, route: s
     x and P zeroed, symmetrize. The batch step runs it with
     pallas_chol=False (JAX: pallas_chol=not batch_mode); the single-stream
     step above D = 384 runs it on its state as one lane with pallas_chol=True,
-    so S is inverted by K14."""
+    so S is inverted by K14 (in f32; f64 factors unrolled, as JAX does)."""
     MF = params.max_features
     NSEL = params.n_features_to_select
     MAXP = max(1, params.max_features_to_init_at_once)
-    measure_kernel = route not in ("bp0", "xla")
+    f64 = dtype == torch.float64
+    measure_kernel = route not in ("bp0", "xla") and not f64
     if NSEL > MF:
         # JAX's lax.top_k(score, NSEL) refuses this when the step is traced
         raise ValueError(f"n_features_to_select = {NSEL} exceeds max_features = {MF}: the JAX step's "
@@ -633,22 +657,27 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool, route: s
 
         # ---- 3. windowed NSSD search (K2, K8 on gathered windows, or XLA) ---
         u0, v0, ucen, vcen = search_window_origin(h_sel, params.search_win_radius, W, H, Bx)
+        # the kernels take S^-1 in f32 (a no-op cast in the fast mode)
+        sinv32 = sinv_abc.to(torch.float32)
         if route == "bp0":
             windows = correlate.gather_windows_u8(frames, u0, v0, params.search_win_radius, Bx)
+            # in f64 K8 forms floor(h + 0.5) from JAX's f32 cast of it: the
+            # same centre where |h| < 2^23
+            h_k8 = torch.floor(h_sel + 0.5).to(torch.float32) if f64 else h_sel
             found, u, v, _best, over = search_windows(
-                windows, _lane_gather(state.patches, top64), u0, v0, h_sel, sinv_abc, sel_mask, sc)
+                windows, _lane_gather(state.patches, top64), u0, v0, h_k8, sinv32, sel_mask, sc)
         elif route == "xla":
             patches = _lane_gather(state.patches, top64)
-            sg1, sg1sq, _valid = correlate.frame_sums(frames, Bx)
+            sg1, sg1sq, _valid = correlate.frame_sums(frames, Bx, dtype)
             cross = correlate.cross_sum_windows(frames, patches, u0, v0, params.search_win_radius, Bx)
-            sg0, sg0sq = correlate.patch_stats(patches)
+            sg0, sg0sq = correlate.patch_stats(patches, dtype)
             found, u, v, _best, over = correlate.elliptical_search_batch(
                 sg1, sg1sq, cross, sg0, sg0sq, u0, v0, h_sel, sinv_abc, sel_mask, Bx,
                 win_radius=params.search_win_radius, no_sigma=params.no_sigma,
                 corr_thresh2=params.corr_thresh2, corr_sigma_thresh=params.corr_sigma_thresh)
         else:
             found, u, v, _best, over = search(
-                frames, _lane_gather(state.patch_rows, top64), u0, v0, ucen, vcen, sinv_abc,
+                frames, _lane_gather(state.patch_rows, top64), u0, v0, ucen, vcen, sinv32,
                 sel_mask, sc)
         z_sel = torch.stack([u, v], dim=-1).to(dtype)
         nu_sel = torch.where(found[..., None], z_sel - h_sel, zero)
@@ -697,6 +726,29 @@ def batch_route(params: Params, batch_sb: bool | None = None) -> str:
     return "default" if batch_sb else "sb0"
 
 
+def slot_predict(cam: CameraParams, xp, Pxx7, ys6, pxy6, pyy6, lam):
+    """The per-particle measurement prediction of the JAX step in f64
+    (scenelib2_tpu/runtime/step.py:1027-1050), the reference's operation
+    order (part_feature_model.cpp:231-265): for every partial slot the ray
+    in the robot frame (part_zeroedyi), then for every depth lam the image
+    point and its Jacobians (part_predict_from_zeroed), R,
+    S = hx7 Pxx7 hx7' + t + t' + hy6 Pyy hy6' + R with t = hx7 Pxy7 hy6',
+    its Cholesky inverse and determinant.
+
+    Arguments and returns as kform_predict's; products are left-to-right
+    sums."""
+    zeroed, dz_by_dxp, dz_by_dyi = models.part_zeroedyi(ys6, xp)
+    hpi, hx7, hy6 = models.part_predict_from_zeroed(
+        cam, zeroed[..., None, :], dz_by_dxp[..., None, :, :], dz_by_dyi[..., None, :, :], lam)
+    R = cam_mod.measurement_noise(cam, hpi)
+    t = mm_seq(mm_seq(hx7, pxy6[..., None, :7, :]), hy6.mT)
+    S = (mm_seq(mm_seq(hx7, Pxx7[..., None, :, :]), hx7.mT) + t + t.mT
+         + mm_seq(mm_seq(hy6, pyy6[..., None, :, :]), hy6.mT) + R)
+    sinv = ekf.inv2x2_via_chol(S)
+    dets = S[..., 0, 0] * S[..., 1, 1] - S[..., 1, 0] * S[..., 0, 1]
+    return hpi, sinv, dets
+
+
 def kform_predict(cam: CameraParams, xp, Pxx7, ys6, pxy6, pyy6, lam):
     """The per-particle measurement prediction of the JAX batch step's XLA
     K-form chain (scenelib2_tpu/runtime/step.py:964-1015): for every
@@ -738,8 +790,8 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
     for B independent lanes: every field of states_b and of the outputs
     carries a leading lane dimension and frames_b is [B, H, W] u8.
 
-    Port of the JAX step under jax.vmap with batch_mode=True in f32,
-    reached through scenelib2_torch.parallel.mesh.make_batched_step, on the
+    Port of the JAX step under jax.vmap with batch_mode=True, reached
+    through scenelib2_torch.parallel.mesh.make_batched_step. In f32 on the
     route that the flags select as in JAX (batch_route): "default"
     (batch_pallas=True), "sb0" (batch_pallas=True with the search + Bayes
     pair: batch_sb=False, or batch_sb=None and SCENELIB2_BATCH_SB=0 when the
@@ -770,34 +822,44 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
     lanes on the host, and the step makes no host synchronisation. Both
     lax.cond gates of the JAX step are selects under vmap; here each gated
     stage runs with its gate as data. enable_mapping is a host bool shared by
-    all lanes."""
+    all lanes.
+
+    precision="f64" is the JAX step with x64 on, where everything but
+    stage 3 is the f64 XLA form whatever the flags (fast_kpath and
+    fast_mode are false): stage 2 the XLA chain, stage 4 unrolled, stage 7
+    the ten-step func_fv rollforward and the f64 Shi-Tomasi form, stage 8
+    correlate.score_maps in f64, slot_predict, the dense search and
+    bayes_update_xla. Stage 3 follows the flags (F64_ROUTES): "xla-f64"
+    (use_pallas=False: no kernel), "k2-f64" (batch_pallas=True: K2) or
+    "k8-f64" (batch_pallas=False: K8). batch_sb and SCENELIB2_BATCH_SB pick
+    only between stage-8 kernels, so in f64 they change nothing, as in
+    JAX."""
     device = resolve_device(device)
     dtype = resolve_dtype(precision)
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"the batch step is ported in f32 (the fast mode) only ({roadmap_item(ROADMAP_F64)})")
     return _lane_step(params, device, dtype, batch_route(params, batch_sb), pallas_chol=False)
 
 
 def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
-    """The step of make_batch_step on `route` (batch_route's names). S is
-    inverted by K14 where pallas_chol (the single stream's pure-XLA route,
-    JAX's pallas_chol=not batch_mode), else by the unrolled factorisation.
-    The step also carries initialise_auto(states_b, frames_b) -> (states_b,
-    did_init [B]): stage 7 with no gate, JAX's _auto_initialise(...,
-    want_init=True)."""
+    """The step of make_batch_step on `route` (batch_route's names) in
+    `dtype`. S is inverted by K14 where pallas_chol (the single stream's
+    pure-XLA route, JAX's pallas_chol=not batch_mode) and S is f32, else by
+    the unrolled factorisation. The step also carries
+    initialise_auto(states_b, frames_b) -> (states_b, did_init [B]): stage 7
+    with no gate, JAX's _auto_initialise(..., want_init=True)."""
     MF = params.max_features
     NP = params.n_particles
     MAXP = max(1, params.max_features_to_init_at_once)
+    f64 = dtype == torch.float64
     if MAXP != 1:
         raise NotImplementedError(
             "the batch step is ported for max_features_to_init_at_once = 1 "
             f"({roadmap_item(ROADMAP_MAXP)})"
         )
-    if MF > MAX_FEATURES:
+    if MF > MAX_FEATURES and not f64:
         raise NotImplementedError(f"the batch kernels hold MF <= {MAX_FEATURES}, as the JAX fast step does")
-    # the routes whose images run as tensor ops (JAX's XLA forms)
-    plain_images = route in ("bp0", "xla")
+    # the routes whose images run as tensor ops (JAX's XLA forms): in f64
+    # every route but stage 3
+    plain_images = route in ("bp0", "xla") or f64
     Bx = params.boxsize
     half = (Bx - 1) // 2
     W, H = params.cam_width, params.cam_height
@@ -815,6 +877,8 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
     dt_t = torch.tensor(params.delta_t, dtype=dtype, **kw)
     lam0 = torch.as_tensor(st.lambda_grid(params), dtype=dtype, device=device)
     zero = torch.zeros((), dtype=dtype, **kw)
+    u_zero = torch.zeros(3, dtype=dtype, **kw)
+    st_kw = dict(dtype=dtype) if f64 else {}
     stages_1_to_6 = make_split_stages(params, device, dtype, pallas_chol, route)
     workspace: dict[int, torch.Tensor] = {}     # lanes -> the [B, MAXP, H, W] score maps
 
@@ -834,10 +898,18 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
             want_init = ((speed > params.min_speed_for_init)
                          & (n_visible < params.n_features_to_keep_visible)
                          & (n_partial < params.max_features_to_init_at_once))
-        # the constant-velocity rollforward collapsed to one step of N dt
-        qf = quat_mul(x[:, 3:7], quat_from_angular_velocity(x[:, 10:13] * dtN))
-        yW = (x[:, 0:3] + x[:, 7:10] * dtN
-              + quat_to_rotation_matrix(qf)[:, :, 2] * params.init_depth_hypothesis)
+        if f64:
+            # the literal rollforward of N func_fv steps (JAX step.py:776-780)
+            xv_fut = x[:, :CAM_DIM]
+            for _ in range(params.init_steps_to_predict):
+                xv_fut = motion.func_fv(xv_fut, u_zero, params.delta_t)
+            yW = (xv_fut[:, 0:3]
+                  + quat_to_rotation_matrix(xv_fut[:, 3:7])[:, :, 2] * params.init_depth_hypothesis)
+        else:
+            # the constant-velocity rollforward collapsed to one step of N dt
+            qf = quat_mul(x[:, 3:7], quat_from_angular_velocity(x[:, 10:13] * dtN))
+            yW = (x[:, 0:3] + x[:, 7:10] * dtN
+                  + quat_to_rotation_matrix(qf)[:, :, 2] * params.init_depth_hypothesis)
         hi_fut, _ = models.full_project(cam, yW, xp)
         pm_u = W / 2.0 - hi_fut[:, 0]
         pm_v = H / 2.0 - hi_fut[:, 1]
@@ -875,10 +947,11 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
 
         ru, rv, ruf, rvf = clamp_region(region_us, region_vs, region_us + RW, region_vs + RH, W, H, Bx)
         # the XLA route's Shi-Tomasi (JAX find_best_patch_in_image_window)
-        # has K6's plain operation order, so it is shi_tomasi_plain over lanes
+        # has K6's plain operation order, so it is shi_tomasi_plain over
+        # lanes, its eigenvalues in f64 in the f64 step
         pick_patch = shi_tomasi_plain if plain_images else shi_tomasi
         ubest, vbest, evbest = pick_patch(frames, ru, rv, ruf, rvf, boxsize=Bx,
-                                          region_w=RW, region_h=RH)
+                                          region_w=RW, region_h=RH, **st_kw)
         did_init = any_ok & (evbest > params.init_patch_score_thresh)
         # the patch around the pick (a clamped window, as lax.dynamic_slice)
         pr = torch.clamp(vbest.long() - half, 0, H - Bx)[:, None] + patch_offs
@@ -901,16 +974,18 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
         pyy6 = _lane_gather(st.slot_pyy(mid.P, MF), p64)
         if plain_images:
             corr_maps = correlate.score_maps(frames, _lane_gather(mid.patches, p64), Bx,
-                                             params.corr_sigma_thresh, params.low_sigma_penalty)
-            hpi, sinv, dets = kform_predict(cam, mid.x[:, None, :7], mid.P[:, None, :7, :7], ys6, pxy6,
-                                            pyy6, lam_c)
+                                             params.corr_sigma_thresh, params.low_sigma_penalty, dtype)
+            # f64: the reference-order chain; f32 (bp0, xla): the K-form
+            predict = slot_predict if f64 else kform_predict
+            hpi, sinv, dets = predict(cam, mid.x[:, None, :7], mid.P[:, None, :7, :7], ys6, pxy6,
+                                      pyy6, lam_c)
             # the single stream's XLA route: in place of JAX's union-box search
             # (bit-equal for the alive particles, correlate.py)
             found, zu, zv, p_over = correlate.multi_ellipse_search_dense(
                 corr_maps, hpi, sinv, searchable, win_radius=params.particle_win_radius,
                 no_sigma=params.no_sigma, corr_thresh2=params.corr_thresh2)
             z = torch.stack([zu, zv], dim=-1).to(dtype)
-            bayes = bayes_update_xla if route == "xla" else bayes_update
+            bayes = bayes_update_xla if route == "xla" or f64 else bayes_update
             return (*bayes(prob_c, lam_c, palive_c, found, p_over, z, hpi, sinv, dets, making,
                            pmask, ma_c, sbc.bayes), hpi, sinv)
         if Bn not in workspace:
@@ -1015,7 +1090,7 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
         mid, did_init, _box = auto_init(states, frames, None, None, force=True)
         return mid, did_init
 
-    step.route = route
+    step.route = F64_ROUTES[route] if f64 else route
     step.initialise_auto = initialise_auto
     step.graphs = {}   # parallel.mesh.run_batch's CUDA graphs of this step (runtime/replay.py)
     return step

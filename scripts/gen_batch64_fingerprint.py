@@ -44,6 +44,19 @@ with lane 59 taken from the run without FMA:
     python scripts/gen_batch64_fingerprint.py --merge default.json nofma.json --take 59 \
         --out scenelib2_torch/data/expected_fingerprint_batch64.json
 
+--precision f64 runs the JAX package's f64 parity mode (x64 on, which the
+package turns on unless SCENELIB2_X64=0) on the route given: the committed
+expected_fingerprint_batch64_f64.json is route "xla" (use_pallas=False, no
+kernel), from the two runs with and without FMA (~68 min each on ~3 CPU
+cores, side by side), which agree on every lane, merged the same way:
+
+    JAX_PLATFORMS=cpu python scripts/gen_batch64_fingerprint.py --precision f64 --route xla \
+        --lanes-per-run 16 --out f64_default.json
+    XLA_FLAGS=--xla_cpu_max_isa=AVX JAX_PLATFORMS=cpu python scripts/gen_batch64_fingerprint.py \
+        --precision f64 --route xla --lanes-per-run 16 --out f64_nofma.json
+    python scripts/gen_batch64_fingerprint.py --merge f64_default.json f64_nofma.json \
+        --out scenelib2_torch/data/expected_fingerprint_batch64_f64.json
+
 --config hires makes the lanes at BASELINE config 3 (the configuration of
 scenelib2_tpu/eval/benchmark.py::bench_hires: 640x480, max_features 60,
 search radius 48, particle radius 52, 200 particles), each texture rendered
@@ -142,7 +155,8 @@ def merge(base_path: str, other_path: str, take: list[int], out: str) -> None:
         doc = json.load(f)
     with open(other_path) as f:
         other = json.load(f)
-    for k in ("dataset_version", "batch", "n_textures", "n_frames", "max_features", "route", "config"):
+    for k in ("dataset_version", "batch", "n_textures", "n_frames", "max_features", "route", "config",
+              "precision"):
         if doc.get(k, "default") != other.get(k, "default"):
             raise SystemExit(f"the two files differ in {k}")
     differing = [i for i, (a, b) in enumerate(zip(doc["lanes"], other["lanes"])) if a != b]
@@ -166,6 +180,8 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=64, help="frames rendered; one less is replayed")
     ap.add_argument("--route", choices=ROUTES, default="default")
     ap.add_argument("--config", choices=tuple(CONFIGS), default="std")
+    ap.add_argument("--precision", choices=("f32", "f64"), default="f32",
+                    help="f64: the parity mode, x64 on (leave SCENELIB2_X64 unset)")
     ap.add_argument("--lanes-per-run", type=int, default=0,
                     help="step the lanes this many at a time (0: all at once)")
     ap.add_argument("--dump", default=None)
@@ -181,8 +197,10 @@ def main() -> None:
     from scenelib2_tpu.eval.synthetic import DATASET_VERSION
     from scenelib2_tpu.runtime import step as step_mod
 
-    if jnp.zeros(()).dtype != jnp.float32:
-        raise SystemExit("needs fast (f32) mode: run with SCENELIB2_X64=0")
+    x64 = jnp.zeros(()).dtype == jnp.float64     # scenelib2_tpu, imported above, sets it
+    if x64 != (a.precision == "f64"):
+        raise SystemExit("--precision f64 needs x64 on (leave SCENELIB2_X64 unset)" if not x64 else
+                         "needs fast (f32) mode: run with SCENELIB2_X64=0, or pass --precision f64")
     params, states, fb = lanes(a.batch, a.textures, a.frames, a.route, a.config)
     vstep = jax.jit(jax.vmap(step_mod.make_step(params), in_axes=(0, 0, None)))
     n = a.lanes_per_run or a.batch
@@ -194,6 +212,7 @@ def main() -> None:
             st_c, o = vstep(st_c, fb[t, lo : lo + n], True)
             per_frame.append(jax.tree_util.tree_map(np.asarray, o))
         chunks.append(jax.tree_util.tree_map(lambda *xs: np.stack(xs), *per_frame))
+        print(f"lanes {lo}..{min(lo + n, a.batch) - 1} stepped", flush=True)
     outs = jax.tree_util.tree_map(lambda *xs: np.concatenate(xs, axis=1), *chunks)   # [T, B, ...]
     T = fb.shape[0]
     fps = []
@@ -206,6 +225,8 @@ def main() -> None:
     )
     if a.route != "default":
         doc["route"] = a.route
+    if a.precision != "f32":
+        doc["precision"] = a.precision
     if a.config != "std":
         doc["config"] = a.config
         doc["n_particles"] = params.n_particles

@@ -20,6 +20,12 @@ JAX package, in fast (f32) mode on the CPU with interpret-mode kernels:
   xla     the std sequence with max_features 16 on the pure-XLA route,
           MonoSLAM(cfg, max_features=16, use_pallas=False); 239 frames
           replayed.
+  f64     the same in the JAX package's f64 parity mode (x64 on, the
+          package's default process): MonoSLAM(cfg, max_features=16,
+          use_pallas=False), no kernel at all; 239 frames replayed.
+  f64_k2  the same with use_pallas=True: the f64 step with the NSSD search
+          kernel (pallas_elliptical_search_fused) in stage 3 and everything
+          else in f64 XLA; 239 frames replayed.
 
 Each runs MonoSLAM(cfg, ..., use_pallas=True unless the configuration says
 otherwise).run_sequence(frames[1:], enable_mapping=True) and hashes the
@@ -28,8 +34,17 @@ outputs with scenelib2_tpu.eval.selftest.decisions_fingerprint:
     SCENELIB2_X64=0 JAX_PLATFORMS=cpu python scripts/gen_largemap_fingerprints.py \
         --out-dir scenelib2_torch/data
 
-writes expected_fingerprint_<name>.json for each name (about 75 s of
-compile each, ~30 s for xla; --configs NAME ... for some of them). --dump DIR also saves each replay's
+writes expected_fingerprint_<name>.json for each f32 name (about 75 s of
+compile each, ~30 s for xla; --configs NAME ... for some of them). The f64
+configurations need x64, which the JAX package turns on unless
+SCENELIB2_X64=0, so they run in a process of their own:
+
+    JAX_PLATFORMS=cpu python scripts/gen_largemap_fingerprints.py \
+        --configs f64 f64_k2 --out-dir scenelib2_torch/data
+
+(~50 s each; with and without FMA the two agree, and both equal the std
+file.)
+ --dump DIR also saves each replay's
 per-frame outputs as DIR/<name>.npz, for comparing a port frame by frame.
 
 XLA's CPU compiler contracts a*b + c into fused multiply-adds where the
@@ -64,7 +79,11 @@ CONFIGS = {
     "autoinit": (240, None, dict(max_features=24)),
     "hires_bench": (120, HIRES_PARAMS, dict(max_features=60)),
     "xla": (240, None, dict(max_features=16, use_pallas=False)),
+    "f64": (240, None, dict(max_features=16, use_pallas=False)),
+    "f64_k2": (240, None, dict(max_features=16, use_pallas=True)),
 }
+# the configurations that run in the f64 parity mode (x64 on)
+F64_CONFIGS = ("f64", "f64_k2")
 
 
 def run(name: str, dump_dir: str | None) -> dict:
@@ -98,14 +117,23 @@ def run(name: str, dump_dir: str | None) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", required=True)
-    ap.add_argument("--configs", nargs="*", default=list(CONFIGS), choices=list(CONFIGS))
+    ap.add_argument("--configs", nargs="*", default=None, choices=list(CONFIGS),
+                    help="default: every configuration of this process's precision")
     ap.add_argument("--dump", default=None, metavar="DIR")
     a = ap.parse_args()
 
     import jax.numpy as jnp
 
-    if jnp.zeros(()).dtype != jnp.float32:
-        raise SystemExit("needs fast (f32) mode: run with SCENELIB2_X64=0")
+    import scenelib2_tpu  # noqa: F401  (turns x64 on unless SCENELIB2_X64=0)
+
+    x64 = jnp.zeros(()).dtype == jnp.float64
+    if a.configs is None:
+        a.configs = [n for n in CONFIGS if (n in F64_CONFIGS) == x64]
+    for name in a.configs:
+        if (name in F64_CONFIGS) != x64:
+            need = "x64 on: leave SCENELIB2_X64 unset" if name in F64_CONFIGS else \
+                "fast (f32) mode: run with SCENELIB2_X64=0"
+            raise SystemExit(f"{name} needs {need}")
     os.makedirs(a.out_dir, exist_ok=True)
     for name in a.configs:
         fp = run(name, a.dump)

@@ -76,7 +76,8 @@ def test_xla_route_refusal_names_the_kernel_that_route_launches(monkeypatch):
     """The pure-XLA route is no longer refused. Its single-stream f32 step
     inverts S with K14 (ekf.joint_update(..., pallas_chol=not batch_mode)),
     once a step; its batch form launches no kernel (the unrolled
-    factorisation). f64 and MAXP > 1 stay refused by title."""
+    factorisation). f64 builds (JAX's hybrid route with the default
+    use_pallas=True); MAXP > 1 stays refused by title."""
     calls = []
     real = ekf.chol_inv
     monkeypatch.setattr(ekf, "chol_inv", lambda S: calls.append(tuple(S.shape)) or real(S))
@@ -92,7 +93,6 @@ def test_xla_route_refusal_names_the_kernel_that_route_launches(monkeypatch):
     assert bstep.route == "xla"
     bstep(type(state)(*(t[None] for t in state)), frame[None], True)
     assert len(calls) == 1
-    with pytest.raises(NotImplementedError, match='"f64 parity mode"'):
-        make_step(Params(), device="cpu", precision="f64")
+    assert make_step(Params(), device="cpu", precision="f64").route == "k2-f64"
     with pytest.raises(NotImplementedError, match='"Single-stream and batch MAXP > 1"'):
         make_step(dataclasses.replace(Params(), max_features_to_init_at_once=2), device="cpu")

@@ -183,8 +183,3 @@ def test_trajectory_metrics_match_jax(rng, n_est, n_gt):
     assert tmetrics.trajectory_rmse(est, gt) == jmetrics.trajectory_rmse(est, gt)
     assert tmetrics.ate_stats(est, gt) == jmetrics.ate_stats(est, gt)
     assert tmetrics.ate_stats(est.astype(np.float32), gt)["n"] == min(n_est, n_gt)
-
-
-def test_parity_eval_names_the_f64_item():
-    with pytest.raises(NotImplementedError, match='"f64 parity mode"'):
-        tmetrics.run_parity_eval()

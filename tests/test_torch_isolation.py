@@ -6,15 +6,17 @@
     module: the CLI, the I/O, the selftest, the bench suite, viz and the
     interactive session; steps 3 frames, calls the facade's manual inits,
     deletion and checkpoints, runs the batch step on each of its three
-    routes and 2 frames of the split route);
+    routes, 2 frames of the split route, 2 f64 frames on the parity route
+    and run_parity_eval against the port's own copy of the oracle);
   - MonoSLAM(cfg) and make_batched_step(params) without a device raise
     where CUDA is absent, on every batch route;
   - a kernel wrapper (K1-K14, K12 in both row forms, and K2 / K6 over
     lanes) given CPU tensors runs the plain version and launches nothing;
     given tensors on any other non-CUDA device it raises; when its kernel
     cannot be built it raises, never falling back to the plain version;
-  - what is not ported is refused: the pure-XLA route (use_pallas=False),
-    more than one partial slot, f64, a batch state without lanes.
+  - what is not ported is refused: more than one partial slot, a batch
+    state without lanes; the pure-XLA route (use_pallas=False) and f64
+    build.
 """
 
 from __future__ import annotations
@@ -175,6 +177,17 @@ big = MonoSLAM(cfg, max_features=64, device="cpu")
 for t in range(1, 3):
     big.go_one_step(frames[t])
 assert "scenelib2_torch.kernels.chol_inv" in sys.modules
+# the f64 parity route, and run_parity_eval over the port's oracle copy
+f64 = MonoSLAM(cfg, device="cpu", precision="f64", use_pallas=False)
+for t in range(1, 3):
+    f64.go_one_step(frames[t])
+assert f64._step.route == "xla-f64" and f64.state.x.dtype == torch.float64
+from scenelib2_torch.config import Params
+from scenelib2_torch.eval.metrics import run_parity_eval
+pe = run_parity_eval(n_frames=4, params=Params(cam_width=160, cam_height=120, cam_fku=98.0, cam_fkv=98.0,
+                                               cam_u0=80.0, cam_v0=60.0, max_features=10, n_particles=24),
+                     device="cpu")
+assert pe["decision_agreement"] == 1.0 and "scenelib2_torch.eval.oracle_monoslam" in sys.modules
 assert not any(m.split(".")[0] in FORBIDDEN for m in sys.modules)
 print("OK", traj_shape)
 """
@@ -204,10 +217,10 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, data_dir):
 def test_unported_batch_routes_are_refused():
     """batch_mode belongs to the batch step (reached through parallel.mesh);
     what is not ported is refused, not run some other way: a partial
-    capacity above one, f64, and a single-stream state given to the batch
-    step. Every batch route itself builds, the JAX step's pure-XLA route
+    capacity above one and a single-stream state given to the batch step.
+    Every batch route itself builds, the JAX step's pure-XLA route
     (use_pallas=False) on every builder as route "xla", whatever
-    batch_pallas says."""
+    batch_pallas says, and f64 on the hybrid routes ("k2-f64", "k8-f64")."""
     import dataclasses
 
     p = Params()
@@ -220,8 +233,8 @@ def test_unported_batch_routes_are_refused():
     for kw in (dict(), dict(batch_pallas=False)):
         with pytest.raises(NotImplementedError):
             make_batch_step(dataclasses.replace(p, max_features_to_init_at_once=2, **kw), device="cpu")
-        with pytest.raises(NotImplementedError):
-            make_batch_step(dataclasses.replace(p, **kw), device="cpu", precision="f64")
+        assert make_batch_step(dataclasses.replace(p, **kw), device="cpu", precision="f64").route == (
+            "k8-f64" if kw else "k2-f64")
     for kw, sb in ((dict(), None), (dict(), False), (dict(batch_pallas=False), None)):
         step = make_batched_step(dataclasses.replace(p, **kw), device="cpu", batch_sb=sb)
         with pytest.raises(ValueError, match="lane"):

@@ -19,7 +19,6 @@ from scenelib2_torch.core import ekf
 from scenelib2_torch.parallel.mesh import make_batched_step
 from scenelib2_torch.runtime import step as step_mod
 from scenelib2_torch.runtime.step import (
-    ROADMAP_F64,
     ROADMAP_MAXP,
     make_batch_step,
     make_step,
@@ -29,8 +28,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 P = Params()
 REFUSALS = {
-    "f64 single stream": (ROADMAP_F64, lambda: make_step(P, device="cpu", precision="f64")),
-    "f64 batch": (ROADMAP_F64, lambda: make_batch_step(P, device="cpu", precision="f64")),
     "maxp single stream": (ROADMAP_MAXP, lambda: make_step(
         dataclasses.replace(P, max_features_to_init_at_once=2), device="cpu")),
     "maxp batch": (ROADMAP_MAXP, lambda: make_batch_step(
@@ -47,7 +44,7 @@ def test_refusal_names_its_roadmap_item_by_title(case):
     assert not re.search(r"item \d", str(e.value)), str(e.value)
 
 
-@pytest.mark.parametrize("title", [ROADMAP_F64, ROADMAP_MAXP])
+@pytest.mark.parametrize("title", [ROADMAP_MAXP])
 def test_each_title_heads_an_item_of_the_roadmap(title):
     with open(os.path.join(REPO, "ROADMAP.md")) as f:
         text = f.read()
@@ -68,11 +65,13 @@ def test_each_builder_returns_a_step_for_use_pallas_false(builder):
 
 def test_use_pallas_defaults_to_the_kernel_route(monkeypatch):
     """The port keeps use_pallas=True as its default, where JAX's Params say
-    False: JAX ties False to its f64 parity mode, which the port does not
-    run yet, and every JAX bench and the selftest pass use_pallas=True in
-    f32. A config file without the key takes the default too. use_pallas=False
-    on the CPU runs the XLA route, with K14's plain twin inverting S once a
-    step."""
+    False: JAX ties False to its f64 parity mode, and every JAX bench and the
+    selftest pass use_pallas=True in f32. So precision="f64" alone lands on
+    JAX's hybrid route (K2 in an f64 step), and the entry points that stand
+    for JAX's parity process pass use_pallas=False themselves
+    (tests/test_torch_f64_routes.py). A config file without the key takes
+    the default too. use_pallas=False on the CPU runs the XLA route, with
+    K14's plain twin inverting S once a step."""
     assert Params().use_pallas is True
     cfg = os.path.join(REPO, "data", "SceneLib2.cfg")
     assert load_config(cfg).params.use_pallas is True

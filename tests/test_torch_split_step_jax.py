@@ -42,15 +42,19 @@ EXACT_FIELDS = ("init_box", "par_slot", "par_mask", "par_alive")
 
 _JAX_RUNNER = r"""
 import json, os, sys
-os.environ['SCENELIB2_X64'] = '0'
+x64, ckpt_at = sys.argv[5] == '1', int(sys.argv[6])
+if not x64:
+    os.environ['SCENELIB2_X64'] = '0'
 os.environ['JAX_PLATFORMS'] = 'cpu'
 import jax
 jax.config.update('jax_platforms', 'cpu')
+import jax.numpy as jnp
 import numpy as np
 from scenelib2_tpu.config import Params
 from scenelib2_tpu.eval.synthetic import generate_dataset
 from scenelib2_tpu.runtime.slam import MonoSLAM
 
+assert (jnp.zeros(()).dtype == jnp.float64) == x64
 out_dir, n = sys.argv[1], int(sys.argv[2])
 dataset, overrides = json.loads(sys.argv[3]), json.loads(sys.argv[4])
 frames, _, _, cfg = generate_dataset(out_dir, n_frames=n + 1,
@@ -60,31 +64,40 @@ rec = []
 for t in range(1, n + 1):
     slam.go_one_step(frames[t], enable_mapping=True)
     rec.append({k: np.asarray(v) for k, v in slam.last_output._asdict().items()})
+    if t == ckpt_at:
+        slam.save_checkpoint(os.path.join(out_dir, 'jax_ckpt.npz'))
 np.savez(os.path.join(out_dir, 'jax_outs.npz'), frames=frames,
          **{k: np.stack([r[k] for r in rec]) for k in rec[0]})
 """
 
 
-def run_jax_step(out_dir, n_frames: int, dataset: dict | None, overrides: dict) -> dict:
-    """The JAX f32 step's outputs over frames 1..n_frames of the synthetic
+def run_jax_step(out_dir, n_frames: int, dataset: dict | None, overrides: dict, x64: bool = False,
+                 checkpoint_at: int = 0) -> dict:
+    """The JAX step's outputs over frames 1..n_frames of the synthetic
     sequence (dataset Params, None for the std config file), with the
     MonoSLAM overrides; the frames under "frames" and the config file in
-    out_dir/synthetic.cfg."""
-    env = {k: v for k, v in os.environ.items() if k != "JAX_ENABLE_X64"}
+    out_dir/synthetic.cfg. The step is the f32 fast mode, or with x64 the
+    JAX package's f64 parity mode (its default process: x64 on); with
+    checkpoint_at = t > 0 the JAX checkpoint after frame t is
+    out_dir/jax_ckpt.npz."""
+    env = {k: v for k, v in os.environ.items() if k not in ("JAX_ENABLE_X64", "SCENELIB2_X64")}
     env["PYTHONPATH"] = REPO
     # one compute thread: the suite runs several workers side by side
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_cpu_multi_thread_eigen=false"
                         " intra_op_parallelism_threads=1").strip()
     res = subprocess.run(
         [sys.executable, "-c", _JAX_RUNNER, str(out_dir), str(n_frames), json.dumps(dataset or {}),
-         json.dumps(overrides)],
-        capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+         json.dumps(overrides), "1" if x64 else "0", str(checkpoint_at)],
+        capture_output=True, text=True, timeout=900, env=env, cwd=REPO)
     assert res.returncode == 0, res.stderr[-3000:]
     with np.load(os.path.join(out_dir, "jax_outs.npz")) as z:
         return {k: z[k] for k in z.files}
 
 
-def assert_same_run(got, want: dict, what: str):
+def assert_same_run(got, want: dict, what: str, step_tol: float = STEP_TOL, rows_rtol: float = ROWS_RTOL):
+    """got (the port's StepOutputs with a time axis) against the JAX step's
+    outputs, frame by frame (the module docstring; the f64 tests pass 1e-8
+    for both tolerances)."""
     for name in DECISION_FIELDS:
         np.testing.assert_array_equal(getattr(got, name).numpy().astype(np.int64),
                                       want[name].astype(np.int64), err_msg=f"{what}: {name}")
@@ -95,9 +108,9 @@ def assert_same_run(got, want: dict, what: str):
     for name in ("par_h", "par_sinv"):
         g, w = getattr(got, name).numpy(), want[name]
         np.testing.assert_array_equal(g == 0, w == 0, err_msg=f"{what}: {name} zeros")
-        np.testing.assert_allclose(g, w, rtol=0, atol=ROWS_RTOL * np.abs(w).max(), err_msg=f"{what}: {name}")
+        np.testing.assert_allclose(g, w, rtol=0, atol=rows_rtol * np.abs(w).max(), err_msg=f"{what}: {name}")
     for k in ("r", "xv"):
-        np.testing.assert_allclose(getattr(got, k).numpy(), want[k], rtol=0, atol=STEP_TOL,
+        np.testing.assert_allclose(getattr(got, k).numpy(), want[k], rtol=0, atol=step_tol,
                                    err_msg=f"{what}: {k}")
 
 

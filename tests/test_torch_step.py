@@ -9,8 +9,8 @@
       scenelib2_torch/data/expected_fingerprint_nomap.json with mapping off
       and scenelib2_torch/data/expected_fingerprint.json with mapping on;
   (c) the port's synthetic generator renders the same bytes as the JAX one;
-  (d) what is not ported yet (the f64 parity step, a partial capacity
-      above one) is refused;
+  (d) what is not ported yet (a partial capacity above one) is refused,
+      and the f64 step builds;
   (e) the port's batch step on the CPU reproduces the committed per-lane
       fingerprints scenelib2_torch/data/expected_fingerprint_batch64.json
       (made by the JAX batch step, scripts/gen_batch64_fingerprint.py) for
@@ -111,15 +111,15 @@ def test_cpu_replay_with_mapping_reproduces_expected_fingerprint(std_sequence):
 
 
 def test_unported_modes_are_refused_and_nomap_never_inits(std_sequence, monkeypatch):
-    """Mapping runs now; what is still refused is the f64 parity step and a
-    partial-feature capacity above one (its kernels K9-K11 are ported with
-    the batch step; the single-stream glue around them is not written).
+    """Mapping runs now; what is still refused is a partial-feature
+    capacity above one (its kernels K9-K11 are ported with the batch step;
+    the single-stream glue around them is not written). The f64 step
+    builds: with the default use_pallas=True it is JAX's hybrid route.
     Mapping off never initialises and never runs stage 7 (K5, K6); its
     whole replay is held to the nomap fingerprint by
     test_cpu_replay_reproduces_expected_fingerprint."""
     frames, cfg = std_sequence
-    with pytest.raises(NotImplementedError):
-        make_step(MonoSLAM(cfg, device="cpu").params, device="cpu", precision="f64")
+    assert make_step(MonoSLAM(cfg, device="cpu").params, device="cpu", precision="f64").route == "k2-f64"
     with pytest.raises(NotImplementedError, match="batch"):
         MonoSLAM(cfg, device="cpu", max_features_to_init_at_once=2)
 
