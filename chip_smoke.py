@@ -191,6 +191,26 @@ Phases (any failure exits non-zero before the last line is printed):
     eval.metrics.run_parity_eval on the card (decision agreement 1.0,
     drand48 in lockstep, RMSE against the oracle <= 1e-3); an `f64` JSON
     line.
+ 3j. two partial features at a time (max_features_to_init_at_once = 2;
+    maxp_phase): (a) std-maxp2, autoinit-maxp2 (max_features 24) and
+    mf100-maxp2 (the split route) by the eager loop, run_sequence's graph
+    replay and go_one_step one call a frame: each reproduces
+    expected_fingerprint_maxp2{,_autoinit,_mf100}.json, rows and final
+    state bit for bit across the three, the path's kernels (K9, K10 and K11
+    on both partial slots, never K4) once a frame in the eager loop and in
+    the traces; K9, K10 and K11 bit for bit with their plain versions on two
+    frames that search both slots and one that searches none; the CPU
+    plain replay of the first frames; sync debug mode "error"; (b) the
+    single stream's "xla", "xla-f64" and "k2-f64" routes at MAXP 2 against
+    their files through the graph replay, its first 12 frames bit for bit
+    with the eager loop and the CPU replay (f64: r and xv within F64_TOL);
+    (c)
+    the 64 lanes at MAXP 2 on "default", "sb0", "bp0", "xla" and
+    "xla-f64" through the eager loop and graph_cell: lanes 0-15 equal
+    expected_fingerprint_batch16_maxp2.json, every route's 64 lanes equal
+    the default route's, each route's kernels once a step, K9-K11 and K12,
+    K13 bit for bit with their plain versions on a captured step; a
+    `maxp2` JSON line.
  4. a `graph_replay` JSON line (every cell: eager and graph ms a frame or
     step, span, busy, idle shares, peak memory, capture seconds), an
     `entry_points` JSON line (phase 3g's ms a call and frames/s), a
@@ -231,7 +251,9 @@ PEAK_F32 = 67e12
 
 N_LANES, N_TEXTURES, N_BATCH_FRAMES = 64, 32, 64    # the batch replay: 63 frames a lane
 BATCH_AT = (9, 20, 40)     # output indices whose kernel inputs are captured
-N_REF_BATCH, REF_LANES = 20, (0, 1, 32, 33)
+BATCH_TRACED_STEPS = 16    # batch64's traced graph window (~2,800 device kernels a step)
+STD_TRACED_STEPS = 64      # std-nomap's and std-mapping's traced graph windows
+N_REF_BATCH, REF_LANES = 10, (0, 1, 32, 33)
 STEP_TOL = 1e-4   # CUDA vs CPU plain replay: r, xv
 N_REF = 30        # CPU plain replay frames (4 inits, 2 conversions)
 K5_TIMED_TRIES = 40
@@ -1938,7 +1960,7 @@ LARGE_MAPS = {
     "mf100": dict(n_frames=240, at=(9, 20, 120)),      # the first init, the first conversion, later
 }
 N_REF_LARGE = 20   # CPU plain replay frames of each large-map path
-N_TRACE_LARGE = 40  # frames of the traced window (the profiler's own bookkeeping grows with events)
+N_TRACE_LARGE = 16  # frames of the traced window (the profiler's own bookkeeping grows with events)
 
 
 def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
@@ -2842,11 +2864,8 @@ def xla_route_phase(tmp: str, dev, frames, cfg: str, seq, bparams, states0, bseq
     if not outputs_identical(slam.state, state_eager):
         fail("[3h] go_one_step through the graph: final state differs from the eager loop's")
     check_fp(unpack_rows(rows, slam.params), "go_one_step")
-    prof = device_profile(lambda: go_calls(slam, frames, XLA_GO_TRACED, True, graph=True))
-    go_launches = traced_launches(prof)
-    for n in _build.KERNELS:
-        if go_launches[n] != (XLA_GO_TRACED if n in XLA_PATH else 0):
-            fail(f"[3h] {XLA_GO_TRACED} go_one_step calls launched {n} {go_launches[n]} times")
+    _prof, go_launches = traced_exactly(lambda: traced_go_calls(slam, frames),
+                                        XLA_GO_TRACED, XLA_PATH, f"[3h] {XLA_GO_TRACED} go_one_step calls")
     res["go_one_step"] = dict(graph_ms_call=statistics.median(ms[1:]), first_call_ms=ms[0], calls=n_run,
                               traced_calls=XLA_GO_TRACED, launches=go_launches)
     log(f"[3h] go_one_step through the one-step graph, {n_run} calls: fingerprint, every packed row and the "
@@ -3086,11 +3105,9 @@ def f64_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
         if not outputs_identical(slam.state, state_eager):
             fail(f"[3i] {tag}: go_one_step through the graph: final state differs from the eager loop's")
         check_fp(unpack_rows(rows, slam.params), fp_name, f"{tag} go_one_step")
-        prof = device_profile(lambda: go_calls(slam, frames, XLA_GO_TRACED, True, graph=True))
-        go_launches = traced_launches(prof)
-        for n in _build.KERNELS:
-            if go_launches[n] != (XLA_GO_TRACED if n in path else 0):
-                fail(f"[3i] {tag}: {XLA_GO_TRACED} go_one_step calls launched {n} {go_launches[n]} times")
+        _prof, go_launches = traced_exactly(
+            lambda: traced_go_calls(slam, frames), XLA_GO_TRACED, path,
+            f"[3i] {tag}: {XLA_GO_TRACED} go_one_step calls")
         cell["go_one_step"] = dict(graph_ms_call=statistics.median(ms[1:]), first_call_ms=ms[0], calls=n_run,
                                    traced_calls=XLA_GO_TRACED,
                                    launches={k: v for k, v in go_launches.items() if v})
@@ -3349,6 +3366,40 @@ def traced_launches(prof: dict) -> dict:
     return got
 
 
+def profiler_warmup(n: int = 512) -> None:
+    """Device activity at the start of a traced go_one_step run: a trace whose
+    first device work is a step's first kernel (K1 there) came back without
+    that step's first records (K1, K2, K3 counted 2 of 3 calls, in every try,
+    late in a full run), so n tiny kernels and a pause go first."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(n):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    time.sleep(0.01)
+
+
+def traced_go_calls(slam, frames):
+    """go_calls of XLA_GO_TRACED frames through the graph, after profiler_warmup."""
+    profiler_warmup()
+    return go_calls(slam, frames, XLA_GO_TRACED, True, graph=True)
+
+
+def traced_exactly(fn, n: int, path, what: str):
+    """(profile, launches) of a trace of fn() in which each kernel of path
+    ran n times and no other counted kernel ran: traced up to TRACE_TRIES
+    times, since the profiler's counts may come out short; fails otherwise."""
+    from scenelib2_torch.kernels import _build
+
+    for _try in range(TRACE_TRIES):
+        prof = device_profile(fn)
+        got = traced_launches(prof)
+        if all(got[k] == (n if k in path else 0) for k in _build.KERNELS):
+            return prof, got
+        log(f"{what}: a trace counted {json.dumps({k: v for k, v in got.items() if v})}; tracing again")
+    fail(f"{what}: in {TRACE_TRIES} traces the kernels ran {json.dumps({k: v for k, v in got.items() if v})} "
+         f"times, expected {n} each of {list(path)}")
+
+
 def timed_s(fn) -> float:
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -3463,15 +3514,7 @@ def graph_cell(tag: str, label: str, run, run_eager, graphs: dict, T: int, path,
     span_ms = statistics.median(span)
     n = trace_n or T
     window_ms = graph_ms if n == T else timed_s(lambda: run(0, n)) / n * 1e3
-    for _try in range(TRACE_TRIES):
-        prof = device_profile(lambda: run(0, n))
-        replayed = traced_launches(prof)
-        if all(replayed[n_] == (n if n_ in path else 0) for n_ in _build.KERNELS):
-            break
-        log(f"[{tag}] {label}: traced graph run of {n} steps counted {json.dumps(replayed)}; tracing again")
-    else:
-        fail(f"[{tag}] {label}: in the traced graph run of {n} steps the kernels ran "
-             f"{json.dumps({k_: v for k_, v in replayed.items() if v})} times, expected {n} each of {list(path)}")
+    prof, replayed = traced_exactly(lambda: run(0, n), n, path, f"[{tag}] {label}: traced graph run of {n} steps")
     log(f"[{tag}] {label}: traced graph run of {n} steps: each kernel of the path ran {n} times, no other "
         f"counted kernel ran")
     busy = prof["device_ms"] / n
@@ -3549,7 +3592,7 @@ def batch_runs(step, states0, seq, params):
     return run, run_eager
 
 
-def run_summary(cells, entry, xla, f64, smi: str, total_s: float) -> dict:
+def run_summary(cells, entry, xla, f64, maxp, smi: str, total_s: float) -> dict:
     """The run's result in under 4 KB, for the line just before the last:
     every phase's fingerprint verdict (a failed check exits before it is
     printed) and headline times, ms a frame or a batch step through the
@@ -3560,14 +3603,19 @@ def run_summary(cells, entry, xla, f64, smi: str, total_s: float) -> dict:
     # a phase that failed a check exited before this line: every verdict reads "equal"
     verdicts = {ph: "equal" for ph in ("3 std-nomap, std-mapping", "3b batch64", "3c hires", "3d mf100",
                                        "3e bp0, sb0", "3f batch-hires", "3g go_one_step, cli, bench",
-                                       "3h std-xla, batch64-xla", "3i std-f64, std-f64-k2, batch64-f64")}
+                                       "3h std-xla, batch64-xla", "3i std-f64, std-f64-k2, batch64-f64",
+                                       "3j maxp2: std, autoinit, mf100, xla, f64, batch64 x 5 routes")}
     out = {"card": smi, "seconds": round(total_s, 1), "fingerprints": verdicts,
            "graph_eager_ms": {c: ms(r_) for c, r_ in cells.items()}}
     out["graph_eager_ms"].update({f"{c} (3h)": ms(xla[k]) for c, k in (("std-xla", "std"),
                                                                         ("batch64-xla", "batch64"))})
     out["graph_eager_ms"].update({f"{c} (3i)": ms(f64[c]) for c in ("std-mapping xla-f64", "std-mapping k2-f64",
                                                                       "batch64 xla-f64")})
+    out["graph_eager_ms"].update({f"{c} (3j)": ms(r_) for c, r_ in maxp["cells"].items()})
+    out["graph_eager_ms"].update({f"{c} (3j)": ms(r_) for c, r_ in maxp["routes"].items()})
+    out["graph_eager_ms"].update({f"batch64-maxp2 {c} (3j)": ms(r_) for c, r_ in maxp["batch"].items()})
     out["busy_ms"] = {c: round(r_["busy"], 4) for c, r_ in cells.items() if r_.get("busy")}
+    out["busy_ms"].update({c: round(r_["busy"], 4) for c, r_ in maxp["cells"].items() if r_.get("busy")})
     out["busy_ms"].update({c: round(f64[c]["busy"], 4) for c in ("std-mapping xla-f64", "std-mapping k2-f64",
                                                                  "batch64 xla-f64") if f64[c].get("busy")})
     out["go_one_step_ms"] = {c: round(entry["per_call"][c]["graph_ms"], 4) for c in entry["per_call"]}
@@ -3578,11 +3626,431 @@ def run_summary(cells, entry, xla, f64, smi: str, total_s: float) -> dict:
     out["batch_f64_eager_ms"] = {r_: round(f64[f"batch64 {r_}"]["eager_ms"], 3) for r_ in ("k2-f64", "k8-f64")}
     pe = f64["parity_eval"]
     out["parity_eval"] = {k: pe[k] for k in ("rmse_vs_oracle", "decision_agreement", "drand48_in_lockstep")}
-    out["phase_s"] = {"3h": round(xla["seconds"], 1), "3i": round(f64["seconds"], 1),
+    out["go_one_step_ms"].update({c: round(r_["go_one_step"]["graph_ms_call"], 4) for c, r_ in maxp["cells"].items()})
+    out["phase_s"] = {"3h": round(xla["seconds"], 1), "3i": round(f64["seconds"], 1), "3j": round(maxp["seconds"], 1),
                       "3g": round(entry.get("seconds", 0.0), 1)}
     if len(json.dumps(out)) > 4000:
         fail(f"the summary line outgrew 4 KB ({len(json.dumps(out))} bytes)")
     return out
+
+
+# ------------------------------------------------------------ phase 3j: two partial features at a time
+
+MAXP2 = dict(max_features_to_init_at_once=2)
+# the single stream at MAXP 2: stage 8 is K9, K10 and K11 on both partial slots, never K4
+MAXP_FUSED_PATH = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "score_map",
+                   "particle_predict", "search_bayes_maps")
+MAXP_SPLIT_PATH = ("measure", "search", "chol_inv", "propose", "shi_tomasi", "score_map", "particle_predict",
+                   "search_bayes_maps")
+# cell -> (MonoSLAM overrides, fingerprint file, the step's route, the kernels of its path)
+MAXP_CELLS = {
+    "std-maxp2": (dict(max_features=16), "expected_fingerprint_maxp2", "fused", MAXP_FUSED_PATH),
+    "autoinit-maxp2": (dict(max_features=24), "expected_fingerprint_maxp2_autoinit", "fused", MAXP_FUSED_PATH),
+    "mf100-maxp2": (dict(max_features=100), "expected_fingerprint_maxp2_mf100", "split", MAXP_SPLIT_PATH),
+}
+MAXP_AT = (5, 11, 18)      # output indices whose stage-8 inputs are held: no partial slot, then both searched
+MAXP_BOTH = (11, 18)
+MAXP_N_REF = 20            # CPU plain replay frames (inits at 9, 10, 16, 17; both slots searched at 11-14, 18)
+MAXP_N_REF_ROUTES = 12     # the same for (b)'s routes, and their eager loop (both slots searched at 11)
+MAXP_ROUTE_TRACED = 2      # (b)'s traced graph window (~4,000-5,200 device kernels a step)
+MAXP_N_SYNC = 10           # steps under sync debug mode "error"
+MAXP_TRACED_STEPS = 8
+# the single stream's other routes at MAXP 2 (std, max_features 16): route -> (MonoSLAM overrides,
+# precision, fingerprint file, the kernels of its path)
+MAXP_ROUTES = {
+    "xla": (dict(use_pallas=False), "f32", "expected_fingerprint_maxp2_xla", ("chol_inv",)),
+    "xla-f64": (dict(use_pallas=False), "f64", "expected_fingerprint_maxp2_f64", ()),
+    "k2-f64": (dict(use_pallas=True), "f64", "expected_fingerprint_maxp2_f64_k2", ("search",)),
+}
+# the batch routes at MAXP 2 over the 64 lanes: route -> (Params changes, batch_sb, precision, path)
+MAXP_BATCH_ROUTES = {
+    "default": (dict(), None, "f32", BATCH_PATH),
+    "sb0": (dict(), False, "f32", ROUTE_PATH["sb0"][1]),
+    "bp0": (dict(batch_pallas=False), None, "f32", ROUTE_PATH["bp0"][1]),
+    "xla": (dict(use_pallas=False), None, "f32", ()),
+    "xla-f64": (dict(use_pallas=False), None, "f64", ()),
+}
+MAXP_BATCH_AT = 12         # the batch step whose kernel inputs are held (lanes search both slots)
+MAXP_CPU_ROUTES = ("default", "xla-f64")   # the batch routes also held to their CPU replay on two lanes
+N_MAXP_FILE_LANES = 16     # lanes 0-15: expected_fingerprint_batch16_maxp2.json
+
+
+def clone_args(a):
+    return tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in a)
+
+
+def maxp_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
+    """Phase 3j: two partial features at a time (max_features_to_init_at_once
+    = 2) on the card.
+
+    (a) std-maxp2, autoinit-maxp2 (max_features 24) and mf100-maxp2 (100, the
+        split route) through MonoSLAM(cfg, max_features_to_init_at_once=2):
+        the counted eager loop reproduces each cell's committed fingerprint
+        with each kernel of the path launched once a frame (K9, K10 and K11
+        on both slots in place of K4, which never launches); K9, K10 and K11
+        bit for bit with their plain versions on the inputs of output
+        indices 11 and 18 (both partial slots searched) and 5 (none); the
+        CPU plain replay of the first frames; steps under sync debug mode
+        "error"; graph_cell (fingerprint, outputs and final state bit for bit
+        with the eager loop, each kernel once a step in a traced window);
+        go_one_step one call a frame through the one-step graph (fingerprint,
+        rows and final state bit for bit, each kernel once a call in a trace
+        of three calls). (b) the single stream's routes "xla", "xla-f64" and
+        "k2-f64" at MAXP 2 against their files through the graph replay, its
+        first MAXP_N_REF_ROUTES frames bit for bit with the eager loop and
+        against the CPU replay (f64: r and xv within F64_TOL), its kernel
+        once a step in a short trace. (c) 64 lanes at MAXP 2 on "default",
+        "sb0", "bp0", "xla" and "xla-f64", each through the eager loop and
+        graph_cell: lanes 0-15 equal expected_fingerprint_batch16_maxp2.json,
+        all 64 lanes of every route equal the default route's, each route's
+        kernels once a step, K9, K10 and K11 (default) and K12 and K13 (sb0)
+        bit for bit with their plain versions on a captured step, two lanes
+        against their CPU replay (MAXP_CPU_ROUTES), steps under sync debug
+        mode "error". Returns each cell's times and the kernels' records at
+        the F = 2 shapes."""
+    from scenelib2_torch import MonoSLAM
+    from scenelib2_torch.eval.batch import check_lanes, lane_fingerprints, lanes_cache_dir, make_lanes
+    from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected
+    from scenelib2_torch.kernels import _build, bayes, particle, particle_search, score_map, search_bayes
+    from scenelib2_torch.parallel.mesh import _run_batch_eager, make_batched_step, run_batch
+    from scenelib2_torch.runtime.state import SlamState
+    from scenelib2_torch.runtime.step import pack_outputs
+
+    t_phase = time.time()
+    res = {"cells": {}, "routes": {}, "batch": {}}
+    n_run = seq.shape[0]
+    errs = {k: 0.0 for k in ("K9", "K10", "K11", "K12", "K13")}
+
+    def check_fp(o, name, what):
+        fp_ = decisions_fingerprint(o, o.n_matched.shape[0])
+        want = load_expected(name)
+        for k in ("n_frames", "matched_sum", "inits", "convs", "active_end", "decisions_sha256"):
+            if fp_[k] != want[k]:
+                fail(f"[3j] {what}: fingerprint field {k}: got {fp_[k]}, expected {want[k]} ({name}.json)")
+        return fp_
+
+    def check_launches(launches, path, n, what):
+        for k in _build.KERNELS:
+            if launches.get(k, 0) != (n if k in path else 0):
+                fail(f"[3j] {what}: kernel {k} launched {launches.get(k, 0)} times, expected "
+                     f"{n if k in path else 0}")
+
+    def against_cpu(got, ref, what, tol, idx=None):
+        for k in F64_DECISIONS:
+            g = getattr(got, k)[: ref.n_matched.shape[0]]
+            if idx is not None:
+                g = g[:, idx]
+            if not torch.equal(getattr(ref, k), g):
+                fail(f"[3j] {what}: CUDA vs CPU plain replay: {k} differs")
+        d = 0.0
+        for k in ("r", "xv"):
+            g = getattr(got, k)[: ref.n_matched.shape[0]]
+            g = g if idx is None else g[:, idx]
+            d = max(d, float((getattr(ref, k).double() - g.double()).abs().max()))
+        if d > tol:
+            fail(f"[3j] {what}: CUDA vs CPU plain replay: r / xv differ by {d}")
+        return d
+
+    def no_sync(step, state, frames_, n, what):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(n):
+                state, _o = step(state, frames_[t], True)
+        except RuntimeError as e:
+            fail(f"[3j] {what}: the step synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+    # ---- (a) the single stream's kernel routes at MAXP 2
+    k9k11 = {}
+    for cell, (ov, fp_name, route, path) in MAXP_CELLS.items():
+        slam = MonoSLAM(cfg, device="cuda", **ov, **MAXP2)
+        if slam._step.route != route:
+            fail(f"[3j] {cell}: MonoSLAM took the route {slam._step.route!r}, expected {route}")
+        p = slam.params
+        slam._run_sequence_eager(seq[:4], enable_mapping=True)    # warm-up
+        torch.cuda.synchronize()
+        seen, cur, frame = {}, {}, [0]
+
+        def on_call(n, a, k, seen=seen, cur=cur, frame=frame):
+            if n in ("score_map", "particle_predict", "search_bayes_maps") and frame[0] in MAXP_AT:
+                cur[n] = clone_args(a)
+            if n == "search_bayes_maps":
+                if frame[0] in MAXP_AT:
+                    seen[frame[0]] = dict(cur)
+                frame[0] += 1
+
+        t0 = time.perf_counter()
+        outs, launches, state_eager = run_main_path(slam, seq, mapping=True, on_call=on_call)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        fp = check_fp(outs, fp_name, cell)
+        check_launches(launches, path, n_run, f"{cell} eager loop")
+        if outs.par_slot.shape != (n_run, 2) or not torch.isfinite(outs.r).all():
+            fail(f"[3j] {cell}: outputs not shaped for two partial slots or not finite")
+        log(f"[3j] {cell}: fingerprint {json.dumps(fp)} equals {fp_name}.json; launches (eager loop, "
+            f"{eager_s:.2f} s): {json.dumps({k: v for k, v in launches.items() if v})}")
+        smc = score_map.ScoreMapConsts.from_params(p)
+        for at in MAXP_AT:
+            c = seen[at]
+            a9, a10, a11 = c["score_map"], c["particle_predict"], c["search_bayes_maps"]
+            making, pmask = a11[5], a11[6]
+            if making.shape != (1, 2) or bool(making.all()) != (at in MAXP_BOTH) or (
+                    at not in MAXP_BOTH and bool(pmask.any())):
+                fail(f"[3j] {cell}: output index {at}: making {making.tolist()}, pmask {pmask.tolist()}")
+            errs["K9"] = max(errs["K9"], check_k9(a9[0], a9[1], smc))
+            errs["K10"] = max(errs["K10"], check_k10(*a10))
+            errs["K11"] = max(errs["K11"], check_k11(a11))
+        if cell == "std-maxp2":
+            k9k11 = seen[MAXP_BOTH[0]]
+        log(f"[3j] {cell}: K9, K10 and K11 equal their plain versions bit for bit at output indices "
+            f"{MAXP_BOTH} (both partial slots searched) and {MAXP_AT[0]} (none) (max abs err "
+            f"{json.dumps({k: errs[k] for k in ('K9', 'K10', 'K11')})})")
+        cpu = MonoSLAM(cfg, device="cpu", **ov, **MAXP2)
+        d = against_cpu(outs, cpu.run_sequence(frames[1 : MAXP_N_REF + 1], enable_mapping=True), cell, STEP_TOL)
+        slam.reset()
+        no_sync(slam._step, slam.state, seq, MAXP_N_SYNC, cell)
+        log(f"[3j] {cell}: the CUDA run equals the CPU plain replay on frames 1..{MAXP_N_REF} (max |dr|, |dxv| "
+            f"{d:.3g}); {MAXP_N_SYNC} steps ran with sync debug mode 'error'")
+
+        run, run_eager = single_runs(slam, seq, True)
+        g = graph_cell("3j", cell, run, run_eager, slam._graphs, n_run, path, (outs, state_eager),
+                       lambda o, fp_name=fp_name, cell=cell: check_fp(o, fp_name, cell),
+                       trace_n=MAXP_TRACED_STEPS, eager_s=eager_s)
+        r_ = {k: v for k, v in g.items() if k != "prof"}
+        r_["device_ms"] = {s: kernel_dev_ms(g["prof"], s) for s in ("k9_kernel", "k10_kernel", "k11_kernel")}
+        slam.reset()
+        rows, ms = go_calls(slam, frames, n_run, True, graph=True)
+        torch.cuda.synchronize()
+        if not same_bits_or_nan(rows.cpu(), pack_outputs(outs)):
+            fail(f"[3j] {cell}: go_one_step through the graph: packed rows differ from the eager loop's")
+        if not outputs_identical(slam.state, state_eager):
+            fail(f"[3j] {cell}: go_one_step through the graph: final state differs from the eager loop's")
+        check_fp(unpack_rows(rows, p), fp_name, f"{cell} go_one_step")
+        _prof, go_launches = traced_exactly(
+            lambda: traced_go_calls(slam, frames), XLA_GO_TRACED, path,
+            f"[3j] {cell}: {XLA_GO_TRACED} go_one_step calls")
+        r_.update(fingerprint=fp, cpu_max_diff=d, go_one_step=dict(
+            graph_ms_call=statistics.median(ms[1:]), first_call_ms=ms[0], calls=n_run, traced_calls=XLA_GO_TRACED,
+            launches={k: v for k, v in go_launches.items() if v}))
+        log(f"[3j] {cell}: go_one_step through the one-step graph, {n_run} calls: fingerprint, every packed row "
+            f"and the final state bit for bit with the eager loop; {statistics.median(ms[1:]):.4f} ms a call "
+            f"(median of calls 2..{n_run}; first {ms[0]:.1f} ms); a trace of {XLA_GO_TRACED} calls launched "
+            f"{json.dumps(r_['go_one_step']['launches'])}")
+        res["cells"][cell] = r_
+        del slam, cpu
+
+    # K9, K10 and K11 at the single stream's F = 2 shapes (std-maxp2, output index 11): times and bounds
+    a9, a10, a11 = k9k11["score_map"], k9k11["particle_predict"], k9k11["search_bayes_maps"]
+    sbc = a11[8]
+    ws = torch.empty_like(a11[0])
+    std_cell = res["cells"]["std-maxp2"]
+    timed = {}
+    for short, key, sym, fk, fp_, cost in (
+        ("K9", "score_map", "k9_kernel", lambda: score_map.score_map(a9[0], a9[1], a9[2], out=ws),
+         lambda: score_map.score_map_plain(*a9), score_map.bytes_and_flops(1, 2, a9[2])),
+        ("K10", "particle_predict", "k10_kernel", lambda: particle.particle_predict(*a10),
+         lambda: particle.particle_predict_plain(*a10), particle.bytes_and_flops(*a10[2].shape)),
+        ("K11", "search_bayes_maps", "k11_kernel", lambda: search_bayes.search_bayes_maps(*a11),
+         lambda: search_bayes.search_bayes_maps_plain(*a11), search_bayes.bytes_and_flops_maps(
+             1, 2, a11[2].shape[-1], *search_bayes.work_counts_maps(a11[1], a11[4], a11[5], sbc))),
+    ):
+        b_ms, b_by = bound([cost])
+        timed[short] = dict(ms=time_ms(fk, n=50, batches=3), plain_ms=time_ms(fp_, n=5, batches=3),
+                            device_ms=std_cell["device_ms"][sym], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            launches=std_cell["launches"][key], launches_steps=std_cell["launches_steps"],
+                            launches_captured=std_cell["captured"].get(key, 0), max_abs_err=errs[short])
+        log(f"[3j] {short} at the single stream's F = 2 shapes (std-maxp2, output index {MAXP_BOTH[0]}): "
+            f"{json.dumps(timed[short])}")
+
+    # ---- (b) the single stream's other routes at MAXP 2: the graph replay over every frame (their
+    # eager loops, 20-30 s each, run the first MAXP_N_REF frames only)
+    from scenelib2_torch.runtime import replay
+
+    for route, (ov, prec, fp_name, path) in MAXP_ROUTES.items():
+        tag = f"std-maxp2 {route}"
+        slam = MonoSLAM(cfg, max_features=16, device="cuda", precision=prec, **ov, **MAXP2)
+        if slam._step.route != route:
+            fail(f"[3j] {tag}: MonoSLAM took the route {slam._step.route!r}")
+        slam._run_sequence_eager(seq[:4], enable_mapping=True)    # warm-up
+        torch.cuda.synchronize()
+        run, _run_eager = single_runs(slam, seq, True)
+        torch.cuda.reset_peak_memory_stats()
+        alloc0 = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        first_s = timed_s(lambda: run(0))
+        t0 = time.perf_counter()
+        outs, state_g = run(0)
+        torch.cuda.synchronize()
+        graph_ms = (time.perf_counter() - t0) / n_run * 1e3
+        launches = dict(_build.launches)
+        peak_mb = (torch.cuda.max_memory_allocated() - alloc0) / 2**20
+        fp = check_fp(outs, fp_name, tag)
+        # the first run captured a graph of REPLAY_BLOCK steps and a one-step graph, each after a warm-up
+        # step; the second replayed them: each kernel of the path counted once a captured or warm-up step
+        sizes = sorted(set(replay.chunk_plan(n_run, 0)))
+        check_launches(launches, path, sum(sizes) + len(sizes), f"{tag} graph runs")
+
+        def on_call(n, a, k, path=path, tag=tag):
+            # the wrappers of these routes (chol_inv: K14, search: K2) share their launch counts' names
+            if n not in path:
+                fail(f"[3j] {tag}: the step called the kernel wrapper {n}")
+
+        n_ref, n_tr = MAXP_N_REF_ROUTES, MAXP_ROUTE_TRACED
+        t0 = time.perf_counter()
+        head, eager_launches, _st = run_main_path(slam, seq[:n_ref], mapping=True, on_call=on_call)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        check_launches(eager_launches, path, n_ref, f"{tag} eager loop")
+        if not outputs_identical(head, type(outs)(*(t_[:n_ref] for t_ in outs))):
+            fail(f"[3j] {tag}: the graph replay's first {n_ref} frames differ from the eager loop's")
+        cpu = MonoSLAM(cfg, max_features=16, device="cpu", precision=prec, **ov, **MAXP2)
+        tol = F64_TOL if prec == "f64" else STEP_TOL
+        d = against_cpu(outs, cpu.run_sequence(frames[1 : n_ref + 1], enable_mapping=True), tag, tol)
+        window_ms = timed_s(lambda: run(0, n_tr)) / n_tr * 1e3
+        prof, traced = traced_exactly(lambda: run(0, n_tr), n_tr, path,
+                                      f"[3j] {tag}: a traced graph run of {n_tr} steps")
+        busy = prof["device_ms"] / n_tr
+        r_ = dict(eager_ms=eager_s / n_ref * 1e3, eager_steps=n_ref, graph_ms=graph_ms, first_s=first_s, busy=busy,
+                  kernels=sum(c for _m, c in prof["by_name"].values()) / n_tr, graph_ms_window=window_ms,
+                  idle_graph=1.0 - busy / window_ms, traced_steps=n_tr, launches=traced, launches_steps=n_tr,
+                  peak_mb=peak_mb, fingerprint=fp, cpu_max_diff=d)
+        r_["idle_eager"] = 1.0 - busy / r_["eager_ms"]
+        res["routes"][tag] = r_
+        log(f"[3j] {tag}: fingerprint {json.dumps(fp)} equals {fp_name}.json through the graph replay (first call "
+            f"{first_s:.3f} s, captures included), launches counted there {json.dumps({k: v for k, v in launches.items() if v})}; "
+            f"its first {n_ref} frames equal the eager loop's bit for bit (launches "
+            f"{json.dumps({k: v for k, v in eager_launches.items() if v})}) and the CPU {prec} replay (max |dr|, |dxv| "
+            f"{d:.3g}, within {tol}); eager {r_['eager_ms']:.4f} ms a frame, graph {graph_ms:.4f} (the second "
+            f"run); a traced graph run of {n_tr} steps: busy {busy:.4f} ms a step, "
+            f"{r_['kernels']:.2f} device kernels a step, idle share {r_['idle_graph']:.4f} of the graph over those "
+            f"steps ({window_ms:.4f} ms a step untraced); peak "
+            f"{peak_mb:.1f} MiB")
+        del slam, cpu
+
+    # ---- (c) 64 lanes at MAXP 2 on every batch route
+    lanes_dir = lanes_cache_dir(cache_root(tmp))
+    lanes_by_prec = {}
+    default_fps = None
+    timed_b = {}
+    for route, (change, sb, prec, path) in MAXP_BATCH_ROUTES.items():
+        tag = f"batch64-maxp2 {route}"
+        if prec not in lanes_by_prec:
+            lanes_by_prec[prec] = make_lanes(lanes_dir, N_LANES, N_TEXTURES, N_BATCH_FRAMES, device=dev,
+                                             dtype=torch.float64 if prec == "f64" else torch.float32,
+                                             config="maxp2")
+        bparams, states0, bframes = lanes_by_prec[prec]
+        bseq = torch.as_tensor(bframes).to(dev)
+        T = bseq.shape[0]
+        rparams = dataclasses.replace(bparams, **change)
+        step = make_batched_step(rparams, device="cuda", batch_sb=sb, precision=prec)
+        if step.route != route or rparams.max_features_to_init_at_once != 2:
+            fail(f"[3j] {tag}: the batch step took the route {step.route!r}")
+        _run_batch_eager(step, states0, bseq[:2], True, rparams)     # warm-up
+        torch.cuda.synchronize()
+        cap, n_step = {}, [0]
+        # the wrapper each step of the route calls last (the XLA routes call none)
+        last = "search_bayes_maps" if "search_bayes_maps" in path else "bayes_update" if "bayes" in path else None
+
+        def keep(n, a, k, cap=cap, n_step=n_step, last=last):
+            if n_step[0] == MAXP_BATCH_AT and n in ("score_map", "particle_predict", "search_bayes_maps",
+                                                    "particle_search", "bayes_update"):
+                cap[n] = (clone_args(a), {x: v.clone() if isinstance(v, torch.Tensor) else v for x, v in k.items()})
+            if n == last:
+                n_step[0] += 1
+
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with observe_wrappers(keep):
+            bst_eager, bouts = _run_batch_eager(step, states0, bseq, True, rparams)
+        torch.cuda.synchronize()
+        beager_s = time.perf_counter() - t0
+        blaunches = dict(_build.launches)
+        fps = lane_fingerprints(bouts)
+
+        def check_batch(o, tag=tag):
+            got = lane_fingerprints(o)
+            bad = check_lanes(got[:N_MAXP_FILE_LANES], list(range(N_MAXP_FILE_LANES)), route=route, config="maxp2")
+            if bad:
+                fail(f"[3j] {tag}: {len(bad)} of lanes 0-{N_MAXP_FILE_LANES - 1} differ from "
+                     "expected_fingerprint_batch16_maxp2.json:\n" + "\n".join(bad[:6]))
+            if default_fps is not None:
+                diff = [b for b in range(N_LANES) if got[b] != default_fps[b]]
+                if diff:
+                    fail(f"[3j] {tag}: lanes {diff} differ from the default route's on the card")
+
+        check_batch(bouts)
+        check_launches(blaunches, path, T, f"{tag} eager loop")
+        if route == "default":
+            default_fps = fps
+        both = int(bouts.par_mask.all(-1).sum())
+        log(f"[3j] {tag}: lanes 0-{N_MAXP_FILE_LANES - 1} equal expected_fingerprint_batch16_maxp2.json"
+            f"{'' if route == 'default' else ', all 64 lanes equal the default route'} ({both} lane-steps search "
+            f"both slots; eager loop {beager_s:.2f} s); launches {json.dumps({k: v for k, v in blaunches.items() if v})}")
+        if route == "default":
+            c = cap
+            if not bool(c["search_bayes_maps"][0][5].all(-1).any()):
+                fail(f"[3j] {tag}: no lane searches both slots at step {MAXP_BATCH_AT}")
+            smc_b = score_map.ScoreMapConsts.from_params(rparams)
+            errs["K9"] = max(errs["K9"], check_k9(c["score_map"][0][0], c["score_map"][0][1], smc_b))
+            errs["K10"] = max(errs["K10"], check_k10(*c["particle_predict"][0]))
+            errs["K11"] = max(errs["K11"], check_k11(c["search_bayes_maps"][0]))
+            log(f"[3j] {tag}: K9, K10 and K11 equal their plain versions bit for bit at step {MAXP_BATCH_AT} "
+                f"({N_LANES} lanes x 2 slots)")
+        if route == "sb0":
+            a13 = cap["particle_search"][0]
+            a12, kw12 = cap["bayes_update"]
+            errs["K13"] = max(errs["K13"], check_k13(a13))
+            errs["K12"] = max(errs["K12"], check_k12(a12, kw12))
+            Bn, Fn, P = a13[3].shape
+            for short, key, sym, fk, fp_, cost in (
+                ("K13", "particle_search", "k13_kernel", lambda: particle_search.particle_search(*a13),
+                 lambda: particle_search.particle_search_plain(*a13), particle_search.bytes_and_flops(
+                     Bn, Fn, P, *particle_search.region_cells(a13[1], a13[2], a13[3], a13[4]))),
+                ("K12", "bayes", "k12_kernel", lambda: bayes.bayes_update(*a12, **kw12),
+                 lambda: bayes.bayes_update_plain(*(None if t is None else t.reshape(-1, *t.shape[2:])
+                                                    for t in a12[:12]), a12[12],
+                                                  pred_rows=kw12["pred_rows"].flatten(0, 1)),
+                 bayes.bytes_and_flops(Bn * Fn, P)),
+            ):
+                b_ms, b_by = bound([cost])
+                timed_b[short] = dict(ms=time_ms(fk, n=50, batches=3), plain_ms=time_ms(fp_, n=2, batches=3),
+                                      bound_ms=b_ms, bound_by=b_by, library_ms=None, key=key, sym=sym,
+                                      max_abs_err=errs[short])
+            log(f"[3j] {tag}: K13 and K12 equal their plain versions bit for bit at step {MAXP_BATCH_AT} "
+                f"({Bn} lanes x {Fn} slots)")
+        d = None
+        if route in MAXP_CPU_ROUTES:
+            idx = list(ROUTE_REF_LANES)
+            cpu_states = SlamState(*(t[idx].cpu() for t in states0))
+            _s, bref = run_batch(make_batched_step(rparams, device="cpu", batch_sb=sb, precision=prec), cpu_states,
+                                 bframes[:N_ROUTE_REF, idx], True, rparams)
+            d = against_cpu(bouts, bref, tag, F64_TOL if prec == "f64" else STEP_TOL, idx)
+            log(f"[3j] {tag}: lanes {idx} equal their CPU replay on frames 1..{N_ROUTE_REF} (max |dr|, |dxv| {d:.3g})")
+        no_sync(step, states0, bseq, N_SYNC_HYB, tag)
+        log(f"[3j] {tag}: {N_SYNC_HYB} steps ran with sync debug mode 'error'")
+        brun, brun_eager = batch_runs(step, states0, bseq, rparams)
+        gb = graph_cell("3j", tag, brun, brun_eager, step.graphs, T, path, (bouts, bst_eager), check_batch,
+                        trace_n=F64_TRACED_STEPS, eager_s=beager_s)
+        r_ = {k: v for k, v in gb.items() if k != "prof"}
+        r_.update(frames_per_s=N_LANES / gb["graph_ms"] * 1e3, frames_per_s_eager=N_LANES / gb["eager_ms"] * 1e3,
+                  cpu_max_diff=d, both_slot_lane_steps=both)
+        if route == "sb0":
+            for short, t_ in timed_b.items():
+                key, sym = t_.pop("key"), t_.pop("sym")
+                t_.update(device_ms=kernel_dev_ms(gb["prof"], sym), launches=gb["launches"][key],
+                          launches_steps=gb["launches_steps"], launches_captured=gb["captured"].get(key, 0))
+                log(f"[3j] {short} at F = 2 over {N_LANES} lanes (sb0 maxp2, step {MAXP_BATCH_AT}): {json.dumps(t_)}")
+        res["batch"][route] = r_
+        del step, gb
+    timed.update(timed_b)
+    res["timed"] = timed
+    res["errs"] = errs
+    res["seconds"] = time.time() - t_phase
+    log(f"[3j] phase 3j took {res['seconds']:.1f} s on {smi}")
+    return res
 
 
 def main() -> int:
@@ -3939,7 +4407,7 @@ def main() -> int:
                 ("mapping-on", True, (outs, state_on), "expected_fingerprint", SINGLE_PATH)):
             run, run_eager = single_runs(slam, seq, mapping)
             res = graph_cell("3", label, run, run_eager, slam._graphs, n_run, path, eager,
-                             lambda o, fp_name=fp_name: check_fingerprint(o, fp_name))
+                             lambda o, fp_name=fp_name: check_fingerprint(o, fp_name), trace_n=STD_TRACED_STEPS)
             res["ms_frame"] = res["graph_ms"]
             paths[label] = res
         launches = paths["mapping-on"]["launches"]
@@ -4184,7 +4652,7 @@ def main() -> int:
 
         run, run_eager = batch_runs(bstep, states0, bseq, bparams)
         g = graph_cell("3b", "batch64", run, run_eager, bstep.graphs, T, BATCH_PATH, (bouts, bst_eager),
-                       check_batch_fp)
+                       check_batch_fp, trace_n=BATCH_TRACED_STEPS)
         blaunches = g["launches"]
         batch = {k: v for k, v in g.items() if k != "prof"}
         batch.update(lanes=N_LANES, frames_per_lane=T, frames_per_s=N_LANES / g["graph_ms"] * 1e3,
@@ -4222,6 +4690,9 @@ def main() -> int:
 
         # ---- 3i. JAX's f64 parity mode (precision="f64"): parity and hybrid routes, batch, parity eval
         f64 = f64_phase(tmp, dev, frames, cfg, seq, smi)
+
+        # ---- 3j. two partial features at a time (max_features_to_init_at_once = 2): every route
+        maxp = maxp_phase(tmp, dev, frames, cfg, seq, smi)
 
     # ---- 4. kernel records ------------------------------------------------
     costs["K2"] = [search.bytes_and_flops(K, sc, admit) for admit, K in costs["K2"]]
@@ -4398,6 +4869,37 @@ def main() -> int:
             bound_by=t_["bound_by"], library_ms=None, device_ms=t_["device_ms"],
             path="seeded (phase 2c)", timed_on=t_["inputs"],
         ))
+    # phase 3j: the launches at MAXP 2 of every kernel of its paths (K4: none), and K9-K13 at F = 2
+    maxp_keys = {"K1 predict_measure": "predict_measure", "K2 search": "search", "K3 ekf_update": "ekf_update",
+                 "K4 search_bayes": "search_bayes", "K5 propose": "propose", "K6 shi_tomasi": "shi_tomasi",
+                 "K7 measure": "measure", "K9 score_map": "score_map", "K10 particle_predict": "particle_predict",
+                 "K11 search_bayes_maps": "search_bayes_maps", "K8 search_windows": "search_windows",
+                 "K12 bayes (7 + 8 rows)": "bayes", "K13 particle_search": "particle_search"}
+    maxp_runs = dict(maxp["cells"], **{f"batch64-maxp2 {r_}": v for r_, v in maxp["batch"].items()})
+    for rec in recs:
+        if rec["name"] in maxp_keys:
+            rec["launches_maxp2"] = {c: r_["launches"][maxp_keys[rec["name"]]] for c, r_ in maxp_runs.items()}
+            rec["launches_maxp2_steps"] = {c: r_["launches_steps"] for c, r_ in maxp_runs.items()}
+    for short, name, src, rep_, path in (
+        ("K9", "K9 score_map (std-maxp2, 1 lane x 2 slots)", "score_map.cu", "pallas_score_map.py:258 and :300",
+         "std-maxp2"),
+        ("K10", "K10 particle_predict (std-maxp2, 2 slots)", "particle_predict.cu", "pallas_particle.py:434",
+         "std-maxp2"),
+        ("K11", "K11 search_bayes_maps (std-maxp2, 2 slots)", "search_bayes.cu", "pallas_search_bayes.py:638",
+         "std-maxp2"),
+        ("K12", "K12 bayes (7 + 8 rows, sb0 maxp2, 64 x 2 rows)", "bayes.cu", "pallas_bayes.py:246",
+         "batch64-maxp2 sb0"),
+        ("K13", "K13 particle_search (sb0 maxp2, 64 x 2 slots)", "particle_search.cu",
+         "pallas_particle_search.py:206", "batch64-maxp2 sb0"),
+    ):
+        t_ = maxp["timed"][short]
+        recs.append(dict(
+            name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
+            replaces=f"scenelib2_tpu/kernels/{rep_}", launches=t_["launches"], launches_steps=t_["launches_steps"],
+            launches_captured=t_["launches_captured"], max_abs_err=t_["max_abs_err"], ms=t_["ms"],
+            plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"], bound_by=t_["bound_by"], library_ms=None,
+            device_ms=t_["device_ms"], path=path,
+        ))
     log(f"[4] empty-launch floor {empty_ms:.4f} ms; total {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     # every cell's graph replay beside its eager loop (ms a frame or a batch step)
@@ -4426,8 +4928,16 @@ def main() -> int:
             "frames_per_s", "frames_per_s_eager", "lanes_checked")},
         "batch64 k2-f64": f64["batch64 k2-f64"], "batch64 k8-f64": f64["batch64 k8-f64"],
         "parity_eval": f64["parity_eval"], "seconds": f64["seconds"]}, "card": smi}))
+    mkeys = xkeys + ("fingerprint", "cpu_max_diff")
+    print(json.dumps({"maxp2": {
+        **{c: {k: r_[k] for k in mkeys + ("go_one_step",)} for c, r_ in maxp["cells"].items()},
+        **maxp["routes"],
+        **{f"batch64-maxp2 {c}": {k: r_[k] for k in xkeys + ("frames_per_s", "frames_per_s_eager", "cpu_max_diff",
+                                                             "both_slot_lane_steps")}
+           for c, r_ in maxp["batch"].items()},
+        "errs": maxp["errs"], "seconds": maxp["seconds"]}, "card": smi}))
     print(json.dumps({"kernels": recs}))
-    summary = run_summary(cells, entry, xla, f64, smi, time.time() - t_start)
+    summary = run_summary(cells, entry, xla, f64, maxp, smi, time.time() - t_start)
     print(json.dumps({"summary": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

@@ -28,6 +28,14 @@ each texture is rendered at that calibration with the same seeds.
 scenelib2_torch/data/expected_fingerprint_batch_hires.json holds 16 such
 lanes (8 textures x 2 offsets, 39 frames a lane) from the JAX batch step on
 its default route (scripts/gen_batch64_fingerprint.py --config hires).
+
+config="maxp2" is the std lanes with max_features_to_init_at_once = 2 (two
+partial features at a time): scenelib2_torch/data/
+expected_fingerprint_batch16_maxp2.json holds lanes 0-15 of the 64-lane
+recipe from the JAX batch step on its default route
+(scripts/gen_batch64_fingerprint.py --maxp 2 --lanes 16). The runs with and
+without FMA differ in lane 9 only, on the same NSSD tie as the MAXP-1 file;
+the file keeps the run with FMA, which decides it as exact arithmetic does.
 """
 
 from __future__ import annotations
@@ -49,6 +57,8 @@ EXPECTED = "expected_fingerprint_batch64"
 CONFIGS = {
     "std": (None, dict(max_features=16), EXPECTED),
     "hires": (HIRES_PARAMS, HIRES_OVERRIDES, "expected_fingerprint_batch_hires"),
+    "maxp2": (None, dict(max_features=16, max_features_to_init_at_once=2),
+              "expected_fingerprint_batch16_maxp2"),
 }
 # configuration -> the committed lanes file of the f64 parity mode
 EXPECTED_F64 = {"std": "expected_fingerprint_batch64_f64"}
@@ -67,7 +77,8 @@ def make_lanes(out_dir: str, batch: int = 64, n_textures: int = 32, n_frames: in
     offsets = max(1, batch // n_textures)
     tex_frames, tex_cfgs = {}, {}
     for tex in sorted({lane % n_textures for lane in lanes}):
-        tdir = os.path.join(out_dir, f"b{config}t{tex}")
+        # the configurations on the std dataset share its rendered textures
+        tdir = os.path.join(out_dir, f"b{'std' if dataset is None else config}t{tex}")
         fpath, cfg_path = os.path.join(tdir, "frames.npy"), os.path.join(tdir, "synthetic.cfg")
         cached = os.path.exists(fpath) and os.path.exists(cfg_path)
         if cached and np.load(fpath, mmap_mode="r").shape[0] == n_frames + offsets:

@@ -51,8 +51,17 @@ NOT_PORTED = {
     "stress500packed": "ekf_predict_update_ms_500feat_packed3",
     "stress500f32": "ekf_predict_update_ms_500feat_f32",
 }
+# the ROADMAP.md Queue 1 item that the refusals below name, by title (a
+# title stays true when the queue is renumbered)
+ROADMAP_STRESS = "BASELINE config 5: the 500-feature EKF frame"
+
+
+def roadmap_item(title: str) -> str:
+    return f'ROADMAP.md Queue 1, "{title}"'
+
+
 NOT_PORTED_WHY = ("the EKF frame with the real measurement assembly (scenelib2_tpu/runtime/assembly.py) "
-                  "is not ported (ROADMAP.md Queue 1, \"BASELINE config 5: the 500-feature EKF frame\")")
+                  f"is not ported ({roadmap_item(ROADMAP_STRESS)})")
 
 
 def _sync(device) -> None:

@@ -25,6 +25,13 @@ core.ekf.predict, K7 (the chain and the top-k), K2, the dense update with
 S inverted by K14; stages 7-8 as above. MF > 128 is refused, as in the JAX
 fast step.
 
+With max_features_to_init_at_once (MAXP) above 1 stage 8 on either route
+is JAX heavy()'s non-fused arm (step.py:592-608, 916-918, 1017-1026,
+1120-1152): make_stage8, the batch default route's stage 8, on the state as
+one lane: K9's score maps of the MAXP partial patches, K10's particle rows,
+K11's search and Bayes update, then convert_feature for each slot in order
+and one delete_mask. K4 (JAX's fused_sb) runs at MAXP = 1 only.
+
 With use_pallas=False the single stream takes the JAX step's pure-XLA
 route at every D: the batch step's route "xla" on the state as one lane
 (make_step), which launches one kernel, K14, to invert S in stage 4
@@ -231,15 +238,6 @@ def unpack_outputs(flat: torch.Tensor, nsel: int, maxp: int = 1, npart: int = 0)
     )
 
 
-# the ROADMAP.md Queue 1 item that the refusals below name, by title (a
-# title stays true when the queue is renumbered)
-ROADMAP_MAXP = "Single-stream and batch MAXP > 1"
-
-
-def roadmap_item(title: str) -> str:
-    return f'ROADMAP.md Queue 1, "{title}"'
-
-
 # the JAX step's routes by state dimension D = 13 + 6 MF
 # (scenelib2_tpu/runtime/step.py:207-211, 430-432, 649-652)
 FUSED_MAX_D = 384      # K1 and K3 hold P as one zero-padded block of 384 x 384 at most
@@ -263,10 +261,11 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     above it the split route of make_split_stages on the state as one lane
     (K7, K2, K14). Stage 8 runs every frame up to D = 128 and, above, takes
     the results of JAX's `light` branch where no partial feature is
-    measurable. With use_pallas=False, the JAX step's pure-XLA route at
-    every D: make_batch_step's route "xla" on the state as one lane, with S
-    inverted by K14 (step.route "xla"). max_features above 128 is refused,
-    as the JAX fast step cannot run it.
+    measurable. Stage 8 is K4 at max_features_to_init_at_once = 1 and
+    make_stage8's K9, K10 and K11 above it. With use_pallas=False, the JAX
+    step's pure-XLA route at every D: make_batch_step's route "xla" on the
+    state as one lane, with S inverted by K14 (step.route "xla").
+    max_features above 128 is refused, as the JAX fast step cannot run it.
 
     In f64 the step is make_batch_step's f64 step on the state as one lane,
     at any max_features, with JAX's flag semantics: use_pallas=False is the
@@ -281,12 +280,6 @@ def make_step(params: Params, device=None, precision: str = "f32"):
         raise NotImplementedError(
             "batch_mode=True takes the batch route on states with a lane dimension: "
             "build the step with scenelib2_torch.parallel.mesh.make_batched_step"
-        )
-    if MAXP != 1:
-        raise NotImplementedError(
-            "max_features_to_init_at_once > 1 runs the batch-route particle kernels "
-            "(K9, K10, K11), which are ported; the single-stream step glue around them "
-            f"is not written yet ({roadmap_item(ROADMAP_MAXP)})"
         )
     if dtype == torch.float64:
         return _one_lane(_lane_step(params, device, dtype, "default" if params.use_pallas else "xla",
@@ -304,6 +297,9 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     fused = D <= FUSED_MAX_D
     heavy_always = D <= HEAVY_ALWAYS_MAX_D
     split = None if fused else make_split_stages(params, device, dtype, pallas_chol=True)
+    # MAXP > 1: JAX's heavy() takes its non-fused arm (step.py:592-608,
+    # 916-918), the batch default route's stage 8 on the state as one lane
+    stage8 = None if MAXP == 1 else make_stage8(params, device, dtype, "default", heavy_always)
     B = params.boxsize
     half = (B - 1) // 2
     W, H = params.cam_width, params.cam_height
@@ -388,26 +384,10 @@ def make_step(params: Params, device=None, precision: str = "f32"):
             h_sel=h_sel, S_sel=S_sel, z_sel=z_sel, found=found, over=over, pidx=pidx,
             pmask=pmask)
 
-    def step(state: SlamState, frame_u8: torch.Tensor,
-             enable_mapping: bool) -> tuple[SlamState, StepOutputs]:
-        prev_r = state.x[0:3]
-        if fused:
-            mid, sl = fused_stages(state, frame_u8)
-        else:
-            mid_b, sl_b = split(SlamState(*(t[None] for t in state)), frame_u8[None])
-            mid = SlamState(*(t[0] for t in mid_b))
-            sl = Selection(*(t[0] for t in sl_b))
-        n_visible, pidx, pmask = sl.n_visible, sl.pidx, sl.pmask
-
-        # ---- 7. speed gate + auto-initialisation (K5, K6) -----------------
-        vel = (mid.x[0:3] - prev_r) / dt_t
-        speed = torch.sqrt(torch.sum(vel * vel))
-        if enable_mapping:
-            mid, did_init, init_box = auto_init(mid, frame_u8, speed, n_visible)
-        else:
-            did_init, init_box = no_init, no_box
-
-        # ---- 8. partial-feature particles (K4) + conversion / kill --------
+    def particles_k4(mid: SlamState, frame_u8, pidx, pmask) -> tuple[SlamState, PartialMatch]:
+        """Stage 8 at MAXP = 1 (JAX's fused_sb, step.py:916-1119): K4 on the
+        one partial slot, then its conversion or kill. PartialMatch with a
+        lane dimension of one."""
         is_partial = mid.active & ~mid.full
         making_all = is_partial & (mid.match_attempts != 0)
         match_attempts = torch.where(is_partial, mid.match_attempts + 1, mid.match_attempts)
@@ -439,6 +419,37 @@ def make_step(params: Params, device=None, precision: str = "f32"):
         par_sinv = torch.stack(
             [pred[:, ROW_S00], pred[:, ROW_S01], pred[:, ROW_S01], pred[:, ROW_S11]], dim=-1
         ).reshape(MAXP, -1, 2, 2)
+        return mid, PartialMatch(did_convert=convert.any()[None],
+                                 n_over=n_over_p.sum().to(torch.int32)[None], par_h=par_h[None],
+                                 par_sinv=par_sinv[None], par_alive=searchable[None])
+
+    def step(state: SlamState, frame_u8: torch.Tensor,
+             enable_mapping: bool) -> tuple[SlamState, StepOutputs]:
+        prev_r = state.x[0:3]
+        if fused:
+            mid, sl = fused_stages(state, frame_u8)
+        else:
+            mid_b, sl_b = split(SlamState(*(t[None] for t in state)), frame_u8[None])
+            mid = SlamState(*(t[0] for t in mid_b))
+            sl = Selection(*(t[0] for t in sl_b))
+        n_visible, pidx, pmask = sl.n_visible, sl.pidx, sl.pmask
+
+        # ---- 7. speed gate + auto-initialisation (K5, K6) -----------------
+        vel = (mid.x[0:3] - prev_r) / dt_t
+        speed = torch.sqrt(torch.sum(vel * vel))
+        if enable_mapping:
+            mid, did_init, init_box = auto_init(mid, frame_u8, speed, n_visible)
+        else:
+            did_init, init_box = no_init, no_box
+
+        # ---- 8. partial-feature particles (K4, or K9 K10 K11) + surgery ---
+        if stage8 is None:
+            mid, pm = particles_k4(mid, frame_u8, pidx, pmask)
+        else:
+            mid_b, pm = stage8(SlamState(*(t[None] for t in mid)), frame_u8[None], pidx[None],
+                               pmask[None])
+            mid = SlamState(*(t[0] for t in mid_b))
+        pm = PartialMatch(*(t[0] for t in pm))
 
         out = StepOutputs(
             r=mid.x[0:3],
@@ -451,8 +462,8 @@ def make_step(params: Params, device=None, precision: str = "f32"):
             n_active=mid.active.sum().to(torch.int32),
             n_partial=(mid.active & ~mid.full).sum().to(torch.int32),
             did_init=did_init,
-            did_convert=convert.any(),
-            n_overflow=sl.over.sum().to(torch.int32) + n_over_p.sum().to(torch.int32),
+            did_convert=pm.did_convert,
+            n_overflow=sl.over.sum().to(torch.int32) + pm.n_over,
             sel_slot=sl.top_idx,
             sel_mask=sl.sel_mask,
             sel_h=sl.h_sel,
@@ -461,10 +472,10 @@ def make_step(params: Params, device=None, precision: str = "f32"):
             sel_matched=sl.found,
             init_box=init_box,
             par_slot=pidx,
-            par_mask=searchable.any(dim=1),
-            par_h=par_h,
-            par_sinv=par_sinv,
-            par_alive=searchable,
+            par_mask=pm.par_alive.any(dim=1),
+            par_h=pm.par_h,
+            par_sinv=pm.par_sinv,
+            par_alive=pm.par_alive,
         )
         return mid._replace(frame_no=mid.frame_no + 1), out
 
@@ -784,6 +795,127 @@ def kform_predict(cam: CameraParams, xp, Pxx7, ys6, pxy6, pyy6, lam):
     return hpi, sinv, dets
 
 
+class PartialMatch(NamedTuple):
+    """What stage 8 hands on to the outputs, with a lane dimension."""
+    did_convert: torch.Tensor  # [B] bool
+    n_over: torch.Tensor       # [B] i32 particle searches that hit the window cap
+    par_h: torch.Tensor        # [B, MAXP, NP, 2]
+    par_sinv: torch.Tensor     # [B, MAXP, NP, 2, 2]
+    par_alive: torch.Tensor    # [B, MAXP, NP] bool
+
+
+def make_stage8(params: Params, device, dtype, route: str, heavy_always: bool = False):
+    """Stage 8 on states with a lane dimension: stage8(mid_b, frames_b,
+    pidx [B, MAXP] i32, pmask [B, MAXP]) -> (mid_b', PartialMatch).
+
+    The JAX step's _match_partial_features on the compact partial-slot set
+    (scenelib2_tpu/runtime/step.py:891-1154, 1156-1311) at any MAXP, on
+    `route` (batch_route's names) in `dtype`: the whole-frame score maps of
+    the MAXP patches, the particle prediction, search and Bayes update (the
+    kernels of make_batch_step's table, or the XLA forms), prob and palive
+    scattered back at pidx, convert_feature for each slot j = 0, 1, ... in
+    order (the second reads the P the first wrote), then one delete_mask.
+
+    The JAX step's lax.cond(making_any, heavy, light) is a select per lane:
+    `light` leaves prob and palive alone, converts and kills nothing and
+    reports zero particle rows. heavy_always is the single stream's small
+    maps (D <= 128, step.py:649-656), where JAX runs `heavy` every frame."""
+    MF = params.max_features
+    NP = params.n_particles
+    MAXP = max(1, params.max_features_to_init_at_once)
+    f64 = dtype == torch.float64
+    plain_images = route in ("bp0", "xla") or f64
+    Bx = params.boxsize
+    W, H = params.cam_width, params.cam_height
+    cam = CameraParams.from_params(params)
+    smc = ScoreMapConsts.from_params(params)
+    sbc = SearchBayesConsts.from_params(params)
+    psc = ParticleSearchConsts.from_params(params)
+    kw = dict(device=device)
+    zero = torch.zeros((), dtype=dtype, **kw)
+    workspace: dict[int, torch.Tensor] = {}     # lanes -> the [B, MAXP, H, W] score maps
+
+    def particles(mid: SlamState, frames, p64, making, pmask, searchable, lam_c, prob_c, palive_c, ma_c):
+        """Stage 8's kernels on the partial slots' rows: (prob_f, palive_f,
+        mean, cov, convert, kill, n_over, hpi [B, F, NP, 2], sinv
+        [B, F, NP, 2, 2]) of the route."""
+        Bn = mid.x.shape[0]
+        ys6 = _lane_gather(st.slot_states(mid.x, MF), p64)
+        pxy6 = _lane_gather(st.slot_pxy(mid.P, MF), p64)
+        pyy6 = _lane_gather(st.slot_pyy(mid.P, MF), p64)
+        if plain_images:
+            corr_maps = correlate.score_maps(frames, _lane_gather(mid.patches, p64), Bx,
+                                             params.corr_sigma_thresh, params.low_sigma_penalty, dtype)
+            # f64: the reference-order chain; f32 (bp0, xla): the K-form
+            predict = slot_predict if f64 else kform_predict
+            hpi, sinv, dets = predict(cam, mid.x[:, None, :7], mid.P[:, None, :7, :7], ys6, pxy6,
+                                      pyy6, lam_c)
+            # the single stream's XLA route: in place of JAX's union-box search
+            # (bit-equal for the alive particles, correlate.py)
+            found, zu, zv, p_over = correlate.multi_ellipse_search_dense(
+                corr_maps, hpi, sinv, searchable, win_radius=params.particle_win_radius,
+                no_sigma=params.no_sigma, corr_thresh2=params.corr_thresh2)
+            z = torch.stack([zu, zv], dim=-1).to(dtype)
+            bayes = bayes_update_xla if route == "xla" or f64 else bayes_update
+            return (*bayes(prob_c, lam_c, palive_c, found, p_over, z, hpi, sinv, dets, making,
+                           pmask, ma_c, sbc.bayes), hpi, sinv)
+        if Bn not in workspace:
+            workspace[Bn] = torch.empty((Bn, MAXP, H, W), dtype=torch.float32, **kw)
+        corr_maps = score_map(frames, _lane_gather(mid.patch_rows, p64), smc, out=workspace[Bn])
+        shared, slot_rows = pack_rows_batch(mid.x[:, :7], mid.P[:, :7, :7], ys6, pxy6, pyy6)
+        pred = particle_predict(shared, slot_rows, lam_c, sbc.particle)
+        pr = pred[..., :NP]
+        hpi = torch.stack([pr[:, :, ROW_HU], pr[:, :, ROW_HV]], dim=-1)
+        sinv = torch.stack([pr[:, :, ROW_S00], pr[:, :, ROW_S01], pr[:, :, ROW_S01], pr[:, :, ROW_S11]],
+                           dim=-1).reshape(Bn, MAXP, NP, 2, 2)
+        if route == "sb0":
+            found, zu, zv, p_over = particle_search(corr_maps, hpi, sinv, searchable, psc)
+            z = torch.stack([zu, zv], dim=-1).to(dtype)
+            return (*bayes_update(prob_c, lam_c, palive_c, found, p_over, z, None, None, None, making,
+                                  pmask, ma_c, sbc.bayes, pred_rows=pred), hpi, sinv)
+        res = search_bayes_maps(corr_maps, pred, prob_c, lam_c, palive_c, making, pmask, ma_c, sbc)
+        return (*res[:7], hpi, sinv)
+
+    def stage8(mid: SlamState, frames, pidx, pmask) -> tuple[SlamState, PartialMatch]:
+        Bn = mid.x.shape[0]
+        p64 = pidx.long()
+        is_partial = mid.active & ~mid.full
+        making_all = is_partial & (mid.match_attempts != 0)
+        match_attempts = torch.where(is_partial, mid.match_attempts + 1, mid.match_attempts)
+        making = pmask & torch.gather(making_all, 1, p64)
+        lam_c = _lane_gather(mid.lam, p64)
+        prob_c = _lane_gather(mid.prob, p64)
+        palive_c = _lane_gather(mid.palive, p64)
+        searchable = palive_c & making[:, :, None]
+        (prob_f, palive_f, mean, cov, convert, kill_c, n_over_p, hpi, sinv) = particles(
+            mid, frames, p64, making, pmask, searchable, lam_c, prob_c, palive_c,
+            torch.gather(match_attempts, 1, p64))
+        if heavy_always:
+            heavy = torch.ones((Bn, 1), dtype=torch.bool, **kw)
+        else:
+            heavy = making_all.any(-1)[:, None]
+        convert = convert & heavy
+        kill_c = kill_c & pmask & heavy
+        h3 = heavy[:, :, None]
+        i3 = p64[:, :, None].expand(Bn, MAXP, NP)
+        mid = mid._replace(
+            prob=mid.prob.scatter(1, i3, torch.where(h3, prob_f, prob_c)),
+            palive=mid.palive.scatter(1, i3, torch.where(h3, palive_f, palive_c)),
+            match_attempts=match_attempts)
+        for j in range(MAXP):
+            mid = st.convert_feature(mid, pidx[:, j], mean[:, j], cov[:, j], convert[:, j])
+        kill_p = torch.zeros_like(mid.active).scatter(1, p64, kill_c) & mid.active & ~mid.full
+        mid = st.delete_mask(mid, kill_p)
+        return mid, PartialMatch(
+            did_convert=convert.any(-1),
+            n_over=torch.where(heavy, n_over_p, torch.zeros_like(n_over_p)).sum(-1).to(torch.int32),
+            par_h=torch.where(h3[..., None], hpi, zero),
+            par_sinv=torch.where(h3[..., None, None], sinv, zero),
+            par_alive=searchable & h3)
+
+    return stage8
+
+
 def make_batch_step(params: Params, device=None, precision: str = "f32",
                     batch_sb: bool | None = None):
     """Build step(states_b, frames_b, enable_mapping) -> (states_b', StepOutputs)
@@ -818,11 +950,13 @@ def make_batch_step(params: Params, device=None, precision: str = "f32",
            Bayes update                        (K11)    K12      K12      bayes_update_xla
            convert_feature + delete_mask over lanes
 
-    Every kernel is launched once a frame for all lanes, nothing loops over
-    lanes on the host, and the step makes no host synchronisation. Both
-    lax.cond gates of the JAX step are selects under vmap; here each gated
-    stage runs with its gate as data. enable_mapping is a host bool shared by
-    all lanes.
+    Stage 8 (make_stage8) takes the max_features_to_init_at_once partial
+    slots of every lane at once: the maps [B, MAXP, H, W], the rows
+    [B, MAXP, ...]. Every kernel is launched once a frame for all lanes,
+    nothing loops over lanes on the host, and the step makes no host
+    synchronisation. Both lax.cond gates of the JAX step are selects under
+    vmap; here each gated stage runs with its gate as data. enable_mapping
+    is a host bool shared by all lanes.
 
     precision="f64" is the JAX step with x64 on, where everything but
     stage 3 is the f64 XLA form whatever the flags (fast_kpath and
@@ -847,14 +981,7 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
     initialise_auto(states_b, frames_b) -> (states_b, did_init [B]): stage 7
     with no gate, JAX's _auto_initialise(..., want_init=True)."""
     MF = params.max_features
-    NP = params.n_particles
-    MAXP = max(1, params.max_features_to_init_at_once)
     f64 = dtype == torch.float64
-    if MAXP != 1:
-        raise NotImplementedError(
-            "the batch step is ported for max_features_to_init_at_once = 1 "
-            f"({roadmap_item(ROADMAP_MAXP)})"
-        )
     if MF > MAX_FEATURES and not f64:
         raise NotImplementedError(f"the batch kernels hold MF <= {MAX_FEATURES}, as the JAX fast step does")
     # the routes whose images run as tensor ops (JAX's XLA forms): in f64
@@ -868,19 +995,15 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
     sep = params.feature_separation_min
     dtN = params.init_steps_to_predict * params.delta_t
     cam = CameraParams.from_params(params)
-    smc = ScoreMapConsts.from_params(params)
-    sbc = SearchBayesConsts.from_params(params)
-    psc = ParticleSearchConsts.from_params(params)
     kw = dict(device=device)
     lane_try = torch.arange(tries, **kw)
     patch_offs = torch.arange(Bx, **kw)
     dt_t = torch.tensor(params.delta_t, dtype=dtype, **kw)
     lam0 = torch.as_tensor(st.lambda_grid(params), dtype=dtype, device=device)
-    zero = torch.zeros((), dtype=dtype, **kw)
     u_zero = torch.zeros(3, dtype=dtype, **kw)
     st_kw = dict(dtype=dtype) if f64 else {}
     stages_1_to_6 = make_split_stages(params, device, dtype, pallas_chol, route)
-    workspace: dict[int, torch.Tensor] = {}     # lanes -> the [B, MAXP, H, W] score maps
+    stage8 = make_stage8(params, device, dtype, route)
 
     def auto_init(mid: SlamState, frames, speed, n_visible, force: bool = False):
         """Stage 7 over lanes: the region proposal chain, the Shi-Tomasi pick
@@ -964,47 +1087,6 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
                                torch.zeros_like(region_us)[:, None])
         return mid, did_init, init_box
 
-    def particles(mid: SlamState, frames, p64, making, pmask, searchable, lam_c, prob_c, palive_c, ma_c):
-        """Stage 8's kernels on the partial slots' rows: (prob_f, palive_f,
-        mean, cov, convert, kill, n_over, hpi [B, F, NP, 2], sinv
-        [B, F, NP, 2, 2]) of the route."""
-        Bn = mid.x.shape[0]
-        ys6 = _lane_gather(st.slot_states(mid.x, MF), p64)
-        pxy6 = _lane_gather(st.slot_pxy(mid.P, MF), p64)
-        pyy6 = _lane_gather(st.slot_pyy(mid.P, MF), p64)
-        if plain_images:
-            corr_maps = correlate.score_maps(frames, _lane_gather(mid.patches, p64), Bx,
-                                             params.corr_sigma_thresh, params.low_sigma_penalty, dtype)
-            # f64: the reference-order chain; f32 (bp0, xla): the K-form
-            predict = slot_predict if f64 else kform_predict
-            hpi, sinv, dets = predict(cam, mid.x[:, None, :7], mid.P[:, None, :7, :7], ys6, pxy6,
-                                      pyy6, lam_c)
-            # the single stream's XLA route: in place of JAX's union-box search
-            # (bit-equal for the alive particles, correlate.py)
-            found, zu, zv, p_over = correlate.multi_ellipse_search_dense(
-                corr_maps, hpi, sinv, searchable, win_radius=params.particle_win_radius,
-                no_sigma=params.no_sigma, corr_thresh2=params.corr_thresh2)
-            z = torch.stack([zu, zv], dim=-1).to(dtype)
-            bayes = bayes_update_xla if route == "xla" or f64 else bayes_update
-            return (*bayes(prob_c, lam_c, palive_c, found, p_over, z, hpi, sinv, dets, making,
-                           pmask, ma_c, sbc.bayes), hpi, sinv)
-        if Bn not in workspace:
-            workspace[Bn] = torch.empty((Bn, MAXP, H, W), dtype=torch.float32, **kw)
-        corr_maps = score_map(frames, _lane_gather(mid.patch_rows, p64), smc, out=workspace[Bn])
-        shared, slot_rows = pack_rows_batch(mid.x[:, :7], mid.P[:, :7, :7], ys6, pxy6, pyy6)
-        pred = particle_predict(shared, slot_rows, lam_c, sbc.particle)
-        pr = pred[..., :NP]
-        hpi = torch.stack([pr[:, :, ROW_HU], pr[:, :, ROW_HV]], dim=-1)
-        sinv = torch.stack([pr[:, :, ROW_S00], pr[:, :, ROW_S01], pr[:, :, ROW_S01], pr[:, :, ROW_S11]],
-                           dim=-1).reshape(Bn, MAXP, NP, 2, 2)
-        if route == "sb0":
-            found, zu, zv, p_over = particle_search(corr_maps, hpi, sinv, searchable, psc)
-            z = torch.stack([zu, zv], dim=-1).to(dtype)
-            return (*bayes_update(prob_c, lam_c, palive_c, found, p_over, z, None, None, None, making,
-                                  pmask, ma_c, sbc.bayes, pred_rows=pred), hpi, sinv)
-        res = search_bayes_maps(corr_maps, pred, prob_c, lam_c, palive_c, making, pmask, ma_c, sbc)
-        return (*res[:7], hpi, sinv)
-
     def step(state: SlamState, frames: torch.Tensor,
              enable_mapping: bool) -> tuple[SlamState, StepOutputs]:
         if not st.has_lanes(state) or frames.dim() != 3 or frames.shape[0] != state.x.shape[0]:
@@ -1015,7 +1097,6 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
         # ---- 1-6. predict, measure + select, search, update + bookkeeping ---
         mid, sl = stages_1_to_6(state, frames)
         n_visible, pidx, pmask = sl.n_visible, sl.pidx, sl.pmask
-        p64 = pidx.long()
 
         # ---- 7. speed gate + auto-initialisation ----------------------------
         vel = (mid.x[:, 0:3] - prev_r) / dt_t
@@ -1027,35 +1108,7 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
             init_box = torch.zeros((Bn, 2), dtype=torch.int32, **kw)
 
         # ---- 8. partial-feature particles (route's kernels) + surgery ---------
-        is_partial = mid.active & ~mid.full
-        making_all = is_partial & (mid.match_attempts != 0)
-        # the JAX step's cond(making_any, heavy, light) is a select per lane
-        making_any = making_all.any(-1)
-        match_attempts = torch.where(is_partial, mid.match_attempts + 1, mid.match_attempts)
-        making = pmask & torch.gather(making_all, 1, p64)
-        lam_c = _lane_gather(mid.lam, p64)
-        prob_c = _lane_gather(mid.prob, p64)
-        palive_c = _lane_gather(mid.palive, p64)
-        searchable = palive_c & making[:, :, None]
-        (prob_f, palive_f, mean, cov, convert, kill_c, n_over_p, hpi, sinv) = particles(
-            mid, frames, p64, making, pmask, searchable, lam_c, prob_c, palive_c,
-            torch.gather(match_attempts, 1, p64))
-        heavy = making_any[:, None]
-        convert = convert & heavy
-        kill_c = kill_c & pmask & heavy
-        h3 = heavy[:, :, None]
-        i3 = p64[:, :, None].expand(Bn, MAXP, NP)
-        mid = mid._replace(
-            prob=mid.prob.scatter(1, i3, torch.where(h3, prob_f, prob_c)),
-            palive=mid.palive.scatter(1, i3, torch.where(h3, palive_f, palive_c)),
-            match_attempts=match_attempts)
-        for j in range(MAXP):
-            mid = st.convert_feature(mid, pidx[:, j], mean[:, j], cov[:, j], convert[:, j])
-        kill_p = torch.zeros_like(mid.active).scatter(1, p64, kill_c) & mid.active & ~mid.full
-        mid = st.delete_mask(mid, kill_p)
-        searchable = searchable & h3
-        par_h = torch.where(h3[..., None], hpi, zero)
-        par_sinv = torch.where(h3[..., None, None], sinv, zero)
+        mid, pm = stage8(mid, frames, pidx, pmask)
 
         out = StepOutputs(
             r=mid.x[:, 0:3],
@@ -1068,9 +1121,8 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
             n_active=mid.active.sum(-1).to(torch.int32),
             n_partial=(mid.active & ~mid.full).sum(-1).to(torch.int32),
             did_init=did_init,
-            did_convert=convert.any(-1),
-            n_overflow=(sl.over.sum(-1).to(torch.int32)
-                        + torch.where(heavy, n_over_p, torch.zeros_like(n_over_p)).sum(-1).to(torch.int32)),
+            did_convert=pm.did_convert,
+            n_overflow=sl.over.sum(-1).to(torch.int32) + pm.n_over,
             sel_slot=sl.top_idx,
             sel_mask=sl.sel_mask,
             sel_h=sl.h_sel,
@@ -1079,10 +1131,10 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
             sel_matched=sl.found,
             init_box=init_box,
             par_slot=pidx,
-            par_mask=searchable.any(dim=-1),
-            par_h=par_h,
-            par_sinv=par_sinv,
-            par_alive=searchable,
+            par_mask=pm.par_alive.any(dim=-1),
+            par_h=pm.par_h,
+            par_sinv=pm.par_sinv,
+            par_alive=pm.par_alive,
         )
         return mid._replace(frame_no=mid.frame_no + 1), out
 

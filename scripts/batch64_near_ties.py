@@ -19,6 +19,13 @@ lane-frame, evaluated the same way:
 
   lane 4, output index 26: K6's discriminant, as for lane 59 above.
 
+The 16 lanes at max_features_to_init_at_once = 2 (config "maxp2", lanes 0-15
+of the 64-lane recipe, scenelib2_torch/data/
+expected_fingerprint_batch16_maxp2.json) have one:
+
+  lane 9, output index 49: the NSSD tie of the std lanes above, reached at
+    MAXP 2 too.
+
     python scripts/batch64_near_ties.py
 """
 
@@ -39,7 +46,8 @@ from scenelib2_torch.parallel.mesh import make_batched_step  # noqa: E402
 
 
 # configuration -> the make_lanes arguments of its committed replay
-REPLAYS = {"std": dict(batch=64, n_textures=32, n_frames=64), "hires": dict(batch=16, n_textures=8, n_frames=40)}
+REPLAYS = {"std": dict(batch=64, n_textures=32, n_frames=64), "hires": dict(batch=16, n_textures=8, n_frames=40),
+           "maxp2": dict(batch=64, n_textures=32, n_frames=64)}
 
 
 def replay_to(lane: int, index: int, wrapper: str, tmp: str, config: str = "std"):
@@ -96,10 +104,14 @@ def k6_tie(tmp: str, lane: int = 59, index: int = 39, config: str = "std") -> No
           f"{'NaN' if unfused < 0 else 'real'} without")
 
 
-def k2_tie(lane: int, index: int, pick: int, tmp: str) -> None:
-    params, seen, out = replay_to(lane, index, "search", tmp)
+def k2_tie(lane: int, index: int, pick: int | None, tmp: str, config: str = "std") -> None:
+    """pick None: the selected feature whose NSSD lies nearest the threshold."""
+    params, seen, out = replay_to(lane, index, "search", tmp, config)
     frames, rows = seen["args"][0], seen["args"][1]
     found, u, v, best, _over = seen["out"]
+    if pick is None:
+        gap = (best[0] - params.corr_thresh2).abs().masked_fill(~out.sel_mask[0], float("inf"))
+        pick = int(torch.argmin(gap))
     uu, vv = int(u[0, pick]), int(v[0, pick])
     half = (params.boxsize - 1) // 2
     win = frames[0].numpy().astype(np.float64)[vv - half : vv + half + 1, uu - half : uu + half + 1]
@@ -107,7 +119,7 @@ def k2_tie(lane: int, index: int, pick: int, tmp: str) -> None:
     p0 = (patch - patch.mean()) / patch.std()
     p1 = (win - win.mean()) / win.std()
     exact = float(((p0 - p1) ** 2).mean())
-    print(f"lane {lane}, output index {index}, pick {pick} (slot {int(out.sel_slot[0, pick])}) at "
+    print(f"{config} lane {lane}, output index {index}, pick {pick} (slot {int(out.sel_slot[0, pick])}) at "
           f"(u, v) = ({uu}, {vv}): NSSD f32 {float(best[0, pick])!r}, exact {exact!r}, "
           f"threshold {params.corr_thresh2}; found {bool(found[0, pick])}")
 
@@ -119,6 +131,7 @@ def main() -> None:
         k2_tie(41, 48, 4, tmp)
         k2_tie(9, 49, 1, tmp)
         k6_tie(tmp, 4, 26, "hires")
+        k2_tie(9, 49, None, tmp, "maxp2")
 
 
 if __name__ == "__main__":

@@ -72,6 +72,20 @@ made by the same two runs (with and without FMA) and merged the same way:
     python scripts/gen_batch64_fingerprint.py --merge hires_default.json hires_nofma.json \
         --take <the lanes where the two differ, if any> \
         --out scenelib2_torch/data/expected_fingerprint_batch_hires.json
+
+--maxp N sets max_features_to_init_at_once = N on every lane, and --lanes N
+steps only the first N lanes of the recipe (each keeps its texture, offset
+and seed, so the file's lane i is the 64-lane recipe's lane i). The MAXP-2
+file is lanes 0-15 of bench_batch64 on the default route, made by the same
+two runs (~16 min each) and merged the same way:
+
+    SCENELIB2_X64=0 JAX_PLATFORMS=cpu python scripts/gen_batch64_fingerprint.py --maxp 2 \
+        --lanes 16 --out maxp2_default.json
+    XLA_FLAGS=--xla_cpu_max_isa=AVX SCENELIB2_X64=0 JAX_PLATFORMS=cpu \
+        python scripts/gen_batch64_fingerprint.py --maxp 2 --lanes 16 --out maxp2_nofma.json
+    python scripts/gen_batch64_fingerprint.py --merge maxp2_default.json maxp2_nofma.json \
+        --take <the lanes where the two differ, if any> \
+        --out scenelib2_torch/data/expected_fingerprint_batch16_maxp2.json
 """
 
 from __future__ import annotations
@@ -101,11 +115,14 @@ CONFIGS = {
 }
 
 
-def lanes(batch: int, n_textures: int, n_frames: int, route: str = "default", config: str = "std"):
+def lanes(batch: int, n_textures: int, n_frames: int, route: str = "default", config: str = "std",
+          maxp: int = 1, n_lanes: int = 0):
     """(params, stacked JAX states, frames [T, B, H, W] u8) of bench_batch64
     on the JAX batch route `route` (ROUTES) at the configuration `config`
-    (CONFIGS). "sb0" sets SCENELIB2_BATCH_SB=0 in this process; the JAX step
-    reads it when it is traced."""
+    (CONFIGS) with max_features_to_init_at_once = maxp; n_lanes > 0 keeps
+    only the first n_lanes lanes of the `batch`. "sb0" sets
+    SCENELIB2_BATCH_SB=0 in this process; the JAX step reads it when it is
+    traced."""
     if route not in ROUTES:
         raise ValueError(f"route {route!r} is not one of {ROUTES}")
     if route == "sb0":
@@ -121,8 +138,9 @@ def lanes(batch: int, n_textures: int, n_frames: int, route: str = "default", co
 
     dataset, overrides = CONFIGS[config]
     offsets = max(1, batch // n_textures)
+    n_lanes = n_lanes or batch
     lane_frames, lane_cfgs = [], []
-    for tex in range(n_textures):
+    for tex in range(min(n_textures, n_lanes)):
         fr, cfg_path, _ = _dataset(n_frames + offsets, seed=7 + tex,
                                    params=None if dataset is None else Params(**dataset),
                                    tag=f"b64t{tex}" if config == "std" else f"b{config}t{tex}")
@@ -130,11 +148,11 @@ def lanes(batch: int, n_textures: int, n_frames: int, route: str = "default", co
         lane_frames.append(fr)
     params = dataclasses.replace(
         lane_cfgs[0].params, **overrides, use_pallas=route != "xla", batch_mode=True,
-        batch_pallas=route not in ("bp0", "xla"),
+        batch_pallas=route not in ("bp0", "xla"), max_features_to_init_at_once=maxp,
     )
     states = []
-    fb = np.empty((batch, n_frames - 1) + lane_frames[0].shape[1:], np.uint8)
-    for lane in range(batch):
+    fb = np.empty((n_lanes, n_frames - 1) + lane_frames[0].shape[1:], np.uint8)
+    for lane in range(n_lanes):
         tex, off = lane % n_textures, lane // n_textures
         lcfg = lane_cfgs[tex]
         s = st.init_state(params, lcfg.xv0, lcfg.pxx0)
@@ -144,7 +162,7 @@ def lanes(batch: int, n_textures: int, n_frames: int, route: str = "default", co
         fb[lane] = lane_frames[tex][1 + off : n_frames + off]
     states = jax.tree_util.tree_map(lambda *a: jnp.stack(a), *states)
     states = states._replace(
-        rng=jnp.asarray(np.stack([pack_state(srand48(i)) for i in range(batch)]))
+        rng=jnp.asarray(np.stack([pack_state(srand48(i)) for i in range(n_lanes)]))
     )
     return params, states, jnp.swapaxes(jnp.asarray(fb, jnp.uint8), 0, 1)
 
@@ -156,7 +174,7 @@ def merge(base_path: str, other_path: str, take: list[int], out: str) -> None:
     with open(other_path) as f:
         other = json.load(f)
     for k in ("dataset_version", "batch", "n_textures", "n_frames", "max_features", "route", "config",
-              "precision"):
+              "precision", "max_features_to_init_at_once"):
         if doc.get(k, "default") != other.get(k, "default"):
             raise SystemExit(f"the two files differ in {k}")
     differing = [i for i, (a, b) in enumerate(zip(doc["lanes"], other["lanes"])) if a != b]
@@ -184,6 +202,8 @@ def main() -> None:
                     help="f64: the parity mode, x64 on (leave SCENELIB2_X64 unset)")
     ap.add_argument("--lanes-per-run", type=int, default=0,
                     help="step the lanes this many at a time (0: all at once)")
+    ap.add_argument("--maxp", type=int, default=1, help="max_features_to_init_at_once")
+    ap.add_argument("--lanes", type=int, default=0, help="step only the first N lanes (0: all)")
     ap.add_argument("--dump", default=None)
     a = ap.parse_args()
     if a.merge:
@@ -201,22 +221,23 @@ def main() -> None:
     if x64 != (a.precision == "f64"):
         raise SystemExit("--precision f64 needs x64 on (leave SCENELIB2_X64 unset)" if not x64 else
                          "needs fast (f32) mode: run with SCENELIB2_X64=0, or pass --precision f64")
-    params, states, fb = lanes(a.batch, a.textures, a.frames, a.route, a.config)
+    params, states, fb = lanes(a.batch, a.textures, a.frames, a.route, a.config, a.maxp, a.lanes)
     vstep = jax.jit(jax.vmap(step_mod.make_step(params), in_axes=(0, 0, None)))
-    n = a.lanes_per_run or a.batch
+    n_lanes = a.lanes or a.batch
+    n = a.lanes_per_run or n_lanes
     chunks = []
-    for lo in range(0, a.batch, n):
+    for lo in range(0, n_lanes, n):
         st_c = jax.tree_util.tree_map(lambda x: x[lo : lo + n], states)
         per_frame = []
         for t in range(fb.shape[0]):
             st_c, o = vstep(st_c, fb[t, lo : lo + n], True)
             per_frame.append(jax.tree_util.tree_map(np.asarray, o))
         chunks.append(jax.tree_util.tree_map(lambda *xs: np.stack(xs), *per_frame))
-        print(f"lanes {lo}..{min(lo + n, a.batch) - 1} stepped", flush=True)
+        print(f"lanes {lo}..{min(lo + n, n_lanes) - 1} stepped", flush=True)
     outs = jax.tree_util.tree_map(lambda *xs: np.concatenate(xs, axis=1), *chunks)   # [T, B, ...]
     T = fb.shape[0]
     fps = []
-    for lane in range(a.batch):
+    for lane in range(n_lanes):
         lane_outs = jax.tree_util.tree_map(lambda x: x[:, lane], outs)
         fps.append(decisions_fingerprint(lane_outs, T))
     doc = dict(
@@ -227,6 +248,8 @@ def main() -> None:
         doc["route"] = a.route
     if a.precision != "f32":
         doc["precision"] = a.precision
+    if a.maxp != 1:
+        doc["max_features_to_init_at_once"] = a.maxp
     if a.config != "std":
         doc["config"] = a.config
         doc["n_particles"] = params.n_particles
@@ -235,7 +258,7 @@ def main() -> None:
         f.write("\n")
     distinct = len({fp["decisions_sha256"] for fp in fps})
     ends = sorted({fp["active_end"] for fp in fps})
-    print(f"wrote {a.out}: {a.batch} lanes x {T} frames, {distinct} distinct histories, "
+    print(f"wrote {a.out}: {n_lanes} lanes x {T} frames, {distinct} distinct histories, "
           f"active_end in {ends}")
     if a.dump:
         fields = DECISION_FIELDS + ("sel_slot", "sel_mask", "sel_matched", "init_box",

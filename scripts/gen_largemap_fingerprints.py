@@ -26,6 +26,20 @@ JAX package, in fast (f32) mode on the CPU with interpret-mode kernels:
   f64_k2  the same with use_pallas=True: the f64 step with the NSSD search
           kernel (pallas_elliptical_search_fused) in stage 3 and everything
           else in f64 XLA; 239 frames replayed.
+  std     the selftest's configuration, MonoSLAM(cfg, max_features=16)
+          (its file at MAXP 1 is data/expected_fingerprint.json, which
+          the JAX package's selftest keeps); 239 frames replayed.
+
+--maxp N runs each configuration with max_features_to_init_at_once = N
+(MonoSLAM's override) and writes expected_fingerprint_maxpN_<name>.json,
+or expected_fingerprint_maxpN.json for std. At N > 1 the JAX step takes
+stage 8's non-fused arm: whole-frame score maps, the particle predict
+kernel and the search + Bayes kernel in compact mode. The MAXP-2 files:
+
+    SCENELIB2_X64=0 JAX_PLATFORMS=cpu python scripts/gen_largemap_fingerprints.py \
+        --maxp 2 --configs std autoinit mf100 xla --out-dir scenelib2_torch/data
+    JAX_PLATFORMS=cpu python scripts/gen_largemap_fingerprints.py \
+        --maxp 2 --configs f64 f64_k2 --out-dir scenelib2_torch/data
 
 Each runs MonoSLAM(cfg, ..., use_pallas=True unless the configuration says
 otherwise).run_sequence(frames[1:], enable_mapping=True) and hashes the
@@ -81,12 +95,20 @@ CONFIGS = {
     "xla": (240, None, dict(max_features=16, use_pallas=False)),
     "f64": (240, None, dict(max_features=16, use_pallas=False)),
     "f64_k2": (240, None, dict(max_features=16, use_pallas=True)),
+    "std": (240, None, dict(max_features=16)),
 }
 # the configurations that run in the f64 parity mode (x64 on)
 F64_CONFIGS = ("f64", "f64_k2")
 
 
-def run(name: str, dump_dir: str | None) -> dict:
+def file_name(name: str, maxp: int) -> str:
+    """The reference file's name (without .json) of a configuration at MAXP maxp."""
+    if maxp == 1:
+        return "expected_fingerprint" if name == "std" else f"expected_fingerprint_{name}"
+    return f"expected_fingerprint_maxp{maxp}" + ("" if name == "std" else f"_{name}")
+
+
+def run(name: str, dump_dir: str | None, maxp: int = 1) -> dict:
     import jax
 
     from scenelib2_tpu.config import Params
@@ -100,7 +122,7 @@ def run(name: str, dump_dir: str | None) -> dict:
         frames, cfg, _ = _dataset(n_frames)
     else:
         frames, cfg, _ = _dataset(n_frames, params=Params(**dataset_params), tag="hires")
-    slam = MonoSLAM(cfg, **{"use_pallas": True, **overrides})
+    slam = MonoSLAM(cfg, **{"use_pallas": True, **overrides, "max_features_to_init_at_once": maxp})
     t0 = time.time()
     outs = slam.run_sequence(frames[1:], enable_mapping=True)
     outs = jax.tree_util.tree_map(np.asarray, outs)
@@ -110,7 +132,7 @@ def run(name: str, dump_dir: str | None) -> dict:
     print(f"{name}: {T} frames in {time.time() - t0:.1f} s (compile included): {fp}")
     if dump_dir:
         os.makedirs(dump_dir, exist_ok=True)
-        np.savez_compressed(os.path.join(dump_dir, f"{name}.npz"), **outs._asdict())
+        np.savez_compressed(os.path.join(dump_dir, f"{file_name(name, maxp)}.npz"), **outs._asdict())
     return fp
 
 
@@ -120,6 +142,7 @@ def main() -> None:
     ap.add_argument("--configs", nargs="*", default=None, choices=list(CONFIGS),
                     help="default: every configuration of this process's precision")
     ap.add_argument("--dump", default=None, metavar="DIR")
+    ap.add_argument("--maxp", type=int, default=1, help="max_features_to_init_at_once")
     a = ap.parse_args()
 
     import jax.numpy as jnp
@@ -128,7 +151,7 @@ def main() -> None:
 
     x64 = jnp.zeros(()).dtype == jnp.float64
     if a.configs is None:
-        a.configs = [n for n in CONFIGS if (n in F64_CONFIGS) == x64]
+        a.configs = [n for n in CONFIGS if (n in F64_CONFIGS) == x64 and (n != "std" or a.maxp > 1)]
     for name in a.configs:
         if (name in F64_CONFIGS) != x64:
             need = "x64 on: leave SCENELIB2_X64 unset" if name in F64_CONFIGS else \
@@ -136,8 +159,8 @@ def main() -> None:
             raise SystemExit(f"{name} needs {need}")
     os.makedirs(a.out_dir, exist_ok=True)
     for name in a.configs:
-        fp = run(name, a.dump)
-        path = os.path.join(a.out_dir, f"expected_fingerprint_{name}.json")
+        fp = run(name, a.dump, a.maxp)
+        path = os.path.join(a.out_dir, f"{file_name(name, a.maxp)}.json")
         with open(path, "w") as f:
             json.dump(fp, f, indent=1, sort_keys=True)
             f.write("\n")

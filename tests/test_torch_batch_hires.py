@@ -77,7 +77,7 @@ def test_xla_route_refusal_names_the_kernel_that_route_launches(monkeypatch):
     inverts S with K14 (ekf.joint_update(..., pallas_chol=not batch_mode)),
     once a step; its batch form launches no kernel (the unrolled
     factorisation). f64 builds (JAX's hybrid route with the default
-    use_pallas=True); MAXP > 1 stays refused by title."""
+    use_pallas=True); MAXP > 1 builds on the fused route."""
     calls = []
     real = ekf.chol_inv
     monkeypatch.setattr(ekf, "chol_inv", lambda S: calls.append(tuple(S.shape)) or real(S))
@@ -94,5 +94,5 @@ def test_xla_route_refusal_names_the_kernel_that_route_launches(monkeypatch):
     bstep(type(state)(*(t[None] for t in state)), frame[None], True)
     assert len(calls) == 1
     assert make_step(Params(), device="cpu", precision="f64").route == "k2-f64"
-    with pytest.raises(NotImplementedError, match='"Single-stream and batch MAXP > 1"'):
-        make_step(dataclasses.replace(Params(), max_features_to_init_at_once=2), device="cpu")
+    assert make_step(dataclasses.replace(Params(), max_features_to_init_at_once=2),
+                     device="cpu").route == "fused"

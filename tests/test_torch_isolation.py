@@ -216,9 +216,9 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, data_dir):
 
 def test_unported_batch_routes_are_refused():
     """batch_mode belongs to the batch step (reached through parallel.mesh);
-    what is not ported is refused, not run some other way: a partial
-    capacity above one and a single-stream state given to the batch step.
-    Every batch route itself builds, the JAX step's pure-XLA route
+    what is not ported is refused, not run some other way: a single-stream
+    state given to the batch step. Every batch route itself builds, at a
+    partial capacity of one and of two, the JAX step's pure-XLA route
     (use_pallas=False) on every builder as route "xla", whatever
     batch_pallas says, and f64 on the hybrid routes ("k2-f64", "k8-f64")."""
     import dataclasses
@@ -231,8 +231,8 @@ def test_unported_batch_routes_are_refused():
     assert make_batched_step(dataclasses.replace(p, use_pallas=False, batch_pallas=False),
                              device="cpu").route == "xla"
     for kw in (dict(), dict(batch_pallas=False)):
-        with pytest.raises(NotImplementedError):
-            make_batch_step(dataclasses.replace(p, max_features_to_init_at_once=2, **kw), device="cpu")
+        assert make_batch_step(dataclasses.replace(p, max_features_to_init_at_once=2, **kw),
+                               device="cpu").route == ("bp0" if kw else "default")
         assert make_batch_step(dataclasses.replace(p, **kw), device="cpu", precision="f64").route == (
             "k8-f64" if kw else "k2-f64")
     for kw, sb in ((dict(), None), (dict(), False), (dict(batch_pallas=False), None)):

@@ -16,10 +16,9 @@ import torch
 from scenelib2_torch import MonoSLAM
 from scenelib2_torch.config import Params, load_config
 from scenelib2_torch.core import ekf
+from scenelib2_torch.eval.benchmark import ALL_BENCHES, ROADMAP_STRESS, roadmap_item
 from scenelib2_torch.parallel.mesh import make_batched_step
-from scenelib2_torch.runtime import step as step_mod
 from scenelib2_torch.runtime.step import (
-    ROADMAP_MAXP,
     make_batch_step,
     make_step,
 )
@@ -28,10 +27,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 P = Params()
 REFUSALS = {
-    "maxp single stream": (ROADMAP_MAXP, lambda: make_step(
-        dataclasses.replace(P, max_features_to_init_at_once=2), device="cpu")),
-    "maxp batch": (ROADMAP_MAXP, lambda: make_batch_step(
-        dataclasses.replace(P, max_features_to_init_at_once=2), device="cpu")),
+    "stress500 bench": (ROADMAP_STRESS, lambda: ALL_BENCHES["stress500"](device="cpu")),
+    "ekf100 bench": (ROADMAP_STRESS, lambda: ALL_BENCHES["ekf100"](device="cpu")),
 }
 
 
@@ -40,11 +37,11 @@ def test_refusal_names_its_roadmap_item_by_title(case):
     title, build = REFUSALS[case]
     with pytest.raises(NotImplementedError) as e:
         build()
-    assert step_mod.roadmap_item(title) in str(e.value)
+    assert roadmap_item(title) in str(e.value)
     assert not re.search(r"item \d", str(e.value)), str(e.value)
 
 
-@pytest.mark.parametrize("title", [ROADMAP_MAXP])
+@pytest.mark.parametrize("title", [ROADMAP_STRESS])
 def test_each_title_heads_an_item_of_the_roadmap(title):
     with open(os.path.join(REPO, "ROADMAP.md")) as f:
         text = f.read()

@@ -111,17 +111,18 @@ def test_cpu_replay_with_mapping_reproduces_expected_fingerprint(std_sequence):
 
 
 def test_unported_modes_are_refused_and_nomap_never_inits(std_sequence, monkeypatch):
-    """Mapping runs now; what is still refused is a partial-feature
-    capacity above one (its kernels K9-K11 are ported with the batch step;
-    the single-stream glue around them is not written). The f64 step
-    builds: with the default use_pallas=True it is JAX's hybrid route.
+    """Mapping runs now, and so does a partial-feature capacity above one
+    (the single stream then runs the batch default route's stage 8, K9,
+    K10 and K11, on its state as one lane): the facade builds it on the
+    fused route. The f64 step builds: with the default use_pallas=True it
+    is JAX's hybrid route.
     Mapping off never initialises and never runs stage 7 (K5, K6); its
     whole replay is held to the nomap fingerprint by
     test_cpu_replay_reproduces_expected_fingerprint."""
     frames, cfg = std_sequence
     assert make_step(MonoSLAM(cfg, device="cpu").params, device="cpu", precision="f64").route == "k2-f64"
-    with pytest.raises(NotImplementedError, match="batch"):
-        MonoSLAM(cfg, device="cpu", max_features_to_init_at_once=2)
+    slam2 = MonoSLAM(cfg, device="cpu", max_features_to_init_at_once=2)
+    assert slam2._step.route == "fused" and slam2.params.max_features_to_init_at_once == 2
 
     def stage7(*a, **k):
         raise AssertionError("stage 7 ran with mapping off")

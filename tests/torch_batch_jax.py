@@ -10,7 +10,9 @@ None))) in fast (f32) mode, or with precision="f64" in its f64 parity mode
 x64), its Pallas kernels in interpret mode. The lanes are the bench_batch64
 recipe: scene textures x 2 one-frame phase offsets, each lane with its own
 known-feature patches and its own random stream srand48(lane),
-max_features 16 (60 at hires), mapping on.
+max_features 16 (60 at hires), mapping on; config "maxp2" is the std lanes
+with max_features_to_init_at_once = 2 (scripts/gen_batch64_fingerprint.py
+--maxp 2 on the JAX side).
 
 Both sides start from the same stacked state (the JAX lanes go through
 convert.state_from_jax; the port's own eval.batch.make_lanes must build the
@@ -67,7 +69,9 @@ from scenelib2_tpu.runtime import step as step_mod
 out_dir, batch, textures, n, route, config = (sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]),
                                               sys.argv[6], sys.argv[7])
 assert (jnp.zeros(()).dtype == jnp.float64) == (sys.argv[8] == 'f64')
-params, states, fb = lanes(batch, textures, n + 1, route, config)
+config, maxp = ('std', 2) if config == 'maxp2' else (config, 1)
+params, states, fb = lanes(batch, textures, n + 1, route, config, maxp)
+assert params.max_features_to_init_at_once == maxp
 assert params.batch_mode and params.use_pallas == (route != 'xla')
 assert params.batch_pallas == (route not in ('bp0', 'xla'))
 np.savez(os.path.join(out_dir, 'jax_state0.npz'),
@@ -139,6 +143,7 @@ def assert_port_equals_jax(want, state0, tmp_path, n_lanes: int, n_textures: int
     for k, v in state_to_numpy(own).items():
         np.testing.assert_array_equal(v, state_to_numpy(states)[k], err_msg=k)
     assert params.batch_mode and params.max_features == CONFIGS[config][1]["max_features"]
+    assert params.max_features_to_init_at_once == CONFIGS[config][1].get("max_features_to_init_at_once", 1)
 
     if route == "bp0":
         params = dataclasses.replace(params, batch_pallas=False)
