@@ -100,9 +100,11 @@ Phases (any failure exits non-zero before the last line is printed):
     max_features 60 (D = 373, the fused route), search radius 48, particle
     radius 52, 200 particles; 3d. mf100: the std sequence with
     max_features 100 (D = 613, the split route: K7, K2, K14 and the dense
-    update). Each: its committed fingerprint with every kernel of its path
-    launched once a frame and none other, the path's kernels against their
-    plain versions on inputs captured at a few frames of that replay (K14
+    update). Each: its committed fingerprint through the graph replay, with
+    every kernel of its path launched once a frame and none other, the
+    eager loop up to the last captured frame (held to the replay's rows),
+    the path's kernels against their plain versions on inputs captured at a
+    few frames of that eager loop (K14
     also on seeded SPD matrices in phase 2; K2 with 107 x 107 windows and
     K4 with 200 particles at hires), the CPU plain replay of its first 20
     frames, 30 steps under sync debug mode "error", ms/frame, a traced
@@ -160,13 +162,13 @@ Phases (any failure exits non-zero before the last line is printed):
     3b rendered).
  3h. JAX's pure-XLA route in f32 (use_pallas=False; xla_route_phase): the
     std-mapping sequence through MonoSLAM(cfg, max_features=16,
-    use_pallas=False) by the eager loop, by run_sequence's graph replay and
-    by go_one_step one call a frame, each reproducing
-    expected_fingerprint_xla.json, rows and final state bit for bit across
-    the three, K14 launched exactly once a frame (counted in the eager loop
-    and from traces of the graph replay and of go_one_step) and no other
-    kernel, K14 bit for bit with its plain version on every S of the
-    replay, the CPU plain replay of the first frames, sync debug mode
+    use_pallas=False) by run_sequence's graph replay, reproducing
+    expected_fingerprint_xla.json, and over its first EAGER_PREFIX frames by
+    the eager loop and by go_one_step one call a frame, rows and state bit
+    for bit across the three, K14 launched exactly once a frame (counted in
+    the eager loop and from traces of the graph replay and of go_one_step)
+    and no other kernel, K14 bit for bit with its plain version on every S
+    of the eager loop, the CPU plain replay of the first frames, sync debug mode
     "error"; then the batch route "xla" on the 64 lanes of 3b, every lane's
     fingerprint equal to its committed file with no kernel launched, through
     the eager loop and graph_cell; ms a frame eager and graph, busy, kernels
@@ -175,9 +177,11 @@ Phases (any failure exits non-zero before the last line is printed):
  3i. JAX's f64 parity mode (precision="f64"; f64_phase): (a) the parity
     route, MonoSLAM(cfg, max_features=16, precision="f64",
     use_pallas=False), and (b) JAX's hybrid route, use_pallas=True (K2 in
-    an f64 step), each by the eager loop, run_sequence's graph replay and
-    go_one_step: expected_fingerprint_f64.json / _f64_k2.json, rows and
-    final state bit for bit across the three, no kernel at all on the
+    an f64 step), each by run_sequence's graph replay
+    (expected_fingerprint_f64.json / _f64_k2.json) and over its first
+    frames by the eager loop (EAGER_PREFIX; the hybrid route's up to the
+    last frame of F64_AT) and go_one_step (EAGER_PREFIX), rows and state
+    bit for bit across the three, no kernel at all on the
     parity route and K2 alone once a frame on the hybrid one (eager counts
     and traces), K2 bit for bit with its plain version on three captured
     frames, the CPU f64 replay of the first frames (decisions equal, r and
@@ -193,10 +197,10 @@ Phases (any failure exits non-zero before the last line is printed):
     line.
  3j. two partial features at a time (max_features_to_init_at_once = 2;
     maxp_phase): (a) std-maxp2, autoinit-maxp2 (max_features 24) and
-    mf100-maxp2 (the split route) by the eager loop, run_sequence's graph
-    replay and go_one_step one call a frame: each reproduces
-    expected_fingerprint_maxp2{,_autoinit,_mf100}.json, rows and final
-    state bit for bit across the three, the path's kernels (K9, K10 and K11
+    mf100-maxp2 (the split route) by run_sequence's graph replay, which
+    reproduces expected_fingerprint_maxp2{,_autoinit,_mf100}.json, and over
+    its first EAGER_PREFIX frames by the eager loop and go_one_step one call
+    a frame, rows and state bit for bit across the three, the path's kernels (K9, K10 and K11
     on both partial slots, never K4) once a frame in the eager loop and in
     the traces; K9, K10 and K11 bit for bit with their plain versions on two
     frames that search both slots and one that searches none; the CPU
@@ -206,11 +210,25 @@ Phases (any failure exits non-zero before the last line is printed):
     with the eager loop and the CPU replay (f64: r and xv within F64_TOL);
     (c)
     the 64 lanes at MAXP 2 on "default", "sb0", "bp0", "xla" and
-    "xla-f64" through the eager loop and graph_cell: lanes 0-15 equal
+    "xla-f64" through the eager loop (16 steps) and graph_cell: lanes 0-15 equal
     expected_fingerprint_batch16_maxp2.json, every route's 64 lanes equal
     the default route's, each route's kernels once a step, K9-K11 and K12,
     K13 bit for bit with their plain versions on a captured step; a
     `maxp2` JSON line.
+ 3k. the large-map EKF frame (ekf_frames_phase): each of the five EKF
+    benches' frames (stress500 f64 / packed / f32 at 500 features, ekf100
+    f64 / f32) from _make_map_state: 3 eager frames on the card under sync
+    debug mode "error" against the CPU frame (top_idx equal, x and P within
+    the JAX package's f64 bars, f32 within 1e-5 / 1e-4 of the largest
+    entry), the one-frame graph's replays bit for bit with them, the bench's
+    ms/step through the graph, busy and device kernels a frame from a trace,
+    peak memory, no counted kernel launched (K1-K16: none on this path); on
+    a one-rank NCCL process group, the sharded stress frame on a (1, 1)
+    mesh at D = 3013 against the unsharded frame (3 frames, top_idx equal,
+    P rtol 1e-7) and through its graph, sharded_predict, _joint_update and
+    _slam_frame at D = 3013 against core.ekf's compositions, and run_batch
+    over a (1,) lane mesh equal to run_batch bit for bit; an `ekf_frames`
+    JSON line.
  4. a `graph_replay` JSON line (every cell: eager and graph ms a frame or
     step, span, busy, idle shares, peak memory, capture seconds), an
     `entry_points` JSON line (phase 3g's ms a call and frames/s), a
@@ -251,8 +269,8 @@ PEAK_F32 = 67e12
 
 N_LANES, N_TEXTURES, N_BATCH_FRAMES = 64, 32, 64    # the batch replay: 63 frames a lane
 BATCH_AT = (9, 20, 40)     # output indices whose kernel inputs are captured
-BATCH_TRACED_STEPS = 16    # batch64's traced graph window (~2,800 device kernels a step)
-STD_TRACED_STEPS = 64      # std-nomap's and std-mapping's traced graph windows
+BATCH_TRACED_STEPS = 8     # batch64's traced graph window (~2,800 device kernels a step)
+STD_TRACED_STEPS = 16      # std-nomap's and std-mapping's traced graph windows
 N_REF_BATCH, REF_LANES = 10, (0, 1, 32, 33)
 STEP_TOL = 1e-4   # CUDA vs CPU plain replay: r, xv
 N_REF = 30        # CPU plain replay frames (4 inits, 2 conversions)
@@ -283,6 +301,13 @@ def nvidia_smi_line() -> str:
 
 
 # ------------------------------------------------------------ comparisons
+
+
+def on_cpu(args) -> tuple:
+    """args with every tensor copied to the CPU: the bound's data-dependent
+    work counts (search_bayes.work_counts, work_counts_maps) take thousands
+    of tiny ops a step, each a launch and a wait on the card."""
+    return tuple(t.cpu() if isinstance(t, torch.Tensor) else t for t in args)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1147,7 +1172,7 @@ ROUTE_PATH = {
     "sb0": ("SCENELIB2_BATCH_SB=0", ("measure", "search", "shi_tomasi", "score_map", "particle_predict",
                                      "particle_search", "bayes")),
 }
-ROUTE_TRACED_STEPS = 8       # the profiler costs ~0.7 ms per traced device kernel
+ROUTE_TRACED_STEPS = 4       # the profiler costs ~0.7 ms per traced device kernel
 ROUTE_REF_LANES, N_ROUTE_REF = (0, 32), 10
 K12_NAMES = ("prob", "palive", "mean", "cov", "convert", "kill", "n_over")
 
@@ -1960,14 +1985,15 @@ LARGE_MAPS = {
     "mf100": dict(n_frames=240, at=(9, 20, 120)),      # the first init, the first conversion, later
 }
 N_REF_LARGE = 20   # CPU plain replay frames of each large-map path
-N_TRACE_LARGE = 16  # frames of the traced window (the profiler's own bookkeeping grows with events)
+N_TRACE_LARGE = 8  # frames of the traced window (the profiler's own bookkeeping grows with events)
 
 
 def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
     """Phases 3c (hires) and 3d (mf100): the replay through
     MonoSLAM(device="cuda").run_sequence against its committed fingerprint
-    with its launch counts, the kernels of its path against their plain
-    versions on inputs captured from that replay, the CPU plain replay of
+    with its launch counts, the eager loop up to the last frame of
+    spec["at"], the kernels of its path against their plain versions on
+    inputs captured from that loop, the CPU plain replay of
     its first frames, steps under sync debug mode "error", and its times."""
     from scenelib2_torch import MonoSLAM
     from scenelib2_torch.config import Params
@@ -2011,25 +2037,32 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
             seen.setdefault(frame[0], {})[n] = (a, k)
         calls.setdefault(n, []).append((a, k))
 
-    outs, launches, state_eager = run_main_path(slam, seq, mapping=True, on_call=keep)
+    # the eager loop runs the frames up to the last captured one; the graph
+    # replay (graph_cell) runs them all and holds the fingerprint
+    n_eager = min(n_run, max(spec["at"]) + 1)
+    t0 = time.perf_counter()
+    outs, launches, state_eager = run_main_path(slam, seq[:n_eager], mapping=True, on_call=keep)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
     want = load_expected(f"expected_fingerprint_{name}")
+    fps = []
 
     def check_fp(o):
         fp_ = decisions_fingerprint(o, n_run)
-        log(f"[{tag}] fingerprint ({name}): {json.dumps(fp_)}")
+        log(f"[{tag}] fingerprint ({name}, graph replay): {json.dumps(fp_)}")
         for k in ("n_frames", "matched_sum", "inits", "convs", "active_end", "decisions_sha256"):
             if fp_[k] != want[k]:
                 fail(f"{name} field {k}: got {fp_[k]}, expected {want[k]}")
-        return fp_
+        fps.append(fp_)
 
-    fp = check_fp(outs)
     for n in _build.KERNELS:
-        if launches.get(n, 0) != (n_run if n in path else 0):
+        if launches.get(n, 0) != (n_eager if n in path else 0):
             fail(f"kernel {n} launched {launches.get(n, 0)} times on the {name} path, expected "
-                 f"{n_run if n in path else 0}")
-    log(f"[{tag}] launches on the {name} path (eager loop): {json.dumps(launches)}")
+                 f"{n_eager if n in path else 0}")
+    log(f"[{tag}] launches on the {name} path (eager loop, frames 1..{n_eager}, {eager_s:.2f} s): "
+        f"{json.dumps(launches)}")
     r = outs.r.numpy()
-    if r.shape != (n_run, 3) or not np.isfinite(r).all():
+    if r.shape != (n_eager, 3) or not np.isfinite(r).all():
         fail(f"{name} trajectory not finite/shaped: {r.shape}")
 
     # the path's kernels against their plain versions on the captured inputs
@@ -2095,7 +2128,8 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
     # the graph replay against the eager loop; times, busy, idle, peak memory
     run, run_eager = single_runs(slam, seq, True)
     g = graph_cell(tag, name, run, run_eager, slam._graphs, n_run, path, (outs, state_eager), check_fp,
-                   trace_n=min(N_TRACE_LARGE, n_run))
+                   trace_n=min(N_TRACE_LARGE, n_run), eager_s=eager_s, eager_n=n_eager)
+    fp = fps[0]
     launches = g["launches"]
     prof = g["prof"]
     res = dict(g, ms_frame=g["graph_ms"])
@@ -2123,7 +2157,7 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
         costs["K2"].append(search.bytes_and_flops(a[2].numel(), sc, admit))
     for a, _k in calls["search_bayes"]:
         MF, NP = a[1].shape
-        costs["K4"].append(search_bayes.bytes_and_flops(MF, NP, H, W, B, *search_bayes.work_counts(*a)))
+        costs["K4"].append(search_bayes.bytes_and_flops(MF, NP, H, W, B, *search_bayes.work_counts(*on_cpu(a))))
     library = {}
     if D <= 384:
         a1, kw1 = c["predict_measure"]
@@ -2179,7 +2213,7 @@ def bound(costs_list):
 N_HIRES_LANES, N_HIRES_TEXTURES, N_HIRES_FRAMES = 16, 8, 40
 HIRES_AT = (9, 20)                     # output indices whose kernel inputs are checked and timed
 HIRES_REF_LANES, N_HIRES_REF = (0, 4), 10
-HIRES_TRACED_STEPS = 8
+HIRES_TRACED_STEPS = 4
 
 
 def batch_hires_phase(tmp: str, dev, rng) -> dict:
@@ -2294,7 +2328,7 @@ def batch_hires_phase(tmp: str, dev, rng) -> dict:
         fail(f"[3f] trajectories not finite/shaped: {rb.shape}")
     for pr_, al_, mk_ in k11_args:
         costs["K11"].append(search_bayes.bytes_and_flops_maps(
-            Bn, 1, p.n_particles, *search_bayes.work_counts_maps(pr_, al_, mk_, sbc)))
+            Bn, 1, p.n_particles, *search_bayes.work_counts_maps(*on_cpu((pr_, al_, mk_)), sbc)))
 
     # reference on a small input: two lanes replayed by the CPU plain versions
     idx = list(HIRES_REF_LANES)
@@ -2745,9 +2779,13 @@ def entry_points_phase(tmp: str, dev, frames, gt_r, gt_q, cfg: str, outs_eager, 
 # ------------------------------------------------------------ 3h: the pure-XLA route (use_pallas=False)
 
 XLA_PATH = ("chol_inv",)   # the single stream's pure-XLA route launches K14 alone; its batch form none
-XLA_TRACED_STEPS = 8       # ~4,000 device kernels a step: the profiler's bookkeeping grows with events
+XLA_TRACED_STEPS = 4       # ~4,000 device kernels a step: the profiler's bookkeeping grows with events
 XLA_GO_TRACED = 3          # go_one_step calls in the traced window of (c)
 XLA_AT = 20                # the output index whose S times K14 and its plain version
+# frames of the single stream's second and third passes (the counted eager loop, go_one_step) where a
+# full pass takes tens of seconds: held to the graph replay's rows on the same frames, which hold the
+# fingerprint over every frame
+EAGER_PREFIX = 40
 
 
 def xla_route_phase(tmp: str, dev, frames, cfg: str, seq, bparams, states0, bseq, bframes, smi: str) -> dict:
@@ -2802,21 +2840,20 @@ def xla_route_phase(tmp: str, dev, frames, cfg: str, seq, bparams, states0, bseq
             fail(f"[3h] the pure-XLA step called the kernel wrapper {n}")
         S_all.append(a[0].clone())
 
+    n_eager = EAGER_PREFIX
     t0 = time.perf_counter()
-    outs, launches, state_eager = run_main_path(slam, seq, mapping=True, on_call=keep)
+    outs, launches, state_eager = run_main_path(slam, seq[:n_eager], mapping=True, on_call=keep)
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
-    fp = check_fp(outs)
     for n in _build.KERNELS:
-        if launches.get(n, 0) != (n_run if n in XLA_PATH else 0):
+        if launches.get(n, 0) != (n_eager if n in XLA_PATH else 0):
             fail(f"[3h] kernel {n} launched {launches.get(n, 0)} times on the pure-XLA route, expected "
-                 f"{n_run if n in XLA_PATH else 0}")
+                 f"{n_eager if n in XLA_PATH else 0}")
     r = outs.r.numpy()
-    if r.shape != (n_run, 3) or not np.isfinite(r).all():
+    if r.shape != (n_eager, 3) or not np.isfinite(r).all():
         fail(f"[3h] trajectory not finite/shaped: {r.shape}")
-    log(f"[3h] std-mapping, use_pallas=False (route xla): fingerprint {json.dumps(fp)} equals "
-        f"expected_fingerprint_xla.json; launches (eager loop, {eager_s:.2f} s): "
-        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    log(f"[3h] std-mapping, use_pallas=False (route xla): launches (eager loop, frames 1..{n_eager}, "
+        f"{eager_s:.2f} s): {json.dumps({k: v for k, v in launches.items() if v})}")
     S = torch.cat(S_all)
     k14_err = max(check_k14(S), check_k14(S_all[XLA_AT]))
     log(f"[3h] K14 equals its plain version bit for bit on all {S.shape[0]} S of the replay "
@@ -2851,26 +2888,29 @@ def xla_route_phase(tmp: str, dev, frames, cfg: str, seq, bparams, states0, bseq
 
     # ---- (b) run_sequence's graph replay
     run, run_eager = single_runs(slam, seq, True)
+    fps = []
     g = graph_cell("3h", "std-mapping xla", run, run_eager, slam._graphs, n_run, XLA_PATH,
-                   (outs, state_eager), check_fp, trace_n=XLA_TRACED_STEPS, eager_s=eager_s)
+                   (outs, state_eager), lambda o: fps.append(check_fp(o)), trace_n=XLA_TRACED_STEPS,
+                   eager_s=eager_s, eager_n=n_eager)
+    fp = fps[0]
+    log(f"[3h] std-mapping xla: the graph replay's fingerprint {json.dumps(fp)} equals expected_fingerprint_xla.json")
     res["std"] = {k: v for k, v in g.items() if k != "prof"}
 
-    # ---- (c) go_one_step, one call a frame through the one-step graph
+    # ---- (c) go_one_step, one call a frame through the one-step graph, on the eager loop's frames
     slam.reset()
-    rows, ms = go_calls(slam, frames, n_run, True, graph=True)
+    rows, ms = go_calls(slam, frames, n_eager, True, graph=True)
     torch.cuda.synchronize()
     if not same_bits_or_nan(rows.cpu(), pack_outputs(outs)):
         fail("[3h] go_one_step through the graph: packed rows differ from the eager loop's")
     if not outputs_identical(slam.state, state_eager):
         fail("[3h] go_one_step through the graph: final state differs from the eager loop's")
-    check_fp(unpack_rows(rows, slam.params), "go_one_step")
     _prof, go_launches = traced_exactly(lambda: traced_go_calls(slam, frames),
                                         XLA_GO_TRACED, XLA_PATH, f"[3h] {XLA_GO_TRACED} go_one_step calls")
-    res["go_one_step"] = dict(graph_ms_call=statistics.median(ms[1:]), first_call_ms=ms[0], calls=n_run,
+    res["go_one_step"] = dict(graph_ms_call=statistics.median(ms[1:]), first_call_ms=ms[0], calls=n_eager,
                               traced_calls=XLA_GO_TRACED, launches=go_launches)
-    log(f"[3h] go_one_step through the one-step graph, {n_run} calls: fingerprint, every packed row and the "
-        f"final state bit for bit with the eager loop; {statistics.median(ms[1:]):.4f} ms a call (median of "
-        f"calls 2..{n_run}; first {ms[0]:.1f} ms); a trace of {XLA_GO_TRACED} calls launched "
+    log(f"[3h] go_one_step through the one-step graph, {n_eager} calls: every packed row and the state "
+        f"bit for bit with the eager loop (held to the graph replay above); {statistics.median(ms[1:]):.4f} ms "
+        f"a call (median of calls 2..{n_eager}; first {ms[0]:.1f} ms); a trace of {XLA_GO_TRACED} calls launched "
         f"{json.dumps({k: v for k, v in go_launches.items() if v})}")
 
     # ---- (d) the batch route "xla" on batch64's lanes
@@ -2954,7 +2994,7 @@ F64_AT = (9, 20, 120)     # output indices whose K2 inputs the hybrid route's re
 N_HYB, HYB_AT = 16, 9     # hybrid batch routes: eager steps over the 64 lanes, the captured step
 N_SYNC_HYB = 4            # hybrid batch steps under sync debug mode "error"
 PARITY_FRAMES = 24        # run_parity_eval's frames at tests/test_parity.py's 160x120 configuration
-F64_TRACED_STEPS = 4      # ~5,000 device kernels a step: the profiler's post-processing grows with events
+F64_TRACED_STEPS = 2      # ~5,000 device kernels a step: the profiler's post-processing grows with events
 PARITY_PARAMS = dict(cam_width=160, cam_height=120, cam_fku=98.0, cam_fkv=98.0, cam_u0=80.0, cam_v0=60.0,
                      max_features=10, n_particles=24, n_features_to_select=6, n_features_to_keep_visible=6,
                      min_particles=4, erase_partial_after_attempts=8)
@@ -3061,19 +3101,20 @@ def f64_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
                 seen[n_call[0]] = tuple(t_.clone() if isinstance(t_, torch.Tensor) else t_ for t_ in a)
             n_call[0] += 1
 
+        # the eager loop up to the last frame whose K2 inputs are captured (xla-f64: EAGER_PREFIX)
+        n_eager = max(EAGER_PREFIX, max(F64_AT) + 1) if route == "k2-f64" else EAGER_PREFIX
         t0 = time.perf_counter()
-        outs, launches, state_eager = run_main_path(slam, seq, mapping=True, on_call=on_call)
+        outs, launches, state_eager = run_main_path(slam, seq[:n_eager], mapping=True, on_call=on_call)
         torch.cuda.synchronize()
         eager_s = time.perf_counter() - t0
-        fp = check_fp(outs, fp_name, tag)
         for n in _build.KERNELS:
-            if launches.get(n, 0) != (n_run if n in path else 0):
+            if launches.get(n, 0) != (n_eager if n in path else 0):
                 fail(f"[3i] {tag}: kernel {n} launched {launches.get(n, 0)} times in the eager loop, expected "
-                     f"{n_run if n in path else 0}")
+                     f"{n_eager if n in path else 0}")
         if outs.r.dtype != torch.float64 or not torch.isfinite(outs.r).all():
             fail(f"[3i] {tag}: the trajectory is not finite f64")
-        log(f"[3i] {tag}: fingerprint {json.dumps(fp)} equals {fp_name}.json; launches (eager loop, "
-            f"{eager_s:.2f} s): {json.dumps({k: v for k, v in launches.items() if v})}")
+        log(f"[3i] {tag}: launches (eager loop, frames 1..{n_eager}, {eager_s:.2f} s): "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
         if route == "k2-f64":
             if sorted(seen) != list(F64_AT):
                 fail(f"[3i] {tag}: K2 was called {n_call[0]} times; inputs captured at {sorted(seen)}")
@@ -3091,31 +3132,34 @@ def f64_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
         log(f"[3i] {tag}: {N_REF} steps ran with torch.cuda.set_sync_debug_mode('error')")
 
         run, run_eager = single_runs(slam, seq, True)
+        fps = []
         g = graph_cell("3i", tag, run, run_eager, slam._graphs, n_run, path, (outs, state_eager),
-                       lambda o, fp_name=fp_name, tag=tag: check_fp(o, fp_name, tag), trace_n=F64_TRACED_STEPS,
-                       eager_s=eager_s)
+                       lambda o, fp_name=fp_name, tag=tag: fps.append(check_fp(o, fp_name, tag)),
+                       trace_n=F64_TRACED_STEPS, eager_s=eager_s, eager_n=n_eager)
+        fp = fps[0]
+        log(f"[3i] {tag}: the graph replay's fingerprint {json.dumps(fp)} equals {fp_name}.json")
         cell = {k: v for k, v in g.items() if k != "prof"}
         if route == "k2-f64":
             cell["k2_device_ms"] = kernel_dev_ms(g["prof"], "k2_")
         slam.reset()
-        rows, ms = go_calls(slam, frames, n_run, True, graph=True)
+        n_go = EAGER_PREFIX
+        rows, ms = go_calls(slam, frames, n_go, True, graph=True)
         torch.cuda.synchronize()
-        if not same_bits_or_nan(rows.cpu(), pack_outputs(outs)):
+        if not same_bits_or_nan(rows.cpu(), pack_outputs(outs)[:n_go]):
             fail(f"[3i] {tag}: go_one_step through the graph: packed rows differ from the eager loop's")
-        if not outputs_identical(slam.state, state_eager):
-            fail(f"[3i] {tag}: go_one_step through the graph: final state differs from the eager loop's")
-        check_fp(unpack_rows(rows, slam.params), fp_name, f"{tag} go_one_step")
+        if not outputs_identical(slam.state, state_eager if n_go == n_eager else run(0, n_go)[1]):
+            fail(f"[3i] {tag}: go_one_step through the graph: the state differs from the graph replay's")
         _prof, go_launches = traced_exactly(
             lambda: traced_go_calls(slam, frames), XLA_GO_TRACED, path,
             f"[3i] {tag}: {XLA_GO_TRACED} go_one_step calls")
-        cell["go_one_step"] = dict(graph_ms_call=statistics.median(ms[1:]), first_call_ms=ms[0], calls=n_run,
+        cell["go_one_step"] = dict(graph_ms_call=statistics.median(ms[1:]), first_call_ms=ms[0], calls=n_go,
                                    traced_calls=XLA_GO_TRACED,
                                    launches={k: v for k, v in go_launches.items() if v})
         cell["fingerprint"] = fp
         cell["cpu_max_diff"] = d
-        log(f"[3i] {tag}: go_one_step through the one-step graph, {n_run} calls: fingerprint, every packed row "
-            f"and the final state bit for bit with the eager loop; {statistics.median(ms[1:]):.4f} ms a call "
-            f"(median of calls 2..{n_run}; first {ms[0]:.1f} ms); a trace of {XLA_GO_TRACED} calls launched "
+        log(f"[3i] {tag}: go_one_step through the one-step graph, {n_go} calls: every packed row and the "
+            f"state bit for bit with the eager loop and the graph replay; {statistics.median(ms[1:]):.4f} ms a "
+            f"call (median of calls 2..{n_go}; first {ms[0]:.1f} ms); a trace of {XLA_GO_TRACED} calls launched "
             f"{json.dumps(cell['go_one_step']['launches'])}")
         res[tag] = cell
     res["K2"] = dict(max_abs_err=k2_err, checked=k2_checked)
@@ -3409,7 +3453,7 @@ def timed_s(fn) -> float:
 
 
 def graph_cell(tag: str, label: str, run, run_eager, graphs: dict, T: int, path, eager, check,
-               trace_n: int | None = None, eager_s: float | None = None) -> dict:
+               trace_n: int | None = None, eager_s: float | None = None, eager_n: int | None = None) -> dict:
     """A cell's replay through CUDA graphs (run_sequence / run_batch on the
     card) against its eager reference. run(chunk, n=None) replays the first
     n (all) of the cell's T frames from its initial state through the graph
@@ -3427,13 +3471,15 @@ def graph_cell(tag: str, label: str, run, run_eager, graphs: dict, T: int, path,
        step and no other kernel is: the counters count captures, not
        replays (StepGraph.launches: the capture alone). Its fingerprint; its
        packed outputs and final state equal the eager reference's bit for
-       bit; capture + instantiate seconds; peak device memory above what was
+       bit (an eager reference of the first eager_n steps only: those rows,
+       and the state of a graph run of as many steps); capture + instantiate
+       seconds; peak device memory above what was
        allocated before it (the graphs' pools included) and the size of the
        pool the cache's graphs share.
     2. chunk = GRAPH_CHUNK (full chunks and a one-step remainder) equals
        chunk = 0 bit for bit.
     3. Times: the eager loop once (or eager_s, the seconds of the counted
-       eager reference, where given), the graph replay N_GRAPH_TIMED times
+       eager reference over its eager_n steps, where given), the graph replay N_GRAPH_TIMED times
        (median), the device's span of one replay of the block graph (CUDA
        events, from the same state each time), and a traced graph run of
        trace_n (all) frames: each kernel of the path ran exactly once a step
@@ -3472,15 +3518,18 @@ def graph_cell(tag: str, label: str, run, run_eager, graphs: dict, T: int, path,
             fail(f"[{tag}] {label}: kernel {n} launched {launches.get(n, 0)} times in the graph run, "
                  f"{got_captured} of them captured; expected {want} captured and {len(new)} warm-up launches")
     check(outs)
-    if not outputs_identical(outs, eager[0]):
-        bad = [f for f, a, b in zip(outs._fields, outs, eager[0]) if not outputs_identical((a,), (b,))]
+    eager_n = eager_n or T
+    head = type(outs)(*(t_[:eager_n] for t_ in outs))
+    if not outputs_identical(head, eager[0]):
+        bad = [f for f, a, b in zip(outs._fields, head, eager[0]) if not outputs_identical((a,), (b,))]
         fail(f"[{tag}] {label}: the graph replay's outputs differ from the eager loop's: {bad}")
-    if not outputs_identical(state, eager[1]):
-        fail(f"[{tag}] {label}: the graph replay's final state differs from the eager loop's")
+    state_n = state if eager_n == T else run(0, eager_n)[1]
+    if not outputs_identical(state_n, eager[1]):
+        fail(f"[{tag}] {label}: the graph replay's state after {eager_n} steps differs from the eager loop's")
     warmup_s = sum(g_.warmup_s for g_ in new)
     capture_s = sum(g_.capture_s for g_ in new)
     log(f"[{tag}] {label}: graph replay of {T} steps ({len(replay.chunk_plan(T, 0))} replays of graphs of "
-        f"{sizes} steps) equals the eager loop bit for bit (outputs and final state); first call {first_s:.3f} s "
+        f"{sizes} steps) equals the eager loop bit for bit (outputs and state{'' if eager_n == T else f' over its first {eager_n} steps'}); first call {first_s:.3f} s "
         f"wall, of it warm-up steps {warmup_s:.3f} s and capture + instantiate {capture_s:.3f} s (host); "
         f"launches counted in the graph run (warm-up steps and the captures, not the replays) "
         f"{json.dumps({k: v for k, v in launches.items() if v})}")
@@ -3493,8 +3542,8 @@ def graph_cell(tag: str, label: str, run, run_eager, graphs: dict, T: int, path,
     log(f"[{tag}] {label}: chunk={k} ({T // k} x {k} + {T % k} x 1; graphs captured {chunk_sizes}) equals "
         f"chunk=0 bit for bit")
     if eager_s is None:
-        eager_s = timed_s(run_eager)
-    eager_ms = eager_s / T * 1e3
+        eager_s, eager_n = timed_s(run_eager), T
+    eager_ms = eager_s / eager_n * 1e3
     runs = [timed_s(lambda: run(0)) / T * 1e3 for _ in range(N_GRAPH_TIMED)]
     graph_ms = statistics.median(runs)
     # the device's span of one replay of the block graph (CUDA events around
@@ -3528,7 +3577,7 @@ def graph_cell(tag: str, label: str, run, run_eager, graphs: dict, T: int, path,
                kernels=sum(c for _m, c in prof["by_name"].values()) / n,
                peak_mb=peak_mb, pool_mb=pool_mb, pools_mb=pools, launches=replayed, launches_steps=n,
                captured={k_: v for k_, v in launches.items() if v}, prof=prof)
-    log(f"[{tag}] {label}: eager {eager_ms:.4f} ms a step (one run of {T}: {eager_s:.3f} s; the graph "
+    log(f"[{tag}] {label}: eager {eager_ms:.4f} ms a step (one run of {eager_n}: {eager_s:.3f} s; the graph "
         f"path's first call {first_s:.3f} s), graph {graph_ms:.4f} ms a step "
         f"(median of {N_GRAPH_TIMED}: {', '.join(f'{v:.4f}' for v in runs)}), of it the device's span of a "
         f"replay {span_ms:.4f} ms a step (CUDA events); peak device memory of the first "
@@ -3592,7 +3641,7 @@ def batch_runs(step, states0, seq, params):
     return run, run_eager
 
 
-def run_summary(cells, entry, xla, f64, maxp, smi: str, total_s: float) -> dict:
+def run_summary(cells, entry, xla, f64, maxp, ekfs, smi: str, total_s: float) -> dict:
     """The run's result in under 4 KB, for the line just before the last:
     every phase's fingerprint verdict (a failed check exits before it is
     printed) and headline times, ms a frame or a batch step through the
@@ -3604,7 +3653,8 @@ def run_summary(cells, entry, xla, f64, maxp, smi: str, total_s: float) -> dict:
     verdicts = {ph: "equal" for ph in ("3 std-nomap, std-mapping", "3b batch64", "3c hires", "3d mf100",
                                        "3e bp0, sb0", "3f batch-hires", "3g go_one_step, cli, bench",
                                        "3h std-xla, batch64-xla", "3i std-f64, std-f64-k2, batch64-f64",
-                                       "3j maxp2: std, autoinit, mf100, xla, f64, batch64 x 5 routes")}
+                                       "3j maxp2: std, autoinit, mf100, xla, f64, batch64 x 5 routes",
+                                       "3k EKF benches, sharded (1, 1) and lanes (1,)")}
     out = {"card": smi, "seconds": round(total_s, 1), "fingerprints": verdicts,
            "graph_eager_ms": {c: ms(r_) for c, r_ in cells.items()}}
     out["graph_eager_ms"].update({f"{c} (3h)": ms(xla[k]) for c, k in (("std-xla", "std"),
@@ -3627,8 +3677,11 @@ def run_summary(cells, entry, xla, f64, maxp, smi: str, total_s: float) -> dict:
     pe = f64["parity_eval"]
     out["parity_eval"] = {k: pe[k] for k in ("rmse_vs_oracle", "decision_agreement", "drand48_in_lockstep")}
     out["go_one_step_ms"].update({c: round(r_["go_one_step"]["graph_ms_call"], 4) for c, r_ in maxp["cells"].items()})
+    out["ekf_ms_busy"] = {c: [round(r_["ms"], 4), round(r_["busy"], 4)] for c, r_ in ekfs["frames"].items()}
+    out["ekf_ms_busy"]["sharded (1, 1)"] = [round(ekfs["sharded"]["stress_frame"]["ms"], 4),
+                                            round(ekfs["sharded"]["stress_frame"]["busy"], 4)]
     out["phase_s"] = {"3h": round(xla["seconds"], 1), "3i": round(f64["seconds"], 1), "3j": round(maxp["seconds"], 1),
-                      "3g": round(entry.get("seconds", 0.0), 1)}
+                      "3g": round(entry.get("seconds", 0.0), 1), "3k": round(ekfs["seconds"], 1)}
     if len(json.dumps(out)) > 4000:
         fail(f"the summary line outgrew 4 KB ({len(json.dumps(out))} bytes)")
     return out
@@ -3654,7 +3707,7 @@ MAXP_N_REF = 20            # CPU plain replay frames (inits at 9, 10, 16, 17; bo
 MAXP_N_REF_ROUTES = 12     # the same for (b)'s routes, and their eager loop (both slots searched at 11)
 MAXP_ROUTE_TRACED = 2      # (b)'s traced graph window (~4,000-5,200 device kernels a step)
 MAXP_N_SYNC = 10           # steps under sync debug mode "error"
-MAXP_TRACED_STEPS = 8
+MAXP_TRACED_STEPS = 4
 # the single stream's other routes at MAXP 2 (std, max_features 16): route -> (MonoSLAM overrides,
 # precision, fingerprint file, the kernels of its path)
 MAXP_ROUTES = {
@@ -3671,6 +3724,7 @@ MAXP_BATCH_ROUTES = {
     "xla-f64": (dict(use_pallas=False), None, "f64", ()),
 }
 MAXP_BATCH_AT = 12         # the batch step whose kernel inputs are held (lanes search both slots)
+MAXP_BATCH_EAGER = 16      # steps of (c)'s counted eager loops (the graph replay runs all 63 and holds the lanes)
 MAXP_CPU_ROUTES = ("default", "xla-f64")   # the batch routes also held to their CPU replay on two lanes
 N_MAXP_FILE_LANES = 16     # lanes 0-15: expected_fingerprint_batch16_maxp2.json
 
@@ -3685,24 +3739,25 @@ def maxp_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
 
     (a) std-maxp2, autoinit-maxp2 (max_features 24) and mf100-maxp2 (100, the
         split route) through MonoSLAM(cfg, max_features_to_init_at_once=2):
-        the counted eager loop reproduces each cell's committed fingerprint
-        with each kernel of the path launched once a frame (K9, K10 and K11
-        on both slots in place of K4, which never launches); K9, K10 and K11
+        the counted eager loop over the first EAGER_PREFIX frames, each
+        kernel of the path launched once a frame (K9, K10 and K11 on both
+        slots in place of K4, which never launches); K9, K10 and K11
         bit for bit with their plain versions on the inputs of output
         indices 11 and 18 (both partial slots searched) and 5 (none); the
         CPU plain replay of the first frames; steps under sync debug mode
-        "error"; graph_cell (fingerprint, outputs and final state bit for bit
-        with the eager loop, each kernel once a step in a traced window);
-        go_one_step one call a frame through the one-step graph (fingerprint,
-        rows and final state bit for bit, each kernel once a call in a trace
-        of three calls). (b) the single stream's routes "xla", "xla-f64" and
+        "error"; graph_cell (the committed fingerprint, rows and state bit for
+        bit with the eager loop's frames, each kernel once a step in a traced
+        window); go_one_step one call a frame through the one-step graph over
+        the eager loop's frames (rows and state bit for bit, each kernel once
+        a call in a trace of three calls). (b) the single stream's routes "xla", "xla-f64" and
         "k2-f64" at MAXP 2 against their files through the graph replay, its
         first MAXP_N_REF_ROUTES frames bit for bit with the eager loop and
         against the CPU replay (f64: r and xv within F64_TOL), its kernel
         once a step in a short trace. (c) 64 lanes at MAXP 2 on "default",
-        "sb0", "bp0", "xla" and "xla-f64", each through the eager loop and
-        graph_cell: lanes 0-15 equal expected_fingerprint_batch16_maxp2.json,
-        all 64 lanes of every route equal the default route's, each route's
+        "sb0", "bp0", "xla" and "xla-f64", each through the eager loop
+        (MAXP_BATCH_EAGER steps) and graph_cell (all 63): the graph replay's
+        lanes 0-15 equal expected_fingerprint_batch16_maxp2.json, its 64
+        lanes on every route the default route's, each route's
         kernels once a step, K9, K10 and K11 (default) and K12 and K13 (sb0)
         bit for bit with their plain versions on a captured step, two lanes
         against their CPU replay (MAXP_CPU_ROUTES), steps under sync debug
@@ -3782,16 +3837,16 @@ def maxp_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
                     seen[frame[0]] = dict(cur)
                 frame[0] += 1
 
+        n_eager = EAGER_PREFIX
         t0 = time.perf_counter()
-        outs, launches, state_eager = run_main_path(slam, seq, mapping=True, on_call=on_call)
+        outs, launches, state_eager = run_main_path(slam, seq[:n_eager], mapping=True, on_call=on_call)
         torch.cuda.synchronize()
         eager_s = time.perf_counter() - t0
-        fp = check_fp(outs, fp_name, cell)
-        check_launches(launches, path, n_run, f"{cell} eager loop")
-        if outs.par_slot.shape != (n_run, 2) or not torch.isfinite(outs.r).all():
+        check_launches(launches, path, n_eager, f"{cell} eager loop")
+        if outs.par_slot.shape != (n_eager, 2) or not torch.isfinite(outs.r).all():
             fail(f"[3j] {cell}: outputs not shaped for two partial slots or not finite")
-        log(f"[3j] {cell}: fingerprint {json.dumps(fp)} equals {fp_name}.json; launches (eager loop, "
-            f"{eager_s:.2f} s): {json.dumps({k: v for k, v in launches.items() if v})}")
+        log(f"[3j] {cell}: launches (eager loop, frames 1..{n_eager}, {eager_s:.2f} s): "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
         smc = score_map.ScoreMapConsts.from_params(p)
         for at in MAXP_AT:
             c = seen[at]
@@ -3816,29 +3871,31 @@ def maxp_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
             f"{d:.3g}); {MAXP_N_SYNC} steps ran with sync debug mode 'error'")
 
         run, run_eager = single_runs(slam, seq, True)
+        fps = []
         g = graph_cell("3j", cell, run, run_eager, slam._graphs, n_run, path, (outs, state_eager),
-                       lambda o, fp_name=fp_name, cell=cell: check_fp(o, fp_name, cell),
-                       trace_n=MAXP_TRACED_STEPS, eager_s=eager_s)
+                       lambda o, fp_name=fp_name, cell=cell: fps.append(check_fp(o, fp_name, cell)),
+                       trace_n=MAXP_TRACED_STEPS, eager_s=eager_s, eager_n=n_eager)
+        fp = fps[0]
+        log(f"[3j] {cell}: the graph replay's fingerprint {json.dumps(fp)} equals {fp_name}.json")
         r_ = {k: v for k, v in g.items() if k != "prof"}
         r_["device_ms"] = {s: kernel_dev_ms(g["prof"], s) for s in ("k9_kernel", "k10_kernel", "k11_kernel")}
         slam.reset()
-        rows, ms = go_calls(slam, frames, n_run, True, graph=True)
+        rows, ms = go_calls(slam, frames, n_eager, True, graph=True)
         torch.cuda.synchronize()
         if not same_bits_or_nan(rows.cpu(), pack_outputs(outs)):
             fail(f"[3j] {cell}: go_one_step through the graph: packed rows differ from the eager loop's")
         if not outputs_identical(slam.state, state_eager):
-            fail(f"[3j] {cell}: go_one_step through the graph: final state differs from the eager loop's")
-        check_fp(unpack_rows(rows, p), fp_name, f"{cell} go_one_step")
+            fail(f"[3j] {cell}: go_one_step through the graph: the state differs from the eager loop's")
         _prof, go_launches = traced_exactly(
             lambda: traced_go_calls(slam, frames), XLA_GO_TRACED, path,
             f"[3j] {cell}: {XLA_GO_TRACED} go_one_step calls")
         r_.update(fingerprint=fp, cpu_max_diff=d, go_one_step=dict(
-            graph_ms_call=statistics.median(ms[1:]), first_call_ms=ms[0], calls=n_run, traced_calls=XLA_GO_TRACED,
-            launches={k: v for k, v in go_launches.items() if v}))
-        log(f"[3j] {cell}: go_one_step through the one-step graph, {n_run} calls: fingerprint, every packed row "
-            f"and the final state bit for bit with the eager loop; {statistics.median(ms[1:]):.4f} ms a call "
-            f"(median of calls 2..{n_run}; first {ms[0]:.1f} ms); a trace of {XLA_GO_TRACED} calls launched "
-            f"{json.dumps(r_['go_one_step']['launches'])}")
+            graph_ms_call=statistics.median(ms[1:]), first_call_ms=ms[0], calls=n_eager,
+            traced_calls=XLA_GO_TRACED, launches={k: v for k, v in go_launches.items() if v}))
+        log(f"[3j] {cell}: go_one_step through the one-step graph, {n_eager} calls: every packed row and the "
+            f"state bit for bit with the eager loop (held to the graph replay); {statistics.median(ms[1:]):.4f} ms "
+            f"a call (median of calls 2..{n_eager}; first {ms[0]:.1f} ms); a trace of {XLA_GO_TRACED} calls "
+            f"launched {json.dumps(r_['go_one_step']['launches'])}")
         res["cells"][cell] = r_
         del slam, cpu
 
@@ -3961,16 +4018,20 @@ def maxp_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
             if n == last:
                 n_step[0] += 1
 
+        n_eager = MAXP_BATCH_EAGER
         _build.reset_launches()
         t0 = time.perf_counter()
         with observe_wrappers(keep):
-            bst_eager, bouts = _run_batch_eager(step, states0, bseq, True, rparams)
+            bst_eager, bouts = _run_batch_eager(step, states0, bseq[:n_eager], True, rparams)
         torch.cuda.synchronize()
         beager_s = time.perf_counter() - t0
         blaunches = dict(_build.launches)
-        fps = lane_fingerprints(bouts)
+        check_launches(blaunches, path, n_eager, f"{tag} eager loop")
+        both = []
 
-        def check_batch(o, tag=tag):
+        def check_batch(o, tag=tag, both=both):
+            """The graph replay's lanes: 0-15 against the file, all 64 against the default route's."""
+            nonlocal default_fps
             got = lane_fingerprints(o)
             bad = check_lanes(got[:N_MAXP_FILE_LANES], list(range(N_MAXP_FILE_LANES)), route=route, config="maxp2")
             if bad:
@@ -3980,15 +4041,12 @@ def maxp_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
                 diff = [b for b in range(N_LANES) if got[b] != default_fps[b]]
                 if diff:
                     fail(f"[3j] {tag}: lanes {diff} differ from the default route's on the card")
+            elif route == "default":
+                default_fps = got
+            both.append(int(o.par_mask.all(-1).sum()))
 
-        check_batch(bouts)
-        check_launches(blaunches, path, T, f"{tag} eager loop")
-        if route == "default":
-            default_fps = fps
-        both = int(bouts.par_mask.all(-1).sum())
-        log(f"[3j] {tag}: lanes 0-{N_MAXP_FILE_LANES - 1} equal expected_fingerprint_batch16_maxp2.json"
-            f"{'' if route == 'default' else ', all 64 lanes equal the default route'} ({both} lane-steps search "
-            f"both slots; eager loop {beager_s:.2f} s); launches {json.dumps({k: v for k, v in blaunches.items() if v})}")
+        log(f"[3j] {tag}: launches (eager loop, steps 1..{n_eager}, {beager_s:.2f} s) "
+            f"{json.dumps({k: v for k, v in blaunches.items() if v})}")
         if route == "default":
             c = cap
             if not bool(c["search_bayes_maps"][0][5].all(-1).any()):
@@ -3999,6 +4057,14 @@ def maxp_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
             errs["K11"] = max(errs["K11"], check_k11(c["search_bayes_maps"][0]))
             log(f"[3j] {tag}: K9, K10 and K11 equal their plain versions bit for bit at step {MAXP_BATCH_AT} "
                 f"({N_LANES} lanes x 2 slots)")
+            a9b = c["score_map"][0]
+            ws9b = torch.empty((N_LANES, 2, smc_b.H, smc_b.W), dtype=torch.float32, device=dev)
+            b_ms, b_by = bound([score_map.bytes_and_flops(N_LANES, 2, smc_b)])
+            timed_b["K9 64x2"] = dict(
+                ms=time_ms(lambda: score_map.score_map(a9b[0], a9b[1], smc_b, out=ws9b), n=50, batches=3),
+                plain_ms=time_ms(lambda: score_map.score_map_plain(a9b[0], a9b[1], smc_b), n=2, batches=3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, key="score_map", sym="k9_kernel", route=route,
+                max_abs_err=errs["K9"])
         if route == "sb0":
             a13 = cap["particle_search"][0]
             a12, kw12 = cap["bayes_update"]
@@ -4018,7 +4084,7 @@ def maxp_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
                 b_ms, b_by = bound([cost])
                 timed_b[short] = dict(ms=time_ms(fk, n=50, batches=3), plain_ms=time_ms(fp_, n=2, batches=3),
                                       bound_ms=b_ms, bound_by=b_by, library_ms=None, key=key, sym=sym,
-                                      max_abs_err=errs[short])
+                                      route=route, max_abs_err=errs[short])
             log(f"[3j] {tag}: K13 and K12 equal their plain versions bit for bit at step {MAXP_BATCH_AT} "
                 f"({Bn} lanes x {Fn} slots)")
         d = None
@@ -4033,16 +4099,20 @@ def maxp_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
         log(f"[3j] {tag}: {N_SYNC_HYB} steps ran with sync debug mode 'error'")
         brun, brun_eager = batch_runs(step, states0, bseq, rparams)
         gb = graph_cell("3j", tag, brun, brun_eager, step.graphs, T, path, (bouts, bst_eager), check_batch,
-                        trace_n=F64_TRACED_STEPS, eager_s=beager_s)
+                        trace_n=F64_TRACED_STEPS, eager_s=beager_s, eager_n=n_eager)
+        log(f"[3j] {tag}: the graph replay's lanes 0-{N_MAXP_FILE_LANES - 1} equal "
+            f"expected_fingerprint_batch16_maxp2.json{'' if route == 'default' else ', all 64 lanes the default route'}"
+            f" ({both[0]} lane-steps search both slots)")
         r_ = {k: v for k, v in gb.items() if k != "prof"}
         r_.update(frames_per_s=N_LANES / gb["graph_ms"] * 1e3, frames_per_s_eager=N_LANES / gb["eager_ms"] * 1e3,
-                  cpu_max_diff=d, both_slot_lane_steps=both)
-        if route == "sb0":
-            for short, t_ in timed_b.items():
-                key, sym = t_.pop("key"), t_.pop("sym")
+                  cpu_max_diff=d, both_slot_lane_steps=both[0])
+        for short, t_ in timed_b.items():
+            if t_.get("route") == route:
+                key, sym, _r = t_.pop("key"), t_.pop("sym"), t_.pop("route")
                 t_.update(device_ms=kernel_dev_ms(gb["prof"], sym), launches=gb["launches"][key],
                           launches_steps=gb["launches_steps"], launches_captured=gb["captured"].get(key, 0))
-                log(f"[3j] {short} at F = 2 over {N_LANES} lanes (sb0 maxp2, step {MAXP_BATCH_AT}): {json.dumps(t_)}")
+                log(f"[3j] {short} at F = 2 over {N_LANES} lanes ({route} maxp2, step {MAXP_BATCH_AT}): "
+                    f"{json.dumps(t_)}")
         res["batch"][route] = r_
         del step, gb
     timed.update(timed_b)
@@ -4050,6 +4120,288 @@ def maxp_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
     res["errs"] = errs
     res["seconds"] = time.time() - t_phase
     log(f"[3j] phase 3j took {res['seconds']:.1f} s on {smi}")
+    return res
+
+
+# ------------------------------------------------------------ phase 3k: the large-map EKF frames
+
+# bench: (n_feat, slot_dim, predict, dtype) of eval/benchmark.py's five EKF benches
+EKF_BENCHES = {"stress500": (500, 6, True, torch.float64), "stress500packed": (500, 3, True, torch.float64),
+               "stress500f32": (500, 6, True, torch.float32), "ekf100": (100, 6, False, torch.float64),
+               "ekf100f32": (100, 6, False, torch.float32)}
+EKF_FRAMES = 3            # frames held against the CPU frame, and the graph against the eager frames
+EKF_TRACED = 3            # frames of a traced graph window
+EKF_SHARD_STEPS = 50      # the sharded frame's timed replays (best of 3 runs)
+EKF_LANE_FRAMES = 16      # frames of the lane-sharded batch step (REF_LANES)
+
+
+def ekf_close(got, want, what: str, p_rtol: float = 1e-8) -> tuple[float, float]:
+    """(max |dx|, max |dP|) of got (x, P) against want (x, P): f64 within x
+    rtol 1e-10 / atol 1e-12, P rtol p_rtol / atol 1e-10 (the JAX package's
+    bars, tests/test_parallel.py); f32 within 1e-5 of max |x| and 1e-4 of
+    max |P| (tests/test_torch_ekf_frame_jax.py)."""
+    (x, P), (xr, Pr) = (t.cpu() for t in got), (t.cpu() for t in want)
+    if x.dtype == torch.float64:
+        ok = torch.allclose(x, xr, rtol=1e-10, atol=1e-12) and torch.allclose(P, Pr, rtol=p_rtol, atol=1e-10)
+    else:
+        ok = (bool((x - xr).abs().max() <= 1e-5 * xr.abs().max())
+              and bool((P - Pr).abs().max() <= 1e-4 * Pr.abs().max()))
+    dx, dP = float((x - xr).abs().max()), float((P - Pr).abs().max())
+    if not ok:
+        fail(f"[3k] {what}: x differs by {dx}, P by {dP}")
+    return dx, dP
+
+
+def frame_cell(fn, state, eager_end, what: str, n_timed: int = 0) -> dict:
+    """A large-map frame fn(*state) -> (*state', top_idx) through a one-frame
+    CUDA graph (runtime/replay.py::FrameGraph): the capture (no counted
+    kernel launched, the capture under sync debug mode "error"), EKF_FRAMES
+    replays bit for bit with eager_end (the state and top_idx after as many
+    eager frames), with n_timed ms a frame (best of 3 runs of n_timed
+    replays from state, one sync at the end of each), a traced window of
+    EKF_TRACED replays (busy ms and device kernels a frame, no counted
+    kernel), peak MiB over the capture and the replays."""
+    from scenelib2_torch.kernels import _build
+    from scenelib2_torch.runtime.replay import FrameGraph
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    g = FrameGraph(fn, state)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched or any(g.launches.values()):
+        fail(f"[3k] {what}: the frame launched counted kernels: {json.dumps(launched)}")
+    end = g.replay(EKF_FRAMES)
+    if not (all(same(a, b) for a, b in zip(end, eager_end[:len(end)])) and same(g.extra[0], eager_end[-1])):
+        fail(f"[3k] {what}: {EKF_FRAMES} graph replays differ from as many eager frames")
+    out = {}
+    if n_timed:
+        best = float("inf")
+        for _ in range(3):
+            for dst, src in zip(g.state, state):
+                dst.copy_(src)
+            best = min(best, timed_s(lambda: g.replay(n_timed)))
+        out = dict(ms=best / n_timed * 1e3, steps=n_timed)
+    for dst, src in zip(g.state, state):
+        dst.copy_(src)
+    profiler_warmup()
+    prof = device_profile(lambda: g.replay(EKF_TRACED))
+    counted = {k: v for k, v in traced_launches(prof).items() if v}
+    if counted:
+        fail(f"[3k] {what}: the traced frames ran counted kernels {json.dumps(counted)}")
+    return dict(out, capture_s=capture_s, busy=prof["device_ms"] / EKF_TRACED,
+                kernels=sum(c for _m, c in prof["by_name"].values()) / EKF_TRACED,
+                peak_mb=(torch.cuda.max_memory_allocated() - alloc0) / 2**20, launches=launched,
+                top=sorted(((round(ms_ / EKF_TRACED, 4), k[:90]) for k, (ms_, _c) in prof["by_name"].items()),
+                           reverse=True)[:3])
+
+
+def ekf_frame_bound(D: int, itemsize: int, M: int = 20) -> tuple[float, str]:
+    """(ms, "bytes" or "operations") of the least time of one large-map EKF
+    frame: P read twice (P H' before S is known, then the update) and
+    written once, against the update's three D-sized products (H P, P H',
+    W S W': 2 M D^2 operations each) at the float32 rate of PEAK_F32 (the
+    published FP64 tensor-core rate is the same 67 TFLOP/s); the slot
+    chain, the factorisation and the 13 camera rows are O(n_feat + M^3 +
+    13 D) and left out."""
+    b, f = 3 * D * D * itemsize / PEAK_BYTES, 3 * 2 * M * D * D / PEAK_F32
+    return max(b, f) * 1e3, "bytes" if b >= f else "operations"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ekf_frames_phase(tmp: str, dev, smi: str) -> dict:
+    """Phase 3k: the large-map EKF frame (eval/benchmark.py, runtime/
+    assembly.py) and the sharded-covariance EKF (parallel/mesh.py). (a) Each
+    of the five EKF benches' frames: EKF_FRAMES eager frames on the card
+    (sync debug mode "error", no counted kernel launched) against the CPU
+    frame from the same _make_map_state (top_idx equal, x / P within
+    ekf_close), frame_cell, and the bench itself (its ms/step: best of 3
+    runs of its steps through the graph). (b) On a one-rank NCCL process
+    group: the sharded stress frame on a (1, 1) mesh at D = 3013, EKF_FRAMES
+    frames against the unsharded frame on the card (top_idx equal, P rtol
+    1e-7 as tests/test_parallel.py), frame_cell and its ms a frame through
+    the graph; sharded_joint_update, sharded_predict and sharded_slam_frame
+    at D = 3013 against core.ekf's compositions; the batch step over a (1,)
+    lane mesh equal to run_batch lane for lane; then the process group is
+    destroyed."""
+    import torch.distributed as dist
+
+    from scenelib2_torch.config import Params
+    from scenelib2_torch.core import ekf
+    from scenelib2_torch.eval import benchmark
+    from scenelib2_torch.eval.batch import lanes_cache_dir, make_lanes
+    from scenelib2_torch.kernels import _build
+    from scenelib2_torch.parallel import mesh as pm
+    from scenelib2_torch.runtime.replay import sync_error
+
+    t_phase = time.time()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("[3k] TF32 is on (torch.backends.cuda.matmul.allow_tf32)")
+    res = {"frames": {}, "sharded": {}, "tf32": torch.backends.cuda.matmul.allow_tf32}
+    params = Params()
+    for name, (n_feat, slot_dim, predict, dtype) in EKF_BENCHES.items():
+        x0, P0, _ = benchmark._make_map_state(n_feat, slot_dim)
+        frame = benchmark._make_ekf_frame(params, n_feat, slot_dim, predict=predict)
+        xc, Pc = torch.tensor(x0, dtype=dtype), torch.tensor(P0, dtype=dtype)
+        start = (xc.to(dev), Pc.to(dev))
+        frame(*start)         # a first call: cuBLAS's handle and workspace
+        xg, Pg = start
+        cpu, gpu = [], []
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with sync_error():
+            for _f in range(EKF_FRAMES):
+                xg, Pg, tg = frame(xg, Pg)
+                gpu.append((xg, Pg, tg))
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _build.launches.items() if v}
+        if launched:
+            fail(f"[3k] {name}: the eager frames launched counted kernels {json.dumps(launched)}")
+        for _f in range(EKF_FRAMES):
+            xc, Pc, tc = frame(xc, Pc)
+            cpu.append((xc, Pc, tc))
+        diffs = []
+        for f, ((xg_, Pg_, tg_), (xc_, Pc_, tc_)) in enumerate(zip(gpu, cpu)):
+            if not same(tg_, tc_):
+                fail(f"[3k] {name} frame {f}: top_idx {tg_.tolist()} on the card, {tc_.tolist()} on the CPU")
+            diffs.append(ekf_close((xg_, Pg_), (xc_, Pc_), f"{name} frame {f}: card against CPU"))
+        cell = frame_cell(frame, start, gpu[-1], name)
+        bench = benchmark.ALL_BENCHES[name](device=dev)
+        b_ms, b_by = ekf_frame_bound(bench["state_dim"], start[1].element_size())
+        cell.update(metric=bench["metric"], ms=bench["value"], steps=bench["steps"], state_dim=bench["state_dim"],
+                    dtype=bench["dtype"], cpu_max_diff=[max(d[0] for d in diffs), max(d[1] for d in diffs)],
+                    bound_ms=b_ms, bound_by=b_by)
+        res["frames"][name] = cell
+        log(f"[3k] {name} (D = {bench['state_dim']}, {bench['dtype']}): {EKF_FRAMES} eager frames on the card "
+            f"(sync debug mode 'error', no counted kernel) equal the CPU frame's top_idx and hold x, P "
+            f"(max |dx|, |dP| {cell['cpu_max_diff']}); the graph's {EKF_FRAMES} replays equal them bit for bit; "
+            f"{bench['metric']} {bench['value']} ms/step (best of 3 x {bench['steps']} graph replays; bound "
+            f"{b_ms:.5f} ms, {b_by}); busy "
+            f"{cell['busy']:.4f} ms, {cell['kernels']:.1f} device kernels a frame; peak {cell['peak_mb']:.1f} MiB; "
+            f"capture {cell['capture_s']:.2f} s; top kernels {cell['top']}")
+
+    # ---- (b) the sharded EKF on a one-rank NCCL mesh
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = pm.make_mesh((1, 1), ("row", "col"))
+        n_feat, slot_dim = 500, 6
+        x0, P0, _ = benchmark._make_map_state(n_feat, slot_dim)
+        D = pm.pad_for_mesh(x0.shape[0], 1, 1)
+        u = torch.zeros(3, dtype=torch.float64, device=dev)
+        sframe = pm.sharded_stress_frame(mesh, params, n_feat, slot_dim, 10)
+        dense = benchmark._make_ekf_frame(params, n_feat, slot_dim)
+        start = pm.shard_state(mesh, x0, P0)
+        if tuple(start[1].shape) != (D, D):
+            fail(f"[3k] the (1, 1) mesh's block is {tuple(start[1].shape)}")
+        xd, Pd = (torch.as_tensor(a).to(dev) for a in (x0, P0))
+        sframe(*start, u)     # the first collectives set up NCCL's communicators
+        xs, Ps = start
+        sh, dn = [], []
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with sync_error():
+            for _f in range(EKF_FRAMES):
+                xs, Ps, ts = sframe(xs, Ps, u)
+                xd, Pd, td = dense(xd, Pd)
+                sh.append((xs, Ps, ts))
+                dn.append((xd, Pd, td))
+        torch.cuda.synchronize()
+        if any(_build.launches.values()):
+            fail(f"[3k] the sharded frame launched counted kernels {json.dumps(_build.launches)}")
+        diffs = []
+        for f, (a, b) in enumerate(zip(sh, dn)):
+            if not same(a[2], b[2]):
+                fail(f"[3k] sharded stress frame {f}: top_idx {a[2].tolist()}, unsharded {b[2].tolist()}")
+            gx, gP = pm.gather_state(mesh, a[0], a[1])
+            diffs.append(ekf_close((gx, gP), b[:2], f"sharded stress frame {f} against the unsharded frame",
+                                   p_rtol=1e-7))
+        cell = frame_cell(lambda x, P: sframe(x, P, u), start, sh[-1], "sharded stress frame",
+                          n_timed=EKF_SHARD_STEPS)
+        cell["cpu_max_diff"] = [max(d[0] for d in diffs), max(d[1] for d in diffs)]
+        cell["bound_ms"], cell["bound_by"] = ekf_frame_bound(D, 8)
+        res["sharded"]["stress_frame"] = cell
+        log(f"[3k] sharded_stress_frame on a (1, 1) NCCL mesh (D = {D}, block {tuple(start[1].shape)}): "
+            f"{EKF_FRAMES} frames (sync debug mode 'error', no counted kernel) equal the unsharded frame's top_idx "
+            f"and hold x, P (max |dx|, |dP| {cell['cpu_max_diff']}); the graph's replays equal them bit for bit; "
+            f"{cell['ms']:.4f} ms a frame (best of 3 x {EKF_SHARD_STEPS} replays); busy {cell['busy']:.4f} ms, "
+            f"{cell['kernels']:.1f} device kernels a frame; peak {cell['peak_mb']:.1f} MiB; top kernels {cell['top']}")
+
+        # the other sharded functions at D = 3013, M = 20, against core.ekf's compositions
+        gen = torch.Generator(device=dev).manual_seed(2026)
+        M = 20
+        A = torch.randn((D, D), generator=gen, dtype=torch.float64, device=dev) * 0.05
+        P = A @ A.mT + torch.eye(D, dtype=torch.float64, device=dev)
+        x = torch.zeros(D, dtype=torch.float64, device=dev)
+        x[3] = 1.0
+        x[7:13] = torch.randn(6, generator=gen, dtype=torch.float64, device=dev) * 0.1
+        H = torch.zeros((M, D), dtype=torch.float64, device=dev)
+        H[:, 13:13 + M] = torch.eye(M, dtype=torch.float64, device=dev)
+        H[:, :13] = torch.randn((M, 13), generator=gen, dtype=torch.float64, device=dev) * 0.1
+        nu = torch.randn(M, generator=gen, dtype=torch.float64, device=dev) * 0.01
+        R = torch.eye(M, dtype=torch.float64, device=dev) * 1.2
+        up = torch.randn(3, generator=gen, dtype=torch.float64, device=dev) * 0.01
+        xp_, Pp_ = ekf.predict(x, P, up, params.delta_t, params.sd_a, params.sd_alpha)
+        xu_, Pu_, _ = ekf.joint_update(x, P, H, nu, R, blas=True)
+        xf_, Pf_ = ekf.predict(x, P, u, params.delta_t, params.sd_a, params.sd_alpha)
+        xf_, Pf_, _ = ekf.joint_update(xf_, Pf_, H, nu, R, blas=True)
+        xf_, Pf_ = ekf.normalise(xf_, Pf_)
+        Pf_ = ekf.symmetrize(Pf_)
+        fns = {"sharded_predict": (pm.sharded_predict(mesh, D), (up,)),
+               "sharded_joint_update": (pm.sharded_joint_update(mesh, D, M), (H, nu, R)),
+               "sharded_slam_frame": (pm.sharded_slam_frame(mesh, D, M), (u, H, nu, R))}
+        blocks = pm.shard_state(mesh, x, P)
+        for fn_, rest in fns.values():    # a first call: cuSOLVER's and cuBLAS's handles
+            fn_(*blocks, *rest)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with sync_error():
+            got = {k: fn_(*blocks, *rest) for k, (fn_, rest) in fns.items()}
+        torch.cuda.synchronize()
+        if any(_build.launches.values()):
+            fail(f"[3k] the sharded functions launched counted kernels {json.dumps(_build.launches)}")
+        for fname, want, tols in (("sharded_predict", (xp_, Pp_), ((1e-12, 1e-15), (1e-12, 1e-15))),
+                                  ("sharded_joint_update", (xu_, Pu_), ((1e-10, 0.0), (1e-8, 1e-10))),
+                                  ("sharded_slam_frame", (xf_, Pf_), ((1e-11, 1e-13), (1e-8, 1e-11)))):
+            gx, gP = pm.gather_state(mesh, *got[fname])
+            (xr, xa), (pr, pa) = tols
+            if not (torch.allclose(gx, want[0], rtol=xr, atol=xa) and torch.allclose(gP, want[1], rtol=pr, atol=pa)):
+                fail(f"[3k] {fname} at D = {D} differs from its unsharded composition (max |dx| "
+                     f"{max_err(gx, want[0])}, |dP| {max_err(gP, want[1])})")
+            res["sharded"][fname] = [max_err(gx, want[0]), max_err(gP, want[1])]
+        log(f"[3k] sharded_predict, sharded_joint_update and sharded_slam_frame at D = {D}, M = {M} on the (1, 1) "
+            f"mesh equal core.ekf's compositions on the card within the JAX package's bars (max |dx|, |dP| "
+            f"{json.dumps({k: v for k, v in res['sharded'].items() if k != 'stress_frame'})}); sync debug mode "
+            f"'error', no counted kernel")
+
+        # lanes over a (1,) mesh: the batch step's run_batch(mesh=) against run_batch
+        lanes = pm.make_mesh((1,), ("data",))
+        bparams, st0, bfr = make_lanes(lanes_cache_dir(cache_root(tmp)), N_LANES, N_TEXTURES, N_BATCH_FRAMES,
+                                       device=dev, dtype=torch.float32, lanes=list(REF_LANES))
+        bseq = torch.as_tensor(bfr[:EKF_LANE_FRAMES]).to(dev)
+        bstep = pm.make_batched_step(bparams, device="cuda")
+        one = pm.run_batch(bstep, st0, bseq, True, bparams)
+        shd = pm.run_batch(bstep, st0, bseq, True, bparams, mesh=lanes)
+        if not (outputs_identical(one[1], shd[1]) and outputs_identical(one[0], shd[0])):
+            fail("[3k] the batch step over the (1,) lane mesh differs from run_batch")
+        res["lanes"] = dict(lanes=len(REF_LANES), frames=EKF_LANE_FRAMES)
+        log(f"[3k] run_batch over a (1,) NCCL lane mesh equals run_batch lane for lane, bit for bit ("
+            f"{len(REF_LANES)} lanes x {EKF_LANE_FRAMES} frames: outputs and final states)")
+    finally:
+        dist.destroy_process_group()
+    res["seconds"] = time.time() - t_phase
+    log(f"[3k] phase 3k took {res['seconds']:.1f} s on {smi}")
     return res
 
 
@@ -4313,7 +4665,7 @@ def main() -> int:
         for a in k4_args:
             MF, NP = a[1].shape
             costs["K4"].append(search_bayes.bytes_and_flops(
-                MF, NP, H, W, B, *search_bayes.work_counts(*a)))
+                MF, NP, H, W, B, *search_bayes.work_counts(*on_cpu(a))))
         r = outs.r.numpy()
         if r.shape != (n_run, 3) or not np.isfinite(r).all():
             fail(f"trajectory not finite/shaped: {r.shape}")
@@ -4613,15 +4965,18 @@ def main() -> int:
         rb = bouts.r.numpy()
         if rb.shape != (T, N_LANES, 3) or not np.isfinite(rb).all():
             fail(f"batch trajectories not finite/shaped: {rb.shape}")
+        t_costs = time.perf_counter()
         for pr_, al_, mk_ in k11_args:
             bcosts["K11"].append(search_bayes.bytes_and_flops_maps(
-                N_LANES, 1, p.n_particles, *search_bayes.work_counts_maps(pr_, al_, mk_, sbc)))
+                N_LANES, 1, p.n_particles, *search_bayes.work_counts_maps(*on_cpu((pr_, al_, mk_)), sbc)))
         for u0_, v0_, uc_, vc_, sinv_ in k2_args:
             admit = search.candidate_geometry(u0_.reshape(-1), v0_.reshape(-1), uc_.reshape(-1),
                                               vc_.reshape(-1), sinv_.reshape(-1, 3), sc)[0]
             bcosts["K2"].append(search.bytes_and_flops(N_LANES * nsel, sc, admit))
+        t_costs = time.perf_counter() - t_costs
 
         # reference on a small input: four lanes replayed by the CPU plain versions
+        t_cpu = time.perf_counter()
         idx = list(REF_LANES)
         cpu_states = SlamState(*(t[idx].cpu() for t in states0))
         cpu_step = make_batched_step(bparams, device="cpu")
@@ -4634,7 +4989,8 @@ def main() -> int:
         if dxb > STEP_TOL:
             fail(f"batch CUDA vs CPU plain replay: xv differs by {dxb}")
         log(f"[3b] lanes {idx} of the CUDA batch run equal their CPU plain replay on frames "
-            f"1..{N_REF_BATCH} (max |dxv| {dxb:.3g})")
+            f"1..{N_REF_BATCH} (max |dxv| {dxb:.3g}; the replay {time.perf_counter() - t_cpu:.1f} s on "
+            f"{torch.get_num_threads()} threads, the batch launches' cost counts before it {t_costs:.1f} s)")
 
         st_b = states0
         torch.cuda.synchronize()
@@ -4693,6 +5049,9 @@ def main() -> int:
 
         # ---- 3j. two partial features at a time (max_features_to_init_at_once = 2): every route
         maxp = maxp_phase(tmp, dev, frames, cfg, seq, smi)
+
+        # ---- 3k. the large-map EKF frames (the five EKF benches) and the sharded-covariance EKF
+        ekfs = ekf_frames_phase(tmp, dev, smi)
 
     # ---- 4. kernel records ------------------------------------------------
     costs["K2"] = [search.bytes_and_flops(K, sc, admit) for admit, K in costs["K2"]]
@@ -4891,6 +5250,8 @@ def main() -> int:
          "batch64-maxp2 sb0"),
         ("K13", "K13 particle_search (sb0 maxp2, 64 x 2 slots)", "particle_search.cu",
          "pallas_particle_search.py:206", "batch64-maxp2 sb0"),
+        ("K9 64x2", "K9 score_map (batch64-maxp2 default, 64 lanes x 2 maps)", "score_map.cu",
+         "pallas_score_map.py:258 and :300", "batch64-maxp2 default"),
     ):
         t_ = maxp["timed"][short]
         recs.append(dict(
@@ -4936,8 +5297,9 @@ def main() -> int:
                                                              "both_slot_lane_steps")}
            for c, r_ in maxp["batch"].items()},
         "errs": maxp["errs"], "seconds": maxp["seconds"]}, "card": smi}))
+    print(json.dumps({"ekf_frames": ekfs, "card": smi}))
     print(json.dumps({"kernels": recs}))
-    summary = run_summary(cells, entry, xla, f64, maxp, smi, time.time() - t_start)
+    summary = run_summary(cells, entry, xla, f64, maxp, ekfs, smi, time.time() - t_start)
     print(json.dumps({"summary": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

@@ -122,12 +122,12 @@ def cmd_run(args):
 
 
 def cmd_bench(args):
-    from scenelib2_torch.eval.benchmark import run_all
+    from scenelib2_torch.eval.benchmark import ALL_BENCHES, run_all
 
-    try:
-        run_all(args.names or None, device=_device(args))
-    except NotImplementedError as e:
-        raise SystemExit(f"bench: {e}") from None
+    unknown = sorted(set(args.names) - set(ALL_BENCHES))
+    if unknown:
+        raise SystemExit(f"bench: unknown benches {unknown}; known: {sorted(ALL_BENCHES)}")
+    run_all(args.names or None, device=_device(args))
 
 
 def cmd_visualize(args):

@@ -134,7 +134,7 @@ def tril_inv_unrolled(L):
     return X
 
 
-def joint_update(x, P, H, nu, R, pallas_chol: bool = False):
+def joint_update(x, P, H, nu, R, pallas_chol: bool = False, blas: bool = False):
     """Joint EKF update (kalman.cpp:96-119) through L, L^-1 and
     S^-1 = L^-T L^-1, as the reference does. Returns (x', P', S).
 
@@ -143,15 +143,20 @@ def joint_update(x, P, H, nu, R, pallas_chol: bool = False):
     single-stream split route (core/ekf.py:136-142: `pallas_chol and
     S.dtype == float32`); otherwise, the batch step (JAX's pallas_chol=not
     batch_mode) and every f64 step, it factors with chol_unrolled /
-    tril_inv_unrolled."""
-    S = mm_seq(mm_seq(H, P), H.mT) + R
+    tril_inv_unrolled.
+
+    blas=True takes the update's products with torch.matmul (TF32 stays
+    off) instead of mm_seq: the large-map frame (eval/benchmark.py), where
+    mm_seq's [M, D, D] temporaries and D launches a product do not fit."""
+    mm = torch.matmul if blas else mm_seq
+    S = mm(mm(H, P), H.mT) + R
     if pallas_chol and S.dtype == torch.float32:
         Linv = chol_inv(S)
     else:
         Linv = tril_inv_unrolled(chol_unrolled(S))
-    Sinv = mm_seq(Linv.mT, Linv)
-    W = mm_seq(mm_seq(P, H.mT), Sinv)
-    return x + mm_seq(W, nu[..., None])[..., 0], P - mm_seq(mm_seq(W, S), W.mT), S
+    Sinv = mm(Linv.mT, Linv)
+    W = mm(mm(P, H.mT), Sinv)
+    return x + mm(W, nu[..., None])[..., 0], P - mm(mm(W, S), W.mT), S
 
 
 def symmetrize(P):

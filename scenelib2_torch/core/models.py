@@ -66,13 +66,15 @@ def full_project(cam: CameraParams, y: torch.Tensor, xp: torch.Tensor):
     return cam_mod.project(cam, zeroed), zeroed
 
 
-def full_predict_measurement(cam: CameraParams, y: torch.Tensor, xp: torch.Tensor):
+def full_predict_measurement(cam: CameraParams, y: torch.Tensor, xp: torch.Tensor,
+                             wide: torch.dtype | None = None):
     """hi and Jacobians for a 3D point (full_feature_model.cpp:178-195).
+    wide: camera.project's (hi and the Jacobians come out in it).
 
     Returns (hi[2], dhi_by_dxp[2,7], dhi_by_dyi[2,3], zeroedyi[3])."""
     zeroed, dz_by_dxp, dz_by_dyi = full_zeroedyi(y, xp)
-    hi = cam_mod.project(cam, zeroed)
-    dh_by_dz = cam_mod.project_jacobian(cam, zeroed)
+    hi = cam_mod.project(cam, zeroed, wide)
+    dh_by_dz = cam_mod.project_jacobian(cam, zeroed, wide)
     return hi, mm_seq(dh_by_dz, dz_by_dxp), mm_seq(dh_by_dz, dz_by_dyi), zeroed
 
 

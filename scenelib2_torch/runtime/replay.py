@@ -155,6 +155,45 @@ class StepGraph:
         return self.state_in
 
 
+class FrameGraph:
+    """One call of a frame fn(*state) -> (*state', *extra) captured as a
+    CUDA graph whose end copies state' into its static state, so that each
+    replay advances the state by one frame (the large-map EKF frames of
+    eval/benchmark.py, sharded or not). fn must return new tensors for
+    state'; extra are the graph's own outputs of its last replay. As for
+    StepGraph: an eager warm-up call on a side stream first, the capture
+    under sync debug mode "error", and launches holds the kernel launches
+    its capture counted."""
+
+    def __init__(self, fn, state, pool=None):
+        dev = state[0].device
+        self.state = tuple(t.clone() for t in state)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            fn(*self.state)
+        before = dict(_build.launches)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            with sync_error():
+                outs = fn(*self.state)
+                n = len(self.state)
+                inputs = {t.untyped_storage().data_ptr() for t in self.state}
+                if any(t.untyped_storage().data_ptr() in inputs for t in outs[:n]):
+                    raise RuntimeError("FrameGraph: fn returned a view of its input state")
+                for dst, src in zip(self.state, outs[:n]):
+                    dst.copy_(src)
+                self.extra = tuple(outs[n:])
+        self.launches = {k: v - before[k] for k, v in _build.launches.items()}
+
+    def replay(self, n: int = 1):
+        """n frames from the static state; returns it (overwritten by the
+        next replay)."""
+        for _ in range(n):
+            self.graph.replay()
+        return self.state
+
+
 def cached_graph(step, graphs: dict, state: SlamState, frames: torch.Tensor,
                  enable_mapping: bool) -> StepGraph:
     """The StepGraph of `step` for frames [N, *frame] from graphs, keyed by

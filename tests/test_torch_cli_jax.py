@@ -15,8 +15,9 @@ whose decisions_fingerprint becomes the selftest's expected file. Then:
   - `visualize` and `ar --cpu` write their PNGs (matplotlib's Agg);
   - `selftest --cpu --frames 20` returns 0 against the JAX expected file, 1
     with one field changed, 2 with no file;
-  - `bench stress500` is refused by name, and run_all lists every bench
-    that is not ported as such.
+  - `bench stress500 --cpu` prints JAX's metric line for the 500-feature
+    EKF frame, an unknown bench name is refused, and run_all runs all ten
+    benches.
 """
 
 from __future__ import annotations
@@ -167,23 +168,33 @@ def test_selftest_update_needs_a_path(capsys):
     assert e.value.code == 2
 
 
-def test_bench_refuses_an_unported_bench_by_name():
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["bench", "stress500", "--cpu"])
-    with pytest.raises(NotImplementedError, match="ekf_update_ms_100feat"):
-        benchmark.run_all(["ekf100"], device="cpu")
+def test_bench_stress500_prints_the_jax_metric_line(monkeypatch, capsys):
+    """cli bench stress500 --cpu at a few steps (the bench's own at 2)."""
+    fn = benchmark.ALL_BENCHES["stress500"]
+    monkeypatch.setitem(benchmark.ALL_BENCHES, "stress500", lambda device=None: fn(n_steps=2, device=device))
+    cli.main(["bench", "stress500", "--cpu"])
+    (line,) = capsys.readouterr().out.strip().splitlines()
+    r = json.loads(line)
+    assert r["metric"] == "ekf_predict_update_ms_500feat" and r["unit"] == "ms/step" and r["value"] > 0
+    assert (r["state_dim"], r["slot_dim"], r["dtype"], r["card"]) == (3013, 6, "float64", "cpu")
+
+
+def test_bench_refuses_an_unknown_bench_by_name():
+    with pytest.raises(SystemExit, match="unknown benches.*stress501"):
+        cli.main(["bench", "stress501", "--cpu"])
+    with pytest.raises(ValueError, match="unknown benches"):
+        benchmark.run_all(["ekf1000"], device="cpu")
 
 
 def test_run_all_lists_unported_benches(monkeypatch, capsys):
-    ported = [n for n in benchmark.ALL_BENCHES if n not in benchmark.NOT_PORTED]
-    assert ported == ["testseq", "autoinit", "hires", "hires_r48", "batch64"]
-    for n in ported:
+    """Every bench is ported: run_all runs all ten, in order, and prints one
+    line for each (the benches stand in for themselves here)."""
+    names = ["testseq", "autoinit", "hires", "hires_r48", "batch64", "ekf100", "ekf100f32", "stress500",
+             "stress500packed", "stress500f32"]
+    assert list(benchmark.ALL_BENCHES) == names
+    for n in names:
         monkeypatch.setitem(benchmark.ALL_BENCHES, n, lambda device=None, n=n: dict(metric=n, device=device))
     results = benchmark.run_all(device="cpu")
     lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
-    assert lines == results and len(lines) == len(benchmark.ALL_BENCHES)
-    k = len(ported)
-    assert [r["metric"] for r in lines[:k]] == ported
-    for r in lines[k:]:
-        assert r["ported"] is False and r["metric"] == benchmark.NOT_PORTED[r["bench"]]
-    assert {r["bench"] for r in lines[k:]} == set(benchmark.NOT_PORTED)
+    assert lines == results and [r["metric"] for r in lines] == names
+    assert all(r["device"] == "cpu" for r in lines)

@@ -6,8 +6,10 @@
     module: the CLI, the I/O, the selftest, the bench suite, viz and the
     interactive session; steps 3 frames, calls the facade's manual inits,
     deletion and checkpoints, runs the batch step on each of its three
-    routes, 2 frames of the split route, 2 f64 frames on the parity route
-    and run_parity_eval against the port's own copy of the oracle);
+    routes, 2 frames of the split route, 2 f64 frames on the parity route,
+    run_parity_eval against the port's own copy of the oracle, the
+    large-map EKF frame, its sharded form on a one-rank gloo mesh and the
+    batch step over a one-rank lane mesh);
   - MonoSLAM(cfg) and make_batched_step(params) without a device raise
     where CUDA is absent, on every batch route;
   - a kernel wrapper (K1-K14, K12 in both row forms, and K2 / K6 over
@@ -90,7 +92,8 @@ FORBIDDEN = ("jax", "jaxlib", "scenelib2_tpu", "tests")
 ENTRY_MODULES = ("scenelib2_torch.cli", "scenelib2_torch.io", "scenelib2_torch.io.sequence",
                  "scenelib2_torch.io.native", "scenelib2_torch.io.camera", "scenelib2_torch.eval.selftest",
                  "scenelib2_torch.eval.metrics", "scenelib2_torch.eval.benchmark", "scenelib2_torch.eval.viz",
-                 "scenelib2_torch.eval.interactive")
+                 "scenelib2_torch.eval.interactive", "scenelib2_torch.runtime.assembly",
+                 "scenelib2_torch.parallel.mesh")
 
 
 
@@ -188,6 +191,23 @@ pe = run_parity_eval(n_frames=4, params=Params(cam_width=160, cam_height=120, ca
                                                cam_u0=80.0, cam_v0=60.0, max_features=10, n_particles=24),
                      device="cpu")
 assert pe["decision_agreement"] == 1.0 and "scenelib2_torch.eval.oracle_monoslam" in sys.modules
+# the large-map EKF frame (runtime/assembly.py) and its sharded form on a
+# one-rank gloo mesh, and lanes over a one-rank 1-D mesh
+from scenelib2_torch.eval.benchmark import _make_ekf_frame, _make_map_state
+import torch.distributed as dist
+from scenelib2_torch.parallel import mesh as pm
+x0, P0, _ = _make_map_state(20, 6)
+x, P, top = _make_ekf_frame(Params(), 20, 6)(torch.tensor(x0), torch.tensor(P0))
+dist.init_process_group("gloo", init_method="file://" + work + "/pg", rank=0, world_size=1)
+mesh = pm.make_mesh((1, 1), ("row", "col"), device="cpu")
+xs, Ps, tops = pm.sharded_stress_frame(mesh, Params(), 20, 6)(*pm.shard_state(mesh, x0, P0), torch.zeros(3, dtype=torch.float64))
+assert torch.equal(top, tops) and torch.allclose(Ps, P, rtol=1e-8, atol=1e-10)
+lanes = pm.make_mesh((1,), ("data",), device="cpu")
+_states, outs = run_batch(step, replicate_states(slam.state, 2), frames[1:3, None].repeat(2, axis=1), True, p_,
+                          mesh=lanes)
+assert outs.r.shape == (2, 2, 3)
+dist.destroy_process_group()
+assert "scenelib2_torch.runtime.assembly" in sys.modules
 assert not any(m.split(".")[0] in FORBIDDEN for m in sys.modules)
 print("OK", traj_shape)
 """

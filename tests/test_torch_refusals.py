@@ -1,13 +1,12 @@
-"""What the port does not run yet is refused with NotImplementedError, and
-each refusal names its ROADMAP.md Queue 1 item by title, not by number, so
-that renumbering the queue cannot make a message stale: the title must
-stand in ROADMAP.md as the bold heading of an item."""
+"""What the port refuses, and what it no longer refuses: make_step,
+make_batch_step and make_batched_step return a step for use_pallas=False,
+the port's use_pallas default, and top-k over more selections than slots
+refused where JAX's lax.top_k refuses it."""
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import re
 
 import pytest
 
@@ -16,7 +15,6 @@ import torch
 from scenelib2_torch import MonoSLAM
 from scenelib2_torch.config import Params, load_config
 from scenelib2_torch.core import ekf
-from scenelib2_torch.eval.benchmark import ALL_BENCHES, ROADMAP_STRESS, roadmap_item
 from scenelib2_torch.parallel.mesh import make_batched_step
 from scenelib2_torch.runtime.step import (
     make_batch_step,
@@ -26,27 +24,6 @@ from scenelib2_torch.runtime.step import (
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 P = Params()
-REFUSALS = {
-    "stress500 bench": (ROADMAP_STRESS, lambda: ALL_BENCHES["stress500"](device="cpu")),
-    "ekf100 bench": (ROADMAP_STRESS, lambda: ALL_BENCHES["ekf100"](device="cpu")),
-}
-
-
-@pytest.mark.parametrize("case", list(REFUSALS))
-def test_refusal_names_its_roadmap_item_by_title(case):
-    title, build = REFUSALS[case]
-    with pytest.raises(NotImplementedError) as e:
-        build()
-    assert roadmap_item(title) in str(e.value)
-    assert not re.search(r"item \d", str(e.value)), str(e.value)
-
-
-@pytest.mark.parametrize("title", [ROADMAP_STRESS])
-def test_each_title_heads_an_item_of_the_roadmap(title):
-    with open(os.path.join(REPO, "ROADMAP.md")) as f:
-        text = f.read()
-    queue1 = text.split("### Queue 1", 1)[1].split("### Queue 2", 1)[0]
-    assert re.search(r"^\d+\. \*\*" + re.escape(title) + r"\b", queue1, re.M), title
 
 
 @pytest.mark.parametrize("builder", ["make_step", "make_batch_step", "make_batched_step"])
