@@ -3526,11 +3526,10 @@ def graph_cell(tag: str, label: str, run, run_eager, graphs: dict, T: int, path,
     state_n = state if eager_n == T else run(0, eager_n)[1]
     if not outputs_identical(state_n, eager[1]):
         fail(f"[{tag}] {label}: the graph replay's state after {eager_n} steps differs from the eager loop's")
-    warmup_s = sum(g_.warmup_s for g_ in new)
     capture_s = sum(g_.capture_s for g_ in new)
     log(f"[{tag}] {label}: graph replay of {T} steps ({len(replay.chunk_plan(T, 0))} replays of graphs of "
         f"{sizes} steps) equals the eager loop bit for bit (outputs and state{'' if eager_n == T else f' over its first {eager_n} steps'}); first call {first_s:.3f} s "
-        f"wall, of it warm-up steps {warmup_s:.3f} s and capture + instantiate {capture_s:.3f} s (host); "
+        f"wall, of it capture + instantiate {capture_s:.3f} s (host); "
         f"launches counted in the graph run (warm-up steps and the captures, not the replays) "
         f"{json.dumps({k: v for k, v in launches.items() if v})}")
     k = GRAPH_CHUNK
@@ -3568,7 +3567,7 @@ def graph_cell(tag: str, label: str, run, run_eager, graphs: dict, T: int, path,
         f"counted kernel ran")
     busy = prof["device_ms"] / n
     res = dict(eager_ms=eager_ms, eager_s=eager_s, first_s=first_s, graph_ms=graph_ms, graph_runs=runs,
-               span_ms=span_ms, warmup_s=warmup_s, capture_s=capture_s, steps=T, graphs=sizes,
+               span_ms=span_ms, capture_s=capture_s, steps=T, graphs=sizes,
                chunk=k, traced_steps=n, graph_ms_window=window_ms,
                busy=busy if busy > 0 else None,
                idle_eager=(1.0 - busy / eager_ms) if busy > 0 else None,
@@ -5268,7 +5267,7 @@ def main() -> int:
              "mf100": large["mf100"], "batch64": batch, "bp0": routes["bp0"], "sb0": routes["sb0"],
              "batch-hires": hires_b}
     keys = ("eager_ms", "graph_ms", "graph_runs", "span_ms", "graph_ms_window", "traced_steps", "busy",
-            "idle_eager", "idle_graph", "idle_span", "kernels", "peak_mb", "pool_mb", "warmup_s", "capture_s",
+            "idle_eager", "idle_graph", "idle_span", "kernels", "peak_mb", "pool_mb", "capture_s",
             "eager_s", "first_s", "steps", "graphs", "pools_mb", "chunk", "captured")
     print(json.dumps({"graph_replay": {c: {k: r_[k] for k in keys} for c, r_ in cells.items()},
                       "empty_launch_ms": empty_ms, "card": smi}))

@@ -6,8 +6,9 @@ state printing, frame dumps). This command line runs the same workflows headless
 
   run          replay a sequence directory or a live camera frame by frame
                (go_one_step: one CUDA-graph replay a frame on the card),
-               dump the trajectory, per-frame metrics JSONL, optionally a
-               checkpoint and a torch.profiler trace
+               dump the trajectory, per-frame metrics JSONL, the run's
+               counters and captured graphs (telemetry.json), optionally a
+               checkpoint and a torch.profiler trace (with the slam.* spans)
   bench        the benchmark suite (scenelib2_torch.eval.benchmark)
   visualize    plot a finished run (matplotlib)
   ar           AR overlays and a 3-D map of a replayed sequence
@@ -103,6 +104,11 @@ def cmd_run(args):
             n += 1
             if args.verbose and i % 10 == 0:
                 print(json.dumps(rec), file=sys.stderr)
+    from scenelib2_torch.runtime import telemetry
+
+    with open(os.path.join(args.out, "telemetry.json"), "w") as f:
+        json.dump(dict(sequence=slam.counters.as_dict(), graphs=slam.graphs(), stages=telemetry.STAGES), f,
+                  indent=1)
     if prof is not None:
         prof.__exit__(None, None, None)
         profile_dir = os.path.join(args.out, "profile")

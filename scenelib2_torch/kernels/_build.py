@@ -45,8 +45,11 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# launches of each kernel since the last reset_launches(); a wrapper adds one
-# where it launches its kernel and nowhere else
+# calls of each kernel's wrapper since the last reset_launches(): a wrapper
+# adds one where it launches its kernel and nowhere else. A launch captured
+# into a CUDA graph counts once, at the capture, and never at the graph's
+# replays (runtime/replay.py), so this counts a replayed step's kernels not
+# at all
 launches: dict[str, int] = {n: 0 for n in KERNELS}
 
 _libs: dict[tuple, ctypes.CDLL] = {}   # (name, defines) -> the loaded library

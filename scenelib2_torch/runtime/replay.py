@@ -43,6 +43,11 @@ The kernel wrappers count their launches when called (kernels/_build.py
 ``launches``), so a graph's kernels are counted while it is captured (and
 its warm-up step's once), not when it is replayed: ``StepGraph.launches``
 keeps the counts its capture added.
+
+The replays carry runtime/telemetry.py's spans and counters (the
+SequenceRecord ``rec`` of the caller: copy_in, launch, copy_out; an eager
+step's time goes under launch), and each StepGraph's GraphRecord takes its
+nodes by stage from the step's stage marks while it is captured.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import time
 import torch
 
 from scenelib2_torch.kernels import _build
+from scenelib2_torch.runtime import telemetry
 from scenelib2_torch.runtime.state import SlamState
 from scenelib2_torch.runtime.step import pack_outputs
 
@@ -84,13 +90,16 @@ def sync_error():
 
 
 def eager_steps(step, state: SlamState, seq: torch.Tensor, enable_mapping: bool,
-                flat: torch.Tensor) -> SlamState:
+                flat: torch.Tensor, rec: telemetry.SequenceRecord = telemetry.UNCOUNTED) -> SlamState:
     """The step called from Python on every frame of seq [T, *frame], its
     packed outputs written to flat[t]; returns the final state. The
-    reference that a graph replay is held to, and the CPU path."""
+    reference that a graph replay is held to, and the CPU path. Each step
+    is a slam.step span and a launch of one step in rec."""
     for t in range(seq.shape[0]):
+        t0 = rec.start("slam.step")
         state, out = step(state, seq[t], enable_mapping)
         flat[t] = pack_outputs(out)
+        rec.stop_launch(1, t0)
     return state
 
 
@@ -98,14 +107,14 @@ class StepGraph:
     """N steps of `step` captured as one CUDA graph (the module docstring):
     state_in and frames are its static inputs, and it leaves its final state
     in state_in; flat [N, *lanes, K] is its packed output. launches holds the
-    kernel launches its capture counted, warmup_s the host seconds of the
-    warm-up step and capture_s those of the capture and the instantiation.
-    pool is another graph's pool() to allocate from (the module docstring),
-    None for a pool of its own."""
+    kernel launches its capture counted and capture_s the host seconds of
+    the capture and the instantiation; record (telemetry.GraphRecord) its
+    nodes by stage, capture seconds and replays. pool is another graph's
+    pool() to allocate from (the module docstring), None for a pool of its
+    own."""
 
     def __init__(self, step, state: SlamState, frames: torch.Tensor, enable_mapping: bool, pool=None):
         dev = state.x.device
-        t0 = time.perf_counter()
         self.n = frames.shape[0]
         self.state_in = SlamState(*(t.clone() for t in state))
         self.frames = frames.clone()
@@ -113,12 +122,12 @@ class StepGraph:
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             step(self.state_in, self.frames[0], enable_mapping)
-        t1 = time.perf_counter()
-        self.warmup_s = t1 - t0
+        t0 = time.perf_counter()
         before = dict(_build.launches)
+        self.record = telemetry.GraphRecord(step.route, enable_mapping, self.n)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-            with sync_error():
+            with sync_error(), telemetry.capture_stages(self.record):
                 s, packed = self.state_in, []
                 for i in range(self.n):
                     s, out = step(s, self.frames[i], enable_mapping)
@@ -126,7 +135,9 @@ class StepGraph:
                 self.flat = torch.stack(packed)
                 self._keep(s)
         self.launches = {k: v - before[k] for k, v in _build.launches.items()}
-        self.capture_s = time.perf_counter() - t1
+        self.capture_s = time.perf_counter() - t0
+        self.record.capture_s = self.capture_s
+        telemetry.register(self.record)
 
     def _keep(self, final: SlamState):
         """Copy the final state into the static inputs (while capturing). A
@@ -143,15 +154,21 @@ class StepGraph:
             if src is not dst:
                 dst.copy_(src)
 
-    def replay(self, state: SlamState, frames: torch.Tensor) -> SlamState:
+    def replay(self, state: SlamState, frames: torch.Tensor,
+               rec: telemetry.SequenceRecord = telemetry.UNCOUNTED) -> SlamState:
         """Replay on frames [N, *frame] from state (copied in unless it is
         the graph's own state_in); returns state_in, which now holds the
-        final state until the next replay."""
+        final state until the next replay. The copies in and the launch
+        count in rec."""
+        t0 = rec.start("slam.copy_in")
         if state is not self.state_in:
             for dst, src in zip(self.state_in, state):
                 dst.copy_(src)
         self.frames.copy_(frames)
+        t1 = rec.start("slam.launch", rec.stop("copies", t0))
         self.graph.replay()
+        rec.stop_launch(self.n, t1)
+        self.record.replays += 1
         return self.state_in
 
 
@@ -207,30 +224,37 @@ def cached_graph(step, graphs: dict, state: SlamState, frames: torch.Tensor,
         while len(graphs) >= MAX_GRAPHS:
             del graphs[next(iter(graphs))]
         pool = next(iter(graphs.values())).graph.pool() if graphs else None
-        g = StepGraph(step, state, frames, enable_mapping, pool)
+        with telemetry.span("slam.capture"):
+            g = StepGraph(step, state, frames, enable_mapping, pool)
     graphs[key] = g                         # the most recently used last
     return g
 
 
 def replay_steps(step, graphs: dict, state: SlamState, seq: torch.Tensor, enable_mapping: bool,
-                 chunk: int, flat: torch.Tensor) -> SlamState:
+                 chunk: int, flat: torch.Tensor,
+                 rec: telemetry.SequenceRecord = telemetry.UNCOUNTED) -> SlamState:
     """seq [T, *frame] through CUDA graphs of `step` in the groups of
     chunk_plan(T, chunk), the packed outputs written to flat [T, ...].
     graphs caches the graphs (cached_graph); a missing one is captured from
     the state at hand. Returns the final state as tensors of its own (a
-    copy, not the graph's)."""
+    copy, not the graph's). The copies and launches count in rec."""
     t = 0
     for n in chunk_plan(seq.shape[0], chunk):
         g = cached_graph(step, graphs, state, seq[t : t + n], enable_mapping)
         with sync_error():
-            state = g.replay(state, seq[t : t + n])
+            state = g.replay(state, seq[t : t + n], rec)
+            t0 = rec.start("slam.copy_out")
             flat[t : t + n].copy_(g.flat)
+            rec.stop("copies", t0)
         t += n
-    return SlamState(*(x.clone() for x in state))
+    t0 = rec.start("slam.copy_out")
+    final = SlamState(*(x.clone() for x in state))
+    rec.stop("copies", t0)
+    return final
 
 
-def replay_one(step, graphs: dict, state: SlamState, frame: torch.Tensor,
-               enable_mapping: bool) -> tuple[SlamState, torch.Tensor]:
+def replay_one(step, graphs: dict, state: SlamState, frame: torch.Tensor, enable_mapping: bool,
+               rec: telemetry.SequenceRecord = telemetry.UNCOUNTED) -> tuple[SlamState, torch.Tensor]:
     """One step of `step` on frame [*frame] through the cache's one-step
     graph, the one replay_steps replays past the last full block (the same
     key, so the two share it): the state is copied into the graph's inputs
@@ -238,10 +262,12 @@ def replay_one(step, graphs: dict, state: SlamState, frame: torch.Tensor,
     the facade's state surgery) and the frame into its frame buffer.
     Returns the state after the step and that step's packed row
     (pack_outputs), both as tensors of their own, which no later replay
-    overwrites."""
+    overwrites. The copies and the launch count in rec."""
     g = cached_graph(step, graphs, state, frame[None], enable_mapping)
     with sync_error():
-        out = g.replay(state, frame[None])
+        out = g.replay(state, frame[None], rec)
+        t0 = rec.start("slam.copy_out")
         row = g.flat[0].clone()
         out = SlamState(*(x.clone() for x in out))
+        rec.stop("copies", t0)
     return out, row

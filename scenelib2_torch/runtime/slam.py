@@ -20,6 +20,13 @@ the other's files.
 The facade's state surgery (reset, the manual inits, deletion, loading a
 checkpoint) runs as tensor ops on the facade's device, outside any graph;
 the next go_one_step copies the state it finds into the graph's inputs.
+
+The entry points carry runtime/telemetry.py's spans (slam.go_one_step,
+slam.run_sequence, slam.upload, slam.unpack, slam.fetch, slam.reset; the
+graph replay's beneath them) and count their parts in `counters`, the
+sequence's telemetry.SequenceRecord: construction and each reset() start
+one. graphs() lists the telemetry.GraphRecord of each graph the facade
+keeps.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from scenelib2_torch.convert import state_from_jax, state_to_numpy
 from scenelib2_torch.core.camera import CameraParams
 from scenelib2_torch.device import resolve_device, resolve_dtype
 from scenelib2_torch.io.pgm import read_pgm, write_pgm
-from scenelib2_torch.runtime import replay
+from scenelib2_torch.runtime import replay, telemetry
 from scenelib2_torch.runtime import state as st
 from scenelib2_torch.runtime import step as step_mod
 from scenelib2_torch.runtime.state import SlamState
@@ -58,6 +65,7 @@ class MonoSLAM:
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(precision)
         self._step = step_mod.make_step(self.params, self.device, precision)
+        self.counters = telemetry.new_sequence()
         self.state: SlamState = st.init_from_config(
             config, seed=seed, device=self.device, dtype=self.dtype)
         self.trajectory_store: list[np.ndarray] = []
@@ -83,30 +91,45 @@ class MonoSLAM:
         first call for each enable_mapping, then replayed), and last_output
         holds that step's outputs on the device. On the CPU the step is
         called, as _go_one_step_eager does everywhere."""
-        if self.device.type != "cuda":
-            return self._go_one_step_eager(frame, save_trajectory, enable_mapping)
-        return self._go_one_step_graph(frame, save_trajectory, enable_mapping)
+        rec = self.counters
+        with rec.span("slam.go_one_step"):
+            t0 = telemetry.now()
+            if self.device.type != "cuda":
+                self._go_one_step_eager(frame, save_trajectory, enable_mapping)
+            else:
+                self._go_one_step_graph(frame, save_trajectory, enable_mapping)
+            rec.frames += 1
+            rec.stop("call", t0)
+        return True
 
     GoOneStep = go_one_step
 
     def _go_one_step_graph(self, frame, save_trajectory: bool, enable_mapping: bool) -> bool:
+        rec = self.counters
         self.state, row = replay.replay_one(self._step, self._graphs, self.state, self._to_device(frame),
-                                            enable_mapping)
+                                            enable_mapping, rec)
         p = self.params
+        t0 = rec.start("slam.unpack")
         self.last_output = step_mod.unpack_outputs(
             row, p.n_features_to_select, max(1, p.max_features_to_init_at_once), p.n_particles)
+        rec.stop(None, t0)
         if save_trajectory:
-            self._record(self.last_output.r.cpu().numpy())
+            self._record(self._fetch(self.last_output.r).numpy())
         return True
 
     def _go_one_step_eager(self, frame, save_trajectory: bool = True,
                            enable_mapping: bool = True) -> bool:
         """go_one_step with the step called from Python, on any device: the
-        reference that the graph replay is held to."""
-        self.state, out = self._step(self.state, self._to_device(frame), enable_mapping)
+        reference that the graph replay is held to. The step is a slam.step
+        span and its time a launch in the counters."""
+        rec = self.counters
+        frame = self._to_device(frame)
+        t0 = rec.start("slam.step")
+        self.state, out = self._step(self.state, frame, enable_mapping)
+        rec.stop_launch(1, t0)
         self.last_output = out
         if save_trajectory:
-            self._record(out.r.cpu().numpy())
+            self._record(self._fetch(out.r).numpy())
         return True
 
     def _record(self, r: np.ndarray) -> None:
@@ -115,8 +138,11 @@ class MonoSLAM:
             self.trajectory_store.pop(0)
 
     def reset(self, seed: int = 0) -> None:
-        """Reinitialise the filter from the config (keeps the graphs)."""
-        self.state = st.init_from_config(self.config, seed=seed, device=self.device, dtype=self.dtype)
+        """Reinitialise the filter from the config (keeps the graphs) and
+        start a new sequence's counters."""
+        self.counters = telemetry.new_sequence()
+        with telemetry.span("slam.reset"):
+            self.state = st.init_from_config(self.config, seed=seed, device=self.device, dtype=self.dtype)
         self.trajectory_store = []
         self.marked_feature_label = -1
 
@@ -135,7 +161,12 @@ class MonoSLAM:
         graphs, whatever the number of frames; this object keeps at most
         replay.MAX_GRAPHS of them. On the CPU the step is called on every
         frame, and chunk only groups the frames: the outputs are the same."""
-        return self._replay(frames, enable_mapping, chunk, graphs=self.device.type == "cuda")
+        rec = self.counters
+        with rec.span("slam.run_sequence"):
+            t0 = telemetry.now()
+            outs = self._replay(frames, enable_mapping, chunk, graphs=self.device.type == "cuda")
+            rec.stop("sequence", t0)
+        return outs
 
     def _run_sequence_eager(self, frames, enable_mapping: bool = True) -> step_mod.StepOutputs:
         """run_sequence with the step called from Python on every frame, on
@@ -143,7 +174,9 @@ class MonoSLAM:
         return self._replay(frames, enable_mapping, 0, graphs=False)
 
     def _replay(self, frames, enable_mapping: bool, chunk: int, graphs: bool) -> step_mod.StepOutputs:
+        rec = self.counters
         seq = self._to_device(frames)
+        rec.frames += seq.shape[0]
         replay.chunk_plan(seq.shape[0], chunk)   # refuses a bad chunk on every device
         p = self.params
         nsel = p.n_features_to_select
@@ -153,20 +186,41 @@ class MonoSLAM:
                            dtype=self.dtype, device=self.device)
         if graphs:
             self.state = replay.replay_steps(self._step, self._graphs, self.state, seq, enable_mapping,
-                                             chunk, flat)
+                                             chunk, flat, rec)
         else:
-            self.state = replay.eager_steps(self._step, self.state, seq, enable_mapping, flat)
-        outs = step_mod.unpack_outputs(flat.cpu(), nsel, maxp, npart)
+            self.state = replay.eager_steps(self._step, self.state, seq, enable_mapping, flat, rec)
+        outs = step_mod.unpack_outputs(self._fetch(flat), nsel, maxp, npart)
         self.last_output = step_mod.StepOutputs(*(a[-1] for a in outs))
         self.trajectory_store.extend(list(outs.r.numpy()))
         self.trajectory_store = self.trajectory_store[-TRAJECTORY_LEN:]
         return outs
 
     def _to_device(self, frames) -> torch.Tensor:
-        """u8 frame(s) from numpy or a tensor, contiguous on this device."""
+        """u8 frame(s) from numpy or a tensor, contiguous on this device
+        (slam.upload, counted as upload)."""
+        rec = self.counters
+        t0 = rec.start("slam.upload")
         if isinstance(frames, torch.Tensor):
-            return frames.to(device=self.device, dtype=torch.uint8).contiguous()
-        return torch.as_tensor(np.ascontiguousarray(frames, np.uint8)).to(self.device)
+            out = frames.to(device=self.device, dtype=torch.uint8).contiguous()
+        else:
+            out = torch.as_tensor(np.ascontiguousarray(frames, np.uint8)).to(self.device)
+        rec.stop("upload", t0)
+        return out
+
+    def _fetch(self, t: torch.Tensor) -> torch.Tensor:
+        """t on the host (slam.fetch, counted as wait): the host waits there
+        for the device's work that t needs."""
+        rec = self.counters
+        t0 = rec.start("slam.fetch")
+        out = t.cpu()
+        rec.stop("wait", t0)
+        return out
+
+    def graphs(self) -> list[dict]:
+        """The telemetry.GraphRecord of each CUDA graph the facade keeps
+        (route, mapping, steps, kernel nodes by stage a step, copy nodes,
+        capture seconds, replays), least recently used first."""
+        return [g.record.as_dict() for g in self._graphs.values()]
 
     # ------------------------------------------------- manual initialisation
 

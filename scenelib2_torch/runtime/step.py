@@ -62,6 +62,11 @@ decisions are the JAX step's. The enable_mapping gate is a host bool, so
 with mapping off stage 7 is not run at all (K5 and K6 do not launch); stage
 8 runs on both paths, as in JAX, since a loaded state may hold partial
 features.
+
+Every route marks where its stages start (runtime/telemetry.py ``stage``:
+s1_2, s3, s4_6, s7, s8, tail, the last the outputs' assembly): a mark
+counts a graph's kernels by stage while runtime/replay.py captures it and
+does nothing otherwise.
 """
 
 from __future__ import annotations
@@ -122,6 +127,7 @@ from scenelib2_torch.kernels.shi_tomasi import (
 )
 from scenelib2_torch.rng import drand48_many
 from scenelib2_torch.runtime import state as st
+from scenelib2_torch.runtime import telemetry
 from scenelib2_torch.runtime.state import CAM_DIM, SLOT_DIM, SlamState
 
 
@@ -363,6 +369,7 @@ def make_step(params: Params, device=None, precision: str = "f32"):
         sinv_abc = sel[O_SINV : O_SINV + 3].T.contiguous()
 
         # ---- 3. windowed NSSD search (K2) ---------------------------------
+        telemetry.stage("s3")
         u0, v0, ucen, vcen = search_window_origin(h_sel, params.search_win_radius, W, H, B)
         found, u, v, _best, over = search(
             frame_u8, state.patch_rows[top_idx.long()], u0, v0, ucen, vcen,
@@ -371,6 +378,7 @@ def make_step(params: Params, device=None, precision: str = "f32"):
         z_sel = torch.stack([u, v], dim=1).to(dtype)
 
         # ---- 4-6. joint update + normalise + bookkeeping + delete (K3) ----
+        telemetry.stage("s4_6")
         offs = (CAM_DIM + SLOT_DIM * top_idx).to(torch.int32)
         x, P, attempts, successes, sched_after, kill = joint_update(
             x, P, sel, z_sel, found, offs, state.attempts, state.successes,
@@ -425,6 +433,7 @@ def make_step(params: Params, device=None, precision: str = "f32"):
 
     def step(state: SlamState, frame_u8: torch.Tensor,
              enable_mapping: bool) -> tuple[SlamState, StepOutputs]:
+        telemetry.stage("s1_2")
         prev_r = state.x[0:3]
         if fused:
             mid, sl = fused_stages(state, frame_u8)
@@ -435,6 +444,7 @@ def make_step(params: Params, device=None, precision: str = "f32"):
         n_visible, pidx, pmask = sl.n_visible, sl.pidx, sl.pmask
 
         # ---- 7. speed gate + auto-initialisation (K5, K6) -----------------
+        telemetry.stage("s7")
         vel = (mid.x[0:3] - prev_r) / dt_t
         speed = torch.sqrt(torch.sum(vel * vel))
         if enable_mapping:
@@ -443,6 +453,7 @@ def make_step(params: Params, device=None, precision: str = "f32"):
             did_init, init_box = no_init, no_box
 
         # ---- 8. partial-feature particles (K4, or K9 K10 K11) + surgery ---
+        telemetry.stage("s8")
         if stage8 is None:
             mid, pm = particles_k4(mid, frame_u8, pidx, pmask)
         else:
@@ -451,6 +462,7 @@ def make_step(params: Params, device=None, precision: str = "f32"):
             mid = SlamState(*(t[0] for t in mid_b))
         pm = PartialMatch(*(t[0] for t in pm))
 
+        telemetry.stage("tail")
         out = StepOutputs(
             r=mid.x[0:3],
             q=mid.x[3:7],
@@ -631,6 +643,7 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool, route: s
         Bn = state.x.shape[0]
 
         # ---- 1. EKF predict ------------------------------------------------
+        telemetry.stage("s1_2")
         x, P = ekf.predict(state.x, state.P, u_zero, params.delta_t, params.sd_a, params.sd_alpha)
 
         # ---- 2. predict measurements + select (K7, or the XLA chain) --------
@@ -667,6 +680,7 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool, route: s
         pvals, pidx = stable_top_k((state.active & ~state.full).to(dtype), MAXP)
 
         # ---- 3. windowed NSSD search (K2, K8 on gathered windows, or XLA) ---
+        telemetry.stage("s3")
         u0, v0, ucen, vcen = search_window_origin(h_sel, params.search_win_radius, W, H, Bx)
         # the kernels take S^-1 in f32 (a no-op cast in the fast mode)
         sinv32 = sinv_abc.to(torch.float32)
@@ -695,6 +709,7 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool, route: s
         n_matched = found.sum(-1).to(torch.int32)
 
         # ---- 4-6. joint update + normalise + bookkeeping + delete -----------
+        telemetry.stage("s4_6")
         attempts, successes, kill, sched_after = bookkeeping(state, top64, sel_mask, found)
         offs = CAM_DIM + SLOT_DIM * top64
         f4 = found[:, :, None, None]
@@ -1099,6 +1114,7 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
         n_visible, pidx, pmask = sl.n_visible, sl.pidx, sl.pmask
 
         # ---- 7. speed gate + auto-initialisation ----------------------------
+        telemetry.stage("s7")
         vel = (mid.x[:, 0:3] - prev_r) / dt_t
         speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
         if enable_mapping:
@@ -1108,8 +1124,10 @@ def _lane_step(params: Params, device, dtype, route: str, pallas_chol: bool):
             init_box = torch.zeros((Bn, 2), dtype=torch.int32, **kw)
 
         # ---- 8. partial-feature particles (route's kernels) + surgery ---------
+        telemetry.stage("s8")
         mid, pm = stage8(mid, frames, pidx, pmask)
 
+        telemetry.stage("tail")
         out = StepOutputs(
             r=mid.x[:, 0:3],
             q=mid.x[:, 3:7],

@@ -42,7 +42,7 @@ from scenelib2_torch.eval.batch import make_lanes
 from scenelib2_torch.eval.fingerprint import DECISION_FIELDS, selection_set
 from scenelib2_torch.eval.synthetic import generate_dataset
 from scenelib2_torch.parallel.mesh import _run_batch_eager, make_batched_step, run_batch
-from scenelib2_torch.runtime import replay
+from scenelib2_torch.runtime import replay, telemetry
 from scenelib2_torch.runtime.replay import MAX_GRAPHS, REPLAY_BLOCK, chunk_plan
 from scenelib2_torch.runtime.state import SlamState
 from scenelib2_torch.runtime.step import pack_outputs
@@ -225,10 +225,12 @@ def test_batch_step_leaves_its_input_state_unchanged(two_lanes, route):
 class _EagerStepGraph(replay.StepGraph):
     """replay.StepGraph with its capture replaced by a stand-in that runs on
     the CPU: the N steps are called at each replay, on the static inputs,
-    and end in StepGraph._keep as the captured graph does."""
+    and end in StepGraph._keep as the captured graph does. Its
+    telemetry.GraphRecord counts replays and no nodes."""
 
     def __init__(self, step, state, frames, enable_mapping, pool=None):
         self.n = frames.shape[0]
+        self.record = telemetry.GraphRecord(step.route, enable_mapping, self.n)
         self.state_in = SlamState(*(t.clone() for t in state))
         self.frames = frames.clone()
 
