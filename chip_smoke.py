@@ -10,7 +10,9 @@ Phases (any failure exits non-zero before the last line is printed):
  2. kernel vs plain: each kernel (K1 predict+measure+select, K2 search,
     K3 update+bookkeeping, K4 particle search+Bayes, K5 init region
     proposal with the step's speed gate and the region's clamp, K6
-    Shi-Tomasi pick; K14 L^-1 on seeded matrices, bit for
+    Shi-Tomasi pick, K17 ray insertion (also with the gate shut over an
+    asymmetric P, a full map, the free slot at 0 and at MF - 1; and on the
+    hires and mf100 inputs of 3c and 3d); K14 L^-1 on seeded matrices, bit for
     bit: SPD at M = 1..128, stacks of 3 and 64, a negative pivot, an
     infinite entry) and its
     plain PyTorch version on the same
@@ -958,6 +960,45 @@ def check_k6(args) -> float:
     if not same_bits_or_nan(got[2], want[2]):
         fail(f"K6 evbest differs bit for bit: {got[2].tolist()} vs {want[2].tolist()}")
     return max_err(got[2], want[2])
+
+
+def k17_variations(args, rng):
+    """(label, args) cases of K17 from a real frame's ray_insert inputs: the
+    gate shut over a P made slightly asymmetric (the twin writes the slot's
+    old rows into its columns), opened on it, a full map, the free slot at 0
+    and at MF - 1."""
+    state, frame, ub, vb, ev, ok, rng_new, lam0, c = args
+    MF = state.active.shape[0]
+    asym = state.P + torch.triu(torch.tensor(rng.normal(0, 1e-3, state.P.shape), dtype=torch.float32,
+                                             device=state.P.device), 1)
+    high = torch.full_like(ev, c.thresh * 2.0 + 1.0)
+    out = [("real", args)]
+
+    def case(label, st_, ok_, ev_):
+        out.append((label, (st_, frame, ub, vb, ev_, ok_, rng_new, lam0, c)))
+
+    case("shut_asym", state._replace(P=asym), torch.zeros_like(ok), ev)
+    case("open_asym", state._replace(P=asym), torch.ones_like(ok), high)
+    case("full", state._replace(active=torch.ones_like(state.active)), torch.ones_like(ok), high)
+    for label, free in (("slot0", 0), ("slot_last", MF - 1)):
+        active = torch.ones_like(state.active)
+        active[free] = False
+        case(label, state._replace(active=active, P=asym), torch.ones_like(ok), high)
+    return out
+
+
+def check_k17(args) -> float:
+    from scenelib2_torch.kernels.ray_insert import ray_insert, ray_insert_plain
+
+    got, did = ray_insert(*args)
+    want, want_did = ray_insert_plain(*args)
+    torch.cuda.synchronize()
+    if not same(did, want_did):
+        fail(f"K17 did_init differs: kernel {did.tolist()} plain {want_did.tolist()}")
+    for name, a, b in zip(got._fields, got, want):
+        if not (same_bits_or_nan(a, b) if a.is_floating_point() else same(a, b)):
+            fail(f"K17 {name} differs from the plain version (max abs err {max_err(a.float(), b.float())})")
+    return 0.0
 
 
 # ------------------------------------------------------------ batch kernels
@@ -2092,6 +2133,8 @@ def large_map_phase(tag: str, name: str, tmp: str, dev, rng) -> dict:
         a6, kw6 = c["shi_tomasi"]
         for _label, args in k6_variations(tuple(a6) + (kw6,), rng, H, W):
             worse("K6", check_k6(args))
+        for _label, args in k17_variations(c["ray_insert"][0], rng):
+            worse("K17", check_k17(args))
     log(f"[{tag}] the {name} kernels equal their plain versions on the inputs of output indices "
         f"{spec['at']} (cases {json.dumps(n_cases)}; max abs err {json.dumps(errs)})")
 
@@ -2638,19 +2681,20 @@ def entry_points_phase(tmp: str, dev, frames, gt_r, gt_q, cfg: str, outs_eager, 
     rets = {t_: r_ for t_, r_, _w, _s in fg if r_ is not None}
     if not (rets["initialise_feature"] and rets["delete_feature"] and rets["reset"] == -1):
         fail(f"facade script: the calls did not do what the script asks: {rets}")
-    want5 = {n: (1 if n in ("propose", "shi_tomasi") else 0) for n in _build.KERNELS}
+    want5 = {n: (1 if n in STAGE7 else 0) for n in _build.KERNELS}
     if probe["launches"] != want5:
-        fail(f"initialise_auto_feature launched {probe['launches']}, expected K5 and K6 once each")
+        fail(f"initialise_auto_feature launched {probe['launches']}, expected K5, K6 and K17 once each")
     a5, _ = probe["calls"]["propose_region"]
     a6, kw6 = probe["calls"]["shi_tomasi"]
     check_k5(a5)
     e6 = check_k6(tuple(a6) + (kw6,))
+    check_k17(probe["calls"]["ray_insert"][0])
     res["facade"] = dict(calls=len(fg), returns=rets, max_dx_cpu=dmax, manual_init_launches=probe["launches"])
     log(f"[3g] facade script ({len(fg)} calls: steps, initialise_feature, initialise_auto_feature, "
         f"delete_feature, add_new_known_feature, save/load_checkpoint, reset): through the graph bit for "
         f"bit with the eager step, against the CPU port decisions identical (max |dx|, |dP| {dmax:.3g}); "
-        f"returns {json.dumps(rets)}; initialise_auto_feature launched K5 and K6 once each, both equal "
-        f"their plain versions on its inputs (K6 evbest max abs err {e6})")
+        f"returns {json.dumps(rets)}; initialise_auto_feature launched K5, K6 and K17 once each, all "
+        f"equal their plain versions on its inputs (K6 evbest max abs err {e6})")
 
     # ---- (c) + (d): selftest and cli run, side by side in subprocesses
     root = cache_root(tmp)
@@ -3275,13 +3319,16 @@ def f64_phase(tmp: str, dev, frames, cfg: str, seq, smi: str) -> dict:
 # ------------------------------------------------------------ main
 
 
-SINGLE_WRAPPERS = ("predict_measure", "search", "joint_update", "propose_region", "shi_tomasi", "search_bayes")
-WRAPPERS = ("predict_measure", "search", "joint_update", "propose_region", "shi_tomasi", "search_bayes",
+SINGLE_WRAPPERS = ("predict_measure", "search", "joint_update", "propose_region", "shi_tomasi", "ray_insert",
+                   "search_bayes")
+WRAPPERS = ("predict_measure", "search", "joint_update", "propose_region", "shi_tomasi", "ray_insert", "search_bayes",
             "measure_select", "score_map", "particle_predict", "search_bayes_maps", "chol_inv",
             "search_windows", "bayes_update", "particle_search")
 # the kernels of each main path (launch-count names of kernels/_build.py)
-SINGLE_PATH = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "search_bayes")
-SPLIT_PATH = ("measure", "search", "chol_inv", "propose", "shi_tomasi", "search_bayes")
+SINGLE_PATH = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "ray_insert", "search_bayes")
+SPLIT_PATH = ("measure", "search", "chol_inv", "propose", "shi_tomasi", "ray_insert", "search_bayes")
+# stage 7's kernels: launched with mapping on, and by a manual auto-init
+STAGE7 = ("propose", "shi_tomasi", "ray_insert")
 BATCH_PATH = ("measure", "search", "shi_tomasi", "score_map", "particle_predict", "search_bayes_maps")
 KERNEL_OF = {"K1": "predict_measure", "K2": "search", "K3": "ekf_update", "K4": "search_bayes",
              "K7": "measure", "K14": "chol_inv"}
@@ -3291,7 +3338,7 @@ KERNEL_OF = {"K1": "predict_measure", "K2": "search", "K3": "ekf_update", "K4": 
 def observe_wrappers(on_call):
     """Within the block, the steps call on_call(name, args, kwargs) before
     each kernel wrapper (K1 predict_measure, K2 search, K3 joint_update,
-    K5 propose_region, K6 shi_tomasi, K4 search_bayes; K7 measure_select, K9
+    K5 propose_region, K6 shi_tomasi, K17 ray_insert, K4 search_bayes; K7 measure_select, K9
     score_map, K10 particle_predict, K11 search_bayes_maps; K14 chol_inv,
     which core/ekf.py calls; K8 search_windows, K12 bayes_update, K13
     particle_search)."""
@@ -3358,7 +3405,8 @@ TRACE_TRIES = 3     # traced graph runs in which the profiler's counts may come 
 # its kernels where it counts a launch
 TRACE_SYMBOLS = {
     "predict_measure": ("k1_kernel",), "search": ("k2_kernel",), "ekf_update": ("k3_kernel",),
-    "propose": ("k5_kernel",), "shi_tomasi": ("k6_kernel", "k6_kernel_one"), "search_bayes": ("k4_kernel",),
+    "propose": ("k5_kernel",), "shi_tomasi": ("k6_kernel", "k6_kernel_one"), "ray_insert": ("k17_kernel",),
+    "search_bayes": ("k4_kernel",),
     "measure": ("k7_kernel",), "score_map": ("k9_kernel",), "particle_predict": ("k10_kernel",),
     "chol_inv": ("k14_kernel", "k14_warp_kernel"), "bayes": ("k12_kernel",),
     "particle_search": ("k13_kernel",), "particle_kform": ("k10b_kernel",),
@@ -3690,10 +3738,10 @@ def run_summary(cells, entry, xla, f64, maxp, ekfs, smi: str, total_s: float) ->
 
 MAXP2 = dict(max_features_to_init_at_once=2)
 # the single stream at MAXP 2: stage 8 is K9, K10 and K11 on both partial slots, never K4
-MAXP_FUSED_PATH = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "score_map",
+MAXP_FUSED_PATH = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "ray_insert", "score_map",
                    "particle_predict", "search_bayes_maps")
-MAXP_SPLIT_PATH = ("measure", "search", "chol_inv", "propose", "shi_tomasi", "score_map", "particle_predict",
-                   "search_bayes_maps")
+MAXP_SPLIT_PATH = ("measure", "search", "chol_inv", "propose", "shi_tomasi", "ray_insert", "score_map",
+                   "particle_predict", "search_bayes_maps")
 # cell -> (MonoSLAM overrides, fingerprint file, the step's route, the kernels of its path)
 MAXP_CELLS = {
     "std-maxp2": (dict(max_features=16), "expected_fingerprint_maxp2", "fused", MAXP_FUSED_PATH),
@@ -4412,7 +4460,7 @@ def main() -> int:
     from scenelib2_torch.eval.fingerprint import decisions_fingerprint, load_expected
     from scenelib2_torch.eval.synthetic import HIRES_PARAMS, generate_dataset
     from scenelib2_torch.kernels import (
-        _build, bayes, ekf_update, measure, particle, predict_measure, propose, score_map, search,
+        _build, bayes, ekf_update, measure, particle, predict_measure, propose, ray_insert, score_map, search,
         search_bayes, shi_tomasi,
     )
     from scenelib2_torch.kernels.measure import MeasureConsts
@@ -4448,7 +4496,7 @@ def main() -> int:
 
         # ---- 2. kernel vs plain ------------------------------------------
         rng = np.random.default_rng(2026)
-        errs = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+        errs = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K17")}
         for trial in range(6):
             errs["K1"] = max(errs["K1"], check_k1(k1_random_scene(rng, p, dev, nan_lane=trial == 0), k1kw))
             errs["K2"] = max(errs["K2"], check_k2(k2_random_scene(rng, p, dev, tie=trial < 2), sc))
@@ -4485,7 +4533,7 @@ def main() -> int:
         log(f"[2] K2 and K8 bit for bit on {n_edge} seeded edge cases (320x240 and 640x480; K = 1, 10, "
             f"{N_LANES} x 10 and {N_HIRES_LANES} x 10 lanes; kinds {', '.join(SEARCH_KINDS)})")
         wide_errs, wide_timed = check_wide_windows(rng, p, dev)
-        n_cases = {"K4": 0, "K5": 0, "K6": 0}
+        n_cases = {"K4": 0, "K5": 0, "K6": 0, "K17": 0}
         k5_consumed = {}
         for at in (9, 20, 120):
             a5, _ = seen[at]["propose_region"]
@@ -4504,13 +4552,16 @@ def main() -> int:
             for _label, args in k4_variations(a4, rng, H, W, B, p.erase_partial_after_attempts):
                 errs["K4"] = max(errs["K4"], check_k4(args))
                 n_cases["K4"] += 1
+            for _label, args in k17_variations(seen[at]["ray_insert"][0], rng):
+                errs["K17"] = max(errs["K17"], check_k17(args))
+                n_cases["K17"] += 1
         most = K5_MORE_TRIES[-1]
         if 2 * most not in (k5_consumed[f"{at}/{most}/all_clash"] for at in (9, 20, 120)):
             fail(f"K5 at {most} tries: no case consumed all {2 * most} draws, so the draws past the staged "
                  f"ones and the limbs after them went unchecked ({json.dumps(k5_consumed)})")
         log(f"[2] kernels equal their plain versions: K1-K3 on 6 random scenes + frame 120 (K3 also at M = 16, 32 and 34; "
             f"K1 also at D = 373 and MAXP 2 with a NaN lane, no and every slot partial), "
-            f"K4/K5/K6 on {n_cases} cases from frames 9, 20, 120 and their variations, K5 at tries "
+            f"K4/K5/K6/K17 on {n_cases} cases from frames 9, 20, 120 and their variations, K5 at tries "
             f"{p.init_region_tries} and {K5_MORE_TRIES} (draws consumed, frame/tries/case: "
             f"{json.dumps(k5_consumed)}) (max abs err {json.dumps(errs)})")
         k14_err = 0.0
@@ -4578,6 +4629,7 @@ def main() -> int:
         a4, _ = seen[20]["search_bayes"]
         a5, _ = seen[9]["propose_region"]
         a6, kw6 = seen[9]["shi_tomasi"]
+        a17, _ = seen[9]["ray_insert"]
         timings = {}
         for name, kern, plain in (
             ("K1", lambda: predict_measure.predict_measure(*a1, **kw1),
@@ -4587,13 +4639,14 @@ def main() -> int:
             ("K4", lambda: search_bayes.search_bayes(*a4), lambda: search_bayes.search_bayes_plain(*a4)),
             ("K5", lambda: propose.propose_region(*a5), lambda: propose.propose_region_plain(*a5)),
             ("K6", lambda: shi_tomasi.shi_tomasi(*a6, **kw6), lambda: shi_tomasi.shi_tomasi_plain(*a6, **kw6)),
+            ("K17", lambda: ray_insert.ray_insert(*a17), lambda: ray_insert.ray_insert_plain(*a17)),
         ):
             timings[name] = (time_ms(kern), time_ms(plain, n=10, batches=3))
         empty = _build.function("predict_measure", "k0_empty_launch", [ctypes.c_int] * 3 + [ctypes.c_void_p])
         empty_ms = time_ms(lambda: empty(1, 1, 32, torch.cuda.current_stream().cuda_stream))
         for name, (k_ms, p_ms) in timings.items():
             log(f"[2] {name}: kernel {k_ms:.4f} ms/launch, plain {p_ms:.4f} ms/call "
-                f"(frame-{dict(K4=20, K5=9, K6=9).get(name, 120)} inputs)")
+                f"(frame-{dict(K4=20, K5=9, K6=9, K17=9).get(name, 120)} inputs)")
         # K5 at the most tries of phase 2, on frame 9's inputs
         a5_40 = tuple(a5[:6]) + (dataclasses.replace(a5[6], tries=K5_TIMED_TRIES),)
         last["K5 tries"] = dict(
@@ -4624,7 +4677,7 @@ def main() -> int:
         def check_launches(launches, what, stage7):
             for n in _build.KERNELS:
                 want = n_run if n in SINGLE_PATH else 0
-                if n in ("propose", "shi_tomasi") and not stage7:
+                if n in STAGE7 and not stage7:
                     want = 0
                 if launches.get(n, 0) != want:
                     fail(f"kernel {n} launched {launches.get(n, 0)} times on the {what} path, "
@@ -4636,7 +4689,7 @@ def main() -> int:
         check_launches(launches_nomap, "mapping-off (eager loop)", stage7=False)
 
         # cost model of each launch on the mapping-on path, from its own inputs
-        costs = {k: [] for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+        costs = {k: [] for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K17")}
         k4_args = []
 
         def record_cost(n, a, k):
@@ -4655,6 +4708,8 @@ def main() -> int:
                 costs["K5"].append(propose.bytes_and_flops(a[2].shape[0], a[6].tries))
             elif n == "shi_tomasi":
                 costs["K6"].append(shi_tomasi.bytes_and_flops(k["boxsize"], k["region_w"], k["region_h"]))
+            elif n == "ray_insert":
+                costs["K17"].append(ray_insert.bytes_and_flops(a[0].active.shape[0], a[0].lam.shape[1], B))
             else:
                 k4_args.append(a)
 
@@ -4752,7 +4807,7 @@ def main() -> int:
 
         # the graph replay of each path against its eager loop; times, busy, idle
         paths = {}
-        path_off = tuple(n for n in SINGLE_PATH if n not in ("propose", "shi_tomasi"))
+        path_off = tuple(n for n in SINGLE_PATH if n not in STAGE7)
         for label, mapping, eager, fp_name, path in (
                 ("mapping-off", False, (outs_nomap, state_nomap), "expected_fingerprint_nomap", path_off),
                 ("mapping-on", True, (outs, state_on), "expected_fingerprint", SINGLE_PATH)):
@@ -4764,7 +4819,7 @@ def main() -> int:
         launches = paths["mapping-on"]["launches"]
         kernel_dev = {}
         for short, sym in (("K1", "k1_kernel"), ("K2", "k2_kernel"), ("K3", "k3_kernel"),
-                           ("K4", "k4_kernel"), ("K5", "k5_kernel"), ("K6", "k6_kernel")):
+                           ("K4", "k4_kernel"), ("K5", "k5_kernel"), ("K6", "k6_kernel"), ("K17", "k17_kernel")):
             kernel_dev[short] = kernel_dev_ms(paths["mapping-on"]["prof"], sym)
         log("[3] device time per launch (mapping on, graph replay): " + ", ".join(
             f"{k} {v:.5f} ms" if v is not None else f"{k} not measured" for k, v in kernel_dev.items()))
@@ -5056,17 +5111,18 @@ def main() -> int:
     costs["K2"] = [search.bytes_and_flops(K, sc, admit) for admit, K in costs["K2"]]
     recs = []
     for short, name, src, rep, key in (
-        ("K1", "K1 predict_measure", "predict_measure.cu", "pallas_predict_measure.py:375", "predict_measure"),
-        ("K2", "K2 search", "search.cu", "pallas_search.py:476", "search"),
-        ("K3", "K3 ekf_update", "ekf_update.cu (+ update_cluster.cuh)", "pallas_ekf.py:446", "ekf_update"),
-        ("K4", "K4 search_bayes", "search_bayes.cu", "pallas_search_bayes.py:638", "search_bayes"),
-        ("K5", "K5 propose", "propose.cu", "pallas_propose.py:306", "propose"),
-        ("K6", "K6 shi_tomasi", "shi_tomasi.cu", "pallas_shi_tomasi.py:211", "shi_tomasi"),
+        ("K1", "K1 predict_measure", "predict_measure.cu", "kernels/pallas_predict_measure.py:375", "predict_measure"),
+        ("K2", "K2 search", "search.cu", "kernels/pallas_search.py:476", "search"),
+        ("K3", "K3 ekf_update", "ekf_update.cu (+ update_cluster.cuh)", "kernels/pallas_ekf.py:446", "ekf_update"),
+        ("K4", "K4 search_bayes", "search_bayes.cu", "kernels/pallas_search_bayes.py:638", "search_bayes"),
+        ("K5", "K5 propose", "propose.cu", "kernels/pallas_propose.py:306", "propose"),
+        ("K6", "K6 shi_tomasi", "shi_tomasi.cu", "kernels/pallas_shi_tomasi.py:211", "shi_tomasi"),
+        ("K17", "K17 ray_insert", "ray_insert.cu", "runtime/step.py _auto_initialise (XLA)", "ray_insert"),
     ):
         b_ms, b_by = bound(costs[short])
         recs.append(dict(
             name=name, route="cuda", source=f"scenelib2_torch/kernels/csrc/{src}",
-            replaces=f"scenelib2_tpu/kernels/{rep}", launches=launches[key],
+            replaces=f"scenelib2_tpu/{rep}", launches=launches[key],
             launches_steps=paths["mapping-on"]["launches_steps"],
             launches_captured=paths["mapping-on"]["captured"].get(key, 0),
             max_abs_err=errs[short], ms=timings[short][0], plain_ms=timings[short][1],

@@ -36,7 +36,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("predict_measure", "search", "ekf_update", "propose", "shi_tomasi", "search_bayes",
            "measure", "score_map", "particle_predict", "chol_inv", "bayes", "particle_search",
-           "particle_kform", "ekf_update_dense", "multi_ellipse")
+           "particle_kform", "ekf_update_dense", "multi_ellipse", "ray_insert")
 # the kernels that count launches: one per library, K11 (the second entry
 # point of search_bayes.cu) and K8 (the second entry point of search.cu)
 KERNELS = SOURCES + ("search_bayes_maps", "search_windows")

@@ -227,7 +227,9 @@ def add_partial_feature(state: SlamState, cam: CameraParams, h: torch.Tensor,
     dimension on every field of the state, h is [B, 2], patch_u8 [B, b, b]
     and enable [B], and each lane inserts into its own first free slot (the
     result of the JAX package's onehot=True form under vmap). A state
-    without lanes runs as one lane."""
+    without lanes runs as one lane. On the single stream's kernel routes
+    K17 (kernels/ray_insert.py) takes this call, with the patch and the
+    init decision, in one launch: this is its plain twin there."""
     if not has_lanes(state):
         out = add_partial_feature(SlamState(*map(_as_lane, state)), cam, h[None], patch_u8[None],
                                   lam0, enable[None])

@@ -15,7 +15,8 @@ monoslam.cpp:108-180):
        deletion, symmetrize                                        K3
   7.   auto-init: region proposal                                  K5
        Shi-Tomasi patch pick                                       K6
-       ray insertion (runtime/state.add_partial_feature)
+       ray insertion (runtime/state.add_partial_feature's
+       composition in one launch)                                  K17
   8.   partial-feature particle predict, search and Bayes update   K4
        ray -> point conversion and kills (state surgery)
 
@@ -59,7 +60,7 @@ gate is false (K5 consumes no draw without an attempt; the state surgery
 writes back what it read), or takes the skipped branch's results by a
 select (stage 8 above D = 128: lax.cond(making_any, heavy, light)), so the
 decisions are the JAX step's. The enable_mapping gate is a host bool, so
-with mapping off stage 7 is not run at all (K5 and K6 do not launch); stage
+with mapping off stage 7 is not run at all (K5, K6 and K17 do not launch); stage
 8 runs on both paths, as in JAX, since a loaded state may hold partial
 features.
 
@@ -112,6 +113,7 @@ from scenelib2_torch.kernels.particle import (
 from scenelib2_torch.kernels.particle_search import ParticleSearchConsts, particle_search
 from scenelib2_torch.kernels.predict_measure import NEG_SENTINEL, predict_measure
 from scenelib2_torch.kernels.propose import REGION_LIM, ProposeConsts, jump_table, propose_region
+from scenelib2_torch.kernels.ray_insert import RayInsertConsts, ray_insert
 from scenelib2_torch.kernels.score_map import ScoreMapConsts, score_map
 from scenelib2_torch.kernels.search import (
     SearchConsts,
@@ -265,9 +267,10 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     With use_pallas (the default) the route follows the JAX step's by
     D = 13 + 6 max_features: up to D = 384 the fused route (K1, K2, K3);
     above it the split route of make_split_stages on the state as one lane
-    (K7, K2, K14). Stage 8 runs every frame up to D = 128 and, above, takes
-    the results of JAX's `light` branch where no partial feature is
-    measurable. Stage 8 is K4 at max_features_to_init_at_once = 1 and
+    (K7, K2, K14). On both routes stage 7 is K5, K6, K17 (the ray
+    insertion in one launch; the facade's manual auto-init too). Stage 8
+    runs every frame up to D = 128 and, above, takes the results of JAX's
+    `light` branch where no partial feature is measurable. Stage 8 is K4 at max_features_to_init_at_once = 1 and
     make_stage8's K9, K10 and K11 above it. With use_pallas=False, the JAX
     step's pure-XLA route at every D: make_batch_step's route "xla" on the
     state as one lane, with S inverted by K14 (step.route "xla").
@@ -307,14 +310,13 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     # 916-918), the batch default route's stage 8 on the state as one lane
     stage8 = None if MAXP == 1 else make_stage8(params, device, dtype, "default", heavy_always)
     B = params.boxsize
-    half = (B - 1) // 2
     W, H = params.cam_width, params.cam_height
     RW, RH = params.init_search_width, params.init_search_height
-    cam = CameraParams.from_params(params)
     mc = MeasureConsts.from_params(params)
     sc = SearchConsts.from_params(params)
     uc = UpdateConsts.from_params(params)
     pc = ProposeConsts.from_params(params)
+    ric = RayInsertConsts.from_params(params)
     # the facade's manual auto-init: K5's gate (speed, visible count, partial
     # count) can never close
     pc_open = dataclasses.replace(pc, min_speed=-1.0, keep_visible=1 << 30, max_init=1 << 30)
@@ -324,7 +326,6 @@ def make_step(params: Params, device=None, precision: str = "f32"):
     lane_mf = torch.arange(MF, **kw)
     if lane_mf.is_cuda:   # K5's jump table: uploaded now, never in a step
         jump_table(pc.tries, str(lane_mf.device))
-    patch_offs = torch.arange(B, **kw) - half
     neg_sentinel = torch.tensor(NEG_SENTINEL, dtype=dtype, **kw)
     dt_t = torch.tensor(params.delta_t, dtype=dtype, **kw)
     lam0 = torch.as_tensor(st.lambda_grid(params), dtype=dtype, device=device)
@@ -335,19 +336,12 @@ def make_step(params: Params, device=None, precision: str = "f32"):
 
     def auto_init(mid: SlamState, frame_u8, speed, n_visible, consts=pc):
         """Stage 7: K5's region (with the gate of `consts` and the clamp),
-        K6's patch, the ray insertion."""
+        K6's patch, K17's ray insertion."""
         ru, rv, ruf, rvf, any_ok, rng_new, init_box = propose_region(
             mid.x, mid.rng, mid.active, mid.full, speed, n_visible, consts)
         ubest, vbest, evbest = shi_tomasi(frame_u8, ru, rv, ruf, rvf, boxsize=B,
                                           region_w=RW, region_h=RH)
-        did_init = any_ok & (evbest > params.init_patch_score_thresh)
-        # the patch around the pick (a clamped window, as lax.dynamic_slice)
-        pr = torch.clamp(vbest.long() - half, 0, H - B) + half + patch_offs
-        pcol = torch.clamp(ubest.long() - half, 0, W - B) + half + patch_offs
-        patch = frame_u8[pr[:, None], pcol[None, :]]
-        mid = st.add_partial_feature(
-            mid._replace(rng=rng_new), cam, torch.stack([ubest, vbest]).to(dtype), patch, lam0,
-            did_init)
+        mid, did_init = ray_insert(mid, frame_u8, ubest, vbest, evbest, any_ok, rng_new, lam0, ric)
         return mid, did_init, init_box
 
     def fused_stages(state: SlamState, frame_u8):

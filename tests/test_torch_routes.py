@@ -34,7 +34,7 @@ from scenelib2_torch.eval.synthetic import DATASET_VERSION, generate_dataset
 from scenelib2_torch.runtime.step import make_step
 
 WRAPPERS = ("predict_measure", "measure_select", "search", "joint_update", "chol_inv", "propose_region",
-            "shi_tomasi", "search_bayes", "score_map", "particle_predict", "search_bayes_maps")
+            "shi_tomasi", "ray_insert", "search_bayes", "score_map", "particle_predict", "search_bayes_maps")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -88,7 +88,7 @@ def test_route_by_state_dimension(mf, route, std_frames):
     once = {"fused": ("predict_measure", "search", "joint_update"),
             "split": ("measure_select", "search", "chol_inv")}[route]
     for n in WRAPPERS:
-        want = 3 if n in once + ("propose_region", "shi_tomasi", "search_bayes") else 0
+        want = 3 if n in once + ("propose_region", "shi_tomasi", "ray_insert", "search_bayes") else 0
         assert counts[n] == want, (mf, n, counts)
 
 

@@ -116,7 +116,7 @@ def test_unported_modes_are_refused_and_nomap_never_inits(std_sequence, monkeypa
     K10 and K11, on its state as one lane): the facade builds it on the
     fused route. The f64 step builds: with the default use_pallas=True it
     is JAX's hybrid route.
-    Mapping off never initialises and never runs stage 7 (K5, K6); its
+    Mapping off never initialises and never runs stage 7 (K5, K6, K17); its
     whole replay is held to the nomap fingerprint by
     test_cpu_replay_reproduces_expected_fingerprint."""
     frames, cfg = std_sequence
@@ -129,6 +129,7 @@ def test_unported_modes_are_refused_and_nomap_never_inits(std_sequence, monkeypa
 
     monkeypatch.setattr(step_mod, "propose_region", stage7)
     monkeypatch.setattr(step_mod, "shi_tomasi", stage7)
+    monkeypatch.setattr(step_mod, "ray_insert", stage7)
     slam = MonoSLAM(cfg, max_features=16, device="cpu")
     outs = slam.run_sequence(frames[1:31], enable_mapping=False)     # mapping on inits at 9
     assert not outs.did_init.any() and not outs.n_partial.any()
