@@ -9,6 +9,15 @@ size, so two seeds ask the same work of the system in another scene. The
 frames are made once and the same bytes go to the system under test and to
 the reference.
 
+A stream follows one of the named camera paths of PATHS, each with the
+texture it is rendered on:
+
+- "orbit": the generator's trajectory over its smoothed noise: the map
+  stays at the few features around the printed target;
+- "room": a walk round the floor from the orbit's first pose, over coarser
+  noise, on which the map grows past 61 features while tracking holds
+  (PERF.md, section 4).
+
 The lane layout of a batch (textures x phase offsets, each lane its own
 random stream srand48(lane)) copies scenelib2_torch/eval/batch.py::make_lanes.
 """
@@ -70,6 +79,44 @@ def texture(seed: int, device, side: int = TEXTURE_SIDE) -> torch.Tensor:
     tex = torch.rand((side, side), generator=gen, dtype=torch.float64, device=device) * 255.0
     for _ in range(2):
         tex = (tex + tex.roll(1, 0) + tex.roll(-1, 0) + tex.roll(1, 1) + tex.roll(-1, 1)) / 5.0
+    tex = tex - tex.min()
+    return tex * (255.0 / torch.clamp(tex.max(), min=1e-9))
+
+
+# The room walk: the centre of a hand-held shake goes round a circle of ROOM_RADIUS through the
+# origin at ROOM_SPEED, onto fresh ground, while the camera circles that centre at SHAKE_RADIUS
+# and SHAKE_RATE (0.40 m/s, so the speed stays 0.28-0.52 m/s, well above the 0.2 m/s mapping
+# gate) and bobs as the orbit does. The camera looks straight down: with the orbit's half
+# look-at the reference lost track on 3 of 12 seeds (PERF.md, section 6).
+ROOM_RADIUS, ROOM_SPEED = 0.75, 0.12        # m, m/s
+SHAKE_RADIUS, SHAKE_RATE = 0.08, 5.0        # m, rad/s
+ROOM_CELL = 5                               # texels a noise cell of the room's texture
+
+
+def room(n_frames: int, delta_t: float):
+    """The room walk from the orbit's first pose, (0, 0, -0.6) looking
+    down the z axis. Returns (r [T, 3], q [T, 4])."""
+    t = np.arange(n_frames) * delta_t
+    ang = ROOM_SPEED * t / ROOM_RADIUS
+    w = SHAKE_RATE * t
+    rs = np.stack([ROOM_RADIUS * np.sin(ang) + SHAKE_RADIUS * np.sin(w),
+                   ROOM_RADIUS * (1.0 - np.cos(ang)) + SHAKE_RADIUS * (1.0 - np.cos(w)),
+                   -0.60 + 0.03 * (1 - np.cos(0.8 * t))], axis=1)
+    qs = np.zeros((n_frames, 4))
+    qs[:, 0] = 1.0
+    return rs, qs
+
+
+def room_texture(seed: int, device, side: int = TEXTURE_SIDE) -> torch.Tensor:
+    """Uniform noise on a grid of ROOM_CELL-texel cells, interpolated
+    bilinearly to [side, side] f64 in [0, 255], drawn from a generator on
+    `device` seeded with `seed`. Its corners survive the lens's changes of
+    scale across the image, where the orbit's one-texel noise does not."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed % (1 << 63))
+    cells = torch.rand((1, 1, side // ROOM_CELL, side // ROOM_CELL), generator=gen, dtype=torch.float64,
+                       device=device)
+    tex = torch.nn.functional.interpolate(cells, size=(side, side), mode="bilinear", align_corners=False)[0, 0]
     tex = tex - tex.min()
     return tex * (255.0 / torch.clamp(tex.max(), min=1e-9))
 
@@ -137,6 +184,35 @@ def known_patches(cam: dict, frame0: np.ndarray, r0: np.ndarray, q0: np.ndarray,
     return out
 
 
+def target_corners(cam: dict, r0: np.ndarray, q0: np.ndarray) -> np.ndarray:
+    """The printed target's corners, KNOWN_POINTS [4, 3], as the generator
+    places them."""
+    return KNOWN_POINTS
+
+
+def patch_centres(cam: dict, r0: np.ndarray, q0: np.ndarray) -> np.ndarray:
+    """The points of the plane z = 0 [4, 3] under the centres of the known
+    patches: the rounded projections of the target's corners from (r0, q0),
+    unprojected as render unprojects a pixel. A corner lies up to half a
+    pixel from its patch's centre (0.40 and 0.24 px at the first pose); a
+    known feature placed at its patch's centre makes no such error."""
+    out = []
+    R = _quat_to_R(q0)
+    for y in KNOWN_POINTS:
+        h = project(cam, y, r0, q0)
+        cu, cv = round(h[0]) - cam["cam_u0"], round(h[1]) - cam["cam_v0"]
+        factor = math.sqrt(1.0 - 2.0 * cam["cam_kd1"] * (cu * cu + cv * cv))
+        d = R @ np.array([cu / factor / -cam["cam_fku"], cv / factor / -cam["cam_fkv"], 1.0])
+        p = r0 - (r0[2] / d[2]) * d
+        out.append([p[0], p[1], 0.0])
+    return np.array(out)
+
+
+# name -> (trajectory (n_frames, delta_t) -> (r, q), texture (seed, device) -> [side, side],
+#          the known features' points (cam, r0, q0) -> [4, 3])
+PATHS = {"orbit": (trajectory, texture, target_corners), "room": (room, room_texture, patch_centres)}
+
+
 def initial_filter(r0: np.ndarray, q0: np.ndarray, cam: dict):
     """(xv0 [13], pxx0 [13, 13]) of the generator's cfg: the first pose,
     zero velocity, the stock cfg's omega_z = 0.01 (the reference divides by
@@ -151,13 +227,17 @@ def initial_filter(r0: np.ndarray, q0: np.ndarray, cam: dict):
     return xv0, pxx0
 
 
-def stream(seed: int, cam: dict, n_frames: int, boxsize: int, device):
-    """One sequence: (frames [n_frames + 1, H, W] u8 on `device`, r [T, 3],
-    q [T, 4], known patches). Frame 0 gives the patches; frames 1.. are
-    replayed."""
-    rs, qs = trajectory(n_frames + 1, cam["delta_t"])
-    frames = render(cam, texture(seed, device), rs, qs)
-    return frames, rs, qs, known_patches(cam, frames[0].cpu().numpy(), rs[0], qs[0], boxsize)
+def stream(seed: int, cam: dict, n_frames: int, boxsize: int, device, path: str = "orbit"):
+    """One sequence along the named path: (frames [n_frames + 1, H, W] u8
+    on `device`, r [T, 3], q [T, 4], known patches, their points [4, 3]).
+    Frame 0 gives the patches; frames 1.. are replayed."""
+    if path not in PATHS:
+        raise ValueError(f"unknown camera path {path!r}: the paths are {', '.join(sorted(PATHS))}")
+    traj, tex, points = PATHS[path]
+    rs, qs = traj(n_frames + 1, cam["delta_t"])
+    frames = render(cam, tex(seed, device), rs, qs)
+    return (frames, rs, qs, known_patches(cam, frames[0].cpu().numpy(), rs[0], qs[0], boxsize),
+            points(cam, rs[0], qs[0]))
 
 
 def lane_streams(seed: int, cam: dict, n_frames: int, n_textures: int, n_offsets: int, boxsize: int,

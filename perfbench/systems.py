@@ -83,12 +83,14 @@ class SingleStream(_Base):
         s = self.settings = config["settings"]
         self.entry = traffic["entry"]
         self.mapping = traffic["mapping"]
-        frames, rs, qs, patches = scene.stream(seed, s, traffic["frames"], s["boxsize"], device)
+        self.path = traffic.get("path", "orbit")             # a name of scene.PATHS
+        frames, rs, qs, patches, points = scene.stream(seed, s, traffic["frames"], s["boxsize"], device,
+                                                       path=self.path)
         self.frames = frames[1:].cpu().numpy()            # the user's frames, in host memory
         self.n_steps = len(self.frames)
         self.xv0, self.pxx0 = scene.initial_filter(rs[0], qs[0], s)
         xp = tuple(np.concatenate([rs[0], qs[0]]))
-        self.known = [(y, np.asarray(xp), p) for y, p in zip(scene.KNOWN_POINTS, patches)]
+        self.known = [(y, np.asarray(xp), p) for y, p in zip(points, patches)]
         kfs = []
         for k, (y, _xp, p) in enumerate(self.known):
             path = os.path.join(workdir, f"known_patch{k}.pgm")
@@ -184,6 +186,8 @@ class Batch(_Base):
         from scenelib2_torch.runtime import state as st
 
         s = self.settings = config["settings"]
+        if traffic.get("path", "orbit") != "orbit":
+            raise ValueError(f"camera path {traffic['path']!r}: the lanes of a batch follow the orbit only")
         self.mapping = traffic["mapping"]
         n_lanes = traffic["textures"] * traffic["offsets"]
         frames, r0, q0, patches = scene.lane_streams(seed, s, traffic["frames"], traffic["textures"],
