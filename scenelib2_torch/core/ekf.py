@@ -33,16 +33,19 @@ import torch
 from scenelib2_torch.core import motion
 from scenelib2_torch.core.quaternion import mm_seq
 from scenelib2_torch.kernels.chol_inv import chol_inv
+from scenelib2_torch.runtime import telemetry
 
 CAM_DIM = 13
 
 
 def predict(x, P, u, delta_t: float, sd_a: float, sd_alpha: float):
     """EKF predict on the packed state; feature rows/cols other than the
-    camera cross-terms are untouched."""
-    fv, F = motion.func_fv_and_dfv_by_dxv(x[..., :CAM_DIM], u, delta_t)
-    Q = motion.func_Q(x[..., :CAM_DIM], delta_t, sd_a, sd_alpha)
-    return _camera_transform(x, P, fv, F, Q)
+    camera cross-terms are untouched. Its kernels count under the step
+    region ``ekf.predict`` when a graph is captured."""
+    with telemetry.region("ekf.predict"):
+        fv, F = motion.func_fv_and_dfv_by_dxv(x[..., :CAM_DIM], u, delta_t)
+        Q = motion.func_Q(x[..., :CAM_DIM], delta_t, sd_a, sd_alpha)
+        return _camera_transform(x, P, fv, F, Q)
 
 
 def _camera_transform(x, P, xv, F, Q=None):

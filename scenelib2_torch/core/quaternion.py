@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from scenelib2_torch.runtime import telemetry
+
 
 def seqsum(terms):
     """Left-to-right sum of a list of tensors (the kernels' fixed order)."""
@@ -38,11 +40,13 @@ def mm_seq(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     right: the same rounding on every device (a BLAS product is free to
     reorder and to fuse multiply-adds). The products are taken in one
     elementwise op, each rounded once as in a product-then-add, then added
-    in K - 1 ops."""
-    prods = A[..., :, :, None] * B[..., None, :, :]
-    acc = prods[..., 0, :]
-    for k in range(1, A.shape[-1]):
-        acc = acc + prods[..., k, :]
+    in K - 1 ops. Its kernels count under the step region ``mm_seq``
+    (runtime/telemetry.py) when a graph is captured."""
+    with telemetry.region("mm_seq"):
+        prods = A[..., :, :, None] * B[..., None, :, :]
+        acc = prods[..., 0, :]
+        for k in range(1, A.shape[-1]):
+            acc = acc + prods[..., k, :]
     return acc
 
 

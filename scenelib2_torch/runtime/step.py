@@ -67,7 +67,9 @@ features.
 Every route marks where its stages start (runtime/telemetry.py ``stage``:
 s1_2, s3, s4_6, s7, s8, tail, the last the outputs' assembly): a mark
 counts a graph's kernels by stage while runtime/replay.py captures it and
-does nothing otherwise.
+does nothing otherwise. The split route's update (joint_update, normalise,
+symmetrize) is the region ``ekf.update`` (telemetry ``region``), as
+core.ekf.predict and mm_seq are theirs.
 """
 
 from __future__ import annotations
@@ -712,16 +714,18 @@ def make_split_stages(params: Params, device, dtype, pallas_chol: bool, route: s
         H_rows.scatter_(3, cols, torch.where(f4, hy_sel, zero))
         H_rows[..., :7] = torch.where(f4, hx_sel, zero)
         R_tot = torch.diag_embed(torch.where(found, Rd_sel, one).repeat_interleave(2, dim=-1))
-        x_upd, P_upd, _S = ekf.joint_update(x, P, H_rows.reshape(Bn, 2 * NSEL, D),
-                                            nu_sel.reshape(Bn, 2 * NSEL), R_tot,
-                                            pallas_chol=pallas_chol)
-        x_upd, P_upd = ekf.normalise(x_upd, P_upd)
+        with telemetry.region("ekf.update"):
+            x_upd, P_upd, _S = ekf.joint_update(x, P, H_rows.reshape(Bn, 2 * NSEL, D),
+                                                nu_sel.reshape(Bn, 2 * NSEL), R_tot,
+                                                pallas_chol=pallas_chol)
+            x_upd, P_upd = ekf.normalise(x_upd, P_upd)
         any_succ = n_matched > 0
         x = torch.where(any_succ[:, None], x_upd, x)
         P = torch.where(any_succ[:, None, None], P_upd, P)
         mid = state._replace(x=x, P=P, attempts=attempts, successes=successes, sched=sched_after)
         mid = st.delete_mask(mid, kill)
-        mid = mid._replace(P=ekf.symmetrize(mid.P))
+        with telemetry.region("ekf.update"):
+            mid = mid._replace(P=ekf.symmetrize(mid.P))
         return mid, Selection(
             n_visible=n_visible, n_selected=sel_mask.sum(-1).to(torch.int32), n_matched=n_matched,
             top_idx=top_idx, sel_mask=sel_mask, h_sel=h_sel, S_sel=S_sel, z_sel=z_sel,

@@ -42,9 +42,21 @@ the CUDA driver, through ctypes); when the capture ends, the graph's nodes
 (``cuGraphGetNodes``, in the order they were added) are typed once
 (``cuGraphNodeGetType``: kernel, copy = memcpy or memset, other) and split
 at the marks, each stage taking the kernels up to the next mark.
-Each StepGraph keeps a GraphRecord (its key, kernel nodes by stage a step,
-copy nodes, capture seconds, replays); ``graphs()`` lists the records of
-the graphs alive in the process, MonoSLAM.graphs() those of one facade.
+
+Regions. Inside a stage, ``with region(name):`` marks a named part of the
+step the same way, at its entry and at its exit; outside a StepGraph's
+capture it is a no-op context (one flag check). A region counts the kernel
+nodes between its entries and exits, those of regions nested in it
+included; a region nested in one of its own name counts once. The names
+(REGIONS): ``ekf.predict`` (core/ekf.py ``predict``), ``ekf.update`` (the
+split route's ``joint_update`` with K14's S^-1, ``normalise`` and
+``symmetrize``, runtime/step.py) and ``mm_seq`` (every call of
+core/quaternion.py ``mm_seq``, whatever region it lies in).
+
+Each StepGraph keeps a GraphRecord (its key, kernel nodes by stage and by
+region a step, copy nodes, capture seconds, replays); ``graphs()`` lists
+the records of the graphs alive in the process, MonoSLAM.graphs() those of
+one facade.
 """
 
 from __future__ import annotations
@@ -59,6 +71,7 @@ import numpy as np
 import torch
 
 STAGES = ("s1_2", "s3", "s4_6", "s7", "s8", "tail")
+REGIONS = ("ekf.predict", "ekf.update", "mm_seq")
 UNMARKED = "unmarked"     # the stage of nodes captured before a graph's first mark
 PARTS = ("call", "sequence", "upload", "copies", "launch", "wait")
 KEEP_SEQUENCES = 8        # the sequence records `latest` can reach
@@ -181,21 +194,24 @@ def latest() -> SequenceRecord | None:
 class GraphRecord:
     """A captured StepGraph: its key (route, mapping, steps), its kernel
     nodes by stage a step (stage_kernels, STAGES and UNMARKED where it
-    captured any), its kernel, copy (memcpy and memset) and other nodes in
-    all, the seconds of its capture (StepGraph.capture_s) and its replays."""
+    captured any) and by region a step (region_kernels, the REGIONS its
+    capture entered), its kernel, copy (memcpy and memset) and other nodes
+    in all, the seconds of its capture (StepGraph.capture_s) and its
+    replays."""
 
     def __init__(self, route: str, mapping: bool, steps: int):
         self.route, self.mapping, self.steps = route, bool(mapping), steps
         self.stage_kernels: dict[str, float] = {}
+        self.region_kernels: dict[str, float] = {}
         self.kernel_nodes = self.copy_nodes = self.other_nodes = 0
         self.capture_s = 0.0
         self.replays = 0
 
     def as_dict(self) -> dict:
         return dict(route=self.route, mapping=self.mapping, steps=self.steps,
-                    stage_kernels=dict(self.stage_kernels), kernel_nodes=self.kernel_nodes,
-                    copy_nodes=self.copy_nodes, other_nodes=self.other_nodes, capture_s=self.capture_s,
-                    replays=self.replays)
+                    stage_kernels=dict(self.stage_kernels), region_kernels=dict(self.region_kernels),
+                    kernel_nodes=self.kernel_nodes, copy_nodes=self.copy_nodes, other_nodes=self.other_nodes,
+                    capture_s=self.capture_s, replays=self.replays)
 
 
 _registry: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
@@ -218,27 +234,34 @@ _NODE_KERNEL, _NODE_MEMCPY, _NODE_MEMSET = 0, 1, 2     # CUgraphNodeType
 
 
 class StageTally:
-    """The stage marks of one capture: mark(name, last) opens stage `name`
-    after the nodes `last` (those the capture added last: none before the
-    first), and close() splits the graph's nodes at the marks."""
+    """The stage and region marks of one capture: mark(name, last) opens
+    stage `name` after the nodes `last` (those the capture added last: none
+    before the first); region(name, entering, last) enters or leaves region
+    `name` there. close() splits the graph's nodes at the marks."""
 
     def __init__(self):
         self.marks: list = []
+        self.regions: list = []
 
     def mark(self, name: str, last: list) -> None:
         self.marks.append((name, last))
 
+    def region(self, name: str, entering: bool, last: list) -> None:
+        self.regions.append((name, entering, last))
+
     def close(self, rec: GraphRecord, nodes: list, kinds: list) -> None:
-        """rec takes the kernel nodes by stage a step, and the kernel, copy
-        and other nodes in all, of the graph's nodes in the order they were
-        added and their CUgraphNodeType. Where the marks do not follow that
-        order, rec takes no stages."""
+        """rec takes the kernel nodes by stage and by region a step, and the
+        kernel, copy and other nodes in all, of the graph's nodes in the
+        order they were added and their CUgraphNodeType. Where the stage
+        marks do not follow that order, rec takes no stages; where the
+        region marks do not, or a region is left unbalanced, no regions."""
         kinds = np.asarray(kinds, dtype=np.int64)
         kernel = np.concatenate([[0], np.cumsum(kinds == _NODE_KERNEL)])
         copies = int(np.isin(kinds, (_NODE_MEMCPY, _NODE_MEMSET)).sum())
         rec.kernel_nodes, rec.copy_nodes = int(kernel[-1]), copies
         rec.other_nodes = len(nodes) - rec.kernel_nodes - copies
         where = {node: i for i, node in enumerate(nodes)}
+        rec.region_kernels = self._region_kernels(where, kernel, rec.steps)
         starts = [max((where[node] + 1 for node in last), default=0) for _name, last in self.marks]
         if starts != sorted(starts):
             rec.stage_kernels = {}
@@ -249,6 +272,28 @@ class StageTally:
         for name, a, b in zip(names, bounds, bounds[1:]):
             by[name] = by.get(name, 0) + int(kernel[b] - kernel[a])
         rec.stage_kernels = {k: v / rec.steps for k, v in by.items() if k != UNMARKED or v}
+
+    def _region_kernels(self, where: dict, kernel: np.ndarray, steps: int) -> dict:
+        """Kernel nodes a step between each region's outermost entries and
+        their exits (a region inside one of its own name adds nothing)."""
+        at = [max((where[node] + 1 for node in last), default=0) for _name, _entering, last in self.regions]
+        if at != sorted(at):
+            return {}
+        depth: dict[str, int] = {}
+        entered: dict[str, int] = {}
+        by: dict[str, int] = {}
+        for (name, entering, _last), i in zip(self.regions, at):
+            d = depth.get(name, 0) + (1 if entering else -1)
+            if d < 0:
+                return {}
+            if entering and d == 1:
+                entered[name] = i
+            elif not entering and d == 0:
+                by[name] = by.get(name, 0) + int(kernel[i] - kernel[entered[name]])
+            depth[name] = d
+        if any(depth.values()):
+            return {}
+        return {k: v / steps for k, v in by.items()}
 
 
 class _Driver:
@@ -318,17 +363,55 @@ def _driver() -> _Driver:
     return _driver_api
 
 
+def _capturing_stream() -> int | None:
+    """The current stream's handle while it is being captured, else None."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return torch.cuda.current_stream().cuda_stream
+    return None
+
+
 def stage(name: str) -> None:
     """Mark the start of step stage `name` (STAGES) in the graph being
     captured; nothing outside a StepGraph's capture."""
-    if _capture is not None and torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-        _capture.mark(name, _driver().capture(torch.cuda.current_stream().cuda_stream)[1])
+    if _capture is not None:
+        stream = _capturing_stream()
+        if stream is not None:
+            _capture.mark(name, _driver().capture(stream)[1])
+
+
+class _Region:
+    """The marks of a region in the graph being captured, at its entry and
+    at its exit."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def _mark(self, entering: bool) -> None:
+        stream = _capturing_stream() if _capture is not None else None
+        if stream is not None:
+            _capture.region(self.name, entering, _driver().capture(stream)[1])
+
+    def __enter__(self):
+        self._mark(True)
+        return None
+
+    def __exit__(self, *exc):
+        self._mark(False)
+        return None
+
+
+def region(name: str):
+    """A context marking step region `name` (REGIONS) in the graph being
+    captured; the no-op context outside a StepGraph's capture."""
+    return _OFF if _capture is None else _Region(name)
 
 
 class capture_stages:
-    """Inside a StepGraph's capture: the stage marks count into rec, which
-    takes the nodes by stage when the block ends without an error (its
-    nodes typed once, there)."""
+    """Inside a StepGraph's capture: the stage and region marks count into
+    rec, which takes the nodes by stage and by region when the block ends
+    without an error (its nodes typed once, there)."""
 
     def __init__(self, rec: GraphRecord):
         self.rec = rec
@@ -343,7 +426,7 @@ class capture_stages:
         tally, _capture = _capture, None
         if exc_type is None:
             cuda = _driver()
-            graph, _last = cuda.capture(torch.cuda.current_stream().cuda_stream)
+            graph, _last = cuda.capture(_capturing_stream())
             nodes = cuda.nodes(graph)
             tally.close(self.rec, nodes, [cuda.node_type(node) for node in nodes])
         return None

@@ -15,13 +15,17 @@ from __future__ import annotations
 
 import contextlib
 import time
+import types
 
 import pytest
 import torch
 
+from torch.utils._python_dispatch import TorchDispatchMode
+
 from scenelib2_torch import MonoSLAM
 from scenelib2_torch.config import Params
 from scenelib2_torch.runtime import replay, telemetry
+from scenelib2_torch.runtime.state import SlamState
 from tests.test_torch_replay import _EagerStepGraph
 
 OVERRIDES = dict(max_features=8, n_particles=16, n_features_to_select=4, n_features_to_keep_visible=6,
@@ -236,6 +240,162 @@ def test_stage_tally_splits_at_the_latest_of_several_last_nodes_and_refuses_mark
     assert rec.stage_kernels == {} and rec.kernel_nodes == 4
 
 
+def _regions(tally, marks, nodes):
+    """Region marks at node positions: (name, entering, nodes added before
+    the mark); the capture's last node at that point."""
+    for name, entering, before in marks:
+        tally.region(name, entering, nodes[before - 1:before] if before else [])
+
+
+def test_region_tally_counts_nested_regions_and_a_region_inside_its_own_name_once():
+    """Two steps: ekf.update holds mm_seq, which holds another mm_seq (a
+    kernel inside both counts once for mm_seq), and a second ekf.update
+    span adds to the first; ekf.predict holds no mm_seq."""
+    rec = telemetry.GraphRecord("split", True, 2)
+    tally = telemetry.StageTally()
+    one = [0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 2, 0, 0]       # kernels 0, copies 1 and 2: 11 kernels a step
+    nodes = [100 + i for i in range(2 * len(one))]
+    kinds = one + one
+    for step in (0, 13):
+        tally.mark("s1_2", nodes[step - 1:step] if step else [])
+        _regions(tally, [("ekf.predict", True, step), ("ekf.predict", False, step + 2),
+                         ("ekf.update", True, step + 3), ("mm_seq", True, step + 4),
+                         ("mm_seq", True, step + 5), ("mm_seq", False, step + 7),
+                         ("mm_seq", False, step + 8), ("ekf.update", False, step + 9),
+                         ("ekf.update", True, step + 10), ("ekf.update", False, step + 12)], nodes)
+    tally.close(rec, nodes, kinds)
+    # ekf.predict: nodes 0-1; mm_seq: 4-7 (5 a copy); ekf.update: 3-8 and 10-11 (10 a memset)
+    assert rec.region_kernels == {"ekf.predict": 2, "mm_seq": 3, "ekf.update": 6}
+    assert rec.stage_kernels == {"s1_2": 11}
+    assert rec.as_dict()["region_kernels"] == rec.region_kernels
+
+
+def test_regions_leave_the_stage_counts_as_they_are():
+    stage_nodes = dict(zip(telemetry.STAGES, ([0] * 5 + [1], [0, 0], [0] * 7 + [2, 1], [0] * 3, [0] * 4 + [1],
+                                              [0, 1, 0, 1, 1])))
+    plain, with_regions = telemetry.GraphRecord("split", True, 2), telemetry.GraphRecord("split", True, 2)
+    tally, nodes, kinds = _captured(2, stage_nodes, tail=[0, 1])
+    tally.close(plain, nodes, kinds)
+    tally, nodes, kinds = _captured(2, stage_nodes, tail=[0, 1])
+    _regions(tally, [("ekf.update", True, 11), ("mm_seq", True, 12), ("mm_seq", False, 15),
+                     ("ekf.update", False, 18)], nodes)
+    tally.close(with_regions, nodes, kinds)
+    assert with_regions.stage_kernels == plain.stage_kernels
+    assert with_regions.region_kernels == {"ekf.update": 2.5, "mm_seq": 1.5}     # nodes 11-17, 12-14
+    assert plain.region_kernels == {}
+
+
+@pytest.mark.parametrize("marks", [
+    [("mm_seq", True, 4), ("mm_seq", False, 2)],                       # an exit behind its entry
+    [("mm_seq", True, 1), ("ekf.update", True, 3), ("mm_seq", False, 2), ("ekf.update", False, 4)],
+    [("mm_seq", False, 2)],                                            # an exit with no entry
+    [("mm_seq", True, 1), ("mm_seq", True, 2), ("mm_seq", False, 3)],  # one entry never left
+], ids=["backwards", "interleaved-behind", "no-entry", "unclosed"])
+def test_region_marks_out_of_order_or_unbalanced_leave_region_kernels_empty(marks):
+    rec = telemetry.GraphRecord("split", True, 1)
+    tally = telemetry.StageTally()
+    nodes, kinds = [11, 12, 13, 14, 15], [0, 0, 0, 0, 0]
+    tally.mark("s1_2", [])
+    _regions(tally, marks, nodes)
+    tally.close(rec, nodes, kinds)
+    assert rec.region_kernels == {} and rec.stage_kernels == {"s1_2": 5}
+
+
+def test_region_is_a_no_op_outside_a_capture(world, monkeypatch):
+    frames, cfg = world
+
+    def driver():
+        raise AssertionError("a region outside a capture asked the driver")
+
+    assert telemetry._capture is None and telemetry.region("mm_seq") is telemetry._OFF
+    tally = telemetry.StageTally()
+    split = MonoSLAM(cfg, device="cpu", max_features=70, n_particles=16)
+    monkeypatch.setattr(telemetry, "_driver", driver)
+    monkeypatch.setattr(telemetry, "_capture", tally)      # a capture open, but no stream capturing
+    split.go_one_step(frames[1])
+    split.run_sequence(frames[2:4])
+    assert tally.regions == [] and tally.marks == []
+
+
+class _FakeCapture(TorchDispatchMode):
+    """A capture on the CPU: every tensor operation that is no view adds a
+    kernel node, and the driver's queries read these nodes."""
+
+    def __init__(self):
+        super().__init__()
+        self.nodes: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view:
+            self.nodes.append(len(self.nodes) + 1)
+        return out
+
+    def capture(self, stream):
+        return 7, self.nodes[-1:]
+
+    def node_type(self, node):
+        return 0
+
+    def nodes_of(self, graph):
+        return list(self.nodes)
+
+
+@contextlib.contextmanager
+def _fake_capture(monkeypatch, regions: bool = True):
+    """A capture on the CPU (_FakeCapture) into the record it yields."""
+    fake = _FakeCapture()
+    driver = types.SimpleNamespace(capture=fake.capture, nodes=fake.nodes_of, node_type=fake.node_type)
+    rec = telemetry.GraphRecord("split", True, 1)
+    with monkeypatch.context() as m:
+        m.setattr(telemetry, "_driver", lambda: driver)
+        m.setattr(telemetry, "_capturing_stream", lambda: 0)
+        if not regions:
+            m.setattr(telemetry, "region", lambda name: telemetry._OFF)
+        with fake, telemetry.capture_stages(rec):
+            yield rec
+
+
+def _captured_step(slam, frame, monkeypatch, regions: bool = True) -> telemetry.GraphRecord:
+    """One step of slam in a capture on the CPU; its record."""
+    state = SlamState(*(t.clone() for t in slam.state))
+    with _fake_capture(monkeypatch, regions) as rec:
+        slam._step(state, torch.as_tensor(frame), True)
+    return rec
+
+
+def test_the_split_routes_regions_in_a_capture_on_the_cpu(world, monkeypatch):
+    """The split route's marks, in a capture whose every tensor operation
+    is a kernel: the three regions inside their stages, mm_seq inside
+    ekf.predict and ekf.update, and the stage counts as without regions."""
+    frames, cfg = world
+    slam = MonoSLAM(cfg, device="cpu", max_features=70, n_particles=16)
+    assert slam._step.route == "split"
+    rec = _captured_step(slam, frames[1], monkeypatch)
+    plain = _captured_step(slam, frames[1], monkeypatch, regions=False)
+    got, stages = rec.region_kernels, rec.stage_kernels
+    assert set(got) == set(telemetry.REGIONS), got
+    assert stages == plain.stage_kernels and plain.region_kernels == {}
+    assert 0 < got["ekf.predict"] <= stages["s1_2"] and 0 < got["ekf.update"] <= stages["s4_6"]
+    assert got["mm_seq"] <= rec.kernel_nodes
+    assert sum(stages.values()) == rec.kernel_nodes
+
+
+def test_mm_seq_counts_once_when_nested(monkeypatch):
+    """mm_seq inside ekf.predict, and an mm_seq inside an mm_seq region:
+    the kernels of one product of K = 4 are 1 product and 3 sums."""
+    from scenelib2_torch.core.quaternion import mm_seq
+
+    a, b = torch.ones(2, 4), torch.ones(4, 3)
+    with _fake_capture(monkeypatch) as rec:
+        telemetry.stage("s1_2")
+        with telemetry.region("ekf.predict"):
+            with telemetry.region("mm_seq"):
+                mm_seq(a, b)
+            a + 1
+    assert rec.region_kernels == {"ekf.predict": 5, "mm_seq": 4}
+
+
 def test_graph_records_list_the_facades_graphs(world, graph_path):
     frames, cfg = world
     slam = graph_path(MonoSLAM(cfg, device="cpu", **OVERRIDES))
@@ -306,3 +466,24 @@ def test_stage_kernels_and_spans_on_the_card(tmp_path):
         assert device and not [n for n in device if n.startswith("slam.")]
         host = {e.name for e in prof.events() if e.name.startswith("slam.")}
         assert bool(host) == (ProfilerActivity.CPU in acts), host
+
+
+@pytest.mark.chip
+def test_region_kernels_of_the_split_route_on_the_card(tmp_path):
+    """At 62 slots (D = 385, the split route) the 8-step graph's regions lie
+    inside their stages, and its stage counts still sum to its kernel
+    nodes over 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from scenelib2_torch.eval.synthetic import generate_dataset
+
+    frames, _rs, _qs, cfg = generate_dataset(str(tmp_path), n_frames=20)
+    slam = MonoSLAM(cfg, max_features=62)
+    assert slam._step.route == "split"
+    slam.run_sequence(frames[1:20])
+    eight = {g["steps"]: g for g in slam.graphs()}[8]
+    stages, regions = eight["stage_kernels"], eight["region_kernels"]
+    assert set(regions) == set(telemetry.REGIONS), regions
+    assert sum(stages.values()) == pytest.approx(eight["kernel_nodes"] / 8)
+    assert 0 < regions["ekf.predict"] <= stages["s1_2"] and 0 < regions["ekf.update"] <= stages["s4_6"]
+    assert 0 < regions["mm_seq"] <= eight["kernel_nodes"] / 8
